@@ -24,7 +24,7 @@ scheduler, where the reference re-quantises inside every jitted step).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Protocol, Union, runtime_checkable
+from typing import Any, Dict, Protocol, Union
 
 import torch
 
@@ -38,15 +38,12 @@ from repro_torch.kernels.plan import AttnSpec, KVView
 Tensor = torch.Tensor
 
 
-@runtime_checkable
 class Backend(Protocol):
     """A compute substrate for the spiking primitives of dense serving."""
 
     name: str
-    bit_exact: bool
 
-    def spiking_linear(self, key: Optional[Tensor], p: Any, spikes: Tensor, *,
-                       part: Optional[str] = None) -> Tensor:
+    def spiking_linear(self, p: Any, spikes: Tensor) -> Tensor:
         """``LIF(W s^t + b)`` over a ``[T, ..., d_in]`` spike train."""
         ...
 
@@ -57,8 +54,7 @@ class Backend(Protocol):
         ...
 
     def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
-                           wo=None, wi=None, wo2=None, *, hd, h0=0,
-                           with_tail=True, with_mlp=True):
+                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True):
         """One decoder layer step over the pre-scatter dense cache."""
         ...
 
@@ -109,7 +105,6 @@ class IntegerBackend:
     the comparator draws of the reference's integer backend."""
 
     name = "integer"
-    bit_exact = True
 
     def decode_attention(self, view, q, spec, *, slot_keys):
         _dense_only(view)
@@ -125,18 +120,16 @@ class IntegerBackend:
         return out.reshape(b, t, h, 1, d).movedim(0, 1)
 
     def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
-                           wo=None, wi=None, wo2=None, *, hd, h0=0,
-                           with_tail=True, with_mlp=True):
+                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True):
         _dense_only(view)
         ws = _triples(wq, wk, wv, wo, wi, wo2)
         h = ws[0][0].shape[1] // hd
         rs4, ra4 = KFD.draw_layer_prns(slot_keys, s.shape[0], h,
-                                       view.k.shape[2], hd, h0)
+                                       view.k.shape[2], hd)
         return KREF.decode_layer_ref(
-            s, view.k, view.v, pos, *ws, rs4, ra4, hd=hd, with_tail=with_tail,
-            with_mlp=with_mlp)
+            s, view.k, view.v, pos, *ws, rs4, ra4, hd=hd, with_mlp=with_mlp)
 
-    def spiking_linear(self, key, p, spikes, *, part=None):
+    def spiking_linear(self, p, spikes):
         p = _linear_parts(p)
         levels, scale = _levels_scale(p)
         flat, unflatten = _flatten_time(spikes)
@@ -150,7 +143,6 @@ class CudaBackend:
     row), K3 (fused decoder layer).  Bit-exact vs :class:`IntegerBackend`."""
 
     name = "cuda"
-    bit_exact = True
 
     def decode_attention(self, view, q, spec, *, slot_keys):
         _dense_only(view)
@@ -158,15 +150,13 @@ class CudaBackend:
             q, view.k, view.v, slot_keys, spec.h0, i_max=spec.i_max)
 
     def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
-                           wo=None, wi=None, wo2=None, *, hd, h0=0,
-                           with_tail=True, with_mlp=True):
+                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True):
         _dense_only(view)
         return KFD.fused_decode_layer(
             slot_keys, s, view.k, view.v, pos,
-            *_triples(wq, wk, wv, wo, wi, wo2), h0, hd=hd,
-            with_tail=with_tail, with_mlp=with_mlp)
+            *_triples(wq, wk, wv, wo, wi, wo2), hd=hd, with_mlp=with_mlp)
 
-    def spiking_linear(self, key, p, spikes, *, part=None):
+    def spiking_linear(self, p, spikes):
         p = _linear_parts(p)
         levels, scale = _levels_scale(p)
         flat, unflatten = _flatten_time(spikes)

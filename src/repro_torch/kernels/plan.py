@@ -40,11 +40,10 @@ class KVView:
 class AttnSpec:
     """Static decode-attention geometry: ``i_max`` the logical cache
     capacity (the output comparator range), ``h0`` the first global head
-    of this caller, ``groups`` the GQA factor."""
+    of this caller."""
 
     i_max: int
     h0: Any = 0
-    groups: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -232,7 +232,7 @@ def _spiking_attention_decode(params, s: Tensor, cache, cfg, slot_keys: Tensor,
     h, hd, kv = cfg.num_heads, cfg.resolved_head_dim, cfg.num_kv_heads
 
     def proj(w):
-        out = backend.spiking_linear(None, _lin_operand(w, d), s, part="col")
+        out = backend.spiking_linear(_lin_operand(w, d), s)
         return out.reshape(t, b, -1, hd)
 
     q = proj(params["wq"])
@@ -250,10 +250,9 @@ def _spiking_attention_decode(params, s: Tensor, cache, cfg, slot_keys: Tensor,
         vf = vf.repeat_interleave(h // kv, dim=2)
     a = backend.decode_attention(
         KVView.dense(kf, vf), q[:, :, :, None, :],
-        AttnSpec(i_max=lcap, groups=h // kv), slot_keys=slot_keys)
+        AttnSpec(i_max=lcap), slot_keys=slot_keys)
     a = a.reshape(t, b, 1, h * hd).to(s.dtype)
-    return backend.spiking_linear(None, _lin_operand(params["wo"], h * hd), a,
-                                  part="row")
+    return backend.spiking_linear(_lin_operand(params["wo"], h * hd), a)
 
 
 def _spiking_decode_ffn_tail(params, s: Tensor, cfg, backend) -> Tensor:
@@ -261,10 +260,10 @@ def _spiking_decode_ffn_tail(params, s: Tensor, cfg, backend) -> Tensor:
     if "norm2" not in params:
         return s
     h1 = backend.spiking_linear(
-        None, _lin_operand(params["mlp"]["wi"], s.shape[-1]), s, part="col")
+        _lin_operand(params["mlp"]["wi"], s.shape[-1]), s)
     return s + backend.spiking_linear(
-        None, _lin_operand(params["mlp"]["wo"], h1.shape[-1]),
-        h1.to(s.dtype), part="row").to(s.dtype)
+        _lin_operand(params["mlp"]["wo"], h1.shape[-1]),
+        h1.to(s.dtype)).to(s.dtype)
 
 
 def _fused_block_weights(params, cfg, d: int):

@@ -145,8 +145,7 @@ def test_backend_spiking_linear_matches_integer(backend):
     b = rng.standard_normal(96).astype(np.float32) * 0.1
     want = JE.IntegerBackend().spiking_linear(
         None, {"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(s))
-    got = E.get_backend(backend).spiking_linear(None, {"w": _t(w), "b": _t(b)},
-                                                _t(s))
+    got = E.get_backend(backend).spiking_linear({"w": _t(w), "b": _t(b)}, _t(s))
     _eq(got, want)
 
 

@@ -21,7 +21,10 @@ the entry points refuse to run without CUDA unless given ``device="cpu"``.
 
 import ast
 import dataclasses
+import os
 import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -334,3 +337,13 @@ def test_evict_zeroes_the_slot(setup):
         sch.evict(0)
     with pytest.raises(ValueError, match="prompt tokens"):
         sch.submit([1, tcfg.vocab_size], 2)
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """No CUDA device -> a non-zero exit and no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, env=env, cwd=tmp_path,
+                         timeout=120)
+    assert run.returncode != 0
+    assert '"ok"' not in run.stdout
