@@ -6,15 +6,18 @@
 Phases, each printing one JSON line:
 
 1. **device and build** -- the card (``nvidia-smi`` name and power limit)
-   and the ``nvcc`` build of the three Hopper kernels from
+   and the ``nvcc`` build of the Hopper kernels from
    ``src/repro_torch/kernels/csrc`` (all sources compile in parallel).
-2. **kernels** -- K1 ``aimc_spiking_linear``, K2 ``ssa_decode`` and K3
-   ``fused_decode_layer`` against their plain PyTorch versions on the card,
-   at the serving path's widths (``d=256``, ``H=KV=4``, ``hd=64``, ``T=4``,
-   ``B=8`` slots, ``L=256``) and at padding (``hd=16``, ``L=24``, ``B=3``)
-   and GQA edges.  Outputs must be exactly equal.  Each kernel and its
-   plain version are timed with CUDA events (runs of 20 back-to-back calls,
-   median of 9 runs after warm-up).
+2. **kernels** -- K1 ``aimc_spiking_linear``, K2 ``ssa_decode``, K3
+   ``fused_decode_layer``, K7 ``ssa_decode_paged`` and K9
+   ``fused_decode_layer_paged`` against their plain PyTorch versions on the
+   card, at the serving path's widths (``d=256``, ``H=KV=4``, ``hd=64``,
+   ``T=4``, ``B=8`` slots, ``L=256``; paged: ``page_len=8``, 32 table
+   columns holding null pages, a shared prefix page and an idle slot
+   writing the trash page) and at padding (``hd=16``, ``L=24``, ``B=3``;
+   paged ``page_len=5``), GQA and ``pos >= L`` edges.  Outputs must be
+   exactly equal.  Each kernel and its plain version are timed with CUDA
+   events (runs of 20 back-to-back calls, median of 9 runs after warm-up).
 3. **serve** -- the full-width ``xpikeformer-gpt-4-256`` (random weights
    from a seed) served by ``BatchScheduler(slots=8, cache_len=256)``: 16
    requests, prompts of 8-32 tokens, 32 new tokens each, submitted in
@@ -23,10 +26,23 @@ Phases, each printing one JSON line:
    position; the same requests served through the plain versions on the
    card (``IntegerBackend``) must give the same token streams, and the
    reduced config on the card the tokens of the CPU.
+4. **paged serve** -- the same model on ``BatchScheduler(slots=8,
+   cache_len=256, paged=True, page_len=8)`` (258 pages): 16 requests of
+   8-32 prompt tokens and 32 new tokens, submitted 4 every 8 steps; eight
+   share a 16-token system prompt (two full pages) and two pairs share a
+   12-token context (a partial page: copy-on-write).  K9 must run once per
+   layer and step and K1/K2/K3/K7 never; the prefix cache must hit and
+   copy on write; the tokens must equal the dense port's and the plain
+   backend's paged tokens.  A paged run under the unfused plan on four of
+   the requests must launch K7 once per layer and step and give the same
+   tokens.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
 exits non-zero and prints no result.  Without a CUDA device it exits 2.
+Each path's launch counts are read from a run that starts with every count
+at zero: K1-K3 from the dense serve, K9 from the paged serve, K7 from the
+unfused paged run.
 """
 
 from __future__ import annotations
@@ -96,9 +112,12 @@ def nbytes(*xs) -> int:
 
 
 def bound(n_bytes: int, n_ops: int):
+    """The least time for ``n_bytes`` of memory traffic and ``n_ops``
+    integer operations: ``(ms, what bounds it, bytes, ops)``."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / INT8_OPS_PER_S * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", n_bytes, n_ops)
 
 
 def max_abs_err(got, want) -> float:
@@ -139,6 +158,51 @@ def layer_inputs(gen, dev, *, t, b, d, h, kv, hd, l, dff, pos):
     ra = torch.randint(0, l, (b, t, h, hd), generator=gen, dtype=torch.int32)
     head = [x.to(dev) for x in (s, sk, sv, torch.tensor(pos, dtype=torch.int32))]
     return head, ws, [rs.to(dev), ra.to(dev)]
+
+
+def paged_inputs(gen, *, b, t, kv, hd, pl, mp, pos, idle=(), extra=4):
+    """Page tables, write pages and page pools as a server holds them:
+    each active slot owns the pages of its blocks ``0 .. pos // pl``
+    (slot 1's block 0 is slot 0's page, a shared prefix), rows at and
+    after ``pos`` and the null page 0 are zero, idle slots hold a null row
+    and write the trash page 1 (which holds garbage)."""
+    table = torch.zeros((b, mp), dtype=torch.int32)
+    write = torch.ones((b,), dtype=torch.int32)
+    nxt = 2
+    for i in range(b):
+        if i in idle:
+            continue
+        for j in range(min(pos[i] // pl, mp - 1) + 1):
+            table[i, j] = nxt
+            nxt += 1
+        if pos[i] < mp * pl:
+            write[i] = table[i, pos[i] // pl]
+    if min(pos[0], pos[1]) >= pl and 1 not in idle:
+        table[1, 0] = table[0, 0]
+    n_pages = nxt + extra
+    perm = torch.arange(n_pages)
+    perm[2:] = perm[2:][torch.randperm(n_pages - 2, generator=gen)]
+    table = torch.where(table >= 2, perm[table.long()].int(), table)
+    write = torch.where(write >= 2, perm[write.long()].int(), write)
+    kp = spikes(gen, (n_pages, t, kv, pl, hd), 0.5, "cpu")
+    vp = spikes(gen, (n_pages, t, kv, pl, hd), 0.5, "cpu")
+    kp[0] = vp[0] = 0
+    for i, p in enumerate(pos):
+        for j in range(mp):
+            pid = int(table[i, j])
+            if pid >= 2:
+                lo = min(max(p - j * pl, 0), pl)
+                kp[pid, :, :, lo:] = 0
+                vp[pid, :, :, lo:] = 0
+    return table, write, kp, vp
+
+
+def paged_reads(table, pl: int):
+    """What a paged kernel must read of the pools for these tables: the
+    distinct non-null pages, and each slot's non-null cached rows."""
+    pages = int(torch.unique(table[table != 0]).numel())
+    rows = ((table != 0).sum(1) * pl).tolist()
+    return pages, rows
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +287,89 @@ def phase_kernels(dev):
         max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k3.values()),
         ms=time_ms(run), plain_ms=time_ms(plain),
         bound=bound(nbytes(head, ws, draws, got), 2 * macs))
+
+    # K7 at the unfused paged decode shape and the padding/GQA edge (its
+    # pools hold each slot's rows up to and including pos: post-scatter)
+    k7 = {}
+    for name, c in {
+            "main": dict(b=8, t=4, h=4, kv=4, d=64, pl=8, mp=32,
+                         pos=[40, 100, 0, 5, 200, 255, 17, 64], idle=(6,)),
+            "edge": dict(b=3, t=4, h=4, kv=2, d=16, pl=5, mp=5,
+                         pos=[3, 24, 9], idle=())}.items():
+        b, t, h, d, pl, mp = (c[k] for k in ("b", "t", "h", "d", "pl", "mp"))
+        l = mp * pl
+        table, _, kp, vp = paged_inputs(
+            gen, b=b, t=t, kv=c["kv"], hd=d, pl=pl, mp=mp,
+            pos=[p + 1 for p in c["pos"]], idle=c["idle"])
+        q = spikes(gen, (b, t, h, d), 0.5, "cpu")
+        rs = torch.randint(0, d, (b, t * h, 1, l), generator=gen, dtype=torch.int32)
+        ra = torch.randint(0, l, (b, t * h, 1, d), generator=gen, dtype=torch.int32)
+        args = tuple(x.to(dev) for x in (q, kp, vp, table, rs, ra))
+        run = lambda args=args: KS.ssa_decode_paged_kernel(*args)
+        plain = (lambda args=args, b=b, t=t, h=h, d=d, l=l:
+                 KREF.ssa_decode_paged_ref(
+                     args[0][:, :, :, None, :], *args[1:4],
+                     args[4].reshape(b, t, h, 1, l),
+                     args[5].reshape(b, t, h, 1, d))[:, :, :, 0, :])
+        got, want = run(), plain()
+        k7[name] = (got, want, run, plain, args, c)
+        check(torch.equal(got, want), f"K7 case {name} differs")
+    got, want, run, plain, args, c = k7["main"]
+    pages, rows = paged_reads(args[3], c["pl"])
+    t, h, kv, d, pl = (c[k] for k in ("t", "h", "kv", "d", "pl"))
+    n_bytes = (nbytes(args[0], args[3], args[5], got)
+               + 4 * t * h * sum(rows) + 2 * pages * t * kv * pl * d)
+    results["ssa_decode_paged"] = dict(
+        shape="B=8 x T=4 x H=4, page_len=8, 32 table columns, hd=64 "
+              "(unfused paged decode)",
+        max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k7.values()),
+        ms=time_ms(run), plain_ms=time_ms(plain),
+        bound=bound(n_bytes, 2 * 2 * t * h * d * sum(rows)))
+
+    # K9 at the paged decode shape, the padding/GQA edge and pos >= L
+    k9 = {}
+    for name, c in {
+            "main": dict(t=4, b=8, d=256, h=4, kv=4, hd=64, pl=8, mp=32,
+                         dff=1024, pos=[40, 100, 0, 5, 200, 255, 17, 64],
+                         idle=(6,)),
+            "edge": dict(t=4, b=4, d=64, h=4, kv=2, hd=16, pl=5, mp=5,
+                         dff=128, pos=[7, 25, 3, 30], idle=(2,))}.items():
+        t, b, d, h, kv, hd, dff = (c[k] for k in ("t", "b", "d", "h", "kv", "hd", "dff"))
+        l = c["mp"] * c["pl"]
+        table, write, kp, vp = paged_inputs(
+            gen, b=b, t=t, kv=kv, hd=hd, pl=c["pl"], mp=c["mp"], pos=c["pos"],
+            idle=c["idle"])
+        s_in = torch.randint(0, 3, (t, b, d), generator=gen).float()
+        ws = [triple(gen, d, h * hd, dev), triple(gen, d, kv * hd, dev, bias=False),
+              triple(gen, d, kv * hd, dev), triple(gen, h * hd, d, dev),
+              triple(gen, d, dff, dev), triple(gen, dff, d, dev, bias=False)]
+        rs = torch.randint(0, hd, (b, t, h, l), generator=gen, dtype=torch.int32)
+        ra = torch.randint(0, l, (b, t, h, hd), generator=gen, dtype=torch.int32)
+        head = [x.to(dev) for x in (s_in, kp, vp, table,
+                                    torch.tensor(c["pos"], dtype=torch.int32),
+                                    write)]
+        draws = [rs.to(dev), ra.to(dev)]
+        run = (lambda head=head, ws=ws, draws=draws, hd=hd:
+               KFD.fused_decode_layer_paged_kernel(*head, *ws, *draws, hd=hd))
+        plain = (lambda head=head, ws=ws, draws=draws, hd=hd:
+                 KREF.decode_layer_paged_ref(*head, *ws, *draws, hd=hd))
+        got, want = run(), plain()
+        k9[name] = (got, want, run, plain, head, ws, draws, c)
+        check(all(torch.equal(g, w_) for g, w_ in zip(got, want)),
+              f"K9 case {name} differs")
+    got, want, run, plain, head, ws, draws, c = k9["main"]
+    pages, rows = paged_reads(head[3], c["pl"])
+    t, b, d, h, kv, hd, dff, pl = (c[k] for k in ("t", "b", "d", "h", "kv", "hd", "dff", "pl"))
+    macs = (t * b * (d * h * hd * 3 + h * hd * d + 2 * d * dff)
+            + 2 * t * h * hd * sum(rows))
+    n_bytes = (nbytes(head[0], head[3:], ws, draws[1], got)
+               + 4 * t * h * sum(rows) + 2 * pages * t * kv * pl * hd)
+    results["fused_decode_layer_paged"] = dict(
+        shape="T=4, B=8, d=256, H=KV=4, hd=64, page_len=8, 32 table columns, "
+              "d_ff=1024 (paged decode)",
+        max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k9.values()),
+        ms=time_ms(run), plain_ms=time_ms(plain),
+        bound=bound(n_bytes, 2 * macs))
     torch.cuda.synchronize()
     return results
 
@@ -358,7 +505,109 @@ def phase_serve(dev):
         small[str(d)], _ = e.serve(prompts[:3], 8, slots=2, cache_len=64)
     check(small["cpu"] == small[str(dev)], "reduced config: card != CPU")
     served["reduced_config_matches_cpu"] = True
-    return launches, served, outs
+    return eng, launches, served, outs
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: paged serving of the same model
+# ---------------------------------------------------------------------------
+
+
+def paged_requests(vocab: int, n: int = 16):
+    """The chat pattern the prefix cache serves: ``n`` prompts of 8-32
+    tokens; the even ones open with one 16-token system prompt (two full
+    pages), and requests 1/9 and 5/13 share a 12-token context (one full
+    page and a partial one, so the second of each pair copies on write)."""
+    gen = torch.Generator().manual_seed(11)
+    lens = torch.randint(8, 33, (n,), generator=gen).tolist()
+    prompts = [torch.randint(0, vocab, (k,), generator=gen).tolist()
+               for k in lens]
+    system = torch.randint(0, vocab, (16,), generator=gen).tolist()
+    for i in range(0, n, 2):
+        prompts[i] = system + prompts[i][:max(lens[i], 17) - 16]
+    for a, b in ((1, 9), (5, 13)):
+        ctx = torch.randint(0, vocab, (12,), generator=gen).tolist()
+        prompts[a] = ctx + prompts[a][-1:]
+        prompts[b] = ctx + prompts[b][-1:]
+    return prompts
+
+
+def phase_paged(dev, eng):
+    from repro_torch.engine import XpikeformerEngine, get_backend
+    from repro_torch.kernels import build as KB
+
+    cfg = eng.cfg
+    layers = cfg.num_layers
+    prompts = paged_requests(cfg.vocab_size)
+    max_new = 32
+    sch = eng.scheduler(slots=8, cache_len=256, paged=True, page_len=8)
+    check(sch.plan.fused and sch.plan.layout == "paged",
+          f"paged plan: {sch.plan.describe()}")
+    check(sch.n_pages == 8 * 32 + 2, f"default pool of {sch.n_pages} pages")
+    drive(sch, prompts[:2], 4)  # warm-up
+    sch.reset()
+
+    KB.reset_launches()
+    outs, wall_s = drive(sch, prompts, max_new)
+    launches = dict(KB.LAUNCHES)
+    st = sch.stats
+    check(st.admissions == len(prompts) and st.evictions == len(prompts),
+          "paged: not every request was admitted and evicted")
+    check(all(len(o) == max_new for o in outs), "paged: too few tokens")
+    check(all(0 <= tok < cfg.vocab_size for o in outs for tok in o),
+          "paged: a token is out of the vocabulary")
+    check(launches["fused_decode_layer_paged"] == layers * st.decode_steps > 0,
+          f"K9 launches {launches['fused_decode_layer_paged']} != "
+          f"{layers} layers x {st.decode_steps} steps")
+    others = {k: v for k, v in launches.items()
+              if k != "fused_decode_layer_paged" and v}
+    check(not others, f"the paged path launched other kernels: {others}")
+    check(st.prefix_hits > 0, "paged: no prefix-cache hit")
+    check(st.cow_copies > 0, "paged: no copy-on-write")
+    served = dict(
+        tokens=st.decoded_tokens, decode_steps=st.decode_steps,
+        prefill_tokens=st.prefill_tokens, admissions=st.admissions,
+        prefix_hits=st.prefix_hits, prefix_hit_tokens=st.prefix_hit_tokens,
+        cow_copies=st.cow_copies, pages_in_use_peak=st.pages_in_use_peak,
+        peak_active_slots=st.peak_active_slots, wall_s=wall_s,
+        decode_s=st.decode_s, tokens_per_s=st.decoded_tokens / wall_s,
+        decode_step_ms=1e3 * st.decode_s / st.decode_steps)
+
+    # where a step's time goes: three steps of 8 busy slots
+    sch.reset()
+    for i, p in enumerate(prompts[:8]):
+        sch.submit(p, 8, seed=2 + i)
+    sch.step()
+    served["profile_paged_3_steps"] = profile_window(
+        lambda: [sch.step() for _ in range(3)])
+
+    # the same requests through the dense port and the plain versions
+    douts, served["dense_wall_s"] = drive(
+        eng.scheduler(slots=8, cache_len=256), prompts, max_new)
+    check(douts == outs, "paged and dense token streams differ")
+    plain = XpikeformerEngine(cfg=cfg, backend=get_backend("integer"),
+                              device=eng.device, params=eng.params)
+    pouts, served["plain_wall_s"] = drive(
+        plain.scheduler(slots=8, cache_len=256, paged=True, page_len=8),
+        prompts, max_new)
+    check(pouts == outs, "paged kernel and plain token streams differ")
+
+    # the unfused paged plan: K7 on every layer and step
+    usch = eng.scheduler(slots=8, cache_len=256, paged=True, page_len=8,
+                         decode_kernel="unfused")
+    KB.reset_launches()
+    uouts, served["unfused_wall_s"] = drive(usch, prompts[:4], max_new)
+    ulaunches = dict(KB.LAUNCHES)
+    ust = usch.stats
+    check(ulaunches["ssa_decode_paged"] == layers * ust.decode_steps > 0,
+          f"K7 launches {ulaunches['ssa_decode_paged']} != {layers} layers x "
+          f"{ust.decode_steps} steps")
+    check(ulaunches["aimc_spiking_linear"] == 6 * layers * ust.decode_steps,
+          "unfused paged: K1 is not six launches per layer and step")
+    check(ulaunches["fused_decode_layer_paged"] == 0, "unfused ran K9")
+    check(uouts == outs[:4], "unfused paged tokens differ")
+    served["unfused_decode_steps"] = ust.decode_steps
+    return launches, ulaunches, served, outs
 
 
 def main() -> int:
@@ -389,11 +638,22 @@ def main() -> int:
              for k, v in kres.items()}})
 
     t0 = time.perf_counter()
-    launches, served, outs = phase_serve(dev)
+    eng, launches, served, outs = phase_serve(dev)
     emit({"phase": "serve", "card": card, "arch": ARCH, "slots": 8,
           "cache_len": 256, "requests": len(outs),
           "seconds": time.perf_counter() - t0, **served,
           "launches": launches, "first_tokens": outs[0][:8]})
+
+    t0 = time.perf_counter()
+    plaunches, ulaunches, pserved, pouts = phase_paged(dev, eng)
+    emit({"phase": "paged_serve", "card": card, "arch": ARCH, "slots": 8,
+          "cache_len": 256, "page_len": 8, "requests": len(pouts),
+          "seconds": time.perf_counter() - t0, **pserved,
+          "launches": plaunches, "unfused_launches": ulaunches,
+          "first_tokens": pouts[0][:8]})
+    # each kernel's launches on its own path
+    launches["fused_decode_layer_paged"] = plaunches["fused_decode_layer_paged"]
+    launches["ssa_decode_paged"] = ulaunches["ssa_decode_paged"]
 
     meta = {
         "aimc_spiking_linear": ("src/repro_torch/kernels/csrc/aimc_matmul.cu",
@@ -402,11 +662,16 @@ def main() -> int:
                        "src/repro/kernels/ssa_attention.py:120"),
         "fused_decode_layer": ("src/repro_torch/kernels/csrc/decode_fused.cu",
                                "src/repro/kernels/decode_fused.py:283"),
+        "ssa_decode_paged": ("src/repro_torch/kernels/csrc/ssa_attention.cu",
+                             "src/repro/kernels/ssa_attention.py:214"),
+        "fused_decode_layer_paged": (
+            "src/repro_torch/kernels/csrc/decode_fused.cu",
+            "src/repro/kernels/decode_fused.py:491"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         r = kres[name]
-        bound_ms, bound_by = r["bound"]
+        bound_ms, bound_by, n_bytes, n_ops = r["bound"]
         check(launches[name] > 0, f"{name} never ran on the main path")
         check(r["max_abs_err"] == 0.0, f"{name} differs from its plain version")
         kernels.append({
@@ -415,7 +680,8 @@ def main() -> int:
             "exact": r["max_abs_err"] == 0.0,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "shape": r["shape"]})
+            "bound_by": bound_by, "bound_bytes": n_bytes, "bound_ops": n_ops,
+            "library_ms": None, "shape": r["shape"]})
     check(all(math.isfinite(k["ms"]) for k in kernels), "a time is not finite")
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -1,19 +1,21 @@
 """The port's engine: the Backend surface of the serving path, two backends,
 and a thin engine facade.
 
-Twins of ``repro.engine``, restricted to what dense spiking serving calls:
+Twins of ``repro.engine``, restricted to what spiking serving (dense and
+block-paged) calls:
 
 * :class:`Backend` -- ``spiking_linear``, ``decode_attention`` and
   ``decode_layer_fused``;
 * ``"integer"`` (:class:`IntegerBackend`) -- the plain PyTorch versions
   (``kernels/ref.py``), mirroring ``repro.engine.IntegerBackend``: the
   bit-exact oracle;
-* ``"cuda"`` (:class:`CudaBackend`) -- the hand-written Hopper kernels,
+* ``"cuda"`` (:class:`CudaBackend`) -- the hand-written Hopper kernels
+  (K1 spiking linear, K2/K7 SSA decode row, K3/K9 fused layer),
   mirroring ``repro.engine.PallasBackend``.  Every wrapper runs its plain
   version on CPU tensors and its kernel on CUDA tensors, so this backend
   serves on either device and is bit-identical to ``"integer"``;
 * :class:`XpikeformerEngine` -- ``from_config(name, task="lm")``,
-  ``init``, ``serve`` and ``generate`` over the dense scheduler.
+  ``init``, ``serve`` and ``generate`` over the dense or paged scheduler.
 
 A linear param leaf is a float weight ``[d_in, d_out]``, a ``{"w", "b"}``
 dict, or a pre-quantised ``{"levels", "scale", "b"}`` dict (what
@@ -24,7 +26,7 @@ scheduler, where the reference re-quantises inside every jitted step).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Protocol, Union
+from typing import Any, Dict, Optional, Protocol, Union
 
 import torch
 
@@ -39,7 +41,7 @@ Tensor = torch.Tensor
 
 
 class Backend(Protocol):
-    """A compute substrate for the spiking primitives of dense serving."""
+    """A compute substrate for the spiking primitives of serving."""
 
     name: str
 
@@ -50,12 +52,15 @@ class Backend(Protocol):
     def decode_attention(self, view: KVView, q: Tensor, spec: AttnSpec, *,
                          slot_keys: Tensor) -> Tensor:
         """One-query SSA decode ``q [T,B,H,1,d]`` against a dense view
-        ``k``/``v [T,B,H,L,d]``; per-slot keys ``[B, 2]``."""
+        ``k``/``v [T,B,H,L,d]`` or a paged view (pools ``[P,T,KV,page_len,
+        d]`` + page table); per-slot keys ``[B, 2]``."""
         ...
 
     def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
-                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True):
-        """One decoder layer step over the pre-scatter dense cache."""
+                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True,
+                           write_pids=None):
+        """One decoder layer step over the pre-scatter dense cache or page
+        pool (paged: ``write_pids [B]`` names each slot's write page)."""
         ...
 
 
@@ -95,11 +100,6 @@ def _flatten_time(spikes: Tensor):
     return spikes.reshape(t, -1, d_in), unflatten
 
 
-def _dense_only(view: KVView) -> None:
-    if view.paged:
-        raise NotImplementedError("paged KV views are not ported yet")
-
-
 class IntegerBackend:
     """The bit-exact oracle: plain PyTorch versions of every kernel, with
     the comparator draws of the reference's integer backend."""
@@ -107,8 +107,16 @@ class IntegerBackend:
     name = "integer"
 
     def decode_attention(self, view, q, spec, *, slot_keys):
-        _dense_only(view)
         t, b, h, _, d = q.shape
+        if view.paged:
+            l = view.page_table.shape[1] * view.k.shape[3]
+            # the dense layout's streams: paged equals dense bit for bit
+            rs, ra = KOPS.draw_slot_decode_prns(slot_keys, t, h, l, d,
+                                                spec.i_max, spec.h0)
+            out = KREF.ssa_decode_paged_ref(
+                q.movedim(1, 0), view.k, view.v, view.page_table,
+                rs.reshape(b, t, h, 1, l), ra.reshape(b, t, h, 1, d))
+            return out.movedim(0, 1)
         l = view.k.shape[3]
         rs, ra = KOPS.draw_slot_decode_prns(slot_keys, t, h, l, d,
                                             spec.i_max, spec.h0)
@@ -120,10 +128,16 @@ class IntegerBackend:
         return out.reshape(b, t, h, 1, d).movedim(0, 1)
 
     def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
-                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True):
-        _dense_only(view)
+                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True,
+                           write_pids=None):
         ws = _triples(wq, wk, wv, wo, wi, wo2)
         h = ws[0][0].shape[1] // hd
+        if view.paged:
+            l = view.page_table.shape[1] * view.k.shape[3]
+            rs4, ra4 = KFD.draw_layer_prns(slot_keys, s.shape[0], h, l, hd)
+            return KREF.decode_layer_paged_ref(
+                s, view.k, view.v, view.page_table, pos, write_pids, *ws,
+                rs4, ra4, hd=hd, with_mlp=with_mlp)
         rs4, ra4 = KFD.draw_layer_prns(slot_keys, s.shape[0], h,
                                        view.k.shape[2], hd)
         return KREF.decode_layer_ref(
@@ -139,19 +153,29 @@ class IntegerBackend:
 
 
 class CudaBackend:
-    """The hand-written Hopper kernels: K1 (spiking linear), K2 (SSA decode
-    row), K3 (fused decoder layer).  Bit-exact vs :class:`IntegerBackend`."""
+    """The hand-written Hopper kernels: K1 (spiking linear), K2/K7 (SSA
+    decode row, dense/paged), K3/K9 (fused decoder layer, dense/paged).
+    A paged view goes to the paged kernels, which read the pools through
+    the page table.  Bit-exact vs :class:`IntegerBackend`."""
 
     name = "cuda"
 
     def decode_attention(self, view, q, spec, *, slot_keys):
-        _dense_only(view)
+        if view.paged:
+            return KOPS.ssa_attention_decode_paged_packed(
+                q, view.k, view.v, view.page_table, slot_keys, spec.h0,
+                i_max=spec.i_max)
         return KOPS.ssa_attention_decode_packed(
             q, view.k, view.v, slot_keys, spec.h0, i_max=spec.i_max)
 
     def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
-                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True):
-        _dense_only(view)
+                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True,
+                           write_pids=None):
+        if view.paged:
+            return KFD.fused_decode_layer_paged(
+                slot_keys, s, view.k, view.v, view.page_table, pos,
+                write_pids, *_triples(wq, wk, wv, wo, wi, wo2), hd=hd,
+                with_mlp=with_mlp)
         return KFD.fused_decode_layer(
             slot_keys, s, view.k, view.v, pos,
             *_triples(wq, wk, wv, wo, wi, wo2), hd=hd, with_mlp=with_mlp)
@@ -219,30 +243,38 @@ class XpikeformerEngine:
         return self.params
 
     def scheduler(self, *, slots: int = 4, cache_len: int = 64,
-                  decode_kernel: str = "auto"):
-        """A dense :class:`repro_torch.serving.BatchScheduler`, cached per
-        geometry and reset on reuse."""
+                  decode_kernel: str = "auto", paged: bool = False,
+                  page_len: int = 8, n_pages: Optional[int] = None):
+        """A :class:`repro_torch.serving.BatchScheduler`, dense or (with
+        ``paged=True``) over a block-paged pool of ``n_pages`` pages of
+        ``page_len`` tokens; cached per geometry and reset on reuse."""
         from repro_torch.serving import BatchScheduler
 
         if self.params is None:
             raise ValueError("call init() first or set params")
-        key = (slots, cache_len, decode_kernel)
+        key = (slots, cache_len, decode_kernel, paged) + (
+            (page_len, n_pages) if paged else ())
         sch = self._schedulers.get(key)
         if sch is not None and sch.source_params is self.params:
             sch.reset()
             return sch
         sch = BatchScheduler(self.params, self.cfg, self.backend, slots=slots,
                              cache_len=cache_len, decode_kernel=decode_kernel,
+                             paged=paged, page_len=page_len, n_pages=n_pages,
                              device=self.device)
         self._schedulers[key] = sch
         return sch
 
     def serve(self, prompts, max_new: int = 16, *, slots: int = 4,
-              cache_len: int = 64, seed: int = 0, decode_kernel: str = "auto"):
+              cache_len: int = 64, seed: int = 0, decode_kernel: str = "auto",
+              paged: bool = False, page_len: int = 8,
+              n_pages: Optional[int] = None):
         """Continuous-batching serve: prompts -> (outputs, ServeStats);
-        request ``i`` draws from the PRN stream ``seed + i``."""
+        request ``i`` draws from the PRN stream ``seed + i``.  Paged and
+        dense serving give the same tokens."""
         sch = self.scheduler(slots=slots, cache_len=cache_len,
-                             decode_kernel=decode_kernel)
+                             decode_kernel=decode_kernel, paged=paged,
+                             page_len=page_len, n_pages=n_pages)
         rids = [sch.submit(p, max_new, seed=seed + i)
                 for i, p in enumerate(prompts)]
         outs = sch.run()

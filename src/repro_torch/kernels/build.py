@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {
-    "aimc_spiking_linear": 0, "ssa_decode": 0, "fused_decode_layer": 0}
+    "aimc_spiking_linear": 0, "ssa_decode": 0, "fused_decode_layer": 0,
+    "ssa_decode_paged": 0, "fused_decode_layer_paged": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}  # source -> nvcc's stderr (ptxas resources)

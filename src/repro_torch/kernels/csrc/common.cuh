@@ -80,6 +80,79 @@ __device__ void xpk_lin_lif(const X* x, int din, const int8_t* levels,
   }
 }
 
+// ---------------------------------------------------------------------------
+// One SSA query row over L cached rows (K2, K3, K7, K9)
+// ---------------------------------------------------------------------------
+//
+// A Rows policy addresses the cache: k(j) / v(j) return the first of the hd
+// spike bytes of cached row j, or nullptr for a row that is zero by contract
+// (a null page).  A zero row never beats a comparator draw, so skipping it is
+// exact.  The dense policy strides over one (slot, t, KV head) of a slot
+// cache; the paged one goes through the slot's page table.
+
+#define XPK_NULL_PAGE 0  // the permanently zero page of a paged pool
+
+struct XpkDenseRows {
+  const uint8_t* kb;  // row 0 of this (slot, t, KV head)
+  const uint8_t* vb;
+  size_t stride;      // bytes from one row to the next
+  __device__ const uint8_t* k(int j) const { return kb + j * stride; }
+  __device__ const uint8_t* v(int j) const { return vb + j * stride; }
+};
+
+struct XpkPagedRows {
+  const uint8_t* kb;  // in-page row 0 of page 0 at this (t, KV head)
+  const uint8_t* vb;
+  const int* table;   // the slot's page-table row: logical block -> page
+  size_t page_stride; // bytes from one physical page to the next
+  int page_len, hd;
+  __device__ const uint8_t* at(const uint8_t* base, int j) const {
+    const int page = __ldg(table + j / page_len);
+    if (page == XPK_NULL_PAGE) return nullptr;
+    return base + page * page_stride + static_cast<size_t>(j % page_len) * hd;
+  }
+  __device__ const uint8_t* k(int j) const { return at(kb, j); }
+  __device__ const uint8_t* v(int j) const { return at(vb, j); }
+};
+
+// Score stage, all threads of the block: bit j % 32 of sbits[j / 32] is
+// popcount(q & k_j) > rs[j].  A warp takes 32 consecutive rows (one per
+// lane, 16-byte loads when a row is aligned) and a ballot packs the spikes
+// along the cache axis.  qw holds the query packed into ceil(hd/32) words.
+template <class Rows>
+__device__ void xpk_ssa_scores(const Rows& rows, const uint32_t* qw, int hd,
+                               int L, const int* rs, uint32_t* sbits) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5, wd = (hd + 31) / 32, wl = (L + 31) / 32;
+  for (int jb = warp * 32; jb < wl * 32; jb += nwarps * 32) {
+    const int j = jb + lane;
+    const uint8_t* row = j < L ? rows.k(j) : nullptr;
+    bool spike = false;
+    if (row) {
+      int cnt = 0;
+      for (int w = 0; w < wd; ++w)
+        cnt += __popc(qw[w] & xpk_pack32(row + 32 * w, hd - 32 * w));
+      spike = cnt > rs[j];
+    }
+    const uint32_t word = __ballot_sync(0xffffffffu, spike);
+    if (lane == 0) sbits[jb / 32] = word;
+  }
+}
+
+// Output stage for value lane dd: popcount(s & v[:, dd]), reading only the
+// rows whose score spiked (a thread per lane, so a warp's reads of one row
+// are consecutive bytes).
+template <class Rows>
+__device__ int xpk_ssa_count(const Rows& rows, const uint32_t* sbits, int L,
+                             int dd) {
+  int cnt = 0;
+  const int wl = (L + 31) / 32;
+  for (int w = 0; w < wl; ++w)
+    for (uint32_t m = sbits[w]; m; m &= m - 1)
+      cnt += rows.v(32 * w + __ffs(static_cast<int>(m)) - 1)[dd] & 1;
+  return cnt;
+}
+
 // Round a byte offset up to 16 so every shared segment takes vector loads.
 __host__ __device__ __forceinline__ size_t xpk_align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);

@@ -1,7 +1,11 @@
-// K3: one whole spiking decoder layer step per launch (dense slot cache).
+// K3 and K9: one whole spiking decoder layer step per launch, over a dense
+// slot cache (K3) or a block-paged pool (K9).
 //
-// Replaces the TPU kernel repro/kernels/decode_fused.py:fused_decode_layer
-// (pallas_call at :283, body _fused_dense_body at :162).
+// K3 replaces the TPU kernel repro/kernels/decode_fused.py:fused_decode_layer
+// (pallas_call at :283, body _fused_dense_body at :162); K9 replaces
+// fused_decode_layer_paged (pallas_call at :491, body _fused_paged_body at
+// :300).  One kernel body serves both: it is a template over the cache
+// layout, which only changes where cached row j of a (slot, t, KV head) lives.
 //
 // Per slot b: Q/K/V crossbar + LIF on the residual spike stream, one SSA
 // query row per (t, head) over the slot's *pre-scatter* cache plus the new
@@ -9,26 +13,32 @@
 // attention-out + residual, then the FFN tail (crossbar + LIF twice) +
 // residual.  The caller scatters k_new / v_new into the cache afterwards.
 //
-// s f32 [T, B, d] (integer-valued), sk/sv uint8 [B, T, L, KV, hd],
-// rs int32 [B, T, H, L], ra int32 [B, T, H, hd], rsp int32 [B, T, H], six
-// (int8 levels [din, dout], f32 scale, f32 bias) triples ->
-// s_out f32 [T, B, d] (or the attention train [T, B, H*hd] when !with_tail),
-// k_new/v_new uint8 [T, B, KV, hd].
+// s f32 [T, B, d] (integer-valued), rs int32 [B, T, H, L], ra int32
+// [B, T, H, hd], rsp int32 [B, T, H], six (int8 levels [din, dout], f32
+// scale, f32 bias) triples -> s_out f32 [T, B, d] (or the attention train
+// [T, B, H*hd] when !with_tail), k_new/v_new uint8 [T, B, KV, hd].
+// Dense (K3): sk/sv uint8 [B, T, L, KV, hd].  Paged (K9): kpool/vpool uint8
+// [P, T, KV, page_len, hd] and table int32 [B, MP], L = MP * page_len:
+// logical row j of slot b is in-page row j % page_len of page
+// table[b, j / page_len], read straight from the pool (the null page, 0, is
+// skipped: it is zero by contract).  The wrapper masks the new token's draw
+// wherever its write page is not the page the table shows at pos.
 //
 // Bound on the card: bytes.  A layer step must read the int8 weights once
-// (about 0.8 MB at d = 256) and the slot caches (2 B T L KV hd bytes, 4.2 MB
-// at B = 8, L = 256); the integer work is small beside that.  Design: the TPU
-// kernel is one gridless program over the whole batch; here one thread block
-// runs one slot, so nothing is shared between blocks and no reduction crosses
-// them.  The block keeps the residual stream as int32 and every spike train
-// (q, k_new, v_new, attention, FFN hidden) as bytes in shared memory; spike
-// counts live in registers, and nothing non-binary reaches device memory
-// except the residual output.  The attention row packs q into uint32 lanes,
-// popcounts each cache row against it (one row per thread, 16-byte loads),
-// and a warp ballot packs the score spikes along the cache axis; the output
-// stage popcounts 32-row value columns against each score word.  GQA reads
-// KV head h / (H / KV).  At B = 8 this occupies 8 of the 132 SMs: a later
-// design splits a slot's heads and cache across blocks.
+// (about 0.8 MB at d = 256) and the cached rows (2 B T L KV hd bytes at most,
+// 4.2 MB at B = 8, L = 256); the integer work is small beside that.  Design:
+// the TPU kernel is one gridless program over the whole batch (the paged one
+// a (slot, page) grid); here one thread block runs one slot, so nothing is
+// shared between blocks and no reduction crosses them.  The block keeps the
+// residual stream as int32 and every spike train (q, k_new, v_new,
+// attention, FFN hidden) as bytes in shared memory; spike counts live in
+// registers, and nothing non-binary reaches device memory except the
+// residual output.  The attention row (common.cuh) packs q into uint32 lanes,
+// popcounts each cached row against it (one row per lane), a warp ballot
+// packs the score spikes along the cache axis, and the output stage reads the
+// value rows whose score spiked.  GQA reads KV head h / (H / KV).  At B = 8
+// this occupies 8 of the 132 SMs: a later design splits a slot's heads and
+// cache across blocks.
 #include "common.cuh"
 
 namespace {
@@ -75,8 +85,6 @@ struct Weights {
 
 struct Args {
   const float* s;
-  const uint8_t* sk;
-  const uint8_t* sv;
   const int* rs;
   const int* ra;
   const int* rsp;
@@ -88,8 +96,33 @@ struct Args {
   float beta, vth;
 };
 
+// The dense slot cache [B, T, L, KV, hd] (K3).
+struct DenseCache {
+  const uint8_t* k;
+  const uint8_t* v;
+  int T, L, KV, hd;
+  __device__ XpkDenseRows rows(int b, int t, int kvh) const {
+    const size_t base = ((static_cast<size_t>(b) * T + t) * L * KV + kvh) * hd;
+    return {k + base, v + base, static_cast<size_t>(KV) * hd};
+  }
+};
+
+// The page pool [P, T, KV, page_len, hd] behind table [B, MP] (K9).
+struct PagedCache {
+  const uint8_t* k;
+  const uint8_t* v;
+  const int* table;
+  int T, KV, hd, page_len, MP;
+  __device__ XpkPagedRows rows(int b, int t, int kvh) const {
+    const size_t base = (static_cast<size_t>(t) * KV + kvh) * page_len * hd;
+    return {k + base, v + base, table + static_cast<size_t>(b) * MP,
+            static_cast<size_t>(T) * KV * page_len * hd, page_len, hd};
+  }
+};
+
+template <class Cache>
 __global__ void __launch_bounds__(kThreads)
-fused_decode_layer_kernel(const Args a) {
+fused_decode_layer_kernel(const Args a, const Cache cache) {
   extern __shared__ __align__(16) char smem_raw[];
   __shared__ uint32_t qw[XPK_MAX_WD], knw[XPK_MAX_WD];
   __shared__ int s_new;
@@ -105,8 +138,8 @@ fused_decode_layer_kernel(const Args a) {
                 reinterpret_cast<uint32_t*>(smem_raw + off[7])};
   const int b = blockIdx.x;
   const int T = a.T, d = a.d, H = a.H, KV = a.KV, hd = a.hd, L = a.L;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rep = H / KV, wd = (hd + 31) / 32, wl = (L + 31) / 32;
+  const int tid = threadIdx.x;
+  const int rep = H / KV, wd = (hd + 31) / 32;
 
   // residual stream in
   for (int idx = tid; idx < T * d; idx += kThreads) {
@@ -136,20 +169,8 @@ fused_decode_layer_kernel(const Args a) {
       knw[tid] = xpk_pack32(sm.ks + (t * KV + kvh) * hd + 32 * tid, hd - 32 * tid);
     }
     __syncthreads();
-    const size_t cache0 = (static_cast<size_t>(b) * T + t) * L;  // row (b, t, 0)
-    for (int jb = warp * 32; jb < wl * 32; jb += (kThreads / 32) * 32) {
-      const int j = jb + lane;
-      bool spike = false;
-      if (j < L) {
-        const uint8_t* row = a.sk + ((cache0 + j) * KV + kvh) * hd;
-        int cnt = 0;
-        for (int w = 0; w < wd; ++w)
-          cnt += __popc(qw[w] & xpk_pack32(row + 32 * w, hd - 32 * w));
-        spike = cnt > a.rs[bth * L + j];
-      }
-      const uint32_t word = __ballot_sync(0xffffffffu, spike);
-      if (lane == 0) sm.sbits[jb / 32] = word;
-    }
+    const auto rows = cache.rows(b, t, kvh);
+    xpk_ssa_scores(rows, qw, hd, L, a.rs + bth * L, sm.sbits);
     if (tid == 0) {
       int cnt = 0;
       for (int w = 0; w < wd; ++w) cnt += __popc(qw[w] & knw[w]);
@@ -157,18 +178,8 @@ fused_decode_layer_kernel(const Args a) {
     }
     __syncthreads();
     for (int dd = tid; dd < hd; dd += kThreads) {
-      int cnt = 0;
-      for (int w = 0; w < wl; ++w) {
-        const uint32_t sw = sm.sbits[w];
-        if (!sw) continue;
-        uint32_t vw = 0;
-        const int rows = min(32, L - 32 * w);
-        for (int i = 0; i < rows; ++i)
-          vw |= static_cast<uint32_t>(
-                    a.sv[((cache0 + 32 * w + i) * KV + kvh) * hd + dd] & 1u) << i;
-        cnt += __popc(sw & vw);
-      }
-      cnt += s_new * sm.vs[(t * KV + kvh) * hd + dd];
+      const int cnt = xpk_ssa_count(rows, sm.sbits, L, dd) +
+                      s_new * sm.vs[(t * KV + kvh) * hd + dd];
       sm.as[(t * H + h) * hd + dd] = cnt > a.ra[bth * hd + dd] ? 1 : 0;
     }
     __syncthreads();
@@ -201,28 +212,51 @@ fused_decode_layer_kernel(const Args a) {
   }
 }
 
+template <class Cache>
+int launch(const Args& a, const Cache& cache, void* stream) {
+  size_t off[8];
+  const size_t smem = smem_layout(a.T, a.d, a.H, a.KV, a.hd, a.L, a.dff, off);
+  int err = xpk_set_smem(
+      reinterpret_cast<const void*>(fused_decode_layer_kernel<Cache>), smem);
+  if (err) return err;
+  fused_decode_layer_kernel<Cache><<<a.B, kThreads, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(a, cache);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// Weight pointers come as six (levels, scale, bias) triples; a triple the
+// step does not use (no tail, no MLP) is three nulls.
+#define XPK_WEIGHT_PARAMS                                                     \
+  const int8_t *lq, const float *sq, const float *bq, const int8_t *lk,       \
+      const float *sk_, const float *bk, const int8_t *lv, const float *sv_,  \
+      const float *bv, const int8_t *lo, const float *so, const float *bo,    \
+      const int8_t *li, const float *si, const float *bi, const int8_t *lo2,  \
+      const float *so2, const float *bo2
+#define XPK_WEIGHTS \
+  {lq, sq, bq}, {lk, sk_, bk}, {lv, sv_, bv}, {lo, so, bo}, {li, si, bi}, \
+      {lo2, so2, bo2}
 
 extern "C" int launch_fused_decode_layer(
     const float* s, const uint8_t* sk, const uint8_t* sv, const int* rs,
-    const int* ra, const int* rsp, const int8_t* lq, const float* sq,
-    const float* bq, const int8_t* lk, const float* sk_, const float* bk,
-    const int8_t* lv, const float* sv_, const float* bv, const int8_t* lo,
-    const float* so, const float* bo, const int8_t* li, const float* si,
-    const float* bi, const int8_t* lo2, const float* so2, const float* bo2,
-    float* s_out, uint8_t* k_new, uint8_t* v_new, int T, int B, int d, int H,
-    int KV, int hd, int L, int dff, int with_tail, int with_mlp, float beta,
-    float vth, void* stream) {
-  Args a{s, sk, sv, rs, ra, rsp,
-         {lq, sq, bq}, {lk, sk_, bk}, {lv, sv_, bv}, {lo, so, bo},
-         {li, si, bi}, {lo2, so2, bo2},
-         s_out, k_new, v_new, T, B, d, H, KV, hd, L, dff, with_tail, with_mlp,
-         beta, vth};
-  size_t off[8];
-  const size_t smem = smem_layout(T, d, H, KV, hd, L, dff, off);
-  int err = xpk_set_smem(reinterpret_cast<const void*>(fused_decode_layer_kernel), smem);
-  if (err) return err;
-  fused_decode_layer_kernel<<<B, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+    const int* ra, const int* rsp, XPK_WEIGHT_PARAMS, float* s_out,
+    uint8_t* k_new, uint8_t* v_new, int T, int B, int d, int H, int KV, int hd,
+    int L, int dff, int with_tail, int with_mlp, float beta, float vth,
+    void* stream) {
+  const Args a{s, rs, ra, rsp, XPK_WEIGHTS, s_out, k_new, v_new, T, B, d, H,
+               KV, hd, L, dff, with_tail, with_mlp, beta, vth};
+  return launch(a, DenseCache{sk, sv, T, L, KV, hd}, stream);
+}
+
+extern "C" int launch_fused_decode_layer_paged(
+    const float* s, const uint8_t* kpool, const uint8_t* vpool,
+    const int* table, const int* rs, const int* ra, const int* rsp,
+    XPK_WEIGHT_PARAMS, float* s_out, uint8_t* k_new, uint8_t* v_new, int T,
+    int B, int d, int H, int KV, int hd, int page_len, int MP, int dff,
+    int with_tail, int with_mlp, float beta, float vth, void* stream) {
+  const Args a{s, rs, ra, rsp, XPK_WEIGHTS, s_out, k_new, v_new, T, B, d, H,
+               KV, hd, MP * page_len, dff, with_tail, with_mlp, beta, vth};
+  return launch(a, PagedCache{kpool, vpool, table, T, KV, hd, page_len, MP},
+                stream);
 }

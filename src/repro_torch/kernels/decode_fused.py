@@ -1,13 +1,17 @@
-"""K3 launcher: one fused spiking decoder layer step (``csrc/decode_fused.cu``).
+"""K3 and K9 launchers: one fused spiking decoder layer step over a dense
+slot cache (K3) or a block-paged pool (K9) (``csrc/decode_fused.cu``).
 
-Replaces ``repro/kernels/decode_fused.py:fused_decode_layer``.  The kernel
-attends over the **pre-scatter** cache (the row at each slot's ``pos`` is
-zero by the serving invariant) and adds the new token's term on top, with
-its score draw ``rs[b, t, h, pos[b]]`` (``_INVALID_RS`` where the write is
-masked, ``pos >= L``); the caller scatters ``k_new``/``v_new`` afterwards.
-On a CPU tensor the wrapper runs the plain version
-(:func:`repro_torch.kernels.ref.decode_layer_ref`, scatter then attend),
-which is the same function under that invariant.
+Replace ``repro/kernels/decode_fused.py:fused_decode_layer`` and
+``fused_decode_layer_paged``.  The kernel attends over the **pre-scatter**
+cache (the row at each slot's ``pos`` is zero by the serving invariant)
+and adds the new token's term on top, with its score draw ``rs[b, t, h,
+pos[b]]`` (``_INVALID_RS`` where the write is masked: ``pos >= L``, or,
+paged, where the slot's table does not show its write page at ``pos``,
+as for idle slots writing the trash page); the caller scatters
+``k_new``/``v_new`` afterwards.  On a CPU tensor a wrapper runs the plain
+version (:func:`repro_torch.kernels.ref.decode_layer_ref` /
+:func:`~repro_torch.kernels.ref.decode_layer_paged_ref`, scatter then
+attend), which is the same function under that invariant.
 """
 
 from __future__ import annotations
@@ -57,10 +61,10 @@ def _norm_w(w: Triple) -> Triple:
             bi.to(torch.float32).contiguous())
 
 
-def _lib():
-    fn = KB.load("decode_fused").launch_fused_decode_layer
+def _lib(name: str, n_ptr: int, n_int: int):
+    fn = getattr(KB.load("decode_fused"), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 27 + [_I] * 10 + [_F, _F, _P]
+        fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_F, _F, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -91,29 +95,20 @@ def fused_decode_layer(slot_keys: Tensor, s: Tensor, sk: Tensor, sv: Tensor,
         with_tail=with_tail, with_mlp=with_mlp, beta=beta, v_thresh=v_thresh)
 
 
-def fused_decode_layer_kernel(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
-                              wq: Triple, wk: Triple, wv: Triple,
-                              wo: Optional[Triple], wi: Optional[Triple],
-                              wo2: Optional[Triple], rs4: Tensor, ra4: Tensor,
-                              *, hd: int, with_tail: bool = True,
-                              with_mlp: bool = True, beta: float = 0.5,
-                              v_thresh: float = 1.0):
-    """The layer step given its draws ``rs [B,T,H,L]``, ``ra [B,T,H,hd]``:
-    the arguments of :func:`repro_torch.kernels.ref.decode_layer_ref`,
-    which is what a CPU tensor runs.  On CUDA tensors it gathers each
-    slot's new-token draw (:func:`_rs_at_pos`) and launches the kernel."""
+def _layer_operands(s: Tensor, ws, rs4: Tensor, ra4: Tensor, *, hd: int,
+                    kv: int, with_tail: bool, with_mlp: bool):
+    """Check the operands both layer kernels share and allocate the
+    outputs.  Returns ``(weight triples, their pointers, dims, d_ff, mlp,
+    outputs)``; the caller holds the triples until the launch is queued
+    (some are made here, and freed memory is reused at once)."""
     t, b, d = s.shape
-    l, kv = sk.shape[2], sk.shape[3]
-    h = wq[0].shape[1] // hd
-    if not s.is_cuda:
-        return KREF.decode_layer_ref(
-            s, sk, sv, pos, wq, wk, wv, wo, wi, wo2, rs4, ra4, hd=hd,
-            with_tail=with_tail, with_mlp=with_mlp, beta=beta,
-            v_thresh=v_thresh)
-    if t > 8 or hd > 512:
-        raise ValueError(f"fused_decode_layer: T={t} > 8 or hd={hd} > 512")
-    rsp = _rs_at_pos(rs4, pos, pos < l).to(torch.int32).contiguous()
+    h = ws[0][0].shape[1] // hd
+    l = rs4.shape[-1]
+    if t > 8 or hd > 512 or h % kv:
+        raise ValueError(f"fused decode layer: T={t} > 8, hd={hd} > 512 or "
+                         f"H={h} not a multiple of KV={kv}")
     mlp = with_tail and with_mlp
+    wq, wk, wv, wo, wi, wo2 = ws
     tri = [_norm_w(wq), _norm_w(wk), _norm_w(wv),
            _norm_w(wo) if with_tail else None,
            _norm_w(wi) if mlp else None, _norm_w(wo2) if mlp else None]
@@ -127,22 +122,125 @@ def fused_decode_layer_kernel(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
             KB.check_cuda(w[1], torch.float32, (do,), name + ".scale")
             KB.check_cuda(w[2], torch.float32, (do,), name + ".bias")
     KB.check_cuda(s, torch.float32, (t, b, d), "s")
-    KB.check_cuda(sk, torch.uint8, (b, t, l, kv, hd), "sk")
-    KB.check_cuda(sv, torch.uint8, (b, t, l, kv, hd), "sv")
     KB.check_cuda(rs4, torch.int32, (b, t, h, l), "rs")
     KB.check_cuda(ra4, torch.int32, (b, t, h, hd), "ra")
-    ds = d if with_tail else h * hd
-    s_out = torch.empty((t, b, ds), dtype=torch.float32, device=s.device)
-    k_new = torch.empty((t, b, kv, hd), dtype=torch.uint8, device=s.device)
-    v_new = torch.empty_like(k_new)
     ptrs = []
     for w in tri:
         ptrs += [0, 0, 0] if w is None else [x.data_ptr() for x in w]
-    err = _lib()(s.data_ptr(), sk.data_ptr(), sv.data_ptr(), rs4.data_ptr(),
-                 ra4.data_ptr(), rsp.data_ptr(), *ptrs, s_out.data_ptr(),
-                 k_new.data_ptr(), v_new.data_ptr(), t, b, d, h, kv, hd, l,
-                 dff, int(with_tail), int(mlp), beta, v_thresh,
-                 KB.stream_ptr(s))
+    ds = d if with_tail else h * hd
+    outs = (torch.empty((t, b, ds), dtype=torch.float32, device=s.device),
+            torch.empty((t, b, kv, hd), dtype=torch.uint8, device=s.device),
+            torch.empty((t, b, kv, hd), dtype=torch.uint8, device=s.device))
+    return tri, ptrs, (t, b, d, h, kv, hd), dff, mlp, outs
+
+
+def fused_decode_layer_kernel(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
+                              wq: Triple, wk: Triple, wv: Triple,
+                              wo: Optional[Triple], wi: Optional[Triple],
+                              wo2: Optional[Triple], rs4: Tensor, ra4: Tensor,
+                              *, hd: int, with_tail: bool = True,
+                              with_mlp: bool = True, beta: float = 0.5,
+                              v_thresh: float = 1.0):
+    """The layer step given its draws ``rs [B,T,H,L]``, ``ra [B,T,H,hd]``:
+    the arguments of :func:`repro_torch.kernels.ref.decode_layer_ref`,
+    which is what a CPU tensor runs.  On CUDA tensors it gathers each
+    slot's new-token draw (:func:`_rs_at_pos`) and launches the kernel."""
+    if not s.is_cuda:
+        return KREF.decode_layer_ref(
+            s, sk, sv, pos, wq, wk, wv, wo, wi, wo2, rs4, ra4, hd=hd,
+            with_tail=with_tail, with_mlp=with_mlp, beta=beta,
+            v_thresh=v_thresh)
+    b, t, l, kv = sk.shape[:4]
+    tri, ptrs, dims, dff, mlp, outs = _layer_operands(
+        s, (wq, wk, wv, wo, wi, wo2), rs4, ra4, hd=hd, kv=kv,
+        with_tail=with_tail, with_mlp=with_mlp)
+    KB.check_cuda(sk, torch.uint8, (b, t, l, kv, hd), "sk")
+    KB.check_cuda(sv, torch.uint8, (b, t, l, kv, hd), "sv")
+    rsp = _rs_at_pos(rs4, pos, pos < l).to(torch.int32).contiguous()
+    t, b, d, h, kv, hd = dims
+    err = _lib("launch_fused_decode_layer", 27, 10)(
+        s.data_ptr(), sk.data_ptr(), sv.data_ptr(), rs4.data_ptr(),
+        ra4.data_ptr(), rsp.data_ptr(), *ptrs, *(o.data_ptr() for o in outs),
+        t, b, d, h, kv, hd, l, dff, int(with_tail), int(mlp), beta, v_thresh,
+        KB.stream_ptr(s))
+    del tri  # held until the launch is queued
     KB.raise_on_error(err, "fused_decode_layer")
     KB.LAUNCHES["fused_decode_layer"] += 1
-    return s_out, k_new, v_new
+    return outs
+
+
+def fused_decode_layer_paged(slot_keys: Tensor, s: Tensor, kpool: Tensor,
+                             vpool: Tensor, page_table: Tensor, pos: Tensor,
+                             write_pids: Tensor, wq: Triple, wk: Triple,
+                             wv: Triple, wo: Optional[Triple] = None,
+                             wi: Optional[Triple] = None,
+                             wo2: Optional[Triple] = None,
+                             h0: Union[int, Tensor] = 0, *, hd: int,
+                             with_tail: bool = True, with_mlp: bool = True,
+                             beta: float = 0.5, v_thresh: float = 1.0):
+    """One fused spiking decoder layer step over a block-paged pool.
+
+    As :func:`fused_decode_layer`, with the pre-scatter page pools
+    ``kpool``/``vpool [P,T,KV,page_len,hd]`` uint8, ``page_table [B,MP]``
+    int32 (page 0 the zero null page) and ``write_pids [B]``, the physical
+    page each slot's new K/V train scatters into at ``pos % page_len``
+    afterwards.  Draws at the logical length ``L = MP*page_len``, then runs
+    :func:`fused_decode_layer_paged_kernel`."""
+    t = s.shape[0]
+    l = page_table.shape[1] * kpool.shape[3]
+    h = wq[0].shape[1] // hd
+    rs4, ra4 = draw_layer_prns(slot_keys, t, h, l, hd, h0)
+    return fused_decode_layer_paged_kernel(
+        s.to(torch.float32).contiguous(), kpool.contiguous(),
+        vpool.contiguous(), page_table.to(torch.int32).contiguous(), pos,
+        write_pids, wq, wk, wv, wo, wi, wo2, rs4, ra4, hd=hd,
+        with_tail=with_tail, with_mlp=with_mlp, beta=beta, v_thresh=v_thresh)
+
+
+def fused_decode_layer_paged_kernel(s: Tensor, kpool: Tensor, vpool: Tensor,
+                                    page_table: Tensor, pos: Tensor,
+                                    write_pids: Tensor, wq: Triple,
+                                    wk: Triple, wv: Triple,
+                                    wo: Optional[Triple],
+                                    wi: Optional[Triple],
+                                    wo2: Optional[Triple], rs4: Tensor,
+                                    ra4: Tensor, *, hd: int,
+                                    with_tail: bool = True,
+                                    with_mlp: bool = True, beta: float = 0.5,
+                                    v_thresh: float = 1.0):
+    """The paged layer step given its draws ``rs [B,T,H,MP*page_len]``,
+    ``ra [B,T,H,hd]``: the arguments of
+    :func:`repro_torch.kernels.ref.decode_layer_paged_ref`, which is what a
+    CPU tensor runs.  On CUDA tensors the new token's draw counts only
+    where ``pos < L`` and ``table[b, pos // page_len] == write_pids[b]``;
+    the kernel reads pages through the table and trusts its entries to lie
+    in ``[0, P)``."""
+    if not s.is_cuda:
+        return KREF.decode_layer_paged_ref(
+            s, kpool, vpool, page_table, pos, write_pids, wq, wk, wv, wo, wi,
+            wo2, rs4, ra4, hd=hd, with_tail=with_tail, with_mlp=with_mlp,
+            beta=beta, v_thresh=v_thresh)
+    p, t, kv, page_len = kpool.shape[:4]
+    b, mp = page_table.shape
+    l = mp * page_len
+    tri, ptrs, dims, dff, mlp, outs = _layer_operands(
+        s, (wq, wk, wv, wo, wi, wo2), rs4, ra4, hd=hd, kv=kv,
+        with_tail=with_tail, with_mlp=with_mlp)
+    KB.check_cuda(kpool, torch.uint8, (p, t, kv, page_len, hd), "kpool")
+    KB.check_cuda(vpool, torch.uint8, (p, t, kv, page_len, hd), "vpool")
+    KB.check_cuda(page_table, torch.int32, (b, mp), "page_table")
+    col = (pos // page_len).clamp(0, mp - 1).to(torch.int64)
+    reach = torch.take_along_dim(page_table, col[:, None], dim=1)[:, 0]
+    rsp = _rs_at_pos(rs4, pos, (pos < l) & (reach == write_pids))
+    rsp = rsp.to(torch.int32).contiguous()
+    t, b, d, h, kv, hd = dims
+    err = _lib("launch_fused_decode_layer_paged", 28, 11)(
+        s.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+        page_table.data_ptr(), rs4.data_ptr(), ra4.data_ptr(),
+        rsp.data_ptr(), *ptrs, *(o.data_ptr() for o in outs), t, b, d, h,
+        kv, hd, page_len, mp, dff, int(with_tail), int(mlp), beta, v_thresh,
+        KB.stream_ptr(s))
+    del tri  # held until the launch is queued
+    KB.raise_on_error(err, "fused_decode_layer_paged")
+    KB.LAUNCHES["fused_decode_layer_paged"] += 1
+    return outs

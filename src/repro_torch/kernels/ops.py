@@ -20,6 +20,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import aimc_matmul as KA
+from repro_torch.kernels import ref as KREF
 from repro_torch.kernels import ssa_attention as KS
 
 Tensor = torch.Tensor
@@ -92,6 +93,39 @@ def ssa_attention_decode_packed(q: Tensor, k: Tensor, v: Tensor,
     out = KS.ssa_decode_kernel(qf, kf, vf, rs.reshape(g, 1, l),
                                ra.reshape(g, 1, d))
     return out.reshape(b, t, h, 1, d).movedim(0, 1)
+
+
+def gather_kv_pages(pool: Tensor, page_table: Tensor) -> Tensor:
+    """Paged pool ``[P, T, KV, page_len, d]`` + ``page_table [B, MP]`` ->
+    the dense per-slot view ``[T, B, KV, MP*page_len, d]`` (page ``table[b,
+    j]`` at logical positions ``[j*page_len, (j+1)*page_len)``; entry 0 is
+    the zero null page).  The plain versions' path: no kernel gathers."""
+    return KREF.gather_kv_pages_ref(pool, page_table)
+
+
+def ssa_attention_decode_paged_packed(q: Tensor, kpool: Tensor,
+                                      vpool: Tensor, page_table: Tensor,
+                                      slot_keys: Tensor,
+                                      h0: Union[int, Tensor] = 0, *,
+                                      i_max: int) -> Tensor:
+    """Paged SSA decode step: ``q [T,B,H,1,D]`` against the page pools
+    ``kpool``/``vpool [P,T,KV,page_len,D]`` through ``page_table [B,MP]``
+    -> uint8 ``[T,B,H,1,D]``.
+
+    The comparator integers are drawn per (slot, global head) at the
+    *logical* cache length ``L = MP*page_len`` with the dense path's
+    streams, so paged decode equals :func:`ssa_attention_decode_packed`
+    over the gathered cache.  The kernel reads each page through the table
+    (query head ``h`` reads KV head ``h // (H/KV)``); nothing is padded."""
+    t, b, h, _, d = q.shape
+    l = page_table.shape[1] * kpool.shape[3]
+    rs, ra = draw_slot_decode_prns(slot_keys, t, h, l, d, i_max, h0)
+    qf = q.movedim(1, 0).reshape(b, t, h, d).to(torch.uint8).contiguous()
+    out = KS.ssa_decode_paged_kernel(
+        qf, kpool.to(torch.uint8).contiguous(),
+        vpool.to(torch.uint8).contiguous(),
+        page_table.to(torch.int32).contiguous(), rs, ra)
+    return out.movedim(1, 0)[:, :, :, None, :]
 
 
 def aimc_spiking_linear(spikes: Tensor, w_levels: Tensor, scale: Tensor,

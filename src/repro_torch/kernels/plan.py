@@ -1,10 +1,10 @@
 """The decode-kernel surface: KVView / AttnSpec / DecodePlan.
 
-Twins of ``repro.kernels.plan``.  :class:`KVView` keeps the reference's
-type with its ``page_table`` field, but this slice serves the dense layout
-only: a paged view raises in the backends.  ``build_decode_plan(cfg,
-backend, kernel="auto")`` resolves to the fused layer kernel wherever the
-config and backend support it; the scheduler builds one plan per lifetime.
+Twins of ``repro.kernels.plan``.  :class:`KVView` is a dense slot cache
+or a block-paged pool addressed through a per-slot page table.
+``build_decode_plan(cfg, backend, layout=, kernel="auto", page_len=)``
+resolves to the fused layer kernel wherever the config and backend support
+it; the scheduler builds one plan per lifetime.
 """
 
 from __future__ import annotations
@@ -21,7 +21,9 @@ Tensor = torch.Tensor
 class KVView:
     """What a decode step attends over.  Dense: per-slot spike caches
     ``[T, B, H, L, hd]`` (unfused path, GQA-repeated) or ``[B, T, L, KV,
-    hd]`` (fused path), ``page_table`` ``None``."""
+    hd]`` (fused path), ``page_table`` ``None``.  Paged: page pools
+    ``[P, T, KV, page_len, hd]`` and ``page_table [B, MP]`` int32 (page 0
+    is the permanently zero null page)."""
 
     k: Tensor
     v: Tensor
@@ -34,6 +36,11 @@ class KVView:
     @classmethod
     def dense(cls, k: Tensor, v: Tensor) -> "KVView":
         return cls(k=k, v=v)
+
+    @classmethod
+    def from_pool(cls, kpool: Tensor, vpool: Tensor, page_table: Tensor
+                  ) -> "KVView":
+        return cls(k=kpool, v=vpool, page_table=page_table)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +57,9 @@ class AttnSpec:
 class DecodePlan:
     """A resolved kernel strategy for one serving stack."""
 
+    layout: str = "dense"  # "dense" | "paged"
     kernel: str = "unfused"  # "fused" | "unfused"
+    page_len: int = 0  # tokens per KV page (paged layout)
     reasons: Tuple[str, ...] = ()
 
     @property
@@ -58,8 +67,9 @@ class DecodePlan:
         return self.kernel == "fused"
 
     def describe(self) -> str:
+        geo = f", page_len={self.page_len}" if self.layout == "paged" else ""
         why = f" ({'; '.join(self.reasons)})" if self.reasons else ""
-        return f"DecodePlan(dense, {self.kernel}){why}"
+        return f"DecodePlan({self.layout}, {self.kernel}{geo}){why}"
 
 
 def _fused_supported(cfg, backend) -> Tuple[bool, str]:
@@ -74,13 +84,17 @@ def _fused_supported(cfg, backend) -> Tuple[bool, str]:
             getattr(backend, "decode_layer_fused", None)):
         name = getattr(backend, "name", backend)
         return False, f"backend {name!r} has no decode_layer_fused"
-    return True, "fused layer kernel supported"
+    return True, "fused megakernel supported"
 
 
-def build_decode_plan(cfg, backend=None, *, kernel: str = "auto") -> DecodePlan:
+def build_decode_plan(cfg, backend=None, *, layout: str = "dense",
+                      kernel: str = "auto", page_len: int = 8) -> DecodePlan:
     """``kernel``: ``"auto"`` picks the fused layer kernel where supported,
     ``"fused"`` demands it (``ValueError`` otherwise), ``"unfused"`` forces
-    the per-primitive path.  Only the dense layout is ported."""
+    the per-primitive path.  ``layout`` mirrors the scheduler's ``paged=``;
+    ``page_len`` only matters for the paged layout."""
+    if layout not in ("dense", "paged"):
+        raise ValueError(f"layout must be dense|paged, got {layout!r}")
     if kernel not in ("auto", "fused", "unfused"):
         raise ValueError(f"kernel must be auto|fused|unfused, got {kernel!r}")
     ok, why = _fused_supported(cfg, backend)
@@ -88,4 +102,6 @@ def build_decode_plan(cfg, backend=None, *, kernel: str = "auto") -> DecodePlan:
         raise ValueError(f"decode kernel 'fused' unsupported: {why}")
     resolved = "fused" if (kernel == "fused" or (kernel == "auto" and ok)) \
         else "unfused"
-    return DecodePlan(kernel=resolved, reasons=(why,))
+    return DecodePlan(layout=layout, kernel=resolved,
+                      page_len=page_len if layout == "paged" else 0,
+                      reasons=(why,))

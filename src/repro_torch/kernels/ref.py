@@ -58,7 +58,8 @@ def aimc_spiking_linear_ref(spikes: Tensor, w_levels: Tensor, scale: Tensor,
 def ssa_decode_ref(q: Tensor, k: Tensor, v: Tensor, rs: Tensor, ra: Tensor
                    ) -> Tensor:
     """One-query SSA decode: ``q [G,1,D]``, ``k``/``v [G,L,D]`` binary,
-    ``rs [G,1,L]``, ``ra [G,1,D]`` int32 -> ``[G,1,D]`` uint8.
+    ``rs [G,1,L]``, ``ra [G,1,D]`` int32 -> ``[G,1,D]`` uint8 (any
+    leading axes in place of ``G``).
 
     Rows beyond a slot's position are zero, so their AND-counts are 0 and
     never beat a non-negative draw: validity masking is implicit."""
@@ -90,27 +91,73 @@ def _lin_lif_ref(x: Tensor, w: Triple, *, beta: float, v_thresh: float
                                    v_thresh=v_thresh).to(torch.float32)
 
 
-def _ssa_decode_row_ref(q, kf, vf, k_new, v_new, pos, rs, ra):
-    """One-query SSA over the *post-scatter* dense cache: q [T,B,H,hd];
-    kf/vf [B,T,L,KV,hd] pre-scatter; k_new/v_new [T,B,KV,hd]; rs [B,T,H,L];
-    ra [B,T,H,hd] -> a [T,B,H*hd] f32."""
-    t, b, h, hd = q.shape
-    kv = kf.shape[3]
-    kf = kf.clone()
-    vf = vf.clone()
-    scatter_at_pos(kf, pos, k_new.movedim(0, 1))
-    scatter_at_pos(vf, pos, v_new.movedim(0, 1))
-    ki = kf.permute(0, 1, 3, 2, 4).to(torch.float64)  # [B,T,KV,L,hd]
-    vi = vf.permute(0, 1, 3, 2, 4).to(torch.float64)
+def gather_kv_pages_ref(pool: Tensor, page_table: Tensor) -> Tensor:
+    """A slot-dense view of a paged spike-train pool: ``pool [P, T, KV,
+    page_len, d]`` and ``page_table [B, MP]`` -> ``[T, B, KV, MP*page_len,
+    d]``, page ``table[b, j]`` at logical positions ``[j*page_len,
+    (j+1)*page_len)``.  Table entry 0 is the permanently zero null page."""
+    g = pool[page_table.to(torch.int64)]  # [B, MP, T, KV, page_len, d]
+    g = g.movedim(2, 0).transpose(2, 3)  # [T, B, KV, MP, page_len, d]
+    return g.reshape(*g.shape[:3], -1, g.shape[-1])
+
+
+def _ssa_rows(q: Tensor, k: Tensor, v: Tensor, rs: Tensor, ra: Tensor
+              ) -> Tensor:
+    """One SSA query row per (t, slot, head): ``q [T,B,H,1,D]`` against
+    ``k``/``v [T,B,KV,L,D]`` (KV heads repeat over their query-head group),
+    ``rs [T,B,H,1,L]``, ``ra [T,B,H,1,D]`` -> uint8 ``[T,B,H,1,D]``."""
+    h, kv = q.shape[2], k.shape[2]
     if kv != h:
-        ki = ki.repeat_interleave(h // kv, dim=2)
-        vi = vi.repeat_interleave(h // kv, dim=2)
-    qi = q.movedim(0, 1).to(torch.float64)  # [B,T,H,hd]
-    counts_s = torch.matmul(ki, qi.unsqueeze(-1)).squeeze(-1)  # [B,T,H,L]
-    s = (counts_s > rs).to(torch.float64)
-    counts_a = torch.matmul(s.unsqueeze(-2), vi).squeeze(-2)  # [B,T,H,hd]
-    a = (counts_a > ra).to(torch.float32)
-    return a.movedim(0, 1).reshape(t, b, h * hd)
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+    return ssa_decode_ref(q, k, v, rs, ra)
+
+
+def ssa_decode_paged_ref(q: Tensor, kpool: Tensor, vpool: Tensor,
+                         page_table: Tensor, rs: Tensor, ra: Tensor
+                         ) -> Tensor:
+    """Paged SSA decode: ``q [B,T,H,1,D]`` against the pools ``[P,T,KV,
+    page_len,D]`` through ``page_table [B,MP]``, ``rs [B,T,H,1,L]`` (``L =
+    MP*page_len``), ``ra [B,T,H,1,D]`` -> uint8 ``[B,T,H,1,D]``.  Gathers
+    the dense view (:func:`gather_kv_pages_ref`), then attends in table
+    order; null-page positions hold zero spikes and never fire."""
+    out = _ssa_rows(q.movedim(1, 0), gather_kv_pages_ref(kpool, page_table),
+                    gather_kv_pages_ref(vpool, page_table), rs.movedim(1, 0),
+                    ra.movedim(1, 0))
+    return out.movedim(0, 1)
+
+
+def _attend_rows(q: Tensor, kf: Tensor, vf: Tensor, rs: Tensor, ra: Tensor
+                 ) -> Tensor:
+    """The fused layer's attention: ``q [T,B,H,hd]``, dense ``kf``/``vf
+    [T,B,KV,L,hd]`` post-scatter, ``rs [B,T,H,L]``, ``ra [B,T,H,hd]`` ->
+    the attention train ``[T,B,H*hd]`` f32."""
+    t, b, h, hd = q.shape
+    a = _ssa_rows(q[:, :, :, None, :], kf, vf,
+                  rs.movedim(1, 0)[:, :, :, None, :],
+                  ra.movedim(1, 0)[:, :, :, None, :])
+    return a.to(torch.float32).reshape(t, b, h * hd)
+
+
+def _layer_ref(s: Tensor, attend, wq: Triple, wk: Triple, wv: Triple,
+               wo: Optional[Triple], wi: Optional[Triple],
+               wo2: Optional[Triple], *, hd: int, with_tail: bool,
+               with_mlp: bool, beta: float, v_thresh: float):
+    """Q/K/V spiking linears, ``attend(q, k_new, v_new)`` (the cache
+    layout's scatter and SSA row), attention-out, residual, FFN tail."""
+    t, b, _ = s.shape
+    kw = dict(beta=beta, v_thresh=v_thresh)
+    q = _lin_lif_ref(s, wq, **kw).reshape(t, b, -1, hd)
+    k_new = _lin_lif_ref(s, wk, **kw).reshape(t, b, -1, hd).to(torch.uint8)
+    v_new = _lin_lif_ref(s, wv, **kw).reshape(t, b, -1, hd).to(torch.uint8)
+    a = attend(q, k_new, v_new)
+    if not with_tail:
+        return a, k_new, v_new
+    s1 = s + _lin_lif_ref(a, wo, **kw)
+    if with_mlp:
+        h1 = _lin_lif_ref(s1, wi, **kw)
+        s1 = s1 + _lin_lif_ref(h1, wo2, **kw)
+    return s1, k_new, v_new
 
 
 def decode_layer_ref(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
@@ -127,18 +174,49 @@ def decode_layer_ref(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
     pre-scatter; ``pos [B]``; ``rs [B,T,H,L]``, ``ra [B,T,H,hd]`` int32.
     Returns ``(s_out [T,B,d], k_new [T,B,KV,hd] u8, v_new)``, or the
     attention train ``a [T,B,H*hd]`` first when ``with_tail=False``."""
-    t, b, _ = s.shape
-    kw = dict(beta=beta, v_thresh=v_thresh)
-    q = _lin_lif_ref(s, wq, **kw).reshape(t, b, -1, hd)
-    k_new = _lin_lif_ref(s, wk, **kw).reshape(t, b, -1, hd)
-    v_new = _lin_lif_ref(s, wv, **kw).reshape(t, b, -1, hd)
-    a = _ssa_decode_row_ref(q, sk, sv, k_new, v_new, pos, rs, ra)
-    k_new = k_new.to(torch.uint8)
-    v_new = v_new.to(torch.uint8)
-    if not with_tail:
-        return a, k_new, v_new
-    s1 = s + _lin_lif_ref(a, wo, **kw)
-    if with_mlp:
-        h1 = _lin_lif_ref(s1, wi, **kw)
-        s1 = s1 + _lin_lif_ref(h1, wo2, **kw)
-    return s1, k_new, v_new
+
+    def attend(q, k_new, v_new):
+        kf, vf = sk.clone(), sv.clone()
+        scatter_at_pos(kf, pos, k_new.movedim(0, 1))
+        scatter_at_pos(vf, pos, v_new.movedim(0, 1))
+        return _attend_rows(q, kf.permute(1, 0, 3, 2, 4),
+                            vf.permute(1, 0, 3, 2, 4), rs, ra)
+
+    return _layer_ref(s, attend, wq, wk, wv, wo, wi, wo2, hd=hd,
+                      with_tail=with_tail, with_mlp=with_mlp, beta=beta,
+                      v_thresh=v_thresh)
+
+
+def scatter_into_pages(pool: Tensor, write_pids: Tensor, pos: Tensor,
+                       rows: Tensor) -> None:
+    """In place: ``pool[write_pids[b], :, :, pos[b] % page_len] =
+    rows[b]`` -- each slot's new K/V train into its designated physical
+    page.  ``pool [P, T, KV, page_len, hd]``, ``rows [B, T, KV, hd]``."""
+    off = (pos % pool.shape[3]).to(torch.int64)
+    pool[write_pids.to(torch.int64), :, :, off] = rows.to(pool.dtype)
+
+
+def decode_layer_paged_ref(s: Tensor, kpool: Tensor, vpool: Tensor,
+                           page_table: Tensor, pos: Tensor,
+                           write_pids: Tensor, wq: Triple, wk: Triple,
+                           wv: Triple, wo: Optional[Triple],
+                           wi: Optional[Triple], wo2: Optional[Triple],
+                           rs: Tensor, ra: Tensor, *, hd: int,
+                           with_tail: bool = True, with_mlp: bool = True,
+                           beta: float = 0.5, v_thresh: float = 1.0):
+    """Paged twin of :func:`decode_layer_ref`: the new K/V trains scatter
+    into each slot's ``write_pids`` page at ``pos % page_len`` (copies of
+    the pre-scatter pools), then the SSA row attends over the table-
+    gathered logical cache -- content reachable through the table; the
+    trash page never is.  ``rs [B,T,H,MP*page_len]``."""
+
+    def attend(q, k_new, v_new):
+        kp, vp = kpool.clone(), vpool.clone()
+        scatter_into_pages(kp, write_pids, pos, k_new.movedim(0, 1))
+        scatter_into_pages(vp, write_pids, pos, v_new.movedim(0, 1))
+        return _attend_rows(q, gather_kv_pages_ref(kp, page_table),
+                            gather_kv_pages_ref(vp, page_table), rs, ra)
+
+    return _layer_ref(s, attend, wq, wk, wv, wo, wi, wo2, hd=hd,
+                      with_tail=with_tail, with_mlp=with_mlp, beta=beta,
+                      v_thresh=v_thresh)

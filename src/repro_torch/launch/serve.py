@@ -1,19 +1,22 @@
 """Serving CLI of the port: continuous batching of a spiking GPT.
 
     python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --requests 8
+    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --paged \
+        --page-len 8 [--n-pages N]
 
 Serves ``--requests`` synthetic prompts (the reference CLI's prompts:
 ``randint(fold_in(PRNGKey(seed + 1), i), (4 + 3 * (i % 4),), 0, vocab)``)
 with random weights from ``--seed``, on the CUDA kernels by default.
-``--smoke`` serves the reduced CPU-test config; ``--device cpu`` runs the
-plain PyTorch versions.
+``--paged`` serves off the block-paged pool (prefix sharing, chunked
+prefill; the same tokens as dense).  ``--smoke`` serves the reduced
+CPU-test config; ``--device cpu`` runs the plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -30,12 +33,14 @@ def make_prompts(n: int, vocab: int, seed: int) -> List[List[int]]:
 def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
           slots: int = 4, max_new: int = 16, cache_len: int = 64,
           seed: int = 0, backend: str = "cuda", decode_kernel: str = "auto",
-          device: str = "cuda"):
+          paged: bool = False, page_len: int = 8,
+          n_pages: Optional[int] = None, device: str = "cuda"):
     eng = XpikeformerEngine.from_config(arch, task="lm", backend=backend,
                                         reduced=smoke, device=device)
     eng.init(seed)
     sch = eng.scheduler(slots=slots, cache_len=cache_len,
-                        decode_kernel=decode_kernel)
+                        decode_kernel=decode_kernel, paged=paged,
+                        page_len=page_len, n_pages=n_pages)
     print(f"[serve] {eng.cfg.name} on {eng.device} through the "
           f"'{eng.backend.name}' backend; decode kernel: {sch.plan.describe()}")
     prompts = make_prompts(n_requests, eng.cfg.vocab_size, seed)
@@ -47,6 +52,11 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
     print(f"[serve] served {st.requests} requests, {st.decoded_tokens} tokens "
           f"in {dt:.2f}s ({st.tokens_per_sec:.1f} tok/s, "
           f"{st.decode_steps} batched decode steps, {st.admissions} admissions)")
+    if paged:
+        print(f"[serve] paged: {sch.n_pages} pages of {page_len} tokens, "
+              f"{st.prefix_hits} prefix-cache hits ({st.prefix_hit_tokens} "
+              f"prompt tokens skipped), {st.cow_copies} copy-on-write pages, "
+              f"peak {st.pages_in_use_peak} pages in use")
     return [outs[r] for r in rids]
 
 
@@ -61,6 +71,12 @@ def main(argv=None):
     ap.add_argument("--backend", default="cuda", choices=["cuda", "integer"])
     ap.add_argument("--decode-kernel", default="auto",
                     choices=["auto", "fused", "unfused"])
+    ap.add_argument("--paged", action="store_true",
+                    help="serve off the block-paged spike-train KV pool")
+    ap.add_argument("--page-len", type=int, default=8)
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="pool size (default: slots * cache_len / page_len "
+                         "+ 2 reserved pages)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced CPU-test config")
@@ -69,6 +85,7 @@ def main(argv=None):
         serve(a.arch, smoke=a.smoke, n_requests=a.requests, slots=a.slots,
               max_new=a.max_new, cache_len=a.cache_len, seed=a.seed,
               backend=a.backend, decode_kernel=a.decode_kernel,
+              paged=a.paged, page_len=a.page_len, n_pages=a.n_pages,
               device=a.device)
 
 

@@ -1,9 +1,10 @@
 """The spiking decode step of the generic LM stack (SSA serving path).
 
 Twin of the spiking branch of ``repro/models/transformer.py`` (lines
-456-528 and 536-767): the per-slot spike-train KV cache, per-slot PRN keys
-``f(seed, pos)``, Bernoulli rate coding, the unfused and fused attention
-decodes, the FFN tail, and the unembedding.  A Python loop over layers
+456-528, 536-767 and 770-946): the per-slot spike-train KV cache and the
+block-paged page pool, per-slot PRN keys ``f(seed, pos)``, Bernoulli rate
+coding, the unfused and fused attention decodes (dense and paged), the FFN
+tail, and the unembedding.  A Python loop over layers
 takes the place of the reference's ``lax.scan`` over the stacked period
 axis; parameters and caches keep the reference's stacked layout
 (``periods`` leaves carry a leading period axis).
@@ -11,7 +12,7 @@ axis; parameters and caches keep the reference's stacked layout
 Unlike the reference, the decode updates the cache **in place** (scatter of
 the new K/V trains and ``pos += 1``): one step never needs two copies of a
 cache that is the largest state on the card.  ``decode_step`` returns the
-same cache object it was given.
+same cache object it was given, ``paged_decode_step`` the same pool.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from repro_torch import aimc_device as AD
 from repro_torch import prng
 from repro_torch.core import spikes as SP
 from repro_torch.kernels.plan import AttnSpec, DecodePlan, KVView
-from repro_torch.kernels.ref import scatter_at_pos
+from repro_torch.kernels.ref import scatter_at_pos, scatter_into_pages
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
@@ -37,6 +38,14 @@ def model_dtype(cfg) -> torch.dtype:
 
 def spiking_decode_enabled(cfg) -> bool:
     return bool(cfg.spiking) and cfg.attention_kind == "ssa"
+
+
+def paged_decode_supported(cfg) -> bool:
+    """Paged spike-train KV caching serves spiking SSA stacks whose every
+    mixer is an attention block (recurrent mixers have no position axis
+    to page)."""
+    return spiking_decode_enabled(cfg) and all(
+        m in ("attn", "local") for m in cfg.block_pattern)
 
 
 def _require_spiking(cfg) -> None:
@@ -177,6 +186,19 @@ def _lin_operand(w, d_in: int):
 # ---------------------------------------------------------------------------
 
 
+def _per_block(cfg, blk) -> Dict[str, Any]:
+    """``blk(lead)`` for every attention block: stacked ``periods`` leaves
+    get a leading period axis, ``remainder`` leaves none."""
+    out: Dict[str, Any] = {}
+    if cfg.num_periods > 0:
+        out["periods"] = {f"blk{i}": blk((cfg.num_periods,))
+                          for i in range(cfg.period)}
+    if cfg.remainder_layers:
+        out["remainder"] = {f"blk{i}": blk(())
+                            for i in range(cfg.remainder_layers)}
+    return out
+
+
 def init_cache(cfg, batch: int, seq_len: int, device) -> Dict[str, Any]:
     """Zero per-slot spike-train caches: ``sk``/``sv [B, T, L, KV, hd]``
     uint8 and ``pos [B]`` int32 per attention block (stacked periods get a
@@ -192,14 +214,25 @@ def init_cache(cfg, batch: int, seq_len: int, device) -> Dict[str, Any]:
                 "pos": torch.zeros(lead + (batch,), dtype=torch.int32,
                                    device=device)}
 
-    out: Dict[str, Any] = {}
-    if cfg.num_periods > 0:
-        out["periods"] = {f"blk{i}": blk((cfg.num_periods,))
-                          for i in range(cfg.period)}
-    if cfg.remainder_layers:
-        out["remainder"] = {f"blk{i}": blk(())
-                            for i in range(cfg.remainder_layers)}
-    return out
+    return _per_block(cfg, blk)
+
+
+def init_paged_pool(cfg, n_pages: int, page_len: int, device
+                    ) -> Dict[str, Any]:
+    """An all-zero page pool: ``kp``/``vp [n_pages, T, KV, page_len, hd]``
+    uint8 per attention block, no slot axis (slots address pages through
+    a page table).  Page 0 is the permanently zero null page (unallocated
+    table entries read as zero spikes), page 1 the trash page idle slots
+    write into (never in a table)."""
+    _require_spiking(cfg)
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def blk(lead):
+        shape = lead + (n_pages, cfg.spike_T, kv, page_len, hd)
+        return {"kp": torch.zeros(shape, dtype=torch.uint8, device=device),
+                "vp": torch.zeros(shape, dtype=torch.uint8, device=device)}
+
+    return _per_block(cfg, blk)
 
 
 def _first_pos(cache) -> Tensor:
@@ -223,21 +256,37 @@ def _slot_rate_encode(keys: Tensor, x: Tensor, t: int) -> Tensor:
     return SP.rate_encode(keys, torch.sigmoid(x.to(torch.float32)), t).movedim(1, 0)
 
 
-def _spiking_attention_decode(params, s: Tensor, cache, cfg, slot_keys: Tensor,
-                              backend) -> Tensor:
-    """Unfused one-token SSA decode: Q/K/V spiking linears, scatter of the
-    new K/V trains at ``pos`` (in place), one query row over the whole
-    cache, attention-out.  ``s [T,B,1,d]``."""
+def _qkv_spikes(params, s: Tensor, cfg, backend):
+    """The Q/K/V spiking linears of one token: ``s [T,B,1,d]`` ->
+    ``q [T,B,H,hd]``, ``k_new``/``v_new [T,B,KV,hd]``."""
     t, b, _, d = s.shape
-    h, hd, kv = cfg.num_heads, cfg.resolved_head_dim, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
 
     def proj(w):
         out = backend.spiking_linear(_lin_operand(w, d), s)
         return out.reshape(t, b, -1, hd)
 
-    q = proj(params["wq"])
-    k_new = proj(params["wk"])
-    v_new = proj(params["wv"])
+    return proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+
+
+def _attention_out(params, view: KVView, q: Tensor, i_max: int, s: Tensor,
+                   cfg, slot_keys: Tensor, backend) -> Tensor:
+    """One query row over ``view``, then the attention-out linear."""
+    t, b, _, _ = s.shape
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    a = backend.decode_attention(view, q[:, :, :, None, :],
+                                 AttnSpec(i_max=i_max), slot_keys=slot_keys)
+    a = a.reshape(t, b, 1, h * hd).to(s.dtype)
+    return backend.spiking_linear(_lin_operand(params["wo"], h * hd), a)
+
+
+def _spiking_attention_decode(params, s: Tensor, cache, cfg, slot_keys: Tensor,
+                              backend) -> Tensor:
+    """Unfused one-token SSA decode: Q/K/V spiking linears, scatter of the
+    new K/V trains at ``pos`` (in place), one query row over the whole
+    cache, attention-out.  ``s [T,B,1,d]``."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    q, k_new, v_new = _qkv_spikes(params, s, cfg, backend)
     pos = cache["pos"]
     scatter_at_pos(cache["sk"], pos, k_new.movedim(0, 1))
     scatter_at_pos(cache["sv"], pos, v_new.movedim(0, 1))
@@ -248,11 +297,26 @@ def _spiking_attention_decode(params, s: Tensor, cache, cfg, slot_keys: Tensor,
     if kv != h:
         kf = kf.repeat_interleave(h // kv, dim=2)
         vf = vf.repeat_interleave(h // kv, dim=2)
-    a = backend.decode_attention(
-        KVView.dense(kf, vf), q[:, :, :, None, :],
-        AttnSpec(i_max=lcap), slot_keys=slot_keys)
-    a = a.reshape(t, b, 1, h * hd).to(s.dtype)
-    return backend.spiking_linear(_lin_operand(params["wo"], h * hd), a)
+    return _attention_out(params, KVView.dense(kf, vf), q, lcap, s, cfg,
+                          slot_keys, backend)
+
+
+def _spiking_attention_decode_paged(params, s: Tensor, blk_pool, cfg,
+                                    page_table: Tensor, pos: Tensor,
+                                    write_pids: Tensor, slot_keys: Tensor,
+                                    backend) -> Tensor:
+    """Unfused one-token SSA decode over the page pool: the new K/V trains
+    scatter (in place) into each slot's designated physical page
+    ``write_pids [B]`` at ``pos % page_len`` (the trash page for idle
+    slots), then the query attends through the page table.  The logical
+    capacity ``MP * page_len`` is the comparator range, as in the dense
+    layout, so both give the same spikes for the same logical content."""
+    q, k_new, v_new = _qkv_spikes(params, s, cfg, backend)
+    scatter_into_pages(blk_pool["kp"], write_pids, pos, k_new.movedim(0, 1))
+    scatter_into_pages(blk_pool["vp"], write_pids, pos, v_new.movedim(0, 1))
+    i_max = page_table.shape[1] * blk_pool["kp"].shape[3]
+    view = KVView.from_pool(blk_pool["kp"], blk_pool["vp"], page_table)
+    return _attention_out(params, view, q, i_max, s, cfg, slot_keys, backend)
 
 
 def _spiking_decode_ffn_tail(params, s: Tensor, cfg, backend) -> Tensor:
@@ -298,6 +362,25 @@ def _fused_block_spiking_decode(params, s: Tensor, cache, cfg,
     return out[:, :, None, :].to(s.dtype)
 
 
+def _fused_block_spiking_decode_paged(params, s: Tensor, blk_pool, cfg,
+                                      page_table: Tensor, pos: Tensor,
+                                      write_pids: Tensor, slot_keys: Tensor,
+                                      backend) -> Tensor:
+    """One decoder block as one fused-kernel launch over the *pre-scatter*
+    page pool, then the returned K/V trains scatter (in place) into each
+    slot's write page."""
+    wq, wk, wv, wo, wi, wo2, with_mlp = _fused_block_weights(params, cfg,
+                                                              s.shape[-1])
+    out, k_new, v_new = backend.decode_layer_fused(
+        slot_keys, s[:, :, 0, :],
+        KVView.from_pool(blk_pool["kp"], blk_pool["vp"], page_table), pos,
+        wq, wk, wv, wo, wi, wo2, hd=cfg.resolved_head_dim, with_mlp=with_mlp,
+        write_pids=write_pids)
+    scatter_into_pages(blk_pool["kp"], write_pids, pos, k_new.movedim(0, 1))
+    scatter_into_pages(blk_pool["vp"], write_pids, pos, v_new.movedim(0, 1))
+    return out[:, :, None, :].to(s.dtype)
+
+
 def _apply_block_spiking_decode(params, s: Tensor, cache, cfg, slot_keys,
                                 uid: int, backend,
                                 plan: Optional[DecodePlan] = None) -> Tensor:
@@ -315,6 +398,26 @@ def _apply_block_spiking_decode(params, s: Tensor, cache, cfg, slot_keys,
     return _spiking_decode_ffn_tail(params, s, cfg, backend)
 
 
+def _apply_block_spiking_decode_paged(params, s: Tensor, blk_pool, cfg,
+                                      page_table: Tensor, pos: Tensor,
+                                      write_pids: Tensor, slot_keys, uid: int,
+                                      backend,
+                                      plan: Optional[DecodePlan] = None
+                                      ) -> Tensor:
+    """Spiking residual block over the page pool (decode flavour); the
+    same draws as :func:`_apply_block_spiking_decode`."""
+    keys = prng.fold_in(slot_keys, 1 + uid)
+    if plan is not None and plan.fused:
+        return _fused_block_spiking_decode_paged(
+            params, s, blk_pool, cfg, page_table, pos, write_pids, keys,
+            backend)
+    h = _spiking_attention_decode_paged(params["mixer"], s, blk_pool, cfg,
+                                        page_table, pos, write_pids, keys,
+                                        backend)
+    s = s + h.to(s.dtype)
+    return _spiking_decode_ffn_tail(params, s, cfg, backend)
+
+
 def _unembed(params, x: Tensor, cfg) -> Tensor:
     x = L.apply_norm(cfg.norm_type, params["final_norm"], x)
     if cfg.tie_embeddings:
@@ -322,16 +425,17 @@ def _unembed(params, x: Tensor, cfg) -> Tensor:
     return L.unembed(params["unembed"], x, cfg)
 
 
-def _decode_step_spiking(params, cache, tokens: Tensor, cfg, backend,
-                         seeds: Tensor, plan: Optional[DecodePlan] = None):
-    """tokens ``[B,1]``, seeds ``[B]`` -> (logits ``[B,1,V]``, activity
-    ``[B]``): every draw is keyed per slot by ``f(seed, pos)``, and
-    ``activity`` counts each slot's residual spike events (input coding
-    and after every block)."""
+def _decode_stack(params, tree, tokens: Tensor, cfg, slot_keys: Tensor,
+                  block):
+    """The spiking decode around the blocks: embed, per-slot rate coding,
+    ``s = block(blk_params, s, blk_tree, uid)`` for every block in layer
+    order (``tree`` is the cache or pool, indexed like the params), rate
+    decoding and the unembed.  tokens ``[B,1]`` -> (logits ``[B,1,V]``,
+    activity ``[B]``): ``activity`` counts each slot's residual spike
+    events (input coding and after every block)."""
     dt = model_dtype(cfg)
     sqrt_d = torch.tensor(math.sqrt(cfg.d_model), dtype=dt, device=tokens.device)
     x = L.embed(params["embed"], tokens, dt) * sqrt_d
-    slot_keys = _slot_base_keys(seeds, _first_pos(cache))
     enc_keys = prng.fold_in(slot_keys, 0)
     s = _slot_rate_encode(enc_keys, x, cfg.spike_T)  # [T,B,1,d] float32
 
@@ -341,20 +445,30 @@ def _decode_step_spiking(params, cache, tokens: Tensor, cfg, backend,
     act = slot_events(s)
     for p in range(cfg.num_periods):
         pp = _take(params["periods"], p)
-        pc = _take(cache["periods"], p)
+        pt = _take(tree["periods"], p)
         for i in range(cfg.period):
-            s = _apply_block_spiking_decode(pp[f"blk{i}"], s, pc[f"blk{i}"],
-                                            cfg, slot_keys, p * cfg.period + i,
-                                            backend, plan)
+            s = block(pp[f"blk{i}"], s, pt[f"blk{i}"], p * cfg.period + i)
             act = act + slot_events(s)
     base_uid = cfg.num_periods * cfg.period
     for i in range(cfg.remainder_layers):
-        s = _apply_block_spiking_decode(
-            params["remainder"][f"blk{i}"], s, cache["remainder"][f"blk{i}"],
-            cfg, slot_keys, base_uid + i, backend, plan)
+        s = block(params["remainder"][f"blk{i}"], s,
+                  tree["remainder"][f"blk{i}"], base_uid + i)
         act = act + slot_events(s)
     xr = SP.rate_decode(s.to(torch.float32)).to(dt)
     return _unembed(params, xr, cfg), act
+
+
+def _decode_step_spiking(params, cache, tokens: Tensor, cfg, backend,
+                         seeds: Tensor, plan: Optional[DecodePlan] = None):
+    """tokens ``[B,1]``, seeds ``[B]`` -> (logits ``[B,1,V]``, activity
+    ``[B]``): every draw is keyed per slot by ``f(seed, pos)``."""
+    slot_keys = _slot_base_keys(seeds, _first_pos(cache))
+
+    def block(bp, s, bc, uid):
+        return _apply_block_spiking_decode(bp, s, bc, cfg, slot_keys, uid,
+                                           backend, plan)
+
+    return _decode_stack(params, cache, tokens, cfg, slot_keys, block)
 
 
 def decode_step(params, cache, tokens: Tensor, cfg, *, backend,
@@ -373,3 +487,33 @@ def decode_step(params, cache, tokens: Tensor, cfg, *, backend,
     if with_activity:
         return logits, cache, act
     return logits, cache
+
+
+def paged_decode_step(params, pool, page_table: Tensor, tokens: Tensor,
+                      pos: Tensor, seeds: Tensor, write_pids: Tensor, cfg, *,
+                      backend, plan: Optional[DecodePlan] = None):
+    """One spiking decode step over the block-paged pool.
+
+    tokens ``[B,1]``, pos ``[B]`` (each slot's logical write position),
+    seeds ``[B]`` (the PRN stream id this step: the request seed in
+    decode, the *content key* of the position in chunked prefill),
+    write_pids ``[B]`` (each slot's private physical page for block ``pos
+    // page_len``; the trash page for idle slots) -> ``(logits [B,1,V],
+    pool, activity [B])``.  The pool is updated in place and returned.
+
+    Every draw is keyed ``f(seed, pos, ...)`` as in :func:`decode_step`,
+    and the content reachable through a slot's table equals its dense
+    cache, so paged serving gives dense serving's tokens while prompt
+    prefixes shared between requests resolve to the same physical pages."""
+    if not paged_decode_supported(cfg):
+        raise ValueError(f"{cfg.name}: paged decode needs a spiking SSA "
+                         "stack of attention blocks")
+    slot_keys = _slot_base_keys(seeds, pos)
+
+    def block(bp, s, bpool, uid):
+        return _apply_block_spiking_decode_paged(
+            bp, s, bpool, cfg, page_table, pos, write_pids, slot_keys, uid,
+            backend, plan)
+
+    logits, act = _decode_stack(params, pool, tokens, cfg, slot_keys, block)
+    return logits, pool, act

@@ -1,18 +1,26 @@
-"""BatchScheduler: dense continuous batching over :class:`DecodeState`.
+"""BatchScheduler: continuous batching, dense or block-paged.
 
-Twin of the dense path of ``repro/serving/scheduler.py``:
+Twin of ``repro/serving/scheduler.py``:
 
-* **admission** -- queued requests splice into free slots mid-flight,
-  each prefilled batch-1 through the unfused decode path (the K1 spiking
-  linear and K2 SSA-decode kernels on the card);
-* **decode** -- one batched step advances every slot through the fused
-  layer kernel (K3), once per layer;
-* **eviction** -- a finished slot's cache is zeroed.
+* **dense** (:class:`~repro_torch.serving.state.DecodeState`) -- queued
+  requests splice into free slots mid-flight, each prefilled batch-1
+  through the unfused decode path (the K1 spiking linear and K2 SSA-decode
+  kernels on the card); one batched step advances every slot through the
+  fused layer kernel (K3), once per layer; a finished slot's cache is
+  zeroed.
+* **paged** (``paged=True``; :class:`~repro_torch.serving.state.
+  PagedDecodeState` + :class:`~repro_torch.serving.pages.PagePool`) --
+  K/V spike trains live in a global page pool: refcounted pages with
+  copy-on-write, an exact-prefix cache that maps identical prompt prefixes
+  onto the *same physical pages* (prefill PRN streams are content-keyed),
+  **chunked prefill** (prompt tokens ride the batched step, one position
+  per step per prefilling slot, through the paged fused layer kernel K9),
+  and admission that blocks on *free pages*, first in first out.
 
 Per-slot PRN streams ``f(seed, pos)`` make a request's tokens a pure
-function of ``(params, prompt, seed)``, never of batch composition.
-Paged serving, energy booking, the drift lifecycle and telemetry are not
-part of this slice.
+function of ``(params, prompt, seed)``, never of batch composition or
+layout: paged and dense serving give the same tokens.  Energy booking, the
+drift lifecycle and telemetry are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -30,6 +38,11 @@ from repro_torch.engine import get_backend
 from repro_torch.kernels.plan import build_decode_plan
 from repro_torch.models import transformer as T
 from repro_torch.serving import state as ST
+from repro_torch.serving.pages import PagePool
+
+# paged-slot lifecycle: consuming prompt positions -> feeding the last
+# prompt token on the request's own PRN stream -> riding greedy argmax
+PREFILL, HANDOFF, DECODE = "prefill", "handoff", "decode"
 
 
 @dataclasses.dataclass
@@ -55,9 +68,14 @@ class ServeStats:
     evictions: int = 0
     wall_s: float = 0.0  # whole serve loop (admission/prefill included)
     decode_s: float = 0.0  # batched decode steps only
-    prefill_s: float = 0.0  # batch-1 prefills at admission
+    prefill_s: float = 0.0  # batch-1 prefills at admission (dense)
     spike_events: float = 0.0  # measured residual-stream spike events
     peak_active_slots: int = 0
+    # paged serving (zeros on the dense path)
+    prefix_hits: int = 0  # prefix-cache page hits across admissions
+    prefix_hit_tokens: int = 0  # prompt positions skipped via shared pages
+    cow_copies: int = 0  # copy-on-write page duplications
+    pages_in_use_peak: int = 0  # peak simultaneously referenced pool pages
 
     @property
     def tokens_per_sec(self) -> float:
@@ -83,6 +101,8 @@ class BatchScheduler:
 
     def __init__(self, params: Any, cfg, backend=None, *, slots: int = 4,
                  cache_len: int = 64, decode_kernel: str = "auto",
+                 paged: bool = False, page_len: int = 8,
+                 n_pages: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -92,28 +112,58 @@ class BatchScheduler:
         self.backend = get_backend(backend)
         self.slots = slots
         self.cache_len = cache_len
+        self.paged = bool(paged)
         self.source_params = params
         self.params = T.quantize_params(_to_device(params, self.device), cfg)
-        # one plan per scheduler lifetime; prefill always runs unfused
-        self.plan = build_decode_plan(cfg, self.backend, kernel=decode_kernel)
-        self._decode = ST.make_decode_fn(cfg, self.backend, plan=self.plan)
-        self._prefill = ST.make_prefill_fn(cfg, self.backend)
-        self.state = ST.init_state(cfg, slots, cache_len, self.device)
-        self._queue: Deque[Request] = deque()
-        self._slot_req: List[Optional[Request]] = [None] * slots
-        self._remaining: List[int] = [0] * slots
-        self.outputs: Dict[int, List[int]] = {}
-        self.stats = ServeStats()
+        # one plan per scheduler lifetime; dense prefill always runs unfused
+        self.plan = build_decode_plan(
+            cfg, self.backend, layout="paged" if self.paged else "dense",
+            kernel=decode_kernel, page_len=page_len)
+        if self.paged:
+            if not T.paged_decode_supported(cfg):
+                raise ValueError("paged serving needs a spiking SSA stack of "
+                                 f"attention blocks, not {cfg.name!r}")
+            if cache_len % page_len:
+                raise ValueError(f"cache_len ({cache_len}) must be a multiple "
+                                 f"of page_len ({page_len})")
+            self.page_len = page_len
+            self.max_pages = cache_len // page_len
+            # default pool: the cache memory a dense server of this slot
+            # count holds (prefix sharing turns it into extra concurrency)
+            self.n_pages = (slots * self.max_pages + ST.RESERVED_PAGES
+                            if n_pages is None else n_pages)
+            self._decode = ST.make_paged_decode_fn(cfg, self.backend,
+                                                   plan=self.plan)
+        else:
+            self._decode = ST.make_decode_fn(cfg, self.backend, plan=self.plan)
+            self._prefill = ST.make_prefill_fn(cfg, self.backend)
         self._next_rid = 0
+        self.reset()
 
     def reset(self) -> None:
         """Drop all requests and state (a fresh server on the same params)."""
-        self.state = ST.init_state(self.cfg, self.slots, self.cache_len,
-                                   self.device)
-        self._queue.clear()
-        self._slot_req = [None] * self.slots
-        self._remaining = [0] * self.slots
-        self.outputs = {}
+        if self.paged:
+            self.pages = PagePool(self.n_pages, self.page_len)
+            self.state = ST.init_paged_state(self.cfg, self.slots,
+                                             self.cache_len, self.page_len,
+                                             self.n_pages, self.device)
+            # host mirrors: page-table rows, per-slot logical positions,
+            # prefill cursors, slot phases, outstanding page reservations,
+            # prefix-cache chain ids
+            self._table_rows = np.full((self.slots, self.max_pages),
+                                       ST.NULL_PAGE, np.int32)
+            self._slot_pos = [0] * self.slots
+            self._cursor = [0] * self.slots
+            self._phase = [DECODE] * self.slots
+            self._slot_reserved = [0] * self.slots
+            self._chain = [0] * self.slots
+        else:
+            self.state = ST.init_state(self.cfg, self.slots, self.cache_len,
+                                       self.device)
+        self._queue: Deque[Request] = deque()
+        self._slot_req: List[Optional[Request]] = [None] * self.slots
+        self._remaining: List[int] = [0] * self.slots
+        self.outputs: Dict[int, List[int]] = {}
         self.stats = ServeStats()
 
     # -- request intake ------------------------------------------------
@@ -135,6 +185,13 @@ class BatchScheduler:
             raise ValueError(
                 f"prompt ({p.shape[0]}) + max_new ({max_new}) exceeds "
                 f"cache_len ({self.cache_len})")
+        if self.paged:
+            worst = -(-(p.shape[0] - 1 + max_new) // self.page_len)
+            usable = self.n_pages - ST.RESERVED_PAGES
+            if worst > usable:
+                raise ValueError(
+                    f"request needs up to {worst} pages but the pool only "
+                    f"has {usable} usable: it could never be admitted")
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(Request(rid, p, max_new,
@@ -146,8 +203,13 @@ class BatchScheduler:
     # -- slot management -----------------------------------------------
 
     def admit(self) -> int:
-        """Prefill queued requests batch-1 and splice them into free slots;
-        the other slots' state is untouched.  Returns #admitted."""
+        """Admit queued requests into free slots; the other slots' state is
+        untouched.  Dense: prefill batch-1 and splice.  Paged: reserve
+        pages, resolve prefix-cache hits, and leave the remaining prompt
+        positions to chunked prefill in the batched step.  Returns
+        #admitted."""
+        if self.paged:
+            return self._admit_paged()
         admitted = 0
         for slot in range(self.slots):
             if not self._queue or self._slot_req[slot] is not None:
@@ -170,9 +232,131 @@ class BatchScheduler:
             self.stats.prefill_tokens += req.n_ctx
             self.stats.admissions += 1
             admitted += 1
+        self._note_occupancy()
+        return admitted
+
+    def _note_occupancy(self) -> None:
         self.stats.peak_active_slots = max(
             self.stats.peak_active_slots,
             sum(r is not None for r in self._slot_req))
+
+    # -- paged-mode page plumbing --------------------------------------
+
+    def _zero_freed(self, pids: List[int]) -> None:
+        """Zero freed physical pages on the device."""
+        if pids:
+            ST.pool_zero_pages(self.state, pids)
+
+    def _cow(self, slot: int, tp: int, src: int, keep_upto: int) -> int:
+        """Copy-on-write: give ``slot`` sole ownership of logical block
+        ``tp`` by copying the shared page's valid prefix (``< keep_upto``
+        in-page positions) into a fresh page and repointing its table."""
+        dst = self.pages.alloc(reserved=True)
+        self._slot_reserved[slot] -= 1
+        ST.pool_copy_page(self.state, src, dst, keep_upto)
+        ST.paged_set_table_entry(self.state, slot, tp, dst)
+        self._table_rows[slot, tp] = dst
+        if self.pages.release(src):  # its cache entry may have been evicted
+            self._zero_freed([src])
+        self.pages.cow_copies += 1
+        return dst
+
+    def _register_prefix(self, slot: int, upto: int) -> None:
+        """Publish the page holding context positions up to ``upto`` (the
+        end of a just-completed block, or the whole context for a partial
+        tail block) in the prefix cache, keyed by (parent chain id, the
+        block's own tokens).  A tail block costs one reserved page later
+        (the registrant's next write copies on write), so it is registered
+        only when the pool has slack."""
+        req = self._slot_req[slot]
+        tp = (upto - 1) // self.page_len
+        key = (self._chain[slot],
+               tuple(req.prompt[tp * self.page_len:upto].tolist()))
+        pid = int(self._table_rows[slot, tp])
+        if pid == ST.NULL_PAGE:
+            return
+        if upto % self.page_len:  # partial tail block: a chain leaf
+            if self.pages.prefix_contains(key) or self.pages.available() < 1:
+                return
+            self.pages.reserve(1)
+            self._slot_reserved[slot] += 1
+            self.pages.prefix_register(key, pid, chain=False)
+            return
+        # full block: adopt the (new or canonical) chain id so the slot's
+        # next block links to it
+        self._chain[slot] = self.pages.prefix_register(key, pid, chain=True)
+
+    def _admit_paged(self) -> int:
+        """Paged admission: exact-prefix page hits + worst-case page
+        reservation.  First in first out: a request that cannot reserve
+        its pages blocks the queue (head of line) rather than being
+        overtaken, so admission order never depends on prompt sizes."""
+        admitted = 0
+        pl_ = self.page_len
+        for slot in range(self.slots):
+            if not self._queue or self._slot_req[slot] is not None:
+                continue
+            req = self._queue[0]
+            ctx = req.prompt[:-1]
+            n_ctx = req.n_ctx
+            total_pages = -(-(n_ctx + req.max_new) // pl_)
+            # leading-chain prefix match: full blocks while the chain is
+            # unbroken, then (only off the complete full-block chain) the
+            # partial tail leaf
+            hits: List[int] = []
+            chain = 0  # the empty-prefix root
+            k = pl_
+            while k <= n_ctx:
+                ent = self.pages.prefix_lookup(
+                    (chain, tuple(ctx[k - pl_:k].tolist())))
+                if ent is None:
+                    break
+                hits.append(ent[0])
+                chain = ent[1]
+                k += pl_
+            partial_pid = None
+            if len(hits) == n_ctx // pl_ and n_ctx % pl_:
+                ent = self.pages.prefix_lookup(
+                    (chain, tuple(ctx[len(hits) * pl_:].tolist())))
+                partial_pid = None if ent is None else ent[0]
+            # worst-case unshared pages (a partial hit still allocates its
+            # page at the copy-on-write); block on pool pressure
+            needed = total_pages - len(hits)
+            if self.pages.available() < needed:
+                self._zero_freed(self.pages.prefix_evict(
+                    needed - self.pages.available()))
+            if self.pages.available() < needed:
+                # hand the hit references back; the eviction above may have
+                # dropped these pages' cache entries, in which case ours
+                # was the last reference and the page is zeroed for reuse
+                freed = [pid for pid in hits if self.pages.release(pid)]
+                if partial_pid is not None and self.pages.release(partial_pid):
+                    freed.append(partial_pid)
+                self._zero_freed(freed)
+                break
+            self._queue.popleft()
+            self.pages.reserve(needed)
+            row = np.full((self.max_pages,), ST.NULL_PAGE, np.int32)
+            row[:len(hits)] = hits
+            cursor = len(hits) * pl_
+            if partial_pid is not None:
+                row[n_ctx // pl_] = partial_pid
+                cursor = n_ctx
+            self._table_rows[slot] = row
+            ST.paged_admit_slot(self.state, slot, row, req.seed, cursor)
+            self._slot_req[slot] = req
+            self._remaining[slot] = req.max_new
+            self._slot_pos[slot] = cursor
+            self._cursor[slot] = cursor
+            self._phase[slot] = PREFILL if cursor < n_ctx else HANDOFF
+            self._slot_reserved[slot] = needed
+            self._chain[slot] = chain  # registrations link after the hits
+            self.outputs[req.rid] = []
+            self.stats.prefix_hit_tokens += cursor
+            self.stats.prefix_hits += len(hits) + (partial_pid is not None)
+            self.stats.admissions += 1
+            admitted += 1
+        self._note_occupancy()
         return admitted
 
     def evict(self, slot: int, requeue: bool = False) -> None:
@@ -188,14 +372,30 @@ class BatchScheduler:
             self.outputs.pop(req.rid, None)
         self._slot_req[slot] = None
         self._remaining[slot] = 0
-        ST.release_slot(self.state, slot)
+        if self.paged:
+            freed = [int(pid) for pid in self._table_rows[slot]
+                     if pid != ST.NULL_PAGE and self.pages.release(int(pid))]
+            self._zero_freed(freed)
+            self.pages.unreserve(self._slot_reserved[slot])
+            self._slot_reserved[slot] = 0
+            self._table_rows[slot] = ST.NULL_PAGE
+            self._slot_pos[slot] = 0
+            self._cursor[slot] = 0
+            self._phase[slot] = DECODE
+            self._chain[slot] = 0
+            ST.paged_release_slot(self.state, slot)
+        else:
+            ST.release_slot(self.state, slot)
         self.stats.evictions += 1
 
     # -- serving loop --------------------------------------------------
 
     def step(self) -> int:
-        """Admit, then advance every active slot one token.  Returns the
-        number of tokens decoded (0 when idle)."""
+        """Admit, then advance every active slot one token (paged: one
+        position, prompt or decode).  Returns the number of tokens decoded
+        (0 when idle)."""
+        if self.paged:
+            return self._step_paged()
         self.admit()
         if not any(r is not None for r in self._slot_req):
             return 0
@@ -217,6 +417,85 @@ class BatchScheduler:
             if self._remaining[slot] == 0:
                 self.evict(slot)
         self.stats.decoded_tokens += decoded
+        return decoded
+
+    def _step_paged(self) -> int:
+        """One paged batched step: chunked prefill and decode interleaved.
+
+        Each occupied slot advances one position: a *prompt* position (the
+        next context token on its content-keyed PRN stream), the admission
+        handoff (the last prompt token on the request's own stream), or a
+        decode position (greedy argmax riding the state).  Before the step
+        every writing slot gets a page of its own for its target block
+        (allocation at block boundaries, copy-on-write off shared pages);
+        idle slots write the trash page.  Returns #tokens decoded (prompt
+        positions don't count)."""
+        self.admit()
+        if not any(r is not None for r in self._slot_req):
+            return 0
+        b = self.slots
+        # rows: feed token, feed seed, feed mask, write page
+        feed = np.zeros((4, b), np.int64)
+        feed[3] = ST.TRASH_PAGE
+        for slot in range(b):
+            req = self._slot_req[slot]
+            if req is None:
+                feed[2, slot] = 1  # pin idle slots to token 0 / stream 0
+                continue
+            tp, off = divmod(self._slot_pos[slot], self.page_len)
+            pid = int(self._table_rows[slot, tp])
+            if pid == ST.NULL_PAGE:  # block boundary: open a fresh page
+                pid = self.pages.alloc(reserved=True)
+                self._slot_reserved[slot] -= 1
+                self._table_rows[slot, tp] = pid
+                ST.paged_set_table_entry(self.state, slot, tp, pid)
+            elif self.pages.refcount[pid] > 1:  # shared (prefix cache): CoW
+                pid = self._cow(slot, tp, pid, off)
+            feed[3, slot] = pid
+            phase = self._phase[slot]
+            if phase == PREFILL:
+                cur = self._cursor[slot]
+                feed[:3, slot] = (req.prompt[cur], int(req.ckeys[cur]), 1)
+            elif phase == HANDOFF:
+                feed[:3, slot] = (req.prompt[-1], req.seed & 0xFFFFFFFF, 1)
+        t0 = time.perf_counter()
+        tok, seed, mask, write_pids = torch.as_tensor(
+            feed, device=self.device).unbind(0)
+        _, self.state, act = self._decode(self.params, self.state, tok, seed,
+                                          mask.bool(), write_pids)
+        nxt = self.state.tokens.cpu().numpy()  # syncs the step
+        act = act.cpu().numpy()
+        self.stats.decode_s += time.perf_counter() - t0
+        self.stats.decode_steps += 1
+        decoded = 0
+        for slot in range(b):
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            self._slot_pos[slot] += 1
+            phase = self._phase[slot]
+            if phase == PREFILL:
+                self._cursor[slot] += 1
+                cur = self._cursor[slot]
+                self.stats.prefill_tokens += 1
+                if cur % self.page_len == 0:  # completed block: publish it
+                    self._register_prefix(slot, cur)
+                if cur == req.n_ctx:
+                    if req.n_ctx % self.page_len:
+                        self._register_prefix(slot, req.n_ctx)
+                    self._phase[slot] = HANDOFF
+            else:
+                self.outputs[req.rid].append(int(nxt[slot]))
+                decoded += 1
+                self._phase[slot] = DECODE
+                self._remaining[slot] -= 1
+            self.stats.spike_events += float(act[slot])
+            if self._remaining[slot] == 0:
+                self.evict(slot)
+        self.stats.decoded_tokens += decoded
+        self.stats.pages_in_use_peak = max(self.stats.pages_in_use_peak,
+                                           self.pages.peak_in_use)
+        self.stats.cow_copies = self.pages.cow_copies
         return decoded
 
     def run(self) -> Dict[int, List[int]]:

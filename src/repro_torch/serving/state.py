@@ -1,11 +1,18 @@
-"""Dense serving state: :class:`DecodeState`, slot surgery, step factories.
+"""Serving state: the dense :class:`DecodeState` and the block-paged
+:class:`PagedDecodeState`, their surgery helpers, and the step factories.
 
-Twin of the dense half of ``repro/serving/state.py`` (lines 52-187 and
-365-437).  The cache keeps one fixed-length region per slot; admission
-copies a prefilled batch-1 cache into a slot, eviction zeroes it, which
-also masks the slot out of the spiking comparators.  Every tensor keeps
-one shape for the server's lifetime.  Where the reference returns new
-arrays, these functions update the state **in place** and return it.
+Twin of ``repro/serving/state.py``.  Dense: the cache keeps one
+fixed-length region per slot; admission copies a prefilled batch-1 cache
+into a slot, eviction zeroes it, which also masks the slot out of the
+spiking comparators.  Paged: K/V spike trains live in a global page pool
+and each slot addresses its logical blocks through a row of the page
+table; pages are refcounted on the host
+(:class:`repro_torch.serving.pages.PagePool`).  Physical page 0 is the
+permanently zero *null page* (unallocated table entries read as zero
+spikes) and page 1 the *trash page* idle slots write into (never in a
+table).  Every tensor keeps one shape for the server's lifetime.  Where
+the reference returns new arrays, these functions update the state **in
+place** and return it.
 """
 
 from __future__ import annotations
@@ -19,6 +26,11 @@ import torch
 from repro_torch.models import transformer as T
 
 Tensor = torch.Tensor
+
+# reserved physical pages of every paged pool
+NULL_PAGE = 0  # permanently zero; the target of unallocated table entries
+TRASH_PAGE = 1  # where idle slots' decode writes land; never read
+RESERVED_PAGES = 2
 
 
 @dataclasses.dataclass
@@ -101,6 +113,111 @@ def release_slot(state: DecodeState, slot: int) -> DecodeState:
 
 
 # ---------------------------------------------------------------------------
+# Block-paged serving state
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PagedDecodeState:
+    """One paged continuous batch: global page pool + per-slot counters.
+
+    pool        -- page pool tree (``kp``/``vp [.., n_pages, T, KV,
+                   page_len, hd]`` leaves; no slot axis)
+    page_table  -- [slots, max_pages] int32 physical page per logical block
+                   (NULL_PAGE = unallocated: reads as zero spikes)
+    pos         -- [slots] int32, each slot's next logical write position
+    tokens      -- [slots] int64, next input token per slot
+    seeds       -- [slots] int64 holding uint32 PRN stream ids
+    active      -- [slots] bool, slot occupancy
+    """
+
+    pool: Any
+    page_table: Tensor
+    pos: Tensor
+    tokens: Tensor
+    seeds: Tensor
+    active: Tensor
+
+    def leaves(self):
+        """The pool's ``kp``/``vp`` tensors (page axis at -5)."""
+        return [leaf for grp in self.pool.values() for blk in grp.values()
+                for leaf in blk.values()]
+
+
+def init_paged_state(cfg, slots: int, cache_len: int, page_len: int,
+                     n_pages: int, device) -> PagedDecodeState:
+    """A fresh paged batch: all pages free and zeroed, all tables null."""
+    if cache_len % page_len:
+        raise ValueError(f"cache_len ({cache_len}) must be a multiple of "
+                         f"page_len ({page_len})")
+    if n_pages <= RESERVED_PAGES:
+        raise ValueError("the pool needs pages beyond null + trash")
+    return PagedDecodeState(
+        pool=T.init_paged_pool(cfg, n_pages, page_len, device),
+        page_table=torch.full((slots, cache_len // page_len), NULL_PAGE,
+                              dtype=torch.int32, device=device),
+        pos=torch.zeros(slots, dtype=torch.int32, device=device),
+        tokens=torch.zeros(slots, dtype=torch.int64, device=device),
+        seeds=torch.zeros(slots, dtype=torch.int64, device=device),
+        active=torch.zeros(slots, dtype=torch.bool, device=device),
+    )
+
+
+def paged_admit_slot(state: PagedDecodeState, slot: int, table_row,
+                     seed: int, pos: int) -> PagedDecodeState:
+    """Open a slot: install its page-table row (prefix hits filled in) and
+    its starting position (the first prompt position not covered by a
+    hit); the scheduler feeds tokens and PRN stream ids per step."""
+    state.page_table[slot] = torch.as_tensor(table_row, dtype=torch.int32)
+    state.pos[slot] = int(pos)
+    state.seeds[slot] = int(seed) & 0xFFFFFFFF
+    state.active[slot] = True
+    return state
+
+
+def paged_release_slot(state: PagedDecodeState, slot: int
+                       ) -> PagedDecodeState:
+    """Close a slot: null its table row and zero its counters.  (The host
+    :class:`~repro_torch.serving.pages.PagePool` decides which of its pages
+    are freed: shared pages live on under other references.)"""
+    state.page_table[slot] = NULL_PAGE
+    state.pos[slot] = 0
+    state.tokens[slot] = 0
+    state.seeds[slot] = 0
+    state.active[slot] = False
+    return state
+
+
+def paged_set_table_entry(state: PagedDecodeState, slot: int, idx: int,
+                          pid: int) -> PagedDecodeState:
+    """Point one logical block of one slot at a physical page."""
+    state.page_table[slot, idx] = int(pid)
+    return state
+
+
+def pool_zero_pages(state: PagedDecodeState, pids) -> PagedDecodeState:
+    """Zero physical pages (freed pages must read as zero spikes before
+    reuse)."""
+    for leaf in state.leaves():
+        idx = torch.as_tensor(pids, dtype=torch.int64, device=leaf.device)
+        leaf.index_fill_(leaf.dim() - 5, idx, 0)
+    return state
+
+
+def pool_copy_page(state: PagedDecodeState, src: int, dst: int,
+                   keep_upto: int) -> PagedDecodeState:
+    """Copy-on-write: duplicate page ``src`` into ``dst``, keeping only
+    in-page positions ``< keep_upto`` (later offsets are zeroed so the new
+    owner's unwritten tail stays comparator-masked)."""
+    for leaf in state.leaves():
+        page = leaf.select(-5, int(src))  # [.., T, KV, page_len, hd]
+        keep = (torch.arange(page.shape[-2], device=leaf.device)
+                < int(keep_upto))[:, None]
+        leaf.select(-5, int(dst)).copy_(page * keep)
+    return state
+
+
+# ---------------------------------------------------------------------------
 # Content-keyed prefill PRN streams
 # ---------------------------------------------------------------------------
 
@@ -170,3 +287,34 @@ def make_prefill_fn(cfg, backend):
         return cache1, act
 
     return prefill
+
+
+def make_paged_decode_fn(cfg, backend, plan=None):
+    """The batched step of a *paged* server: decode and chunked prefill
+    ride the same step.
+
+    ``(params, state, feed_tok [B], feed_seed [B], feed_mask [B],
+    write_pids [B]) -> (logits, state, activity)``.  Slots with
+    ``feed_mask`` take their input token and PRN stream id from the feed
+    (chunked prefill: the next prompt token keyed by its content key;
+    admission handoff: the last prompt token keyed by the request seed);
+    the others ride the state (greedy next token written back).
+    ``write_pids`` names each slot's private physical page for this step's
+    K/V write (the scheduler guarantees sole ownership by copy-on-write;
+    idle slots point at the trash page).  The fed seed persists into
+    ``state.seeds``, so after the handoff a slot keeps decoding on its
+    request stream with no further feeds."""
+
+    def step(params, state: PagedDecodeState, feed_tok, feed_seed, feed_mask,
+             write_pids):
+        tok = torch.where(feed_mask, feed_tok, state.tokens)
+        seed = torch.where(feed_mask, feed_seed, state.seeds)
+        logits, _, act = T.paged_decode_step(
+            params, state.pool, state.page_table, tok[:, None], state.pos,
+            seed, write_pids, cfg, backend=backend, plan=plan)
+        state.pos += 1
+        state.tokens = torch.argmax(logits[:, 0, :], dim=-1)
+        state.seeds = seed
+        return logits, state, act
+
+    return step

@@ -8,8 +8,9 @@ machine with PyTorch alone::
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX.)  The plain
 versions are held against the JAX reference on the CPU by
-``tests/test_torch_kernels.py``; here each kernel must equal them exactly,
-at the serving path's widths and at the padding and GQA edges.
+``tests/test_torch_kernels.py`` and ``tests/test_torch_paged.py``; here
+each kernel must equal them exactly, at the serving path's widths and at
+the padding and GQA edges, dense and paged.
 """
 
 import numpy as np
@@ -23,6 +24,7 @@ from repro_torch.kernels import build as KB
 from repro_torch.kernels import decode_fused as KFD
 from repro_torch.kernels import ref as KREF
 from repro_torch.kernels import ssa_attention as KS
+from repro_torch.serving import NULL_PAGE, RESERVED_PAGES, TRASH_PAGE
 
 pytestmark = pytest.mark.gpu
 
@@ -152,3 +154,123 @@ def test_reduced_serving_on_card_matches_cpu(cuda):
     assert KB.LAUNCHES["fused_decode_layer"] == (cfg.num_layers
                                                  * stats.decode_steps)
     assert KB.LAUNCHES["ssa_decode"] == cfg.num_layers * stats.prefill_tokens
+
+
+def paged_inputs(rng, *, b, t, kv, hd, pl, mp, pos, idle=(), n_extra=4):
+    """Page tables, write pages and pools under the serving invariants:
+    each active slot owns the pages of blocks ``0 .. pos // pl`` (slot 1's
+    block 0 is slot 0's, a shared prefix, where both are past it), rows at
+    and after ``pos`` and the null page are zero, idle slots hold a null
+    row and write the trash page (garbage)."""
+    table = np.full((b, mp), NULL_PAGE, np.int32)
+    write = np.full((b,), TRASH_PAGE, np.int32)
+    nxt = RESERVED_PAGES
+    for i in range(b):
+        if i in idle:
+            continue
+        for j in range(min(pos[i] // pl, mp - 1) + 1):
+            table[i, j] = nxt
+            nxt += 1
+        if pos[i] < mp * pl:
+            write[i] = table[i, pos[i] // pl]
+    if b > 1 and min(pos[0], pos[1]) >= pl and 1 not in idle:
+        table[1, 0] = table[0, 0]
+    n_pages = nxt + n_extra
+    perm = np.arange(n_pages)
+    perm[RESERVED_PAGES:] = rng.permutation(perm[RESERVED_PAGES:])
+    table = np.where(table >= RESERVED_PAGES, perm[table], table)
+    write = np.where(write >= RESERVED_PAGES, perm[write], write)
+    shape = (n_pages, t, kv, pl, hd)
+    kp = (rng.random(shape) < 0.5).astype(np.uint8)
+    vp = (rng.random(shape) < 0.5).astype(np.uint8)
+    kp[NULL_PAGE] = vp[NULL_PAGE] = 0
+    for i, p in enumerate(pos):
+        for j, pid in enumerate(table[i]):
+            if pid >= RESERVED_PAGES:
+                kp[pid, :, :, min(max(p - j * pl, 0), pl):] = 0
+                vp[pid, :, :, min(max(p - j * pl, 0), pl):] = 0
+    return [_t(a) for a in (table.astype(np.int32), write.astype(np.int32),
+                            kp, vp)]
+
+
+K7_CASES = {
+    # name: (b, t, h, kv, d, pl, mp, pos)
+    "serving_widths": (8, 4, 4, 4, 64, 8, 32, [40, 100, 0, 5, 200, 255, 17, 64]),
+    "gqa_pl5": (3, 4, 4, 2, 16, 5, 5, [3, 24, 9]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_ssa_decode_paged_kernel(cuda, case):
+    b, t, h, kv, d, pl, mp, pos = K7_CASES[case]
+    rng = np.random.default_rng(len(case))
+    table, _, kp, vp = paged_inputs(rng, b=b, t=t, kv=kv, hd=d, pl=pl, mp=mp,
+                                    pos=[p + 1 for p in pos])
+    q = _t(rng.integers(0, 2, (b, t, h, d)).astype(np.uint8))
+    rs = _t(rng.integers(0, d, (b, t * h, 1, mp * pl)).astype(np.int32))
+    ra = _t(rng.integers(0, mp * pl, (b, t * h, 1, d)).astype(np.int32))
+    args = (q, kp, vp, table, rs, ra)
+    want = KS.ssa_decode_paged_kernel(*args)
+    n = KB.LAUNCHES["ssa_decode_paged"]
+    got = KS.ssa_decode_paged_kernel(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["ssa_decode_paged"] == n + 1
+    _eq(got, want)
+
+
+PAGED_LAYER_CASES = {
+    # name: (t, b, d, h, kv, hd, pl, mp, dff, pos, idle)
+    "serving_widths": (4, 8, 256, 4, 4, 64, 8, 32, 1024,
+                       [40, 100, 0, 5, 200, 255, 17, 64], (6,)),
+    "gqa_pl5": (4, 3, 64, 4, 2, 16, 5, 5, 128, [7, 25, 3], ()),
+    "trash_and_past_end": (2, 4, 48, 2, 2, 16, 8, 3, 64, [24, 9, 0, 30],
+                           (2,)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_LAYER_CASES))
+def test_fused_layer_paged_kernel(cuda, case):
+    t, b, d, h, kv, hd, pl, mp, dff, pos, idle = PAGED_LAYER_CASES[case]
+    rng = np.random.default_rng(100 + len(case))
+    table, write, kp, vp = paged_inputs(rng, b=b, t=t, kv=kv, hd=hd, pl=pl,
+                                        mp=mp, pos=pos, idle=idle)
+    s = _t(rng.integers(0, 3, (t, b, d)).astype(np.float32))
+    ws = [_triple(rng, d, h * hd), _triple(rng, d, kv * hd, bias=False),
+          _triple(rng, d, kv * hd), _triple(rng, h * hd, d),
+          _triple(rng, d, dff), _triple(rng, dff, d, bias=False)]
+    rs = _t(rng.integers(0, hd, (b, t, h, mp * pl)).astype(np.int32))
+    ra = _t(rng.integers(0, mp * pl, (b, t, h, hd)).astype(np.int32))
+    head = [s, kp, vp, table, _t(np.asarray(pos, np.int32)), write]
+    want = KFD.fused_decode_layer_paged_kernel(*head, *ws, rs, ra, hd=hd)
+    got = KFD.fused_decode_layer_paged_kernel(
+        *(a.to(cuda) for a in head), *(_to(w, cuda) for w in ws),
+        rs.to(cuda), ra.to(cuda), hd=hd)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+def test_reduced_paged_serving_on_card_matches_cpu(cuda):
+    """The reduced spiking GPT served paged on the card (K9 on every step,
+    K7 under the unfused plan) gives the tokens of the plain versions on
+    the CPU, and of dense serving."""
+    cfg = reduced_config("xpikeformer-gpt-4-256")
+    shared = list(range(3, 20))
+    # the second shared prompt is admitted after the first published a page
+    prompts = [shared, [1, 2, 3, 4, 5, 6], shared[:-1] + [40], [9, 8, 7]]
+    outs = {}
+    for dev, backend in (("cpu", "integer"), ("cuda", "cuda")):
+        eng = XpikeformerEngine.from_config(cfg, backend=backend, device=dev)
+        eng.init(0)
+        for kernel in ("auto", "unfused"):
+            KB.reset_launches()
+            outs[dev, kernel], st = eng.serve(prompts, 5, slots=2,
+                                              cache_len=32, paged=True,
+                                              decode_kernel=kernel)
+            if dev == "cuda":
+                name = ("fused_decode_layer_paged" if kernel == "auto"
+                        else "ssa_decode_paged")
+                assert KB.LAUNCHES[name] == cfg.num_layers * st.decode_steps
+                assert st.prefix_hits > 0
+        outs[dev, "dense"], _ = eng.serve(prompts, 5, slots=2, cache_len=32)
+    assert len(set(map(str, outs.values()))) == 1

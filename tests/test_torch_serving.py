@@ -270,6 +270,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20 and files[-1].exists()
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/serving/pages.py",
+            "src/repro_torch/serving/state.py",
+            "src/repro_torch/kernels/decode_fused.py",
+            "src/repro_torch/kernels/ssa_attention.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -306,13 +311,22 @@ def test_kernel_operands_on_the_serving_path(setup, monkeypatch):
     monkeypatch.setattr(KFD, "fused_decode_layer_kernel", checked(
         KFD.fused_decode_layer_kernel,
         (f32, u8, u8, None, None, None, None, None, None, None, i32, i32)))
+    monkeypatch.setattr(KS, "ssa_decode_paged_kernel", checked(
+        KS.ssa_decode_paged_kernel, (u8, u8, u8, i32, i32, i32)))
+    monkeypatch.setattr(KFD, "fused_decode_layer_paged_kernel", checked(
+        KFD.fused_decode_layer_paged_kernel,
+        (f32, u8, u8, i32, None, None, None, None, None, None, None, None,
+         i32, i32)))
     cfg, tcfg, jparams, tparams = setup
-    sch = BatchScheduler(tparams, tcfg, "cuda", slots=2, cache_len=16,
-                         device="cpu")
-    sch.submit([1, 2, 3], 2, seed=1)
-    sch.run()
+    for paged, kernel in ((False, "auto"), (True, "auto"), (True, "unfused")):
+        sch = BatchScheduler(tparams, tcfg, "cuda", slots=2, cache_len=16,
+                             paged=paged, decode_kernel=kernel, device="cpu")
+        sch.submit([1, 2, 3], 2, seed=1)
+        sch.submit([1, 2, 3, 4, 5, 6, 7, 8, 9, 10], 2, seed=2)
+        sch.run()
     assert {"aimc_spiking_linear_kernel", "ssa_decode_kernel",
-            "fused_decode_layer_kernel"} <= set(seen)
+            "fused_decode_layer_kernel", "ssa_decode_paged_kernel",
+            "fused_decode_layer_paged_kernel"} <= set(seen)
 
 
 def test_evict_zeroes_the_slot(setup):
