@@ -36,13 +36,29 @@ Phases, each printing one JSON line:
    backend's paged tokens.  A paged run under the unfused plan on four of
    the requests must launch K7 once per layer and step and give the same
    tokens.
+5. **paper forward** -- the paper's spiking ViT ``xpikeformer-vit-4-384``
+   on a batch of 64 images of the ``synthetic_images`` twin, and its
+   spiking GPT ``xpikeformer-gpt-4-256`` on 64 ICL sequences of 37 tokens
+   of the ``icl_mimo`` twin (random weights from a seed), through
+   ``XpikeformerEngine.forward`` on the kernels and on the plain versions
+   (``IntegerBackend``) on the card, from the same params and key: the
+   logits must be bitwise equal and the labels equal, with K8 once and K1
+   six times per block; a reduced config (2 blocks) on the card must give
+   the CPU's labels and logits within 1e-4.  Then ``Backend.lif`` (K4) on
+   the ViT's widest pre-activation shape, equal to the plain version.
+
+The kernels phase also holds K8 ``ssa_attention`` at the ViT's tile
+(``G = 1,536``, ``N = D = 64``) and the GPT's causal tile (``G = 1,024``,
+``N = 37``), K4 ``lif`` at ``[4, 64*64*1536]``, and K1 at the ViT's rows
+(``M = 4,096``, and ``M = 65,536``, past ``gridDim.y``).
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
 exits non-zero and prints no result.  Without a CUDA device it exits 2.
 Each path's launch counts are read from a run that starts with every count
 at zero: K1-K3 from the dense serve, K9 from the paged serve, K7 from the
-unfused paged run.
+unfused paged run, K8 from the ViT forward, K4 from the ``Backend.lif``
+call.
 """
 
 from __future__ import annotations
@@ -61,6 +77,8 @@ ROOT = Path(__file__).resolve().parent
 ARCH = "xpikeformer-gpt-4-256"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor rate
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+PAPER = (("xpikeformer-vit-4-384", 64), ("xpikeformer-gpt-4-256", 64))
 REPS, BATCH, WARMUP = 9, 20, 5
 
 
@@ -111,13 +129,34 @@ def nbytes(*xs) -> int:
     return total
 
 
-def bound(n_bytes: int, n_ops: int):
+def bound(n_bytes: int, n_ops: int, ops_per_s: float = INT8_OPS_PER_S):
     """The least time for ``n_bytes`` of memory traffic and ``n_ops``
-    integer operations: ``(ms, what bounds it, bytes, ops)``."""
+    operations at ``ops_per_s`` (integer by default):
+    ``(ms, what bounds it, bytes, ops)``."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / INT8_OPS_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
     return (max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations", n_bytes, n_ops)
+
+
+def summary(r: dict) -> dict:
+    """A kernel result for a JSON line: its bound tuple spelled out."""
+    out = {k: v for k, v in r.items() if k != "bound"}
+    out["bound_ms"], out["bound_by"], out["bound_bytes"], out["bound_ops"] = \
+        r["bound"]
+    return out
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host-clock time of ``fn()`` to ``cuda.synchronize``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
 
 
 def max_abs_err(got, want) -> float:
@@ -370,6 +409,66 @@ def phase_kernels(dev):
         max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k9.values()),
         ms=time_ms(run), plain_ms=time_ms(plain),
         bound=bound(n_bytes, 2 * macs))
+
+    # K1 at the paper ViT's rows: B = 64 images x 64 patches, and B = 1,024
+    # (M = 65,536 rows, one past gridDim.y's limit: the grid-stride loop)
+    for m, label in ((4096, "vit_b64"), (65536, "rows_65536")):
+        x = torch.randint(0, 4, (4, m, 384), generator=gen).float().to(dev)
+        w = triple(gen, 384, 384, dev)
+        got = KA.aimc_spiking_linear_kernel(x, *w)
+        want = KREF.aimc_spiking_linear_ref(x, *w)
+        check(torch.equal(got, want), f"K1 at M={m} differs")
+        results[f"aimc_spiking_linear_{label}"] = dict(
+            shape=f"T=4, M={m}, 384->384 (a ViT-4-384 Q/K/V/O projection)",
+            max_abs_err=max_abs_err(got, want),
+            ms=time_ms(lambda x=x, w=w: KA.aimc_spiking_linear_kernel(x, *w)),
+            plain_ms=time_ms(lambda x=x, w=w: KREF.aimc_spiking_linear_ref(x, *w)),
+            bound=bound(nbytes(x, w, got), 2 * 4 * m * 384 * 384))
+        del x, got, want
+
+    # K8 at the ViT's tile (B = 64) and the paper GPT's causal one (B = 64,
+    # L = 37); the score draws a causal row needs are rs[i, :i+1]
+    k8 = {}
+    for name, (g, n, d, causal) in {"vit": (1536, 64, 64, False),
+                                    "gpt": (1024, 37, 64, True)}.items():
+        args = (spikes(gen, (g, n, d), 0.5, dev), spikes(gen, (g, n, d), 0.6, dev),
+                spikes(gen, (g, n, d), 0.4, dev),
+                torch.randint(0, d, (g, n, n), generator=gen,
+                              dtype=torch.int32).to(dev),
+                torch.randint(0, n, (g, n, d), generator=gen,
+                              dtype=torch.int32).to(dev))
+        run = lambda args=args, c=causal: KS.ssa_attention_kernel(*args, causal=c)
+        plain = lambda args=args, c=causal: KREF.ssa_attention_ref(*args, causal=c)
+        got, want = run(), plain()
+        check(torch.equal(got, want), f"K8 {name} tile differs")
+        pairs = n * (n + 1) // 2 if causal else n * n
+        k8[name] = dict(
+            shape=(f"G={g} (T=4 x B=64 x H={g // 256}), N={n}, D={d}, "
+                   + ("causal (paper GPT)" if causal else "non-causal (ViT)")),
+            max_abs_err=max_abs_err(got, want), ms=time_ms(run),
+            plain_ms=time_ms(plain),
+            bound=bound(nbytes(args[:3], args[4], got) + 4 * g * pairs,
+                        2 * 2 * g * pairs * d))
+    results["ssa_attention"] = k8["vit"]
+    results["ssa_attention_gpt"] = k8["gpt"]
+
+    # K4 at the ViT's widest pre-activation (the FFN's, B = 64): dyadic
+    # currents put membranes exactly on the threshold
+    from repro_torch.kernels import lif as KL
+
+    m = 64 * 64 * 1536
+    cur = (torch.randint(-4, 12, (4, m), generator=gen).float() / 8).to(dev)
+    got, want = KL.lif_kernel(cur), KREF.lif_ref(cur)
+    check(torch.equal(got, want), "K4 differs")
+    edge = (torch.randint(-4, 12, (3, 1001), generator=gen).float() / 8).to(dev)
+    check(torch.equal(KL.lif_kernel(edge, beta=0.25),
+                      KREF.lif_ref(edge, beta=0.25)), "K4 edge differs")
+    results["lif"] = dict(
+        shape=f"[4, {m}] (T x 64 images x 64 patches x d_ff=1536)",
+        max_abs_err=max_abs_err(got, want),
+        ms=time_ms(lambda: KL.lif_kernel(cur)),
+        plain_ms=time_ms(lambda: KREF.lif_ref(cur)),
+        bound=bound(nbytes(cur, got), 3 * 4 * m, FP32_OPS_PER_S))
     torch.cuda.synchronize()
     return results
 
@@ -499,8 +598,8 @@ def phase_serve(dev):
     # the reduced config: card (kernels) == CPU (plain versions)
     small = {}
     for d, backend in (("cpu", "integer"), (dev, "cuda")):
-        e = XpikeformerEngine.from_config(ARCH, reduced=True, backend=backend,
-                                          device=d)
+        e = XpikeformerEngine.from_config(ARCH, task="lm", reduced=True,
+                                          backend=backend, device=d)
         e.init(seed=3)
         small[str(d)], _ = e.serve(prompts[:3], 8, slots=2, cache_len=64)
     check(small["cpu"] == small[str(dev)], "reduced config: card != CPU")
@@ -610,6 +709,113 @@ def phase_paged(dev, eng):
     return launches, ulaunches, served, outs
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the paper models' forward
+# ---------------------------------------------------------------------------
+
+
+def paper_inputs(task: str, cfg, batch: int, dev):
+    from repro_torch.data import icl_mimo as MIMO
+    from repro_torch.data import synthetic_images as SI
+
+    if task == "vit":
+        return SI.sample_batch(17, SI.ImageConfig(size=cfg.image_size),
+                               batch, dev)["images"], None
+    data = MIMO.sample_batch(17, MIMO.MIMOConfig(), batch, dev)
+    return data["features"], data
+
+
+def phase_paper(dev):
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.data import icl_mimo as MIMO
+    from repro_torch.engine import XpikeformerEngine, get_backend
+    from repro_torch.kernels import build as KB
+
+    out, launches = {}, {}
+    key = prng.PRNGKey(42, dev)
+    for name, batch in PAPER:
+        eng = XpikeformerEngine.from_config(name, backend="cuda", device=dev)
+        cfg, task = eng.cfg, eng.task
+        eng.init(seed=0)
+        x, data = paper_inputs(task, cfg, batch, dev)
+        plain = XpikeformerEngine(cfg=cfg, backend=get_backend("integer"),
+                                  device=eng.device, params=eng.params,
+                                  task=task)
+        eng.forward(x, key)  # warm-up: first cuBLAS/allocator calls
+        KB.reset_launches()
+        logits = eng.forward(x, key)
+        torch.cuda.synchronize()
+        got = dict(KB.LAUNCHES)
+        launches[name] = got
+        check(got["ssa_attention"] == cfg.depth,
+              f"{name}: K8 launches {got['ssa_attention']} != {cfg.depth} blocks")
+        check(got["aimc_spiking_linear"] == 6 * cfg.depth,
+              f"{name}: K1 launches {got['aimc_spiking_linear']} != 6 x "
+              f"{cfg.depth} blocks")
+        others = {k: v for k, v in got.items()
+                  if v and k not in ("ssa_attention", "aimc_spiking_linear")}
+        check(not others, f"{name}: the forward launched {others}")
+        want_shape = ((batch, cfg.num_classes) if task == "vit"
+                      else (batch, x.shape[1], cfg.vocab))
+        check(tuple(logits.shape) == want_shape, f"{name}: logits shape")
+        check(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
+        plogits = plain.forward(x, key)
+        check(torch.equal(logits, plogits),
+              f"{name}: kernel and plain logits differ")
+        label = "classify" if task == "vit" else "detect_symbols"
+        labels = getattr(eng, label)(x, key)
+        check(torch.equal(labels, getattr(plain, label)(x, key)),
+              f"{name}: kernel and plain labels differ")
+        check(torch.equal(labels, logits.argmax(-1)), f"{name}: labels")
+        ms = wall_ms(lambda: eng.forward(x, key), 5)
+        r = dict(task=task, batch=batch, depth=cfg.depth, dim=cfg.dim,
+                 heads=cfg.num_heads, tokens=x.shape[1] if task == "gpt"
+                 else cfg.num_patches, T=cfg.T, logits_shape=list(want_shape),
+                 logits_bitwise_equal=True, forward_ms=ms,
+                 per_s=batch / ms * 1e3,
+                 plain_forward_ms=wall_ms(lambda: plain.forward(x, key), 3),
+                 launches_per_forward={k: v for k, v in got.items() if v},
+                 labels_head=labels.reshape(-1)[:8].tolist(),
+                 profile_forward=profile_window(lambda: eng.forward(x, key)))
+        if data is not None:
+            r["ber"] = float(MIMO.ber(logits, data["labels"], data["mask"],
+                                      MIMO.MIMOConfig()))
+        # a small input against the CPU: 2 blocks of the smoke config
+        scfg = dataclasses.replace(
+            XpikeformerEngine.from_config(f"xpikeformer-{task}-smoke",
+                                          device="cpu").cfg, depth=2)
+        small = {}
+        for d, backend in (("cpu", "integer"), (dev, "cuda")):
+            e = XpikeformerEngine.from_config(scfg, backend=backend, device=d)
+            e.init(seed=3)
+            sx, _ = paper_inputs(task, scfg, 4, "cpu")
+            small[str(d)] = e.forward(sx, prng.PRNGKey(9)).cpu()
+        check(torch.allclose(small["cpu"], small[str(dev)], rtol=0, atol=1e-4)
+              and torch.equal(small["cpu"].argmax(-1),
+                              small[str(dev)].argmax(-1)),
+              f"{name}: the reduced config on the card != the CPU")
+        r["reduced_config_matches_cpu"] = True
+        out[name] = r
+        if task == "vit":
+            vit = eng
+
+    # K4's path: Backend.lif at the ViT's widest pre-activation shape
+    cur = (torch.randint(-4, 12, (4, 64, 64, 1536),
+                         generator=torch.Generator().manual_seed(5)).float()
+           / 8).to(dev)
+    KB.reset_launches()
+    s = vit.backend.lif(cur)
+    torch.cuda.synchronize()
+    launches["lif"] = KB.LAUNCHES["lif"]
+    check(launches["lif"] == 1, "Backend.lif did not launch K4 once")
+    check(torch.equal(s, get_backend("integer").lif(cur)),
+          "Backend.lif: kernel and plain spikes differ")
+    out["lif_path"] = dict(shape=list(cur.shape), launches=launches["lif"])
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -634,8 +840,7 @@ def main() -> int:
     kres = phase_kernels(dev)
     emit({"phase": "kernels", "card": card, "exact": True,
           "seconds": time.perf_counter() - t0,
-          **{k: {kk: vv for kk, vv in v.items() if kk != "bound"}
-             for k, v in kres.items()}})
+          **{k: summary(v) for k, v in kres.items()}})
 
     t0 = time.perf_counter()
     eng, launches, served, outs = phase_serve(dev)
@@ -651,9 +856,16 @@ def main() -> int:
           "seconds": time.perf_counter() - t0, **pserved,
           "launches": plaunches, "unfused_launches": ulaunches,
           "first_tokens": pouts[0][:8]})
+
+    t0 = time.perf_counter()
+    paper, flaunches = phase_paper(dev)
+    emit({"phase": "paper_forward", "card": card,
+          "seconds": time.perf_counter() - t0, **paper})
     # each kernel's launches on its own path
     launches["fused_decode_layer_paged"] = plaunches["fused_decode_layer_paged"]
     launches["ssa_decode_paged"] = ulaunches["ssa_decode_paged"]
+    launches["ssa_attention"] = flaunches[PAPER[0][0]]["ssa_attention"]
+    launches["lif"] = flaunches["lif"]
 
     meta = {
         "aimc_spiking_linear": ("src/repro_torch/kernels/csrc/aimc_matmul.cu",
@@ -667,6 +879,10 @@ def main() -> int:
         "fused_decode_layer_paged": (
             "src/repro_torch/kernels/csrc/decode_fused.cu",
             "src/repro/kernels/decode_fused.py:491"),
+        "ssa_attention": ("src/repro_torch/kernels/csrc/ssa_attention.cu",
+                          "src/repro/kernels/ssa_attention.py:237"),
+        "lif": ("src/repro_torch/kernels/csrc/lif.cu",
+                "src/repro/kernels/lif.py:54"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

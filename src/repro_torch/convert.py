@@ -1,9 +1,11 @@
 """Parameters from the reference package, through numpy.
 
-The reference's parameter tree is nested dicts of arrays, ``periods``
-leaves stacked over a leading period axis.  :func:`params_from_numpy`
-keeps that layout (which :mod:`repro_torch.models.transformer` reads);
-:func:`layer_params` unstacks one layer.  Callers convert JAX arrays with
+The reference's parameter trees are nested dicts (and, for the paper
+models, a ``"blocks"`` list) of arrays; on the LM stack ``periods`` leaves
+are stacked over a leading period axis.  :func:`params_from_numpy` keeps
+that layout (which :mod:`repro_torch.models.transformer` and
+:mod:`repro_torch.core.spiking_transformer` read); :func:`layer_params`
+unstacks one layer.  Callers convert JAX arrays with
 ``jax.tree.map(numpy.asarray, params)`` first, so this module needs no
 JAX.
 """
@@ -17,9 +19,12 @@ import torch
 
 
 def params_from_numpy(tree: Any, device: Union[str, torch.device] = "cpu") -> Any:
-    """Nested dicts of numpy arrays -> the same dicts of torch tensors."""
+    """Nested dicts and lists of numpy arrays -> the same tree of torch
+    tensors."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device) for v in tree]
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
 
 

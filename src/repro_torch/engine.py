@@ -1,21 +1,25 @@
-"""The port's engine: the Backend surface of the serving path, two backends,
-and a thin engine facade.
+"""The port's engine: the Backend surface, two backends, and the engine
+facade.
 
-Twins of ``repro.engine``, restricted to what spiking serving (dense and
-block-paged) calls:
+Twins of ``repro.engine``, restricted to what the ported paths call:
 
-* :class:`Backend` -- ``spiking_linear``, ``decode_attention`` and
-  ``decode_layer_fused``;
+* :class:`Backend` -- ``spiking_linear``, ``ssa_attention`` and ``lif``
+  (the paper models' primitives), ``decode_attention`` and
+  ``decode_layer_fused`` (serving);
 * ``"integer"`` (:class:`IntegerBackend`) -- the plain PyTorch versions
   (``kernels/ref.py``), mirroring ``repro.engine.IntegerBackend``: the
   bit-exact oracle;
 * ``"cuda"`` (:class:`CudaBackend`) -- the hand-written Hopper kernels
-  (K1 spiking linear, K2/K7 SSA decode row, K3/K9 fused layer),
-  mirroring ``repro.engine.PallasBackend``.  Every wrapper runs its plain
-  version on CPU tensors and its kernel on CUDA tensors, so this backend
-  serves on either device and is bit-identical to ``"integer"``;
-* :class:`XpikeformerEngine` -- ``from_config(name, task="lm")``,
-  ``init``, ``serve`` and ``generate`` over the dense or paged scheduler.
+  (K1 spiking linear, K8 SSA tile, K4 LIF, K2/K7 SSA decode row, K3/K9
+  fused layer), mirroring ``repro.engine.PallasBackend``.  Every wrapper
+  runs its plain version on CPU tensors and its kernel on CUDA tensors,
+  so this backend runs on either device and is bit-identical to
+  ``"integer"``;
+* :class:`XpikeformerEngine` -- ``from_config`` (the paper's spiking ViT
+  and GPT of ``SPIKING_ARCHS`` first, then the LM-stack registry, as the
+  reference resolves names), ``init``, ``forward``, ``classify``,
+  ``detect_symbols`` (tasks ``"vit"``/``"gpt"``), ``serve`` and
+  ``generate`` over the dense or paged scheduler (task ``"lm"``).
 
 A linear param leaf is a float weight ``[d_in, d_out]``, a ``{"w", "b"}``
 dict, or a pre-quantised ``{"levels", "scale", "b"}`` dict (what
@@ -41,12 +45,23 @@ Tensor = torch.Tensor
 
 
 class Backend(Protocol):
-    """A compute substrate for the spiking primitives of serving."""
+    """A compute substrate for the spiking primitives."""
 
     name: str
 
     def spiking_linear(self, p: Any, spikes: Tensor) -> Tensor:
         """``LIF(W s^t + b)`` over a ``[T, ..., d_in]`` spike train."""
+        ...
+
+    def ssa_attention(self, key: Tensor, q: Tensor, k: Tensor, v: Tensor, *,
+                      causal: bool = False) -> Tensor:
+        """Stochastic spiking attention over ``[T,B,H,N,d]`` spike trains,
+        comparator integers drawn from ``key``."""
+        ...
+
+    def lif(self, currents: Tensor, *, beta: float = 0.5,
+            v_thresh: float = 1.0) -> Tensor:
+        """The LIF neuron over a ``[T, ...]`` current sequence."""
         ...
 
     def decode_attention(self, view: KVView, q: Tensor, spec: AttnSpec, *,
@@ -106,6 +121,20 @@ class IntegerBackend:
 
     name = "integer"
 
+    def ssa_attention(self, key, q, k, v, *, causal=False):
+        t, b, h, n, d = q.shape
+        g = t * b * h
+        rs, ra = KOPS.draw_comparator_prns(key, (g, n, n), (g, n, d), d, n)
+        out = KREF.ssa_attention_ref(q.reshape(g, n, d), k.reshape(g, n, d),
+                                     v.reshape(g, n, d), rs, ra, causal=causal)
+        return out.reshape(t, b, h, n, d)
+
+    def lif(self, currents, *, beta=0.5, v_thresh=1.0):
+        t = currents.shape[0]
+        flat = currents.to(torch.float32).reshape(t, -1)
+        out = KREF.lif_ref(flat, beta=beta, v_thresh=v_thresh)
+        return out.reshape(currents.shape)
+
     def decode_attention(self, view, q, spec, *, slot_keys):
         t, b, h, _, d = q.shape
         if view.paged:
@@ -153,12 +182,19 @@ class IntegerBackend:
 
 
 class CudaBackend:
-    """The hand-written Hopper kernels: K1 (spiking linear), K2/K7 (SSA
-    decode row, dense/paged), K3/K9 (fused decoder layer, dense/paged).
-    A paged view goes to the paged kernels, which read the pools through
-    the page table.  Bit-exact vs :class:`IntegerBackend`."""
+    """The hand-written Hopper kernels: K1 (spiking linear), K8 (SSA tile),
+    K4 (LIF), K2/K7 (SSA decode row, dense/paged), K3/K9 (fused decoder
+    layer, dense/paged).  A paged view goes to the paged kernels, which
+    read the pools through the page table.  Bit-exact vs
+    :class:`IntegerBackend`."""
 
     name = "cuda"
+
+    def ssa_attention(self, key, q, k, v, *, causal=False):
+        return KOPS.ssa_attention_packed(q, k, v, key, causal=causal)
+
+    def lif(self, currents, *, beta=0.5, v_thresh=1.0):
+        return KOPS.lif_fused(currents, beta=beta, v_thresh=v_thresh)
 
     def decode_attention(self, view, q, spec, *, slot_keys):
         if view.paged:
@@ -203,44 +239,125 @@ def get_backend(spec: Union[str, Backend, None]) -> Backend:
     return spec
 
 
+_A8 = "ROADMAP A8 (programmed PCM lifecycle and energy)"
+
+
 @dataclasses.dataclass
 class XpikeformerEngine:
-    """One handle over a spiking GPT on the LM stack: config, backend,
-    device and params, with continuous-batching :meth:`serve`."""
+    """One handle over a model of the paper: the spiking ViT (``task=
+    "vit"``) or GPT (``"gpt"``) of ``SPIKING_ARCHS``, run by
+    :meth:`forward`, or a spiking GPT on the LM stack (``"lm"``), served
+    by :meth:`serve`.  Holds config, backend, device and params."""
 
-    cfg: Any
+    cfg: Any  # SpikingConfig (vit, gpt) or ModelConfig (lm)
     backend: Backend
     device: torch.device
     params: Any = None
+    task: str = "lm"  # vit | gpt | lm
     _schedulers: Dict[Any, Any] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
     @classmethod
-    def from_config(cls, name_or_cfg, *, task: str = "lm",
+    def from_config(cls, name_or_cfg, *, task: Optional[str] = None,
                     backend: Union[str, Backend] = "cuda",
-                    reduced: bool = False,
+                    wmode: str = "ideal", reduced: bool = False,
                     device: Union[str, torch.device] = "cuda"
                     ) -> "XpikeformerEngine":
-        """Build from a registered spiking GPT name (``reduced=True`` for
-        the CPU smoke size) or a :class:`~repro_torch.configs.ModelConfig`.
-        Only ``task="lm"`` is ported."""
-        from repro_torch.configs import get_config, reduced_config
+        """Build from an arch name or a config, resolved as the reference
+        resolves it: a name of ``SPIKING_ARCHS`` is the paper model unless
+        ``task="lm"``, else a name of the LM-stack registry (``reduced=True``
+        for its CPU smoke size); a :class:`ModelConfig` is ``"lm"`` and a
+        :class:`SpikingConfig` is ``"gpt"`` when it has ``input_dim``, else
+        ``"vit"``.  Only ``wmode="ideal"`` is ported."""
+        from repro_torch.configs import ModelConfig, registry
+        from repro_torch.configs.xpikeformer import SPIKING_ARCHS
+        from repro_torch.core import spiking_transformer as ST
 
-        if task != "lm":
-            raise NotImplementedError(f"task {task!r} is not ported yet")
         if isinstance(name_or_cfg, str):
-            cfg = reduced_config(name_or_cfg) if reduced else get_config(name_or_cfg)
+            if name_or_cfg in SPIKING_ARCHS and task != "lm":
+                task_, cfg = SPIKING_ARCHS[name_or_cfg]
+                task = task or task_
+            elif name_or_cfg in registry.ARCHS:
+                cfg = (registry.reduced_config(name_or_cfg) if reduced
+                       else registry.get_config(name_or_cfg))
+                task = task or "lm"
+            else:
+                raise KeyError(
+                    f"unknown engine arch {name_or_cfg!r}; known: "
+                    f"{sorted(SPIKING_ARCHS)} + registry {sorted(registry.ARCHS)}")
+        elif isinstance(name_or_cfg, ModelConfig):
+            cfg = name_or_cfg
+            task = task or "lm"
         else:
             cfg = name_or_cfg
+            task = task or ("gpt" if cfg.input_dim > 0 else "vit")
+        if task in ("vit", "gpt"):
+            ST.check_ported(cfg, wmode)
+        elif wmode != "ideal":
+            raise NotImplementedError(
+                f"wmode={wmode!r} is not ported yet: {_A8}")
         return cls(cfg=cfg, backend=get_backend(backend),
-                   device=resolve_device(device))
+                   device=resolve_device(device), task=task)
 
     def init(self, seed: int = 0):
         """Random weights from ``seed`` (``torch.Generator``)."""
-        from repro_torch.models import transformer as T
+        if self.task == "lm":
+            from repro_torch.models import transformer as T
 
-        self.params = T.init_params(self.cfg, seed, self.device)
+            self.params = T.init_params(self.cfg, seed, self.device)
+        else:
+            from repro_torch.core import spiking_transformer as ST
+
+            init = ST.init_vit if self.task == "vit" else ST.init_gpt
+            self.params = init(self.cfg, seed, self.device)
         return self.params
+
+    def program(self, *args, **kwargs):
+        raise NotImplementedError(f"engine.program() is not ported yet: {_A8}")
+
+    def drift_to(self, *args, **kwargs):
+        raise NotImplementedError(f"engine.drift_to() is not ported yet: {_A8}")
+
+    def recalibrate(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"engine.recalibrate() is not ported yet: {_A8}")
+
+    def forward(self, x: Tensor, rng: Tensor, params: Any = None, *,
+                metering: bool = False) -> Tensor:
+        """Images ``[B,H,W,C]`` -> class logits ``[B, classes]`` (vit), or
+        feature sequences ``[B,L,input_dim]`` -> per-token symbol logits
+        ``[B,L,vocab]`` (gpt).  ``rng`` is a key of the threefry twin
+        (:func:`repro_torch.prng.PRNGKey`): the same key draws the
+        reference's spikes."""
+        from repro_torch.core import spiking_transformer as ST
+
+        if metering:
+            raise NotImplementedError(
+                f"forward(metering=True) is not ported yet: {_A8}")
+        if self.task == "lm":
+            raise NotImplementedError(
+                "forward() of the LM stack (task='lm') is not ported yet: "
+                "ROADMAP, the LM-stack full forward slice")
+        params = self.params if params is None else params
+        if params is None:
+            raise ValueError("call init() first or pass params")
+        fwd = ST.vit_forward if self.task == "vit" else ST.gpt_forward
+        return fwd(params, x.to(self.device, torch.float32), self.cfg,
+                   rng.to(self.device), backend=self.backend)
+
+    def classify(self, images: Tensor, rng: Tensor, params: Any = None
+                 ) -> Tensor:
+        """``[B,H,W,C]`` images -> ``[B]`` predicted class labels."""
+        if self.task != "vit":
+            raise ValueError("classify() is the ViT task")
+        return torch.argmax(self.forward(images, rng, params), dim=-1)
+
+    def detect_symbols(self, feats: Tensor, rng: Tensor, params: Any = None
+                       ) -> Tensor:
+        """``[B,L,feat]`` received-signal features -> ``[B,L]`` symbols."""
+        if self.task != "gpt":
+            raise ValueError("detect_symbols() is the GPT / ICL task")
+        return torch.argmax(self.forward(feats, rng, params), dim=-1)
 
     def scheduler(self, *, slots: int = 4, cache_len: int = 64,
                   decode_kernel: str = "auto", paged: bool = False,
@@ -250,6 +367,8 @@ class XpikeformerEngine:
         ``page_len`` tokens; cached per geometry and reset on reuse."""
         from repro_torch.serving import BatchScheduler
 
+        if self.task != "lm":
+            raise ValueError("serving drives the LM stack (task='lm')")
         if self.params is None:
             raise ValueError("call init() first or set params")
         key = (slots, cache_len, decode_kernel, paged) + (

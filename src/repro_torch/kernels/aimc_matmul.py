@@ -48,6 +48,8 @@ def aimc_spiking_linear_kernel(spikes: Tensor, w_levels: Tensor,
     KB.check_cuda(scale, torch.float32, (d_out,), "scale")
     KB.check_cuda(bias, torch.float32, (d_out,), "bias")
     out = torch.empty((t, m, d_out), dtype=torch.uint8, device=spikes.device)
+    if t == 0 or m == 0:
+        return out
     fn = _lib()
     err = fn(spikes.data_ptr(), w_levels.data_ptr(), scale.data_ptr(),
              bias.data_ptr(), out.data_ptr(), t, m, d_in, d_out, beta,

@@ -29,14 +29,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("aimc_matmul", "ssa_attention", "decode_fused")
+SOURCES = ("aimc_matmul", "ssa_attention", "decode_fused", "lif")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {
     "aimc_spiking_linear": 0, "ssa_decode": 0, "fused_decode_layer": 0,
-    "ssa_decode_paged": 0, "fused_decode_layer_paged": 0}
+    "ssa_decode_paged": 0, "fused_decode_layer_paged": 0,
+    "ssa_attention": 0, "lif": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}  # source -> nvcc's stderr (ptxas resources)

@@ -17,12 +17,16 @@
 // registers, and runs the T-step membrane in registers -- the pre-activations
 // never reach device memory, as on the crossbar.  Counts are exact, so the
 // order of accumulation is free; the epilogue is the rounded scale, bias and
-// membrane of common.cuh.
+// membrane of common.cuh.  Rows beyond gridDim.y (at most 65,535) are taken
+// by a grid-stride loop, so any M launches (a ViT batch of 1,024 images x 64
+// patches is M = 65,536); a block then re-reads its weight columns, from L2,
+// for every row it takes.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kCols = 128;
+constexpr int kMaxGridY = 65535;  // the hardware's limit on gridDim.y
 
 __global__ void aimc_spiking_linear_kernel(const float* __restrict__ spikes,
                                            const int8_t* __restrict__ levels,
@@ -32,25 +36,28 @@ __global__ void aimc_spiking_linear_kernel(const float* __restrict__ spikes,
                                            int M, int din, int dout,
                                            float beta, float vth) {
   extern __shared__ int xs[];  // [T][din]
-  const int m = blockIdx.y;
-  for (int idx = threadIdx.x; idx < T * din; idx += blockDim.x) {
-    const int t = idx / din, i = idx - t * din;
-    xs[idx] = __float2int_rn(spikes[(static_cast<size_t>(t) * M + m) * din + i]);
-  }
-  __syncthreads();
   const int o = blockIdx.x * kCols + threadIdx.x;
-  if (o >= dout) return;
-  int acc[XPK_MAX_T];
+  for (int m = blockIdx.y; m < M; m += gridDim.y) {
+    __syncthreads();  // the previous row's reads of xs are done
+    for (int idx = threadIdx.x; idx < T * din; idx += blockDim.x) {
+      const int t = idx / din, i = idx - t * din;
+      xs[idx] = __float2int_rn(spikes[(static_cast<size_t>(t) * M + m) * din + i]);
+    }
+    __syncthreads();
+    if (o >= dout) continue;
+    int acc[XPK_MAX_T];
 #pragma unroll
-  for (int t = 0; t < XPK_MAX_T; ++t) acc[t] = 0;
-  for (int i = 0; i < din; ++i) {
-    const int w = levels[static_cast<size_t>(i) * dout + o];
+    for (int t = 0; t < XPK_MAX_T; ++t) acc[t] = 0;
+    for (int i = 0; i < din; ++i) {
+      const int w = levels[static_cast<size_t>(i) * dout + o];
 #pragma unroll
-    for (int t = 0; t < XPK_MAX_T; ++t)
-      if (t < T) acc[t] += xs[t * din + i] * w;
+      for (int t = 0; t < XPK_MAX_T; ++t)
+        if (t < T) acc[t] += xs[t * din + i] * w;
+    }
+    xpk_lif_epilogue(acc, T, scale[o], bias[o], beta, vth,
+                     out + static_cast<size_t>(m) * dout + o,
+                     static_cast<size_t>(M) * dout);
   }
-  xpk_lif_epilogue(acc, T, scale[o], bias[o], beta, vth,
-                   out + static_cast<size_t>(m) * dout + o, M * dout);
 }
 
 }  // namespace
@@ -65,7 +72,7 @@ extern "C" int launch_aimc_spiking_linear(const float* spikes,
   const size_t smem = static_cast<size_t>(T) * din * sizeof(int);
   int err = xpk_set_smem(reinterpret_cast<const void*>(aimc_spiking_linear_kernel), smem);
   if (err) return err;
-  dim3 grid((dout + kCols - 1) / kCols, M);
+  dim3 grid((dout + kCols - 1) / kCols, M < kMaxGridY ? M : kMaxGridY);
   aimc_spiking_linear_kernel<<<grid, kCols, smem,
                                static_cast<cudaStream_t>(stream)>>>(
       spikes, levels, scale, bias, out, T, M, din, dout, beta, vth);

@@ -37,21 +37,27 @@ __device__ __forceinline__ uint32_t xpk_pack32(const uint8_t* p, int n) {
   return w;
 }
 
-// One LIF step per timestep over exact integer counts:
-//   pre = round(round(count * scale) + bias); v = round(beta * v + pre);
-//   spike = v >= v_thresh; v = v * (1 - spike).
+// One LIF step: v = round(round(beta * v) + cur); spike = v >= v_thresh;
+// v = v * (1 - spike) (reset to zero).  Returns the spike.
+__device__ __forceinline__ uint8_t xpk_lif_step(float& v, float cur,
+                                                float beta, float vth) {
+  v = __fadd_rn(__fmul_rn(beta, v), cur);
+  const float s = v >= vth ? 1.f : 0.f;
+  v = __fmul_rn(v, 1.f - s);
+  return static_cast<uint8_t>(s);
+}
+
+// The LIF over T timesteps of exact integer counts, with the current
+//   pre = round(round(count * scale) + bias).
 __device__ __forceinline__ void xpk_lif_epilogue(
     const int* acc, int T, float scale, float bias, float beta, float vth,
-    uint8_t* out, int stride) {
+    uint8_t* out, size_t stride) {
   float v = 0.f;
 #pragma unroll
   for (int t = 0; t < XPK_MAX_T; ++t) {
     if (t < T) {
       const float pre = __fadd_rn(__fmul_rn(static_cast<float>(acc[t]), scale), bias);
-      v = __fadd_rn(__fmul_rn(beta, v), pre);
-      const float s = v >= vth ? 1.f : 0.f;
-      out[t * stride] = static_cast<uint8_t>(s);
-      v = __fmul_rn(v, 1.f - s);
+      out[t * stride] = xpk_lif_step(v, pre, beta, vth);
     }
   }
 }

@@ -1,5 +1,6 @@
 // K2 and K7: one stochastic-spiking-attention query row against a cached KV
-// train, dense (K2) or block-paged (K7).
+// train, dense (K2) or block-paged (K7).  K8 (at the end of this file): the
+// full N x N tile of a whole sequence.
 //
 // K2 replaces the TPU kernel repro/kernels/ssa_attention.py:ssa_decode_kernel
 // (pallas_call at :120, body _ssa_decode_body at :80); K7 replaces
@@ -81,6 +82,102 @@ ssa_decode_paged_kernel(const uint8_t* __restrict__ q,
   ssa_row(rows, q + g * D, rs + g * L, ra + g * D, out + g * D, L, D, qw, sbits);
 }
 
+// ---------------------------------------------------------------------------
+// K8: the full SSA tile of a sequence
+// ---------------------------------------------------------------------------
+//
+// Replaces the TPU kernel repro/kernels/ssa_attention.py:ssa_attention_kernel
+// (pallas_call at :237, body _ssa_kernel at :51).
+//
+// Per tile g = (t, b, h), row-major over [T, B, H], with binary q, k, v
+// [N, D] (one byte per spike) and int32 draws rs [N, N] in [0, D), ra [N, D]
+// in [0, N):
+//   s_ij = popcount(q_i & k_j) > rs[i, j]   (causal: s_ij = 0 for j > i)
+//   a_id = popcount(s_i & v[:, d]) > ra[i, d]
+// q, k, v, rs, ra [G, ...] -> out uint8 [G, N, D]; N, D <= 512.
+//
+// Bound on the card: bytes.  The int32 draws are 4 (N*N + N*D) bytes of a
+// tile against 4 N*D bytes of spikes in and out (at the ViT's N = D = 64,
+// two thirds of the traffic), and a tile does 2 N*N*ceil(D/32) + 2 N*D*
+// ceil(N/32) AND-popcounts of 32 lanes on them: a few operations a byte.
+// Design: one block per tile (the ViT's G = T*B*H is 1,536 at B = 64).  The
+// block packs its tile into shared memory once: Q and K along D (a thread
+// packs 32 consecutive bytes of a row, 16-byte loads when aligned) and V
+// along the sequence (a thread packs one column over 32 rows; neighbouring
+// threads read neighbouring bytes).  Then each warp takes query rows in turn:
+// its lanes score 32 keys at once (one popcount per word of D, the draw read
+// coalesced along j), a ballot packs the 32 score spikes into a word, and the
+// lanes then take the output columns: one popcount per word of the sequence
+// against the packed V column, the draw and the spike coalesced along d.
+// Lanes past N or D read nothing and count zero, which is the reference's
+// 32-lane zero padding (a zero count never beats a draw), so the draws are
+// read at their logical shapes.  Counts are exact integers.
+
+constexpr int kTileThreads = 256;
+
+__global__ void __launch_bounds__(kTileThreads)
+ssa_attention_kernel(const uint8_t* __restrict__ q,
+                     const uint8_t* __restrict__ k,
+                     const uint8_t* __restrict__ v, const int* __restrict__ rs,
+                     const int* __restrict__ ra, uint8_t* __restrict__ out,
+                     int N, int D, int causal) {
+  extern __shared__ uint32_t tile[];
+  const int wd = (D + 31) / 32, wn = (N + 31) / 32;
+  uint32_t* qw = tile;          // [N][wd]: row i's words are a broadcast
+  uint32_t* kw = qw + N * wd;   // [wd][N]: lanes read consecutive keys j
+  uint32_t* vw = kw + wd * N;   // [wn][D]: lanes read consecutive columns d
+  uint32_t* sw = vw + wn * D;   // [warps][wn]: one row's score spikes a warp
+  const size_t g = blockIdx.x, nd = static_cast<size_t>(N) * D;
+  const uint8_t* qg = q + g * nd;
+  const uint8_t* kg = k + g * nd;
+  const uint8_t* vg = v + g * nd;
+
+  for (int idx = threadIdx.x; idx < N * wd; idx += blockDim.x) {
+    const int r = idx / wd, w = idx - r * wd;
+    const size_t off = static_cast<size_t>(r) * D + 32 * w;
+    qw[idx] = xpk_pack32(qg + off, D - 32 * w);
+    kw[w * N + r] = xpk_pack32(kg + off, D - 32 * w);
+  }
+  for (int idx = threadIdx.x; idx < wn * D; idx += blockDim.x) {
+    const int w = idx / D, d = idx - w * D;
+    const int rows = min(32, N - 32 * w);
+    const uint8_t* col = vg + static_cast<size_t>(32 * w) * D + d;
+    uint32_t word = 0;
+    for (int jj = 0; jj < rows; ++jj)
+      word |= static_cast<uint32_t>(col[static_cast<size_t>(jj) * D] & 1u) << jj;
+    vw[idx] = word;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* srow = sw + warp * wn;
+  for (int i = warp; i < N; i += kTileThreads / 32) {
+    const int jend = causal ? i + 1 : N;
+    const uint32_t* qi = qw + i * wd;
+    const int* rsi = rs + (g * N + i) * N;
+    for (int w = 0; w < wn; ++w) {
+      const int j = 32 * w + lane;
+      bool spike = false;
+      if (j < jend) {
+        int cnt = 0;
+        for (int x = 0; x < wd; ++x) cnt += __popc(qi[x] & kw[x * N + j]);
+        spike = cnt > __ldg(rsi + j);
+      }
+      const uint32_t word = __ballot_sync(0xffffffffu, spike);
+      if (lane == 0) srow[w] = word;
+    }
+    __syncwarp();
+    const int* rai = ra + (g * N + i) * D;
+    uint8_t* oi = out + (g * N + i) * D;
+    for (int d = lane; d < D; d += 32) {
+      int cnt = 0;
+      for (int w = 0; w < wn; ++w) cnt += __popc(srow[w] & vw[w * D + d]);
+      oi[d] = cnt > __ldg(rai + d) ? 1 : 0;
+    }
+    __syncwarp();  // srow is rewritten by this warp's next row
+  }
+}
+
 }  // namespace
 
 extern "C" int launch_ssa_decode(const uint8_t* q, const uint8_t* k,
@@ -109,5 +206,22 @@ extern "C" int launch_ssa_decode_paged(const uint8_t* q, const uint8_t* kpool,
   ssa_decode_paged_kernel<<<B * T * H, kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       q, kpool, vpool, table, rs, ra, out, T, H, KV, page_len, MP, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int launch_ssa_attention(const uint8_t* q, const uint8_t* k,
+                                    const uint8_t* v, const int* rs,
+                                    const int* ra, uint8_t* out, int G, int N,
+                                    int D, int causal, void* stream) {
+  const int wd = (D + 31) / 32, wn = (N + 31) / 32;
+  const size_t smem = sizeof(uint32_t) *
+      (2 * static_cast<size_t>(N) * wd + static_cast<size_t>(wn) * D +
+       (kTileThreads / 32) * static_cast<size_t>(wn));
+  int err = xpk_set_smem(reinterpret_cast<const void*>(ssa_attention_kernel),
+                         smem);
+  if (err) return err;
+  ssa_attention_kernel<<<G, kTileThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, rs, ra, out, N, D, causal);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import aimc_matmul as KA
+from repro_torch.kernels import lif as KL
 from repro_torch.kernels import ref as KREF
 from repro_torch.kernels import ssa_attention as KS
 
@@ -54,6 +55,35 @@ def draw_comparator_prns(key: Tensor, shape_s: Tuple[int, ...],
     rs = prng.randint(k[..., 0, :], shape_s, 0, d)
     ra = prng.randint(k[..., 1, :], shape_a, 0, n)
     return rs, ra
+
+
+def ssa_attention_packed(q: Tensor, k: Tensor, v: Tensor, key: Tensor, *,
+                         causal: bool = False) -> Tensor:
+    """Full-sequence SSA over ``q``/``k``/``v [T,B,H,N,D]`` spike trains ->
+    uint8 ``[T,B,H,N,D]``.
+
+    The comparator integers ``rs [G,N,N] ~ U{0..D-1}`` and ``ra [G,N,D] ~
+    U{0..N-1}`` are drawn from ``key`` at the logical shapes, with the
+    tiles flattened ``G = (t, b, h)`` in that order, as the reference's
+    wrapper draws them (``ops.py:83``); the kernel runs one block per
+    tile and pads nothing."""
+    t, b, h, n, d = q.shape
+    g = t * b * h
+    rs, ra = draw_comparator_prns(key, (g, n, n), (g, n, d), d, n)
+    qf, kf, vf = (x.reshape(g, n, d).to(torch.uint8).contiguous()
+                  for x in (q, k, v))
+    out = KS.ssa_attention_kernel(qf, kf, vf, rs, ra, causal=causal)
+    return out.reshape(t, b, h, n, d)
+
+
+def lif_fused(currents: Tensor, *, beta: float = 0.5, v_thresh: float = 1.0
+              ) -> Tensor:
+    """The LIF neuron over ``[T, ...]`` currents -> uint8 spikes of the
+    same shape (K4 over the flattened ``[T, M]``)."""
+    t = currents.shape[0]
+    flat = currents.to(torch.float32).reshape(t, -1).contiguous()
+    return KL.lif_kernel(flat, beta=beta, v_thresh=v_thresh).reshape(
+        currents.shape)
 
 
 def draw_slot_decode_prns(slot_keys: Tensor, t: int, h: int, l: int, d: int,

@@ -55,6 +55,23 @@ def aimc_spiking_linear_ref(spikes: Tensor, w_levels: Tensor, scale: Tensor,
     return lif_ref(pre, beta=beta, v_thresh=v_thresh)
 
 
+def ssa_attention_ref(q: Tensor, k: Tensor, v: Tensor, rs: Tensor,
+                      ra: Tensor, *, causal: bool = False) -> Tensor:
+    """The full SSA tile (Algorithm 1 with explicit comparator integers):
+    ``q``/``k``/``v [G,N,D]`` binary, ``rs [G,N,N]`` in ``[0, D)``, ``ra
+    [G,N,D]`` in ``[0, N)`` -> uint8 ``[G,N,D]``.  Causal: the count of
+    ``j > i`` is zero, so that score never fires."""
+    counts_s = torch.matmul(q.to(torch.float64),
+                            k.to(torch.float64).transpose(-1, -2))
+    if causal:
+        n = q.shape[1]
+        counts_s = counts_s * torch.tril(torch.ones((n, n), dtype=torch.float64,
+                                                    device=q.device))
+    s = (counts_s > rs).to(torch.float64)
+    counts_a = torch.matmul(s, v.to(torch.float64))
+    return (counts_a > ra).to(torch.uint8)
+
+
 def ssa_decode_ref(q: Tensor, k: Tensor, v: Tensor, rs: Tensor, ra: Tensor
                    ) -> Tensor:
     """One-query SSA decode: ``q [G,1,D]``, ``k``/``v [G,L,D]`` binary,

@@ -1,10 +1,13 @@
-"""K2 and K7 launchers: one SSA query row per (slot, t, head) over a dense
-cache (K2) or a block-paged pool (K7) (``csrc/ssa_attention.cu``).
+"""K2, K7 and K8 launchers (``csrc/ssa_attention.cu``): one SSA query row
+per (slot, t, head) over a dense cache (K2) or a block-paged pool (K7),
+and the full N x N SSA tile per (t, b, h) of a whole sequence (K8).
 
-Replace ``repro/kernels/ssa_attention.py:ssa_decode_kernel`` and
-``ssa_decode_paged_kernel``.  On a CPU tensor each wrapper runs its plain
-version (:func:`repro_torch.kernels.ref.ssa_decode_ref`,
-:func:`~repro_torch.kernels.ref.ssa_decode_paged_ref`); on a CUDA tensor it
+Replace ``repro/kernels/ssa_attention.py:ssa_decode_kernel``,
+``ssa_decode_paged_kernel`` and ``ssa_attention_kernel``.  On a CPU tensor
+each wrapper runs its plain version
+(:func:`repro_torch.kernels.ref.ssa_decode_ref`,
+:func:`~repro_torch.kernels.ref.ssa_decode_paged_ref`,
+:func:`~repro_torch.kernels.ref.ssa_attention_ref`); on a CUDA tensor it
 launches the kernel or raises.
 """
 
@@ -86,4 +89,28 @@ def ssa_decode_paged_kernel(q: Tensor, kpool: Tensor, vpool: Tensor,
         b, t, h, kv, page_len, mp, d, KB.stream_ptr(q))
     KB.raise_on_error(err, "ssa_decode_paged")
     KB.LAUNCHES["ssa_decode_paged"] += 1
+    return out
+
+
+def ssa_attention_kernel(q: Tensor, k: Tensor, v: Tensor, rs: Tensor,
+                         ra: Tensor, *, causal: bool = False) -> Tensor:
+    """``q``/``k``/``v [G,N,D]`` uint8 spikes, ``rs [G,N,N]``, ``ra
+    [G,N,D]`` int32 -> uint8 ``[G,N,D]``; ``N``, ``D`` up to 512."""
+    if not q.is_cuda:
+        return KREF.ssa_attention_ref(q, k, v, rs, ra, causal=causal)
+    g, n, d = q.shape
+    if not (0 < n <= 512 and 0 < d <= 512):
+        raise ValueError(f"ssa_attention: N={n} and D={d} must lie in [1, 512]")
+    for x, name in ((q, "q"), (k, "k"), (v, "v")):
+        KB.check_cuda(x, torch.uint8, (g, n, d), name)
+    KB.check_cuda(rs, torch.int32, (g, n, n), "rs")
+    KB.check_cuda(ra, torch.int32, (g, n, d), "ra")
+    out = torch.empty((g, n, d), dtype=torch.uint8, device=q.device)
+    if g == 0:
+        return out
+    err = _lib("launch_ssa_attention", [_P] * 6 + [_I] * 4 + [_P])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rs.data_ptr(),
+        ra.data_ptr(), out.data_ptr(), g, n, d, int(causal), KB.stream_ptr(q))
+    KB.raise_on_error(err, "ssa_attention")
+    KB.LAUNCHES["ssa_attention"] += 1
     return out

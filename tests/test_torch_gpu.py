@@ -8,20 +8,30 @@ machine with PyTorch alone::
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX.)  The plain
 versions are held against the JAX reference on the CPU by
-``tests/test_torch_kernels.py`` and ``tests/test_torch_paged.py``; here
-each kernel must equal them exactly, at the serving path's widths and at
-the padding and GQA edges, dense and paged.
+``tests/test_torch_kernels.py``, ``tests/test_torch_paged.py`` and
+``tests/test_torch_paper.py``; here each kernel must equal them exactly,
+at the serving path's and the paper models' widths and at the padding,
+GQA, causal and row-count edges, and the paper forwards through the
+kernels must give the plain versions' logits bit for bit.
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import reduced_config
-from repro_torch.engine import XpikeformerEngine
+from repro_torch.configs.xpikeformer import SPIKING_ARCHS
+from repro_torch.data import icl_mimo as MIMO
+from repro_torch.data import synthetic_images as SI
+from repro_torch.engine import CudaBackend, XpikeformerEngine
 from repro_torch.kernels import aimc_matmul as KA
 from repro_torch.kernels import build as KB
 from repro_torch.kernels import decode_fused as KFD
+from repro_torch.kernels import lif as KL
 from repro_torch.kernels import ref as KREF
 from repro_torch.kernels import ssa_attention as KS
 from repro_torch.serving import NULL_PAGE, RESERVED_PAGES, TRASH_PAGE
@@ -274,3 +284,94 @@ def test_reduced_paged_serving_on_card_matches_cpu(cuda):
                 assert st.prefix_hits > 0
         outs[dev, "dense"], _ = eng.serve(prompts, 5, slots=2, cache_len=32)
     assert len(set(map(str, outs.values()))) == 1
+
+
+def test_spiking_linear_kernel_past_the_grid_row_limit(cuda):
+    """M = 70,000 rows (more than gridDim.y's 65,535) all launch: the rows
+    past the limit are the grid-stride loop's."""
+    rng = np.random.default_rng(70)
+    x = _t(rng.integers(0, 4, (4, 70_000, 64)).astype(np.float32))
+    w = _triple(rng, 64, 48)
+    want = KREF.aimc_spiking_linear_ref(x, *w)
+    got = KA.aimc_spiking_linear_kernel(x.to(cuda), *_to(w, cuda))
+    torch.cuda.synchronize()
+    _eq(got, want)
+    assert int(want[:, 65_535:].sum()) > 0
+
+
+SSA_CASES = {
+    # name: (g, n, d, causal)
+    "vit": (96, 64, 64, False),  # the ViT's tile, fewer of them
+    "gpt": (64, 37, 64, True),  # the paper GPT's causal tile, L = 37
+    "smoke": (24, 16, 16, True),
+    "tails": (8, 45, 40, False),
+    "widest": (4, 512, 512, True),  # the limits: GPT's position table
+}
+
+
+@pytest.mark.parametrize("case", sorted(SSA_CASES))
+def test_ssa_attention_kernel(cuda, case):
+    g, n, d, causal = SSA_CASES[case]
+    rng = np.random.default_rng(n + d)
+    args = [_t((rng.random((g, n, d)) < p).astype(np.uint8))
+            for p in (0.5, 0.6, 0.4)]
+    args += [_t(rng.integers(0, d, (g, n, n)).astype(np.int32)),
+             _t(rng.integers(0, n, (g, n, d)).astype(np.int32))]
+    want = KREF.ssa_attention_ref(*args, causal=causal)
+    k = KB.LAUNCHES["ssa_attention"]
+    got = KS.ssa_attention_kernel(*(a.to(cuda) for a in args), causal=causal)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["ssa_attention"] == k + 1
+    _eq(got, want)
+    assert 0 < int(want.sum()) < want.numel()
+
+
+def test_ssa_attention_kernel_refuses_past_its_limits(cuda):
+    z = torch.zeros((1, 513, 16), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="N=513"):
+        KS.ssa_attention_kernel(
+            z, z, z, torch.zeros((1, 513, 513), dtype=torch.int32, device=cuda),
+            torch.zeros((1, 513, 16), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("t,m,beta", [(4, 100_003, 0.5), (3, 257, 0.25),
+                                      (8, 4096, 0.75)])
+def test_lif_kernel(cuda, t, m, beta):
+    """Dyadic currents put membranes exactly on the threshold."""
+    rng = np.random.default_rng(m)
+    cur = _t((rng.integers(-4, 12, (t, m)) / 8.0).astype(np.float32))
+    want = KREF.lif_ref(cur, beta=beta)
+    got = KL.lif_kernel(cur.to(cuda), beta=beta)
+    torch.cuda.synchronize()
+    _eq(got, want)
+    _eq(CudaBackend().lif(cur.reshape(t, m, 1).to(cuda), beta=beta),
+        want.reshape(t, m, 1))
+
+
+@pytest.mark.parametrize("name", ["xpikeformer-vit-smoke",
+                                  "xpikeformer-gpt-smoke"])
+def test_paper_forward_kernels_equal_plain_on_card(cuda, name):
+    """The paper forward (two blocks) through K1 and K8 gives the plain
+    versions' logits on the card bit for bit, and the CPU's labels."""
+    task, cfg = SPIKING_ARCHS[name]
+    cfg = dataclasses.replace(cfg, depth=2)
+    if task == "vit":
+        x = SI.sample_batch(0, SI.ImageConfig(size=cfg.image_size), 4)["images"]
+    else:
+        x = MIMO.sample_batch(0, MIMO.MIMOConfig(), 4)["features"]
+    key = prng.PRNGKey(5)
+    out = {}
+    for dev, backend in (("cuda", "cuda"), ("cuda", "integer"),
+                         ("cpu", "integer")):
+        eng = XpikeformerEngine.from_config(cfg, backend=backend, device=dev)
+        eng.init(2)
+        KB.reset_launches()
+        out[dev, backend] = eng.forward(x, key).cpu()
+        if backend == "cuda":
+            assert KB.LAUNCHES["ssa_attention"] == cfg.depth
+            assert KB.LAUNCHES["aimc_spiking_linear"] == 6 * cfg.depth
+    assert torch.equal(out["cuda", "cuda"], out["cuda", "integer"])
+    assert torch.allclose(out["cuda", "cuda"], out["cpu", "integer"],
+                          rtol=0, atol=1e-4)
+    assert torch.equal(out["cuda", "cuda"].argmax(-1),
+                       out["cpu", "integer"].argmax(-1))

@@ -224,7 +224,8 @@ def test_engine_generate_on_cpu(setup):
     through the (JAX-checked) scheduler, and reuses its scheduler."""
     cfg, tcfg, jparams, tparams = setup
     prompts = [_prompt(0, 3, 257), _prompt(1, 6, 257)]
-    eng = XpikeformerEngine.from_config(ARCH, reduced=True, device="cpu")
+    eng = XpikeformerEngine.from_config(ARCH, task="lm", reduced=True,
+                                        device="cpu")
     eng.params = tparams
     outs = eng.generate(prompts, max_new=3, slots=2, cache_len=16, seed=5)
     sch = BatchScheduler(tparams, tcfg, slots=2, cache_len=16, device="cpu")
@@ -251,7 +252,7 @@ def test_entry_points_refuse_to_run_without_cuda(setup, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BatchScheduler(tparams, tcfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        XpikeformerEngine.from_config(ARCH)
+        XpikeformerEngine.from_config(ARCH, task="lm")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_cli.main(["--arch", ARCH, "--smoke", "--requests", "1"])
     assert BatchScheduler(tparams, tcfg, device="cpu").device.type == "cpu"
@@ -274,7 +275,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert {"src/repro_torch/serving/pages.py",
             "src/repro_torch/serving/state.py",
             "src/repro_torch/kernels/decode_fused.py",
-            "src/repro_torch/kernels/ssa_attention.py"} <= names
+            "src/repro_torch/kernels/ssa_attention.py",
+            "src/repro_torch/kernels/lif.py",
+            "src/repro_torch/core/spiking_transformer.py",
+            "src/repro_torch/data/synthetic_images.py",
+            "src/repro_torch/data/icl_mimo.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
