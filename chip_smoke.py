@@ -47,10 +47,29 @@ Phases, each printing one JSON line:
    the CPU's labels and logits within 1e-4.  Then ``Backend.lif`` (K4) on
    the ViT's widest pre-activation shape, equal to the plain version.
 
+6. **drift** -- the programmed-PCM lifecycle.  (a) ``xpikeformer-gpt-4-256``
+   on the LM stack, programmed (``engine.program``), served paged (the
+   paged phase's 16 requests) under ``DriftPolicy(seconds_per_step=60,
+   recal_interval_s=3600)``, the settings of ``launch/serve.py --program
+   --drift-step 60 --recal-every 3600``: the clock must read 60 s a decode
+   step, GDC must run at least once, every request must book energy, K6
+   must launch once per programmed leaf per image fold (twice per
+   recalibration), and the plain versions on the card, from the same
+   programmed state, must serve the same tokens with the same clock,
+   folds, recalibrations and energy.  (b) the paper ViT-4-384 at batch 64,
+   programmed, forward at t = 0, 1 h, 1 day, 30 days and 1 year without
+   GDC, then at 1 day and 1 year after ``recalibrate()``: kernel and plain
+   logits bitwise equal at every point (the mean ``|logit - logit(t=0)|``
+   printed), then ``forward(metering=True)``, whose logits must equal the
+   unmetered ones (the report printed).
+
 The kernels phase also holds K8 ``ssa_attention`` at the ViT's tile
 (``G = 1,536``, ``N = D = 64``) and the GPT's causal tile (``G = 1,024``,
-``N = 37``), K4 ``lif`` at ``[4, 64*64*1536]``, and K1 at the ViT's rows
-(``M = 4,096``, and ``M = 65,536``, past ``gridDim.y``).
+``N = 37``), K4 ``lif`` at ``[4, 64*64*1536]``, K1 at the ViT's rows
+(``M = 4,096``, and ``M = 65,536``, past ``gridDim.y``), and K6
+``drift_requantize`` at the ViT's ``w1`` leaf ``[384, 1536]``, the LM
+stack's stacked ``mlp.wi`` leaf ``[4, 256, 1024]`` and ``[300, 17]``, at
+t = 0, t < t0, 1 h and 1 year, image gains 1 and 7.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
@@ -58,7 +77,7 @@ exits non-zero and prints no result.  Without a CUDA device it exits 2.
 Each path's launch counts are read from a run that starts with every count
 at zero: K1-K3 from the dense serve, K9 from the paged serve, K7 from the
 unfused paged run, K8 from the ViT forward, K4 from the ``Backend.lif``
-call.
+call, K6 from the programmed paged serve.
 """
 
 from __future__ import annotations
@@ -79,6 +98,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PAPER = (("xpikeformer-vit-4-384", 64), ("xpikeformer-gpt-4-256", 64))
+T0 = 20.0  # PCM drift reference time (Table II)
+# K6's float operations an element: max, divide, log, multiply, exp, add,
+# two multiplies, round, two clamps (exp and log counted as one each)
+K6_OPS = 11
 REPS, BATCH, WARMUP = 9, 20, 5
 
 
@@ -181,6 +204,16 @@ def triple(gen, d_in, d_out, dev, bias=True):
 
 def spikes(gen, shape, p, dev):
     return (torch.rand(shape, generator=gen) < p).to(torch.uint8).to(dev)
+
+
+def drift_inputs(gen, shape, dev):
+    """Programmed-state operands as ``program`` draws them: integer levels
+    in [-15, 15], ``eps ~ 0.45 N(0, 1)``, ``nu ~ max(0.06 + 0.02 N(0, 1),
+    0)``."""
+    lv = torch.randint(-15, 16, shape, generator=gen).float()
+    eps = 0.45 * torch.randn(shape, generator=gen)
+    nu = torch.clamp_min(0.06 + 0.02 * torch.randn(shape, generator=gen), 0)
+    return lv.to(dev), eps.to(dev), nu.to(dev)
 
 
 def layer_inputs(gen, dev, *, t, b, d, h, kv, hd, l, dff, pos):
@@ -469,6 +502,54 @@ def phase_kernels(dev):
         ms=time_ms(lambda: KL.lif_kernel(cur)),
         plain_ms=time_ms(lambda: KREF.lif_ref(cur)),
         bound=bound(nbytes(cur, got), 3 * 4 * m, FP32_OPS_PER_S))
+
+    # division by a constant: PyTorch on CUDA divides by a Python number
+    # through its reciprocal; the port's div_const must equal the CPU's IEEE
+    # quotient, as K6's t / t0 and the column scales need
+    from repro_torch.core import aimc as AM
+
+    x = torch.rand(1_000_000, generator=gen) * 3
+    want = x / 15
+    results["division_by_15"] = dict(
+        python_number_differs=int(((x.to(dev) / 15).cpu() != want).sum()),
+        div_const_differs=int((AM.div_const(x.to(dev), 15).cpu() != want)
+                              .sum()), n=x.numel())
+    check(results["division_by_15"]["div_const_differs"] == 0,
+          "div_const on the card differs from the CPU's division")
+
+    # K6 at the ViT's widest leaf (w1, [384, 1536]), the LM stack's stacked
+    # mlp.wi leaf ([4, 256, 1024]: a time and a gain per layer) and a
+    # ragged shape, at t = 0, t < t0, an hour and a year, gains 1 and 7
+    from repro_torch.kernels import drift_requantize as KD
+
+    k6 = {}
+    for shape in ((384, 1536), (4, 256, 1024), (300, 17)):
+        lv, eps, nu = drift_inputs(gen, shape, dev)
+        lead = shape[:-2]
+        for t in (0.0, 10.0, 3600.0, 3.1536e7):
+            for gain in (1.0, 7.0):
+                tt = torch.full(lead, t, device=dev)
+                gg = torch.full(lead, gain, device=dev)
+                if lead:  # per-matrix times and gains
+                    tt[0], gg[-1] = 86400.0, 8.0
+                got = KD.drift_requantize_kernel(lv, eps, nu, tt, gg, t0=T0)
+                want = KREF.drift_requantize_ref(lv, eps, nu, tt, t0=T0,
+                                                 img_gain=gg)
+                check(torch.equal(got, want),
+                      f"K6 {shape} t={t} gain={gain} differs")
+                k6[(shape, t, gain)] = max_abs_err(got, want)
+    lv, eps, nu = drift_inputs(gen, (384, 1536), dev)
+    tt, gg = torch.tensor(3600.0, device=dev), torch.tensor(7.0, device=dev)
+    got = KD.drift_requantize_kernel(lv, eps, nu, tt, gg, t0=T0)
+    results["drift_requantize"] = dict(
+        shape="[384, 1536] (the ViT-4-384's w1 leaf), t = 1 h, gain 7",
+        cases=len(k6), max_abs_err=max(k6.values()),
+        ms=time_ms(lambda: KD.drift_requantize_kernel(lv, eps, nu, tt, gg,
+                                                      t0=T0)),
+        plain_ms=time_ms(lambda: KREF.drift_requantize_ref(
+            lv, eps, nu, tt, t0=T0, img_gain=gg)),
+        bound=bound(nbytes(lv, eps, nu, tt, gg, got),
+                    K6_OPS * lv.numel(), FP32_OPS_PER_S))
     torch.cuda.synchronize()
     return results
 
@@ -816,6 +897,185 @@ def phase_paper(dev):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the programmed-PCM lifecycle and energy metering
+# ---------------------------------------------------------------------------
+
+
+DRIFT_STEP_S, RECAL_EVERY_S = 60.0, 3600.0  # launch/serve.py's documented run
+LIFECYCLE = ((0.0, False), (3600.0, False), (86400.0, False),
+             (2.592e6, False), (3.1536e7, False), (86400.0, True),
+             (3.1536e7, True))  # (device age, after recalibrate())
+
+
+def phase_drift(dev):
+    """(a) The LM stack programmed and served paged under the drift policy
+    of ``launch/serve.py --drift-step 60 --recal-every 3600``, on the
+    kernels and on the plain versions from the same programmed state; (b)
+    the paper ViT-4-384 at batch 64 programmed, through the Table V
+    lifecycle and one metered forward."""
+    from repro_torch import aimc_device as AD
+    from repro_torch import prng
+    from repro_torch.engine import XpikeformerEngine, get_backend
+    from repro_torch.kernels import build as KB
+
+    out = {}
+    # (a) programmed, paged, under the drift policy
+    eng = XpikeformerEngine.from_config(ARCH, task="lm", backend="cuda",
+                                        device=dev)
+    cfg = eng.cfg
+    eng.init(seed=0)
+    KB.reset_launches()
+    eng.program(prng.PRNGKey(42))
+    torch.cuda.synchronize()
+    leaves = len(AD.device_states(eng.params))
+    check(KB.LAUNCHES["drift_requantize"] == leaves,
+          "program did not fold each leaf once")
+    programmed = eng.params
+    plain = XpikeformerEngine(cfg=cfg, backend=get_backend("integer"),
+                              device=eng.device, params=programmed,
+                              wmode="hw")
+    prompts = paged_requests(cfg.vocab_size)
+    max_new = 32
+    policy = AD.DriftPolicy(seconds_per_step=DRIFT_STEP_S,
+                            recal_interval_s=RECAL_EVERY_S)
+    sch = eng.scheduler(slots=8, cache_len=256, paged=True, page_len=8,
+                        drift=policy)
+    check(sch.programmed and sch._t_device == 0.0, "a fresh device clock")
+    KB.reset_launches()
+    outs, wall_s = drive(sch, prompts, max_new)
+    launches = dict(KB.LAUNCHES)
+    st = sch.stats
+    served_outs = outs
+    check(all(len(o) == max_new for o in outs), "drift: too few tokens")
+    check(st.t_device_s == DRIFT_STEP_S * st.decode_steps,
+          f"device clock {st.t_device_s} != {DRIFT_STEP_S} x "
+          f"{st.decode_steps} steps")
+    check(st.recalibrations >= 1, "no GDC recalibration ran")
+    check(st.energy_j > 0, "no energy was booked")
+    check(len(sch.request_energy_j) == len(prompts)
+          and all(v > 0 for v in sch.request_energy_j.values()),
+          "a request has no energy")
+    want = leaves * (st.image_folds + 2 * st.recalibrations)
+    check(launches["drift_requantize"] == want > 0,
+          f"K6 launches {launches['drift_requantize']} != {leaves} leaves x "
+          f"({st.image_folds} folds + 2 x {st.recalibrations} recalibrations)")
+    check(launches["fused_decode_layer_paged"] == cfg.num_layers
+          * st.decode_steps, "drift: K9 is not one launch per layer and step")
+    psch = plain.scheduler(slots=8, cache_len=256, paged=True, page_len=8,
+                           drift=policy)
+    pouts, plain_wall_s = drive(psch, prompts, max_new)
+    check(pouts == outs, "programmed paged: kernel and plain tokens differ")
+    pst = psch.stats
+    check((pst.t_device_s, pst.recalibrations, pst.image_folds)
+          == (st.t_device_s, st.recalibrations, st.image_folds),
+          "plain scheduler's lifecycle differs")
+    check(abs(pst.energy_j - st.energy_j) <= 1e-12 * st.energy_j,
+          "plain scheduler's energy differs")
+    check(AD.device_time(sch.source_params) == sch._t_image > 0,
+          "the served state is not the last fold's")
+    out["lm_paged_drift"] = dict(
+        arch=ARCH, slots=8, cache_len=256, page_len=8,
+        requests=len(prompts), seconds_per_step=DRIFT_STEP_S,
+        recal_interval_s=RECAL_EVERY_S, programmed_leaves=leaves,
+        decode_steps=st.decode_steps, tokens=st.decoded_tokens,
+        t_device_s=st.t_device_s, image_folds=st.image_folds,
+        recalibrations=st.recalibrations,
+        gdc_gain_mean=AD.gdc_gain_summary(sch.source_params),
+        energy_j=st.energy_j, j_per_token=st.j_per_token,
+        spike_events=st.spike_events,
+        request_energy_j_max=max(sch.request_energy_j.values()),
+        wall_s=wall_s, decode_s=st.decode_s,
+        tokens_per_s=st.decoded_tokens / wall_s,
+        decode_step_ms=1e3 * st.decode_s / st.decode_steps,
+        plain_wall_s=plain_wall_s, tokens_equal_plain=True,
+        launches={k: v for k, v in launches.items() if v},
+        first_tokens=outs[0][:8])
+    # where a programmed step's time goes (three steps of 8 busy slots),
+    # and a whole-tree fold on its own: the lifecycle's device cost
+    tree = sch.source_params
+    out["lm_fold_ms"] = wall_ms(lambda: AD.drift_tree(tree, 7200.0,
+                                                      policy.cfg), 5)
+    out["profile_lm_fold"] = profile_window(
+        lambda: AD.drift_tree(tree, 7200.0, policy.cfg))
+    sch.reset()
+    for i, p in enumerate(prompts[:8]):
+        sch.submit(p, 8, seed=2 + i)
+    sch.step()
+    out["profile_programmed_paged_3_steps"] = profile_window(
+        lambda: [sch.step() for _ in range(3)])
+    del sch, psch, tree
+
+    # (b) the paper ViT programmed: the Table V lifecycle
+    name, batch = PAPER[0]
+    vit = XpikeformerEngine.from_config(name, backend="cuda", device=dev)
+    vcfg = vit.cfg
+    vit.init(seed=0)
+    x, _ = paper_inputs("vit", vcfg, batch, dev)
+    key = prng.PRNGKey(42, dev)
+    KB.reset_launches()
+    vit.program(prng.PRNGKey(7))
+    torch.cuda.synchronize()
+    vleaves = len(AD.device_states(vit.params))
+    check(vleaves == 2 + 6 * vcfg.depth, f"{vleaves} programmed ViT leaves")
+    check(KB.LAUNCHES["drift_requantize"] == vleaves, "ViT program folds")
+    vplain = XpikeformerEngine(cfg=vcfg, backend=get_backend("integer"),
+                               device=vit.device, params=vit.params,
+                               task="vit", wmode="hw")
+    points, l0 = [], None
+    for t, recal in LIFECYCLE:
+        if t != vit.t_seconds or recal:
+            vit.drift_to(t)
+        if recal:
+            vit.recalibrate()
+        logits = vit.forward(x, key)
+        plogits = vplain.forward(x, key, vit.params)
+        check(torch.equal(logits, plogits),
+              f"ViT t={t} gdc={recal}: kernel and plain logits differ")
+        check(bool(torch.isfinite(logits).all()), "non-finite ViT logits")
+        if l0 is None:
+            l0 = logits
+        points.append(dict(
+            t_seconds=t, gdc=recal,
+            mean_abs_logit_err=float(torch.mean(torch.abs(logits - l0))),
+            gdc_gain_mean=AD.gdc_gain_summary(vit.params),
+            labels_agree_t0=float((logits.argmax(-1) == l0.argmax(-1))
+                                  .float().mean())))
+    torch.cuda.synchronize()
+    vlaunches = dict(KB.LAUNCHES)
+    n_points = len(LIFECYCLE)
+    check(vlaunches["drift_requantize"] == vleaves * (
+        1 + sum(t != 0.0 for t, _ in LIFECYCLE) + 2 * sum(
+            r for _, r in LIFECYCLE)), "ViT lifecycle K6 launches")
+    check(vlaunches["ssa_attention"] == vcfg.depth * n_points
+          and vlaunches["aimc_spiking_linear"] == 6 * vcfg.depth * n_points,
+          "ViT lifecycle forwards did not run K8/K1")
+    check(points[3]["mean_abs_logit_err"] > points[1]["mean_abs_logit_err"],
+          "a month of drift did not move the logits more than an hour")
+    mlogits, report = vit.forward(x, key, metering=True)
+    check(torch.equal(mlogits, vit.forward(x, key)),
+          "metered logits differ from unmetered")
+    rep = report.as_dict()
+    check(rep["aimc_pj"] > 0 and rep["ssa_pj"] > 0 and rep["lif_pj"] > 0,
+          "metering reported no energy")
+    out["vit_lifecycle"] = dict(
+        arch=name, batch=batch, programmed_leaves=vleaves,
+        programmed_elements=sum(s.levels.numel()
+                                for s in AD.device_states(vit.params)),
+        points=points, logits_bitwise_equal_plain=True,
+        launches={k: v for k, v in vlaunches.items() if v},
+        metering=rep, metered_logits_equal=True)
+    vtree = vit.params
+    out["vit_fold_ms"] = wall_ms(lambda: AD.drift_tree(vtree, 7200.0,
+                                                       vit.aimc_cfg), 5)
+    out["profile_vit_fold"] = profile_window(
+        lambda: AD.drift_tree(vtree, 7200.0, vit.aimc_cfg))
+    out["vit_forward_programmed_ms"] = wall_ms(lambda: vit.forward(x, key), 3)
+    out["profile_vit_forward_programmed"] = profile_window(
+        lambda: vit.forward(x, key))
+    return out, launches, served_outs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -840,7 +1100,7 @@ def main() -> int:
     kres = phase_kernels(dev)
     emit({"phase": "kernels", "card": card, "exact": True,
           "seconds": time.perf_counter() - t0,
-          **{k: summary(v) for k, v in kres.items()}})
+          **{k: summary(v) if "bound" in v else v for k, v in kres.items()}})
 
     t0 = time.perf_counter()
     eng, launches, served, outs = phase_serve(dev)
@@ -861,7 +1121,12 @@ def main() -> int:
     paper, flaunches = phase_paper(dev)
     emit({"phase": "paper_forward", "card": card,
           "seconds": time.perf_counter() - t0, **paper})
+    t0 = time.perf_counter()
+    drift, dlaunches, douts = phase_drift(dev)
+    emit({"phase": "drift", "card": card,
+          "seconds": time.perf_counter() - t0, **drift})
     # each kernel's launches on its own path
+    launches["drift_requantize"] = dlaunches["drift_requantize"]
     launches["fused_decode_layer_paged"] = plaunches["fused_decode_layer_paged"]
     launches["ssa_decode_paged"] = ulaunches["ssa_decode_paged"]
     launches["ssa_attention"] = flaunches[PAPER[0][0]]["ssa_attention"]
@@ -883,6 +1148,8 @@ def main() -> int:
                           "src/repro/kernels/ssa_attention.py:237"),
         "lif": ("src/repro_torch/kernels/csrc/lif.cu",
                 "src/repro/kernels/lif.py:54"),
+        "drift_requantize": ("src/repro_torch/kernels/csrc/drift_requantize.cu",
+                             "src/repro/kernels/aimc_matmul.py:172"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -1,10 +1,12 @@
 """Xpikeformer on PyTorch and CUDA: the ported slices of the JAX package.
 
 A second package beside ``repro``: the paper's spiking ViT and GPT forward
-(``SPIKING_ARCHS``, SSA mode with ideal weights) and the dense and
-block-paged continuous-batching decode of the spiking GPT on the generic
-LM stack, with the kernels those paths run written by hand for Hopper
-(``sm_90a``) under ``repro_torch/kernels/csrc``.  Module names mirror
+(``SPIKING_ARCHS``, SSA mode, ideal or programmed-PCM weights), the dense
+and block-paged continuous-batching decode of the spiking GPT on the
+generic LM stack, the programmed-PCM lifecycle (program, drift, GDC;
+:mod:`repro_torch.aimc_device`) and energy metering
+(:mod:`repro_torch.energy`), with the kernels those paths run written by
+hand for Hopper (``sm_90a``) under ``repro_torch/kernels/csrc``.  Module names mirror
 ``repro`` so each counterpart is easy to find; nothing here imports JAX or
 ``repro``.
 

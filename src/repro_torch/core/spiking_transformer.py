@@ -1,20 +1,24 @@
 """The paper's models: spiking ViT (Table III) and spiking GPT (Table IV).
 
 Twin of ``repro.core.spiking_transformer`` for the Xpikeformer rows of the
-paper: attention mode ``"ssa"`` (stochastic spiking attention) with ideal
-weights (``wmode="ideal"``), which is every entry of
-:data:`repro_torch.configs.xpikeformer.SPIKING_ARCHS`.  The baseline modes
-(``"ann"``, ``"lif"``) and programmed-PCM weights (``"hwat"``, ``"hw"``)
-raise :class:`NotImplementedError`.
+paper: attention mode ``"ssa"`` (stochastic spiking attention), which is
+every entry of :data:`repro_torch.configs.xpikeformer.SPIKING_ARCHS`, with
+ideal float weights (``wmode="ideal"``) or programmed PCM state
+(``wmode="hw"``, after :func:`program_model`).  The baseline modes
+(``"ann"``, ``"lif"``) and hardware-aware training's noisy forward
+(``"hwat"``) raise :class:`NotImplementedError`.
 
 The spiking primitives come from a backend (:mod:`repro_torch.engine`):
-``spiking_linear`` (K1) for the six crossbar linears of a block and
-``ssa_attention`` (K8) for the attention tile.  The patch/embed and head
-linears consume or produce real values, so they stay float ``x @ w + b``
-(``torch.matmul`` in f32), as the reference leaves them to XLA outside any
-kernel.  Spike randomness comes from the threefry twin
-(:mod:`repro_torch.prng`): with the same key a forward draws the
-reference's rate-coding uniforms and comparator integers.
+``spiking_linear`` (K1) for the six crossbar linears of a block, which
+executes a programmed leaf's drifted int8 image, and ``ssa_attention``
+(K8) for the attention tile.  The patch/embed and head linears consume or
+produce real values, so they stay outside the kernels: float ``x @ w + b``
+(``torch.matmul`` in f32) with ideal weights, the analog crossbar
+simulation (:func:`repro_torch.aimc_device.analog_matmul`, with read
+noise drawn from the linear's key) when programmed, as the reference does.
+Spike randomness comes from the threefry twin (:mod:`repro_torch.prng`):
+with the same key a forward draws the reference's rate-coding uniforms
+and comparator integers.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ from typing import Any, Dict, Union
 
 import torch
 
+from repro_torch import aimc_device as AD
 from repro_torch import prng
 from repro_torch.core import spikes as SP
+from repro_torch.core.aimc import AIMCConfig
 
 Tensor = torch.Tensor
 
@@ -59,16 +65,24 @@ class SpikingConfig:
         return (self.image_size // self.patch_size) ** 2
 
 
+def check_wmode(wmode: str) -> None:
+    """Raise for a weight mode this port does not run: ``"hwat"`` is
+    training's."""
+    if wmode == "hwat":
+        raise NotImplementedError(
+            "wmode='hwat' (hardware-aware training's noisy forward) is not "
+            "ported yet: ROADMAP A11, training")
+    if wmode not in ("ideal", "hw"):
+        raise ValueError(f"unknown wmode {wmode!r}; known: ideal, hw, hwat")
+
+
 def check_ported(cfg: SpikingConfig, wmode: str = "ideal") -> None:
     """Raise for the modes this port does not run yet."""
     if cfg.mode != "ssa":
         raise NotImplementedError(
             f"mode={cfg.mode!r} (the paper's ANN / Spikformer baseline rows) "
             "is not ported yet: ROADMAP A7, baseline modes")
-    if wmode != "ideal":
-        raise NotImplementedError(
-            f"wmode={wmode!r} (hardware-aware training / programmed PCM) is "
-            "not ported yet: ROADMAP A8")
+    check_wmode(wmode)
 
 
 # ---------------------------------------------------------------------------
@@ -136,13 +150,27 @@ def init_gpt(cfg: SpikingConfig, seed: int,
 # ---------------------------------------------------------------------------
 
 
-def linear(p: Dict[str, Tensor], x: Tensor) -> Tensor:
-    """The float linear of ideal weights: ``x @ w + b`` in f32."""
+def linear(p: Dict[str, Any], x: Tensor, cfg: AIMCConfig = AIMCConfig(),
+           key: Tensor = None) -> Tensor:
+    """A float-valued linear: ``x @ w + b`` in f32 for ideal weights; for a
+    programmed ``{"hw", "b"}`` leaf the analog crossbar simulation at the
+    state's clock with read noise from ``key``, plus ``b``."""
     if "hw" in p:
-        raise NotImplementedError(
-            "programmed PCM linears ({'hw', 'b'} leaves) are not ported yet: "
-            "ROADMAP A8")
+        hw = p["hw"]
+        if not isinstance(hw, AD.AIMCDeviceState):
+            raise NotImplementedError(
+                "legacy {'hw': dict} leaves (core/aimc.py:program_weights) "
+                "are not ported: ROADMAP A12")
+        return AD.analog_matmul(key, x, hw, cfg) + p["b"]
     return torch.matmul(x, p["w"]) + p["b"]
+
+
+def program_model(key: Tensor, params: Any, cfg: AIMCConfig) -> Any:
+    """Replace every ``{"w", "b"}`` linear by ``{"hw": AIMCDeviceState,
+    "b": b}`` with the clock at t = 0
+    (:func:`repro_torch.aimc_device.program_tree`); raises on a tree that
+    is already programmed."""
+    return AD.program_tree(key, params, cfg)
 
 
 def patchify(images: Tensor, patch: int) -> Tensor:
@@ -184,7 +212,7 @@ def _run_blocks(params: Dict[str, Any], s: Tensor, cfg: SpikingConfig,
                 rng: Tensor, *, causal: bool, backend) -> Tensor:
     """Every block in turn; block ``i`` takes its attention key from
     ``split(fold_in(rng, i), 7)[6]`` (keys 0-5 belong to the linears,
-    which draw nothing with ideal weights)."""
+    which draw nothing on the digital backends, programmed or not)."""
     for i, bp in enumerate(params["blocks"]):
         kk = prng.split(prng.fold_in(rng, i), 7)
         s = _spiking_block(bp, s, cfg, kk[6], causal=causal, backend=backend)
@@ -197,28 +225,33 @@ def _run_blocks(params: Dict[str, Any], s: Tensor, cfg: SpikingConfig,
 
 
 def vit_forward(params: Dict[str, Any], images: Tensor, cfg: SpikingConfig,
-                rng: Tensor, *, backend) -> Tensor:
+                rng: Tensor, *, backend,
+                aimc_cfg: AIMCConfig = AIMCConfig()) -> Tensor:
     """``images [B,H,W,C]`` -> logits ``[B, classes]``: patch embed, rate
     coding, the spiking blocks (non-causal SSA), firing rates pooled over
-    the patches, float head."""
+    the patches, float head.  ``aimc_cfg`` is the programmed linears'
+    Table-II configuration."""
     check_ported(cfg)
     keys = prng.split(rng, 4)  # embed, encode, blocks, head
-    x = linear(params["patch"], patchify(images, cfg.patch_size)) + params["pos"]
+    x = linear(params["patch"], patchify(images, cfg.patch_size), aimc_cfg,
+               keys[0]) + params["pos"]
     s = SP.rate_encode(keys[1], torch.sigmoid(x), cfg.T)
     s = _run_blocks(params, s, cfg, keys[2], causal=False, backend=backend)
     pooled = torch.mean(SP.rate_decode(s.to(torch.float32)), dim=1)
-    return linear(params["head"], pooled)
+    return linear(params["head"], pooled, aimc_cfg, keys[3])
 
 
 def gpt_forward(params: Dict[str, Any], feats: Tensor, cfg: SpikingConfig,
-                rng: Tensor, *, backend) -> Tensor:
+                rng: Tensor, *, backend,
+                aimc_cfg: AIMCConfig = AIMCConfig()) -> Tensor:
     """``feats [B,L,input_dim]`` -> logits ``[B,L,vocab]``: embed plus
     position, rate coding, the spiking blocks (causal SSA), firing rates,
     float head."""
     check_ported(cfg)
     keys = prng.split(rng, 4)
     n = feats.shape[1]
-    x = linear(params["embed"], feats) + params["pos"][:n]
+    x = linear(params["embed"], feats, aimc_cfg, keys[0]) + params["pos"][:n]
     s = SP.rate_encode(keys[1], torch.sigmoid(x), cfg.T)
     s = _run_blocks(params, s, cfg, keys[2], causal=True, backend=backend)
-    return linear(params["head"], SP.rate_decode(s.to(torch.float32)))
+    return linear(params["head"], SP.rate_decode(s.to(torch.float32)),
+                  aimc_cfg, keys[3])

@@ -15,16 +15,24 @@ Twins of ``repro.engine``, restricted to what the ported paths call:
   runs its plain version on CPU tensors and its kernel on CUDA tensors,
   so this backend runs on either device and is bit-identical to
   ``"integer"``;
+* :class:`MeteringBackend` -- wraps either and meters energy from the
+  measured spike counts (``repro.engine.MeteringBackend``);
 * :class:`XpikeformerEngine` -- ``from_config`` (the paper's spiking ViT
   and GPT of ``SPIKING_ARCHS`` first, then the LM-stack registry, as the
-  reference resolves names), ``init``, ``forward``, ``classify``,
-  ``detect_symbols`` (tasks ``"vit"``/``"gpt"``), ``serve`` and
-  ``generate`` over the dense or paged scheduler (task ``"lm"``).
+  reference resolves names), ``init``, the programmed-PCM lifecycle
+  (``program``, ``drift_to``, ``recalibrate``), ``forward`` (optionally
+  metered), ``classify``, ``detect_symbols`` (tasks ``"vit"``/``"gpt"``),
+  ``serve`` and ``generate`` over the dense or paged scheduler, optionally
+  under a :class:`repro_torch.aimc_device.DriftPolicy` (task ``"lm"``).
 
 A linear param leaf is a float weight ``[d_in, d_out]``, a ``{"w", "b"}``
-dict, or a pre-quantised ``{"levels", "scale", "b"}`` dict (what
-:func:`repro_torch.models.transformer.quantize_params` makes once per
-scheduler, where the reference re-quantises inside every jitted step).
+dict, programmed PCM state (an :class:`repro_torch.aimc_device.
+AIMCDeviceState`, bare or as ``{"hw", "b"}``), or a pre-quantised
+``{"levels", "scale", "b"}`` dict (what :func:`repro_torch.models.
+transformer.quantize_params` makes once per scheduler, where the
+reference re-quantises inside every jitted step).  A programmed leaf
+executes its digital image: the drifted int8 ``levels_t`` and the
+per-column ``eff_scale`` that ``drift_to``/``recalibrate`` folded.
 """
 
 from __future__ import annotations
@@ -79,14 +87,27 @@ class Backend(Protocol):
         ...
 
 
+_A12 = ("ROADMAP A12 (legacy {'hw': dict} leaves of "
+        "core/aimc.py:program_weights)")
+
+
 def _linear_parts(p: Any) -> Dict[str, Any]:
+    if isinstance(p, AD.AIMCDeviceState):
+        return {"hw": p, "b": None}
     return p if isinstance(p, dict) else {"w": p, "b": None}
 
 
 def _levels_scale(p: Dict[str, Any]):
     """Integer conductance levels (int8) + per-column scale of a linear
-    leaf: pre-quantised leaves pass through, float weights quantise via
-    :func:`repro_torch.aimc_device.quantize_weights`."""
+    leaf: programmed state gives its digital image (``levels_t``,
+    ``eff_scale``), pre-quantised leaves pass through, float weights
+    quantise via :func:`repro_torch.aimc_device.quantize_weights`."""
+    if "hw" in p:
+        hw = p["hw"]
+        if not isinstance(hw, AD.AIMCDeviceState):
+            raise NotImplementedError(
+                f"programmed {{'hw': dict}} leaves are not ported: {_A12}")
+        return hw.levels_t, hw.eff_scale
     if "levels" in p:
         return p["levels"].to(torch.int8), p["scale"]
     levels, scale = AD.quantize_weights(p["w"])
@@ -225,6 +246,59 @@ class CudaBackend:
         return unflatten(out)
 
 
+class MeteringBackend:
+    """Wraps a backend and meters energy from **measured** spike counts
+    (``repro.engine.MeteringBackend``): every primitive call of a paper
+    forward (``spiking_linear``, ``ssa_attention``) converts its operand
+    and output spike events to picojoules with the Table-II op energies
+    (:mod:`repro_torch.energy.model`) into :attr:`report`.  Counting reads
+    each count back to the host, so metering is for one forward at a time
+    (``engine.forward(..., metering=True)``); serving books its energy in
+    the scheduler.  Counts are exact (summed in float64); the reference
+    sums in float32, which is exact below 2**24 events a call."""
+
+    def __init__(self, inner: Backend):
+        from repro_torch.energy import model as EM
+
+        self.inner = inner
+        self.report = EM.EnergyReport()
+        self.name = f"metered[{inner.name}]"
+
+    @staticmethod
+    def _count(x: Tensor) -> float:
+        return float(torch.sum(x, dtype=torch.float64))
+
+    def ssa_attention(self, key, q, k, v, *, causal=False):
+        from repro_torch.energy import model as EM
+
+        out = self.inner.ssa_attention(key, q, k, v, causal=causal)
+        t, b, h, n, d = q.shape
+        qs, ks, vs = self._count(q), self._count(k), self._count(v)
+        e = EM.meter_ssa(t, b * h, n, n, d, qs / q.numel(), ks / k.numel(),
+                         vs / v.numel())
+        self.report.ssa_pj += e["ssa"]
+        self.report.spikes_in += qs + ks + vs
+        self.report.spikes_out += self._count(out)
+        self.report.calls += 1
+        return out
+
+    def spiking_linear(self, p, spikes):
+        from repro_torch.energy import model as EM
+
+        out = self.inner.spiking_linear(p, spikes)
+        t = spikes.shape[0]
+        d_in, d_out = spikes.shape[-1], out.shape[-1]
+        tokens = int(spikes.numel() // (t * d_in))
+        ins = self._count(spikes)
+        e = EM.meter_spiking_linear(t, tokens, d_in, d_out, ins)
+        self.report.aimc_pj += e["aimc"]
+        self.report.lif_pj += e["lif"]
+        self.report.spikes_in += ins
+        self.report.spikes_out += self._count(out)
+        self.report.calls += 1
+        return out
+
+
 BACKENDS = {"integer": IntegerBackend, "cuda": CudaBackend}
 
 
@@ -239,28 +313,32 @@ def get_backend(spec: Union[str, Backend, None]) -> Backend:
     return spec
 
 
-_A8 = "ROADMAP A8 (programmed PCM lifecycle and energy)"
-
-
 @dataclasses.dataclass
 class XpikeformerEngine:
     """One handle over a model of the paper: the spiking ViT (``task=
     "vit"``) or GPT (``"gpt"``) of ``SPIKING_ARCHS``, run by
     :meth:`forward`, or a spiking GPT on the LM stack (``"lm"``), served
-    by :meth:`serve`.  Holds config, backend, device and params."""
+    by :meth:`serve`.  Holds config, backend, device and params, and the
+    programmed-PCM settings (``wmode``: ``"ideal"`` float weights or
+    ``"hw"`` programmed state; ``aimc_cfg``; the device clock
+    ``t_seconds``)."""
 
     cfg: Any  # SpikingConfig (vit, gpt) or ModelConfig (lm)
     backend: Backend
     device: torch.device
     params: Any = None
     task: str = "lm"  # vit | gpt | lm
+    wmode: str = "ideal"  # ideal | hw
+    aimc_cfg: Any = dataclasses.field(default_factory=AD.AIMCConfig)
+    t_seconds: float = 0.0
     _schedulers: Dict[Any, Any] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
     @classmethod
     def from_config(cls, name_or_cfg, *, task: Optional[str] = None,
                     backend: Union[str, Backend] = "cuda",
-                    wmode: str = "ideal", reduced: bool = False,
+                    wmode: str = "ideal", aimc_cfg=None,
+                    t_seconds: float = 0.0, reduced: bool = False,
                     device: Union[str, torch.device] = "cuda"
                     ) -> "XpikeformerEngine":
         """Build from an arch name or a config, resolved as the reference
@@ -268,7 +346,9 @@ class XpikeformerEngine:
         ``task="lm"``, else a name of the LM-stack registry (``reduced=True``
         for its CPU smoke size); a :class:`ModelConfig` is ``"lm"`` and a
         :class:`SpikingConfig` is ``"gpt"`` when it has ``input_dim``, else
-        ``"vit"``.  Only ``wmode="ideal"`` is ported."""
+        ``"vit"``.  ``aimc_cfg`` (Table II by default) and ``t_seconds``
+        (the device age :meth:`program` starts at) set the PCM lifecycle;
+        ``wmode="hwat"`` is training's and raises."""
         from repro_torch.configs import ModelConfig, registry
         from repro_torch.configs.xpikeformer import SPIKING_ARCHS
         from repro_torch.core import spiking_transformer as ST
@@ -293,11 +373,12 @@ class XpikeformerEngine:
             task = task or ("gpt" if cfg.input_dim > 0 else "vit")
         if task in ("vit", "gpt"):
             ST.check_ported(cfg, wmode)
-        elif wmode != "ideal":
-            raise NotImplementedError(
-                f"wmode={wmode!r} is not ported yet: {_A8}")
+        else:
+            ST.check_wmode(wmode)
         return cls(cfg=cfg, backend=get_backend(backend),
-                   device=resolve_device(device), task=task)
+                   device=resolve_device(device), task=task, wmode=wmode,
+                   aimc_cfg=aimc_cfg or AD.AIMCConfig(),
+                   t_seconds=float(t_seconds))
 
     def init(self, seed: int = 0):
         """Random weights from ``seed`` (``torch.Generator``)."""
@@ -312,28 +393,74 @@ class XpikeformerEngine:
             self.params = init(self.cfg, seed, self.device)
         return self.params
 
-    def program(self, *args, **kwargs):
-        raise NotImplementedError(f"engine.program() is not ported yet: {_A8}")
+    # -- the programmed-PCM lifecycle ------------------------------------
 
-    def drift_to(self, *args, **kwargs):
-        raise NotImplementedError(f"engine.drift_to() is not ported yet: {_A8}")
+    def program(self, key: Tensor, params: Any = None):
+        """Program the float weights onto simulated PCM crossbars (every
+        ``{"w", "b"}`` linear of a paper model; the LM stack's attention
+        and MLP weights) and switch to ``wmode="hw"``.  One-shot: a tree
+        that already holds programmed state raises.  ``key`` is a key of
+        the threefry twin; the same key programs the reference's state up
+        to the ``erfinv`` float boundary of the normal draws.  An engine
+        built with ``t_seconds > 0`` drifts the new state there."""
+        from repro_torch.core import spiking_transformer as ST
 
-    def recalibrate(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"engine.recalibrate() is not ported yet: {_A8}")
+        params = self.params if params is None else params
+        if params is None:
+            raise ValueError("call init() first or pass params")
+        if AD.is_programmed(params):
+            raise ValueError(
+                "engine.program(): params already hold programmed PCM state; "
+                "programming is one-shot -- use drift_to()/recalibrate() to "
+                "advance the device lifecycle")
+        key = key.to(self.device)
+        if self.task == "lm":
+            self.params = AD.program_lm_tree(key, params, self.aimc_cfg)
+        else:
+            self.params = ST.program_model(key, params, self.aimc_cfg)
+        self.wmode = "hw"
+        if self.t_seconds > 0:
+            self.params = AD.drift_tree(self.params, self.t_seconds,
+                                        self.aimc_cfg)
+        return self.params
+
+    @staticmethod
+    def _require_device_state(params) -> None:
+        if not AD.has_device_state(params):
+            raise ValueError(
+                "the drift lifecycle needs AIMCDeviceState leaves, which "
+                "carry the device clock -- call engine.program() first")
+
+    def drift_to(self, t_seconds: float, params: Any = None):
+        """Move the programmed device clock to ``t_seconds`` and refresh
+        every leaf's int8 image (K6, one launch per leaf)."""
+        params = self.params if params is None else params
+        self._require_device_state(params)
+        self.params = AD.drift_tree(params, float(t_seconds), self.aimc_cfg)
+        self.t_seconds = float(t_seconds)
+        return self.params
+
+    def recalibrate(self, params: Any = None):
+        """Global drift compensation (GDC, §V-B) at the current clock: fold
+        each crossbar's measured gain into its per-column scale."""
+        params = self.params if params is None else params
+        self._require_device_state(params)
+        self.params = AD.recalibrate_tree(params, self.aimc_cfg)
+        return self.params
+
+    # -- forward ---------------------------------------------------------
 
     def forward(self, x: Tensor, rng: Tensor, params: Any = None, *,
-                metering: bool = False) -> Tensor:
+                metering: bool = False):
         """Images ``[B,H,W,C]`` -> class logits ``[B, classes]`` (vit), or
         feature sequences ``[B,L,input_dim]`` -> per-token symbol logits
         ``[B,L,vocab]`` (gpt).  ``rng`` is a key of the threefry twin
         (:func:`repro_torch.prng.PRNGKey`): the same key draws the
-        reference's spikes."""
+        reference's spikes.  With ``metering=True`` the primitives run
+        through a :class:`MeteringBackend` and the call returns ``(logits,
+        report)``, a :class:`repro_torch.energy.model.EnergyReport`."""
         from repro_torch.core import spiking_transformer as ST
 
-        if metering:
-            raise NotImplementedError(
-                f"forward(metering=True) is not ported yet: {_A8}")
         if self.task == "lm":
             raise NotImplementedError(
                 "forward() of the LM stack (task='lm') is not ported yet: "
@@ -341,9 +468,14 @@ class XpikeformerEngine:
         params = self.params if params is None else params
         if params is None:
             raise ValueError("call init() first or pass params")
+        backend = MeteringBackend(self.backend) if metering else self.backend
         fwd = ST.vit_forward if self.task == "vit" else ST.gpt_forward
-        return fwd(params, x.to(self.device, torch.float32), self.cfg,
-                   rng.to(self.device), backend=self.backend)
+        logits = fwd(params, x.to(self.device, torch.float32), self.cfg,
+                     rng.to(self.device), backend=backend,
+                     aimc_cfg=self.aimc_cfg)
+        if metering:
+            return logits, backend.report
+        return logits
 
     def classify(self, images: Tensor, rng: Tensor, params: Any = None
                  ) -> Tensor:
@@ -359,12 +491,18 @@ class XpikeformerEngine:
             raise ValueError("detect_symbols() is the GPT / ICL task")
         return torch.argmax(self.forward(feats, rng, params), dim=-1)
 
+    # -- serving (task="lm") ---------------------------------------------
+
     def scheduler(self, *, slots: int = 4, cache_len: int = 64,
                   decode_kernel: str = "auto", paged: bool = False,
-                  page_len: int = 8, n_pages: Optional[int] = None):
+                  page_len: int = 8, n_pages: Optional[int] = None,
+                  drift=None):
         """A :class:`repro_torch.serving.BatchScheduler`, dense or (with
         ``paged=True``) over a block-paged pool of ``n_pages`` pages of
-        ``page_len`` tokens; cached per geometry and reset on reuse."""
+        ``page_len`` tokens; cached per geometry, reset on reuse and given
+        the engine's current params (the device clock is read from them,
+        never reset).  ``drift`` (a :class:`repro_torch.aimc_device.
+        DriftPolicy`) runs the PCM lifecycle on programmed params."""
         from repro_torch.serving import BatchScheduler
 
         if self.task != "lm":
@@ -374,29 +512,36 @@ class XpikeformerEngine:
         key = (slots, cache_len, decode_kernel, paged) + (
             (page_len, n_pages) if paged else ())
         sch = self._schedulers.get(key)
-        if sch is not None and sch.source_params is self.params:
+        if sch is not None:
             sch.reset()
+            if sch.source_params is not self.params:
+                sch.set_params(self.params)
+            sch.drift = drift
             return sch
         sch = BatchScheduler(self.params, self.cfg, self.backend, slots=slots,
                              cache_len=cache_len, decode_kernel=decode_kernel,
                              paged=paged, page_len=page_len, n_pages=n_pages,
-                             device=self.device)
+                             device=self.device, drift=drift)
         self._schedulers[key] = sch
         return sch
 
     def serve(self, prompts, max_new: int = 16, *, slots: int = 4,
               cache_len: int = 64, seed: int = 0, decode_kernel: str = "auto",
               paged: bool = False, page_len: int = 8,
-              n_pages: Optional[int] = None):
+              n_pages: Optional[int] = None, drift=None):
         """Continuous-batching serve: prompts -> (outputs, ServeStats);
         request ``i`` draws from the PRN stream ``seed + i``.  Paged and
-        dense serving give the same tokens."""
+        dense serving give the same tokens.  Under a ``drift`` policy the
+        engine adopts the aged (and recalibrated) device state afterwards,
+        so a later call continues from the aged clock."""
         sch = self.scheduler(slots=slots, cache_len=cache_len,
                              decode_kernel=decode_kernel, paged=paged,
-                             page_len=page_len, n_pages=n_pages)
+                             page_len=page_len, n_pages=n_pages, drift=drift)
         rids = [sch.submit(p, max_new, seed=seed + i)
                 for i, p in enumerate(prompts)]
         outs = sch.run()
+        if sch.programmed:
+            self.params = sch.source_params
         return [outs[r] for r in rids], sch.stats
 
     def generate(self, prompts, max_new: int = 16, **kwargs):

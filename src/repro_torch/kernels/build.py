@@ -29,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("aimc_matmul", "ssa_attention", "decode_fused", "lif")
+SOURCES = ("aimc_matmul", "ssa_attention", "decode_fused", "lif",
+           "drift_requantize")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {
     "aimc_spiking_linear": 0, "ssa_decode": 0, "fused_decode_layer": 0,
     "ssa_decode_paged": 0, "fused_decode_layer_paged": 0,
-    "ssa_attention": 0, "lif": 0}
+    "ssa_attention": 0, "lif": 0, "drift_requantize": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}  # source -> nvcc's stderr (ptxas resources)

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import aimc_matmul as KA
+from repro_torch.kernels import drift_requantize as KD
 from repro_torch.kernels import lif as KL
 from repro_torch.kernels import ref as KREF
 from repro_torch.kernels import ssa_attention as KS
@@ -168,3 +169,22 @@ def aimc_spiking_linear(spikes: Tensor, w_levels: Tensor, scale: Tensor,
         scale.to(torch.float32),
         None if bias is None else bias.to(torch.float32),
         beta=beta, v_thresh=v_thresh)
+
+
+def drift_requantize(levels: Tensor, eps: Tensor, nu: Tensor, t_seconds,
+                     img_gain, *, t0: float) -> Tensor:
+    """The drift fold onto the int8 image grid (K6) for programmed state
+    ``[..., d_in, d_out]``; ``t_seconds`` and ``img_gain`` are scalars or
+    one value per leading index, placed on the state's device as f32
+    tensors of the leading shape (no host synchronisation).  One launch
+    for the whole leaf, stacked or not; nothing is padded."""
+    lead = levels.shape[:-2]
+
+    def per_matrix(x):
+        x = torch.as_tensor(x, dtype=torch.float32, device=levels.device)
+        return torch.broadcast_to(x, lead).contiguous()
+
+    return KD.drift_requantize_kernel(
+        levels.to(torch.float32).contiguous(),
+        eps.to(torch.float32).contiguous(), nu.to(torch.float32).contiguous(),
+        per_matrix(t_seconds), per_matrix(img_gain), t0=t0)

@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.aimc import div_const
+
 Tensor = torch.Tensor
 Triple = Tuple[Tensor, Tensor, Optional[Tensor]]
 
@@ -53,6 +55,60 @@ def aimc_spiking_linear_ref(spikes: Tensor, w_levels: Tensor, scale: Tensor,
     if bias is not None:
         pre = pre + bias.to(torch.float32)
     return lif_ref(pre, beta=beta, v_thresh=v_thresh)
+
+
+def _per_matrix(x, device) -> Tensor:
+    """A scalar, or a tensor over a state's leading axes, as f32 broadcast
+    over the trailing ``[d_in, d_out]``."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    return x[..., None, None] if x.ndim else x
+
+
+def drift_factor_ref(nu: Tensor, t_seconds, t0: float) -> Tensor:
+    """``exp(-nu * log(max(t, t0) / t0))`` in f32, in the reference's op
+    order (``repro/kernels/ref.py:159-160``).  ``t_seconds`` is a scalar
+    or one time per leading index of ``nu [..., d_in, d_out]``."""
+    t = torch.clamp_min(_per_matrix(t_seconds, nu.device), t0)
+    return torch.exp(-nu * torch.log(div_const(t, t0)))
+
+
+def drift_fold_ref(levels: Tensor, eps: Tensor, df: Tensor, img_gain=1.0
+                   ) -> Tensor:
+    """``clip(round((levels + eps) * df * img_gain), -127, 127)`` to int8:
+    the fold of a given drift factor onto the image grid.  ``img_gain`` is
+    a scalar or one gain per leading index."""
+    g = (levels + eps) * df
+    g = g * _per_matrix(img_gain, levels.device)
+    return torch.clamp(torch.round(g), -127, 127).to(torch.int8)
+
+
+def drift_requantize_ref(levels: Tensor, eps: Tensor, nu: Tensor, t_seconds,
+                         *, t0: float, img_gain=1.0) -> Tensor:
+    """The digital execution image of a drifted PCM array
+    (``repro.kernels.ref.drift_requantize_ref``): the drift factor of
+    :func:`drift_factor_ref` folded by :func:`drift_fold_ref`.  K6's plain
+    version; ``t_seconds`` and ``img_gain`` are scalars or one value per
+    leading index of ``levels [..., d_in, d_out]``."""
+    return drift_fold_ref(levels, eps, drift_factor_ref(nu, t_seconds, t0),
+                          img_gain)
+
+
+def aimc_programmed_linear_ref(spikes: Tensor, levels: Tensor, eps: Tensor,
+                               nu: Tensor, scale: Tensor, t_seconds,
+                               gdc_gain, bias: Optional[Tensor] = None, *,
+                               t0: float, img_gain: int = 1,
+                               beta: float = 0.5, v_thresh: float = 1.0
+                               ) -> Tensor:
+    """The programmed-state spiking linear at a fixed device time
+    (``repro/kernels/ref.py:163-190``): the drifted int8 image and the
+    per-column ``scale * gdc_gain / img_gain`` (this oracle's op order;
+    :attr:`repro_torch.aimc_device.AIMCDeviceState.eff_scale` keeps the
+    state's), then :func:`aimc_spiking_linear_ref`."""
+    levels_t = drift_requantize_ref(levels, eps, nu, t_seconds, t0=t0,
+                                    img_gain=float(img_gain))
+    eff_scale = div_const(scale * gdc_gain, float(img_gain)).to(torch.float32)
+    return aimc_spiking_linear_ref(spikes, levels_t, eff_scale, bias,
+                                   beta=beta, v_thresh=v_thresh)
 
 
 def ssa_attention_ref(q: Tensor, k: Tensor, v: Tensor, rs: Tensor,

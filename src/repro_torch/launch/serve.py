@@ -3,13 +3,21 @@
     python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --requests 8
     python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --paged \
         --page-len 8 [--n-pages N]
+    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --program \
+        --drift-step 60 --recal-every 3600      # PCM lifecycle + energy
 
 Serves ``--requests`` synthetic prompts (the reference CLI's prompts:
 ``randint(fold_in(PRNGKey(seed + 1), i), (4 + 3 * (i % 4),), 0, vocab)``)
 with random weights from ``--seed``, on the CUDA kernels by default.
 ``--paged`` serves off the block-paged pool (prefix sharing, chunked
-prefill; the same tokens as dense).  ``--smoke`` serves the reduced
-CPU-test config; ``--device cpu`` runs the plain PyTorch versions.
+prefill; the same tokens as dense).  ``--program`` programs the spiking
+linears onto simulated PCM (:mod:`repro_torch.aimc_device`, key
+``PRNGKey(seed + 42)`` as in the reference CLI) before serving;
+``--drift-step`` and ``--recal-every`` set the device seconds per decode
+step and the GDC recalibration interval of the drift lifecycle (0: wall
+clock / never).  Every run prints the metered energy.  ``--smoke`` serves
+the reduced CPU-test config; ``--device cpu`` runs the plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch import aimc_device as AD
 from repro_torch import prng
 from repro_torch.engine import XpikeformerEngine
 
@@ -34,13 +43,23 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
           slots: int = 4, max_new: int = 16, cache_len: int = 64,
           seed: int = 0, backend: str = "cuda", decode_kernel: str = "auto",
           paged: bool = False, page_len: int = 8,
-          n_pages: Optional[int] = None, device: str = "cuda"):
+          n_pages: Optional[int] = None, device: str = "cuda",
+          program: bool = False, drift_step_s: float = 0.0,
+          recal_every_s: float = 0.0):
     eng = XpikeformerEngine.from_config(arch, task="lm", backend=backend,
                                         reduced=smoke, device=device)
     eng.init(seed)
+    drift = None
+    if program:
+        eng.program(prng.PRNGKey(seed + 42))
+        drift = AD.DriftPolicy(seconds_per_step=drift_step_s,
+                               recal_interval_s=recal_every_s)
+        print(f"[serve] programmed spiking linears onto PCM "
+              f"(drift {drift_step_s or 'wall-clock'} s/step, "
+              f"GDC every {recal_every_s or 'never'} s)")
     sch = eng.scheduler(slots=slots, cache_len=cache_len,
                         decode_kernel=decode_kernel, paged=paged,
-                        page_len=page_len, n_pages=n_pages)
+                        page_len=page_len, n_pages=n_pages, drift=drift)
     print(f"[serve] {eng.cfg.name} on {eng.device} through the "
           f"'{eng.backend.name}' backend; decode kernel: {sch.plan.describe()}")
     prompts = make_prompts(n_requests, eng.cfg.vocab_size, seed)
@@ -57,6 +76,16 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
               f"{st.prefix_hits} prefix-cache hits ({st.prefix_hit_tokens} "
               f"prompt tokens skipped), {st.cow_copies} copy-on-write pages, "
               f"peak {st.pages_in_use_peak} pages in use")
+    if st.energy_j > 0:
+        print(f"[serve] energy: {st.energy_j*1e6:.2f} uJ total "
+              f"({st.j_per_token*1e9:.1f} nJ/token, "
+              f"{st.spike_events:.0f} spike events)")
+        worst = max(sch.request_energy_j.items(), key=lambda kv: kv[1])
+        print(f"[serve] per-request energy: max rid={worst[0]} "
+              f"{worst[1]*1e9:.1f} nJ")
+    if program:
+        print(f"[serve] device clock t={st.t_device_s:.1f}s, "
+              f"{st.recalibrations} GDC recalibrations")
     return [outs[r] for r in rids]
 
 
@@ -80,13 +109,21 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced CPU-test config")
+    ap.add_argument("--program", action="store_true",
+                    help="program spiking linears onto simulated PCM first")
+    ap.add_argument("--drift-step", type=float, default=0.0,
+                    help="device seconds per decode step (0 = wall clock)")
+    ap.add_argument("--recal-every", type=float, default=0.0,
+                    help="GDC recalibration interval in device seconds "
+                         "(0 = never)")
     a = ap.parse_args(argv)
     with torch.no_grad():
         serve(a.arch, smoke=a.smoke, n_requests=a.requests, slots=a.slots,
               max_new=a.max_new, cache_len=a.cache_len, seed=a.seed,
               backend=a.backend, decode_kernel=a.decode_kernel,
               paged=a.paged, page_len=a.page_len, n_pages=a.n_pages,
-              device=a.device)
+              device=a.device, program=a.program,
+              drift_step_s=a.drift_step, recal_every_s=a.recal_every)
 
 
 if __name__ == "__main__":

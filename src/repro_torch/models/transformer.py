@@ -133,12 +133,21 @@ def _linear_fan_ins(cfg) -> Dict[Tuple[str, str], int]:
             ("mixer", "wo"): h * hd, ("mlp", "wi"): d, ("mlp", "wo"): cfg.d_ff}
 
 
+def device_operands(state: AD.AIMCDeviceState) -> Dict[str, Tensor]:
+    """A programmed leaf's digital image as crossbar operands: ``levels_t``
+    and ``eff_scale``, leading (period) axes kept."""
+    return {"levels": state.levels_t, "scale": state.eff_scale}
+
+
 def quantize_params(params: Dict[str, Any], cfg) -> Dict[str, Any]:
     """A copy of ``params`` whose spiking-linear weights are replaced by
     their Table-II operands ``{"levels": int8 [.., d_in, d_out], "scale":
-    f32 [.., d_out]}``.  The reference quantises float weights inside
+    f32 [.., d_out]}``: float weights quantised, programmed state
+    (:class:`repro_torch.aimc_device.AIMCDeviceState`) taken as its
+    drifted image and effective scale.  The reference derives them inside
     every jitted step; eager PyTorch would redo it on every call, so the
-    scheduler does it once -- the same function of the same weights."""
+    scheduler does it once (and again after every drift fold) -- the same
+    function of the same leaves."""
     fan_in = _linear_fan_ins(cfg)
 
     def block(blk, stacked: bool):
@@ -148,6 +157,9 @@ def quantize_params(params: Dict[str, Any], cfg) -> Dict[str, Any]:
                 continue
             g = dict(blk[group])
             for name, w in blk[group].items():
+                if isinstance(w, AD.AIMCDeviceState):
+                    g[name] = device_operands(w)
+                    continue
                 if (group, name) not in fan_in or isinstance(w, dict):
                     continue
                 lead = w.shape[:1] if stacked else ()
@@ -170,12 +182,17 @@ def _take(tree, i: int):
     """Index every tensor leaf of a (stacked) tree at ``i``: views."""
     if isinstance(tree, dict):
         return {k: _take(v, i) for k, v in tree.items()}
+    if isinstance(tree, AD.AIMCDeviceState):
+        return tree.map(lambda x: x[i])
     return tree[i]
 
 
 def _lin_operand(w, d_in: int):
     """A spiking-linear weight operand: pre-quantised leaves pass through,
-    float arrays reshape to the ``[d_in, d_out]`` crossbar view."""
+    programmed state gives its image operands, float arrays reshape to the
+    ``[d_in, d_out]`` crossbar view."""
+    if isinstance(w, AD.AIMCDeviceState):
+        return device_operands(w)
     if isinstance(w, dict):
         return w
     return w.to(torch.float32).reshape(d_in, -1)

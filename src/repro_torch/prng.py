@@ -15,7 +15,11 @@ reference runs with: ``jax.config.jax_threefry_partitionable``):
 * ``randint`` uses JAX's two-word method (a split key, higher and lower
   words, a ``2**16 % span`` multiplier) for every span, power of two or not;
 * ``uniform`` keeps the top 23 bits as the mantissa of a float in [1, 2)
-  and subtracts one, which is ``(bits >> 9) * 2**-23`` exactly.
+  and subtracts one, which is ``(bits >> 9) * 2**-23`` exactly, then maps
+  [0, 1) onto ``[minval, maxval)`` as JAX does;
+* ``normal`` is ``sqrt(2) * erfinv`` of a uniform on ``(-1, 1)``: exact up
+  to the ``erfinv``, which is a float boundary (torch's and XLA's differ
+  in the last bits).
 
 Every function is vectorised over the key's leading axes: where the
 reference ``vmap``s a draw over slots and heads, the port passes a
@@ -106,7 +110,34 @@ def randint(key: Tensor, shape: Tuple[int, ...], minval: int, maxval: int
     return (offset + minval).to(torch.int32)
 
 
-def uniform(key: Tensor, shape: Tuple[int, ...]) -> Tensor:
-    """``jax.random.uniform(key, shape)`` in float32, on [0, 1)."""
+def uniform(key: Tensor, shape: Tuple[int, ...], minval: float = 0.0,
+            maxval: float = 1.0) -> Tensor:
+    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``:
+    ``max(minval, u * (maxval - minval) + minval)`` over the [0, 1) draw.
+    XLA contracts ``u * span + minval`` into one fused multiply-add; the
+    product of two float32 values is exact in float64, so the sum is
+    taken there and rounded to float32 once (for the default range the
+    draw is returned as it is)."""
     bits = random_bits(key, shape)
-    return (bits >> 9).to(torch.float32) * (2.0 ** -23)
+    u = (bits >> 9).to(torch.float32) * (2.0 ** -23)
+    if minval == 0.0 and maxval == 1.0:
+        return u
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
+    out = (u.double() * span.double() + lo.double()).to(torch.float32)
+    return torch.maximum(lo, out)
+
+
+# the open interval's lower end of ``jax._src.random._normal_real``:
+# nextafter(-1, 0) in float32
+_NORMAL_LO = -(1.0 - 2.0 ** -24)
+
+
+def normal(key: Tensor, shape: Tuple[int, ...]) -> Tensor:
+    """``jax.random.normal(key, shape, jnp.float32)``: a uniform on
+    ``[nextafter(-1, 0), 1)`` through ``sqrt(2) * erf_inv(u)``
+    (``jax._src.random._normal_real``).  The uniform is JAX's bit for bit;
+    ``torch.erfinv`` and XLA's ``erf_inv`` are different approximations,
+    so the normals agree with JAX's to a few float32 ulps, not exactly."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return torch.erfinv(u) * math.sqrt(2.0)

@@ -19,8 +19,22 @@ Twin of ``repro/serving/scheduler.py``:
 
 Per-slot PRN streams ``f(seed, pos)`` make a request's tokens a pure
 function of ``(params, prompt, seed)``, never of batch composition or
-layout: paged and dense serving give the same tokens.  Energy booking, the
-drift lifecycle and telemetry are not part of this port yet.
+layout: paged and dense serving give the same tokens.
+
+* **energy** -- every served position (a dense prefill at admission, a
+  decode or paged prompt position) books its measured residual-stream
+  spike events times the per-event op energy plus the static per-token
+  cost (:mod:`repro_torch.energy.model`) against its request
+  (:attr:`BatchScheduler.request_energy_j`) and :class:`ServeStats`;
+* **drift lifecycle** -- with programmed params and a
+  :class:`~repro_torch.aimc_device.DriftPolicy`, every batched step
+  advances the PCM clock, re-folds the int8 image (K6) once the drift
+  factor has moved by half an image step, and runs GDC every
+  ``recal_interval_s``; after each fold the step's operands are derived
+  again from the aged state.
+
+The scheduler's telemetry (obs gauges, GDC trace events) is not ported
+(ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -33,7 +47,9 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import aimc_device as AD
 from repro_torch.device import resolve_device
+from repro_torch.energy import model as EM
 from repro_torch.engine import get_backend
 from repro_torch.kernels.plan import build_decode_plan
 from repro_torch.models import transformer as T
@@ -70,6 +86,10 @@ class ServeStats:
     decode_s: float = 0.0  # batched decode steps only
     prefill_s: float = 0.0  # batch-1 prefills at admission (dense)
     spike_events: float = 0.0  # measured residual-stream spike events
+    energy_j: float = 0.0  # metered inference energy (events x op energies)
+    t_device_s: float = 0.0  # PCM device clock after the last step
+    recalibrations: int = 0  # GDC recalibrations run by the drift policy
+    image_folds: int = 0  # drift re-folds of the int8 image (K6 per leaf)
     peak_active_slots: int = 0
     # paged serving (zeros on the dense path)
     prefix_hits: int = 0  # prefix-cache page hits across admissions
@@ -87,6 +107,12 @@ class ServeStats:
         """Decoded tokens per second spent inside batched decode steps."""
         return self.decoded_tokens / max(self.decode_s, 1e-9)
 
+    @property
+    def j_per_token(self) -> float:
+        """Metered joules per decoded token (0 decoded tokens count as a
+        vanishing denominator, so booked energy is never hidden)."""
+        return self.energy_j / max(self.decoded_tokens, 1e-9)
+
 
 class BatchScheduler:
     """Continuous-batching scheduler: submit prompts, run, collect outputs.
@@ -94,16 +120,20 @@ class BatchScheduler:
     Greedy decoding; a request finishes after ``max_new`` tokens.  Outputs
     land in :attr:`outputs` (rid -> generated token ids).  ``params`` is
     the model tree (float weights, as :func:`repro_torch.models.
-    transformer.init_params` or :mod:`repro_torch.convert` make them); the
-    scheduler moves it to ``device`` and quantises the spiking linears
-    once.  ``device`` defaults to CUDA and raises without it.
+    transformer.init_params` or :mod:`repro_torch.convert` make them, or
+    programmed state from :func:`repro_torch.aimc_device.program_lm_tree`);
+    the scheduler moves it to ``device`` and derives the spiking linears'
+    operands once (and after every drift fold).  ``drift`` runs the PCM
+    lifecycle on programmed params.  ``device`` defaults to CUDA and raises
+    without it.
     """
 
     def __init__(self, params: Any, cfg, backend=None, *, slots: int = 4,
                  cache_len: int = 64, decode_kernel: str = "auto",
                  paged: bool = False, page_len: int = 8,
                  n_pages: Optional[int] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 drift: Optional[AD.DriftPolicy] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the unembed is a float32 matmul: keep it out of TF32
@@ -113,8 +143,7 @@ class BatchScheduler:
         self.slots = slots
         self.cache_len = cache_len
         self.paged = bool(paged)
-        self.source_params = params
-        self.params = T.quantize_params(_to_device(params, self.device), cfg)
+        self.drift = drift
         # one plan per scheduler lifetime; dense prefill always runs unfused
         self.plan = build_decode_plan(
             cfg, self.backend, layout="paged" if self.paged else "dense",
@@ -138,10 +167,32 @@ class BatchScheduler:
             self._decode = ST.make_decode_fn(cfg, self.backend, plan=self.plan)
             self._prefill = ST.make_prefill_fn(cfg, self.backend)
         self._next_rid = 0
+        # static per-token and per-spike-event energies (pJ)
+        self._e_token_pj = EM.lm_decode_token_energy_pj(
+            cfg.d_model, cfg.num_heads, cfg.resolved_head_dim, cfg.d_ff,
+            cfg.num_layers, cfg.spike_T, cache_len, cfg.vocab_size)
+        self._e_event_pj = EM.decode_synapse_energy_pj()
+        self.stats = ServeStats()
+        self.set_params(params)
         self.reset()
 
+    def set_params(self, params: Any) -> None:
+        """Serve ``params`` (e.g. a newly programmed tree): place them on
+        the device, derive the step's operands, and read the device clock
+        from them (it picks up wherever the state already is: the device
+        does not rejuvenate)."""
+        self.source_params = params
+        self._state_params = _to_device(params, self.device)
+        self.params = T.quantize_params(self._state_params, self.cfg)
+        self.programmed = AD.has_device_state(params)
+        self._t_device = AD.device_time(params)
+        self._last_recal = self._t_device
+        self._t_image = self._t_device  # device time of the last image fold
+        self.stats.t_device_s = self._t_device
+
     def reset(self) -> None:
-        """Drop all requests and state (a fresh server on the same params)."""
+        """Drop all requests and state (a fresh server on the same params).
+        The PCM device clock is not reset: drift is physical."""
         if self.paged:
             self.pages = PagePool(self.n_pages, self.page_len)
             self.state = ST.init_paged_state(self.cfg, self.slots,
@@ -164,7 +215,11 @@ class BatchScheduler:
         self._slot_req: List[Optional[Request]] = [None] * self.slots
         self._remaining: List[int] = [0] * self.slots
         self.outputs: Dict[int, List[int]] = {}
+        # measured energy and spike events per request (rid -> totals)
+        self.request_energy_j: Dict[int, float] = {}
+        self.request_spikes: Dict[int, float] = {}
         self.stats = ServeStats()
+        self.stats.t_device_s = self._t_device
 
     # -- request intake ------------------------------------------------
 
@@ -228,7 +283,16 @@ class BatchScheduler:
             self._slot_req[slot] = req
             self._remaining[slot] = req.max_new
             self.outputs[req.rid] = []
+            # prefill energy depends on the prompt: its measured events and
+            # the static cost of each context position, booked at admission
+            e_j = (spikes * self._e_event_pj
+                   + req.n_ctx * self._e_token_pj) * 1e-12
+            self.request_spikes[req.rid] = (
+                self.request_spikes.get(req.rid, 0.0) + spikes)
+            self.request_energy_j[req.rid] = (
+                self.request_energy_j.get(req.rid, 0.0) + e_j)
             self.stats.spike_events += spikes
+            self.stats.energy_j += e_j
             self.stats.prefill_tokens += req.n_ctx
             self.stats.admissions += 1
             admitted += 1
@@ -390,6 +454,18 @@ class BatchScheduler:
 
     # -- serving loop --------------------------------------------------
 
+    def _book_position(self, rid: int, spikes: float) -> None:
+        """Book one served position's energy (measured spike events x the
+        per-event energy, plus the static per-token cost) against its
+        request and the stats: one formula for dense decode and paged
+        decode and prompt positions."""
+        e_j = (spikes * self._e_event_pj + self._e_token_pj) * 1e-12
+        self.request_spikes[rid] = self.request_spikes.get(rid, 0.0) + spikes
+        self.request_energy_j[rid] = (
+            self.request_energy_j.get(rid, 0.0) + e_j)
+        self.stats.spike_events += spikes
+        self.stats.energy_j += e_j
+
     def step(self) -> int:
         """Admit, then advance every active slot one token (paged: one
         position, prompt or decode).  Returns the number of tokens decoded
@@ -403,7 +479,8 @@ class BatchScheduler:
         _, self.state, act = self._decode(self.params, self.state)
         nxt = self.state.tokens.cpu().numpy()  # syncs the step
         act = act.cpu().numpy()
-        self.stats.decode_s += time.perf_counter() - t0
+        step_s = time.perf_counter() - t0
+        self.stats.decode_s += step_s
         self.stats.decode_steps += 1
         decoded = 0
         for slot in range(self.slots):
@@ -412,11 +489,12 @@ class BatchScheduler:
                 continue
             self.outputs[req.rid].append(int(nxt[slot]))
             decoded += 1
-            self.stats.spike_events += float(act[slot])
+            self._book_position(req.rid, float(act[slot]))
             self._remaining[slot] -= 1
             if self._remaining[slot] == 0:
                 self.evict(slot)
         self.stats.decoded_tokens += decoded
+        self._advance_device_clock(step_s)
         return decoded
 
     def _step_paged(self) -> int:
@@ -465,7 +543,8 @@ class BatchScheduler:
                                           mask.bool(), write_pids)
         nxt = self.state.tokens.cpu().numpy()  # syncs the step
         act = act.cpu().numpy()
-        self.stats.decode_s += time.perf_counter() - t0
+        step_s = time.perf_counter() - t0
+        self.stats.decode_s += step_s
         self.stats.decode_steps += 1
         decoded = 0
         for slot in range(b):
@@ -489,14 +568,47 @@ class BatchScheduler:
                 decoded += 1
                 self._phase[slot] = DECODE
                 self._remaining[slot] -= 1
-            self.stats.spike_events += float(act[slot])
+            self._book_position(req.rid, float(act[slot]))
             if self._remaining[slot] == 0:
                 self.evict(slot)
         self.stats.decoded_tokens += decoded
         self.stats.pages_in_use_peak = max(self.stats.pages_in_use_peak,
                                            self.pages.peak_in_use)
         self.stats.cow_copies = self.pages.cow_copies
+        self._advance_device_clock(step_s)
         return decoded
+
+    def _advance_device_clock(self, step_wall_s: float) -> None:
+        """The drift lifecycle, per the :class:`~repro_torch.aimc_device.
+        DriftPolicy`: advance the clock by one step; re-fold the image (K6,
+        one launch per programmed leaf) once the drift factor has moved by
+        half an int8 image step since the last fold, and always right
+        before a GDC recalibration; recalibrate every ``recal_interval_s``.
+        After a fold the step's operands are derived again, so no step
+        serves a stale image."""
+        pol = self.drift
+        if pol is None or not self.programmed:
+            return
+        dt = pol.seconds_per_step if pol.seconds_per_step > 0 else (
+            step_wall_s * pol.time_scale)
+        self._t_device += dt
+        due_recal = (pol.recal_interval_s > 0 and
+                     self._t_device - self._last_recal >= pol.recal_interval_s)
+        # half an image step: (t / t_image) ** -nu_mean moved by 0.5 / 127
+        ratio = (1.0 - 0.5 / 127.0) ** (-1.0 / max(pol.cfg.drift_nu_mean, 1e-3))
+        due_image = self._t_device >= max(self._t_image,
+                                          pol.cfg.drift_t0_s) * ratio
+        if due_recal or due_image:
+            tree = AD.drift_tree(self._state_params, self._t_device, pol.cfg)
+            self._t_image = self._t_device
+            self.stats.image_folds += 1
+            if due_recal:
+                tree = AD.recalibrate_tree(tree, pol.cfg)
+                self._last_recal = self._t_device
+                self.stats.recalibrations += 1
+            self.source_params = self._state_params = tree
+            self.params = T.quantize_params(tree, self.cfg)
+        self.stats.t_device_s = self._t_device
 
     def run(self) -> Dict[int, List[int]]:
         """Serve until the queue and all slots drain; returns outputs."""
@@ -510,4 +622,6 @@ class BatchScheduler:
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, AD.AIMCDeviceState):
+        return tree.map(lambda x: x.to(device))
     return tree.to(device)

@@ -8,11 +8,12 @@ machine with PyTorch alone::
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX.)  The plain
 versions are held against the JAX reference on the CPU by
-``tests/test_torch_kernels.py``, ``tests/test_torch_paged.py`` and
-``tests/test_torch_paper.py``; here each kernel must equal them exactly,
-at the serving path's and the paper models' widths and at the padding,
-GQA, causal and row-count edges, and the paper forwards through the
-kernels must give the plain versions' logits bit for bit.
+``tests/test_torch_kernels.py``, ``tests/test_torch_paged.py``,
+``tests/test_torch_paper.py`` and ``tests/test_torch_pcm.py``; here each
+kernel must equal them exactly, at the serving path's and the paper
+models' widths and at the padding, GQA, causal and row-count edges, and
+the paper forwards through the kernels, programmed or not, must give the
+plain versions' logits bit for bit.
 """
 
 import dataclasses
@@ -31,6 +32,7 @@ from repro_torch.engine import CudaBackend, XpikeformerEngine
 from repro_torch.kernels import aimc_matmul as KA
 from repro_torch.kernels import build as KB
 from repro_torch.kernels import decode_fused as KFD
+from repro_torch.kernels import drift_requantize as KD
 from repro_torch.kernels import lif as KL
 from repro_torch.kernels import ref as KREF
 from repro_torch.kernels import ssa_attention as KS
@@ -375,3 +377,52 @@ def test_paper_forward_kernels_equal_plain_on_card(cuda, name):
                           rtol=0, atol=1e-4)
     assert torch.equal(out["cuda", "cuda"].argmax(-1),
                        out["cpu", "integer"].argmax(-1))
+
+
+@pytest.mark.parametrize("shape", [(384, 1536), (4, 256, 1024), (300, 17)])
+def test_drift_requantize_kernel(cuda, shape):
+    """K6 equals its plain version on the card bit for bit, at t = 0,
+    t < t0, an hour and a year, image gains 1 and 7, with a time and a
+    gain per matrix for a stacked leaf."""
+    rng = np.random.default_rng(sum(shape))
+    lv = _t(rng.integers(-15, 16, shape).astype(np.float32)).to(cuda)
+    eps = _t((0.45 * rng.standard_normal(shape)).astype(np.float32)).to(cuda)
+    nu = _t(np.maximum(0.06 + 0.02 * rng.standard_normal(shape), 0)
+            .astype(np.float32)).to(cuda)
+    lead = shape[:-2]
+    for t in (0.0, 10.0, 3600.0, 3.1536e7):
+        for gain in (1.0, 7.0):
+            tt = torch.full(lead, t, device=cuda)
+            gg = torch.full(lead, gain, device=cuda)
+            if lead:
+                tt[0], gg[-1] = 86400.0, 8.0
+            got = KD.drift_requantize_kernel(lv, eps, nu, tt, gg, t0=20.0)
+            torch.cuda.synchronize()
+            _eq(got, KREF.drift_requantize_ref(lv, eps, nu, tt, t0=20.0,
+                                               img_gain=gg))
+
+
+def test_programmed_paper_forward_equal_plain_on_card(cuda):
+    """The programmed paper GPT at program, after a year of drift and after
+    recalibration: kernel and plain logits bitwise equal on the card; the
+    lifecycle launches K6 once per leaf per fold (twice per recalibration)."""
+    name = "xpikeformer-gpt-smoke"
+    _, cfg = SPIKING_ARCHS[name]
+    x = MIMO.sample_batch(0, MIMO.MIMOConfig(), 4)["features"]
+    key = prng.PRNGKey(5)
+    eng = XpikeformerEngine.from_config(cfg, backend="cuda", device="cuda")
+    eng.init(2)
+    KB.reset_launches()
+    eng.program(prng.PRNGKey(3))
+    leaves = 2 + 6 * cfg.depth
+    assert KB.LAUNCHES["drift_requantize"] == leaves
+    plain = XpikeformerEngine.from_config(cfg, backend="integer",
+                                          device="cuda")
+    for stage in ("programmed", "drifted", "recalibrated"):
+        if stage == "drifted":
+            eng.drift_to(3.1536e7)
+        elif stage == "recalibrated":
+            eng.recalibrate()
+        got = eng.forward(x, key)
+        assert torch.equal(got, plain.forward(x, key, eng.params)), stage
+    assert KB.LAUNCHES["drift_requantize"] == 4 * leaves

@@ -354,25 +354,30 @@ def test_paper_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_modes_raise():
+    """The baseline modes (A7), hardware-aware training's noisy forward
+    (A11) and legacy ``{"hw": dict}`` leaves (A12) raise, naming their
+    ROADMAP item; the programmed-PCM lifecycle (A8) runs
+    (``tests/test_torch_pcm.py``)."""
     vcfg = X.SPIKING_ARCHS["xpikeformer-vit-smoke"][1]
     for mode in ("ann", "lif"):
         with pytest.raises(NotImplementedError, match="A7"):
             XpikeformerEngine.from_config(dataclasses.replace(vcfg, mode=mode),
                                           device="cpu")
-    for wmode in ("hwat", "hw"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            XpikeformerEngine.from_config(vcfg, wmode=wmode, device="cpu")
-    eng = XpikeformerEngine.from_config(vcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        XpikeformerEngine.from_config(vcfg, wmode="hwat", device="cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        XpikeformerEngine.from_config("xpikeformer-gpt-4-256", task="lm",
+                                      reduced=True, wmode="hwat", device="cpu")
+    eng = XpikeformerEngine.from_config(vcfg, wmode="hw", device="cpu")
+    assert eng.wmode == "hw"
     eng.init(0)
     img = torch.zeros((1, 16, 16, 3))
     key = prng.PRNGKey(0)
-    for call in (lambda: eng.program(key), lambda: eng.drift_to(1.0),
-                 eng.recalibrate,
-                 lambda: eng.forward(img, key, metering=True)):
-        with pytest.raises(NotImplementedError, match="A8"):
-            call()
-    with pytest.raises(NotImplementedError, match="A8"):
-        ST.linear({"hw": None, "b": torch.zeros(2)}, img)
+    legacy = {"hw": {"levels": torch.ones(48, 2)}, "b": torch.zeros(2)}
+    with pytest.raises(NotImplementedError, match="A12"):
+        ST.linear(legacy, img.reshape(1, 16, 48))
+    with pytest.raises(NotImplementedError, match="A12"):
+        IntegerBackend().spiking_linear(legacy, torch.zeros((1, 1, 48)))
     with pytest.raises(NotImplementedError, match="A7"):
         ST.vit_forward(eng.params, img, dataclasses.replace(vcfg, mode="ann"),
                        key, backend=eng.backend)

@@ -1,0 +1,781 @@
+"""The programmed-PCM lifecycle and energy metering of the port against the
+JAX reference.
+
+Everything runs on the CPU, where every kernel wrapper takes its plain
+PyTorch version.  Inputs are made with numpy from a seed; programmed state
+is taken from JAX through numpy (``convert.params_from_numpy``) wherever a
+result is held exactly, because two float boundaries separate the
+packages:
+
+* ``jax.random.normal`` is ``sqrt(2) * erf_inv(u)``: the port draws JAX's
+  uniform ``u`` bit for bit, but ``torch.erfinv`` and XLA's ``erf_inv``
+  are different approximations (relative gaps up to a few 1e-6), so the
+  programming error ``eps`` and drift exponents ``nu`` that ``program``
+  draws agree within ``EPS_ATOL``/``NU_ATOL``, not exactly;
+* the drift factor ``exp(-nu * log(t / t0))``: torch's and XLA's ``exp``
+  and ``log`` differ in the last bits, so the native fold may flip an
+  image level where ``(levels + eps) * df * gain`` lies within an ulp of
+  a rounding boundary.  K6's plain version is held exactly given JAX's
+  drift factor, and the native fold within ``FLIP_RATE`` flips of one
+  level each.
+
+* K6 (the drift fold): plain version == ``repro.kernels.ref.
+  drift_requantize_ref`` and the Pallas ``drift_requantize`` in interpret
+  mode, and == ``repro.aimc_device._requantize`` on stacked leaves with a
+  time and gain per matrix.
+* ``program`` / ``program_tree`` / ``program_lm_tree``: ``levels``,
+  ``scale``, ``img_inv`` exact, ``eps``/``nu`` within tolerance, leaf by
+  leaf (which checks the key each leaf is programmed with).
+* ``drift_to``, ``recalibrate``, ``eff_scale``, ``device_time``,
+  ``gdc_gain_summary`` exact on JAX's state.
+* The paper models programmed: block spike trains bitwise equal to JAX's
+  ``IntegerBackend`` at program, drift and recalibration; logits within
+  ``PROG_LOGITS_ATOL``; drift degrades and GDC recovers.
+* Metering reports equal to JAX's.
+* The schedulers, dense and paged, under ``DriftPolicy(600, 2400)``:
+  clock, folds, recalibrations and energy equal to JAX's
+  ``BatchScheduler``; token streams equal with the port's drift factor
+  patched to JAX's.
+"""
+
+import copy
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import aimc_device as JAD
+from repro import engine as JE
+from repro.configs import registry as JR
+from repro.configs import xpikeformer as JX
+from repro.core import spikes as JSP
+from repro.core import spiking_transformer as JST
+from repro.energy import constants as JC
+from repro.energy import model as JEM
+from repro.kernels import ops as JKOPS
+from repro.kernels import ref as JREF
+from repro.models import transformer as JT
+from repro.serving import BatchScheduler as JBatchScheduler
+from repro_torch import aimc_device as AD
+from repro_torch import convert, prng
+from repro_torch.configs import registry as R
+from repro_torch.configs import xpikeformer as X
+from repro_torch.core import aimc as AM
+from repro_torch.core import spiking_transformer as ST
+from repro_torch.energy import constants as C
+from repro_torch.energy import model as EM
+from repro_torch.engine import XpikeformerEngine
+from repro_torch.kernels import build as KB
+from repro_torch.kernels import drift_requantize as KD
+from repro_torch.kernels import ops as KOPS
+from repro_torch.kernels import ref as KREF
+from repro_torch.models import transformer as T
+from repro_torch.serving import BatchScheduler
+
+JCFG, TCFG = JAD.AIMCConfig(), AD.AIMCConfig()
+# programming noise: 0.45 * N(0, 1) and 0.02 * N(0, 1) + 0.06, normals
+# within a few 1e-6 relative of JAX's (erfinv), so a few 1e-6 absolute
+EPS_ATOL, NU_ATOL = 2e-5, 1e-6
+# the native fold (torch exp/log) against XLA's: at most this share of the
+# image levels flips, by one level each (measured 2 of 8,000,000)
+FLIP_RATE = 1e-4
+# programmed paper models: the analog patch/embed and head (f32 partial
+# sums in another order, erfinv read noise, the ADC's rounding) and the
+# reference's XLA float tail
+PROG_LOGITS_ATOL = 1e-3
+TIMES = (0.0, 10.0, 3600.0, 86400.0, 2.592e6, 3.1536e7)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _key(seed):
+    jkey = jax.random.PRNGKey(seed)
+    return jkey, _t(np.asarray(jkey).astype(np.int64))
+
+
+def _eq(got, want, what=""):
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert np.array_equal(got, want.astype(got.dtype)), (
+        f"{what}: {np.sum(got != want)} of {got.size} elements differ")
+
+
+def _tstate(jstate):
+    return convert.device_state_from_numpy(jax.tree.map(np.asarray, jstate))
+
+
+def _fold_inputs(shape, seed):
+    """Programmed-state operands as ``program`` makes them: integer levels
+    in [-15, 15], ``eps ~ 0.45 N(0,1)``, ``nu ~ max(0.06 + 0.02 N(0,1), 0)``."""
+    rng = np.random.default_rng(seed)
+    lv = rng.integers(-15, 16, shape).astype(np.float32)
+    eps = (0.45 * rng.standard_normal(shape)).astype(np.float32)
+    nu = np.maximum(0.06 + 0.02 * rng.standard_normal(shape), 0).astype(
+        np.float32)
+    return lv, eps, nu
+
+
+def _reversed_dicts(tree):
+    """The same tree with every dict's insertion order reversed: the key
+    order of a flatten must not depend on it (``jax.tree.map`` hands back
+    sorted dicts, the port's own ``init_vit`` builds unsorted ones)."""
+    if isinstance(tree, dict):
+        return {k: _reversed_dicts(tree[k]) for k in reversed(list(tree))}
+    if isinstance(tree, list):
+        return [_reversed_dicts(v) for v in tree]
+    return tree
+
+
+def _jax_factor(nu, t):
+    """JAX's drift factor for a time per leading index (or a scalar)."""
+    t = np.asarray(t, np.float32)
+    tt = jnp.asarray(t)[..., None, None] if t.ndim else jnp.asarray(t)
+    return np.asarray(JAD._drift_factor(jnp.asarray(nu), tt, JCFG))
+
+
+# ---------------------------------------------------------------------------
+# K6: the drift fold
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(64, 32), (70, 40), (128, 128), (300, 17)])
+def test_drift_fold_plain_equals_jax_oracles(shape):
+    """Given JAX's drift factor the plain fold equals ``drift_requantize_ref``
+    and the Pallas kernel (interpret mode) exactly, at t = 0, t < t0, an
+    hour, a day, a month and a year, image gains 1 and 7; the wrapper's
+    native fold flips at most ``FLIP_RATE`` of the levels by one."""
+    lv, eps, nu = _fold_inputs(shape, sum(shape))
+    n_flips = 0
+    for t in TIMES:
+        df = _t(_jax_factor(nu, t))
+        for gain in (1, 7):
+            want = np.asarray(JREF.drift_requantize_ref(
+                jnp.asarray(lv), jnp.asarray(eps), jnp.asarray(nu), t,
+                t0=JCFG.drift_t0_s, img_gain=gain))
+            _eq(KREF.drift_fold_ref(_t(lv), _t(eps), df, float(gain)), want,
+                f"fold t={t} gain={gain}")
+            if gain == 7 and t in (10.0, 86400.0):
+                pallas = JKOPS.drift_requantize(
+                    jnp.asarray(lv), jnp.asarray(eps), jnp.asarray(nu),
+                    jnp.float32(t), t0=JCFG.drift_t0_s, img_gain=gain,
+                    interpret=True)
+                _eq(pallas, want, f"pallas t={t}")
+            native = KD.drift_requantize_kernel(
+                _t(lv), _t(eps), _t(nu), torch.tensor(t), torch.tensor(
+                    float(gain)), t0=TCFG.drift_t0_s)
+            assert native.dtype == torch.int8
+            diff = np.abs(native.numpy().astype(int) - want.astype(int))
+            assert diff.max() <= 1
+            n_flips += int(diff.sum())
+    assert n_flips <= FLIP_RATE * lv.size * len(TIMES) * 2
+
+
+def test_drift_fold_stacked_leaf_per_matrix_time_and_gain():
+    """A stacked ``[3, 70, 40]`` leaf folds in one call with a time and an
+    image gain per matrix, as ``repro.aimc_device._requantize`` folds it."""
+    lv, eps, nu = _fold_inputs((3, 70, 40), 5)
+    t = np.array([0.0, 3600.0, 3.1536e7], np.float32)
+    gain = np.array([7.0, 1.0, 8.0], np.float32)
+    want = np.asarray(JAD._requantize(
+        jnp.asarray(lv), jnp.asarray(eps), jnp.asarray(nu), jnp.asarray(t),
+        JCFG, jnp.asarray(gain)[:, None, None]))
+    got = KREF.drift_fold_ref(_t(lv), _t(eps), _t(_jax_factor(nu, t)),
+                              _t(gain))
+    _eq(got, want, "stacked fold")
+    for i in range(3):  # each matrix as the 2-D oracle folds it
+        _eq(got[i], JREF.drift_requantize_ref(
+            jnp.asarray(lv[i]), jnp.asarray(eps[i]), jnp.asarray(nu[i]),
+            float(t[i]), t0=JCFG.drift_t0_s, img_gain=int(gain[i])))
+    launches = KB.LAUNCHES["drift_requantize"]
+    native = KOPS.drift_requantize(_t(lv), _t(eps), _t(nu), _t(t), _t(gain),
+                                   t0=TCFG.drift_t0_s)
+    assert KB.LAUNCHES["drift_requantize"] == launches  # CPU: no kernel
+    assert int(np.abs(native.numpy().astype(int) - want).max()) <= 1
+
+
+def test_drift_factor_and_programmed_linear_oracles_equal_jax():
+    """``drift_factor_ref`` is JAX's op order (equal wherever torch's and
+    XLA's exp/log agree, which the flip bound above measures), and the
+    programmed-linear oracle folds and scales as JAX's does."""
+    lv, eps, nu = _fold_inputs((70, 40), 9)
+    jdf = _jax_factor(nu, 86400.0)
+    tdf = KREF.drift_factor_ref(_t(nu), 86400.0, TCFG.drift_t0_s).numpy()
+    np.testing.assert_allclose(tdf, jdf, rtol=1e-6, atol=0)
+    rng = np.random.default_rng(3)
+    spikes = (rng.random((3, 5, 70)) < 0.4).astype(np.float32)
+    scale = (rng.random(40) * 0.01 + 1e-3).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(40)).astype(np.float32)
+    want = JREF.aimc_programmed_linear_ref(
+        jnp.asarray(spikes), jnp.asarray(lv), jnp.asarray(eps),
+        jnp.asarray(nu), jnp.asarray(scale), 3600.0, 1.07,
+        jnp.asarray(bias), t0=JCFG.drift_t0_s, img_gain=7)
+    got = KREF.aimc_programmed_linear_ref(
+        _t(spikes), _t(lv), _t(eps), _t(nu), _t(scale), 3600.0, 1.07,
+        _t(bias), t0=TCFG.drift_t0_s, img_gain=7)
+    _eq(got, want, "programmed linear")
+
+
+# ---------------------------------------------------------------------------
+# Programming and the lifecycle
+# ---------------------------------------------------------------------------
+
+
+def test_aimc_config_and_energy_constants_equal_jax():
+    assert dataclasses.asdict(TCFG) == dataclasses.asdict(JCFG)
+    assert TCFG.levels == JCFG.levels
+    assert AD.image_gain(TCFG) == JAD.image_gain(JCFG) == 7
+    consts = {k: v for k, v in vars(C).items() if k.isupper()}
+    assert consts == {k: v for k, v in vars(JC).items() if k.isupper()}
+    assert (EM.lm_decode_token_energy_pj(256, 4, 64, 1024, 4, 4, 256, 64)
+            == JEM.lm_decode_token_energy_pj(256, 4, 64, 1024, 4, 4, 256, 64))
+    assert EM.decode_synapse_energy_pj() == JEM.decode_synapse_energy_pj()
+    assert (EM.meter_ssa(4, 6, 16, 16, 8, 0.3, 0.4, 0.5)
+            == JEM.meter_ssa(4, 6, 16, 16, 8, 0.3, 0.4, 0.5))
+    assert (EM.meter_spiking_linear(4, 7, 300, 130, 911.0)
+            == JEM.meter_spiking_linear(4, 7, 300, 130, 911.0))
+
+
+def test_adc_and_analog_matmul_equal_jax():
+    """The shared ADC is exact; ``analog_matmul`` on JAX's state without
+    read noise agrees within the f32 partial sums' order (and an ADC step
+    where a partial lies on a boundary: none here), with read noise within
+    the erfinv gap."""
+    rng = np.random.default_rng(4)
+    x = (30 * rng.standard_normal((1000,))).astype(np.float32)
+    _eq(AM._adc(_t(x), TCFG), JAD.AM._adc(jnp.asarray(x), JCFG), "adc")
+    w = (0.1 * rng.standard_normal((200, 24))).astype(np.float32)
+    js = JAD.drift_to(jax.jit(JAD.program, static_argnums=2)(
+        jax.random.PRNGKey(8), jnp.asarray(w), JCFG), 86400.0, JCFG)
+    ts = _tstate(js)
+    xs = rng.random((5, 200)).astype(np.float32)
+    want = np.asarray(JAD.analog_matmul(None, jnp.asarray(xs), js, JCFG))
+    got = AD.analog_matmul(None, _t(xs), ts, TCFG).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    nk_j, nk_t = _key(9)
+    want = np.asarray(JAD.analog_matmul(nk_j, jnp.asarray(xs), js, JCFG))
+    got = AD.analog_matmul(nk_t, _t(xs), ts, TCFG).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def _state_close(got, want, what):
+    """``levels``/``scale``/``img_inv``/clock/gain exact, ``eps``/``nu``
+    within tolerance, the image within one level."""
+    for f in ("levels", "scale", "img_inv", "t_seconds", "gdc_gain"):
+        _eq(getattr(got, f), getattr(want, f), f"{what}.{f}")
+    np.testing.assert_allclose(got.eps.numpy(), np.asarray(want.eps), rtol=0,
+                               atol=EPS_ATOL, err_msg=f"{what}.eps")
+    np.testing.assert_allclose(got.nu.numpy(), np.asarray(want.nu), rtol=0,
+                               atol=NU_ATOL, err_msg=f"{what}.nu")
+    flips = np.abs(got.levels_t.numpy().astype(int)
+                   - np.asarray(want.levels_t).astype(int))
+    assert flips.max() <= 1 and flips.sum() <= FLIP_RATE * flips.size + 1
+
+
+def test_program_equals_jax():
+    rng = np.random.default_rng(1)
+    jk, tk = _key(3)
+    for shape in [(70, 40), (3, 70, 40)]:
+        w = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+        _state_close(AD.program(tk, _t(w), TCFG),
+                     JAD.program(jk, jnp.asarray(w), JCFG), str(shape))
+
+
+def _states(jtree):
+    return [x for x in jax.tree.leaves(
+        jtree, is_leaf=lambda x: isinstance(x, JAD.AIMCDeviceState))
+        if isinstance(x, JAD.AIMCDeviceState)]
+
+
+def _draws_close(got, want, what):
+    """The draws a key fixes: ``eps`` and ``nu`` within the erfinv gap."""
+    np.testing.assert_allclose(got.eps.numpy(), np.asarray(want.eps), rtol=0,
+                               atol=EPS_ATOL, err_msg=f"{what}.eps")
+    np.testing.assert_allclose(got.nu.numpy(), np.asarray(want.nu), rtol=0,
+                               atol=NU_ATOL, err_msg=f"{what}.nu")
+
+
+@pytest.mark.parametrize("name", ["xpikeformer-vit-smoke",
+                                  "xpikeformer-gpt-smoke"])
+def test_program_tree_keys_equal_jax(name):
+    """Every linear of a paper model draws the reference's noise: one key
+    split over the tree's leaves in ``jax.tree.flatten`` order (dict keys
+    sorted, whatever their insertion order).  JAX programs under ``jit``
+    here for speed, which moves a column scale's last bit (XLA divides by
+    the reciprocal of 15), so the draws are what is compared;
+    ``test_program_equals_jax`` holds the rest against the eager
+    reference."""
+    task, jcfg = JX.SPIKING_ARCHS[name]
+    init = JST.init_vit if task == "vit" else JST.init_gpt
+    jparams = init(jax.random.PRNGKey(0), jcfg)
+    jk, tk = _key(21)
+    jprog = jax.jit(JAD.program_tree, static_argnums=2)(jk, jparams, JCFG)
+    tprog = AD.program_tree(tk, _reversed_dicts(convert.params_from_numpy(
+        jax.tree.map(np.asarray, jparams))), TCFG)
+    jstates, tstates = _states(jprog), AD.device_states(tprog)
+    assert len(tstates) == len(jstates) == 2 + 6 * jcfg.depth
+    for i, (g, w) in enumerate(zip(tstates, jstates)):
+        _draws_close(g, w, f"{name} leaf {i}")
+    _eq(tprog["head"]["b"], jprog["head"]["b"])
+
+
+def test_program_lm_tree_keys_equal_jax(programmed_lm):
+    """The LM stack's six spiking linears per block, stacked period leaves
+    kept stacked, each drawing with the reference's ``fold_in`` key."""
+    cfg, _, jprog, _, _ = programmed_lm
+    jparams = JT.init_params(jax.random.PRNGKey(0), cfg)
+    tprog = AD.program_lm_tree(
+        prng.PRNGKey(42), convert.params_from_numpy(
+            jax.tree.map(np.asarray, jparams)), AD.AIMCConfig(**LOW_SCATTER))
+    n = 0
+    for group in ("periods", "remainder"):
+        for bk in jprog.get(group, {}):
+            for sub, names in (("mixer", ("wq", "wk", "wv", "wo")),
+                               ("mlp", ("wi", "wo"))):
+                for nm in names:
+                    _draws_close(tprog[group][bk][sub][nm],
+                                 jprog[group][bk][sub][nm],
+                                 f"{group}.{bk}.{sub}.{nm}")
+                    n += 1
+    assert n == 6 * cfg.period * (cfg.num_periods > 0) + 6 * cfg.remainder_layers
+    for k in set(jprog) - {"periods", "remainder"}:  # digital leaves kept
+        for g, w in zip(AD._leaves(tprog[k], lambda x: False),
+                        jax.tree.leaves(jprog[k])):
+            _eq(g, w, k)
+
+
+def test_lifecycle_exact_on_jax_state():
+    """On JAX's programmed tree: ``drift_tree``, ``recalibrate_tree``,
+    ``eff_scale``, ``analog_scale``, ``device_time`` and
+    ``gdc_gain_summary`` equal JAX's at every time (the fold given the
+    same factor, which torch's exp/log give here)."""
+    cfg = JR.reduced_config("xpikeformer-gpt-4-256")
+    jparams = JT.init_params(jax.random.PRNGKey(0), cfg)
+    jprog = JAD.program_lm_tree(jax.random.PRNGKey(7), jparams, JCFG)
+    tprog = convert.params_from_numpy(jax.tree.map(np.asarray, jprog))
+    assert AD.has_device_state(tprog) and AD.device_time(tprog) == 0.0
+    for t in TIMES[1:]:
+        jd = JAD.recalibrate_tree(JAD.drift_tree(jprog, t, JCFG), JCFG)
+        td = AD.recalibrate_tree(AD.drift_tree(tprog, t, TCFG), TCFG)
+        assert AD.device_time(td) == JAD.device_time(jd) == np.float32(t)
+        assert AD.gdc_gain_summary(td) == JAD.gdc_gain_summary(jd)
+        js = [x for x in jax.tree.leaves(
+            jd, is_leaf=lambda x: isinstance(x, JAD.AIMCDeviceState))
+            if isinstance(x, JAD.AIMCDeviceState)]
+        for g, w in zip(AD.device_states(td), js):
+            for f in ("levels_t", "t_seconds", "gdc_gain", "eff_scale",
+                      "analog_scale"):
+                _eq(getattr(g, f), getattr(w, f), f"t={t} {f}")
+
+
+def test_lifecycle_errors_and_frozen_image_grid():
+    """Programming is one-shot; the lifecycle needs device state; the
+    image grid is the one frozen at program time, whatever config a later
+    drift is given (mirrors ``tests/test_aimc_device.py``)."""
+    tree = {"a": {"w": torch.randn(12, 6, generator=torch.Generator()
+                                   .manual_seed(0)), "b": torch.zeros(6)}}
+    key = prng.PRNGKey(0)
+    prog = AD.program_tree(key, tree, TCFG)
+    with pytest.raises(ValueError, match="already programmed"):
+        AD.program_tree(key, prog, TCFG)
+    with pytest.raises(ValueError, match="already programmed"):
+        AD.program_lm_tree(key, {"periods": {"blk0": prog}}, TCFG)
+    legacy = {"lin": {"hw": {"levels": torch.ones(4, 2)}, "b": torch.zeros(2)}}
+    assert AD.is_programmed(legacy) and not AD.has_device_state(legacy)
+    eng = XpikeformerEngine.from_config("xpikeformer-vit-smoke",
+                                        backend="integer", device="cpu")
+    for call in (lambda: eng.drift_to(60.0, params=legacy),
+                 lambda: eng.recalibrate(params=legacy),
+                 lambda: eng.drift_to(60.0, params=tree)):
+        with pytest.raises(ValueError, match="device clock"):
+            call()
+    eng.init(0)
+    eng.program(key)
+    assert eng.wmode == "hw"
+    with pytest.raises(ValueError, match="one-shot"):
+        eng.program(key)
+    cfg_prog = AD.AIMCConfig(prog_noise_sigma=0.01)  # image gain 8
+    cfg_other = AD.AIMCConfig(prog_noise_sigma=0.03)  # image gain 7
+    assert AD.image_gain(cfg_prog) != AD.image_gain(cfg_other)
+    st = AD.program(key, tree["a"]["w"], cfg_prog)
+    _eq(AD.drift_to(st, 0.0, cfg_other).levels_t, st.levels_t.numpy())
+    d = AD.drift_to(st, 3600.0, cfg_prog)
+    assert d.levels_t.shape == st.levels_t.shape
+    assert d.levels_t.dtype == torch.int8 and float(d.t_seconds) == 3600.0
+    assert float(AD.recalibrate(d, cfg_prog).gdc_gain) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# The paper models, programmed
+# ---------------------------------------------------------------------------
+
+
+# low-scatter devices (the reference's GDC studies use them: a global
+# compensation repairs near-uniform drift)
+LOW_SCATTER = dict(drift_nu_sigma=0.005, prog_noise_sigma=0.01)
+
+
+def _inputs(task, cfg, batch, seed):
+    from repro_torch.data import icl_mimo as MIMO
+    from repro_torch.data import synthetic_images as SI
+
+    if task == "vit":
+        return SI.sample_batch(seed, SI.ImageConfig(size=cfg.image_size),
+                               batch)["images"].numpy()
+    return MIMO.sample_batch(seed, MIMO.MIMOConfig(), batch)["features"].numpy()
+
+
+def _jax_programmed_run(jcfg, task, acfg):
+    """JAX's rate-encoded input, block outputs and logits of a programmed
+    forward on the integer backend (``XpikeformerEngine.forward``'s path),
+    in one compile.  Under ``jit`` XLA divides the ADC input by the
+    reciprocal of the ADC step; the digital blocks hold no division."""
+    sim = JST.AIMCSim(wmode="hw", cfg=acfg)
+    backend = JE.IntegerBackend()
+    fwd = JST.vit_forward if task == "vit" else JST.gpt_forward
+
+    def run(params, x, rng):
+        keys = jax.random.split(rng, 4)
+        if task == "vit":
+            h = JST.linear(params["patch"], JST.patchify(x, jcfg.patch_size),
+                           sim, keys[0]) + params["pos"]
+        else:
+            h = JST.linear(params["embed"], x, sim, keys[0]) + \
+                params["pos"][:x.shape[1]]
+        s = JSP.rate_encode(keys[1], jax.nn.sigmoid(h), jcfg.T)
+        out = JST._run_blocks(params, s, jcfg, sim, keys[2],
+                              causal=task == "gpt", backend=backend)
+        return s, out, fwd(params, x, jcfg, sim, rng, backend=backend)
+
+    return jax.jit(run)
+
+
+@pytest.mark.parametrize("name", ["xpikeformer-vit-smoke",
+                                  "xpikeformer-gpt-smoke"])
+def test_programmed_forward_equals_jax_integer_backend(name):
+    """At program, after a day of drift and after recalibration: the block
+    spike trains, given JAX's rate-encoded input, are bitwise equal on
+    both port backends; the logits agree within ``PROG_LOGITS_ATOL``."""
+    task, jcfg = JX.SPIKING_ARCHS[name]
+    tcfg = X.SPIKING_ARCHS[name][1]
+    jacfg, tacfg = JAD.AIMCConfig(**LOW_SCATTER), AD.AIMCConfig(**LOW_SCATTER)
+    init = JST.init_vit if task == "vit" else JST.init_gpt
+    jparams = jax.jit(JST.program_model, static_argnums=2)(
+        jax.random.PRNGKey(3), init(jax.random.PRNGKey(0), jcfg), jacfg)
+    x = _inputs(task, tcfg, 2, seed=5)
+    jrng, trng = _key(11)
+    run = _jax_programmed_run(jcfg, task, jacfg)
+    engines = [XpikeformerEngine.from_config(
+        tcfg, backend=b, wmode="hw", aimc_cfg=tacfg, device="cpu")
+        for b in ("integer", "cuda")]
+    for stage in ("programmed", "drifted", "recalibrated"):
+        if stage == "drifted":
+            jparams = JAD.drift_tree(jparams, 86400.0, jacfg)
+        elif stage == "recalibrated":
+            jparams = JAD.recalibrate_tree(jparams, jacfg)
+        js_in, js_out, jlogits = run(jparams, jnp.asarray(x), jrng)
+        tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams))
+        for eng in engines:
+            s_out = ST._run_blocks(tparams, _t(js_in), tcfg,
+                                   prng.split(trng, 4)[2],
+                                   causal=task == "gpt", backend=eng.backend)
+            _eq(s_out, js_out, f"{stage} {eng.backend.name}")
+            logits = eng.forward(_t(x), trng, tparams)
+            np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                       rtol=0, atol=PROG_LOGITS_ATOL,
+                                       err_msg=stage)
+
+
+def test_drift_degrades_and_gdc_recovers_logits():
+    """Accuracy against device time on the programmed paper GPT (the
+    port's own lifecycle, as ``tests/test_aimc_device.py`` runs JAX's):
+    the logit error against t = 0 grows with drift, and recalibrating
+    after an hour recovers part of it."""
+    acfg = AD.AIMCConfig(**LOW_SCATTER)
+    eng = XpikeformerEngine.from_config("xpikeformer-gpt-smoke",
+                                        backend="integer", aimc_cfg=acfg,
+                                        device="cpu")
+    eng.init(0)
+    eng.program(prng.PRNGKey(3))
+    x = _t(_inputs("gpt", eng.cfg, 4, seed=1))
+    key = prng.PRNGKey(2)
+    l0 = eng.forward(x, key)
+    errs = {}
+    for t in (3600.0, 86400.0, 2.6e6):
+        eng.drift_to(t)
+        errs[t] = float(torch.mean(torch.abs(eng.forward(x, key) - l0)))
+    assert errs[2.6e6] > errs[3600.0] > 0.0, errs
+    eng.drift_to(3600.0)
+    eng.recalibrate()
+    assert AD.gdc_gain_summary(eng.params) > 1.0
+    err_gdc = float(torch.mean(torch.abs(eng.forward(x, key) - l0)))
+    assert err_gdc < errs[3600.0], (err_gdc, errs)
+
+
+def test_forward_metering_equals_jax():
+    """``forward(metering=True)`` of the paper GPT: logits equal the
+    unmetered forward's, and the report (spike counts, calls, picojoules
+    per component) equals JAX's ``MeteringBackend`` on the same spike
+    trains (JAX's own case; the programmed ViT is metered on the card by
+    ``chip_smoke.py``)."""
+    name = "xpikeformer-gpt-smoke"
+    task, jcfg = JX.SPIKING_ARCHS[name]
+    tcfg = X.SPIKING_ARCHS[name][1]
+    jparams = JST.init_gpt(jax.random.PRNGKey(0), jcfg)
+    x = _inputs(task, tcfg, 2, seed=8)
+    jrng, trng = _key(4)
+    jeng = JE.XpikeformerEngine.from_config(jcfg, backend="integer")
+    jlogits, jrep = jeng.forward(jnp.asarray(x), jrng, jparams, metering=True)
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    eng = XpikeformerEngine.from_config(tcfg, backend="cuda", device="cpu")
+    logits, rep = eng.forward(_t(x), trng, tparams, metering=True)
+    assert torch.equal(logits, eng.forward(_t(x), trng, tparams))
+    want = jrep.as_dict()
+    got = rep.as_dict()
+    assert got.keys() == want.keys()
+    for k in ("spikes_in", "spikes_out", "calls"):
+        assert got[k] == want[k], k
+    for k in ("aimc_pj", "ssa_pj", "lif_pj", "total_pj", "total_j"):
+        assert got[k] == pytest.approx(want[k], rel=1e-12), k
+    assert got["aimc_pj"] > 0 and got["ssa_pj"] > 0 and got["lif_pj"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Serving under the drift lifecycle
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def programmed_lm():
+    """The reduced LM stack programmed by JAX (low-scatter devices, the
+    reference's serving tests' setup), and the same state in the port."""
+    cfg = JR.reduced_config("xpikeformer-gpt-4-256")
+    jparams = JT.init_params(jax.random.PRNGKey(0), cfg)
+    jacfg = JAD.AIMCConfig(**LOW_SCATTER)
+    jhw = jax.jit(JAD.program_lm_tree, static_argnums=2)(
+        jax.random.PRNGKey(42), jparams, jacfg)
+    thw = convert.params_from_numpy(jax.tree.map(np.asarray, jhw))
+    return cfg, R.reduced_config("xpikeformer-gpt-4-256"), jhw, thw, jacfg
+
+
+def _prompt(i, length, vocab):
+    return [(7 * i + 3 * j + 1) % vocab for j in range(length)]
+
+
+def _jax_factor_patch(monkeypatch):
+    """The port's drift factor replaced by JAX's (eager XLA exp/log), so
+    both schedulers fold the same images."""
+    def factor(nu, t_seconds, t0):
+        t = np.asarray(t_seconds.cpu() if isinstance(t_seconds, torch.Tensor)
+                       else t_seconds, np.float32)
+        tt = jnp.asarray(t)[..., None, None] if t.ndim else jnp.asarray(t)
+        return _t(np.asarray(JAD._drift_factor(
+            jnp.asarray(nu.cpu().numpy()), tt,
+            dataclasses.replace(JCFG, drift_t0_s=t0))))
+
+    monkeypatch.setattr(KREF, "drift_factor_ref", factor)
+
+
+def _state_paths(tree, path=()):
+    """(key path, device state) for every state of a tree of dicts."""
+    if isinstance(tree, AD.AIMCDeviceState):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _state_paths(v, path + (k,))
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _lifecycle_marks(sch):
+    return (sch._t_device, sch._t_image, sch._last_recal,
+            sch.stats.recalibrations, sch.stats.t_device_s)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_scheduler_drift_lifecycle_equals_jax(programmed_lm, paged,
+                                              monkeypatch):
+    """Dense and paged, under ``DriftPolicy(600, 2400)``, step by step:
+    the clock, the image folds and the recalibrations equal JAX's
+    ``BatchScheduler``'s; the served operands after every step are the
+    aged state's ``levels_t``/``eff_scale`` and equal JAX's; per-request
+    energy within 1e-12 relative; token streams equal."""
+    cfg, tcfg, jhw, thw, jacfg = programmed_lm
+    _jax_factor_patch(monkeypatch)
+    kw = dict(slots=2, cache_len=32)
+    if paged:
+        kw.update(paged=True, page_len=8)
+    jsch = JBatchScheduler(jhw, cfg, JE.IntegerBackend(), drift=JAD.
+                           DriftPolicy(600.0, recal_interval_s=2400.0,
+                                       cfg=jacfg), **kw)
+    tsch = BatchScheduler(thw, tcfg, "cuda", device="cpu", drift=AD.
+                          DriftPolicy(600.0, recal_interval_s=2400.0,
+                                      cfg=AD.AIMCConfig(**LOW_SCATTER)), **kw)
+    rids = []
+    for sch in (jsch, tsch):
+        rids.append([sch.submit(_prompt(i, 3 + 2 * i, cfg.vocab_size), 6,
+                                seed=10 + i) for i in range(4)])
+    folds = 0
+    while jsch._queue or any(r is not None for r in jsch._slot_req):
+        t_image = tsch._t_image
+        jsch.step()
+        tsch.step()
+        assert _lifecycle_marks(tsch) == _lifecycle_marks(jsch)
+        folds += tsch._t_image != t_image
+        for path, st in _state_paths(tsch.source_params):
+            op, jst = _at(tsch.params, path), _at(jsch.params, path)
+            assert op["levels"] is st.levels_t, path
+            _eq(op["levels"], jst.levels_t, f"{path} levels_t")
+            _eq(op["scale"], jst.eff_scale, f"{path} eff_scale")
+    st, jst = tsch.stats, jsch.stats
+    assert folds >= 3 and st.recalibrations >= 2
+    assert st.t_device_s == 600.0 * st.decode_steps
+    assert [tsch.outputs[r] for r in rids[1]] == [jsch.outputs[r]
+                                                  for r in rids[0]]
+    assert st.spike_events == jst.spike_events
+    assert set(tsch.request_energy_j) == set(jsch.request_energy_j)
+    for r in tsch.request_energy_j:
+        assert tsch.request_energy_j[r] == pytest.approx(
+            jsch.request_energy_j[r], rel=1e-12)
+    assert st.energy_j == pytest.approx(jst.energy_j, rel=1e-12)
+    assert st.energy_j > 0 and all(v > 0 for v in
+                                   tsch.request_energy_j.values())
+
+
+def test_scheduler_gdc_recovers_drift_logit_error(programmed_lm):
+    """A day of drift perturbs the batched decode step's logits and one
+    recalibration recovers part of it, with the port's errors equal to
+    the reference's own on the same state (JAX's
+    ``test_scheduler_gdc_recovers_half_logit_error``; on the installed JAX
+    that test's half-recovery bound is not met by the reference itself,
+    0.136 against 0.232, so the port is held to the reference's numbers)."""
+    cfg, tcfg, jhw, thw, jacfg = programmed_lm
+    tacfg = AD.AIMCConfig(**LOW_SCATTER)
+    jsch = JBatchScheduler(jhw, cfg, JE.IntegerBackend(), slots=2,
+                           cache_len=32)
+    tsch = BatchScheduler(thw, tcfg, "integer", slots=2, cache_len=32,
+                          device="cpu")
+    for sch in (jsch, tsch):
+        sch.submit(_prompt(0, 5, cfg.vocab_size), 8, seed=1)
+        sch.submit(_prompt(1, 4, cfg.vocab_size), 8, seed=2)
+        sch.admit()
+        sch.step()
+        sch.step()
+    jl0, _, _ = jsch._decode(jhw, jsch.state)
+    jdrift = JAD.drift_tree(jhw, 86400.0, jacfg)
+    jld, _, _ = jsch._decode(jdrift, jsch.state)
+    jlr, _, _ = jsch._decode(JAD.recalibrate_tree(jdrift, jacfg), jsch.state)
+
+    def logits(tree):  # the port's step updates its state in place
+        out, _, _ = tsch._decode(T.quantize_params(tree, tcfg),
+                                 copy.deepcopy(tsch.state))
+        return out
+
+    tdrift = AD.drift_tree(thw, 86400.0, tacfg)
+    l0, ld = logits(thw), logits(tdrift)
+    lr = logits(AD.recalibrate_tree(tdrift, tacfg))
+    err_nc = float(torch.mean(torch.abs(ld - l0)))
+    err_gdc = float(torch.mean(torch.abs(lr - l0)))
+    assert err_nc > 0.0 and err_gdc < err_nc
+    assert err_nc == pytest.approx(float(jnp.mean(jnp.abs(jld - jl0))),
+                                   abs=1e-4)
+    assert err_gdc == pytest.approx(float(jnp.mean(jnp.abs(jlr - jl0))),
+                                    abs=1e-4)
+
+
+def test_engine_serve_keeps_device_aging_across_calls():
+    """Drift is physical: a second ``engine.serve`` on the cached scheduler
+    continues from the aged clock; the engine adopts the aged state."""
+    eng = XpikeformerEngine.from_config("xpikeformer-gpt-4-256", task="lm",
+                                        reduced=True, device="cpu")
+    eng.init(0)
+    eng.program(prng.PRNGKey(5))
+    pol = AD.DriftPolicy(seconds_per_step=300.0)
+    vocab = eng.cfg.vocab_size
+    _, st1 = eng.serve([_prompt(0, 3, vocab)], max_new=3, slots=2,
+                       cache_len=32, drift=pol)
+    assert st1.t_device_s == 300.0 * st1.decode_steps
+    assert AD.device_time(eng.params) == st1.t_device_s
+    _, st2 = eng.serve([_prompt(1, 3, vocab)], max_new=3, slots=2,
+                       cache_len=32, drift=pol)
+    assert st2.t_device_s == st1.t_device_s + 300.0 * st2.decode_steps
+    assert st2.energy_j > 0
+
+
+def test_importing_the_port_loads_neither_jax_nor_the_reference():
+    """Every module of ``repro_torch``, imported in a fresh interpreter,
+    leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    code = (
+        "import pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.')]\n"
+        "for m in mods: __import__(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=root, timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    n_mods = int(run.stdout.split()[0])
+    assert n_mods >= 30, run.stdout
+
+
+def test_float_boundaries_against_jax():
+    """The two float boundaries this file's tolerances rest on, measured
+    over 2,000,000 inputs each: ``torch.erfinv`` against XLA's ``erf_inv``
+    on the normal twin's uniforms (relative gap under 1e-5), and the native
+    drift fold against JAX's ``_requantize`` at an hour, a day, a month and
+    a year on the image grid of gain 7 (flips of one level, at most
+    ``FLIP_RATE``).  The uniform twin equals JAX's on a general range too
+    (XLA's fused affine map).  ``pytest -s`` prints the counts, and how
+    many quotients by a constant XLA rounds otherwise under ``jit``."""
+    n = 2_000_000
+    jk, tk = _key(123)
+    u = prng.uniform(tk, (n,), prng._NORMAL_LO, 1.0)
+    ju = jax.random.uniform(jk, (n,), jnp.float32,
+                            np.nextafter(np.float32(-1), np.float32(0)), 1.0)
+    _eq(u, ju, "uniform")
+    _eq(prng.uniform(tk, (n,), -3.0, 5.5),
+        jax.random.uniform(jk, (n,), jnp.float32, -3.0, 5.5), "uniform range")
+    x = np.abs(np.asarray(ju))
+    jit_quot = np.asarray(jax.jit(lambda a: a / 15)(jnp.asarray(x)))
+    n_recip = int(np.sum(jit_quot != x / np.float32(15)))
+    want = np.asarray(jax.scipy.special.erfinv(ju))
+    got = torch.erfinv(u).numpy()
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    assert rel.max() < 1e-5
+    lv, eps, nu = _fold_inputs((n // 1000, 1000), 77)
+    flips = 0
+    for t in (3600.0, 86400.0, 2.592e6, 3.1536e7):
+        want_img = np.asarray(JAD._requantize(
+            jnp.asarray(lv), jnp.asarray(eps), jnp.asarray(nu),
+            jnp.float32(t), JCFG, 7.0))
+        got_img = KD.drift_requantize_kernel(
+            _t(lv), _t(eps), _t(nu), torch.tensor(t), torch.tensor(7.0),
+            t0=TCFG.drift_t0_s).numpy()
+        d = np.abs(got_img.astype(int) - want_img.astype(int))
+        assert d.max() <= 1
+        flips += int(d.sum())
+    print(f"\nerfinv: {int(np.sum(got != want))} of {n} differ, max relative "
+          f"gap {rel.max():.3g}; native fold: {flips} of {4 * lv.size} "
+          f"image levels flip by one; XLA under jit: {n_recip} of {n} "
+          "quotients x / 15 differ from IEEE division (the port divides "
+          "IEEE, as eager JAX does)")
+    assert flips <= FLIP_RATE * 4 * lv.size

@@ -279,7 +279,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/kernels/lif.py",
             "src/repro_torch/core/spiking_transformer.py",
             "src/repro_torch/data/synthetic_images.py",
-            "src/repro_torch/data/icl_mimo.py"} <= names
+            "src/repro_torch/data/icl_mimo.py",
+            "src/repro_torch/aimc_device.py",
+            "src/repro_torch/energy/model.py",
+            "src/repro_torch/energy/constants.py",
+            "src/repro_torch/kernels/drift_requantize.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
