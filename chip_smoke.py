@@ -63,9 +63,28 @@ Phases, each printing one JSON line:
    printed), then ``forward(metering=True)``, whose logits must equal the
    unmetered ones (the report printed).
 
-The kernels phase also holds K8 ``ssa_attention`` at the ViT's tile
+7. **mesh** -- the same model on a ``(data, model) = (2, 2)`` mesh: four
+   ranks spawned by ``repro_torch.launch.mesh.run_ranks``, sharing the
+   card over gloo (NCCL refuses two ranks on one device), each serving
+   its share through ``repro_torch.distributed.Executor`` with the CUDA
+   backend: slots data-parallel, Q/K/V and MLP-in column-parallel,
+   attention-out and MLP-out row-parallel (K5 counts summed over the
+   model group, then K4), SSA heads split.  (a) dense: the serve phase's
+   first 8 requests, 16 new tokens; (b) paged: the paged phase's 16
+   requests, 8 new tokens; 8 slots, ``cache_len=256``.  Every rank's
+   streams must be the prefixes of the single-device streams, the paged
+   run must hit the prefix cache and copy on write, and K5, K4, K3, K9
+   and K1 must launch.  Its times measure four processes sharing one card
+   and gloo's host staging, not NVLink.
+
+The kernels phase also holds K5 ``aimc_matmul_counts`` at every shape
+the mesh gives it (``T = 4``, ``M = 4`` decode slots or the ``M = 1``
+prefill row, ``128 -> 256`` attention out and ``512 -> 256`` MLP out) and
+at ``M = 4,096``, ``384 -> 384``, timed beside ``torch.matmul`` of the
+same counts (TF32 off), K8 ``ssa_attention`` at the ViT's tile
 (``G = 1,536``, ``N = D = 64``) and the GPT's causal tile (``G = 1,024``,
-``N = 37``), K4 ``lif`` at ``[4, 64*64*1536]``, K1 at the ViT's rows
+``N = 37``), K4 ``lif`` at the mesh's ``[4, 4, 256]`` and ``[4, 1,
+256]`` and the ViT's ``[4, 64*64*1536]``, K1 at the ViT's rows
 (``M = 4,096``, and ``M = 65,536``, past ``gridDim.y``), and K6
 ``drift_requantize`` at the ViT's ``w1`` leaf ``[384, 1536]``, the LM
 stack's stacked ``mlp.wi`` leaf ``[4, 256, 1024]`` and ``[300, 17]``, at
@@ -76,8 +95,8 @@ Then the ``kernels`` line, the card's name and power limit, and last
 exits non-zero and prints no result.  Without a CUDA device it exits 2.
 Each path's launch counts are read from a run that starts with every count
 at zero: K1-K3 from the dense serve, K9 from the paged serve, K7 from the
-unfused paged run, K8 from the ViT forward, K4 from the ``Backend.lif``
-call, K6 from the programmed paged serve.
+unfused paged run, K8 from the ViT forward, K6 from the programmed paged
+serve, K5 and K4 from the mesh phase (summed over its ranks).
 """
 
 from __future__ import annotations
@@ -459,6 +478,44 @@ def phase_kernels(dev):
             bound=bound(nbytes(x, w, got), 2 * 4 * m * 384 * 384))
         del x, got, want
 
+    # K5 at every shape the (2, 2) mesh gives it -- the attention-out
+    # (128 local rows) and MLP-out (512 local rows) -> 256 linears, at the
+    # decode step's 4 local slots and the batch-1 prefill's one row -- and
+    # at a ViT-sized shape; the yardstick is one torch.matmul of the same
+    # counts (TF32 off: full f32).  The kernels line reads the MLP-out
+    # decode tail.
+    mesh_k5 = {"": ((4, 4, 512, 256), "the MLP-out decode tail"),
+               "_attn_out": ((4, 4, 128, 256), "the attention-out decode"),
+               "_prefill": ((4, 1, 512, 256), "the MLP-out prefill row"),
+               "_prefill_attn_out": ((4, 1, 128, 256),
+                                     "the attention-out prefill row")}
+    for label, ((t, m, d_in, d_out), what) in (
+            *mesh_k5.items(),
+            ("_m4096", ((4, 4096, 384, 384), "ViT-sized rows")),
+            (None, ((3, 5, 130, 33), "ragged"))):
+        x = torch.randint(0, 4, (t, m, d_in), generator=gen).float().to(dev)
+        lv = torch.randint(-127, 128, (d_in, d_out), generator=gen,
+                           dtype=torch.int8).to(dev)
+        got = KA.aimc_matmul_counts_kernel(x, lv)
+        want = KREF.aimc_counts_ref(x, lv)
+        check(torch.equal(got, want), f"K5 {t}x{m}x{d_in}->{d_out} differs")
+        lib = torch.matmul(x.reshape(t * m, d_in), lv.float()).reshape(
+            t, m, d_out)
+        check(torch.equal(lib, want),
+              f"K5's library call differs at {t}x{m}x{d_in}->{d_out}")
+        if label is None:
+            continue
+        results["aimc_matmul_counts" + label] = dict(
+            shape=f"T={t}, M={m}, {d_in}->{d_out} ({what})",
+            max_abs_err=max_abs_err(got, want),
+            ms=time_ms(lambda x=x, lv=lv: KA.aimc_matmul_counts_kernel(x, lv)),
+            plain_ms=time_ms(lambda x=x, lv=lv: KREF.aimc_counts_ref(x, lv)),
+            library_ms=time_ms(lambda x=x, lv=lv, t=t, m=m, d_in=d_in:
+                               torch.matmul(x.reshape(t * m, d_in),
+                                            lv.float())),
+            bound=bound(nbytes(x, lv, got), 2 * t * m * d_in * d_out))
+        del x, lv, got, want, lib
+
     # K8 at the ViT's tile (B = 64) and the paper GPT's causal one (B = 64,
     # L = 37); the score draws a causal row needs are rs[i, :i+1]
     k8 = {}
@@ -485,23 +542,38 @@ def phase_kernels(dev):
     results["ssa_attention"] = k8["vit"]
     results["ssa_attention_gpt"] = k8["gpt"]
 
-    # K4 at the ViT's widest pre-activation (the FFN's, B = 64): dyadic
-    # currents put membranes exactly on the threshold
+    # K4 through ops.lif_fused (what Backend.lif runs) at the shapes the
+    # (2, 2) mesh's row-parallel linears fire on -- [T, 4 local slots, 256]
+    # at decode, [T, 1, 256] at prefill -- and at the ViT's widest
+    # pre-activation (the FFN's, B = 64); dyadic currents put membranes
+    # exactly on the threshold.  The kernels line reads the decode shape.
     from repro_torch.kernels import lif as KL
+    from repro_torch.kernels import ops as KOPS
 
-    m = 64 * 64 * 1536
-    cur = (torch.randint(-4, 12, (4, m), generator=gen).float() / 8).to(dev)
-    got, want = KL.lif_kernel(cur), KREF.lif_ref(cur)
-    check(torch.equal(got, want), "K4 differs")
-    edge = (torch.randint(-4, 12, (3, 1001), generator=gen).float() / 8).to(dev)
+    def dyadic(*shape):
+        return (torch.randint(-4, 12, shape, generator=gen).float() / 8).to(dev)
+
+    def lif_plain(c):
+        return KREF.lif_ref(c.reshape(c.shape[0], -1)).reshape(c.shape)
+
+    for label, shape, what in (
+            ("", (4, 4, 256), "the row-parallel linears' decode currents: "
+             "4 local slots x d_model 256"),
+            ("_prefill", (4, 1, 256), "the batch-1 prefill row"),
+            ("_vit", (4, 64 * 64 * 1536),
+             "T x 64 images x 64 patches x d_ff=1536")):
+        cur = dyadic(*shape)
+        got, want = KOPS.lif_fused(cur), lif_plain(cur)
+        check(torch.equal(got, want), f"K4 at {list(shape)} differs")
+        results["lif" + label] = dict(
+            shape=f"{list(shape)} ({what})", max_abs_err=max_abs_err(got, want),
+            ms=time_ms(lambda cur=cur: KOPS.lif_fused(cur)),
+            plain_ms=time_ms(lambda cur=cur: lif_plain(cur)),
+            bound=bound(nbytes(cur, got), 3 * cur.numel(), FP32_OPS_PER_S))
+        del cur, got, want
+    edge = dyadic(3, 1001)
     check(torch.equal(KL.lif_kernel(edge, beta=0.25),
                       KREF.lif_ref(edge, beta=0.25)), "K4 edge differs")
-    results["lif"] = dict(
-        shape=f"[4, {m}] (T x 64 images x 64 patches x d_ff=1536)",
-        max_abs_err=max_abs_err(got, want),
-        ms=time_ms(lambda: KL.lif_kernel(cur)),
-        plain_ms=time_ms(lambda: KREF.lif_ref(cur)),
-        bound=bound(nbytes(cur, got), 3 * 4 * m, FP32_OPS_PER_S))
 
     # division by a constant: PyTorch on CUDA divides by a Python number
     # through its reciprocal; the port's div_const must equal the CPU's IEEE
@@ -1076,6 +1148,76 @@ def phase_drift(dev):
     return out, launches, served_outs
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the (data, model) mesh on one card
+# ---------------------------------------------------------------------------
+
+
+MESH = (2, 2)
+
+
+def phase_mesh(dev, dense_outs, paged_outs):
+    """The full-width spiking GPT on a (2, 2) mesh of four ranks sharing
+    the card over gloo (NCCL refuses two ranks on one device), through
+    ``run_ranks`` and the CUDA backend: (a) dense, the serve phase's first
+    8 requests, 16 new tokens; (b) paged, the paged phase's 16 requests, 8
+    new tokens; 8 slots (4 a data rank), ``cache_len=256``, waves of 4
+    every 8 steps, seeds ``1000 + i``.  Each stream must be the prefix of
+    the single-device stream of the same request; the launches of the
+    measured runs (counted from zero on each rank) must show K5, K4, K3,
+    K9 and K1."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import jobs
+    from repro_torch.launch.mesh import pick_backend, run_ranks
+
+    cfg = registry.get_config(ARCH)
+    base = dict(cfg=cfg, init_seed=0, backend="cuda", slots=8,
+                cache_len=256, seed0=1000, wave=4, gap=8, warmup=True)
+    dense = dict(base, prompts=make_requests(cfg.vocab_size)[:8], max_new=16)
+    paged = dict(base, prompts=paged_requests(cfg.vocab_size), max_new=8,
+                 paged=True, page_len=8)
+    t0 = time.perf_counter()
+    res = run_ranks(jobs.run_jobs, MESH, device="cuda",
+                    args=([dense, paged],), timeout_s=600)
+    wall_s = time.perf_counter() - t0
+    out, total = {"shape": list(MESH),
+                  "process_group": pick_backend(4, "cuda"),
+                  "ranks_share_one_card": True, "run_ranks_s": wall_s}, {}
+    for name, i, want in (("dense", 0, [o[:16] for o in dense_outs[:8]]),
+                          ("paged", 1, [o[:8] for o in paged_outs])):
+        ranks = []
+        for rank, r in enumerate(res):
+            got = r[i]
+            st = got["stats"]
+            check(got["outputs"] == want,
+                  f"mesh {name}: rank {rank}'s streams differ from one card's")
+            check(got["fused"] and got["backend"] == "sharded[cuda]",
+                  f"mesh {name}: plan {got['fused']}, {got['backend']}")
+            check((st["data_shards"], st["model_shards"]) == MESH,
+                  f"mesh {name}: shards")
+            for k, v in got["launches"].items():
+                total[k] = total.get(k, 0) + v
+            ranks.append(dict(
+                rank=rank, data_index=rank // MESH[1],
+                model_index=rank % MESH[1], wall_s=got["wall_s"],
+                tokens=st["decoded_tokens"],
+                tokens_per_s=st["decoded_tokens"] / got["wall_s"],
+                decode_steps=st["decode_steps"],
+                decode_step_ms=1e3 * st["decode_s"] / st["decode_steps"],
+                prefix_hits=st["prefix_hits"], cow_copies=st["cow_copies"],
+                launches={k: v for k, v in got["launches"].items() if v}))
+        if name == "paged":
+            check(ranks[0]["prefix_hits"] > 0, "mesh paged: no prefix hit")
+            check(ranks[0]["cow_copies"] > 0, "mesh paged: no copy-on-write")
+        out[name] = dict(requests=len(want), streams_equal_one_card=True,
+                         ranks=ranks)
+    for k in ("aimc_matmul_counts", "lif", "fused_decode_layer",
+              "fused_decode_layer_paged", "aimc_spiking_linear"):
+        check(total.get(k, 0) > 0, f"mesh: {k} never ran")
+    out["launches_summed_over_ranks"] = {k: v for k, v in total.items() if v}
+    return out, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -1125,12 +1267,17 @@ def main() -> int:
     drift, dlaunches, douts = phase_drift(dev)
     emit({"phase": "drift", "card": card,
           "seconds": time.perf_counter() - t0, **drift})
+    t0 = time.perf_counter()
+    mesh, mlaunches = phase_mesh(dev, outs, pouts)
+    emit({"phase": "mesh", "card": card,
+          "seconds": time.perf_counter() - t0, **mesh})
     # each kernel's launches on its own path
+    launches["aimc_matmul_counts"] = mlaunches["aimc_matmul_counts"]
     launches["drift_requantize"] = dlaunches["drift_requantize"]
     launches["fused_decode_layer_paged"] = plaunches["fused_decode_layer_paged"]
     launches["ssa_decode_paged"] = ulaunches["ssa_decode_paged"]
     launches["ssa_attention"] = flaunches[PAPER[0][0]]["ssa_attention"]
-    launches["lif"] = flaunches["lif"]
+    launches["lif"] = mlaunches["lif"]  # the row-parallel linears' LIF
 
     meta = {
         "aimc_spiking_linear": ("src/repro_torch/kernels/csrc/aimc_matmul.cu",
@@ -1150,6 +1297,8 @@ def main() -> int:
                 "src/repro/kernels/lif.py:54"),
         "drift_requantize": ("src/repro_torch/kernels/csrc/drift_requantize.cu",
                              "src/repro/kernels/aimc_matmul.py:172"),
+        "aimc_matmul_counts": ("src/repro_torch/kernels/csrc/aimc_matmul.cu",
+                               "src/repro/kernels/aimc_matmul.py:123"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -1164,7 +1313,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_bytes": n_bytes, "bound_ops": n_ops,
-            "library_ms": None, "shape": r["shape"]})
+            "library_ms": r.get("library_ms"), "shape": r["shape"]})
     check(all(math.isfinite(k["ms"]) for k in kernels), "a time is not finite")
     emit({"kernels": kernels})
     print(card, flush=True)

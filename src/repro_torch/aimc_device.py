@@ -172,11 +172,18 @@ def drift_to(state: AIMCDeviceState, t_seconds, cfg: AIMCConfig
                              _img_gain(state)))
 
 
-def recalibrate(state: AIMCDeviceState, cfg: AIMCConfig) -> AIMCDeviceState:
+def recalibrate(state: AIMCDeviceState, cfg: AIMCConfig,
+                reduce: Optional[Callable[[Tensor], Tensor]] = None
+                ) -> AIMCDeviceState:
     """GDC at the state's own clock: ``gain = sum|img(0)| / max(sum|img(t)|,
     1)``, both images re-folded from the programming record (two K6
     launches) and summed as int32 over each matrix, as the calibration
-    read through the shared ADC accumulates them."""
+    read through the shared ADC accumulates them.
+
+    ``reduce`` completes the two sums of a matrix split over a mesh's
+    ranks (``ServingMesh.all_reduce_model``): the partial sums travel as
+    float64, exact for any integer below 2**53, so every rank measures
+    the whole matrix's gain, bit for bit."""
     gain = _img_gain(state)
     img0 = _requantize(state.levels, state.eps, state.nu,
                        torch.zeros_like(state.t_seconds), cfg, gain)
@@ -184,6 +191,9 @@ def recalibrate(state: AIMCDeviceState, cfg: AIMCConfig) -> AIMCDeviceState:
                        cfg, gain)
     g0 = torch.sum(torch.abs(img0.to(torch.int32)), dim=(-2, -1))
     gt = torch.sum(torch.abs(imgt.to(torch.int32)), dim=(-2, -1))
+    if reduce is not None:
+        g0 = reduce(g0.to(torch.float64)).to(torch.int32)
+        gt = reduce(gt.to(torch.float64)).to(torch.int32)
     gdc = g0.to(torch.float32) / torch.clamp_min(gt, 1).to(torch.float32)
     return dataclasses.replace(state, gdc_gain=gdc)
 
@@ -364,9 +374,13 @@ def drift_tree(params: Any, t_seconds, cfg: AIMCConfig) -> Any:
     return map_tree(fold, params)
 
 
-def recalibrate_tree(params: Any, cfg: AIMCConfig) -> Any:
-    """Every device state of a tree GDC-recalibrated at its own clock."""
-    return map_tree(lambda s: recalibrate(s, cfg), params)
+def recalibrate_tree(params: Any, cfg: AIMCConfig,
+                     reduce: Optional[Callable[[Tensor], Tensor]] = None
+                     ) -> Any:
+    """Every device state of a tree GDC-recalibrated at its own clock
+    (``reduce``: see :func:`recalibrate`; a mesh rank's tree holds only
+    split states)."""
+    return map_tree(lambda s: recalibrate(s, cfg, reduce), params)
 
 
 def device_states(params: Any) -> List[AIMCDeviceState]:

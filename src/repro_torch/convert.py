@@ -5,7 +5,8 @@ models, a ``"blocks"`` list) of arrays; on the LM stack ``periods`` leaves
 are stacked over a leading period axis.  :func:`params_from_numpy` keeps
 that layout (which :mod:`repro_torch.models.transformer` and
 :mod:`repro_torch.core.spiking_transformer` read); :func:`layer_params`
-unstacks one layer.  Callers convert JAX arrays with
+unstacks one layer; :func:`shard_params` cuts the share of one rank of a
+``(data, model)`` mesh.  Callers convert JAX arrays with
 ``jax.tree.map(numpy.asarray, params)`` first, so this module needs no
 JAX.  Programmed PCM state (the reference's ``AIMCDeviceState``, whose
 leaves that map turns into numpy arrays) becomes the port's
@@ -64,3 +65,95 @@ def layer_params(params: Dict[str, Any], cfg, layer: int) -> Dict[str, Any]:
 
         return take(params["periods"][f"blk{i}"])
     return params["remainder"][f"blk{layer - n}"]
+
+
+def _cut(x, axis: int, model: int, index: int):
+    n = x.shape[axis] // model
+    return x.narrow(axis, index * n, n).contiguous()
+
+
+def _shard_leaf(leaf, part: str, dims, model: int, index: int):
+    """One spiking linear's rank share: ``col`` cuts the output columns
+    (levels and scale, bias), ``row`` the input rows (levels; the scale and
+    bias stay whole).  The leaf must be the whole matrix."""
+    d_in, d_out = dims
+    shape = tuple(leaf.shape if isinstance(leaf, AIMCDeviceState)
+                  else leaf["levels"].shape)[-2:]
+    if shape != (d_in, d_out):
+        raise ValueError(f"a {part} leaf of shape {shape} is not the whole "
+                         f"matrix {(d_in, d_out)}")
+    mat_axis = -1 if part == "col" else -2
+
+    def mat(x):
+        return _cut(x, mat_axis, model, index)
+
+    def vec(x):
+        return _cut(x, -1, model, index) if part == "col" else x
+
+    if isinstance(leaf, AIMCDeviceState):
+        return dataclasses.replace(
+            leaf, levels=mat(leaf.levels), eps=mat(leaf.eps),
+            nu=mat(leaf.nu), levels_t=mat(leaf.levels_t),
+            scale=vec(leaf.scale))
+    out = {"levels": mat(leaf["levels"]), "scale": vec(leaf["scale"])}
+    if leaf.get("b") is not None:
+        out["b"] = vec(leaf["b"])
+    return out
+
+
+def shard_params(params: Dict[str, Any], cfg, model: int, index: int
+                 ) -> Dict[str, Any]:
+    """The tree rank ``index`` of the ``model`` axis holds: every spiking
+    linear of every block cut per :data:`repro_torch.distributed.backend.
+    TP_PARTS` (Q/K/V and MLP in by columns, attention and MLP out by rows,
+    whole heads and contiguous blocks), everything else whole.
+
+    Linear leaves are quantised operands ``{"levels", "scale"}`` (cut
+    after quantising the whole matrix, so a share's levels and scales are
+    the whole matrix's, and no cross-rank max is needed) or programmed
+    :class:`AIMCDeviceState` (matrix fields and, by columns, ``scale`` are
+    cut; the clock, ``gdc_gain`` and ``img_inv`` stay whole, as JAX's
+    ``_state_specs`` places them).  ``model == 1`` returns the tree."""
+    from repro_torch.distributed.backend import TP_PARTS, mat_dims
+
+    if model <= 1:
+        return params
+
+    def block(blk):
+        out = dict(blk)
+        for group in ("mixer", "mlp"):
+            if group not in blk:
+                continue
+            g = dict(blk[group])
+            for name, w in blk[group].items():
+                if name in TP_PARTS:
+                    if not isinstance(w, (dict, AIMCDeviceState)):
+                        raise ValueError(
+                            f"{group}.{name}: quantise float weights "
+                            "before sharding (quantize_params)")
+                    g[name] = _shard_leaf(w, TP_PARTS[name],
+                                          mat_dims(cfg, group, name), model,
+                                          index)
+            out[group] = g
+        return out
+
+    out = dict(params)
+    for grp in ("periods", "remainder"):
+        if grp in params:
+            out[grp] = {k: block(v) for k, v in params[grp].items()}
+    return out
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The inverse of :func:`params_from_numpy`: a tree of tensors (device
+    states kept as :class:`AIMCDeviceState` of numpy arrays) as plain
+    picklable data, e.g. for the ranks of a mesh."""
+    if isinstance(tree, AIMCDeviceState):
+        return tree.map(lambda x: x.detach().cpu().numpy())
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree

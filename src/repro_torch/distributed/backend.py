@@ -1,0 +1,155 @@
+"""ShardedBackend: the tensor-parallel spiking primitives of one mesh rank.
+
+Twin of ``repro/distributed/backend.py``.  Where JAX wraps each primitive
+in ``shard_map`` over the whole mesh, the port runs one process per rank,
+and this backend computes that rank's share and names the collectives:
+
+* **column-parallel spiking linear** (``part="col"``: Q/K/V, MLP in) --
+  the rank holds its columns of the crossbar (quantised on the whole
+  matrix, so its levels and scales are the whole matrix's) and fires its
+  own LIF columns with no communication.  The output stays split: its
+  heads feed the head-parallel attention, its MLP columns the row-parallel
+  MLP out (the Megatron layout);
+* **row-parallel spiking linear** (``part="row"``: attention out, MLP out)
+  -- the rank counts over its input rows (K5: the inner backend's
+  ``crossbar_counts``), the integer-valued f32 counts are summed over the
+  model group (exact in any order below 2**24), then ``counts * scale``
+  and ``+ b`` (two separate roundings, as in K1) and the inner backend's
+  LIF (K4) fire once on the whole sum: the same spikes as the
+  single-device linear, bit for bit;
+* **head-parallel SSA decode** -- the rank attends over its own heads
+  (its KV heads of the cache or page pool), drawing the comparator
+  integers of the ``f(seed, pos, head)`` streams at its global head offset
+  ``h0 + model_index * h_local``, exactly the integers one device draws
+  for those heads;
+* **head-parallel fused layer** -- the inner backend's layer kernel (K3 /
+  K9) over the rank's heads with ``with_tail=False``, then the tail
+  through the row- and column-parallel linears above.
+
+The residual stream is whole on every rank of a model group.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import engine as E
+
+# which spiking-linear leaves are column- vs row-parallel (Megatron layout:
+# the paper's per-head SSA cores and column-tiled crossbars)
+TP_PARTS = {"wq": "col", "wk": "col", "wv": "col", "wi": "col", "wo": "row"}
+
+
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """What the ``model`` axis splits for a config: shared by parameter
+    placement and :class:`ShardedBackend`, so the two agree."""
+
+    tp: int = 1  # model-axis size
+    heads: bool = False  # h % tp == 0 and kv % tp == 0: SSA cores split
+
+    @classmethod
+    def from_config(cls, cfg, tp: int) -> "TPPlan":
+        if tp <= 1:
+            return cls()
+        nh = getattr(cfg, "num_heads", 0) or 0
+        kv = getattr(cfg, "num_kv_heads", 0) or 0
+        return cls(tp=tp, heads=(nh > 0 and nh % tp == 0 and kv % tp == 0))
+
+    def col_ok(self, d_out: int) -> bool:
+        return self.tp > 1 and d_out % self.tp == 0
+
+    def require(self, cfg) -> None:
+        """Raise unless every head and MLP column splits evenly: the port
+        splits every spiking linear of a block or none (ROADMAP: uneven
+        splits that replicate a leaf wait)."""
+        if self.tp > 1 and not (self.heads and self.col_ok(cfg.d_ff)):
+            raise NotImplementedError(
+                f"{cfg.name}: model={self.tp} must divide the heads "
+                f"({cfg.num_heads}), the KV heads ({cfg.num_kv_heads}) and "
+                f"d_ff ({cfg.d_ff}); replicated leaves on a mesh are not "
+                "ported")
+
+
+def mat_dims(cfg, group: str, name: str):
+    """Global ``(d_in, d_out)`` of one spiking linear of the LM stack."""
+    d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    return {("mixer", "wq"): (d, h * hd), ("mixer", "wk"): (d, kv * hd),
+            ("mixer", "wv"): (d, kv * hd), ("mixer", "wo"): (h * hd, d),
+            ("mlp", "wi"): (d, cfg.d_ff),
+            ("mlp", "wo"): (cfg.d_ff, d)}[(group, name)]
+
+
+class ShardedBackend:
+    """One rank's tensor-parallel share of a bit-exact backend (``integer``
+    or ``cuda``) on a :class:`repro_torch.launch.mesh.ServingMesh`.  Its
+    operands are the rank's shards (:func:`repro_torch.convert.
+    shard_params`)."""
+
+    def __init__(self, inner, mesh, cfg):
+        self.inner = inner
+        self.mesh = mesh
+        self.cfg = cfg
+        self.plan = TPPlan.from_config(cfg, mesh.model)
+        self.plan.require(cfg)
+        self.name = f"sharded[{inner.name}]"
+
+    # -- head-parallel SSA decode --------------------------------------
+
+    def _h0(self, h0, h_local: int):
+        return h0 + self.mesh.model_index * h_local
+
+    def decode_attention(self, view, q, spec, *, slot_keys):
+        """The rank's heads ``q [T,B,h_local,1,d]`` over its KV heads of the
+        dense cache or page pool, at its global head offset."""
+        sub = dataclasses.replace(spec, h0=self._h0(spec.h0, q.shape[2]))
+        return self.inner.decode_attention(view, q, sub, slot_keys=slot_keys)
+
+    # -- head-parallel fused decode layer ------------------------------
+
+    def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
+                           wo=None, wi=None, wo2=None, *, hd, h0=0,
+                           with_tail=True, with_mlp=True, write_pids=None):
+        """The inner layer kernel over the rank's heads (``with_tail=
+        False``: its attention train and its KV heads' new trains), then
+        the tail through the row/column-parallel linears, which commit the
+        fused kernel's roundings: the single-device layer's output."""
+        levels, _ = E._levels_scale(E._linear_parts(wq))
+        off = self._h0(h0, levels.shape[-1] // hd)
+        a, k_new, v_new = self.inner.decode_layer_fused(
+            slot_keys, s, view, pos, wq, wk, wv, hd=hd, h0=off,
+            with_tail=False, write_pids=write_pids)
+        if not with_tail:
+            return a, k_new, v_new
+        s1 = s + self.spiking_linear(wo, a, part="row").to(torch.float32)
+        if with_mlp:
+            h1 = self.spiking_linear(wi, s1, part="col").to(torch.float32)
+            s1 = s1 + self.spiking_linear(wo2, h1, part="row").to(torch.float32)
+        return s1, k_new, v_new
+
+    # -- tensor-parallel spiking linear --------------------------------
+
+    def spiking_linear(self, p, spikes, *, part=None):
+        if part == "row" and self.plan.tp > 1:
+            return self._row_linear(p, spikes)
+        if part not in (None, "col", "row"):
+            raise ValueError(f"part must be 'col' or 'row', got {part!r}")
+        # columns: the rank's own LIF columns, no communication
+        return self.inner.spiking_linear(p, spikes, part=part)
+
+    def _row_linear(self, p, spikes):
+        """Input rows split: local counts (K5), their sum over the model
+        group, then scale, bias and LIF once on the whole sum."""
+        parts = E._linear_parts(p)
+        levels, scale = E._levels_scale(parts)
+        flat, unflatten = E._flatten_time(spikes)
+        counts = self.inner.crossbar_counts(
+            flat.to(torch.float32).contiguous(), levels.contiguous())
+        self.mesh.all_reduce_model(counts)  # exact: integer-valued f32
+        pre = counts * scale.to(torch.float32)
+        if parts.get("b") is not None:
+            pre = pre + parts["b"].to(torch.float32)
+        return unflatten(self.inner.lif(pre))

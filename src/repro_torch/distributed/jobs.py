@@ -1,0 +1,87 @@
+"""Rank functions for :func:`repro_torch.launch.mesh.run_ranks`.
+
+Each rank of a mesh runs :func:`run_jobs` on the same list of serve jobs
+(plain dicts, so the spawned ranks import nothing but the port) and
+returns one result per job: build the params (a whole tree given as
+numpy, :func:`repro_torch.convert.params_to_numpy`, or random weights
+from ``init_seed``), an :class:`~repro_torch.distributed.Executor`, and
+serve ``prompts``, optionally in waves (``wave`` requests every ``gap``
+steps) after a warm-up; the result holds the token streams, the
+:class:`~repro_torch.serving.ServeStats`, per-request energy and the
+kernel launches of the measured run (counted from zero);
+``program_seed`` programs random weights onto PCM first.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch import aimc_device as AD
+from repro_torch import convert, prng
+from repro_torch.distributed.executor import Executor
+from repro_torch.kernels import build as KB
+from repro_torch.models import transformer as T
+
+
+def run_jobs(mesh, jobs: List[Dict[str, Any]]) -> List[Any]:
+    """Every serve job of ``jobs`` on this rank, in order (see the
+    module)."""
+    return [serve_job(mesh, job) for job in jobs]
+
+
+def _params(job, device):
+    """The whole tree: given, or random from ``init_seed`` (then
+    programmed with ``PRNGKey(program_seed)`` if that is set)."""
+    if job.get("params") is not None:
+        return convert.params_from_numpy(job["params"], device)
+    params = T.init_params(job["cfg"], job["init_seed"], device)
+    if job.get("program_seed") is not None:
+        params = AD.program_lm_tree(
+            prng.PRNGKey(job["program_seed"], device), params,
+            job.get("aimc_cfg") or AD.AIMCConfig())
+    return params
+
+
+def drive(sch, prompts, max_new: int, seed0: int, wave: int = 0,
+          gap: int = 0):
+    """Submit ``wave`` requests every ``gap`` steps (all at once when
+    ``wave`` is 0), request ``i`` on stream ``seed0 + i``, then serve to
+    the end; returns the streams in request order and the wall seconds."""
+    wave = wave or len(prompts)
+    rids = []
+    t0 = time.perf_counter()
+    for i in range(0, len(prompts), wave):
+        rids += [sch.submit(p, max_new, seed=seed0 + i + j)
+                 for j, p in enumerate(prompts[i:i + wave])]
+        for _ in range(gap):
+            sch.step()
+    out = sch.run()
+    if sch.device.type == "cuda":
+        torch.cuda.synchronize()
+    return [out[r] for r in rids], time.perf_counter() - t0
+
+
+def serve_job(mesh, job):
+    cfg = job["cfg"]
+    ex = Executor(_params(job, mesh.device), cfg, job.get("backend", "cuda"),
+                  mesh)
+    sch = ex.scheduler(slots=job["slots"], cache_len=job["cache_len"],
+                       drift=job.get("drift"), paged=job.get("paged", False),
+                       page_len=job.get("page_len", 8),
+                       decode_kernel=job.get("decode_kernel", "auto"))
+    args = (job["max_new"], job.get("seed0", 0), job.get("wave", 0),
+            job.get("gap", 0))
+    if job.get("warmup"):
+        drive(sch, job["prompts"][:2], 4, *args[1:])
+        sch.reset()
+    KB.reset_launches()
+    outs, wall_s = drive(sch, job["prompts"], *args)
+    return {"outputs": outs, "stats": dataclasses.asdict(sch.stats),
+            "wall_s": wall_s, "launches": dict(KB.LAUNCHES),
+            "request_energy_j": [sch.request_energy_j[r]
+                                 for r in sorted(sch.request_energy_j)],
+            "fused": sch.plan.fused, "backend": sch.backend.name}

@@ -10,8 +10,8 @@ Twins of ``repro.engine``, restricted to what the ported paths call:
   (``kernels/ref.py``), mirroring ``repro.engine.IntegerBackend``: the
   bit-exact oracle;
 * ``"cuda"`` (:class:`CudaBackend`) -- the hand-written Hopper kernels
-  (K1 spiking linear, K8 SSA tile, K4 LIF, K2/K7 SSA decode row, K3/K9
-  fused layer), mirroring ``repro.engine.PallasBackend``.  Every wrapper
+  (K1 spiking linear, K5 crossbar counts, K8 SSA tile, K4 LIF, K2/K7 SSA
+  decode row, K3/K9 fused layer), mirroring ``repro.engine.PallasBackend``.  Every wrapper
   runs its plain version on CPU tensors and its kernel on CUDA tensors,
   so this backend runs on either device and is bit-identical to
   ``"integer"``;
@@ -23,7 +23,8 @@ Twins of ``repro.engine``, restricted to what the ported paths call:
   (``program``, ``drift_to``, ``recalibrate``), ``forward`` (optionally
   metered), ``classify``, ``detect_symbols`` (tasks ``"vit"``/``"gpt"``),
   ``serve`` and ``generate`` over the dense or paged scheduler, optionally
-  under a :class:`repro_torch.aimc_device.DriftPolicy` (task ``"lm"``).
+  under a :class:`repro_torch.aimc_device.DriftPolicy`, and ``executor``
+  for a ``(data, model)`` mesh (task ``"lm"``).
 
 A linear param leaf is a float weight ``[d_in, d_out]``, a ``{"w", "b"}``
 dict, programmed PCM state (an :class:`repro_torch.aimc_device.
@@ -57,8 +58,12 @@ class Backend(Protocol):
 
     name: str
 
-    def spiking_linear(self, p: Any, spikes: Tensor) -> Tensor:
-        """``LIF(W s^t + b)`` over a ``[T, ..., d_in]`` spike train."""
+    def spiking_linear(self, p: Any, spikes: Tensor, *,
+                       part: Optional[str] = None) -> Tensor:
+        """``LIF(W s^t + b)`` over a ``[T, ..., d_in]`` spike train.
+        ``part`` (``"col"``/``"row"``) is the tensor-parallel hint a mesh
+        backend reads (:mod:`repro_torch.distributed`); one device ignores
+        it."""
         ...
 
     def ssa_attention(self, key: Tensor, q: Tensor, k: Tensor, v: Tensor, *,
@@ -80,10 +85,13 @@ class Backend(Protocol):
         ...
 
     def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
-                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True,
-                           write_pids=None):
+                           wo=None, wi=None, wo2=None, *, hd, h0=0,
+                           with_tail=True, with_mlp=True, write_pids=None):
         """One decoder layer step over the pre-scatter dense cache or page
-        pool (paged: ``write_pids [B]`` names each slot's write page)."""
+        pool (paged: ``write_pids [B]`` names each slot's write page).
+        ``h0`` is the global index of the first query head (a head-parallel
+        rank's offset); ``with_tail=False`` stops after the attention and
+        returns its train ``[T,B,H*hd]`` first."""
         ...
 
 
@@ -178,22 +186,29 @@ class IntegerBackend:
         return out.reshape(b, t, h, 1, d).movedim(0, 1)
 
     def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
-                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True,
-                           write_pids=None):
+                           wo=None, wi=None, wo2=None, *, hd, h0=0,
+                           with_tail=True, with_mlp=True, write_pids=None):
         ws = _triples(wq, wk, wv, wo, wi, wo2)
         h = ws[0][0].shape[1] // hd
+        kw = dict(hd=hd, with_tail=with_tail, with_mlp=with_mlp)
         if view.paged:
             l = view.page_table.shape[1] * view.k.shape[3]
-            rs4, ra4 = KFD.draw_layer_prns(slot_keys, s.shape[0], h, l, hd)
+            rs4, ra4 = KFD.draw_layer_prns(slot_keys, s.shape[0], h, l, hd, h0)
             return KREF.decode_layer_paged_ref(
                 s, view.k, view.v, view.page_table, pos, write_pids, *ws,
-                rs4, ra4, hd=hd, with_mlp=with_mlp)
+                rs4, ra4, **kw)
         rs4, ra4 = KFD.draw_layer_prns(slot_keys, s.shape[0], h,
-                                       view.k.shape[2], hd)
-        return KREF.decode_layer_ref(
-            s, view.k, view.v, pos, *ws, rs4, ra4, hd=hd, with_mlp=with_mlp)
+                                       view.k.shape[2], hd, h0)
+        return KREF.decode_layer_ref(s, view.k, view.v, pos, *ws, rs4, ra4,
+                                     **kw)
 
-    def spiking_linear(self, p, spikes):
+    def crossbar_counts(self, spikes, levels):
+        """Exact integer counts ``[T,M,d_out]`` (f32) of ``[T,M,d_in]``
+        spikes over int8 ``levels``: a spiking linear before its scale,
+        bias and LIF (a row-parallel rank's share, summed over ranks)."""
+        return KREF.aimc_counts_ref(spikes, levels)
+
+    def spiking_linear(self, p, spikes, *, part=None):
         p = _linear_parts(p)
         levels, scale = _levels_scale(p)
         flat, unflatten = _flatten_time(spikes)
@@ -203,8 +218,8 @@ class IntegerBackend:
 
 
 class CudaBackend:
-    """The hand-written Hopper kernels: K1 (spiking linear), K8 (SSA tile),
-    K4 (LIF), K2/K7 (SSA decode row, dense/paged), K3/K9 (fused decoder
+    """The hand-written Hopper kernels: K1 (spiking linear), K5 (crossbar
+    counts), K8 (SSA tile), K4 (LIF), K2/K7 (SSA decode row, dense/paged), K3/K9 (fused decoder
     layer, dense/paged).  A paged view goes to the paged kernels, which
     read the pools through the page table.  Bit-exact vs
     :class:`IntegerBackend`."""
@@ -226,18 +241,21 @@ class CudaBackend:
             q, view.k, view.v, slot_keys, spec.h0, i_max=spec.i_max)
 
     def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
-                           wo=None, wi=None, wo2=None, *, hd, with_mlp=True,
-                           write_pids=None):
+                           wo=None, wi=None, wo2=None, *, hd, h0=0,
+                           with_tail=True, with_mlp=True, write_pids=None):
+        kw = dict(hd=hd, with_tail=with_tail, with_mlp=with_mlp)
         if view.paged:
             return KFD.fused_decode_layer_paged(
                 slot_keys, s, view.k, view.v, view.page_table, pos,
-                write_pids, *_triples(wq, wk, wv, wo, wi, wo2), hd=hd,
-                with_mlp=with_mlp)
+                write_pids, *_triples(wq, wk, wv, wo, wi, wo2), h0, **kw)
         return KFD.fused_decode_layer(
             slot_keys, s, view.k, view.v, pos,
-            *_triples(wq, wk, wv, wo, wi, wo2), hd=hd, with_mlp=with_mlp)
+            *_triples(wq, wk, wv, wo, wi, wo2), h0, **kw)
 
-    def spiking_linear(self, p, spikes):
+    def crossbar_counts(self, spikes, levels):
+        return KOPS.aimc_matmul_counts(spikes, levels)
+
+    def spiking_linear(self, p, spikes, *, part=None):
         p = _linear_parts(p)
         levels, scale = _levels_scale(p)
         flat, unflatten = _flatten_time(spikes)
@@ -282,10 +300,10 @@ class MeteringBackend:
         self.report.calls += 1
         return out
 
-    def spiking_linear(self, p, spikes):
+    def spiking_linear(self, p, spikes, *, part=None):
         from repro_torch.energy import model as EM
 
-        out = self.inner.spiking_linear(p, spikes)
+        out = self.inner.spiking_linear(p, spikes, part=part)
         t = spikes.shape[0]
         d_in, d_out = spikes.shape[-1], out.shape[-1]
         tokens = int(spikes.numel() // (t * d_in))
@@ -548,3 +566,27 @@ class XpikeformerEngine:
         """Greedy batch decode: prompts -> generated token-id lists."""
         outs, _ = self.serve(prompts, max_new, **kwargs)
         return outs
+
+    # -- distributed (mesh) serving (task="lm") ---------------------------
+
+    def executor(self, mesh):
+        """A :class:`repro_torch.distributed.Executor` of this engine's
+        params on ``mesh`` (a :class:`repro_torch.launch.mesh.ServingMesh`
+        of the calling rank): decode slots data-parallel, the spiking
+        linears and SSA heads tensor-parallel.  Called on every rank of the
+        mesh (one process each, :func:`repro_torch.launch.mesh.run_ranks`);
+        the tokens equal this engine's on one device, bit for bit.  The
+        mesh rank's device must be this engine's."""
+        from repro_torch.distributed import Executor
+
+        if self.task != "lm":
+            raise ValueError("the mesh executor serves the LM stack "
+                             "(task='lm')")
+        if self.params is None:
+            raise ValueError("call init() first or set params")
+        dev, mine = mesh.device, self.device
+        if dev.type != mine.type or (
+                None not in (dev.index, mine.index) and dev.index != mine.index):
+            raise ValueError(f"the mesh rank runs on {dev}, this engine on "
+                             f"{self.device}")
+        return Executor(self.params, self.cfg, self.backend, mesh)

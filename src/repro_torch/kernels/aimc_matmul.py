@@ -1,9 +1,11 @@
-"""K1 launcher: the AIMC spiking linear (``csrc/aimc_matmul.cu``).
+"""K1 and K5 launchers: the AIMC spiking linear and the crossbar counts
+alone (``csrc/aimc_matmul.cu``).
 
-Replaces ``repro/kernels/aimc_matmul.py:aimc_spiking_linear_kernel``.  On
-a CPU tensor the wrapper runs the plain version
-(:func:`repro_torch.kernels.ref.aimc_spiking_linear_ref`); on a CUDA tensor
-it launches the kernel or raises.
+Replace ``repro/kernels/aimc_matmul.py:aimc_spiking_linear_kernel`` and
+``aimc_matmul_counts_kernel``.  On a CPU tensor a wrapper runs the plain
+version (:func:`repro_torch.kernels.ref.aimc_spiking_linear_ref`,
+:func:`~repro_torch.kernels.ref.aimc_counts_ref`); on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ Tensor = torch.Tensor
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _lib():
-    fn = KB.load("aimc_matmul").launch_aimc_spiking_linear
+def _lib(name: str = "launch_aimc_spiking_linear"):
+    fn = getattr(KB.load("aimc_matmul"), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P]
+        fn.argtypes = ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P]
+                       if name == "launch_aimc_spiking_linear"
+                       else [_P, _P, _P, _I, _I, _I, _I, _P])
         fn.restype = ctypes.c_int
     return fn
 
@@ -56,4 +60,27 @@ def aimc_spiking_linear_kernel(spikes: Tensor, w_levels: Tensor,
              v_thresh, KB.stream_ptr(spikes))
     KB.raise_on_error(err, "aimc_spiking_linear")
     KB.LAUNCHES["aimc_spiking_linear"] += 1
+    return out
+
+
+def aimc_matmul_counts_kernel(spikes: Tensor, w_levels: Tensor) -> Tensor:
+    """``spikes [T,M,d_in]`` f32 (integer-valued), ``w_levels [d_in,d_out]``
+    int8 -> the integer crossbar counts as f32 ``[T,M,d_out]`` (no scale,
+    bias or LIF): the shard-local half of a row-parallel spiking linear."""
+    if not spikes.is_cuda:
+        return KREF.aimc_counts_ref(spikes, w_levels)
+    t, m, d_in = spikes.shape
+    d_out = w_levels.shape[1]
+    if t > 8:
+        raise ValueError(f"aimc_matmul_counts: T={t} > 8 timesteps")
+    KB.check_cuda(spikes, torch.float32, (t, m, d_in), "spikes")
+    KB.check_cuda(w_levels, torch.int8, (d_in, d_out), "w_levels")
+    out = torch.empty((t, m, d_out), dtype=torch.float32, device=spikes.device)
+    if t == 0 or m == 0:
+        return out
+    err = _lib("launch_aimc_matmul_counts")(
+        spikes.data_ptr(), w_levels.data_ptr(), out.data_ptr(), t, m, d_in,
+        d_out, KB.stream_ptr(spikes))
+    KB.raise_on_error(err, "aimc_matmul_counts")
+    KB.LAUNCHES["aimc_matmul_counts"] += 1
     return out

@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {
     "aimc_spiking_linear": 0, "ssa_decode": 0, "fused_decode_layer": 0,
     "ssa_decode_paged": 0, "fused_decode_layer_paged": 0,
-    "ssa_attention": 0, "lif": 0, "drift_requantize": 0}
+    "ssa_attention": 0, "lif": 0, "drift_requantize": 0,
+    "aimc_matmul_counts": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}  # source -> nvcc's stderr (ptxas resources)

@@ -171,6 +171,15 @@ def aimc_spiking_linear(spikes: Tensor, w_levels: Tensor, scale: Tensor,
         beta=beta, v_thresh=v_thresh)
 
 
+def aimc_matmul_counts(spikes: Tensor, w_levels: Tensor) -> Tensor:
+    """The integer crossbar counts ``W s^t`` of ``[T, M, d_in]``
+    integer-valued spikes as f32 ``[T, M, d_out]`` (K5): no scale, bias or
+    LIF."""
+    return KA.aimc_matmul_counts_kernel(
+        spikes.to(torch.float32).contiguous(),
+        w_levels.to(torch.int8).contiguous())
+
+
 def drift_requantize(levels: Tensor, eps: Tensor, nu: Tensor, t_seconds,
                      img_gain, *, t0: float) -> Tensor:
     """The drift fold onto the int8 image grid (K6) for programmed state

@@ -25,8 +25,10 @@ Tensor = torch.Tensor
 Triple = Tuple[Tensor, Tensor, Optional[Tensor]]
 
 
-def _counts(x: Tensor, w_levels: Tensor) -> Tensor:
-    """Exact integer crossbar counts ``[T,B,d_in] x [d_in,d_out]`` as f32."""
+def aimc_counts_ref(x: Tensor, w_levels: Tensor) -> Tensor:
+    """Exact integer crossbar counts ``[T,B,d_in] x [d_in,d_out]`` as f32
+    (pre-scale, pre-LIF): K5's plain version, and the first step of
+    every spiking linear here."""
     c = torch.matmul(x.to(torch.float64), w_levels.to(torch.float64))
     return c.to(torch.float32)
 
@@ -51,7 +53,7 @@ def aimc_spiking_linear_ref(spikes: Tensor, w_levels: Tensor, scale: Tensor,
                             ) -> Tensor:
     """``[T,B,d_in]`` integer-valued spikes -> ``[T,B,d_out]`` uint8: LIF
     over per-timestep quantised crossbar MVMs."""
-    pre = _counts(spikes, w_levels) * scale.to(torch.float32)
+    pre = aimc_counts_ref(spikes, w_levels) * scale.to(torch.float32)
     if bias is not None:
         pre = pre + bias.to(torch.float32)
     return lif_ref(pre, beta=beta, v_thresh=v_thresh)

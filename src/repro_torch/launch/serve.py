@@ -5,6 +5,7 @@
         --page-len 8 [--n-pages N]
     python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --program \
         --drift-step 60 --recal-every 3600      # PCM lifecycle + energy
+    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --mesh 2x2
 
 Serves ``--requests`` synthetic prompts (the reference CLI's prompts:
 ``randint(fold_in(PRNGKey(seed + 1), i), (4 + 3 * (i % 4),), 0, vocab)``)
@@ -15,14 +16,19 @@ linears onto simulated PCM (:mod:`repro_torch.aimc_device`, key
 ``PRNGKey(seed + 42)`` as in the reference CLI) before serving;
 ``--drift-step`` and ``--recal-every`` set the device seconds per decode
 step and the GDC recalibration interval of the drift lifecycle (0: wall
-clock / never).  Every run prints the metered energy.  ``--smoke`` serves
-the reduced CPU-test config; ``--device cpu`` runs the plain PyTorch
-versions.
+clock / never).  ``--mesh DxM`` serves on a ``(data, model)`` mesh: it
+spawns the D*M ranks (:func:`repro_torch.launch.mesh.run_ranks`), or, run
+under ``torchrun --nproc-per-node D*M``, joins the ranks torchrun started;
+slots split over ``data`` (``--slots`` a multiple of D), heads and
+crossbars over ``model``; the tokens are one device's.  Every run prints
+the metered energy.  ``--smoke`` serves the reduced CPU-test config;
+``--device cpu`` runs the plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import List, Optional
 
@@ -45,7 +51,14 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
           paged: bool = False, page_len: int = 8,
           n_pages: Optional[int] = None, device: str = "cuda",
           program: bool = False, drift_step_s: float = 0.0,
-          recal_every_s: float = 0.0):
+          recal_every_s: float = 0.0, mesh: Optional[str] = None):
+    if mesh:
+        return serve_mesh(
+            arch, mesh, smoke=smoke, n_requests=n_requests, slots=slots,
+            max_new=max_new, cache_len=cache_len, seed=seed, backend=backend,
+            decode_kernel=decode_kernel, paged=paged, page_len=page_len,
+            device=device, program=program, drift_step_s=drift_step_s,
+            recal_every_s=recal_every_s)
     eng = XpikeformerEngine.from_config(arch, task="lm", backend=backend,
                                         reduced=smoke, device=device)
     eng.init(seed)
@@ -89,6 +102,67 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
     return [outs[r] for r in rids]
 
 
+def serve_mesh(arch: str, spec: str, *, smoke: bool, n_requests: int,
+               slots: int, max_new: int, cache_len: int, seed: int,
+               backend: str, decode_kernel: str, paged: bool, page_len: int,
+               device: str, program: bool, drift_step_s: float,
+               recal_every_s: float):
+    """``serve`` on a ``(data, model)`` mesh: every rank builds the same
+    random weights (and programs them with ``PRNGKey(seed + 42)``), takes
+    its share and serves the same requests; rank 0 reports."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import jobs
+    from repro_torch.launch import mesh as M
+
+    shape = M.parse_mesh_spec(spec)
+    cfg = (registry.reduced_config(arch) if smoke
+           else registry.get_config(arch))
+    drift = (AD.DriftPolicy(seconds_per_step=drift_step_s,
+                            recal_interval_s=recal_every_s)
+             if program else None)
+    job = dict(cfg=cfg, init_seed=seed,
+               program_seed=seed + 42 if program else None, backend=backend,
+               prompts=make_prompts(n_requests, cfg.vocab_size, seed),
+               max_new=max_new, slots=slots, cache_len=cache_len, seed0=seed,
+               paged=paged, page_len=page_len, drift=drift,
+               decode_kernel=decode_kernel)
+    world = shape[0] * shape[1]
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # torchrun
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise SystemExit(f"--mesh {spec} needs {world} ranks, torchrun "
+                             f"started {os.environ['WORLD_SIZE']}")
+        mesh = M.init_mesh(shape, int(os.environ["RANK"]),
+                           init_method="env://", device=device)
+        res = jobs.run_jobs(mesh, [job])[0]
+        if mesh.rank != 0:
+            return res["outputs"]
+        layout = f"{mesh.backend} on {mesh.device}"
+    else:
+        res = M.run_ranks(jobs.run_jobs, shape, device=device,
+                          args=([job],))[0][0]
+        layout = (f"{M.pick_backend(world, device)}, {world} spawned ranks "
+                  f"on {device}")
+    st = res["stats"]
+    print(f"[serve] {cfg.name} on a (data={shape[0]}, model={shape[1]}) mesh "
+          f"({layout}) through '{res['backend']}'; decode kernel "
+          f"{'fused' if res['fused'] else 'unfused'}")
+    print(f"[serve] served {st['requests']} requests, {st['decoded_tokens']} "
+          f"tokens in {res['wall_s']:.2f}s "
+          f"({st['decoded_tokens'] / res['wall_s']:.1f} tok/s, "
+          f"{st['decode_steps']} batched decode steps, {st['admissions']} "
+          f"admissions)")
+    if paged:
+        print(f"[serve] paged: {st['prefix_hits']} prefix-cache hits, "
+              f"{st['cow_copies']} copy-on-write pages")
+    print(f"[serve] energy: {st['energy_j']*1e6:.2f} uJ total; rank 0's "
+          f"kernel launches: "
+          f"{ {k: v for k, v in res['launches'].items() if v} }")
+    if program:
+        print(f"[serve] device clock t={st['t_device_s']:.1f}s, "
+              f"{st['recalibrations']} GDC recalibrations")
+    return res["outputs"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
@@ -116,6 +190,8 @@ def main(argv=None):
     ap.add_argument("--recal-every", type=float, default=0.0,
                     help="GDC recalibration interval in device seconds "
                          "(0 = never)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve on a (data, model) mesh, e.g. 2x2")
     a = ap.parse_args(argv)
     with torch.no_grad():
         serve(a.arch, smoke=a.smoke, n_requests=a.requests, slots=a.slots,
@@ -123,7 +199,8 @@ def main(argv=None):
               backend=a.backend, decode_kernel=a.decode_kernel,
               paged=a.paged, page_len=a.page_len, n_pages=a.n_pages,
               device=a.device, program=a.program,
-              drift_step_s=a.drift_step, recal_every_s=a.recal_every)
+              drift_step_s=a.drift_step, recal_every_s=a.recal_every,
+              mesh=a.mesh)
 
 
 if __name__ == "__main__":

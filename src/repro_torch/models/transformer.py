@@ -139,7 +139,8 @@ def device_operands(state: AD.AIMCDeviceState) -> Dict[str, Tensor]:
     return {"levels": state.levels_t, "scale": state.eff_scale}
 
 
-def quantize_params(params: Dict[str, Any], cfg) -> Dict[str, Any]:
+def quantize_params(params: Dict[str, Any], cfg, *, keep_state: bool = False
+                    ) -> Dict[str, Any]:
     """A copy of ``params`` whose spiking-linear weights are replaced by
     their Table-II operands ``{"levels": int8 [.., d_in, d_out], "scale":
     f32 [.., d_out]}``: float weights quantised, programmed state
@@ -147,7 +148,9 @@ def quantize_params(params: Dict[str, Any], cfg) -> Dict[str, Any]:
     drifted image and effective scale.  The reference derives them inside
     every jitted step; eager PyTorch would redo it on every call, so the
     scheduler does it once (and again after every drift fold) -- the same
-    function of the same leaves."""
+    function of the same leaves.  ``keep_state=True`` quantises the float
+    weights and leaves programmed state as it is (what a mesh shards
+    before serving)."""
     fan_in = _linear_fan_ins(cfg)
 
     def block(blk, stacked: bool):
@@ -158,7 +161,8 @@ def quantize_params(params: Dict[str, Any], cfg) -> Dict[str, Any]:
             g = dict(blk[group])
             for name, w in blk[group].items():
                 if isinstance(w, AD.AIMCDeviceState):
-                    g[name] = device_operands(w)
+                    if not keep_state:
+                        g[name] = device_operands(w)
                     continue
                 if (group, name) not in fan_in or isinstance(w, dict):
                     continue
@@ -216,13 +220,15 @@ def _per_block(cfg, blk) -> Dict[str, Any]:
     return out
 
 
-def init_cache(cfg, batch: int, seq_len: int, device) -> Dict[str, Any]:
+def init_cache(cfg, batch: int, seq_len: int, device,
+               kv_heads: Optional[int] = None) -> Dict[str, Any]:
     """Zero per-slot spike-train caches: ``sk``/``sv [B, T, L, KV, hd]``
     uint8 and ``pos [B]`` int32 per attention block (stacked periods get a
     leading period axis).  Positions past ``pos`` hold zero spikes, which
-    masks them out of the SSA comparators."""
+    masks them out of the SSA comparators.  ``kv_heads`` (default: all)
+    is the KV heads a mesh rank caches."""
     _require_spiking(cfg)
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kv, hd = kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim
 
     def blk(lead):
         shape = lead + (batch, cfg.spike_T, seq_len, kv, hd)
@@ -234,15 +240,16 @@ def init_cache(cfg, batch: int, seq_len: int, device) -> Dict[str, Any]:
     return _per_block(cfg, blk)
 
 
-def init_paged_pool(cfg, n_pages: int, page_len: int, device
-                    ) -> Dict[str, Any]:
+def init_paged_pool(cfg, n_pages: int, page_len: int, device,
+                    kv_heads: Optional[int] = None) -> Dict[str, Any]:
     """An all-zero page pool: ``kp``/``vp [n_pages, T, KV, page_len, hd]``
     uint8 per attention block, no slot axis (slots address pages through
     a page table).  Page 0 is the permanently zero null page (unallocated
     table entries read as zero spikes), page 1 the trash page idle slots
-    write into (never in a table)."""
+    write into (never in a table).  ``kv_heads`` (default: all) is the KV
+    heads a mesh rank holds."""
     _require_spiking(cfg)
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kv, hd = kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim
 
     def blk(lead):
         shape = lead + (n_pages, cfg.spike_T, kv, page_len, hd)
@@ -280,7 +287,7 @@ def _qkv_spikes(params, s: Tensor, cfg, backend):
     hd = cfg.resolved_head_dim
 
     def proj(w):
-        out = backend.spiking_linear(_lin_operand(w, d), s)
+        out = backend.spiking_linear(_lin_operand(w, d), s, part="col")
         return out.reshape(t, b, -1, hd)
 
     return proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
@@ -288,13 +295,15 @@ def _qkv_spikes(params, s: Tensor, cfg, backend):
 
 def _attention_out(params, view: KVView, q: Tensor, i_max: int, s: Tensor,
                    cfg, slot_keys: Tensor, backend) -> Tensor:
-    """One query row over ``view``, then the attention-out linear."""
+    """One query row over ``view``, then the attention-out linear (its
+    input rows are this caller's heads: all of them on one device, a
+    rank's own on a mesh)."""
     t, b, _, _ = s.shape
-    h, hd = cfg.num_heads, cfg.resolved_head_dim
     a = backend.decode_attention(view, q[:, :, :, None, :],
                                  AttnSpec(i_max=i_max), slot_keys=slot_keys)
-    a = a.reshape(t, b, 1, h * hd).to(s.dtype)
-    return backend.spiking_linear(_lin_operand(params["wo"], h * hd), a)
+    a = a.reshape(t, b, 1, -1).to(s.dtype)
+    return backend.spiking_linear(_lin_operand(params["wo"], a.shape[-1]), a,
+                                  part="row")
 
 
 def _spiking_attention_decode(params, s: Tensor, cache, cfg, slot_keys: Tensor,
@@ -302,8 +311,8 @@ def _spiking_attention_decode(params, s: Tensor, cache, cfg, slot_keys: Tensor,
     """Unfused one-token SSA decode: Q/K/V spiking linears, scatter of the
     new K/V trains at ``pos`` (in place), one query row over the whole
     cache, attention-out.  ``s [T,B,1,d]``."""
-    h, kv = cfg.num_heads, cfg.num_kv_heads
     q, k_new, v_new = _qkv_spikes(params, s, cfg, backend)
+    h, kv = q.shape[2], k_new.shape[2]  # a mesh rank's own heads
     pos = cache["pos"]
     scatter_at_pos(cache["sk"], pos, k_new.movedim(0, 1))
     scatter_at_pos(cache["sv"], pos, v_new.movedim(0, 1))
@@ -341,10 +350,10 @@ def _spiking_decode_ffn_tail(params, s: Tensor, cfg, backend) -> Tensor:
     if "norm2" not in params:
         return s
     h1 = backend.spiking_linear(
-        _lin_operand(params["mlp"]["wi"], s.shape[-1]), s)
+        _lin_operand(params["mlp"]["wi"], s.shape[-1]), s, part="col")
     return s + backend.spiking_linear(
         _lin_operand(params["mlp"]["wo"], h1.shape[-1]),
-        h1.to(s.dtype)).to(s.dtype)
+        h1.to(s.dtype), part="row").to(s.dtype)
 
 
 def _fused_block_weights(params, cfg, d: int):

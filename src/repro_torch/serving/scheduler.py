@@ -33,6 +33,18 @@ layout: paged and dense serving give the same tokens.
   ``recal_interval_s``; after each fold the step's operands are derived
   again from the aged state.
 
+* **mesh** (``placement=``, a :class:`repro_torch.distributed.Executor`)
+  -- one scheduler per rank of a ``(data, model)`` mesh, all making the
+  same host decisions from the same submits: ``params`` is the rank's
+  share (the executor cuts it), a rank's device state holds
+  its data block of slots (and its model share of KV heads), its decode
+  step computes those slots, and each step's tokens and activity are
+  gathered over the data group; a batch-1 prefill runs on every data
+  rank (tensor-parallel over the model group) and only the slot's owner
+  splices it; the page pool is whole on every data rank, and each step's
+  new K/V rows are exchanged over the data group; a wall-clock drift step
+  is rank 0's.
+
 The scheduler's telemetry (obs gauges, GDC trace events) is not ported
 (ROADMAP A9).
 """
@@ -53,6 +65,7 @@ from repro_torch.energy import model as EM
 from repro_torch.engine import get_backend
 from repro_torch.kernels.plan import build_decode_plan
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as SH
 from repro_torch.serving import state as ST
 from repro_torch.serving.pages import PagePool
 
@@ -77,6 +90,8 @@ class Request:
 @dataclasses.dataclass
 class ServeStats:
     requests: int = 0
+    data_shards: int = 1  # mesh data-axis size (1 = one device)
+    model_shards: int = 1  # mesh model-axis size
     decode_steps: int = 0
     decoded_tokens: int = 0
     prefill_tokens: int = 0
@@ -133,7 +148,16 @@ class BatchScheduler:
                  paged: bool = False, page_len: int = 8,
                  n_pages: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda",
-                 drift: Optional[AD.DriftPolicy] = None):
+                 drift: Optional[AD.DriftPolicy] = None, placement=None):
+        self.placement = placement  # repro_torch.distributed.Executor | None
+        if placement is not None:
+            device = placement.device
+            mesh = placement.mesh
+            self._own = SH.slot_range(slots, mesh.data, mesh.data_index)
+            self._kv_local = SH.local_kv_heads(cfg, mesh.model)
+        else:
+            self._own = range(slots)
+            self._kv_local = None
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the unembed is a float32 matmul: keep it out of TF32
@@ -195,9 +219,10 @@ class BatchScheduler:
         The PCM device clock is not reset: drift is physical."""
         if self.paged:
             self.pages = PagePool(self.n_pages, self.page_len)
-            self.state = ST.init_paged_state(self.cfg, self.slots,
+            self.state = ST.init_paged_state(self.cfg, len(self._own),
                                              self.cache_len, self.page_len,
-                                             self.n_pages, self.device)
+                                             self.n_pages, self.device,
+                                             self._kv_local)
             # host mirrors: page-table rows, per-slot logical positions,
             # prefill cursors, slot phases, outstanding page reservations,
             # prefix-cache chain ids
@@ -209,8 +234,9 @@ class BatchScheduler:
             self._slot_reserved = [0] * self.slots
             self._chain = [0] * self.slots
         else:
-            self.state = ST.init_state(self.cfg, self.slots, self.cache_len,
-                                       self.device)
+            self.state = ST.init_state(self.cfg, len(self._own),
+                                       self.cache_len, self.device,
+                                       self._kv_local)
         self._queue: Deque[Request] = deque()
         self._slot_req: List[Optional[Request]] = [None] * self.slots
         self._remaining: List[int] = [0] * self.slots
@@ -218,8 +244,30 @@ class BatchScheduler:
         # measured energy and spike events per request (rid -> totals)
         self.request_energy_j: Dict[int, float] = {}
         self.request_spikes: Dict[int, float] = {}
-        self.stats = ServeStats()
-        self.stats.t_device_s = self._t_device
+        self.stats = self._fresh_stats()
+
+    def _fresh_stats(self) -> ServeStats:
+        st = ServeStats(t_device_s=self._t_device)
+        if self.placement is not None:
+            st.data_shards, st.model_shards = self.placement.mesh.shape
+        return st
+
+    def _local(self, slot: int) -> Optional[int]:
+        """This rank's index of global ``slot``, ``None`` if another data
+        rank holds it (every slot is local on one device)."""
+        return slot - self._own.start if slot in self._own else None
+
+    def _gather(self, x: torch.Tensor) -> np.ndarray:
+        """Per-slot values of this rank's slots -> all slots' values on the
+        host (a sum over the data group of zero-filled buffers: exact for
+        the tokens and spike counts it carries)."""
+        if self.placement is None:
+            return x.cpu().numpy()
+        mesh = self.placement.mesh
+        buf = torch.zeros((self.slots,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=mesh.host_device)
+        buf[self._own.start:self._own.stop] = x
+        return mesh.all_reduce_data(buf).cpu().numpy()
 
     # -- request intake ------------------------------------------------
 
@@ -271,13 +319,15 @@ class BatchScheduler:
                 continue
             req = self._queue.popleft()
             t0 = time.perf_counter()
-            cache1 = T.init_cache(self.cfg, 1, self.cache_len, self.device)
+            cache1 = T.init_cache(self.cfg, 1, self.cache_len, self.device,
+                                  self._kv_local)
             ctx = torch.as_tensor(req.prompt[:-1], device=self.device)
             ckeys = torch.as_tensor(req.ckeys.astype(np.int64),
                                     device=self.device)
             cache1, act = self._prefill(self.params, ctx, ckeys, cache1)
-            ST.splice_request(self.state, slot, cache1, req.prompt[-1],
-                              req.seed)
+            if self._local(slot) is not None:  # replicated over data
+                ST.splice_request(self.state, self._local(slot), cache1,
+                                  req.prompt[-1], req.seed)
             spikes = float(act)  # syncs the prefill
             self.stats.prefill_s += time.perf_counter() - t0
             self._slot_req[slot] = req
@@ -306,6 +356,10 @@ class BatchScheduler:
 
     # -- paged-mode page plumbing --------------------------------------
 
+    def _set_entry(self, slot: int, idx: int, pid: int) -> None:
+        if self._local(slot) is not None:
+            ST.paged_set_table_entry(self.state, self._local(slot), idx, pid)
+
     def _zero_freed(self, pids: List[int]) -> None:
         """Zero freed physical pages on the device."""
         if pids:
@@ -318,7 +372,7 @@ class BatchScheduler:
         dst = self.pages.alloc(reserved=True)
         self._slot_reserved[slot] -= 1
         ST.pool_copy_page(self.state, src, dst, keep_upto)
-        ST.paged_set_table_entry(self.state, slot, tp, dst)
+        self._set_entry(slot, tp, dst)
         self._table_rows[slot, tp] = dst
         if self.pages.release(src):  # its cache entry may have been evicted
             self._zero_freed([src])
@@ -407,7 +461,9 @@ class BatchScheduler:
                 row[n_ctx // pl_] = partial_pid
                 cursor = n_ctx
             self._table_rows[slot] = row
-            ST.paged_admit_slot(self.state, slot, row, req.seed, cursor)
+            if self._local(slot) is not None:
+                ST.paged_admit_slot(self.state, self._local(slot), row,
+                                    req.seed, cursor)
             self._slot_req[slot] = req
             self._remaining[slot] = req.max_new
             self._slot_pos[slot] = cursor
@@ -447,9 +503,10 @@ class BatchScheduler:
             self._cursor[slot] = 0
             self._phase[slot] = DECODE
             self._chain[slot] = 0
-            ST.paged_release_slot(self.state, slot)
-        else:
-            ST.release_slot(self.state, slot)
+            if self._local(slot) is not None:
+                ST.paged_release_slot(self.state, self._local(slot))
+        elif self._local(slot) is not None:
+            ST.release_slot(self.state, self._local(slot))
         self.stats.evictions += 1
 
     # -- serving loop --------------------------------------------------
@@ -477,8 +534,8 @@ class BatchScheduler:
             return 0
         t0 = time.perf_counter()
         _, self.state, act = self._decode(self.params, self.state)
-        nxt = self.state.tokens.cpu().numpy()  # syncs the step
-        act = act.cpu().numpy()
+        nxt = self._gather(self.state.tokens)  # syncs the step
+        act = self._gather(act)
         step_s = time.perf_counter() - t0
         self.stats.decode_s += step_s
         self.stats.decode_steps += 1
@@ -526,7 +583,7 @@ class BatchScheduler:
                 pid = self.pages.alloc(reserved=True)
                 self._slot_reserved[slot] -= 1
                 self._table_rows[slot, tp] = pid
-                ST.paged_set_table_entry(self.state, slot, tp, pid)
+                self._set_entry(slot, tp, pid)
             elif self.pages.refcount[pid] > 1:  # shared (prefix cache): CoW
                 pid = self._cow(slot, tp, pid, off)
             feed[3, slot] = pid
@@ -537,12 +594,19 @@ class BatchScheduler:
             elif phase == HANDOFF:
                 feed[:3, slot] = (req.prompt[-1], req.seed & 0xFFFFFFFF, 1)
         t0 = time.perf_counter()
+        own = slice(self._own.start, self._own.stop)
         tok, seed, mask, write_pids = torch.as_tensor(
-            feed, device=self.device).unbind(0)
+            feed[:, own], device=self.device).unbind(0)
         _, self.state, act = self._decode(self.params, self.state, tok, seed,
                                           mask.bool(), write_pids)
-        nxt = self.state.tokens.cpu().numpy()  # syncs the step
-        act = act.cpu().numpy()
+        if self.placement is not None and self.placement.mesh.data > 1:
+            offs = np.asarray(self._slot_pos) % self.page_len
+            ST.exchange_page_writes(
+                self.state, torch.as_tensor(feed[3], device=self.device),
+                torch.as_tensor(offs, device=self.device), own,
+                self.placement.mesh.all_reduce_data)
+        nxt = self._gather(self.state.tokens)  # syncs the step
+        act = self._gather(act)
         step_s = time.perf_counter() - t0
         self.stats.decode_s += step_s
         self.stats.decode_steps += 1
@@ -589,6 +653,9 @@ class BatchScheduler:
         pol = self.drift
         if pol is None or not self.programmed:
             return
+        if pol.seconds_per_step <= 0 and self.placement is not None:
+            # every rank folds at the same steps: rank 0's wall time
+            step_wall_s = self.placement.mesh.broadcast_float(step_wall_s)
         dt = pol.seconds_per_step if pol.seconds_per_step > 0 else (
             step_wall_s * pol.time_scale)
         self._t_device += dt
@@ -603,7 +670,9 @@ class BatchScheduler:
             self._t_image = self._t_device
             self.stats.image_folds += 1
             if due_recal:
-                tree = AD.recalibrate_tree(tree, pol.cfg)
+                tree = AD.recalibrate_tree(
+                    tree, pol.cfg, None if self.placement is None
+                    else self.placement.gdc_reduce)
                 self._last_recal = self._t_device
                 self.stats.recalibrations += 1
             self.source_params = self._state_params = tree

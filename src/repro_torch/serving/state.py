@@ -18,7 +18,7 @@ place** and return it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -47,9 +47,12 @@ class DecodeState:
     seeds: Tensor
 
 
-def init_state(cfg, slots: int, cache_len: int, device) -> DecodeState:
+def init_state(cfg, slots: int, cache_len: int, device,
+               kv_heads: Optional[int] = None) -> DecodeState:
+    """A fresh dense batch of ``slots`` (a mesh rank: its own slots and
+    ``kv_heads``)."""
     return DecodeState(
-        cache=T.init_cache(cfg, slots, cache_len, device),
+        cache=T.init_cache(cfg, slots, cache_len, device, kv_heads),
         tokens=torch.zeros(slots, dtype=torch.int64, device=device),
         seeds=torch.zeros(slots, dtype=torch.int64, device=device),
     )
@@ -145,15 +148,18 @@ class PagedDecodeState:
 
 
 def init_paged_state(cfg, slots: int, cache_len: int, page_len: int,
-                     n_pages: int, device) -> PagedDecodeState:
-    """A fresh paged batch: all pages free and zeroed, all tables null."""
+                     n_pages: int, device, kv_heads: Optional[int] = None
+                     ) -> PagedDecodeState:
+    """A fresh paged batch: all pages free and zeroed, all tables null (a
+    mesh rank: its own slots' tables, the whole pool of its
+    ``kv_heads``)."""
     if cache_len % page_len:
         raise ValueError(f"cache_len ({cache_len}) must be a multiple of "
                          f"page_len ({page_len})")
     if n_pages <= RESERVED_PAGES:
         raise ValueError("the pool needs pages beyond null + trash")
     return PagedDecodeState(
-        pool=T.init_paged_pool(cfg, n_pages, page_len, device),
+        pool=T.init_paged_pool(cfg, n_pages, page_len, device, kv_heads),
         page_table=torch.full((slots, cache_len // page_len), NULL_PAGE,
                               dtype=torch.int32, device=device),
         pos=torch.zeros(slots, dtype=torch.int32, device=device),
@@ -215,6 +221,26 @@ def pool_copy_page(state: PagedDecodeState, src: int, dst: int,
                 < int(keep_upto))[:, None]
         leaf.select(-5, int(dst)).copy_(page * keep)
     return state
+
+
+def exchange_page_writes(state: PagedDecodeState, write_pids: Tensor,
+                         offsets: Tensor, own: slice,
+                         reduce: Callable[[Tensor], Tensor]) -> None:
+    """Make a step's K/V writes whole on every replica of the pool (a data
+    group of a mesh, each rank having written only its own slots ``own``):
+    each rank puts its slots' new rows ``pool[write_pids[b], ..., offsets
+    [b], :]`` into a zero buffer over all slots, ``reduce`` sums the
+    buffers over the group (one rank fills each slot: exact), and every
+    replica writes every slot's row.  Idle slots write the trash page."""
+    pids = write_pids.to(torch.int64)
+    offs = offsets.to(torch.int64)
+    for leaf in state.leaves():
+        view = leaf.movedim(-5, 0).movedim(-2, 1)  # [P, page_len, ..., hd]
+        buf = torch.zeros((pids.shape[0],) + tuple(view.shape[2:]),
+                          dtype=torch.float32, device=leaf.device)
+        buf[own] = view[pids[own], offs[own]].to(torch.float32)
+        reduce(buf)
+        view[pids, offs] = buf.to(leaf.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ versions are held against the JAX reference on the CPU by
 kernel must equal them exactly, at the serving path's and the paper
 models' widths and at the padding, GQA, causal and row-count edges, and
 the paper forwards through the kernels, programmed or not, must give the
-plain versions' logits bit for bit.
+plain versions' logits bit for bit; a two-rank mesh sharing the card must
+serve one device's tokens through K5.
 """
 
 import dataclasses
@@ -426,3 +427,46 @@ def test_programmed_paper_forward_equal_plain_on_card(cuda):
         got = eng.forward(x, key)
         assert torch.equal(got, plain.forward(x, key, eng.params)), stage
     assert KB.LAUNCHES["drift_requantize"] == 4 * leaves
+
+
+@pytest.mark.parametrize("t,m,d_in,d_out", [(4, 4, 512, 256),
+                                            (4, 4096, 384, 384),
+                                            (3, 5, 130, 33)])
+def test_counts_kernel(cuda, t, m, d_in, d_out):
+    """K5 equals its plain version at the mesh's decode tail (4 local
+    slots, 512 local MLP rows), at the ViT-sized shape and a ragged one,
+    with integer-valued inputs and the full int8 range."""
+    rng = np.random.default_rng(m + d_in)
+    x = _t(rng.integers(0, 4, (t, m, d_in)).astype(np.float32))
+    lv = _t(rng.integers(-127, 128, (d_in, d_out)).astype(np.int8))
+    n = KB.LAUNCHES["aimc_matmul_counts"]
+    got = KA.aimc_matmul_counts_kernel(x.to(cuda), lv.to(cuda))
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["aimc_matmul_counts"] == n + 1
+    _eq(got, KREF.aimc_counts_ref(x, lv))
+
+
+def test_two_rank_mesh_on_one_card(cuda):
+    """A (1, 2) mesh of two ranks sharing the card over gloo serves the
+    reduced spiking GPT's single-device tokens, dense and paged, and its
+    row-parallel linears launch K5 and K4."""
+    from repro_torch.distributed import jobs
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg = reduced_config("xpikeformer-gpt-4-256")
+    prompts = [[1, 2, 3, 4], [9, 8, 7, 6, 5, 4, 3], [100, 200]]
+    eng = XpikeformerEngine.from_config(cfg, backend="cuda", device=cuda)
+    eng.init(0)
+    want, _ = eng.serve(prompts, 6, slots=2, cache_len=32)
+    job = dict(cfg=cfg, init_seed=0, prompts=prompts,
+               max_new=6, slots=2, cache_len=32, backend="cuda")
+    res = run_ranks(jobs.run_jobs, (1, 2), device="cuda",
+                    args=([job, dict(job, paged=True, page_len=8)],),
+                    timeout_s=300)
+    for dense, paged in res:
+        assert dense["outputs"] == want and paged["outputs"] == want
+        for r, k in ((dense, "fused_decode_layer"),
+                     (paged, "fused_decode_layer_paged")):
+            assert r["backend"] == "sharded[cuda]"
+            for name in (k, "aimc_matmul_counts", "lif", "aimc_spiking_linear"):
+                assert r["launches"][name] > 0, (k, name)

@@ -270,7 +270,9 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 20 and files[-1].exists()
+    # the mesh tests' rank functions: spawned ranks import them, never JAX
+    files.append(ROOT / "tests" / "torch_mesh_jobs.py")
+    assert len(files) > 20 and all(f.exists() for f in files[-2:])
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/serving/pages.py",
             "src/repro_torch/serving/state.py",
@@ -283,7 +285,13 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/aimc_device.py",
             "src/repro_torch/energy/model.py",
             "src/repro_torch/energy/constants.py",
-            "src/repro_torch/kernels/drift_requantize.py"} <= names
+            "src/repro_torch/kernels/drift_requantize.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/parallel/sharding.py",
+            "src/repro_torch/distributed/backend.py",
+            "src/repro_torch/distributed/executor.py",
+            "src/repro_torch/distributed/jobs.py",
+            "tests/torch_mesh_jobs.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -1,0 +1,140 @@
+"""Rank functions of ``tests/test_torch_mesh.py`` for :func:`repro_torch.
+launch.mesh.run_ranks`.
+
+Spawned ranks import this module, not the test file, so they never import
+JAX.  Each rank runs :func:`run_jobs` on the same list of jobs (plain
+dicts) and returns one result per job:
+
+* ``{"kind": "serve", ...}`` (the default) -- :func:`repro_torch.
+  distributed.jobs.serve_job`;
+* ``{"kind": "layer", ...}`` -- one decoder layer's sharded primitives
+  (the column- and row-parallel linears, head-parallel decode attention,
+  the head-parallel fused layer, dense and paged) on whole operands: each
+  rank cuts its share, runs it, and the results are gathered back to
+  whole tensors, to be held against one device;
+* ``{"kind": "recalibrate", ...}`` -- GDC of a programmed tree cut over
+  the model group; returns each state's gain;
+* ``{"kind": "fail", "rank": r}`` -- rank ``r`` raises while the others
+  wait in a collective (the failure path of ``run_ranks``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch import aimc_device as AD
+from repro_torch import convert
+from repro_torch.distributed import jobs
+from repro_torch.distributed.backend import ShardedBackend
+from repro_torch.distributed.executor import Executor
+from repro_torch.engine import get_backend
+from repro_torch.kernels.plan import AttnSpec, KVView
+
+
+def run_jobs(mesh, todo: List[Dict[str, Any]]) -> List[Any]:
+    """Every job of ``todo`` on this rank, in order (see the module)."""
+    kinds = {"serve": jobs.serve_job, "layer": layer_job,
+             "recalibrate": recalibrate_job, "fail": fail_job}
+    return [kinds[job.get("kind", "serve")](mesh, job) for job in todo]
+
+
+def _gather_model(mesh, x: torch.Tensor, axis: int) -> torch.Tensor:
+    """The whole tensor from each model rank's block along ``axis`` (a
+    zero-filled buffer summed over the model group)."""
+    axis = axis % x.dim()
+    shape = list(x.shape)
+    n = shape[axis]
+    shape[axis] = n * mesh.model
+    buf = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    buf.narrow(axis, mesh.model_index * n, n).copy_(x.to(torch.float32))
+    return mesh.all_reduce_model(buf).to(x.dtype)
+
+
+def _cut(mesh, x: torch.Tensor, axis: int) -> torch.Tensor:
+    n = x.shape[axis] // mesh.model
+    return x.narrow(axis, mesh.model_index * n, n).contiguous()
+
+
+def layer_job(mesh, job):
+    """``job``: ``cfg``, ``backend``, the whole layer's quantised operands
+    ``ops`` (``{"wq": {"levels", "scale"}, ...}``, the keys of
+    ``_fused_block_weights``: wq wk wv wo wi wo2), and numpy inputs:
+    ``s [T,B,d]``, ``x_rows [T,B,H*hd]``, ``q [T,B,H,1,hd]``, ``k``/``v
+    [T,B,H,L,hd]``, ``slot_keys [B,2]``, ``sk``/``sv [B,T,L,KV,hd]``,
+    ``pos [B]``, ``kpool``/``vpool [P,T,KV,page_len,hd]``, ``table
+    [B,MP]``, ``write_pids [B]``.  Returns whole numpy outputs."""
+    cfg, dev = job["cfg"], mesh.device
+    hd = cfg.resolved_head_dim
+    inner = get_backend(job["backend"])
+    be = ShardedBackend(inner, mesh, cfg) if mesh.model > 1 else inner
+    t = {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
+         for k, v in job["inputs"].items()}
+    whole = {"periods": {"blk0": {
+        "mixer": {k: job["ops"][k] for k in ("wq", "wk", "wv", "wo")},
+        "mlp": {"wi": job["ops"]["wi"], "wo": job["ops"]["wo2"]}}}}
+    whole = convert.params_from_numpy(whole, dev)
+    mine = convert.shard_params(whole, cfg, mesh.model, mesh.model_index)
+    mine = mine["periods"]["blk0"]
+    w = dict(mine["mixer"], wi=mine["mlp"]["wi"], wo2=mine["mlp"]["wo"])
+    out = {}
+
+    def gather(x, axis):
+        return _gather_model(mesh, x, axis) if mesh.model > 1 else x
+
+    for name in ("wq", "wi"):
+        out[f"col_{name}"] = gather(
+            be.spiking_linear(w[name], t["s"], part="col"), -1)
+    rows = _cut(mesh, t["x_rows"], -1) if mesh.model > 1 else t["x_rows"]
+    out["row_wo"] = be.spiking_linear(w["wo"], rows, part="row")
+    i_max = t["k"].shape[3]
+    heads = (lambda x: _cut(mesh, x, 2)) if mesh.model > 1 else (lambda x: x)
+    out["attn_dense"] = gather(be.decode_attention(
+        KVView.dense(heads(t["k"]), heads(t["v"])), heads(t["q"]),
+        AttnSpec(i_max=i_max), slot_keys=t["slot_keys"]), 2)
+    kvc = (lambda x: _cut(mesh, x, 3)) if mesh.model > 1 else (lambda x: x)
+    pool = heads
+    ws = [w[k] for k in ("wq", "wk", "wv", "wo", "wi", "wo2")]
+    for tail in (True, False):
+        s1, kn, vn = be.decode_layer_fused(
+            t["slot_keys"], t["s"], KVView.dense(kvc(t["sk"]), kvc(t["sv"])),
+            t["pos"], *ws, hd=hd, with_tail=tail)
+        sfx = "" if tail else "_notail"
+        out["fused_dense" + sfx] = s1 if tail else gather(s1, -1)
+        out["fused_dense_k" + sfx] = gather(kn, 2)
+        out["fused_dense_v" + sfx] = gather(vn, 2)
+    s1, kn, vn = be.decode_layer_fused(
+        t["slot_keys"], t["s"],
+        KVView.from_pool(pool(t["kpool"]), pool(t["vpool"]), t["table"]),
+        t["pos"], *ws, hd=hd, write_pids=t["write_pids"])
+    out["fused_paged"], out["fused_paged_k"], out["fused_paged_v"] = (
+        s1, gather(kn, 2), gather(vn, 2))
+    l = t["table"].shape[1] * t["kpool"].shape[3]
+    out["attn_paged"] = gather(be.decode_attention(
+        KVView.from_pool(pool(t["kpool"]), pool(t["vpool"]), t["table"]),
+        heads(t["q"]), AttnSpec(i_max=l), slot_keys=t["slot_keys"]), 2)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# GDC of a sharded tree; the failure path
+# ---------------------------------------------------------------------------
+
+
+def recalibrate_job(mesh, job):
+    """``job``: ``cfg``, ``tree`` (a whole programmed tree as numpy),
+    ``aimc_cfg``.  Returns each state's GDC gain, in tree order."""
+    tree = convert.params_from_numpy(job["tree"], mesh.device)
+    ex = Executor(tree, job["cfg"], "integer", mesh)
+    got = AD.recalibrate_tree(ex.params, job["aimc_cfg"], ex.gdc_reduce)
+    return [s.gdc_gain.cpu().numpy() for s in AD.device_states(got)]
+
+
+def fail_job(mesh, job):
+    if mesh.rank == job["rank"]:
+        raise RuntimeError(f"rank {mesh.rank} fails on purpose")
+    x = torch.zeros(1, device=mesh.host_device)
+    torch.distributed.all_reduce(x)  # waits for the rank that failed
+    return None
