@@ -77,6 +77,13 @@ Phases, each printing one JSON line:
    and K1 must launch.  Its times measure four processes sharing one card
    and gloo's host staging, not NVLink.
 
+Past the port's old caps the kernels phase holds K1 and K5 at T = 9 and
+16 (few rows and many: the split of ``d_in`` and the tensor-core GEMM, on
+residual-valued spikes up to 17), K9 at T = 9, and K8 at N = 513 and at
+``G = 2, N = 2,048, D = 512``, a tile past a block's shared memory (K and
+V streamed), each equal to its plain version; K1 is timed at the ViT's
+MLP shapes (``384 -> 1,536`` and ``1,536 -> 384``, ``M = 4,096``) too.
+
 The kernels phase also holds K5 ``aimc_matmul_counts`` at every shape
 the mesh gives it (``T = 4``, ``M = 4`` decode slots or the ``M = 1``
 prefill row, ``128 -> 256`` attention out and ``512 -> 256`` MLP out) and
@@ -85,7 +92,7 @@ same counts (TF32 off), K8 ``ssa_attention`` at the ViT's tile
 (``G = 1,536``, ``N = D = 64``) and the GPT's causal tile (``G = 1,024``,
 ``N = 37``), K4 ``lif`` at the mesh's ``[4, 4, 256]`` and ``[4, 1,
 256]`` and the ViT's ``[4, 64*64*1536]``, K1 at the ViT's rows
-(``M = 4,096``, and ``M = 65,536``, past ``gridDim.y``), and K6
+(``M = 4,096``, and ``M = 65,536``), and K6
 ``drift_requantize`` at the ViT's ``w1`` leaf ``[384, 1536]``, the LM
 stack's stacked ``mlp.wi`` leaf ``[4, 256, 1024]`` and ``[300, 17]``, at
 t = 0, t < t0, 1 h and 1 year, image gains 1 and 7.
@@ -96,11 +103,21 @@ exits non-zero and prints no result.  Without a CUDA device it exits 2.
 Each path's launch counts are read from a run that starts with every count
 at zero: K1-K3 from the dense serve, K9 from the paged serve, K7 from the
 unfused paged run, K8 from the ViT forward, K6 from the programmed paged
-serve, K5 and K4 from the mesh phase (summed over its ranks).
+serve, K5 and K4 from the mesh phase (summed over its ranks).  The K1
+row at the prefill shape also carries the host-clock cost of a wrapper call
+and of the bare ``ctypes`` launch (1,000 calls each).
+
+    python3 chip_smoke.py --ab <other tree>/src
+
+compares another tree of the port (unpacked with ``git archive``) with this
+one instead: each tree's windows (:func:`phase_windows`) run in a process of
+its own, parent, change, change, parent, and the trees must serve the same
+tokens and give the same logits.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
@@ -122,6 +139,7 @@ T0 = 20.0  # PCM drift reference time (Table II)
 # two multiplies, round, two clamps (exp and log counted as one each)
 K6_OPS = 11
 REPS, BATCH, WARMUP = 9, 20, 5
+HOST_CALLS = 1000
 
 
 def emit(obj) -> None:
@@ -199,6 +217,36 @@ def wall_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host-clock microseconds a call of ``fn`` over ``calls`` calls issued
+    back to back (the card keeps up: what is timed is the caller's cost)."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / calls
+
+
+def bare_k1(x, w, out):
+    """K1's ``ctypes`` launcher with every argument ready: what a call
+    costs the host without the wrapper's checks, plan and allocation."""
+    from repro_torch.kernels import aimc_matmul as KA
+    from repro_torch.kernels import build as KB
+
+    t, m, d_in = x.shape
+    d_out = w[0].shape[1]
+    args = (x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), w[2].data_ptr(),
+            out.data_ptr(), t, m, d_in, d_out, 0.5, 1.0,
+            *KA._plan_args(KA.launch_plan(t, m, d_in, d_out), x.device,
+                           KB.stream_ptr(x), out.numel(), d_out))
+    fn = KA._lib()
+    return lambda: fn(*args)
 
 
 def max_abs_err(got, want) -> float:
@@ -327,6 +375,8 @@ def phase_kernels(dev):
         max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k1.values()),
         ms=time_ms(lambda: KA.aimc_spiking_linear_kernel(x, *w)),
         plain_ms=time_ms(lambda: KREF.aimc_spiking_linear_ref(x, *w)),
+        wrapper_host_us=host_us(lambda: KA.aimc_spiking_linear_kernel(x, *w)),
+        bare_launch_host_us=host_us(bare_k1(x, w, torch.empty_like(got))),
         bound=bound(n_bytes, 2 * 4 * 1 * 256 * 256))
 
     # K2 at the prefill shape (G = 1 slot x T x H) and the padding edge
@@ -424,7 +474,10 @@ def phase_kernels(dev):
                          dff=1024, pos=[40, 100, 0, 5, 200, 255, 17, 64],
                          idle=(6,)),
             "edge": dict(t=4, b=4, d=64, h=4, kv=2, hd=16, pl=5, mp=5,
-                         dff=128, pos=[7, 25, 3, 30], idle=(2,))}.items():
+                         dff=128, pos=[7, 25, 3, 30], idle=(2,)),
+            "t9": dict(t=9, b=8, d=256, h=4, kv=4, hd=64, pl=8, mp=32,
+                       dff=1024, pos=[40, 100, 0, 5, 200, 255, 17, 64],
+                       idle=(6,))}.items():
         t, b, d, h, kv, hd, dff = (c[k] for k in ("t", "b", "d", "h", "kv", "hd", "dff"))
         l = c["mp"] * c["pl"]
         table, write, kp, vp = paged_inputs(
@@ -462,21 +515,49 @@ def phase_kernels(dev):
         ms=time_ms(run), plain_ms=time_ms(plain),
         bound=bound(n_bytes, 2 * macs))
 
-    # K1 at the paper ViT's rows: B = 64 images x 64 patches, and B = 1,024
-    # (M = 65,536 rows, one past gridDim.y's limit: the grid-stride loop)
-    for m, label in ((4096, "vit_b64"), (65536, "rows_65536")):
-        x = torch.randint(0, 4, (4, m, 384), generator=gen).float().to(dev)
-        w = triple(gen, 384, 384, dev)
+    # K1 at the paper ViT's rows (the tensor-core regime): B = 64 images x
+    # 64 patches at the attention projections and the MLP's two linears, and
+    # B = 1,024 (M = 65,536 rows)
+    for m, d_in, d_out, label, what in (
+            (4096, 384, 384, "vit_b64", "a ViT-4-384 Q/K/V/O projection"),
+            (65536, 384, 384, "rows_65536", "a Q/K/V/O projection, B = 1,024"),
+            (4096, 384, 1536, "vit_mlp_in", "the ViT-4-384's MLP in"),
+            (4096, 1536, 384, "vit_mlp_out", "the ViT-4-384's MLP out")):
+        x = torch.randint(0, 4, (4, m, d_in), generator=gen).float().to(dev)
+        w = triple(gen, d_in, d_out, dev)
         got = KA.aimc_spiking_linear_kernel(x, *w)
         want = KREF.aimc_spiking_linear_ref(x, *w)
-        check(torch.equal(got, want), f"K1 at M={m} differs")
+        check(torch.equal(got, want), f"K1 at M={m}, {d_in}->{d_out} differs")
         results[f"aimc_spiking_linear_{label}"] = dict(
-            shape=f"T=4, M={m}, 384->384 (a ViT-4-384 Q/K/V/O projection)",
+            shape=f"T=4, M={m}, {d_in}->{d_out} ({what})",
             max_abs_err=max_abs_err(got, want),
             ms=time_ms(lambda x=x, w=w: KA.aimc_spiking_linear_kernel(x, *w)),
             plain_ms=time_ms(lambda x=x, w=w: KREF.aimc_spiking_linear_ref(x, *w)),
-            bound=bound(nbytes(x, w, got), 2 * 4 * m * 384 * 384))
+            bound=bound(nbytes(x, w, got), 2 * 4 * m * d_in * d_out))
         del x, got, want
+
+    # K1 and K5 past the old 8-step cap, in both regimes, on residual-valued
+    # spikes in [0, 17] (1 + 2 x depth 8)
+    long_trains = {}
+    for t, m, d_in, d_out in ((9, 1, 256, 256), (9, 4, 512, 256),
+                              (9, 4096, 384, 384), (16, 4, 1024, 256),
+                              (16, 4096, 384, 384)):
+        x = torch.randint(0, 18, (t, m, d_in), generator=gen).float().to(dev)
+        lv, sc, bi = triple(gen, d_in, d_out, dev)
+        sc = sc / 16
+        got = KA.aimc_spiking_linear_kernel(x, lv, sc, bi)
+        want = KREF.aimc_spiking_linear_ref(x, lv, sc, bi)
+        check(torch.equal(got, want), f"K1 at T={t}, M={m} differs")
+        cgot = KA.aimc_matmul_counts_kernel(x, lv)
+        cwant = KREF.aimc_counts_ref(x, lv)
+        check(torch.equal(cgot, cwant), f"K5 at T={t}, M={m} differs")
+        long_trains[f"T={t}, M={m}, {d_in}->{d_out}"] = dict(
+            regime=KA.launch_plan(t, m, d_in, d_out).regime,
+            k1_max_abs_err=max_abs_err(got, want),
+            k5_max_abs_err=max_abs_err(cgot, cwant),
+            spike_share=float(want.float().mean()))
+        del x, got, want, cgot, cwant
+    results["crossbar_long_trains"] = long_trains
 
     # K5 at every shape the (2, 2) mesh gives it -- the attention-out
     # (128 local rows) and MLP-out (512 local rows) -> 256 linears, at the
@@ -541,6 +622,25 @@ def phase_kernels(dev):
                         2 * 2 * g * pairs * d))
     results["ssa_attention"] = k8["vit"]
     results["ssa_attention_gpt"] = k8["gpt"]
+    # K8 past the old N, D <= 512: N = 513 on the resident tile, and a tile
+    # past a block's shared memory (N = 2,048, D = 512: K and V stream)
+    long_tiles = {}
+    for g, n, d, causal in ((64, 513, 64, False), (64, 513, 64, True),
+                            (2, 2048, 512, True)):
+        args = (spikes(gen, (g, n, d), 0.5, dev), spikes(gen, (g, n, d), 0.6, dev),
+                spikes(gen, (g, n, d), 0.4, dev),
+                torch.randint(0, d, (g, n, n), generator=gen,
+                              dtype=torch.int32).to(dev),
+                torch.randint(0, n, (g, n, d), generator=gen,
+                              dtype=torch.int32).to(dev))
+        got = KS.ssa_attention_kernel(*args, causal=causal)
+        want = KREF.ssa_attention_ref(*args, causal=causal)
+        check(torch.equal(got, want), f"K8 at G={g}, N={n}, D={d} differs")
+        long_tiles[f"G={g}, N={n}, D={d}, causal={causal}"] = dict(
+            design=KS.attention_plan(n, d).design,
+            max_abs_err=max_abs_err(got, want))
+        del args, got, want
+    results["ssa_attention_long"] = long_tiles
 
     # K4 through ops.lif_fused (what Backend.lif runs) at the shapes the
     # (2, 2) mesh's row-parallel linears fire on -- [T, 4 local slots, 256]
@@ -655,7 +755,8 @@ def drive(sch, prompts, max_new: int, wave: int = 4, gap: int = 8):
 def profile_window(fn) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, the card's busy
     time (sum of kernel times; one stream, so they do not overlap), the
-    idle share, the kernel count and the four costliest kernels.  The
+    idle share, the kernel count, the four costliest kernels and the six
+    host operations of most self time (the profiler's clock).  The
     profiler's own host cost lengthens the wall time, so the idle share is
     an upper bound; ``None`` where the trace shows no device time."""
     from torch.autograd import DeviceType
@@ -674,7 +775,11 @@ def profile_window(fn) -> dict:
                 idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
                 kernels=sum(e.count for e in kern),
                 top=[[e.key[:70], e.count, e.self_device_time_total / 1e3]
-                     for e in top])
+                     for e in top],
+                host_top=[[e.key[:70], e.count, e.self_cpu_time_total / 1e3]
+                          for e in sorted(prof.key_averages(),
+                                          key=lambda e: -e.self_cpu_time_total)
+                          [:6]])
 
 
 def phase_serve(dev):
@@ -1218,16 +1323,146 @@ def phase_mesh(dev, dense_outs, paged_outs):
     return out, total
 
 
+# ---------------------------------------------------------------------------
+# A/B of two trees of the port on one card (--ab): the windows alone
+# ---------------------------------------------------------------------------
+
+# (T, M, d_in, d_out): K1's prefill row, the ViT's projection and MLP rows;
+# K5's four mesh shapes and the ViT's rows
+AB_K1 = [(4, 1, 256, 256), (4, 4096, 384, 384), (4, 4096, 384, 1536),
+         (4, 4096, 1536, 384)]
+AB_K5 = [(4, 4, 512, 256), (4, 4, 128, 256), (4, 1, 512, 256),
+         (4, 1, 128, 256), (4, 4096, 384, 384)]
+AB_SERVES = 3  # timed runs of each serve window a tree
+
+
+def digest(xs) -> str:
+    """A short hash of token streams or a tensor, to hold two trees'
+    outputs equal."""
+    import hashlib
+
+    if isinstance(xs, torch.Tensor):
+        return hashlib.sha256(xs.cpu().numpy().tobytes()).hexdigest()[:16]
+    return hashlib.sha256(json.dumps(xs).encode()).hexdigest()[:16]
+
+
+def phase_windows(dev) -> dict:
+    """The windows an A/B compares, on the tree whose ``src`` is first on
+    the path: K1/K5 at :data:`AB_K1`/:data:`AB_K5` (CUDA events), K1's
+    wrapper on the host clock at the prefill row, the dense and paged serve
+    windows of phases 3-4 (16 requests, 32 new tokens, after a warm-up,
+    :data:`AB_SERVES` times; then three decode steps of 8 busy slots under
+    the profiler) and
+    the paper ViT and GPT forwards of phase 5 (unprofiled median of 5, then
+    one profiled), with digests of the tokens and logits."""
+    from repro_torch import prng
+    from repro_torch.engine import XpikeformerEngine
+    from repro_torch.kernels import aimc_matmul as KA
+
+    gen = torch.Generator().manual_seed(16)
+    out = {"k1_ms": {}, "k5_ms": {}}
+    for shapes, key in ((AB_K1, "k1_ms"), (AB_K5, "k5_ms")):
+        for t, m, d_in, d_out in shapes:
+            x = torch.randint(0, 4, (t, m, d_in), generator=gen).float().to(dev)
+            w = triple(gen, d_in, d_out, dev)
+            fn = ((lambda x=x, w=w: KA.aimc_spiking_linear_kernel(x, *w))
+                  if key == "k1_ms" else
+                  (lambda x=x, w=w: KA.aimc_matmul_counts_kernel(x, w[0])))
+            out[key][f"{t}x{m}x{d_in}->{d_out}"] = time_ms(fn)
+            if (t, m) == (4, 1) and key == "k1_ms":
+                out["k1_wrapper_host_us"] = host_us(fn)
+    eng = XpikeformerEngine.from_config(ARCH, task="lm", backend="cuda",
+                                        device=dev)
+    eng.init(seed=0)
+    for name, prompts, kw in (
+            ("dense", make_requests(eng.cfg.vocab_size), {}),
+            ("paged", paged_requests(eng.cfg.vocab_size),
+             dict(paged=True, page_len=8))):
+        sch = eng.scheduler(slots=8, cache_len=256, **kw)
+        drive(sch, prompts[:2], 4)  # warm-up
+        runs = []
+        for _ in range(AB_SERVES):
+            sch.reset()
+            outs, wall_s = drive(sch, prompts, 32)
+            st = sch.stats
+            runs.append((st.decoded_tokens / wall_s,
+                         1e3 * st.decode_s / st.decode_steps))
+        out[name] = dict(tokens_per_s=[r[0] for r in runs],
+                         decode_step_ms=[r[1] for r in runs],
+                         tokens=digest(outs))
+        # three decode steps of 8 busy slots under the profiler
+        sch.reset()
+        for i, p in enumerate(prompts[:8]):
+            sch.submit(p, 8, seed=2 + i)
+        sch.step()
+        prof = profile_window(lambda: [sch.step() for _ in range(3)])
+        out[name].update(profiled_step_ms=prof["wall_ms"] / 3,
+                         step_busy_ms=prof["device_busy_ms"] / 3,
+                         kernels_per_step=prof["kernels"] / 3,
+                         host_top=prof["host_top"])
+    key = prng.PRNGKey(42, dev)
+    for name, batch in PAPER:
+        e = XpikeformerEngine.from_config(name, backend="cuda", device=dev)
+        e.init(seed=0)
+        x, _ = paper_inputs(e.task, e.cfg, batch, dev)
+        logits = e.forward(x, key)  # warm-up
+        prof = profile_window(lambda: e.forward(x, key))
+        out[name] = dict(forward_ms=wall_ms(lambda: e.forward(x, key), 5),
+                         profiled_wall_ms=prof["wall_ms"],
+                         device_busy_ms=prof["device_busy_ms"],
+                         logits=digest(logits))
+    return out
+
+
+def phase_ab(parent_src: str) -> dict:
+    """:func:`phase_windows` on the tree at ``parent_src`` and on this one,
+    each in a process of its own, in turns: parent, change, change,
+    parent.  Both trees must serve the same tokens and give the same
+    logits."""
+    runs = []
+    for label, src in (("parent", parent_src), ("change", ROOT / "src"),
+                       ("change", ROOT / "src"), ("parent", parent_src)):
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--windows", str(Path(src).resolve())],
+                           capture_output=True, text=True, timeout=1200)
+        check(r.returncode == 0,
+              f"windows of {src} failed:\n{r.stdout[-2000:]}{r.stderr[-4000:]}")
+        runs.append({"label": label, **json.loads(r.stdout.splitlines()[-1])})
+    for k in ("dense", "paged"):
+        check(len({r[k]["tokens"] for r in runs}) == 1,
+              f"A/B: the trees' {k} tokens differ")
+    for name, _ in PAPER:
+        check(len({r[name]["logits"] for r in runs}) == 1,
+              f"A/B: the trees' {name} logits differ")
+    return {"phase": "ab", "card": card_line(), "parent": str(parent_src),
+            "runs": runs}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ab", metavar="SRC", help="instead of the smoke run, "
+                    "A/B the windows of the port's tree at SRC (its src "
+                    "directory) against this one, in turns on one card")
+    ap.add_argument("--windows", metavar="SRC",
+                    help="only the A/B windows of the tree at SRC")
+    a = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(a.windows) if a.windows else ROOT / "src"))
     from repro_torch.kernels import build as KB
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the unembed stays f32
     torch.backends.cudnn.allow_tf32 = False
+    if a.ab:
+        emit(phase_ab(a.ab))
+        return 0
+    if a.windows:
+        build_s = KB.build()
+        emit({"build_s": build_s, **phase_windows(torch.device("cuda", 0))})
+        return 0
+
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)

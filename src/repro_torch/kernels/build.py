@@ -34,6 +34,9 @@ SOURCES = ("aimc_matmul", "ssa_attention", "decode_fused", "lif",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# shared memory one block may use on the H100: 227 KB, static and dynamic
+SMEM_PER_BLOCK = 232448
+
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {
     "aimc_spiking_linear": 0, "ssa_decode": 0, "fused_decode_layer": 0,

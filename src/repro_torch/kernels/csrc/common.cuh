@@ -12,8 +12,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define XPK_MAX_T 8     // spike timesteps a thread keeps in registers
-#define XPK_MAX_WD 16   // uint32 lanes of one packed head row (hd <= 512)
+// Spike timesteps a thread keeps in registers at once: longer trains are
+// taken in chunks of this many steps, the membrane carried from one chunk to
+// the next, so T is bounded only by the shared memory a kernel stages.
+#define XPK_MAX_T 8
 
 // Pack the lowest bit of n <= 32 consecutive spike bytes into one word (bit i
 // is byte i); bytes past n read as zero, which is the 32-lane padding.
@@ -47,16 +49,19 @@ __device__ __forceinline__ uint8_t xpk_lif_step(float& v, float cur,
   return static_cast<uint8_t>(s);
 }
 
-// The LIF over T timesteps of exact integer counts, with the current
-//   pre = round(round(count * scale) + bias).
+// One chunk of n <= XPK_MAX_T timesteps of the LIF over exact integer
+// counts (acc[t * acc_stride], in registers or shared memory), with the
+// current
+//   pre = round(round(count * scale) + bias),
+// continuing the membrane v of the chunk before (0 before the first).
 __device__ __forceinline__ void xpk_lif_epilogue(
-    const int* acc, int T, float scale, float bias, float beta, float vth,
-    uint8_t* out, size_t stride) {
-  float v = 0.f;
+    const int* acc, int acc_stride, int n, float scale, float bias,
+    float beta, float vth, float& v, uint8_t* out, size_t stride) {
 #pragma unroll
   for (int t = 0; t < XPK_MAX_T; ++t) {
-    if (t < T) {
-      const float pre = __fadd_rn(__fmul_rn(static_cast<float>(acc[t]), scale), bias);
+    if (t < n) {
+      const float pre = __fadd_rn(
+          __fmul_rn(static_cast<float>(acc[t * acc_stride]), scale), bias);
       out[t * stride] = xpk_lif_step(v, pre, beta, vth);
     }
   }
@@ -65,24 +70,33 @@ __device__ __forceinline__ void xpk_lif_epilogue(
 // Crossbar + LIF for every output column of one row block, thread-strided
 // over columns: x [T][din] (integer-valued, any integer type, usually in
 // shared memory), levels int8 [din][dout] row-major, scale/bias f32 [dout]
-// (bias may be null) -> out [T][dout] spikes (out[t*out_stride + o]).
+// (bias may be null) -> out [T][dout] spikes (out[t*out_stride + o]).  Any
+// T: the counts of XPK_MAX_T steps at a time stay in registers (the weight
+// column is read once a chunk) and the membrane runs on across chunks.
 template <typename X>
 __device__ void xpk_lin_lif(const X* x, int din, const int8_t* levels,
                             const float* scale, const float* bias, int dout,
                             int T, float beta, float vth, uint8_t* out,
                             int out_stride) {
   for (int o = threadIdx.x; o < dout; o += blockDim.x) {
-    int acc[XPK_MAX_T];
+    const float sc = scale[o], bi = bias ? bias[o] : 0.f;
+    float v = 0.f;
+    for (int t0 = 0; t0 < T; t0 += XPK_MAX_T) {
+      const int n = min(XPK_MAX_T, T - t0);
+      const X* xc = x + static_cast<size_t>(t0) * din;
+      int acc[XPK_MAX_T];
 #pragma unroll
-    for (int t = 0; t < XPK_MAX_T; ++t) acc[t] = 0;
-    for (int i = 0; i < din; ++i) {
-      const int w = levels[static_cast<size_t>(i) * dout + o];
+      for (int t = 0; t < XPK_MAX_T; ++t) acc[t] = 0;
+      for (int i = 0; i < din; ++i) {
+        const int w = levels[static_cast<size_t>(i) * dout + o];
 #pragma unroll
-      for (int t = 0; t < XPK_MAX_T; ++t)
-        if (t < T) acc[t] += static_cast<int>(x[t * din + i]) * w;
+        for (int t = 0; t < XPK_MAX_T; ++t)
+          if (t < n) acc[t] += static_cast<int>(xc[t * din + i]) * w;
+      }
+      xpk_lif_epilogue(acc, 1, n, sc, bi, beta, vth, v,
+                       out + static_cast<size_t>(t0) * out_stride + o,
+                       out_stride);
     }
-    xpk_lif_epilogue(acc, T, scale[o], bias ? bias[o] : 0.f, beta, vth,
-                     out + o, out_stride);
   }
 }
 

@@ -36,7 +36,11 @@
 // residual output.  The attention row (common.cuh) packs q into uint32 lanes,
 // popcounts each cached row against it (one row per lane), a warp ballot
 // packs the score spikes along the cache axis, and the output stage reads the
-// value rows whose score spiked.  GQA reads KV head h / (H / KV).  At B = 8
+// value rows whose score spiked.  GQA reads KV head h / (H / KV).  Any T
+// (the linears count XPK_MAX_T steps at a time and carry the membrane) and
+// any hd (the packed query and new key sit in dynamic shared memory): the
+// limit is the shared memory of smem_layout, which grows with T and the
+// widths and which the wrapper checks against the card's 227 KB.  At B = 8
 // this occupies 8 of the 132 SMs: a later design splits a slot's heads and
 // cache across blocks.
 #include "common.cuh"
@@ -54,13 +58,20 @@ struct Smem {
   uint8_t* hs;    // [T][dff]    FFN hidden spikes
   uint8_t* os;    // [T][d]      linear output spikes added to the residual
   uint32_t* sbits;  // [ceil(L/32)] packed score spikes of one (t, head)
+  uint32_t* qw;     // [ceil(hd/32)] the packed query of one (t, head)
+  uint32_t* knw;    // [ceil(hd/32)] the packed new key of its KV head
 };
 
 // Byte offsets of the segments (each 16-aligned); returns the total size.
+// The wrapper (kernels/decode_fused.py:layer_smem_bytes) computes it too,
+// refuses past the card's per-block budget and passes its number, which the
+// launcher refuses unless it is this total.
+constexpr int kSegments = 10;
 __host__ __device__ inline size_t smem_layout(int T, int d, int H, int KV,
                                               int hd, int L, int dff,
-                                              size_t off[8]) {
-  const size_t sizes[8] = {
+                                              size_t off[kSegments]) {
+  const size_t wd = (static_cast<size_t>(hd) + 31) / 32;
+  const size_t sizes[kSegments] = {
       sizeof(int) * T * d,
       static_cast<size_t>(T) * H * hd,
       static_cast<size_t>(T) * KV * hd,
@@ -68,9 +79,11 @@ __host__ __device__ inline size_t smem_layout(int T, int d, int H, int KV,
       static_cast<size_t>(T) * H * hd,
       static_cast<size_t>(T) * (dff > 0 ? dff : 1),
       static_cast<size_t>(T) * d,
-      sizeof(uint32_t) * ((L + 31) / 32)};
+      sizeof(uint32_t) * ((L + 31) / 32),
+      sizeof(uint32_t) * wd,
+      sizeof(uint32_t) * wd};
   size_t total = 0;
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < kSegments; ++i) {
     off[i] = total;
     total = xpk_align16(total + sizes[i]);
   }
@@ -124,9 +137,8 @@ template <class Cache>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_layer_kernel(const Args a, const Cache cache) {
   extern __shared__ __align__(16) char smem_raw[];
-  __shared__ uint32_t qw[XPK_MAX_WD], knw[XPK_MAX_WD];
   __shared__ int s_new;
-  size_t off[8];
+  size_t off[kSegments];
   smem_layout(a.T, a.d, a.H, a.KV, a.hd, a.L, a.dff, off);
   const Smem sm{reinterpret_cast<int*>(smem_raw + off[0]),
                 reinterpret_cast<uint8_t*>(smem_raw + off[1]),
@@ -135,7 +147,11 @@ fused_decode_layer_kernel(const Args a, const Cache cache) {
                 reinterpret_cast<uint8_t*>(smem_raw + off[4]),
                 reinterpret_cast<uint8_t*>(smem_raw + off[5]),
                 reinterpret_cast<uint8_t*>(smem_raw + off[6]),
-                reinterpret_cast<uint32_t*>(smem_raw + off[7])};
+                reinterpret_cast<uint32_t*>(smem_raw + off[7]),
+                reinterpret_cast<uint32_t*>(smem_raw + off[8]),
+                reinterpret_cast<uint32_t*>(smem_raw + off[9])};
+  uint32_t* qw = sm.qw;
+  uint32_t* knw = sm.knw;
   const int b = blockIdx.x;
   const int T = a.T, d = a.d, H = a.H, KV = a.KV, hd = a.hd, L = a.L;
   const int tid = threadIdx.x;
@@ -164,9 +180,9 @@ fused_decode_layer_kernel(const Args a, const Cache cache) {
   for (int th = 0; th < T * H; ++th) {
     const int t = th / H, h = th - t * H, kvh = h / rep;
     const size_t bth = (static_cast<size_t>(b) * T + t) * H + h;
-    if (tid < wd) {
-      qw[tid] = xpk_pack32(sm.qs + (t * H + h) * hd + 32 * tid, hd - 32 * tid);
-      knw[tid] = xpk_pack32(sm.ks + (t * KV + kvh) * hd + 32 * tid, hd - 32 * tid);
+    for (int w = tid; w < wd; w += kThreads) {
+      qw[w] = xpk_pack32(sm.qs + (t * H + h) * hd + 32 * w, hd - 32 * w);
+      knw[w] = xpk_pack32(sm.ks + (t * KV + kvh) * hd + 32 * w, hd - 32 * w);
     }
     __syncthreads();
     const auto rows = cache.rows(b, t, kvh);
@@ -213,9 +229,12 @@ fused_decode_layer_kernel(const Args a, const Cache cache) {
 }
 
 template <class Cache>
-int launch(const Args& a, const Cache& cache, void* stream) {
-  size_t off[8];
+int launch(const Args& a, const Cache& cache, long long planned,
+           void* stream) {
+  size_t off[kSegments];
   const size_t smem = smem_layout(a.T, a.d, a.H, a.KV, a.hd, a.L, a.dff, off);
+  if (planned < 0 || static_cast<size_t>(planned) != smem)
+    return static_cast<int>(cudaErrorInvalidValue);
   int err = xpk_set_smem(
       reinterpret_cast<const void*>(fused_decode_layer_kernel<Cache>), smem);
   if (err) return err;
@@ -243,10 +262,10 @@ extern "C" int launch_fused_decode_layer(
     const int* ra, const int* rsp, XPK_WEIGHT_PARAMS, float* s_out,
     uint8_t* k_new, uint8_t* v_new, int T, int B, int d, int H, int KV, int hd,
     int L, int dff, int with_tail, int with_mlp, float beta, float vth,
-    void* stream) {
+    long long smem, void* stream) {
   const Args a{s, rs, ra, rsp, XPK_WEIGHTS, s_out, k_new, v_new, T, B, d, H,
                KV, hd, L, dff, with_tail, with_mlp, beta, vth};
-  return launch(a, DenseCache{sk, sv, T, L, KV, hd}, stream);
+  return launch(a, DenseCache{sk, sv, T, L, KV, hd}, smem, stream);
 }
 
 extern "C" int launch_fused_decode_layer_paged(
@@ -254,9 +273,10 @@ extern "C" int launch_fused_decode_layer_paged(
     const int* table, const int* rs, const int* ra, const int* rsp,
     XPK_WEIGHT_PARAMS, float* s_out, uint8_t* k_new, uint8_t* v_new, int T,
     int B, int d, int H, int KV, int hd, int page_len, int MP, int dff,
-    int with_tail, int with_mlp, float beta, float vth, void* stream) {
+    int with_tail, int with_mlp, float beta, float vth, long long smem,
+    void* stream) {
   const Args a{s, rs, ra, rsp, XPK_WEIGHTS, s_out, k_new, v_new, T, B, d, H,
                KV, hd, MP * page_len, dff, with_tail, with_mlp, beta, vth};
   return launch(a, PagedCache{kpool, vpool, table, T, KV, hd, page_len, MP},
-                stream);
+                smem, stream);
 }

@@ -27,7 +27,9 @@
 // each thread one value lane and reads only the rows whose score spiked.
 // Lanes past D and rows past L read as zero (the reference pads both to 32
 // with zeros, and a zero spike never beats a draw).  Counts are exact
-// integers, so the page order cannot change a result.
+// integers, so the page order cannot change a result.  Any D: the packed
+// query (ceil(D/32) words) sits in dynamic shared memory after the score
+// bits.
 #include "common.cuh"
 
 namespace {
@@ -39,8 +41,8 @@ template <class Rows>
 __device__ void ssa_row(const Rows& rows, const uint8_t* q, const int* rs,
                         const int* ra, uint8_t* out, int L, int D,
                         uint32_t* qw, uint32_t* sbits) {
-  if (threadIdx.x < (D + 31) / 32)
-    qw[threadIdx.x] = xpk_pack32(q + 32 * threadIdx.x, D - 32 * threadIdx.x);
+  for (int w = threadIdx.x; w < (D + 31) / 32; w += kThreads)
+    qw[w] = xpk_pack32(q + 32 * w, D - 32 * w);
   __syncthreads();
   xpk_ssa_scores(rows, qw, D, L, rs, sbits);
   __syncthreads();
@@ -53,8 +55,8 @@ ssa_decode_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ k,
                   const uint8_t* __restrict__ v, const int* __restrict__ rs,
                   const int* __restrict__ ra, uint8_t* __restrict__ out, int L,
                   int D) {
-  extern __shared__ uint32_t sbits[];  // [ceil(L/32)] packed score spikes
-  __shared__ uint32_t qw[XPK_MAX_WD];
+  extern __shared__ uint32_t sbits[];  // [ceil(L/32)] score spikes, then
+  uint32_t* qw = sbits + (L + 31) / 32;  // [ceil(D/32)] the packed query
   const size_t g = blockIdx.x;
   const XpkDenseRows rows{k + g * L * D, v + g * L * D, static_cast<size_t>(D)};
   ssa_row(rows, q + g * D, rs + g * L, ra + g * D, out + g * D, L, D, qw, sbits);
@@ -69,7 +71,7 @@ ssa_decode_paged_kernel(const uint8_t* __restrict__ q,
                         uint8_t* __restrict__ out, int T, int H, int KV,
                         int page_len, int MP, int D) {
   extern __shared__ uint32_t sbits[];
-  __shared__ uint32_t qw[XPK_MAX_WD];
+  uint32_t* qw = sbits + (MP * page_len + 31) / 32;
   const size_t g = blockIdx.x;  // (b, t, h), row-major
   const int h = static_cast<int>(g % H), t = static_cast<int>(g / H % T);
   const int b = static_cast<int>(g / (static_cast<size_t>(H) * T));
@@ -94,7 +96,7 @@ ssa_decode_paged_kernel(const uint8_t* __restrict__ q,
 // in [0, N):
 //   s_ij = popcount(q_i & k_j) > rs[i, j]   (causal: s_ij = 0 for j > i)
 //   a_id = popcount(s_i & v[:, d]) > ra[i, d]
-// q, k, v, rs, ra [G, ...] -> out uint8 [G, N, D]; N, D <= 512.
+// q, k, v, rs, ra [G, ...] -> out uint8 [G, N, D], any N and D.
 //
 // Bound on the card: bytes.  The int32 draws are 4 (N*N + N*D) bytes of a
 // tile against 4 N*D bytes of spikes in and out (at the ViT's N = D = 64,
@@ -112,8 +114,19 @@ ssa_decode_paged_kernel(const uint8_t* __restrict__ q,
 // Lanes past N or D read nothing and count zero, which is the reference's
 // 32-lane zero padding (a zero count never beats a draw), so the draws are
 // read at their logical shapes.  Counts are exact integers.
+//
+// A tile that does not fit the 227 KB of a block (about N * D > 2**20, e.g.
+// N = 2,048 at D = 512) takes ssa_attention_stream_kernel instead: a block
+// per (tile, block of RQ query rows), whose packed queries and score bits
+// stay in shared memory while K streams through it along the sequence in
+// chunks of NC keys (each packed once a block) and the score bits of a row
+// accumulate over the chunks; then V streams in chunks of 64 columns by NC
+// sequence rows, the output counts accumulating in registers over the
+// sequence chunks.  The wrapper (kernels/ssa_attention.py:attention_plan)
+// picks the design and the chunk sizes from N and D.
 
 constexpr int kTileThreads = 256;
+constexpr int kStreamCols = 64;  // V columns a stream chunk: 2 a lane
 
 __global__ void __launch_bounds__(kTileThreads)
 ssa_attention_kernel(const uint8_t* __restrict__ q,
@@ -178,13 +191,126 @@ ssa_attention_kernel(const uint8_t* __restrict__ q,
   }
 }
 
+
+// K8 past the resident budget (see the note above).  Block b takes tile
+// g = b / nrb and query rows [i0, i0 + RQ); RQ <= 64 (at most 8 rows a
+// warp), NC a multiple of 32.
+__global__ void __launch_bounds__(kTileThreads)
+ssa_attention_stream_kernel(const uint8_t* __restrict__ q,
+                            const uint8_t* __restrict__ k,
+                            const uint8_t* __restrict__ v,
+                            const int* __restrict__ rs,
+                            const int* __restrict__ ra,
+                            uint8_t* __restrict__ out, int N, int D,
+                            int causal, int RQ, int NC) {
+  extern __shared__ uint32_t smem[];
+  const int wd = (D + 31) / 32, wn = (N + 31) / 32;
+  const int nrb = (N + RQ - 1) / RQ;
+  const size_t g = blockIdx.x / nrb;
+  const int i0 = static_cast<int>(blockIdx.x % nrb) * RQ;
+  const int rows = min(RQ, N - i0);
+  uint32_t* qw = smem;          // [RQ][wd]  the block's packed queries
+  uint32_t* sw = qw + RQ * wd;  // [RQ][wn]  their score spikes
+  uint32_t* cw = sw + RQ * wn;  // a K chunk [wd][NC] or a V chunk [NC/32][64]
+  const size_t nd = static_cast<size_t>(N) * D;
+  const uint8_t* qg = q + g * nd;
+  const uint8_t* kg = k + g * nd;
+  const uint8_t* vg = v + g * nd;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  for (int idx = threadIdx.x; idx < rows * wd; idx += blockDim.x) {
+    const int r = idx / wd, x = idx - r * wd;
+    qw[idx] = xpk_pack32(qg + static_cast<size_t>(i0 + r) * D + 32 * x,
+                         D - 32 * x);
+  }
+  for (int idx = threadIdx.x; idx < rows * wn; idx += blockDim.x) sw[idx] = 0;
+
+  // score stage: keys the block's rows can see, NC at a time
+  const int jmax = causal ? i0 + rows : N;
+  for (int j0 = 0; j0 < jmax; j0 += NC) {
+    const int nc = min(NC, jmax - j0);
+    __syncthreads();  // the packed queries are in; the last chunk is read
+    for (int idx = threadIdx.x; idx < nc * wd; idx += blockDim.x) {
+      const int jj = idx / wd, x = idx - jj * wd;
+      cw[x * NC + jj] = xpk_pack32(kg + static_cast<size_t>(j0 + jj) * D + 32 * x,
+                                   D - 32 * x);
+    }
+    __syncthreads();
+    for (int r = warp; r < rows; r += kTileThreads / 32) {
+      const int i = i0 + r, jend = causal ? i + 1 : N;
+      const uint32_t* qi = qw + r * wd;
+      const int* rsi = rs + (g * N + i) * N;
+      for (int w = 0; w < (nc + 31) / 32; ++w) {
+        const int jj = 32 * w + lane, j = j0 + jj;
+        bool spike = false;
+        if (jj < nc && j < jend) {
+          int cnt = 0;
+          for (int x = 0; x < wd; ++x) cnt += __popc(qi[x] & cw[x * NC + jj]);
+          spike = cnt > __ldg(rsi + j);
+        }
+        const uint32_t word = __ballot_sync(0xffffffffu, spike);
+        if (lane == 0) sw[r * wn + j0 / 32 + w] = word;
+      }
+    }
+  }
+
+  // output stage: 64 columns at a time, V's sequence NC rows at a time
+  const int wmax = (jmax + 31) / 32;  // score words that can be nonzero
+  const int wc = NC / 32;
+  for (int d0 = 0; d0 < D; d0 += kStreamCols) {
+    int cnt[8][2];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) cnt[a][0] = cnt[a][1] = 0;
+    for (int w0 = 0; w0 < wmax; w0 += wc) {
+      const int nw = min(wc, wmax - w0);
+      __syncthreads();  // the scores are in; the last chunk is read
+      for (int idx = threadIdx.x; idx < nw * kStreamCols; idx += blockDim.x) {
+        const int w = idx / kStreamCols, d = d0 + idx - w * kStreamCols;
+        const int j0 = 32 * (w0 + w), n = min(32, N - j0);
+        uint32_t word = 0;
+        if (d < D) {
+          const uint8_t* col = vg + static_cast<size_t>(j0) * D + d;
+          for (int jj = 0; jj < n; ++jj)
+            word |= static_cast<uint32_t>(col[static_cast<size_t>(jj) * D] & 1u) << jj;
+        }
+        cw[idx] = word;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        const int r = warp + a * (kTileThreads / 32);
+        if (r < rows) {
+          const uint32_t* sr = sw + r * wn + w0;
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            for (int w = 0; w < nw; ++w)
+              cnt[a][c] += __popc(sr[w] & cw[w * kStreamCols + lane + 32 * c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const int r = warp + a * (kTileThreads / 32);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = d0 + lane + 32 * c;
+        if (r < rows && d < D) {
+          const size_t at = (g * N + i0 + r) * D + d;
+          out[at] = cnt[a][c] > __ldg(ra + at) ? 1 : 0;
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int launch_ssa_decode(const uint8_t* q, const uint8_t* k,
                                  const uint8_t* v, const int* rs,
                                  const int* ra, uint8_t* out, int G, int L,
                                  int D, void* stream) {
-  const size_t smem = static_cast<size_t>((L + 31) / 32) * sizeof(uint32_t);
+  const size_t smem =
+      static_cast<size_t>((L + 31) / 32 + (D + 31) / 32) * sizeof(uint32_t);
   int err = xpk_set_smem(reinterpret_cast<const void*>(ssa_decode_kernel), smem);
   if (err) return err;
   ssa_decode_kernel<<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -199,7 +325,8 @@ extern "C" int launch_ssa_decode_paged(const uint8_t* q, const uint8_t* kpool,
                                        int KV, int page_len, int MP, int D,
                                        void* stream) {
   const int L = MP * page_len;
-  const size_t smem = static_cast<size_t>((L + 31) / 32) * sizeof(uint32_t);
+  const size_t smem =
+      static_cast<size_t>((L + 31) / 32 + (D + 31) / 32) * sizeof(uint32_t);
   int err = xpk_set_smem(
       reinterpret_cast<const void*>(ssa_decode_paged_kernel), smem);
   if (err) return err;
@@ -209,19 +336,49 @@ extern "C" int launch_ssa_decode_paged(const uint8_t* q, const uint8_t* kpool,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K8's two launchers take the design and its shared memory from the
+// wrapper's plan (kernels/ssa_attention.py:attention_plan) and refuse
+// shared memory that differs from their buffers' layout.
 extern "C" int launch_ssa_attention(const uint8_t* q, const uint8_t* k,
                                     const uint8_t* v, const int* rs,
                                     const int* ra, uint8_t* out, int G, int N,
-                                    int D, int causal, void* stream) {
+                                    int D, int causal, long long smem,
+                                    void* stream) {
   const int wd = (D + 31) / 32, wn = (N + 31) / 32;
-  const size_t smem = sizeof(uint32_t) *
+  const size_t need = sizeof(uint32_t) *
       (2 * static_cast<size_t>(N) * wd + static_cast<size_t>(wn) * D +
        (kTileThreads / 32) * static_cast<size_t>(wn));
+  if (smem < 0 || static_cast<size_t>(smem) != need)
+    return static_cast<int>(cudaErrorInvalidValue);
   int err = xpk_set_smem(reinterpret_cast<const void*>(ssa_attention_kernel),
                          smem);
   if (err) return err;
   ssa_attention_kernel<<<G, kTileThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       q, k, v, rs, ra, out, N, D, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8 past the resident budget: RQ query rows a block (8..64, a multiple of
+// 8), NC keys a chunk (a multiple of 32), as the wrapper's plan chose them.
+extern "C" int launch_ssa_attention_stream(const uint8_t* q, const uint8_t* k,
+                                           const uint8_t* v, const int* rs,
+                                           const int* ra, uint8_t* out, int G,
+                                           int N, int D, int causal, int RQ,
+                                           int NC, long long smem,
+                                           void* stream) {
+  const size_t wd = (D + 31) / 32, wn = (N + 31) / 32;
+  const size_t chunk = wd * NC > static_cast<size_t>(NC / 32) * kStreamCols
+                           ? wd * NC : static_cast<size_t>(NC / 32) * kStreamCols;
+  if (RQ < 8 || RQ > 64 || RQ % 8 || NC < 32 || NC % 32 || smem < 0 ||
+      static_cast<size_t>(smem) != sizeof(uint32_t) * (RQ * wd + RQ * wn + chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = xpk_set_smem(
+      reinterpret_cast<const void*>(ssa_attention_stream_kernel), smem);
+  if (err) return err;
+  const size_t blocks = static_cast<size_t>(G) * ((N + RQ - 1) / RQ);
+  ssa_attention_stream_kernel<<<static_cast<unsigned>(blocks), kTileThreads,
+                                smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, rs, ra, out, N, D, causal, RQ, NC);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,7 +27,8 @@ from repro_torch.kernels import ref as KREF
 
 Tensor = torch.Tensor
 Triple = Tuple[Tensor, Tensor, Optional[Tensor]]
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 
 # a comparator draw no AND-count can beat: disables the new-token term
 _INVALID_RS = 2 ** 30
@@ -53,6 +54,31 @@ def _rs_at_pos(rs4: Tensor, pos: Tensor, valid: Tensor) -> Tensor:
                        torch.full_like(rsp, _INVALID_RS))
 
 
+# the dynamic shared memory a layer-step block may take (the kernel's few
+# static bytes aside)
+SMEM_BUDGET = KB.SMEM_PER_BLOCK - 64
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def layer_smem_bytes(t: int, d: int, h: int, kv: int, hd: int, l: int,
+                     dff: int) -> int:
+    """Dynamic shared memory of one layer-step block: the segments of
+    ``csrc/decode_fused.cu:smem_layout`` (the int32 residual, the q, k_new,
+    v_new, attention, FFN hidden and output spike trains over T, the score
+    bits of one row, the packed query and new key), each 16-aligned.  The
+    launcher refuses any number but its own layout's total."""
+    wd = (hd + 31) // 32
+    sizes = (4 * t * d, t * h * hd, t * kv * hd, t * kv * hd, t * h * hd,
+             t * max(dff, 1), t * d, 4 * ((l + 31) // 32), 4 * wd, 4 * wd)
+    total = 0
+    for n in sizes:
+        total = _align16(total + n)
+    return total
+
+
 def _norm_w(w: Triple) -> Triple:
     lv, sc, bi = w
     if bi is None:
@@ -64,7 +90,7 @@ def _norm_w(w: Triple) -> Triple:
 def _lib(name: str, n_ptr: int, n_int: int):
     fn = getattr(KB.load("decode_fused"), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_F, _F, _P]
+        fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_F, _F, _L, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -104,15 +130,21 @@ def _layer_operands(s: Tensor, ws, rs4: Tensor, ra4: Tensor, *, hd: int,
     t, b, d = s.shape
     h = ws[0][0].shape[1] // hd
     l = rs4.shape[-1]
-    if t > 8 or hd > 512 or h % kv:
-        raise ValueError(f"fused decode layer: T={t} > 8, hd={hd} > 512 or "
-                         f"H={h} not a multiple of KV={kv}")
+    if h % kv:
+        raise ValueError(f"fused decode layer: H={h} is not a multiple of "
+                         f"KV={kv}")
     mlp = with_tail and with_mlp
     wq, wk, wv, wo, wi, wo2 = ws
     tri = [_norm_w(wq), _norm_w(wk), _norm_w(wv),
            _norm_w(wo) if with_tail else None,
            _norm_w(wi) if mlp else None, _norm_w(wo2) if mlp else None]
     dff = tri[4][0].shape[1] if mlp else 0
+    smem = layer_smem_bytes(t, d, h, kv, hd, l, dff)
+    if smem > SMEM_BUDGET:
+        raise ValueError(
+            f"fused decode layer: T={t} (d={d}, H={h}, KV={kv}, hd={hd}, "
+            f"L={l}, d_ff={dff}) needs {smem} bytes of shared memory a "
+            f"block, past the card's {SMEM_BUDGET}")
     dims = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d), (d, dff),
             (dff, d)]
     for name, w, (di, do) in zip(("wq", "wk", "wv", "wo", "wi", "wo2"), tri,
@@ -131,7 +163,7 @@ def _layer_operands(s: Tensor, ws, rs4: Tensor, ra4: Tensor, *, hd: int,
     outs = (torch.empty((t, b, ds), dtype=torch.float32, device=s.device),
             torch.empty((t, b, kv, hd), dtype=torch.uint8, device=s.device),
             torch.empty((t, b, kv, hd), dtype=torch.uint8, device=s.device))
-    return tri, ptrs, (t, b, d, h, kv, hd), dff, mlp, outs
+    return tri, ptrs, (t, b, d, h, kv, hd), dff, mlp, smem, outs
 
 
 def fused_decode_layer_kernel(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
@@ -151,7 +183,7 @@ def fused_decode_layer_kernel(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
             with_tail=with_tail, with_mlp=with_mlp, beta=beta,
             v_thresh=v_thresh)
     b, t, l, kv = sk.shape[:4]
-    tri, ptrs, dims, dff, mlp, outs = _layer_operands(
+    tri, ptrs, dims, dff, mlp, smem, outs = _layer_operands(
         s, (wq, wk, wv, wo, wi, wo2), rs4, ra4, hd=hd, kv=kv,
         with_tail=with_tail, with_mlp=with_mlp)
     KB.check_cuda(sk, torch.uint8, (b, t, l, kv, hd), "sk")
@@ -162,7 +194,7 @@ def fused_decode_layer_kernel(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
         s.data_ptr(), sk.data_ptr(), sv.data_ptr(), rs4.data_ptr(),
         ra4.data_ptr(), rsp.data_ptr(), *ptrs, *(o.data_ptr() for o in outs),
         t, b, d, h, kv, hd, l, dff, int(with_tail), int(mlp), beta, v_thresh,
-        KB.stream_ptr(s))
+        smem, KB.stream_ptr(s))
     del tri  # held until the launch is queued
     KB.raise_on_error(err, "fused_decode_layer")
     KB.LAUNCHES["fused_decode_layer"] += 1
@@ -223,7 +255,7 @@ def fused_decode_layer_paged_kernel(s: Tensor, kpool: Tensor, vpool: Tensor,
     p, t, kv, page_len = kpool.shape[:4]
     b, mp = page_table.shape
     l = mp * page_len
-    tri, ptrs, dims, dff, mlp, outs = _layer_operands(
+    tri, ptrs, dims, dff, mlp, smem, outs = _layer_operands(
         s, (wq, wk, wv, wo, wi, wo2), rs4, ra4, hd=hd, kv=kv,
         with_tail=with_tail, with_mlp=with_mlp)
     KB.check_cuda(kpool, torch.uint8, (p, t, kv, page_len, hd), "kpool")
@@ -239,7 +271,7 @@ def fused_decode_layer_paged_kernel(s: Tensor, kpool: Tensor, vpool: Tensor,
         page_table.data_ptr(), rs4.data_ptr(), ra4.data_ptr(),
         rsp.data_ptr(), *ptrs, *(o.data_ptr() for o in outs), t, b, d, h,
         kv, hd, page_len, mp, dff, int(with_tail), int(mlp), beta, v_thresh,
-        KB.stream_ptr(s))
+        smem, KB.stream_ptr(s))
     del tri  # held until the launch is queued
     KB.raise_on_error(err, "fused_decode_layer_paged")
     KB.LAUNCHES["fused_decode_layer_paged"] += 1

@@ -14,6 +14,8 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,7 +23,7 @@ from repro_torch.kernels import build as KB
 from repro_torch.kernels import ref as KREF
 
 Tensor = torch.Tensor
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _lib(name: str, argtypes):
@@ -39,8 +41,6 @@ def ssa_decode_kernel(q: Tensor, k: Tensor, v: Tensor, rs: Tensor,
     if not q.is_cuda:
         return KREF.ssa_decode_ref(q, k, v, rs, ra)
     g, l, d = k.shape
-    if d > 512:
-        raise ValueError(f"ssa_decode: D={d} > 512 lanes")
     KB.check_cuda(q, torch.uint8, (g, 1, d), "q")
     KB.check_cuda(k, torch.uint8, (g, l, d), "k")
     KB.check_cuda(v, torch.uint8, (g, l, d), "v")
@@ -73,9 +73,9 @@ def ssa_decode_paged_kernel(q: Tensor, kpool: Tensor, vpool: Tensor,
             q[:, :, :, None, :], kpool, vpool, page_table,
             rs.reshape(b, t, h, 1, l), ra.reshape(b, t, h, 1, d))
         return out[:, :, :, 0, :]
-    if d > 512 or h % kv:
-        raise ValueError(f"ssa_decode_paged: D={d} > 512 lanes or H={h} "
-                         f"not a multiple of KV={kv}")
+    if h % kv:
+        raise ValueError(f"ssa_decode_paged: H={h} is not a multiple of "
+                         f"KV={kv}")
     KB.check_cuda(q, torch.uint8, (b, t, h, d), "q")
     KB.check_cuda(kpool, torch.uint8, (p, t, kv, page_len, d), "kpool")
     KB.check_cuda(vpool, torch.uint8, (p, t, kv, page_len, d), "vpool")
@@ -92,25 +92,70 @@ def ssa_decode_paged_kernel(q: Tensor, kpool: Tensor, vpool: Tensor,
     return out
 
 
+SMEM_BUDGET = KB.SMEM_PER_BLOCK  # K8's kernels take no static shared memory
+_TILE_WARPS = 8
+_STREAM_COLS = 64  # V columns a chunk of the streaming design
+
+
+class AttentionPlan(NamedTuple):
+    """K8's design for one tile shape: ``"resident"`` (the whole packed
+    tile in one block's shared memory) or ``"stream"`` (``rows`` query
+    rows a block, K and V through shared memory ``keys`` sequence rows at
+    a time), with the dynamic shared memory it needs, which the launcher
+    checks against its buffers' layout."""
+    design: str
+    smem: int
+    rows: int = 0
+    keys: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(n: int, d: int) -> AttentionPlan:
+    """The resident design where its ``(2 N ceil(D/32) + ceil(N/32) D + 8
+    ceil(N/32))`` words fit in :data:`SMEM_BUDGET`, else the streaming one
+    with the most query rows a block (64 down to 8) and keys a chunk (128
+    down to 32) that fit; raises, naming the bytes, where none does."""
+    wd, wn = -(-d // 32), -(-n // 32)
+    smem = 4 * (2 * n * wd + wn * d + _TILE_WARPS * wn)
+    if smem <= SMEM_BUDGET:
+        return AttentionPlan("resident", smem)
+    for nc in (128, 64, 32):
+        for rq in (64, 32, 16, 8):
+            smem = 4 * (rq * wd + rq * wn + max(wd * nc,
+                                                nc // 32 * _STREAM_COLS))
+            if smem <= SMEM_BUDGET:
+                return AttentionPlan("stream", smem, rq, nc)
+    raise ValueError(f"ssa_attention: N={n}, D={d} needs {smem} bytes of "
+                     f"shared memory a block at its smallest chunks, past "
+                     f"the card's {SMEM_BUDGET}")
+
+
 def ssa_attention_kernel(q: Tensor, k: Tensor, v: Tensor, rs: Tensor,
                          ra: Tensor, *, causal: bool = False) -> Tensor:
     """``q``/``k``/``v [G,N,D]`` uint8 spikes, ``rs [G,N,N]``, ``ra
-    [G,N,D]`` int32 -> uint8 ``[G,N,D]``; ``N``, ``D`` up to 512."""
+    [G,N,D]`` int32 -> uint8 ``[G,N,D]``, any ``N`` and ``D``
+    (:func:`attention_plan` picks the design)."""
     if not q.is_cuda:
         return KREF.ssa_attention_ref(q, k, v, rs, ra, causal=causal)
     g, n, d = q.shape
-    if not (0 < n <= 512 and 0 < d <= 512):
-        raise ValueError(f"ssa_attention: N={n} and D={d} must lie in [1, 512]")
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
         KB.check_cuda(x, torch.uint8, (g, n, d), name)
     KB.check_cuda(rs, torch.int32, (g, n, n), "rs")
     KB.check_cuda(ra, torch.int32, (g, n, d), "ra")
     out = torch.empty((g, n, d), dtype=torch.uint8, device=q.device)
-    if g == 0:
+    if out.numel() == 0:
         return out
-    err = _lib("launch_ssa_attention", [_P] * 6 + [_I] * 4 + [_P])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rs.data_ptr(),
-        ra.data_ptr(), out.data_ptr(), g, n, d, int(causal), KB.stream_ptr(q))
+    plan = attention_plan(n, d)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), rs.data_ptr(),
+            ra.data_ptr(), out.data_ptr())
+    if plan.design == "resident":
+        err = _lib("launch_ssa_attention", [_P] * 6 + [_I] * 4 + [_L, _P])(
+            *ptrs, g, n, d, int(causal), plan.smem, KB.stream_ptr(q))
+    else:
+        err = _lib("launch_ssa_attention_stream",
+                   [_P] * 6 + [_I] * 6 + [_L, _P])(
+            *ptrs, g, n, d, int(causal), plan.rows, plan.keys, plan.smem,
+            KB.stream_ptr(q))
     KB.raise_on_error(err, "ssa_attention")
     KB.LAUNCHES["ssa_attention"] += 1
     return out

@@ -1,11 +1,20 @@
 """Serving CLI of the port: continuous batching of a spiking GPT.
 
-    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --requests 8
-    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --paged \
-        --page-len 8 [--n-pages N]
-    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --program \
-        --drift-step 60 --recal-every 3600      # PCM lifecycle + energy
-    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --mesh 2x2
+    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --full \
+        --requests 8
+    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --full \
+        --paged --page-len 8 [--pages N]
+    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --full \
+        --program --drift-step 60 --recal-every 3600   # PCM lifecycle + energy
+    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --full \
+        --mesh 2x2
+
+It takes the reference CLI's spellings (``src/repro/launch/serve.py``):
+without ``--full`` it serves the reduced config (``--smoke`` says so
+explicitly); ``--pages N`` sizes the page pool (0, the default: ``slots *
+cache_len / page_len`` + 2 reserved pages; ``--n-pages`` is an alias);
+``--backend pallas`` is the kernel backend (an alias of ``cuda``), and
+``--backend reference``, the float backend, is not ported yet.
 
 Serves ``--requests`` synthetic prompts (the reference CLI's prompts:
 ``randint(fold_in(PRNGKey(seed + 1), i), (4 + 3 * (i % 4),), 0, vocab)``)
@@ -21,8 +30,7 @@ spawns the D*M ranks (:func:`repro_torch.launch.mesh.run_ranks`), or, run
 under ``torchrun --nproc-per-node D*M``, joins the ranks torchrun started;
 slots split over ``data`` (``--slots`` a multiple of D), heads and
 crossbars over ``model``; the tokens are one device's.  Every run prints
-the metered energy.  ``--smoke`` serves the reduced CPU-test config;
-``--device cpu`` runs the plain PyTorch versions.
+the metered energy.  ``--device cpu`` runs the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -45,6 +53,19 @@ def make_prompts(n: int, vocab: int, seed: int) -> List[List[int]]:
                          vocab).tolist() for i in range(n)]
 
 
+# the reference CLI's backend names: its Pallas kernels are the CUDA kernels
+BACKEND_ALIASES = {"pallas": "cuda"}
+
+
+def _backend(name: str) -> str:
+    if name == "reference":
+        raise NotImplementedError(
+            "--backend reference: the float reference backend is not ported "
+            "yet (ROADMAP queue A, item 2(a)); use cuda (alias pallas) or "
+            "integer")
+    return BACKEND_ALIASES.get(name, name)
+
+
 def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
           slots: int = 4, max_new: int = 16, cache_len: int = 64,
           seed: int = 0, backend: str = "cuda", decode_kernel: str = "auto",
@@ -52,6 +73,7 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
           n_pages: Optional[int] = None, device: str = "cuda",
           program: bool = False, drift_step_s: float = 0.0,
           recal_every_s: float = 0.0, mesh: Optional[str] = None):
+    backend = _backend(backend)
     if mesh:
         return serve_mesh(
             arch, mesh, smoke=smoke, n_requests=n_requests, slots=slots,
@@ -163,7 +185,8 @@ def serve_mesh(arch: str, spec: str, *, smoke: bool, n_requests: int,
     return res["outputs"]
 
 
-def main(argv=None):
+def parse_args(argv=None) -> Dict[str, Any]:
+    """The command line as :func:`serve`'s arguments (``arch`` first)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--requests", type=int, default=8)
@@ -171,18 +194,25 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--cache-len", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--backend", default="cuda", choices=["cuda", "integer"])
+    ap.add_argument("--backend", default="cuda",
+                    choices=["cuda", "integer", "pallas", "reference"],
+                    help="cuda (alias pallas): the kernels; integer: their "
+                         "plain versions; reference: not ported yet")
     ap.add_argument("--decode-kernel", default="auto",
                     choices=["auto", "fused", "unfused"])
     ap.add_argument("--paged", action="store_true",
                     help="serve off the block-paged spike-train KV pool")
     ap.add_argument("--page-len", type=int, default=8)
-    ap.add_argument("--n-pages", type=int, default=None,
-                    help="pool size (default: slots * cache_len / page_len "
+    ap.add_argument("--pages", "--n-pages", dest="pages", type=int,
+                    default=0,
+                    help="page-pool size (0: slots * cache_len / page_len "
                          "+ 2 reserved pages)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--smoke", action="store_true",
-                    help="serve the reduced CPU-test config")
+    ap.add_argument("--full", dest="smoke", action="store_false",
+                    help="serve the full config (default: the reduced one)")
+    ap.add_argument("--smoke", dest="smoke", action="store_true",
+                    help="serve the reduced config (the default)")
+    ap.set_defaults(smoke=True)
     ap.add_argument("--program", action="store_true",
                     help="program spiking linears onto simulated PCM first")
     ap.add_argument("--drift-step", type=float, default=0.0,
@@ -193,14 +223,20 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="serve on a (data, model) mesh, e.g. 2x2")
     a = ap.parse_args(argv)
+    return dict(arch=a.arch, smoke=a.smoke, n_requests=a.requests,
+                slots=a.slots, max_new=a.max_new, cache_len=a.cache_len,
+                seed=a.seed, backend=_backend(a.backend),
+                decode_kernel=a.decode_kernel, paged=a.paged,
+                page_len=a.page_len, n_pages=a.pages or None,
+                device=a.device, program=a.program,
+                drift_step_s=a.drift_step, recal_every_s=a.recal_every,
+                mesh=a.mesh)
+
+
+def main(argv=None):
+    kw = parse_args(argv)
     with torch.no_grad():
-        serve(a.arch, smoke=a.smoke, n_requests=a.requests, slots=a.slots,
-              max_new=a.max_new, cache_len=a.cache_len, seed=a.seed,
-              backend=a.backend, decode_kernel=a.decode_kernel,
-              paged=a.paged, page_len=a.page_len, n_pages=a.n_pages,
-              device=a.device, program=a.program,
-              drift_step_s=a.drift_step, recal_every_s=a.recal_every,
-              mesh=a.mesh)
+        serve(kw.pop("arch"), **kw)
 
 
 if __name__ == "__main__":

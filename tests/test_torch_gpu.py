@@ -18,7 +18,11 @@ serve one device's tokens through K5.
 """
 
 import dataclasses
-
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -290,11 +294,13 @@ def test_reduced_paged_serving_on_card_matches_cpu(cuda):
 
 
 def test_spiking_linear_kernel_past_the_grid_row_limit(cuda):
-    """M = 70,000 rows (more than gridDim.y's 65,535) all launch: the rows
-    past the limit are the grid-stride loop's."""
+    """More row tiles than gridDim.y's 65,535 all launch: at T = 64 a tile
+    takes one row of M, so M = 70,000 rows past the limit are the
+    grid-stride loop's."""
     rng = np.random.default_rng(70)
-    x = _t(rng.integers(0, 4, (4, 70_000, 64)).astype(np.float32))
-    w = _triple(rng, 64, 48)
+    x = _t(rng.integers(0, 4, (64, 70_000, 16)).astype(np.float32))
+    w = _triple(rng, 16, 48)
+    assert KA.launch_plan(64, 70_000, 16, 48).regime == "mma"
     want = KREF.aimc_spiking_linear_ref(x, *w)
     got = KA.aimc_spiking_linear_kernel(x.to(cuda), *_to(w, cuda))
     torch.cuda.synchronize()
@@ -329,12 +335,26 @@ def test_ssa_attention_kernel(cuda, case):
     assert 0 < int(want.sum()) < want.numel()
 
 
-def test_ssa_attention_kernel_refuses_past_its_limits(cuda):
-    z = torch.zeros((1, 513, 16), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="N=513"):
-        KS.ssa_attention_kernel(
-            z, z, z, torch.zeros((1, 513, 513), dtype=torch.int32, device=cuda),
-            torch.zeros((1, 513, 16), dtype=torch.int32, device=cuda))
+@pytest.mark.parametrize("g,n,d,causal,design", [
+    (3, 513, 64, False, "resident"), (3, 513, 64, True, "resident"),
+    (2, 1024, 64, True, "resident"), (2, 2048, 512, False, "stream"),
+    (2, 2048, 512, True, "stream"), (1, 1000, 2100, False, "stream")])
+def test_ssa_attention_kernel_past_the_old_limits(cuda, g, n, d, causal,
+                                                  design):
+    """Past N, D = 512: N = 513 and 1,024 keep the resident tile; G = 2,
+    N = 2,048, D = 512 (and a ragged N = 1,000, D = 2,100) need more shared
+    memory than a block has and stream K and V through it in chunks."""
+    assert KS.attention_plan(n, d).design == design
+    rng = np.random.default_rng(n + d + causal)
+    args = [_t((rng.random((g, n, d)) < p).astype(np.uint8))
+            for p in (0.5, 0.6, 0.4)]
+    args += [_t(rng.integers(0, d, (g, n, n)).astype(np.int32)),
+             _t(rng.integers(0, n, (g, n, d)).astype(np.int32))]
+    want = KREF.ssa_attention_ref(*args, causal=causal)
+    got = KS.ssa_attention_kernel(*(a.to(cuda) for a in args), causal=causal)
+    torch.cuda.synchronize()
+    _eq(got, want)
+    assert 0 < int(want.sum()) < want.numel()
 
 
 @pytest.mark.parametrize("t,m,beta", [(4, 100_003, 0.5), (3, 257, 0.25),
@@ -444,6 +464,172 @@ def test_counts_kernel(cuda, t, m, d_in, d_out):
     torch.cuda.synchronize()
     assert KB.LAUNCHES["aimc_matmul_counts"] == n + 1
     _eq(got, KREF.aimc_counts_ref(x, lv))
+
+
+# K1/K5 past the old 8-step cap, in both regimes (few rows: the split of
+# d_in; many rows: the tensor-core GEMM, T > 64 in carried chunks), at the
+# ViT's MLP shapes, a wide d_in and ragged widths
+CROSSBAR_SHAPES = [(9, 1, 256, 256), (9, 4, 512, 256), (9, 4096, 384, 384),
+                   (16, 1, 256, 1024), (16, 4, 1024, 256),
+                   (16, 4096, 384, 384), (4, 4096, 384, 1536),
+                   (4, 4096, 1536, 384), (70, 3, 64, 64), (9, 7, 130, 33),
+                   (4, 2176, 3072, 256), (70, 40, 130, 300)]
+
+
+@pytest.mark.parametrize("t,m,d_in,d_out", CROSSBAR_SHAPES)
+def test_crossbar_kernels_any_t(cuda, t, m, d_in, d_out):
+    """Residual-valued spikes in [0, 17] (1 + 2 x depth 8): K1 and K5 equal
+    their plain versions bit for bit."""
+    rng = np.random.default_rng(t * m + d_in + d_out)
+    x = _t(rng.integers(0, 18, (t, m, d_in)).astype(np.float32))
+    lv, sc, bi = _triple(rng, d_in, d_out)
+    sc = sc / 16
+    want = KREF.aimc_spiking_linear_ref(x, lv, sc, bi)
+    got = KA.aimc_spiking_linear_kernel(x.to(cuda), lv.to(cuda), sc.to(cuda),
+                                        bi.to(cuda))
+    torch.cuda.synchronize()
+    _eq(got, want)
+    assert 0 < int(want.sum()) < want.numel()
+    _eq(KA.aimc_matmul_counts_kernel(x.to(cuda), lv.to(cuda)),
+        KREF.aimc_counts_ref(x, lv))
+
+
+@pytest.mark.parametrize("m", [1, 4096])
+def test_crossbar_kernel_traps_on_a_spike_past_int8(cuda, m):
+    """A spike of 200 does not fit the int8 operand: the kernel traps (in a
+    child process: a trap poisons the CUDA context) instead of clamping."""
+    code = textwrap.dedent(f"""
+        import torch
+        from repro_torch.kernels import aimc_matmul as KA
+        x = torch.ones((4, {m}, 64), device="cuda")
+        x[3, {m} - 1, 5] = 200.0
+        lv = torch.ones((64, 32), dtype=torch.int8, device="cuda")
+        KA.aimc_matmul_counts_kernel(x, lv)
+        torch.cuda.synchronize()
+        print("no trap")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]
+                                           / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                       capture_output=True, timeout=600)
+    assert r.returncode != 0 and "no trap" not in r.stdout, r.stdout
+    assert "CUDA" in r.stderr or "cuda" in r.stderr, r.stderr[-2000:]
+
+
+def _refused(monkeypatch, module, name, value, launch):
+    """``launch`` with ``module.name`` returning ``value``: the C launcher
+    must refuse the plan before any kernel runs."""
+    monkeypatch.setattr(module, name, lambda *a, **k: value)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch()
+    monkeypatch.undo()
+
+
+@pytest.mark.parametrize("kind", ["crossbar", "attention", "layer"])
+def test_launchers_take_the_wrappers_plans_at_the_budget_edge(
+        cuda, monkeypatch, kind):
+    """The wrappers own the launch plans (K1/K5's split, K8's design and
+    shared memory, K3's shared memory); a C launcher checks a plan against
+    its buffers.  At the edge of each budget the launcher takes the plan
+    Python makes and the kernel equals its plain version; a plan one step
+    past a buffer, or shared memory that differs from the launcher's
+    layout, is refused."""
+    rng = np.random.default_rng(227)
+    if kind == "crossbar":
+        # T*M = 32: 2 columns a thread fill the 64 accumulators; 8 column
+        # groups, 32 row slots and a chain of 8 stage exactly 8,192 spikes
+        t, m, d_in, d_out = 4, 8, 16_384, 16
+        plan = KA.launch_plan(t, m, d_in, d_out)
+        cpt, ncgb, chain, ksplit = plan.split
+        assert plan.regime == "split" and t * m * cpt == 64
+        assert (256 // ncgb) * chain * t * m == 8192
+        x = _t(rng.integers(0, 18, (t, m, d_in)).astype(np.float32))
+        lv, _, _ = _triple(rng, d_in, d_out)
+        xc, lc = x.to(cuda), lv.to(cuda)
+        _eq(KA.aimc_matmul_counts_kernel(xc, lc), KREF.aimc_counts_ref(x, lv))
+        for bad in ((2 * cpt, ncgb, chain, ksplit),
+                    (cpt, ncgb, 2 * chain, ksplit)):
+            _refused(monkeypatch, KA, "launch_plan",
+                     KA.LaunchPlan("split", bad),
+                     lambda: KA.aimc_matmul_counts_kernel(xc, lc))
+        return
+    if kind == "attention":
+        d = 1024
+        n = next(n for n in range(512, 2048)
+                 if KS.attention_plan(n + 1, d).design == "stream")
+        plan = KS.attention_plan(n, d)
+        assert plan.design == "resident" and plan.smem <= KS.SMEM_BUDGET
+        for nn in (n, n + 1):
+            args = [_t((rng.random((1, nn, d)) < p).astype(np.uint8))
+                    for p in (0.5, 0.6, 0.4)]
+            args += [_t(rng.integers(0, d, (1, nn, nn)).astype(np.int32)),
+                     _t(rng.integers(0, nn, (1, nn, d)).astype(np.int32))]
+            dev = [a.to(cuda) for a in args]
+            _eq(KS.ssa_attention_kernel(*dev, causal=True),
+                KREF.ssa_attention_ref(*args, causal=True))
+            p = KS.attention_plan(nn, d)
+            _refused(monkeypatch, KS, "attention_plan",
+                     p._replace(smem=p.smem + 4),
+                     lambda: KS.ssa_attention_kernel(*dev, causal=True))
+        return
+    b, d, h, kv, hd, l, dff = 2, 128, 2, 1, 64, 32, 256
+    t = next(t for t in range(4, 512)
+             if KFD.layer_smem_bytes(t + 1, d, h, kv, hd, l, dff)
+             > KFD.SMEM_BUDGET)
+    for tt in (t, t + 1):
+        head, ws, draws = layer_inputs(rng, tt, b, d, h, kv, hd, l, dff,
+                                       [5, 31])
+        dev = ([a.to(cuda) for a in head] + [_to(w, cuda) for w in ws]
+               + [a.to(cuda) for a in draws])
+        if tt > t:
+            need = KFD.layer_smem_bytes(tt, d, h, kv, hd, l, dff)
+            with pytest.raises(ValueError, match=f"T={tt} .* needs {need} "):
+                KFD.fused_decode_layer_kernel(*dev, hd=hd)
+            break
+        for g, w in zip(KFD.fused_decode_layer_kernel(*dev, hd=hd),
+                        KREF.decode_layer_ref(*head, *ws, *draws, hd=hd)):
+            _eq(g, w)
+        _refused(monkeypatch, KFD, "layer_smem_bytes",
+                 KFD.layer_smem_bytes(t, d, h, kv, hd, l, dff) - 16,
+                 lambda: KFD.fused_decode_layer_kernel(*dev, hd=hd))
+
+
+@pytest.mark.parametrize("case", ["t9", "hd544"])
+def test_fused_layers_past_the_old_caps(cuda, case):
+    """K3 and K9 at T = 9 (the linears count 8 steps at a time and carry
+    the membrane) and K3, K9, K2 and K7 at hd = 544 (the packed query in
+    dynamic shared memory)."""
+    t, hd = (9, 64) if case == "t9" else (2, 544)
+    b, d, h, kv, pl, mp, dff = 4, 128, 2, 1, 8, 4, 256
+    pos = [3, 17, 30, 9]
+    rng = np.random.default_rng(9 + hd)
+    head, ws, draws = layer_inputs(rng, t, b, d, h, kv, hd, mp * pl, dff, pos)
+    want = KREF.decode_layer_ref(*head, *ws, *draws, hd=hd)
+    got = KFD.fused_decode_layer_kernel(
+        *(a.to(cuda) for a in head), *(_to(w, cuda) for w in ws),
+        *(a.to(cuda) for a in draws), hd=hd)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    table, write, kp, vp = paged_inputs(rng, b=b, t=t, kv=kv, hd=hd, pl=pl,
+                                        mp=mp, pos=pos, idle=(2,))
+    phead = [head[0], kp, vp, table, head[3], write]
+    want = KFD.fused_decode_layer_paged_kernel(*phead, *ws, *draws, hd=hd)
+    got = KFD.fused_decode_layer_paged_kernel(
+        *(a.to(cuda) for a in phead), *(_to(w, cuda) for w in ws),
+        *(a.to(cuda) for a in draws), hd=hd)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _eq(g, w)
+    if case == "hd544":
+        args = _decode_inputs(rng, 8, 40, hd)
+        _eq(KS.ssa_decode_kernel(*(a.to(cuda) for a in args)),
+            KREF.ssa_decode_ref(*args))
+        q = _t(rng.integers(0, 2, (b, t, h, hd)).astype(np.uint8))
+        rs = _t(rng.integers(0, hd, (b, t * h, 1, mp * pl)).astype(np.int32))
+        ra = _t(rng.integers(0, mp * pl, (b, t * h, 1, hd)).astype(np.int32))
+        args = (q, kp, vp, table, rs, ra)
+        _eq(KS.ssa_decode_paged_kernel(*(a.to(cuda) for a in args)),
+            KS.ssa_decode_paged_kernel(*args))
 
 
 def test_two_rank_mesh_on_one_card(cuda):
