@@ -18,6 +18,13 @@ Phases, each printing one JSON line:
    paged ``page_len=5``), GQA and ``pos >= L`` edges.  Outputs must be
    exactly equal.  Each kernel and its plain version are timed with CUDA
    events (runs of 20 back-to-back calls, median of 9 runs after warm-up).
+   K3 and K9 are also checked at one slot and at 32 (256 clusters of 8
+   blocks), and their rows carry the kernel's own device time a launch
+   (``device_ms``, torch.profiler: ``ms`` is the host's issue rate where
+   that is slower), the cluster size, the blocks and SMs of the grid, the
+   wrapper's host microseconds a call and the bare ``ctypes`` launch's;
+   their bound counts only what these inputs need (cached key rows below
+   ``pos``, the value rows whose score spiked).
 3. **serve** -- the full-width ``xpikeformer-gpt-4-256`` (random weights
    from a seed) served by ``BatchScheduler(slots=8, cache_len=256)``: 16
    requests, prompts of 8-32 tokens, 32 new tokens each, submitted in
@@ -110,9 +117,10 @@ and of the bare ``ctypes`` launch (1,000 calls each).
     python3 chip_smoke.py --ab <other tree>/src
 
 compares another tree of the port (unpacked with ``git archive``) with this
-one instead: each tree's windows (:func:`phase_windows`) run in a process of
-its own, parent, change, change, parent, and the trees must serve the same
-tokens and give the same logits.
+one instead: each tree's windows (:func:`phase_windows`: K1/K5, K3/K9 at
+the decode shapes, the serve and forward windows) run in a process of its
+own, parent, change, change, parent, and the trees must serve the same
+tokens, give the same logits and the same K3/K9 outputs.
 """
 
 from __future__ import annotations
@@ -176,6 +184,29 @@ def time_ms(fn) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / BATCH)
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, calls: int = BATCH) -> float:
+    """The card's time of one launch of the kernel whose name holds
+    ``kernel``: torch.profiler over ``calls`` calls of ``fn`` after warm-up,
+    that kernel's device time over its launches (what ``time_ms`` reads
+    when the host issues calls slower than the card runs them is the
+    host's rate)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in ks)
+    check(n > 0, f"the profiler saw no {kernel} launch")
+    return sum(e.self_device_time_total for e in ks) / n / 1e3
 
 
 def nbytes(*xs) -> int:
@@ -249,6 +280,95 @@ def bare_k1(x, w, out):
     return lambda: fn(*args)
 
 
+def bare_layer(head, ws, draws, hd: int, paged: bool):
+    """K3's or K9's ``ctypes`` launcher with every argument ready (outputs
+    allocated once): what a call costs the host without the wrapper's
+    checks, plan and allocation."""
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels import decode_fused as KFD
+
+    s, rs4, ra4 = head[0], draws[0], draws[1]
+    kv = head[1].shape[2] if paged else head[1].shape[3]
+    made, ptrs, dims, dff, mlp, plan, outs = KFD._layer_operands(
+        s, ws, rs4, ra4, hd=hd, kv=kv, with_tail=True, with_mlp=True)
+    t, b, d, h, kv, hd = dims
+    tail = (1, int(mlp), plan.cluster, plan.threads, 0.5, 1.0, plan.smem,
+            KB.stream_ptr(s))
+    outp = [o.data_ptr() for o in outs]
+    if paged:
+        table, pos, write = head[3], head[4], head[5].to(torch.int64)
+        args = (s.data_ptr(), head[1].data_ptr(), head[2].data_ptr(),
+                table.data_ptr(), write.data_ptr(), pos.data_ptr(),
+                rs4.data_ptr(), ra4.data_ptr(), *ptrs, *outp, t, b, d, h, kv,
+                hd, head[1].shape[3], table.shape[1], dff, *tail)
+        fn = KFD._lib("launch_fused_decode_layer_paged")
+    else:
+        write = None
+        args = (s.data_ptr(), head[1].data_ptr(), head[2].data_ptr(),
+                head[3].data_ptr(), rs4.data_ptr(), ra4.data_ptr(), *ptrs,
+                *outp, t, b, d, h, kv, hd, head[1].shape[2], dff, *tail)
+        fn = KFD._lib("launch_fused_decode_layer")
+    return lambda keep=(made, outs, write): fn(*args)
+
+
+def layer_launch(b: int) -> dict:
+    """K3/K9's launch at ``b`` slots (``decode_fused.layer_plan``): the
+    cluster size, the blocks of the grid, and the SMs they can occupy at
+    one block an SM."""
+    from repro_torch.kernels import decode_fused as KFD
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(cluster=KFD.CLUSTER, blocks=b * KFD.CLUSTER,
+                sms_used=min(b * KFD.CLUSTER, sms))
+
+
+def layer_bound(head, ws, draws, got, hd: int, paged: bool):
+    """The least time of one K3/K9 step on these inputs: every weight,
+    scale and bias, the residual, ``pos`` (paged: the table and write
+    pages), ``ra`` and the outputs once; the cached key rows below each
+    slot's ``pos`` (not in a null page; a row two slots share once), their
+    score draws and the draw at ``pos``; and the value rows of (t, KV head)
+    whose score spiked for some query head.  Operations: two a MAC of the
+    five linears, two an AND-popcount lane of a score and a counted value
+    lane.  Returns :func:`bound`'s tuple."""
+    from repro_torch.kernels import ref as KREF
+
+    s, pos = head[0], head[4] if paged else head[3]
+    t, b, d = s.shape
+    q = KREF._lin_lif_ref(s, ws[0], beta=0.5, v_thresh=1.0).reshape(
+        t, b, -1, hd).to(torch.uint8)
+    h = q.shape[2]
+    if paged:
+        table, pl = head[3].long(), head[1].shape[3]
+        kview = KREF.gather_kv_pages_ref(head[1], head[3])
+        j = torch.arange(table.shape[1] * pl, device=s.device)
+        page = table[:, j // pl]
+        phys = torch.where(page != 0, page * pl + j % pl, -1)
+    else:
+        kview = head[1].permute(1, 0, 3, 2, 4)  # [T, B, KV, L, hd]
+        j = torch.arange(head[1].shape[2], device=s.device)
+        phys = torch.arange(b, device=s.device)[:, None] * j.numel() + j
+    kv, l = kview.shape[2], kview.shape[3]
+    live = (j[None, :] < pos[:, None].long().clamp(max=l)) & (phys >= 0)
+    kq = kview.repeat_interleave(h // kv, dim=2)  # [T, B, H, L, hd]
+    cnt = (q[:, :, :, None, :] & kq).sum(-1, dtype=torch.int32)
+    spike = (cnt > draws[0].permute(1, 0, 2, 3)) & live[None, :, None, :]
+    vrows = spike.reshape(t, b, kv, h // kv, l).any(3)  # [T, B, KV, L]
+    n_live = int(live.sum())
+    k_rows = int(torch.unique(phys[live]).numel())
+    v_rows = int(torch.unique(torch.stack(torch.broadcast_tensors(
+        torch.arange(t, device=s.device)[:, None, None, None],
+        torch.arange(kv, device=s.device)[None, None, :, None],
+        phys[None, :, None, :]), -1)[vrows], dim=0).shape[0])
+    n_bytes = (nbytes(head[0], head[3:] if paged else head[3], ws, draws[1],
+                      got) + t * kv * hd * k_rows + hd * v_rows
+               + 4 * t * h * (n_live + b))
+    macs = t * b * (d * h * hd + 2 * d * kv * hd + h * hd * d
+                    + 2 * d * ws[4][0].shape[1])
+    return bound(n_bytes, 2 * macs + 2 * t * h * hd * n_live
+                 + 2 * hd * int(spike.sum()))
+
+
 def max_abs_err(got, want) -> float:
     if isinstance(got, (tuple, list)):
         return max(max_abs_err(g, w) for g, w in zip(got, want))
@@ -316,7 +436,7 @@ def paged_inputs(gen, *, b, t, kv, hd, pl, mp, pos, idle=(), extra=4):
             nxt += 1
         if pos[i] < mp * pl:
             write[i] = table[i, pos[i] // pl]
-    if min(pos[0], pos[1]) >= pl and 1 not in idle:
+    if b > 1 and min(pos[0], pos[1]) >= pl and 1 not in idle:
         table[1, 0] = table[0, 0]
     n_pages = nxt + extra
     perm = torch.arange(n_pages)
@@ -399,7 +519,8 @@ def phase_kernels(dev):
         plain_ms=time_ms(lambda: KREF.ssa_decode_ref(*args)),
         bound=bound(nbytes(args, got), 2 * 2 * 16 * 256 * 64))
 
-    # K3 at the decode shape, the padding edge and GQA
+    # K3 at the decode shape, the padding edge, GQA, one slot and 32 slots
+    # (256 clusters of 8: more than the card holds at once)
     cases = {
         "main": dict(t=4, b=8, d=256, h=4, kv=4, hd=64, l=256, dff=1024,
                      pos=[0, 1, 40, 100, 200, 254, 255, 17]),
@@ -407,6 +528,10 @@ def phase_kernels(dev):
                         pos=[0, 9, 23]),
         "gqa": dict(t=4, b=8, d=256, h=4, kv=2, hd=64, l=256, dff=1024,
                     pos=[3, 0, 255, 256, 64, 128, 7, 31]),
+        "b1": dict(t=4, b=1, d=256, h=4, kv=4, hd=64, l=256, dff=1024,
+                   pos=[130]),
+        "b32": dict(t=4, b=32, d=256, h=4, kv=4, hd=64, l=256, dff=1024,
+                    pos=[(37 * i) % 257 for i in range(32)]),
     }
     k3 = {}
     for name, c in cases.items():
@@ -420,14 +545,14 @@ def phase_kernels(dev):
         check(all(torch.equal(g, w_) for g, w_ in zip(got, want)),
               f"K3 case {name} differs")
     got, want, run, plain, head, ws, draws = k3["main"]
-    c = cases["main"]
-    t, b, d, h, hd, l, dff = (c[k] for k in ("t", "b", "d", "h", "hd", "l", "dff"))
-    macs = t * b * (d * h * hd * 3 + h * hd * d + 2 * d * dff) + 2 * b * t * h * l * hd
     results["fused_decode_layer"] = dict(
         shape="T=4, B=8, d=256, H=KV=4, hd=64, L=256, d_ff=1024 (decode)",
         max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k3.values()),
         ms=time_ms(run), plain_ms=time_ms(plain),
-        bound=bound(nbytes(head, ws, draws, got), 2 * macs))
+        device_ms=device_ms(run, "fused_decode_layer_kernel"),
+        **layer_launch(8), wrapper_host_us=host_us(run),
+        bare_launch_host_us=host_us(bare_layer(head, ws, draws, 64, False)),
+        bound=layer_bound(head, ws, draws, got, 64, False))
 
     # K7 at the unfused paged decode shape and the padding/GQA edge (its
     # pools hold each slot's rows up to and including pos: post-scatter)
@@ -477,7 +602,12 @@ def phase_kernels(dev):
                          dff=128, pos=[7, 25, 3, 30], idle=(2,)),
             "t9": dict(t=9, b=8, d=256, h=4, kv=4, hd=64, pl=8, mp=32,
                        dff=1024, pos=[40, 100, 0, 5, 200, 255, 17, 64],
-                       idle=(6,))}.items():
+                       idle=(6,)),
+            "b1": dict(t=4, b=1, d=256, h=4, kv=4, hd=64, pl=8, mp=32,
+                       dff=1024, pos=[77], idle=()),
+            "b32": dict(t=4, b=32, d=256, h=4, kv=4, hd=64, pl=8, mp=32,
+                        dff=1024, pos=[(37 * i) % 257 for i in range(32)],
+                        idle=(3, 17, 30))}.items():
         t, b, d, h, kv, hd, dff = (c[k] for k in ("t", "b", "d", "h", "kv", "hd", "dff"))
         l = c["mp"] * c["pl"]
         table, write, kp, vp = paged_inputs(
@@ -491,7 +621,7 @@ def phase_kernels(dev):
         ra = torch.randint(0, l, (b, t, h, hd), generator=gen, dtype=torch.int32)
         head = [x.to(dev) for x in (s_in, kp, vp, table,
                                     torch.tensor(c["pos"], dtype=torch.int32),
-                                    write)]
+                                    write.long())]  # int64, as the scheduler
         draws = [rs.to(dev), ra.to(dev)]
         run = (lambda head=head, ws=ws, draws=draws, hd=hd:
                KFD.fused_decode_layer_paged_kernel(*head, *ws, *draws, hd=hd))
@@ -502,18 +632,15 @@ def phase_kernels(dev):
         check(all(torch.equal(g, w_) for g, w_ in zip(got, want)),
               f"K9 case {name} differs")
     got, want, run, plain, head, ws, draws, c = k9["main"]
-    pages, rows = paged_reads(head[3], c["pl"])
-    t, b, d, h, kv, hd, dff, pl = (c[k] for k in ("t", "b", "d", "h", "kv", "hd", "dff", "pl"))
-    macs = (t * b * (d * h * hd * 3 + h * hd * d + 2 * d * dff)
-            + 2 * t * h * hd * sum(rows))
-    n_bytes = (nbytes(head[0], head[3:], ws, draws[1], got)
-               + 4 * t * h * sum(rows) + 2 * pages * t * kv * pl * hd)
     results["fused_decode_layer_paged"] = dict(
         shape="T=4, B=8, d=256, H=KV=4, hd=64, page_len=8, 32 table columns, "
               "d_ff=1024 (paged decode)",
         max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k9.values()),
         ms=time_ms(run), plain_ms=time_ms(plain),
-        bound=bound(n_bytes, 2 * macs))
+        device_ms=device_ms(run, "fused_decode_layer_kernel"),
+        **layer_launch(8), wrapper_host_us=host_us(run),
+        bare_launch_host_us=host_us(bare_layer(head, ws, draws, 64, True)),
+        bound=layer_bound(head, ws, draws, got, 64, True))
 
     # K1 at the paper ViT's rows (the tensor-core regime): B = 64 images x
     # 64 patches at the attention projections and the MLP's two linears, and
@@ -1334,6 +1461,11 @@ AB_K1 = [(4, 1, 256, 256), (4, 4096, 384, 384), (4, 4096, 384, 1536),
 AB_K5 = [(4, 4, 512, 256), (4, 4, 128, 256), (4, 1, 512, 256),
          (4, 1, 128, 256), (4, 4096, 384, 384)]
 AB_SERVES = 3  # timed runs of each serve window a tree
+# K3 / K9 at the dense and paged decode shapes
+AB_K3 = dict(t=4, b=8, d=256, h=4, kv=4, hd=64, l=256, dff=1024,
+             pos=[0, 1, 40, 100, 200, 254, 255, 17])
+AB_K9 = dict(t=4, b=8, d=256, h=4, kv=4, hd=64, pl=8, mp=32, dff=1024,
+             pos=[40, 100, 0, 5, 200, 255, 17, 64], idle=(6,))
 
 
 def digest(xs) -> str:
@@ -1348,8 +1480,10 @@ def digest(xs) -> str:
 
 def phase_windows(dev) -> dict:
     """The windows an A/B compares, on the tree whose ``src`` is first on
-    the path: K1/K5 at :data:`AB_K1`/:data:`AB_K5` (CUDA events), K1's
-    wrapper on the host clock at the prefill row, the dense and paged serve
+    the path: K1/K5 at :data:`AB_K1`/:data:`AB_K5` and K3/K9 at the decode
+    shapes :data:`AB_K3`/:data:`AB_K9` (CUDA events; K3/K9 with digests of
+    their outputs), K1's wrapper on the host clock at the prefill row and
+    K3's and K9's at the decode shapes, the dense and paged serve
     windows of phases 3-4 (16 requests, 32 new tokens, after a warm-up,
     :data:`AB_SERVES` times; then three decode steps of 8 busy slots under
     the profiler) and
@@ -1358,9 +1492,38 @@ def phase_windows(dev) -> dict:
     from repro_torch import prng
     from repro_torch.engine import XpikeformerEngine
     from repro_torch.kernels import aimc_matmul as KA
+    from repro_torch.kernels import decode_fused as KFD
 
     gen = torch.Generator().manual_seed(16)
     out = {"k1_ms": {}, "k5_ms": {}}
+    # K3 and K9 at the decode shapes (the kernels phase's main cases)
+    head, ws, draws = layer_inputs(gen, dev, **AB_K3)
+    k3 = lambda: KFD.fused_decode_layer_kernel(*head, *ws, *draws, hd=64)
+    c = AB_K9
+    table, write, kp, vp = paged_inputs(
+        gen, b=c["b"], t=c["t"], kv=c["kv"], hd=c["hd"], pl=c["pl"],
+        mp=c["mp"], pos=c["pos"], idle=c["idle"])
+    t, b, d, h, hd, dff = (c[k] for k in ("t", "b", "d", "h", "hd", "dff"))
+    l = c["mp"] * c["pl"]
+    s_in = torch.randint(0, 3, (t, b, d), generator=gen).float()
+    pws = [triple(gen, d, h * hd, dev), triple(gen, d, h * hd, dev, bias=False),
+           triple(gen, d, h * hd, dev), triple(gen, h * hd, d, dev),
+           triple(gen, d, dff, dev), triple(gen, dff, d, dev, bias=False)]
+    pdraws = [torch.randint(0, hd, (b, t, h, l), generator=gen,
+                            dtype=torch.int32).to(dev),
+              torch.randint(0, l, (b, t, h, hd), generator=gen,
+                            dtype=torch.int32).to(dev)]
+    phead = [x.to(dev) for x in (s_in, kp, vp, table,
+                                 torch.tensor(c["pos"], dtype=torch.int32),
+                                 write.long())]
+    k9 = lambda: KFD.fused_decode_layer_paged_kernel(*phead, *pws, *pdraws,
+                                                     hd=64)
+    for name, fn in (("k3", k3), ("k9", k9)):
+        out[name] = dict(ms=time_ms(fn),
+                         device_ms=device_ms(fn, "fused_decode_layer_kernel"),
+                         wrapper_host_us=host_us(fn),
+                         out=digest(torch.cat([x.flatten().float()
+                                               for x in fn()])))
     for shapes, key in ((AB_K1, "k1_ms"), (AB_K5, "k5_ms")):
         for t, m, d_in, d_out in shapes:
             x = torch.randint(0, 4, (t, m, d_in), generator=gen).float().to(dev)
@@ -1431,6 +1594,9 @@ def phase_ab(parent_src: str) -> dict:
     for k in ("dense", "paged"):
         check(len({r[k]["tokens"] for r in runs}) == 1,
               f"A/B: the trees' {k} tokens differ")
+    for k in ("k3", "k9"):
+        check(len({r[k]["out"] for r in runs}) == 1,
+              f"A/B: the trees' {k.upper()} outputs differ")
     for name, _ in PAPER:
         check(len({r[name]["logits"] for r in runs}) == 1,
               f"A/B: the trees' {name} logits differ")
@@ -1548,7 +1714,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_bytes": n_bytes, "bound_ops": n_ops,
-            "library_ms": r.get("library_ms"), "shape": r["shape"]})
+            "library_ms": r.get("library_ms"), "shape": r["shape"],
+            **{k: r[k] for k in ("device_ms", "cluster", "blocks", "sms_used",
+                                 "wrapper_host_us", "bare_launch_host_us")
+               if k in r}})
     check(all(math.isfinite(k["ms"]) for k in kernels), "a time is not finite")
     emit({"kernels": kernels})
     print(card, flush=True)

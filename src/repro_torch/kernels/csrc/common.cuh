@@ -67,41 +67,8 @@ __device__ __forceinline__ void xpk_lif_epilogue(
   }
 }
 
-// Crossbar + LIF for every output column of one row block, thread-strided
-// over columns: x [T][din] (integer-valued, any integer type, usually in
-// shared memory), levels int8 [din][dout] row-major, scale/bias f32 [dout]
-// (bias may be null) -> out [T][dout] spikes (out[t*out_stride + o]).  Any
-// T: the counts of XPK_MAX_T steps at a time stay in registers (the weight
-// column is read once a chunk) and the membrane runs on across chunks.
-template <typename X>
-__device__ void xpk_lin_lif(const X* x, int din, const int8_t* levels,
-                            const float* scale, const float* bias, int dout,
-                            int T, float beta, float vth, uint8_t* out,
-                            int out_stride) {
-  for (int o = threadIdx.x; o < dout; o += blockDim.x) {
-    const float sc = scale[o], bi = bias ? bias[o] : 0.f;
-    float v = 0.f;
-    for (int t0 = 0; t0 < T; t0 += XPK_MAX_T) {
-      const int n = min(XPK_MAX_T, T - t0);
-      const X* xc = x + static_cast<size_t>(t0) * din;
-      int acc[XPK_MAX_T];
-#pragma unroll
-      for (int t = 0; t < XPK_MAX_T; ++t) acc[t] = 0;
-      for (int i = 0; i < din; ++i) {
-        const int w = levels[static_cast<size_t>(i) * dout + o];
-#pragma unroll
-        for (int t = 0; t < XPK_MAX_T; ++t)
-          if (t < n) acc[t] += static_cast<int>(xc[t * din + i]) * w;
-      }
-      xpk_lif_epilogue(acc, 1, n, sc, bi, beta, vth, v,
-                       out + static_cast<size_t>(t0) * out_stride + o,
-                       out_stride);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// One SSA query row over L cached rows (K2, K3, K7, K9)
+// One SSA query row over L cached rows (K2, K7; K3/K9 take the Rows policies)
 // ---------------------------------------------------------------------------
 //
 // A Rows policy addresses the cache: k(j) / v(j) return the first of the hd

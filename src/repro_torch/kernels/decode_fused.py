@@ -5,19 +5,27 @@ Replace ``repro/kernels/decode_fused.py:fused_decode_layer`` and
 ``fused_decode_layer_paged``.  The kernel attends over the **pre-scatter**
 cache (the row at each slot's ``pos`` is zero by the serving invariant)
 and adds the new token's term on top, with its score draw ``rs[b, t, h,
-pos[b]]`` (``_INVALID_RS`` where the write is masked: ``pos >= L``, or,
-paged, where the slot's table does not show its write page at ``pos``,
-as for idle slots writing the trash page); the caller scatters
-``k_new``/``v_new`` afterwards.  On a CPU tensor a wrapper runs the plain
-version (:func:`repro_torch.kernels.ref.decode_layer_ref` /
+pos[b]]``, which the kernel reads itself (``_INVALID_RS`` where the write
+is masked: ``pos >= L``, or, paged, where the slot's table does not show
+its write page at ``pos``, as for idle slots writing the trash page;
+:func:`new_token_draw_ref` is that rule's plain twin); the caller scatters
+``k_new``/``v_new`` afterwards.  :func:`layer_plan` owns the launch: one
+thread-block cluster of :data:`CLUSTER` blocks a slot, their threads and
+shared memory; the C launcher refuses any other plan, and a refused
+launch raises (there is no other design to fall back to).  On a CPU
+tensor a wrapper runs the plain version
+(:func:`repro_torch.kernels.ref.decode_layer_ref` /
 :func:`~repro_torch.kernels.ref.decode_layer_paged_ref`, scatter then
 attend), which is the same function under that invariant.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Optional, Tuple, Union
+import functools
+import weakref
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -54,42 +62,125 @@ def _rs_at_pos(rs4: Tensor, pos: Tensor, valid: Tensor) -> Tensor:
                        torch.full_like(rsp, _INVALID_RS))
 
 
-# the dynamic shared memory a layer-step block may take (the kernel's few
-# static bytes aside)
-SMEM_BUDGET = KB.SMEM_PER_BLOCK - 64
+def new_token_draw_ref(rs4: Tensor, pos: Tensor,
+                       page_table: Optional[Tensor] = None,
+                       write_pids: Optional[Tensor] = None,
+                       page_len: int = 0) -> Tensor:
+    """The plain twin of the kernel's new-token draw ``[B, T, H]``: ``rs[b,
+    t, h, pos[b]]`` where the write lands -- dense: ``pos < L``; paged:
+    also ``page_table[b, pos // page_len] == write_pids[b]`` (the column
+    clamped into the table) -- else ``_INVALID_RS``."""
+    l = rs4.shape[-1]
+    valid = pos < l
+    if page_table is not None:
+        col = (pos // page_len).clamp(0, page_table.shape[1] - 1)
+        reach = torch.take_along_dim(page_table, col[:, None].to(torch.int64),
+                                     dim=1)[:, 0]
+        valid = valid & (reach.to(torch.int64) == write_pids.to(torch.int64))
+    return _rs_at_pos(rs4, pos, valid)
+
+
+CLUSTER = 8  # blocks a slot: the portable thread-block cluster size
+THREADS = 256  # threads a block
+_MAX_T = 8  # XPK_MAX_T: steps a linear's pass counts at once
+_TILE_COLS = 4 * THREADS  # output columns a linear's pass takes
+# the dynamic shared memory a block may take (the kernel has no static bytes)
+SMEM_BUDGET = KB.SMEM_PER_BLOCK
+
+
+class LayerPlan(NamedTuple):
+    """One layer step's launch: ``cluster`` blocks a slot (a grid of ``B *
+    cluster`` blocks), ``threads`` a block and ``smem`` bytes of dynamic
+    shared memory a block."""
+    cluster: int
+    threads: int
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _share(n: int) -> int:
+    """A cluster rank's share of ``n`` output columns, a multiple of 4."""
+    return (_cdiv(n, CLUSTER) + 3) & ~3
 
 
 def _align16(x: int) -> int:
     return (x + 15) & ~15
 
 
+def layer_smem_segments(t: int, d: int, h: int, kv: int, hd: int, l: int,
+                        dff: int) -> Tuple[int, ...]:
+    """The bytes of each segment of ``csrc/decode_fused.cu:smem_layout``,
+    in order: the int32 residual ``[T][d]`` and its int8 copy; this rank's
+    query, new key and new value columns ``[T][share]``; for its ``R =
+    ceil(T*H / CLUSTER)`` query rows the gathered q, k_new, v_new (``hd``
+    bytes each), the packed query and key (``ceil(hd/32)`` words), the
+    score words (``ceil(L/32)``), the int32 value counts, the new token's
+    spike and the attention row; the whole attention train ``[T][H*hd]``,
+    whose bytes the whole hidden train ``[T][d_ff]`` takes over; this
+    rank's output and FFN hidden columns; the int32 partial counts of a
+    linear's pass."""
+    r, wd, wl = _cdiv(t * h, CLUSTER), _cdiv(hd, 32), _cdiv(l, 32)
+    return (4 * t * d, t * d, t * _share(h * hd), t * _share(kv * hd),
+            t * _share(kv * hd), r * hd, r * hd, r * hd, 4 * r * wd,
+            4 * r * wd, 4 * r * wl, 4 * r * hd, 4 * r, r * hd,
+            t * max(h * hd, dff), t * _share(d), t * _share(dff),
+            4 * _TILE_COLS * min(t, _MAX_T))
+
+
+@functools.lru_cache(maxsize=None)
 def layer_smem_bytes(t: int, d: int, h: int, kv: int, hd: int, l: int,
                      dff: int) -> int:
     """Dynamic shared memory of one layer-step block: the segments of
-    ``csrc/decode_fused.cu:smem_layout`` (the int32 residual, the q, k_new,
-    v_new, attention, FFN hidden and output spike trains over T, the score
-    bits of one row, the packed query and new key), each 16-aligned.  The
-    launcher refuses any number but its own layout's total."""
-    wd = (hd + 31) // 32
-    sizes = (4 * t * d, t * h * hd, t * kv * hd, t * kv * hd, t * h * hd,
-             t * max(dff, 1), t * d, 4 * ((l + 31) // 32), 4 * wd, 4 * wd)
+    :func:`layer_smem_segments`, each 16-aligned.  The launcher refuses
+    any number but its own layout's total."""
     total = 0
-    for n in sizes:
+    for n in layer_smem_segments(t, d, h, kv, hd, l, dff):
         total = _align16(total + n)
     return total
 
 
+def layer_plan(t: int, d: int, h: int, kv: int, hd: int, l: int,
+               dff: int) -> LayerPlan:
+    """The launch of a layer step at these widths (``dff`` 0 without the
+    FFN tail): :data:`CLUSTER` blocks of :data:`THREADS` a slot and the
+    shared memory of :func:`layer_smem_bytes`.  Raises ``ValueError``,
+    naming T and the bytes, past the card's per-block budget."""
+    smem = layer_smem_bytes(t, d, h, kv, hd, l, dff)
+    if smem > SMEM_BUDGET:
+        raise ValueError(
+            f"fused decode layer: T={t} (d={d}, H={h}, KV={kv}, hd={hd}, "
+            f"L={l}, d_ff={dff}) needs {smem} bytes of shared memory a "
+            f"block, past the card's {SMEM_BUDGET}")
+    return LayerPlan(CLUSTER, THREADS, smem)
+
+
+def _as(x: Tensor, dtype: torch.dtype) -> Tensor:
+    """``x`` as a contiguous tensor of ``dtype``: itself where it is one (a
+    conversion the caller does not need costs the host a dispatch)."""
+    if x.dtype != dtype:
+        x = x.to(dtype)
+    return x if x.is_contiguous() else x.contiguous()
+
+
 def _norm_w(w: Triple) -> Triple:
     lv, sc, bi = w
-    if bi is None:
-        bi = torch.zeros_like(sc, dtype=torch.float32)
-    return (lv.to(torch.int8).contiguous(), sc.to(torch.float32).contiguous(),
-            bi.to(torch.float32).contiguous())
+    return (_as(lv, torch.int8), _as(sc, torch.float32),
+            None if bi is None else _as(bi, torch.float32))
 
 
-def _lib(name: str, n_ptr: int, n_int: int):
+# each launcher's pointer and int arguments, before (beta, v_thresh, smem,
+# stream)
+LAUNCHERS = {"launch_fused_decode_layer": (27, 12),
+             "launch_fused_decode_layer_paged": (29, 13)}
+
+
+def _lib(name: str):
     fn = getattr(KB.load("decode_fused"), name)
     if fn.argtypes is None:
+        n_ptr, n_int = LAUNCHERS[name]
         fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_F, _F, _L, _P]
         fn.restype = ctypes.c_int
     return fn
@@ -116,17 +207,64 @@ def fused_decode_layer(slot_keys: Tensor, s: Tensor, sk: Tensor, sv: Tensor,
     h = wq[0].shape[1] // hd
     rs4, ra4 = draw_layer_prns(slot_keys, t, h, l, hd, h0)
     return fused_decode_layer_kernel(
-        s.to(torch.float32).contiguous(), sk.contiguous(), sv.contiguous(),
+        _as(s, torch.float32), sk.contiguous(), sv.contiguous(),
         pos, wq, wk, wv, wo, wi, wo2, rs4, ra4, hd=hd,
         with_tail=with_tail, with_mlp=with_mlp, beta=beta, v_thresh=v_thresh)
 
 
+# (the weight tensors' ids, widths) -> (weak references, versions, the
+# converted copies, pointers): a layer's weights are the same tensors step
+# after step, so their conversions and checks run once
+_PREPARED: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+_PREPARED_MAX = 64
+
+
+def _prepared_weights(ws, dims, with_tail: bool, mlp: bool):
+    """The 18 pointers of the six triples as the kernel reads them (0 for
+    a null: no bias, or a triple the step does not use), each checked
+    against ``dims`` (``(d_in, d_out)``), and the tensors converted to get
+    them, which the caller holds until the launch is queued (the cache
+    holds them too, and nothing else: the caller's tensors are its own).
+    Cached by the tensors' identities and versions: a tensor freed,
+    replaced or written in place since misses the cache."""
+    use = (True, True, True, with_tail, mlp, mlp)
+    xs = [x for w, u in zip(ws, use) if u for x in w if x is not None]
+    key = (tuple(id(x) for x in xs), tuple(dims), use)
+    hit = _PREPARED.get(key)
+    if hit is not None:
+        refs, versions, made, ptrs = hit
+        if all(r() is x and x._version == v
+               for r, x, v in zip(refs, xs, versions)):
+            return made, ptrs
+    tri = [_norm_w(w) if u else None for w, u in zip(ws, use)]
+    ptrs = []
+    for name, w, (di, do) in zip(("wq", "wk", "wv", "wo", "wi", "wo2"), tri,
+                                 dims):
+        if w is None:
+            ptrs += [0, 0, 0]
+            continue
+        KB.check_cuda(w[0], torch.int8, (di, do), name)
+        KB.check_cuda(w[1], torch.float32, (do,), name + ".scale")
+        if w[2] is not None:
+            KB.check_cuda(w[2], torch.float32, (do,), name + ".bias")
+        ptrs += [w[0].data_ptr(), w[1].data_ptr(),
+                 0 if w[2] is None else w[2].data_ptr()]
+    made = [x for w in tri if w is not None for x in w
+            if x is not None and not any(x is y for y in xs)]
+    _PREPARED[key] = ([weakref.ref(x) for x in xs],
+                      [x._version for x in xs], made, ptrs)
+    if len(_PREPARED) > _PREPARED_MAX:
+        _PREPARED.popitem(last=False)
+    return made, ptrs
+
+
 def _layer_operands(s: Tensor, ws, rs4: Tensor, ra4: Tensor, *, hd: int,
                     kv: int, with_tail: bool, with_mlp: bool):
-    """Check the operands both layer kernels share and allocate the
-    outputs.  Returns ``(weight triples, their pointers, dims, d_ff, mlp,
-    outputs)``; the caller holds the triples until the launch is queued
-    (some are made here, and freed memory is reused at once)."""
+    """Plan the launch, check the operands both layer kernels share and
+    allocate the outputs.  Returns ``(converted weights, the weights'
+    pointers, dims, d_ff, mlp, plan, outputs)``; the caller holds the
+    converted weights until the launch is queued (freed memory is reused
+    at once)."""
     t, b, d = s.shape
     h = ws[0][0].shape[1] // hd
     l = rs4.shape[-1]
@@ -134,36 +272,27 @@ def _layer_operands(s: Tensor, ws, rs4: Tensor, ra4: Tensor, *, hd: int,
         raise ValueError(f"fused decode layer: H={h} is not a multiple of "
                          f"KV={kv}")
     mlp = with_tail and with_mlp
-    wq, wk, wv, wo, wi, wo2 = ws
-    tri = [_norm_w(wq), _norm_w(wk), _norm_w(wv),
-           _norm_w(wo) if with_tail else None,
-           _norm_w(wi) if mlp else None, _norm_w(wo2) if mlp else None]
-    dff = tri[4][0].shape[1] if mlp else 0
-    smem = layer_smem_bytes(t, d, h, kv, hd, l, dff)
-    if smem > SMEM_BUDGET:
-        raise ValueError(
-            f"fused decode layer: T={t} (d={d}, H={h}, KV={kv}, hd={hd}, "
-            f"L={l}, d_ff={dff}) needs {smem} bytes of shared memory a "
-            f"block, past the card's {SMEM_BUDGET}")
-    dims = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d), (d, dff),
-            (dff, d)]
-    for name, w, (di, do) in zip(("wq", "wk", "wv", "wo", "wi", "wo2"), tri,
-                                 dims):
-        if w is not None:
-            KB.check_cuda(w[0], torch.int8, (di, do), name)
-            KB.check_cuda(w[1], torch.float32, (do,), name + ".scale")
-            KB.check_cuda(w[2], torch.float32, (do,), name + ".bias")
+    dff = ws[4][0].shape[1] if mlp else 0
+    plan = layer_plan(t, d, h, kv, hd, l, dff)
+    tri, ptrs = _prepared_weights(
+        ws, ((d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d), (d, dff),
+             (dff, d)), with_tail, mlp)
     KB.check_cuda(s, torch.float32, (t, b, d), "s")
     KB.check_cuda(rs4, torch.int32, (b, t, h, l), "rs")
     KB.check_cuda(ra4, torch.int32, (b, t, h, hd), "ra")
-    ptrs = []
-    for w in tri:
-        ptrs += [0, 0, 0] if w is None else [x.data_ptr() for x in w]
     ds = d if with_tail else h * hd
-    outs = (torch.empty((t, b, ds), dtype=torch.float32, device=s.device),
-            torch.empty((t, b, kv, hd), dtype=torch.uint8, device=s.device),
-            torch.empty((t, b, kv, hd), dtype=torch.uint8, device=s.device))
-    return tri, ptrs, (t, b, d, h, kv, hd), dff, mlp, smem, outs
+    # k_new and v_new: the two halves of one allocation
+    outs = (s.new_empty((t, b, ds)),
+            *s.new_empty((2, t, b, kv, hd), dtype=torch.uint8).unbind(0))
+    return tri, ptrs, (t, b, d, h, kv, hd), dff, mlp, plan, outs
+
+
+def _slot_ints(x: Tensor, dtype: torch.dtype, b: int, what: str) -> Tensor:
+    """``pos`` (int32) or ``write_pids`` (int64) ``[B]`` as the kernel
+    reads them (converted only where the caller's dtype differs)."""
+    x = _as(x, dtype)
+    KB.check_cuda(x, dtype, (b,), what)
+    return x
 
 
 def fused_decode_layer_kernel(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
@@ -175,27 +304,28 @@ def fused_decode_layer_kernel(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
                               v_thresh: float = 1.0):
     """The layer step given its draws ``rs [B,T,H,L]``, ``ra [B,T,H,hd]``:
     the arguments of :func:`repro_torch.kernels.ref.decode_layer_ref`,
-    which is what a CPU tensor runs.  On CUDA tensors it gathers each
-    slot's new-token draw (:func:`_rs_at_pos`) and launches the kernel."""
+    which is what a CPU tensor runs.  On CUDA tensors it launches the
+    kernel, which reads each slot's new-token draw itself."""
     if not s.is_cuda:
         return KREF.decode_layer_ref(
             s, sk, sv, pos, wq, wk, wv, wo, wi, wo2, rs4, ra4, hd=hd,
             with_tail=with_tail, with_mlp=with_mlp, beta=beta,
             v_thresh=v_thresh)
     b, t, l, kv = sk.shape[:4]
-    tri, ptrs, dims, dff, mlp, smem, outs = _layer_operands(
+    made, ptrs, dims, dff, mlp, plan, outs = _layer_operands(
         s, (wq, wk, wv, wo, wi, wo2), rs4, ra4, hd=hd, kv=kv,
         with_tail=with_tail, with_mlp=with_mlp)
     KB.check_cuda(sk, torch.uint8, (b, t, l, kv, hd), "sk")
     KB.check_cuda(sv, torch.uint8, (b, t, l, kv, hd), "sv")
-    rsp = _rs_at_pos(rs4, pos, pos < l).to(torch.int32).contiguous()
+    pos = _slot_ints(pos, torch.int32, b, "pos")
     t, b, d, h, kv, hd = dims
-    err = _lib("launch_fused_decode_layer", 27, 10)(
-        s.data_ptr(), sk.data_ptr(), sv.data_ptr(), rs4.data_ptr(),
-        ra4.data_ptr(), rsp.data_ptr(), *ptrs, *(o.data_ptr() for o in outs),
-        t, b, d, h, kv, hd, l, dff, int(with_tail), int(mlp), beta, v_thresh,
-        smem, KB.stream_ptr(s))
-    del tri  # held until the launch is queued
+    err = _lib("launch_fused_decode_layer")(
+        s.data_ptr(), sk.data_ptr(), sv.data_ptr(), pos.data_ptr(),
+        rs4.data_ptr(), ra4.data_ptr(), *ptrs,
+        *(o.data_ptr() for o in outs), t, b, d, h, kv, hd, l, dff,
+        int(with_tail), int(mlp), plan.cluster, plan.threads, beta,
+        v_thresh, plan.smem, KB.stream_ptr(s))
+    del made  # held until the launch is queued
     KB.raise_on_error(err, "fused_decode_layer")
     KB.LAUNCHES["fused_decode_layer"] += 1
     return outs
@@ -223,8 +353,8 @@ def fused_decode_layer_paged(slot_keys: Tensor, s: Tensor, kpool: Tensor,
     h = wq[0].shape[1] // hd
     rs4, ra4 = draw_layer_prns(slot_keys, t, h, l, hd, h0)
     return fused_decode_layer_paged_kernel(
-        s.to(torch.float32).contiguous(), kpool.contiguous(),
-        vpool.contiguous(), page_table.to(torch.int32).contiguous(), pos,
+        _as(s, torch.float32), kpool.contiguous(), vpool.contiguous(),
+        _as(page_table, torch.int32), pos,
         write_pids, wq, wk, wv, wo, wi, wo2, rs4, ra4, hd=hd,
         with_tail=with_tail, with_mlp=with_mlp, beta=beta, v_thresh=v_thresh)
 
@@ -243,10 +373,10 @@ def fused_decode_layer_paged_kernel(s: Tensor, kpool: Tensor, vpool: Tensor,
     """The paged layer step given its draws ``rs [B,T,H,MP*page_len]``,
     ``ra [B,T,H,hd]``: the arguments of
     :func:`repro_torch.kernels.ref.decode_layer_paged_ref`, which is what a
-    CPU tensor runs.  On CUDA tensors the new token's draw counts only
-    where ``pos < L`` and ``table[b, pos // page_len] == write_pids[b]``;
-    the kernel reads pages through the table and trusts its entries to lie
-    in ``[0, P)``."""
+    CPU tensor runs.  On CUDA tensors the kernel's new-token draw counts
+    only where ``pos < L`` and ``table[b, pos // page_len] ==
+    write_pids[b]`` (:func:`new_token_draw_ref`); it reads pages through
+    the table and trusts its entries to lie in ``[0, P)``."""
     if not s.is_cuda:
         return KREF.decode_layer_paged_ref(
             s, kpool, vpool, page_table, pos, write_pids, wq, wk, wv, wo, wi,
@@ -254,25 +384,23 @@ def fused_decode_layer_paged_kernel(s: Tensor, kpool: Tensor, vpool: Tensor,
             beta=beta, v_thresh=v_thresh)
     p, t, kv, page_len = kpool.shape[:4]
     b, mp = page_table.shape
-    l = mp * page_len
-    tri, ptrs, dims, dff, mlp, smem, outs = _layer_operands(
+    made, ptrs, dims, dff, mlp, plan, outs = _layer_operands(
         s, (wq, wk, wv, wo, wi, wo2), rs4, ra4, hd=hd, kv=kv,
         with_tail=with_tail, with_mlp=with_mlp)
     KB.check_cuda(kpool, torch.uint8, (p, t, kv, page_len, hd), "kpool")
     KB.check_cuda(vpool, torch.uint8, (p, t, kv, page_len, hd), "vpool")
     KB.check_cuda(page_table, torch.int32, (b, mp), "page_table")
-    col = (pos // page_len).clamp(0, mp - 1).to(torch.int64)
-    reach = torch.take_along_dim(page_table, col[:, None], dim=1)[:, 0]
-    rsp = _rs_at_pos(rs4, pos, (pos < l) & (reach == write_pids))
-    rsp = rsp.to(torch.int32).contiguous()
+    pos = _slot_ints(pos, torch.int32, b, "pos")
+    write_pids = _slot_ints(write_pids, torch.int64, b, "write_pids")
     t, b, d, h, kv, hd = dims
-    err = _lib("launch_fused_decode_layer_paged", 28, 11)(
+    err = _lib("launch_fused_decode_layer_paged")(
         s.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
-        page_table.data_ptr(), rs4.data_ptr(), ra4.data_ptr(),
-        rsp.data_ptr(), *ptrs, *(o.data_ptr() for o in outs), t, b, d, h,
-        kv, hd, page_len, mp, dff, int(with_tail), int(mlp), beta, v_thresh,
-        smem, KB.stream_ptr(s))
-    del tri  # held until the launch is queued
+        page_table.data_ptr(), write_pids.data_ptr(), pos.data_ptr(),
+        rs4.data_ptr(), ra4.data_ptr(), *ptrs,
+        *(o.data_ptr() for o in outs), t, b, d, h, kv, hd, page_len, mp,
+        dff, int(with_tail), int(mlp), plan.cluster, plan.threads, beta,
+        v_thresh, plan.smem, KB.stream_ptr(s))
+    del made  # held until the launch is queued
     KB.raise_on_error(err, "fused_decode_layer_paged")
     KB.LAUNCHES["fused_decode_layer_paged"] += 1
     return outs

@@ -168,7 +168,7 @@ def test_layer_shared_memory_budget():
     """The serving layer's shared memory, T = 9 and hd = 544 fit the
     card's per-block budget; a train too long for it is refused, naming T
     and the bytes (before any CUDA operand check)."""
-    assert KFD.layer_smem_bytes(4, 256, 4, 4, 64, 256, 1024) == 13376
+    assert KFD.layer_smem_bytes(4, 256, 4, 4, 64, 256, 1024) == 27760
     for t, b, d, h, kv, hd, l, dff, _ in LAYER_CAPS.values():
         assert KFD.layer_smem_bytes(t, d, h, kv, hd, l, dff) <= KFD.SMEM_BUDGET
     t = 80

@@ -119,6 +119,19 @@ LAYER_CASES = {
     "masked_write": (2, 3, 48, 2, 2, 16, 24, 64, [24, 3, 30], True, True),
     "no_mlp": (3, 2, 64, 2, 1, 32, 40, 64, [1, 39], True, False),
     "no_tail": (4, 2, 64, 4, 4, 16, 24, 128, [7, 0], False, True),
+    # one slot (one cluster) and more slots than fill the card at once:
+    # pos = 0 and pos = L, GQA, the tail off and the FFN off
+    "b1": (4, 1, 256, 4, 4, 64, 256, 1024, [200], True, True),
+    "b13_gqa": (4, 13, 256, 4, 2, 64, 64, 1024,
+                [0, 64, 1, 63, 31, 32, 33, 7, 64, 50, 0, 12, 40], True, True),
+    "b13_no_tail": (4, 13, 128, 4, 1, 32, 40, 256,
+                    [0, 40, 3, 39, 17, 1, 2, 38, 20, 11, 0, 9, 40], False,
+                    True),
+    "b13_no_mlp": (4, 13, 128, 2, 2, 64, 48, 256,
+                   [5, 48, 0, 47, 10, 20, 30, 40, 1, 2, 3, 4, 6], True,
+                   False),
+    # d, d_ff and hd not multiples of 4: byte loads, no four-row counts
+    "ragged": (3, 3, 50, 2, 1, 18, 40, 30, [0, 17, 40], True, True),
 }
 
 
@@ -153,6 +166,35 @@ def test_fused_layer_kernel(cuda, case):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         _eq(g, w)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_fused_layer_kernel_residual_past_int8(cuda, paged):
+    """A residual past [-128, 127] is counted in int32 (the four-row int8
+    counts take it only where every value fits): K3 and K9 equal their
+    plain versions with residual values up to +-400, and with one slot's
+    residual just past int8."""
+    t, b, d, h, kv, hd, pl, mp, dff = 4, 3, 128, 2, 2, 64, 8, 4, 256
+    pos = [5, 31, 12]
+    rng = np.random.default_rng(400 + paged)
+    head, ws, draws = layer_inputs(rng, t, b, d, h, kv, hd, mp * pl, dff, pos)
+    for lo, hi in ((-400, 401), (-128, 129)):
+        s = rng.integers(lo, hi, (t, b, d)).astype(np.float32)
+        s[:, 0] = np.clip(s[:, 0], -128, 127)
+        head[0] = _t(s)
+        if paged:
+            table, write, kp, vp = paged_inputs(rng, b=b, t=t, kv=kv, hd=hd,
+                                                pl=pl, mp=mp, pos=pos)
+            args = [head[0], kp, vp, table, head[3], write]
+            fn = KFD.fused_decode_layer_paged_kernel
+        else:
+            args, fn = head, KFD.fused_decode_layer_kernel
+        want = fn(*args, *ws, *draws, hd=hd)
+        got = fn(*(a.to(cuda) for a in args), *(_to(w, cuda) for w in ws),
+                 *(a.to(cuda) for a in draws), hd=hd)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            _eq(g, w)
 
 
 def test_reduced_serving_on_card_matches_cpu(cuda):
@@ -236,18 +278,31 @@ def test_ssa_decode_paged_kernel(cuda, case):
 
 
 PAGED_LAYER_CASES = {
-    # name: (t, b, d, h, kv, hd, pl, mp, dff, pos, idle)
+    # name: (t, b, d, h, kv, hd, pl, mp, dff, pos, idle[, tail, mlp])
     "serving_widths": (4, 8, 256, 4, 4, 64, 8, 32, 1024,
                        [40, 100, 0, 5, 200, 255, 17, 64], (6,)),
     "gqa_pl5": (4, 3, 64, 4, 2, 16, 5, 5, 128, [7, 25, 3], ()),
     "trash_and_past_end": (2, 4, 48, 2, 2, 16, 8, 3, 64, [24, 9, 0, 30],
                            (2,)),
+    # one slot, and 13 slots with idle ones writing the trash page, pos = 0
+    # and pos = L, GQA, the tail off and the FFN off
+    "b1": (4, 1, 256, 4, 4, 64, 8, 32, 1024, [131], ()),
+    "b13_gqa": (4, 13, 256, 4, 2, 64, 8, 8, 1024,
+                [0, 64, 9, 63, 31, 32, 33, 7, 64, 50, 0, 12, 40], (3, 11)),
+    "b13_no_tail": (4, 13, 128, 4, 1, 32, 5, 8, 256,
+                    [0, 40, 3, 39, 17, 1, 2, 38, 20, 11, 0, 9, 40], (5,),
+                    False, True),
+    "b13_no_mlp": (4, 13, 128, 2, 2, 64, 8, 6, 256,
+                   [5, 48, 0, 47, 10, 20, 30, 40, 1, 2, 3, 4, 6], (0, 12),
+                   True, False),
 }
 
 
 @pytest.mark.parametrize("case", sorted(PAGED_LAYER_CASES))
 def test_fused_layer_paged_kernel(cuda, case):
-    t, b, d, h, kv, hd, pl, mp, dff, pos, idle = PAGED_LAYER_CASES[case]
+    t, b, d, h, kv, hd, pl, mp, dff, pos, idle, *flags = \
+        PAGED_LAYER_CASES[case]
+    tail, mlp = flags or (True, True)
     rng = np.random.default_rng(100 + len(case))
     table, write, kp, vp = paged_inputs(rng, b=b, t=t, kv=kv, hd=hd, pl=pl,
                                         mp=mp, pos=pos, idle=idle)
@@ -258,10 +313,11 @@ def test_fused_layer_paged_kernel(cuda, case):
     rs = _t(rng.integers(0, hd, (b, t, h, mp * pl)).astype(np.int32))
     ra = _t(rng.integers(0, mp * pl, (b, t, h, hd)).astype(np.int32))
     head = [s, kp, vp, table, _t(np.asarray(pos, np.int32)), write]
-    want = KFD.fused_decode_layer_paged_kernel(*head, *ws, rs, ra, hd=hd)
+    kw = dict(hd=hd, with_tail=tail, with_mlp=mlp)
+    want = KFD.fused_decode_layer_paged_kernel(*head, *ws, rs, ra, **kw)
     got = KFD.fused_decode_layer_paged_kernel(
         *(a.to(cuda) for a in head), *(_to(w, cuda) for w in ws),
-        rs.to(cuda), ra.to(cuda), hd=hd)
+        rs.to(cuda), ra.to(cuda), **kw)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         _eq(g, w)
@@ -529,11 +585,12 @@ def _refused(monkeypatch, module, name, value, launch):
 def test_launchers_take_the_wrappers_plans_at_the_budget_edge(
         cuda, monkeypatch, kind):
     """The wrappers own the launch plans (K1/K5's split, K8's design and
-    shared memory, K3's shared memory); a C launcher checks a plan against
-    its buffers.  At the edge of each budget the launcher takes the plan
-    Python makes and the kernel equals its plain version; a plan one step
-    past a buffer, or shared memory that differs from the launcher's
-    layout, is refused."""
+    shared memory, K3/K9's cluster, threads and shared memory); a C
+    launcher checks a plan against its buffers.  At the edge of each budget
+    the launcher takes the plan Python makes and the kernel equals its
+    plain version; a plan one step past a buffer, shared memory that
+    differs from the launcher's layout, or another cluster size or thread
+    count, is refused."""
     rng = np.random.default_rng(227)
     if kind == "crossbar":
         # T*M = 32: 2 columns a thread fill the 64 accumulators; 8 column
@@ -592,6 +649,13 @@ def test_launchers_take_the_wrappers_plans_at_the_budget_edge(
         _refused(monkeypatch, KFD, "layer_smem_bytes",
                  KFD.layer_smem_bytes(t, d, h, kv, hd, l, dff) - 16,
                  lambda: KFD.fused_decode_layer_kernel(*dev, hd=hd))
+        plan = KFD.layer_plan(t, d, h, kv, hd, l, dff)
+        assert plan == (KFD.CLUSTER, KFD.THREADS,
+                        KFD.layer_smem_bytes(t, d, h, kv, hd, l, dff))
+        for bad in (plan._replace(cluster=4), plan._replace(cluster=16),
+                    plan._replace(threads=128)):
+            _refused(monkeypatch, KFD, "layer_plan", bad,
+                     lambda: KFD.fused_decode_layer_kernel(*dev, hd=hd))
 
 
 @pytest.mark.parametrize("case", ["t9", "hd544"])
