@@ -21,8 +21,12 @@ Phases, each printing one JSON line:
    K3 and K9 are also checked at one slot and at 32 (256 clusters of 8
    blocks), and their rows carry the kernel's own device time a launch
    (``device_ms``, torch.profiler: ``ms`` is the host's issue rate where
-   that is slower), the cluster size, the blocks and SMs of the grid, the
-   wrapper's host microseconds a call and the bare ``ctypes`` launch's;
+   that is slower), the plan's cluster size and grid beside where one
+   launch's blocks ran as the hardware reports it (each block writes its
+   ``%smid``, ``%cluster_nctarank`` and ``%clusterid.x``: the cluster size,
+   the clusters, the blocks, the distinct SMs and the most blocks one SM
+   took), the wrapper's host microseconds a call and the bare ``ctypes``
+   launch's;
    their bound counts only what these inputs need (cached key rows below
    ``pos``, the value rows whose score spiked).
 3. **serve** -- the full-width ``xpikeformer-gpt-4-256`` (random weights
@@ -126,6 +130,7 @@ tokens, give the same logits and the same K3/K9 outputs.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import statistics
@@ -294,7 +299,7 @@ def bare_layer(head, ws, draws, hd: int, paged: bool):
     t, b, d, h, kv, hd = dims
     tail = (1, int(mlp), plan.cluster, plan.threads, 0.5, 1.0, plan.smem,
             KB.stream_ptr(s))
-    outp = [o.data_ptr() for o in outs]
+    outp = [o.data_ptr() for o in outs] + [0]  # no placement probe
     if paged:
         table, pos, write = head[3], head[4], head[5].to(torch.int64)
         args = (s.data_ptr(), head[1].data_ptr(), head[2].data_ptr(),
@@ -311,15 +316,30 @@ def bare_layer(head, ws, draws, hd: int, paged: bool):
     return lambda keep=(made, outs, write): fn(*args)
 
 
-def layer_launch(b: int) -> dict:
-    """K3/K9's launch at ``b`` slots (``decode_fused.layer_plan``): the
-    cluster size, the blocks of the grid, and the SMs they can occupy at
-    one block an SM."""
+def layer_launch(launch, b: int) -> dict:
+    """Where one K3/K9 launch at ``b`` slots ran: ``launch(placement)``
+    runs the wrapper with the probe, whose blocks each write their SM, the
+    size of their cluster and the cluster's index as the hardware reports
+    them (``%smid``, ``%cluster_nctarank``, ``%clusterid.x``).  Returns the
+    plan's cluster size and grid (``decode_fused.layer_plan``), and the
+    measured cluster size, clusters, blocks, distinct SMs and the most
+    blocks that one SM took in that launch."""
     from repro_torch.kernels import decode_fused as KFD
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return dict(cluster=KFD.CLUSTER, blocks=b * KFD.CLUSTER,
-                sms_used=min(b * KFD.CLUSTER, sms))
+    n = b * KFD.CLUSTER
+    placement = torch.full((n, 3), -1, dtype=torch.int32, device="cuda")
+    launch(placement)
+    torch.cuda.synchronize()
+    ran = [r for r in placement.cpu().tolist() if r[0] >= 0]
+    sizes = sorted({r[1] for r in ran})
+    per_sm = collections.Counter(r[0] for r in ran)
+    clusters = len({r[2] for r in ran})
+    check(len(ran) == n and sizes == [KFD.CLUSTER] and clusters == b,
+          f"K3/K9 placement: {len(ran)} of {n} blocks ran, cluster sizes "
+          f"{sizes}, {clusters} clusters of {b}")
+    return dict(plan_cluster=KFD.CLUSTER, plan_blocks=n, cluster=sizes[0],
+                clusters=clusters, blocks=len(ran), sms_used=len(per_sm),
+                most_blocks_on_one_sm=max(per_sm.values()))
 
 
 def layer_bound(head, ws, draws, got, hd: int, paged: bool):
@@ -550,7 +570,9 @@ def phase_kernels(dev):
         max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k3.values()),
         ms=time_ms(run), plain_ms=time_ms(plain),
         device_ms=device_ms(run, "fused_decode_layer_kernel"),
-        **layer_launch(8), wrapper_host_us=host_us(run),
+        **layer_launch(lambda pl: KFD.fused_decode_layer_kernel(
+            *head, *ws, *draws, hd=64, placement=pl), 8),
+        wrapper_host_us=host_us(run),
         bare_launch_host_us=host_us(bare_layer(head, ws, draws, 64, False)),
         bound=layer_bound(head, ws, draws, got, 64, False))
 
@@ -638,7 +660,9 @@ def phase_kernels(dev):
         max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k9.values()),
         ms=time_ms(run), plain_ms=time_ms(plain),
         device_ms=device_ms(run, "fused_decode_layer_kernel"),
-        **layer_launch(8), wrapper_host_us=host_us(run),
+        **layer_launch(lambda pl: KFD.fused_decode_layer_paged_kernel(
+            *head, *ws, *draws, hd=64, placement=pl), 8),
+        wrapper_host_us=host_us(run),
         bare_launch_host_us=host_us(bare_layer(head, ws, draws, 64, True)),
         bound=layer_bound(head, ws, draws, got, 64, True))
 
@@ -1715,8 +1739,10 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_bytes": n_bytes, "bound_ops": n_ops,
             "library_ms": r.get("library_ms"), "shape": r["shape"],
-            **{k: r[k] for k in ("device_ms", "cluster", "blocks", "sms_used",
-                                 "wrapper_host_us", "bare_launch_host_us")
+            **{k: r[k] for k in ("device_ms", "plan_cluster", "plan_blocks",
+                                 "cluster", "clusters", "blocks", "sms_used",
+                                 "most_blocks_on_one_sm", "wrapper_host_us",
+                                 "bare_launch_host_us")
                if k in r}})
     check(all(math.isfinite(k["ms"]) for k in kernels), "a time is not finite")
     emit({"kernels": kernels})

@@ -158,6 +158,7 @@ struct Args {
   float* s_out;
   uint8_t* k_new;
   uint8_t* v_new;
+  int* placement;  // null, or [grid][3]: where each block ran (a probe)
   int T, B, d, H, KV, hd, L, dff, with_tail, with_mlp;
   float beta, vth;
 };
@@ -559,6 +560,18 @@ fused_decode_layer_kernel(const Args a, const Cache cache) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rep = H / KV, wd = cdiv(hd, 32), wlm = cdiv(L, 32);
   const int shq = share(H * hd), shk = share(KV * hd), shd = share(d);
+  if (a.placement != nullptr && tid == 0) {
+    // the hardware's own account of this block: its SM, its cluster's size
+    // and the cluster's index in the grid
+    unsigned sm, nrank, cid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(nrank));
+    asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(cid));
+    int* p = a.placement + 3 * static_cast<size_t>(blockIdx.x);
+    p[0] = static_cast<int>(sm);
+    p[1] = static_cast<int>(nrank);
+    p[2] = static_cast<int>(cid);
+  }
 
   // 1. the residual stream in, as int32 and as int8 where every value fits
   bool fits = true;
@@ -770,7 +783,9 @@ int launch(const Args& a, const Cache& cache, int cluster, int threads,
 // Weight pointers come as six (levels, scale, bias) triples; a null bias is
 // no bias, and a triple the step does not use (no tail, no MLP) is three
 // nulls.  The plan (cluster, threads, smem) is the wrapper's
-// (kernels/decode_fused.py:layer_plan); any other is refused.
+// (kernels/decode_fused.py:layer_plan); any other is refused.  placement is
+// null, or int32 [B * cluster][3] that each block fills with its %smid,
+// %cluster_nctarank and %clusterid.x.
 #define XPK_WEIGHT_PARAMS                                                     \
   const int8_t *lq, const float *sq, const float *bq, const int8_t *lk,       \
       const float *sk_, const float *bk, const int8_t *lv, const float *sv_,  \
@@ -784,11 +799,11 @@ int launch(const Args& a, const Cache& cache, int cluster, int threads,
 extern "C" int launch_fused_decode_layer(
     const float* s, const uint8_t* sk, const uint8_t* sv, const int* pos,
     const int* rs, const int* ra, XPK_WEIGHT_PARAMS, float* s_out,
-    uint8_t* k_new, uint8_t* v_new, int T, int B, int d, int H, int KV, int hd,
-    int L, int dff, int with_tail, int with_mlp, int cluster, int threads,
-    float beta, float vth, long long smem, void* stream) {
-  const Args a{s, pos, rs, ra, XPK_WEIGHTS, s_out, k_new, v_new, T, B, d, H,
-               KV, hd, L, dff, with_tail, with_mlp, beta, vth};
+    uint8_t* k_new, uint8_t* v_new, int* placement, int T, int B, int d, int H,
+    int KV, int hd, int L, int dff, int with_tail, int with_mlp, int cluster,
+    int threads, float beta, float vth, long long smem, void* stream) {
+  const Args a{s, pos, rs, ra, XPK_WEIGHTS, s_out, k_new, v_new, placement, T,
+               B, d, H, KV, hd, L, dff, with_tail, with_mlp, beta, vth};
   return launch(a, DenseCache{sk, sv, T, L, KV, hd}, cluster, threads, smem,
                 stream);
 }
@@ -797,11 +812,13 @@ extern "C" int launch_fused_decode_layer_paged(
     const float* s, const uint8_t* kpool, const uint8_t* vpool,
     const int* table, const long long* write_pids, const int* pos,
     const int* rs, const int* ra, XPK_WEIGHT_PARAMS, float* s_out,
-    uint8_t* k_new, uint8_t* v_new, int T, int B, int d, int H, int KV, int hd,
-    int page_len, int MP, int dff, int with_tail, int with_mlp, int cluster,
-    int threads, float beta, float vth, long long smem, void* stream) {
-  const Args a{s, pos, rs, ra, XPK_WEIGHTS, s_out, k_new, v_new, T, B, d, H,
-               KV, hd, MP * page_len, dff, with_tail, with_mlp, beta, vth};
+    uint8_t* k_new, uint8_t* v_new, int* placement, int T, int B, int d, int H,
+    int KV, int hd, int page_len, int MP, int dff, int with_tail, int with_mlp,
+    int cluster, int threads, float beta, float vth, long long smem,
+    void* stream) {
+  const Args a{s, pos, rs, ra, XPK_WEIGHTS, s_out, k_new, v_new, placement, T,
+               B, d, H, KV, hd, MP * page_len, dff, with_tail, with_mlp, beta,
+               vth};
   return launch(a,
                 PagedCache{kpool, vpool, table, write_pids, T, KV, hd,
                            page_len, MP},

@@ -5,12 +5,12 @@ Replace ``repro/kernels/decode_fused.py:fused_decode_layer`` and
 ``fused_decode_layer_paged``.  The kernel attends over the **pre-scatter**
 cache (the row at each slot's ``pos`` is zero by the serving invariant)
 and adds the new token's term on top, with its score draw ``rs[b, t, h,
-pos[b]]``, which the kernel reads itself (``_INVALID_RS`` where the write
-is masked: ``pos >= L``, or, paged, where the slot's table does not show
-its write page at ``pos``, as for idle slots writing the trash page;
-:func:`new_token_draw_ref` is that rule's plain twin); the caller scatters
-``k_new``/``v_new`` afterwards.  :func:`layer_plan` owns the launch: one
-thread-block cluster of :data:`CLUSTER` blocks a slot, their threads and
+pos[b]]``, which the kernel reads itself (``2**30``, never beaten, where
+the write is masked: ``pos >= L``, or, paged, where the slot's table does
+not show its write page at ``pos``, as for idle slots writing the trash
+page); the caller scatters ``k_new``/``v_new`` afterwards.
+:func:`layer_plan` owns the launch: one thread-block cluster of
+:data:`CLUSTER` blocks a slot, their threads and
 shared memory; the C launcher refuses any other plan, and a refused
 launch raises (there is no other design to fall back to).  On a CPU
 tensor a wrapper runs the plain version
@@ -21,10 +21,8 @@ attend), which is the same function under that invariant.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
-import weakref
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -38,10 +36,6 @@ Triple = Tuple[Tensor, Tensor, Optional[Tensor]]
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 
-# a comparator draw no AND-count can beat: disables the new-token term
-_INVALID_RS = 2 ** 30
-
-
 def draw_layer_prns(slot_keys: Tensor, t: int, h: int, l: int, hd: int,
                     h0: Union[int, Tensor] = 0) -> Tuple[Tensor, Tensor]:
     """The unfused path's per-(slot, global head) draws (``r_s ~
@@ -50,34 +44,6 @@ def draw_layer_prns(slot_keys: Tensor, t: int, h: int, l: int, hd: int,
     rs, ra = KOPS.draw_slot_decode_prns(slot_keys, t, h, l, hd, l, h0)
     b = slot_keys.shape[0]
     return rs.reshape(b, t, h, l), ra.reshape(b, t, h, hd)
-
-
-def _rs_at_pos(rs4: Tensor, pos: Tensor, valid: Tensor) -> Tensor:
-    """``rs[b, :, :, pos[b]]`` -- the draw the new token's score must beat
-    -- forced unbeatable where the write is masked."""
-    l = rs4.shape[-1]
-    idx = pos.clamp(0, l - 1).to(torch.int64)
-    rsp = torch.take_along_dim(rs4, idx[:, None, None, None], dim=3)[..., 0]
-    return torch.where(valid[:, None, None], rsp,
-                       torch.full_like(rsp, _INVALID_RS))
-
-
-def new_token_draw_ref(rs4: Tensor, pos: Tensor,
-                       page_table: Optional[Tensor] = None,
-                       write_pids: Optional[Tensor] = None,
-                       page_len: int = 0) -> Tensor:
-    """The plain twin of the kernel's new-token draw ``[B, T, H]``: ``rs[b,
-    t, h, pos[b]]`` where the write lands -- dense: ``pos < L``; paged:
-    also ``page_table[b, pos // page_len] == write_pids[b]`` (the column
-    clamped into the table) -- else ``_INVALID_RS``."""
-    l = rs4.shape[-1]
-    valid = pos < l
-    if page_table is not None:
-        col = (pos // page_len).clamp(0, page_table.shape[1] - 1)
-        reach = torch.take_along_dim(page_table, col[:, None].to(torch.int64),
-                                     dim=1)[:, 0]
-        valid = valid & (reach.to(torch.int64) == write_pids.to(torch.int64))
-    return _rs_at_pos(rs4, pos, valid)
 
 
 CLUSTER = 8  # blocks a slot: the portable thread-block cluster size
@@ -173,8 +139,8 @@ def _norm_w(w: Triple) -> Triple:
 
 # each launcher's pointer and int arguments, before (beta, v_thresh, smem,
 # stream)
-LAUNCHERS = {"launch_fused_decode_layer": (27, 12),
-             "launch_fused_decode_layer_paged": (29, 13)}
+LAUNCHERS = {"launch_fused_decode_layer": (28, 12),
+             "launch_fused_decode_layer_paged": (30, 13)}
 
 
 def _lib(name: str):
@@ -212,30 +178,12 @@ def fused_decode_layer(slot_keys: Tensor, s: Tensor, sk: Tensor, sv: Tensor,
         with_tail=with_tail, with_mlp=with_mlp, beta=beta, v_thresh=v_thresh)
 
 
-# (the weight tensors' ids, widths) -> (weak references, versions, the
-# converted copies, pointers): a layer's weights are the same tensors step
-# after step, so their conversions and checks run once
-_PREPARED: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
-_PREPARED_MAX = 64
-
-
-def _prepared_weights(ws, dims, with_tail: bool, mlp: bool):
+def _weight_ptrs(ws, dims, with_tail: bool, mlp: bool):
     """The 18 pointers of the six triples as the kernel reads them (0 for
     a null: no bias, or a triple the step does not use), each checked
-    against ``dims`` (``(d_in, d_out)``), and the tensors converted to get
-    them, which the caller holds until the launch is queued (the cache
-    holds them too, and nothing else: the caller's tensors are its own).
-    Cached by the tensors' identities and versions: a tensor freed,
-    replaced or written in place since misses the cache."""
+    against ``dims`` (``(d_in, d_out)``), and the triples converted to get
+    them, which the caller holds until the launch is queued."""
     use = (True, True, True, with_tail, mlp, mlp)
-    xs = [x for w, u in zip(ws, use) if u for x in w if x is not None]
-    key = (tuple(id(x) for x in xs), tuple(dims), use)
-    hit = _PREPARED.get(key)
-    if hit is not None:
-        refs, versions, made, ptrs = hit
-        if all(r() is x and x._version == v
-               for r, x, v in zip(refs, xs, versions)):
-            return made, ptrs
     tri = [_norm_w(w) if u else None for w, u in zip(ws, use)]
     ptrs = []
     for name, w, (di, do) in zip(("wq", "wk", "wv", "wo", "wi", "wo2"), tri,
@@ -249,13 +197,7 @@ def _prepared_weights(ws, dims, with_tail: bool, mlp: bool):
             KB.check_cuda(w[2], torch.float32, (do,), name + ".bias")
         ptrs += [w[0].data_ptr(), w[1].data_ptr(),
                  0 if w[2] is None else w[2].data_ptr()]
-    made = [x for w in tri if w is not None for x in w
-            if x is not None and not any(x is y for y in xs)]
-    _PREPARED[key] = ([weakref.ref(x) for x in xs],
-                      [x._version for x in xs], made, ptrs)
-    if len(_PREPARED) > _PREPARED_MAX:
-        _PREPARED.popitem(last=False)
-    return made, ptrs
+    return tri, ptrs
 
 
 def _layer_operands(s: Tensor, ws, rs4: Tensor, ra4: Tensor, *, hd: int,
@@ -274,7 +216,7 @@ def _layer_operands(s: Tensor, ws, rs4: Tensor, ra4: Tensor, *, hd: int,
     mlp = with_tail and with_mlp
     dff = ws[4][0].shape[1] if mlp else 0
     plan = layer_plan(t, d, h, kv, hd, l, dff)
-    tri, ptrs = _prepared_weights(
+    tri, ptrs = _weight_ptrs(
         ws, ((d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d), (d, dff),
              (dff, d)), with_tail, mlp)
     KB.check_cuda(s, torch.float32, (t, b, d), "s")
@@ -285,6 +227,16 @@ def _layer_operands(s: Tensor, ws, rs4: Tensor, ra4: Tensor, *, hd: int,
     outs = (s.new_empty((t, b, ds)),
             *s.new_empty((2, t, b, kv, hd), dtype=torch.uint8).unbind(0))
     return tri, ptrs, (t, b, d, h, kv, hd), dff, mlp, plan, outs
+
+
+def _placement_ptr(placement: Optional[Tensor], b: int, plan: LayerPlan):
+    """The probe's pointer: 0, or ``placement`` int32 ``[B * cluster, 3]``
+    on the card, which the launch fills with each block's SM, the size of
+    its cluster and the cluster's index, as the hardware reports them."""
+    if placement is None:
+        return 0
+    KB.check_cuda(placement, torch.int32, (b * plan.cluster, 3), "placement")
+    return placement.data_ptr()
 
 
 def _slot_ints(x: Tensor, dtype: torch.dtype, b: int, what: str) -> Tensor:
@@ -301,11 +253,14 @@ def fused_decode_layer_kernel(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
                               wo2: Optional[Triple], rs4: Tensor, ra4: Tensor,
                               *, hd: int, with_tail: bool = True,
                               with_mlp: bool = True, beta: float = 0.5,
-                              v_thresh: float = 1.0):
+                              v_thresh: float = 1.0,
+                              placement: Optional[Tensor] = None):
     """The layer step given its draws ``rs [B,T,H,L]``, ``ra [B,T,H,hd]``:
     the arguments of :func:`repro_torch.kernels.ref.decode_layer_ref`,
     which is what a CPU tensor runs.  On CUDA tensors it launches the
-    kernel, which reads each slot's new-token draw itself."""
+    kernel, which reads each slot's new-token draw itself; a
+    ``placement`` tensor records where its blocks ran
+    (:func:`_placement_ptr`)."""
     if not s.is_cuda:
         return KREF.decode_layer_ref(
             s, sk, sv, pos, wq, wk, wv, wo, wi, wo2, rs4, ra4, hd=hd,
@@ -322,7 +277,8 @@ def fused_decode_layer_kernel(s: Tensor, sk: Tensor, sv: Tensor, pos: Tensor,
     err = _lib("launch_fused_decode_layer")(
         s.data_ptr(), sk.data_ptr(), sv.data_ptr(), pos.data_ptr(),
         rs4.data_ptr(), ra4.data_ptr(), *ptrs,
-        *(o.data_ptr() for o in outs), t, b, d, h, kv, hd, l, dff,
+        *(o.data_ptr() for o in outs), _placement_ptr(placement, b, plan),
+        t, b, d, h, kv, hd, l, dff,
         int(with_tail), int(mlp), plan.cluster, plan.threads, beta,
         v_thresh, plan.smem, KB.stream_ptr(s))
     del made  # held until the launch is queued
@@ -369,14 +325,16 @@ def fused_decode_layer_paged_kernel(s: Tensor, kpool: Tensor, vpool: Tensor,
                                     ra4: Tensor, *, hd: int,
                                     with_tail: bool = True,
                                     with_mlp: bool = True, beta: float = 0.5,
-                                    v_thresh: float = 1.0):
+                                    v_thresh: float = 1.0,
+                                    placement: Optional[Tensor] = None):
     """The paged layer step given its draws ``rs [B,T,H,MP*page_len]``,
     ``ra [B,T,H,hd]``: the arguments of
     :func:`repro_torch.kernels.ref.decode_layer_paged_ref`, which is what a
     CPU tensor runs.  On CUDA tensors the kernel's new-token draw counts
     only where ``pos < L`` and ``table[b, pos // page_len] ==
-    write_pids[b]`` (:func:`new_token_draw_ref`); it reads pages through
-    the table and trusts its entries to lie in ``[0, P)``."""
+    write_pids[b]``; it reads pages through the table and trusts its
+    entries to lie in ``[0, P)``.  ``placement`` as for
+    :func:`fused_decode_layer_kernel`."""
     if not s.is_cuda:
         return KREF.decode_layer_paged_ref(
             s, kpool, vpool, page_table, pos, write_pids, wq, wk, wv, wo, wi,
@@ -397,9 +355,10 @@ def fused_decode_layer_paged_kernel(s: Tensor, kpool: Tensor, vpool: Tensor,
         s.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
         page_table.data_ptr(), write_pids.data_ptr(), pos.data_ptr(),
         rs4.data_ptr(), ra4.data_ptr(), *ptrs,
-        *(o.data_ptr() for o in outs), t, b, d, h, kv, hd, page_len, mp,
-        dff, int(with_tail), int(mlp), plan.cluster, plan.threads, beta,
-        v_thresh, plan.smem, KB.stream_ptr(s))
+        *(o.data_ptr() for o in outs), _placement_ptr(placement, b, plan),
+        t, b, d, h, kv, hd, page_len, mp, dff, int(with_tail), int(mlp),
+        plan.cluster, plan.threads, beta, v_thresh, plan.smem,
+        KB.stream_ptr(s))
     del made  # held until the launch is queued
     KB.raise_on_error(err, "fused_decode_layer_paged")
     KB.LAUNCHES["fused_decode_layer_paged"] += 1

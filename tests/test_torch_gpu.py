@@ -168,6 +168,34 @@ def test_fused_layer_kernel(cuda, case):
         _eq(g, w)
 
 
+@pytest.mark.parametrize("case", ["b1", "b13_gqa", "b13_no_tail"])
+def test_fused_layer_kernel_runs_clusters_of_the_plan(cuda, case):
+    """With the placement probe every block of the grid reports a cluster
+    of the plan's size, the clusters number the slots, each of a cluster's
+    blocks names its cluster's index; the outputs are those of a launch
+    without the probe."""
+    t, b, d, h, kv, hd, l, dff, pos, tail, mlp = LAYER_CASES[case]
+    head, ws, draws = layer_inputs(np.random.default_rng(len(case)), t, b, d,
+                                   h, kv, hd, l, dff, pos)
+    args = [*(a.to(cuda) for a in head), *(_to(w, cuda) for w in ws),
+            *(a.to(cuda) for a in draws)]
+    kw = dict(hd=hd, with_tail=tail, with_mlp=mlp)
+    n = b * KFD.CLUSTER
+    placement = torch.full((n, 3), -1, dtype=torch.int32, device=cuda)
+    got = KFD.fused_decode_layer_kernel(*args, **kw, placement=placement)
+    want = KFD.fused_decode_layer_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _eq(g, w)
+    sm, size, cid = placement.cpu().T
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ((sm >= 0) & (sm < sms)).all()
+    assert (size == KFD.CLUSTER).all()
+    assert torch.equal(cid, torch.arange(n) // KFD.CLUSTER)
+    with pytest.raises(ValueError, match="placement"):
+        KFD.fused_decode_layer_kernel(*args, **kw, placement=placement[1:])
+
+
 @pytest.mark.parametrize("paged", [False, True])
 def test_fused_layer_kernel_residual_past_int8(cuda, paged):
     """A residual past [-128, 127] is counted in int32 (the four-row int8

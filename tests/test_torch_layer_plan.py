@@ -8,9 +8,10 @@ dense and paged serve, the ``(2, 2)`` mesh and the edges give it, the
 wrapper's argument counts against the C launchers' signatures, and the
 plain twin of the rule the kernel applies to the new token's score draw
 (``rs[b, t, h, pos[b]]`` where the write lands, else ``2**30``) against
-the JAX package's ``_rs_at_pos`` on numpy inputs.  The kernels themselves
-are held against their plain versions on the card by
-``tests/test_torch_gpu.py``.
+the JAX package's ``_rs_at_pos`` on numpy inputs
+(``tests/torch_draw_rule.py``), and the weight pointers the wrapper hands
+the launcher.  The kernels themselves are held against their plain
+versions on the card by ``tests/test_torch_gpu.py``.
 """
 
 import re
@@ -23,6 +24,8 @@ import torch
 
 from repro.kernels import decode_fused as JKFD
 from repro_torch.kernels import decode_fused as KFD
+
+import torch_draw_rule as DR
 
 CSRC = Path(KFD.__file__).resolve().parent / "csrc" / "decode_fused.cu"
 
@@ -68,7 +71,7 @@ def test_layer_plan_arithmetic(name):
     assert plan.smem == KFD.layer_smem_bytes(*dims)
     if name == "serve":
         assert plan.smem == 27760
-        # B = 8 slots: a grid of 64 blocks, 64 of the H100's 132 SMs
+        # B = 8 slots: a planned grid of 64 blocks in 8 clusters
         assert 8 * plan.cluster == 64
 
 
@@ -147,7 +150,7 @@ def test_new_token_draw_matches_jax(seed):
     table, write, pos = _paged_case(rng, b, mp, pl)
     jpos = jnp.asarray(pos)
     want = JKFD._rs_at_pos(jnp.asarray(rs4), jpos, jpos < l)
-    got = KFD.new_token_draw_ref(torch.from_numpy(rs4), torch.from_numpy(pos))
+    got = DR.new_token_draw(torch.from_numpy(rs4), torch.from_numpy(pos))
     assert np.array_equal(got.numpy(), np.asarray(want))
     assert (got.numpy()[pos >= l] == 2 ** 30).all()
     jt = jnp.asarray(table)
@@ -156,7 +159,7 @@ def test_new_token_draw_matches_jax(seed):
     want = JKFD._rs_at_pos(jnp.asarray(rs4), jpos,
                            (jpos < l) & (reach == jnp.asarray(write)))
     for wdt in (np.int64, np.int32):
-        got = KFD.new_token_draw_ref(
+        got = DR.new_token_draw(
             torch.from_numpy(rs4), torch.from_numpy(pos),
             torch.from_numpy(table), torch.from_numpy(write.astype(wdt)), pl)
         assert np.array_equal(got.numpy(), np.asarray(want))
@@ -164,15 +167,14 @@ def test_new_token_draw_matches_jax(seed):
     assert masked.any() and not masked.all()
 
 
-def test_prepared_weights_cache(monkeypatch):
-    """The wrapper checks and converts a layer's weights once: the same
-    tensors hit the cache; a tensor written in place, replaced, or asked
-    for at other widths misses it; converted copies are kept, the caller's
-    own tensors are not."""
+def test_weight_pointers(monkeypatch):
+    """The wrapper checks and converts a layer's weights on every call: a
+    scale or bias of another dtype is converted to f32 (the copy is handed
+    back to be held over the launch), a null bias is a null pointer, and
+    the triples a step does not use are nulls and are not checked."""
     checked = []
     monkeypatch.setattr(KFD.KB, "check_cuda",
                         lambda t, dtype, shape, what: checked.append(what))
-    monkeypatch.setattr(KFD, "_PREPARED", type(KFD._PREPARED)())
     rng = np.random.default_rng(0)
 
     def triple(di, do, bias=True):
@@ -183,18 +185,18 @@ def test_prepared_weights_cache(monkeypatch):
     ws = [triple(8, 8), triple(8, 4, False), triple(8, 4), triple(8, 8),
           triple(8, 16), triple(16, 8, False)]
     dims = ((8, 8), (8, 4), (8, 4), (8, 8), (8, 16), (16, 8))
-    made, ptrs = KFD._prepared_weights(ws, dims, True, True)
+    tri, ptrs = KFD._weight_ptrs(ws, dims, True, True)
     assert len(checked) == 16 and len(ptrs) == 18
     assert ptrs[5] == 0 and ptrs[17] == 0  # no bias: a null pointer
-    assert len(made) == 6 and all(x.dtype == torch.float32 for x in made)
-    assert KFD._prepared_weights(ws, dims, True, True)[1] == ptrs
-    assert len(checked) == 16  # a hit checks nothing
-    ws[3][0].add_(0)  # written in place: its version moved
-    KFD._prepared_weights(ws, dims, True, True)
-    assert len(checked) == 32
-    ws[0] = triple(8, 8)  # replaced
-    assert KFD._prepared_weights(ws, dims, True, True)[1][0] != ptrs[0]
-    assert len(checked) == 48
+    for w, got in zip(ws, tri):
+        assert got[0] is w[0]  # int8 levels pass as they are
+        assert got[1].dtype == torch.float32
+        assert torch.equal(got[1], w[1].float())
+        assert (got[2] is None) == (w[2] is None)
+    assert ptrs[0] == ws[0][0].data_ptr() and ptrs[1] == tri[0][1].data_ptr()
+    assert KFD._weight_ptrs(ws, dims, True, True)[1][:1] == ptrs[:1]
+    assert len(checked) == 32  # every call checks again
     # without the tail only Q/K/V are checked, and the rest are nulls
-    made, p3 = KFD._prepared_weights(ws, dims, False, False)
-    assert len(checked) == 48 + 8 and p3[9:] == [0] * 9
+    tri, p3 = KFD._weight_ptrs(ws, dims, False, False)
+    assert len(checked) == 32 + 8 and p3[9:] == [0] * 9
+    assert tri[3:] == [None] * 3

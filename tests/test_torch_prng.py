@@ -26,6 +26,8 @@ from repro_torch.kernels import ops as KOPS
 from repro_torch.models import transformer as T
 from repro_torch.serving import state as ST
 
+import torch_draw_rule as DR
+
 
 def _np(key):
     return np.asarray(key).astype(np.int64)
@@ -141,7 +143,7 @@ def test_draw_layer_prns_and_rs_at_pos():
     assert np.array_equal(tra4.numpy(), np.asarray(ra4))
     pos = np.array([0, 23, 24], np.int32)
     want = JKFD._rs_at_pos(rs4, jnp.asarray(pos), jnp.asarray(pos) < 24)
-    got = KFD._rs_at_pos(trs4, torch.from_numpy(pos), torch.from_numpy(pos) < 24)
+    got = DR.rs_at_pos(trs4, torch.from_numpy(pos), torch.from_numpy(pos) < 24)
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
