@@ -15,7 +15,13 @@ Phases, each printing one JSON line:
    ``T=4``, ``B=8`` slots, ``L=256``; paged: ``page_len=8``, 32 table
    columns holding null pages, a shared prefix page and an idle slot
    writing the trash page) and at padding (``hd=16``, ``L=24``, ``B=3``;
-   paged ``page_len=5``), GQA and ``pos >= L`` edges.  Outputs must be
+   paged ``page_len=5``), GQA and ``pos >= L`` edges.  K2 twice: its
+   keyed entry (the serving path's: the draws made in the kernel from the
+   slot keys, the cache read through the permuted view, scores up to each
+   slot's ``pos``) at the dense prefill row (``pos`` =
+   :data:`PREFILL_POS`, the row the kernels line reads), at three slots
+   of distinct ``pos``, at a head offset and without ``pos``; and its
+   given-draws entry at the prefill shape and the padding edge.  Outputs must be
    exactly equal.  Each kernel and its plain version are timed with CUDA
    events (runs of 20 back-to-back calls, median of 9 runs after warm-up).
    K3 and K9 are also checked at one slot and at 32 (256 clusters of 8
@@ -28,13 +34,16 @@ Phases, each printing one JSON line:
    took), the wrapper's host microseconds a call and the bare ``ctypes``
    launch's;
    their bound counts only what these inputs need (cached key rows below
-   ``pos``, the value rows whose score spiked).
+   ``pos``, the value rows whose score spiked); so does the keyed K2's,
+   which reads no draws, and its row carries the profiler's device time,
+   the wrapper's host microseconds and the bare launch's, as K4's rows do.
 3. **serve** -- the full-width ``xpikeformer-gpt-4-256`` (random weights
    from a seed) served by ``BatchScheduler(slots=8, cache_len=256)``: 16
    requests, prompts of 8-32 tokens, 32 new tokens each, submitted in
    waves so that admissions land mid-flight.  The launch counters must
    show K3 once per layer and decode step and K1/K2 on every prefill
-   position; the same requests served through the plain versions on the
+   position, and a profiled prefill position fewer than 2,000 kernels
+   (the keyed K2 draws on the card); the same requests served through the plain versions on the
    card (``IntegerBackend``) must give the same token streams, and the
    reduced config on the card the tokens of the CPU.
 4. **paged serve** -- the same model on ``BatchScheduler(slots=8,
@@ -85,8 +94,15 @@ Phases, each printing one JSON line:
    requests, 8 new tokens; 8 slots, ``cache_len=256``.  Every rank's
    streams must be the prefixes of the single-device streams, the paged
    run must hit the prefix cache and copy on write, and K5, K4, K3, K9
-   and K1 must launch.  Its times measure four processes sharing one card
-   and gloo's host staging, not NVLink.
+   and K1 must launch, K4 once per K5 (one epilogue launch per
+   row-parallel linear).  Then one row-parallel linear at each of the
+   mesh's shapes, in this process over a one-process stand-in for the
+   model group, must hand PyTorch's dispatcher nothing but its outputs'
+   allocations and views beside one K5 and one K4 launch (the kernels
+   phase holds the same calls, and under the profiler finds no kernel but
+   K5's and K4's).
+   Its times measure four processes sharing one card and gloo's host
+   staging, not NVLink.
 
 Past the port's old caps the kernels phase holds K1 and K5 at T = 9 and
 16 (few rows and many: the split of ``d_in`` and the tensor-core GEMM, on
@@ -101,8 +117,11 @@ prefill row, ``128 -> 256`` attention out and ``512 -> 256`` MLP out) and
 at ``M = 4,096``, ``384 -> 384``, timed beside ``torch.matmul`` of the
 same counts (TF32 off), K8 ``ssa_attention`` at the ViT's tile
 (``G = 1,536``, ``N = D = 64``) and the GPT's causal tile (``G = 1,024``,
-``N = 37``), K4 ``lif`` at the mesh's ``[4, 4, 256]`` and ``[4, 1,
-256]`` and the ViT's ``[4, 64*64*1536]``, K1 at the ViT's rows
+``N = 37``), K4 ``lif``'s counts entry (the row-parallel epilogue) at
+the mesh's ``[4, 4, 256]`` and ``[4, 1, 256]`` with and without a bias
+and its currents entry there and at the ViT's ``[4, 64*64*1536]`` (each
+row with the profiler's device time, the wrapper's host microseconds and
+the bare launch's), K1 at the ViT's rows
 (``M = 4,096``, and ``M = 65,536``), and K6
 ``drift_requantize`` at the ViT's ``w1`` leaf ``[384, 1536]``, the LM
 stack's stacked ``mlp.wi`` leaf ``[4, 256, 1024]`` and ``[300, 17]``, at
@@ -122,7 +141,8 @@ and of the bare ``ctypes`` launch (1,000 calls each).
 
 compares another tree of the port (unpacked with ``git archive``) with this
 one instead: each tree's windows (:func:`phase_windows`: K1/K5, K3/K9 at
-the decode shapes, the serve and forward windows) run in a process of its
+the decode shapes, the serve windows with the dense prefill's time and
+kernels a position, and the forward windows) run in a process of its
 own, parent, change, change, parent, and the trees must serve the same
 tokens, give the same logits and the same K3/K9 outputs.
 """
@@ -153,6 +173,15 @@ T0 = 20.0  # PCM drift reference time (Table II)
 K6_OPS = 11
 REPS, BATCH, WARMUP = 9, 20, 5
 HOST_CALLS = 1000
+# the live length of the keyed K2's timed prefill row: the middle of the
+# serve phases' 8-32-token prompts
+PREFILL_POS = 20
+# integer operations of one threefry2x32 call (20 rounds of add, rotate as
+# two shifts and an or, and xor; five key injections of three adds), and of
+# one randint draw (two calls, then two remainders, a multiply, an add and
+# a remainder)
+THREEFRY_OPS = 20 * 5 + 5 * 3
+DRAW_OPS = 2 * THREEFRY_OPS + 5
 
 
 def emit(obj) -> None:
@@ -314,6 +343,89 @@ def bare_layer(head, ws, draws, hd: int, paged: bool):
                 *outp, t, b, d, h, kv, hd, head[1].shape[2], dff, *tail)
         fn = KFD._lib("launch_fused_decode_layer")
     return lambda keep=(made, outs, write): fn(*args)
+
+
+def keyed_inputs(gen, dev, *, t, b, h, l, d, pos):
+    """The keyed K2's operands as the serving path passes them: ``q
+    [T,B,H,1,D]``, the cache ``[B,T,L,H,D]`` seen through its permuted
+    ``[T,B,H,L,D]`` view (rows at and past each slot's ``pos`` zero),
+    distinct slot keys ``[B, 2]`` and ``pos`` int32 (or ``None``)."""
+    from repro_torch import prng
+
+    q = spikes(gen, (t, b, h, 1, d), 0.5, dev)
+    sk = spikes(gen, (b, t, l, h, d), 0.5, "cpu")
+    sv = spikes(gen, (b, t, l, h, d), 0.5, "cpu")
+    for i, p in enumerate(pos or []):
+        sk[i, :, p:] = 0
+        sv[i, :, p:] = 0
+    keys = prng.key_from_seeds(torch.randint(0, 2 ** 32, (b,), generator=gen))
+    tpos = None if pos is None else torch.tensor(pos, dtype=torch.int32).to(dev)
+    return (q, sk.to(dev).permute(1, 0, 3, 2, 4),
+            sv.to(dev).permute(1, 0, 3, 2, 4), keys.to(dev), tpos)
+
+
+def bare_keyed(args, out, h0: int, i_max: int):
+    """The keyed K2's ``ctypes`` launcher with every argument ready."""
+    from repro_torch import prng
+    from repro_torch.kernels import build as KB
+
+    q, k, v, keys, pos = args
+    t, b, h, l, d = k.shape
+    a = (q.data_ptr(), k.data_ptr(), v.data_ptr(), keys.data_ptr(),
+         0 if pos is None else pos.data_ptr(), out.data_ptr(), b, t, h, l, d,
+         h0, *k.stride()[:4], d, prng.randint_multiplier(d), i_max,
+         prng.randint_multiplier(i_max), KB.stream_ptr(q))
+    fn = getattr(KB.load("ssa_attention"), "launch_ssa_decode_keyed")
+    return lambda: fn(*a)
+
+
+def keyed_bound(args, got, h0: int, i_max: int):
+    """The least time of one keyed K2 launch on these inputs: ``q``, the
+    slot keys, ``pos`` and the output once; each query row's cached key
+    rows below its slot's ``pos``; the value rows whose score spiked; no
+    draw is read.  Operations: two a lane of each AND-popcount (the live
+    scores and the counted value rows) and :data:`DRAW_OPS` a comparator
+    drawn (one a live row, one an output lane), at the card's f32 rate (the
+    table has no int32 rate).  Returns :func:`bound`'s tuple."""
+    from repro_torch.kernels import ref as KREF
+
+    q, k, v, keys, pos = args
+    t, b, h, l, d = k.shape
+    rs, _ = KREF.draw_slot_decode_prns(keys, t, h, l, d, i_max, h0)
+    rs = rs.reshape(b, t, h, l).permute(1, 0, 2, 3)  # [T, B, H, L]
+    n = (pos.long() if pos is not None
+         else torch.full((b,), l, device=k.device)).clamp(0, l)
+    live = torch.arange(l, device=k.device)[None, :] < n[:, None]  # [B, L]
+    spike = ((q & k).sum(-1, dtype=torch.int32) > rs) & live[None, :, None]
+    n_live = t * h * int(live.sum())
+    v_rows = int(spike.sum())
+    n_bytes = nbytes(q, keys, pos, got) + d * (n_live + v_rows)
+    ops = 2 * d * (n_live + v_rows) + DRAW_OPS * (n_live + t * b * h * d)
+    return bound(n_bytes, ops, FP32_OPS_PER_S)
+
+
+def bare_lif_counts(counts, scale, bias, out):
+    """K4's counts entry's ``ctypes`` launcher with every argument ready."""
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels import lif as KL
+
+    t, m, n = counts.shape
+    a = (counts.data_ptr(), scale.data_ptr(),
+         0 if bias is None else bias.data_ptr(), out.data_ptr(), t, m * n, n,
+         0.5, 1.0, KB.stream_ptr(counts))
+    fn = KL._lib("launch_lif_counts")
+    return lambda: fn(*a)
+
+
+def bare_lif(cur, out):
+    """K4's currents entry's ``ctypes`` launcher, ``cur [T, M]`` f32."""
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels import lif as KL
+
+    a = (cur.data_ptr(), out.data_ptr(), cur.shape[0], cur.shape[1], 0.5, 1.0,
+         KB.stream_ptr(cur))
+    fn = KL._lib()
+    return lambda: fn(*a)
 
 
 def layer_launch(launch, b: int) -> dict:
@@ -519,7 +631,8 @@ def phase_kernels(dev):
         bare_launch_host_us=host_us(bare_k1(x, w, torch.empty_like(got))),
         bound=bound(n_bytes, 2 * 4 * 1 * 256 * 256))
 
-    # K2 at the prefill shape (G = 1 slot x T x H) and the padding edge
+    # K2 with given draws (the tests' fuzz surface) at the prefill shape (G =
+    # 1 slot x T x H) and the padding edge
     k2 = {}
     for g, l, d in [(16, 256, 64), (48, 24, 16)]:
         q = spikes(gen, (g, 1, d), 0.5, dev)
@@ -532,12 +645,47 @@ def phase_kernels(dev):
         k2[(g, l, d)] = (got, want, args)
         check(torch.equal(got, want), f"K2 G={g} L={l} D={d} differs")
     got, want, args = k2[(16, 256, 64)]
-    results["ssa_decode"] = dict(
-        shape="G=16 (1 slot x T=4 x H=4), L=256, D=64 (prefill)",
+    results["ssa_decode_given_draws"] = dict(
+        shape="G=16 (1 slot x T=4 x H=4), L=256, D=64, draws given, every "
+              "row read",
         max_abs_err=max(max_abs_err(g, w_) for g, w_, _ in k2.values()),
         ms=time_ms(lambda: KS.ssa_decode_kernel(*args)),
         plain_ms=time_ms(lambda: KREF.ssa_decode_ref(*args)),
+        device_ms=device_ms(lambda: KS.ssa_decode_kernel(*args),
+                            "ssa_decode_kernel"),
         bound=bound(nbytes(args, got), 2 * 2 * 16 * 256 * 64))
+
+    # K2 keyed (the serving path's entry: draws from the slot keys, the
+    # cache read through the permuted view, scores up to each slot's pos):
+    # the dense prefill row of one slot, three slots of distinct pos, a
+    # rank's head offset, no pos
+    k2k = {}
+    for name, (t, b, h, l, d, h0, pos) in {
+            "prefill": (4, 1, 4, 256, 64, 0, [PREFILL_POS]),
+            "b3": (4, 3, 4, 256, 64, 0, [0, 131, 256]),
+            "h0": (4, 3, 2, 256, 64, 2, [7, 256, 64]),
+            "no_pos": (4, 2, 4, 256, 64, 1, None)}.items():
+        args = keyed_inputs(gen, dev, t=t, b=b, h=h, l=l, d=d, pos=pos)
+        run = (lambda args=args, h0=h0, l=l:
+               KS.ssa_decode_keyed_kernel(*args, h0=h0, i_max=l))
+        plain = (lambda args=args, h0=h0, l=l:
+                 KREF.ssa_decode_keyed_ref(*args[:4], h0, i_max=l))
+        got, want = run(), plain()
+        k2k[name] = (got, want, run, plain, args)
+        check(torch.equal(got, want), f"keyed K2 case {name} differs")
+    got, want, run, plain, args = k2k["prefill"]
+    results["ssa_decode"] = dict(
+        shape=f"T=4 x B=1 x H=4 query rows (a dense prefill position), "
+              f"L=256, D=64, live length pos={PREFILL_POS}, draws in the "
+              "kernel",
+        pos=PREFILL_POS,
+        max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k2k.values()),
+        ms=time_ms(run), plain_ms=time_ms(plain),
+        device_ms=device_ms(run, "ssa_decode_keyed_kernel"),
+        wrapper_host_us=host_us(run),
+        bare_launch_host_us=host_us(bare_keyed(args, torch.empty_like(got),
+                                               0, 256)),
+        bound=keyed_bound(args, got, 0, 256))
 
     # K3 at the decode shape, the padding edge, GQA, one slot and 32 slots
     # (256 clusters of 8: more than the card holds at once)
@@ -793,11 +941,14 @@ def phase_kernels(dev):
         del args, got, want
     results["ssa_attention_long"] = long_tiles
 
-    # K4 through ops.lif_fused (what Backend.lif runs) at the shapes the
-    # (2, 2) mesh's row-parallel linears fire on -- [T, 4 local slots, 256]
-    # at decode, [T, 1, 256] at prefill -- and at the ViT's widest
-    # pre-activation (the FFN's, B = 64); dyadic currents put membranes
-    # exactly on the threshold.  The kernels line reads the decode shape.
+    # K4's counts entry (the row-parallel epilogue, what ShardedBackend's
+    # row linears run after the all_reduce) at the (2, 2) mesh's shapes --
+    # [T, 4 local slots, 256] at decode, [T, 1, 256] at prefill -- with no
+    # bias (the LM stack's linears have none) and with one, and a ragged
+    # width; its currents entry through ops.lif_fused (what Backend.lif
+    # runs) at the same shapes and at the ViT's widest pre-activation (the
+    # FFN's, B = 64).  Dyadic values put membranes exactly on the
+    # threshold.  The kernels line reads the counts entry's decode shape.
     from repro_torch.kernels import lif as KL
     from repro_torch.kernels import ops as KOPS
 
@@ -807,24 +958,69 @@ def phase_kernels(dev):
     def lif_plain(c):
         return KREF.lif_ref(c.reshape(c.shape[0], -1)).reshape(c.shape)
 
+    for label, shape, with_bias, what in (
+            ("", (4, 4, 256), False, "the row-parallel linears' decode "
+             "epilogue: 4 local slots x d_model 256, no bias"),
+            ("_prefill", (4, 1, 256), False,
+             "the batch-1 prefill row's epilogue"),
+            ("_bias", (4, 4, 256), True, "the decode epilogue with a bias"),
+            (None, (3, 5, 1001), False, "ragged"),
+            (None, (3, 5, 1001), True, "ragged")):
+        counts = torch.randint(-40, 41, shape, generator=gen).float().to(dev)
+        n = shape[-1]
+        scale = (torch.randint(1, 4, (n,), generator=gen).float() / 32).to(dev)
+        bias = ((torch.randint(-4, 9, (n,), generator=gen).float() / 8).to(dev)
+                if with_bias else None)
+        run = (lambda c=counts, s_=scale, b_=bias:
+               KL.lif_counts_kernel(c, s_, b_))
+        plain = (lambda c=counts, s_=scale, b_=bias:
+                 KREF.lif_counts_ref(c, s_, b_))
+        got, want = run(), plain()
+        check(torch.equal(got, want), f"K4 counts entry at {list(shape)} "
+              f"(bias {bias is not None}) differs")
+        if label is None:
+            continue
+        results["lif" + label] = dict(
+            shape=f"{list(shape)} ({what})", entry="counts",
+            max_abs_err=max_abs_err(got, want), ms=time_ms(run),
+            plain_ms=time_ms(plain), device_ms=device_ms(run, "lif_kernel"),
+            wrapper_host_us=host_us(run),
+            bare_launch_host_us=host_us(bare_lif_counts(
+                counts, scale, bias, torch.empty_like(got))),
+            bound=bound(nbytes(counts, scale, bias, got),
+                        (5 if bias is not None else 4) * counts.numel(),
+                        FP32_OPS_PER_S))
+        del counts, got, want
     for label, shape, what in (
-            ("", (4, 4, 256), "the row-parallel linears' decode currents: "
-             "4 local slots x d_model 256"),
-            ("_prefill", (4, 1, 256), "the batch-1 prefill row"),
+            ("_currents", (4, 4, 256), "currents of the decode shape"),
             ("_vit", (4, 64 * 64 * 1536),
              "T x 64 images x 64 patches x d_ff=1536")):
         cur = dyadic(*shape)
-        got, want = KOPS.lif_fused(cur), lif_plain(cur)
+        run = lambda cur=cur: KOPS.lif_fused(cur)  # noqa: E731
+        got, want = run(), lif_plain(cur)
         check(torch.equal(got, want), f"K4 at {list(shape)} differs")
-        results["lif" + label] = dict(
-            shape=f"{list(shape)} ({what})", max_abs_err=max_abs_err(got, want),
-            ms=time_ms(lambda cur=cur: KOPS.lif_fused(cur)),
+        r = results["lif" + label] = dict(
+            shape=f"{list(shape)} ({what})", entry="currents",
+            max_abs_err=max_abs_err(got, want), ms=time_ms(run),
             plain_ms=time_ms(lambda cur=cur: lif_plain(cur)),
+            device_ms=device_ms(run, "lif_kernel"),
             bound=bound(nbytes(cur, got), 3 * cur.numel(), FP32_OPS_PER_S))
+        if label == "_currents":  # host-bound: what a call costs the host
+            r.update(wrapper_host_us=host_us(run),
+                     bare_launch_host_us=host_us(bare_lif(
+                         cur.reshape(shape[0], -1), torch.empty_like(got))))
         del cur, got, want
     edge = dyadic(3, 1001)
     check(torch.equal(KL.lif_kernel(edge, beta=0.25),
                       KREF.lif_ref(edge, beta=0.25)), "K4 edge differs")
+    # the (2, 2) mesh's row-parallel linears on the card: one K5 and one K4
+    # launch a call, no other op (the dispatcher), and no kernel but theirs
+    # (the profiler)
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config(ARCH)
+    results["row_linear_dispatched"] = row_linear_dispatch(cfg)
+    results["row_linear_kernels"] = row_linear_kernels(cfg)
 
     # division by a constant: PyTorch on CUDA divides by a Python number
     # through its reciprocal; the port's div_const must equal the CPU's IEEE
@@ -982,7 +1178,12 @@ def phase_serve(dev):
     # three decode steps of 8 busy slots
     sch.reset()
     sch.submit(list(range(16)), 4, seed=1)
-    served["profile_prefill_15_positions"] = profile_window(sch.admit)
+    prof = served["profile_prefill_15_positions"] = profile_window(sch.admit)
+    served["kernels_per_prefill_position"] = prof["kernels"] / 15
+    check(served["kernels_per_prefill_position"] < 2000,
+          f"a dense prefill position launched "
+          f"{served['kernels_per_prefill_position']} kernels (the keyed K2 "
+          "draws on the card)")
     for i, p in enumerate(prompts[1:8]):
         sch.submit(p, 8, seed=2 + i)
     sch.admit()
@@ -1470,8 +1671,109 @@ def phase_mesh(dev, dense_outs, paged_outs):
     for k in ("aimc_matmul_counts", "lif", "fused_decode_layer",
               "fused_decode_layer_paged", "aimc_spiking_linear"):
         check(total.get(k, 0) > 0, f"mesh: {k} never ran")
+    check(total["lif"] == total["aimc_matmul_counts"],
+          f"mesh: {total['lif']} K4 launches for "
+          f"{total['aimc_matmul_counts']} row-parallel linears")
     out["launches_summed_over_ranks"] = {k: v for k, v in total.items() if v}
+    out["row_linear_dispatched"] = row_linear_dispatch(cfg)
     return out, total
+
+
+def row_linear_cases(cfg):
+    """One row-parallel spiking linear at each of the (2, 2) mesh's shapes
+    (attention out and MLP out; the 4 local decode slots and the prefill
+    row; with and without a bias): ``(label, run)``, ``run()`` calling
+    ``ShardedBackend`` over the CUDA backend with a one-process stand-in
+    for the model group (its ``all_reduce`` of whole rows is the identity;
+    the ranks' own run gloo's)."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.backend import ShardedBackend
+    from repro_torch.engine import CudaBackend
+
+    mesh = SimpleNamespace(model=MESH[1], model_index=0,
+                           all_reduce_model=lambda x: x)
+    be = ShardedBackend(CudaBackend(), mesh, cfg)
+    gen = torch.Generator().manual_seed(21)
+    dev = torch.device("cuda", 0)
+    d_local = {"attn_out": cfg.num_heads * cfg.resolved_head_dim // MESH[1],
+               "mlp_out": cfg.d_ff // MESH[1]}
+    for name, d_in in d_local.items():
+        for m in (4, 1):
+            for with_bias in (False, True):
+                lv, sc, bi = triple(gen, d_in, cfg.d_model, dev, with_bias)
+                p = {"levels": lv, "scale": sc, "b": bi}
+                x = spikes(gen, (cfg.spike_T, m, 1, d_in), 0.5, dev).float()
+                run = (lambda p=p, x=x:
+                       be.spiking_linear(p, x, part="row"))
+                run()  # K5's scratch is allocated once
+                torch.cuda.synchronize()
+                yield f"{name}_m{m}" + ("_bias" if with_bias else ""), run
+
+
+def row_linear_kernels(cfg, calls: int = BATCH) -> dict:
+    """The device kernels of ``calls`` calls of each row-parallel linear
+    of :func:`row_linear_cases` under torch.profiler: only K5's kernel and
+    K4's, at most one of each a call.  (The profiler can miss a launch at
+    the start of its window, so the exact count a call is
+    :func:`row_linear_dispatch`'s.)  Returns each case's kernels and their
+    counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, run in row_linear_cases(cfg):
+        for _ in range(WARMUP):
+            run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        kern = {e.key.split("namespace)::")[-1].split("(")[0]: e.count
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+        k4 = sum(n for k, n in kern.items() if k.startswith("lif_kernel"))
+        k5 = sum(n for k, n in kern.items() if k.startswith("crossbar_"))
+        check(0 < k4 <= calls and k5 <= calls and k4 + k5 == sum(
+            kern.values()), f"row-parallel linear {label}: kernels of "
+              f"{calls} calls: {kern}")
+        out[label] = kern
+    return out
+
+
+def row_linear_dispatch(cfg) -> dict:
+    """What one call of each row-parallel linear of :func:`row_linear_cases`
+    hands PyTorch's dispatcher (a ctypes launch dispatches nothing): only
+    its outputs' allocations and views, with one K5 and one K4 launch
+    counted -- no ``* scale``, ``+ b`` or other op that could launch a
+    kernel.  Returns each case's dispatched ops."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import build as KB
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    out = {}
+    for label, run in row_linear_cases(cfg):
+        n5, n4 = KB.LAUNCHES["aimc_matmul_counts"], KB.LAUNCHES["lif"]
+        with Ops() as ops:
+            run()
+        torch.cuda.synchronize()
+        others = [f for f in ops.seen
+                  if not f.startswith(("aten.empty", "aten.view"))]
+        check(not others and KB.LAUNCHES["aimc_matmul_counts"] == n5 + 1
+              and KB.LAUNCHES["lif"] == n4 + 1,
+              f"row-parallel linear {label}: dispatched {ops.seen}")
+        out[label] = ops.seen
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1573,10 +1875,20 @@ def phase_windows(dev) -> dict:
             outs, wall_s = drive(sch, prompts, 32)
             st = sch.stats
             runs.append((st.decoded_tokens / wall_s,
-                         1e3 * st.decode_s / st.decode_steps))
+                         1e3 * st.decode_s / st.decode_steps,
+                         1e3 * st.prefill_s / max(st.prefill_tokens, 1)))
         out[name] = dict(tokens_per_s=[r[0] for r in runs],
                          decode_step_ms=[r[1] for r in runs],
                          tokens=digest(outs))
+        if name == "dense":  # batch-1 prefill: the unfused path (K1, K2)
+            out[name]["prefill_token_ms"] = [r[2] for r in runs]
+            sch.reset()
+            sch.submit(list(range(16)), 4, seed=1)
+            prof = profile_window(sch.admit)
+            out[name].update(profiled_prefill_position_ms=prof["wall_ms"] / 15,
+                             prefill_position_busy_ms=prof["device_busy_ms"]
+                             / 15,
+                             kernels_per_prefill_position=prof["kernels"] / 15)
         # three decode steps of 8 busy slots under the profiler
         sch.reset()
         for i, p in enumerate(prompts[:8]):
@@ -1739,8 +2051,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_bytes": n_bytes, "bound_ops": n_ops,
             "library_ms": r.get("library_ms"), "shape": r["shape"],
-            **{k: r[k] for k in ("device_ms", "plan_cluster", "plan_blocks",
-                                 "cluster", "clusters", "blocks", "sms_used",
+            **{k: r[k] for k in ("pos", "entry", "device_ms", "plan_cluster",
+                                 "plan_blocks", "cluster", "clusters",
+                                 "blocks", "sms_used",
                                  "most_blocks_on_one_sm", "wrapper_host_us",
                                  "bare_launch_host_us")
                if k in r}})

@@ -13,10 +13,11 @@ and this backend computes that rank's share and names the collectives:
 * **row-parallel spiking linear** (``part="row"``: attention out, MLP out)
   -- the rank counts over its input rows (K5: the inner backend's
   ``crossbar_counts``), the integer-valued f32 counts are summed over the
-  model group (exact in any order below 2**24), then ``counts * scale``
-  and ``+ b`` (two separate roundings, as in K1) and the inner backend's
-  LIF (K4) fire once on the whole sum: the same spikes as the
-  single-device linear, bit for bit;
+  model group (exact in any order below 2**24), then ``counts * scale``,
+  ``+ b`` (two separate roundings, as in K1) and the LIF fire once on the
+  whole sum, in one pass (the inner backend's ``counts_lif``: K4's counts
+  entry on the card): the same spikes as the single-device linear, bit
+  for bit;
 * **head-parallel SSA decode** -- the rank attends over its own heads
   (its KV heads of the cache or page pool), drawing the comparator
   integers of the ``f(seed, pos, head)`` streams at its global head offset
@@ -142,14 +143,13 @@ class ShardedBackend:
 
     def _row_linear(self, p, spikes):
         """Input rows split: local counts (K5), their sum over the model
-        group, then scale, bias and LIF once on the whole sum."""
+        group, then scale, bias and LIF once on the whole sum (one K4
+        launch)."""
         parts = E._linear_parts(p)
         levels, scale = E._levels_scale(parts)
         flat, unflatten = E._flatten_time(spikes)
         counts = self.inner.crossbar_counts(
             flat.to(torch.float32).contiguous(), levels.contiguous())
         self.mesh.all_reduce_model(counts)  # exact: integer-valued f32
-        pre = counts * scale.to(torch.float32)
-        if parts.get("b") is not None:
-            pre = pre + parts["b"].to(torch.float32)
-        return unflatten(self.inner.lif(pre))
+        # scale, bias and LIF in one pass (K4's counts entry on the card)
+        return unflatten(self.inner.counts_lif(counts, scale, parts.get("b")))

@@ -175,15 +175,8 @@ class IntegerBackend:
                 q.movedim(1, 0), view.k, view.v, view.page_table,
                 rs.reshape(b, t, h, 1, l), ra.reshape(b, t, h, 1, d))
             return out.movedim(0, 1)
-        l = view.k.shape[3]
-        rs, ra = KOPS.draw_slot_decode_prns(slot_keys, t, h, l, d,
-                                            spec.i_max, spec.h0)
-        g = b * t * h
-        out = KREF.ssa_decode_ref(
-            q.movedim(1, 0).reshape(g, 1, d), view.k.movedim(1, 0).reshape(g, l, d),
-            view.v.movedim(1, 0).reshape(g, l, d), rs.reshape(g, 1, l),
-            ra.reshape(g, 1, d))
-        return out.reshape(b, t, h, 1, d).movedim(0, 1)
+        return KREF.ssa_decode_keyed_ref(q, view.k, view.v, slot_keys,
+                                         spec.h0, i_max=spec.i_max)
 
     def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
                            wo=None, wi=None, wo2=None, *, hd, h0=0,
@@ -208,6 +201,12 @@ class IntegerBackend:
         bias and LIF (a row-parallel rank's share, summed over ranks)."""
         return KREF.aimc_counts_ref(spikes, levels)
 
+    def counts_lif(self, counts, scale, bias, *, beta=0.5, v_thresh=1.0):
+        """A row-parallel linear's epilogue on the summed counts ``[T,M,N]``:
+        ``LIF(counts * scale + bias)`` (two roundings) -> uint8."""
+        return KREF.lif_counts_ref(counts, scale, bias, beta=beta,
+                                   v_thresh=v_thresh)
+
     def spiking_linear(self, p, spikes, *, part=None):
         p = _linear_parts(p)
         levels, scale = _levels_scale(p)
@@ -219,10 +218,12 @@ class IntegerBackend:
 
 class CudaBackend:
     """The hand-written Hopper kernels: K1 (spiking linear), K5 (crossbar
-    counts), K8 (SSA tile), K4 (LIF), K2/K7 (SSA decode row, dense/paged), K3/K9 (fused decoder
-    layer, dense/paged).  A paged view goes to the paged kernels, which
-    read the pools through the page table.  Bit-exact vs
-    :class:`IntegerBackend`."""
+    counts), K8 (SSA tile), K4 (LIF; with ``counts_lif``, a row-parallel
+    linear's scale, bias and LIF in one launch), K2/K7 (SSA decode row,
+    dense/paged; the dense row draws its comparators in the kernel),
+    K3/K9 (fused decoder layer, dense/paged).  A paged view goes to the
+    paged kernels, which read the pools through the page table.
+    Bit-exact vs :class:`IntegerBackend`."""
 
     name = "cuda"
 
@@ -238,7 +239,8 @@ class CudaBackend:
                 q, view.k, view.v, view.page_table, slot_keys, spec.h0,
                 i_max=spec.i_max)
         return KOPS.ssa_attention_decode_packed(
-            q, view.k, view.v, slot_keys, spec.h0, i_max=spec.i_max)
+            q, view.k, view.v, slot_keys, spec.h0, i_max=spec.i_max,
+            pos=view.pos)
 
     def decode_layer_fused(self, slot_keys, s, view, pos, wq, wk, wv,
                            wo=None, wi=None, wo2=None, *, hd, h0=0,
@@ -254,6 +256,10 @@ class CudaBackend:
 
     def crossbar_counts(self, spikes, levels):
         return KOPS.aimc_matmul_counts(spikes, levels)
+
+    def counts_lif(self, counts, scale, bias, *, beta=0.5, v_thresh=1.0):
+        return KOPS.lif_counts_fused(counts, scale, bias, beta=beta,
+                                     v_thresh=v_thresh)
 
     def spiking_linear(self, p, spikes, *, part=None):
         p = _linear_parts(p)

@@ -129,6 +129,14 @@ def check_cuda(t: torch.Tensor, dtype: torch.dtype, shape, what: str) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
+def conform(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous tensor of ``dtype``: itself where it is one (a
+    conversion the caller does not need costs the host a dispatch)."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def raise_on_error(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")

@@ -103,12 +103,14 @@ struct XpkPagedRows {
 };
 
 // Score stage, all threads of the block: bit j % 32 of sbits[j / 32] is
-// popcount(q & k_j) > rs[j].  A warp takes 32 consecutive rows (one per
-// lane, 16-byte loads when a row is aligned) and a ballot packs the spikes
-// along the cache axis.  qw holds the query packed into ceil(hd/32) words.
-template <class Rows>
+// popcount(q & k_j) > draws.score(j), for rows j < L.  A warp takes 32
+// consecutive rows (one per lane, 16-byte loads when a row is aligned) and a
+// ballot packs the spikes along the cache axis.  qw holds the query packed
+// into ceil(hd/32) words.  Draws is a policy: score(j) gives row j's
+// comparator integer (read from a tensor, or drawn where it is used).
+template <class Rows, class Draws>
 __device__ void xpk_ssa_scores(const Rows& rows, const uint32_t* qw, int hd,
-                               int L, const int* rs, uint32_t* sbits) {
+                               int L, const Draws& draws, uint32_t* sbits) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5, wd = (hd + 31) / 32, wl = (L + 31) / 32;
   for (int jb = warp * 32; jb < wl * 32; jb += nwarps * 32) {
@@ -119,7 +121,7 @@ __device__ void xpk_ssa_scores(const Rows& rows, const uint32_t* qw, int hd,
       int cnt = 0;
       for (int w = 0; w < wd; ++w)
         cnt += __popc(qw[w] & xpk_pack32(row + 32 * w, hd - 32 * w));
-      spike = cnt > rs[j];
+      spike = cnt > draws.score(j);
     }
     const uint32_t word = __ballot_sync(0xffffffffu, spike);
     if (lane == 0) sbits[jb / 32] = word;

@@ -11,7 +11,23 @@
 //   s_j  = popcount(q & k_j) > rs[j]          (score comparators)
 //   a_d  = popcount(s & v[:, d]) > ra[d]      (output comparators)
 //
-// K2: q uint8 [G, D], k/v uint8 [G, L, D], rs [G, L], ra [G, D] -> [G, D].
+// K2 has two entries over one body (ssa_row), which is templated on where
+// the draws come from:
+//  * given draws: q uint8 [G, D], k/v uint8 [G, L, D], rs [G, L], ra [G, D]
+//    -> [G, D];
+//  * keyed: the row draws its own comparators from the slot's key, the chain
+//    of kernels/ops.py:draw_slot_decode_prns in registers (threefry.cuh):
+//      kh = fold_in(slot_key[b], h0 + h),  (ks, ka) = split(kh),
+//      rs[j] = randint(ks, (T,1,L), 0, D)      at flat index t*L + j,
+//      ra[d] = randint(ka, (T,1,D), 0, i_max)  at flat index t*D + d;
+//    the lane that scores row j draws rs[j], the thread that owns output
+//    column d draws ra[d], and no draw reaches device memory.  q is
+//    [T, B, H, D] and out [T, B, H, D] (contiguous), k/v the dense cache as
+//    the caller holds it, any strides over (t, b, h, row) with contiguous
+//    rows (the serving path's cache.permute(1, 0, 3, 2, 4): no copy), and
+//    the scores stop at each slot's live length pos[b] (rows at and past
+//    it are zero by the serving invariant, and a zero row never beats a
+//    draw); without pos every row is read.
 // K7: q uint8 [B, T, H, D], kpool/vpool uint8 [P, T, KV, page_len, D],
 // table int32 [B, MP], rs [B*T*H, L] and ra [B*T*H, D] with L = MP*page_len
 // -> out uint8 [B, T, H, D].  Logical row j of slot b is in-page row
@@ -19,11 +35,13 @@
 // h / (H / KV).  The kernel reads each page through the table, never a
 // gathered copy, and skips the null page (page 0, zero by contract).
 //
-// Bound on the card: bytes -- the cached rows are read once for a few
-// AND/popcount operations per byte.  Design: one block per query row.  The
-// query is packed into uint32 lanes in shared memory; the score stage gives
-// each lane of a warp one cached row (packed with 16-byte loads when aligned)
-// and a warp ballot packs 32 score spikes into a word; the output stage gives
+// Bound on the card: bytes -- the live cached rows are read once for a few
+// AND/popcount operations per byte; the keyed entry reads no draws (its
+// 2 (live + D) threefry pairs a row are about 200 integer operations each,
+// far below the card's rate).  Design: one block per query row.  The query
+// is packed into uint32 lanes in shared memory; the score stage gives each
+// lane of a warp one cached row (packed with 16-byte loads when aligned) and
+// a warp ballot packs 32 score spikes into a word; the output stage gives
 // each thread one value lane and reads only the rows whose score spiked.
 // Lanes past D and rows past L read as zero (the reference pads both to 32
 // with zeros, and a zero spike never beats a draw).  Counts are exact
@@ -31,23 +49,41 @@
 // query (ceil(D/32) words) sits in dynamic shared memory after the score
 // bits.
 #include "common.cuh"
+#include "threefry.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
-// One query row: pack q, score stage, output stage.
-template <class Rows>
-__device__ void ssa_row(const Rows& rows, const uint8_t* q, const int* rs,
-                        const int* ra, uint8_t* out, int L, int D,
-                        uint32_t* qw, uint32_t* sbits) {
+// Draws read from tensors: this row's rs [L] and ra [D].
+struct GivenDraws {
+  const int* rs;
+  const int* ra;
+  __device__ int score(int j) const { return rs[j]; }
+  __device__ int out(int d) const { return ra[d]; }
+};
+
+// Draws made where they are used, from the (slot, global head) key.
+struct KeyedDraws {
+  XpkRandint s, a;  // randint(ks, ., 0, D) and randint(ka, ., 0, i_max)
+  uint64_t s0, a0;  // flat index of this timestep's first draw: t*L, t*D
+  __device__ int score(int j) const { return s.at(s0 + j); }
+  __device__ int out(int d) const { return a.at(a0 + d); }
+};
+
+// One query row over its first L cached rows: pack q, score stage, output
+// stage.
+template <class Rows, class Draws>
+__device__ void ssa_row(const Rows& rows, const uint8_t* q, const Draws& draws,
+                        uint8_t* out, int L, int D, uint32_t* qw,
+                        uint32_t* sbits) {
   for (int w = threadIdx.x; w < (D + 31) / 32; w += kThreads)
     qw[w] = xpk_pack32(q + 32 * w, D - 32 * w);
   __syncthreads();
-  xpk_ssa_scores(rows, qw, D, L, rs, sbits);
+  xpk_ssa_scores(rows, qw, D, L, draws, sbits);
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += kThreads)
-    out[d] = xpk_ssa_count(rows, sbits, L, d) > ra[d] ? 1 : 0;
+    out[d] = xpk_ssa_count(rows, sbits, L, d) > draws.out(d) ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -59,7 +95,40 @@ ssa_decode_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ k,
   uint32_t* qw = sbits + (L + 31) / 32;  // [ceil(D/32)] the packed query
   const size_t g = blockIdx.x;
   const XpkDenseRows rows{k + g * L * D, v + g * L * D, static_cast<size_t>(D)};
-  ssa_row(rows, q + g * D, rs + g * L, ra + g * D, out + g * D, L, D, qw, sbits);
+  ssa_row(rows, q + g * D, GivenDraws{rs + g * L, ra + g * D}, out + g * D, L,
+          D, qw, sbits);
+}
+
+// The keyed entry's geometry: k and v share their strides (elements).
+struct KeyedDims {
+  int B, T, H, L, D;
+  uint32_t h0, span_s, mult_s, span_a, mult_a;
+  long long st, sb, sh, sl;  // cache strides over (t, b, h, row)
+};
+
+__global__ void __launch_bounds__(kThreads)
+ssa_decode_keyed_kernel(const uint8_t* __restrict__ q,
+                        const uint8_t* __restrict__ k,
+                        const uint8_t* __restrict__ v,
+                        const long long* __restrict__ slot_keys,
+                        const int* __restrict__ pos, uint8_t* __restrict__ out,
+                        KeyedDims a) {
+  extern __shared__ uint32_t sbits[];
+  uint32_t* qw = sbits + (a.L + 31) / 32;
+  const int g = blockIdx.x;  // (b, t, h), row-major
+  const int h = g % a.H, t = g / a.H % a.T, b = g / (a.H * a.T);
+  const int live = pos ? min(max(__ldg(pos + b), 0), a.L) : a.L;
+  const XpkKey slot{static_cast<uint32_t>(__ldg(slot_keys + 2 * b)),
+                    static_cast<uint32_t>(__ldg(slot_keys + 2 * b + 1))};
+  const XpkKey kh = xpk_fold_in(slot, a.h0 + static_cast<uint32_t>(h));
+  const KeyedDraws draws{
+      XpkRandint::make(xpk_split(kh, 0), 0, a.span_s, a.mult_s),
+      XpkRandint::make(xpk_split(kh, 1), 0, a.span_a, a.mult_a),
+      static_cast<uint64_t>(t) * a.L, static_cast<uint64_t>(t) * a.D};
+  const long long base = t * a.st + b * a.sb + h * a.sh;
+  const XpkDenseRows rows{k + base, v + base, static_cast<size_t>(a.sl)};
+  const size_t row = (static_cast<size_t>(t) * a.B + b) * a.H + h;
+  ssa_row(rows, q + row * a.D, draws, out + row * a.D, live, a.D, qw, sbits);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -81,7 +150,8 @@ ssa_decode_paged_kernel(const uint8_t* __restrict__ q,
                           table + static_cast<size_t>(b) * MP,
                           static_cast<size_t>(T) * KV * page_len * D,
                           page_len, D};
-  ssa_row(rows, q + g * D, rs + g * L, ra + g * D, out + g * D, L, D, qw, sbits);
+  ssa_row(rows, q + g * D, GivenDraws{rs + g * L, ra + g * D}, out + g * D, L,
+          D, qw, sbits);
 }
 
 // ---------------------------------------------------------------------------
@@ -315,6 +385,36 @@ extern "C" int launch_ssa_decode(const uint8_t* q, const uint8_t* k,
   if (err) return err;
   ssa_decode_kernel<<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, rs, ra, out, L, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The keyed entry: slot_keys int64 [B, 2] (uint32 values), pos int32 [B] or
+// null, the spans' randint multipliers as prng.randint computes them.
+extern "C" int launch_ssa_decode_keyed(const uint8_t* q, const uint8_t* k,
+                                       const uint8_t* v,
+                                       const long long* slot_keys,
+                                       const int* pos, uint8_t* out, int B,
+                                       int T, int H, int L, int D, int h0,
+                                       long long st, long long sb,
+                                       long long sh, long long sl, int span_s,
+                                       int mult_s, int span_a, int mult_a,
+                                       void* stream) {
+  const long long blocks = static_cast<long long>(B) * T * H;
+  if (blocks <= 0 || blocks > 0x7fffffffLL || L <= 0 || D <= 0 || h0 < 0 ||
+      span_s <= 0 || span_a <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      static_cast<size_t>((L + 31) / 32 + (D + 31) / 32) * sizeof(uint32_t);
+  int err = xpk_set_smem(
+      reinterpret_cast<const void*>(ssa_decode_keyed_kernel), smem);
+  if (err) return err;
+  const KeyedDims a{B, T, H, L, D, static_cast<uint32_t>(h0),
+                    static_cast<uint32_t>(span_s), static_cast<uint32_t>(mult_s),
+                    static_cast<uint32_t>(span_a), static_cast<uint32_t>(mult_a),
+                    st, sb, sh, sl};
+  ssa_decode_keyed_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, slot_keys, pos, out, a);
   return static_cast<int>(cudaGetLastError());
 }
 

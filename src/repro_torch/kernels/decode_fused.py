@@ -123,18 +123,10 @@ def layer_plan(t: int, d: int, h: int, kv: int, hd: int, l: int,
     return LayerPlan(CLUSTER, THREADS, smem)
 
 
-def _as(x: Tensor, dtype: torch.dtype) -> Tensor:
-    """``x`` as a contiguous tensor of ``dtype``: itself where it is one (a
-    conversion the caller does not need costs the host a dispatch)."""
-    if x.dtype != dtype:
-        x = x.to(dtype)
-    return x if x.is_contiguous() else x.contiguous()
-
-
 def _norm_w(w: Triple) -> Triple:
     lv, sc, bi = w
-    return (_as(lv, torch.int8), _as(sc, torch.float32),
-            None if bi is None else _as(bi, torch.float32))
+    return (KB.conform(lv, torch.int8), KB.conform(sc, torch.float32),
+            None if bi is None else KB.conform(bi, torch.float32))
 
 
 # each launcher's pointer and int arguments, before (beta, v_thresh, smem,
@@ -173,7 +165,7 @@ def fused_decode_layer(slot_keys: Tensor, s: Tensor, sk: Tensor, sv: Tensor,
     h = wq[0].shape[1] // hd
     rs4, ra4 = draw_layer_prns(slot_keys, t, h, l, hd, h0)
     return fused_decode_layer_kernel(
-        _as(s, torch.float32), sk.contiguous(), sv.contiguous(),
+        KB.conform(s, torch.float32), sk.contiguous(), sv.contiguous(),
         pos, wq, wk, wv, wo, wi, wo2, rs4, ra4, hd=hd,
         with_tail=with_tail, with_mlp=with_mlp, beta=beta, v_thresh=v_thresh)
 
@@ -242,7 +234,7 @@ def _placement_ptr(placement: Optional[Tensor], b: int, plan: LayerPlan):
 def _slot_ints(x: Tensor, dtype: torch.dtype, b: int, what: str) -> Tensor:
     """``pos`` (int32) or ``write_pids`` (int64) ``[B]`` as the kernel
     reads them (converted only where the caller's dtype differs)."""
-    x = _as(x, dtype)
+    x = KB.conform(x, dtype)
     KB.check_cuda(x, dtype, (b,), what)
     return x
 
@@ -309,8 +301,8 @@ def fused_decode_layer_paged(slot_keys: Tensor, s: Tensor, kpool: Tensor,
     h = wq[0].shape[1] // hd
     rs4, ra4 = draw_layer_prns(slot_keys, t, h, l, hd, h0)
     return fused_decode_layer_paged_kernel(
-        _as(s, torch.float32), kpool.contiguous(), vpool.contiguous(),
-        _as(page_table, torch.int32), pos,
+        KB.conform(s, torch.float32), kpool.contiguous(), vpool.contiguous(),
+        KB.conform(page_table, torch.int32), pos,
         write_pids, wq, wk, wv, wo, wi, wo2, rs4, ra4, hd=hd,
         with_tail=with_tail, with_mlp=with_mlp, beta=beta, v_thresh=v_thresh)
 

@@ -21,21 +21,25 @@ Tensor = torch.Tensor
 class KVView:
     """What a decode step attends over.  Dense: per-slot spike caches
     ``[T, B, H, L, hd]`` (unfused path, GQA-repeated) or ``[B, T, L, KV,
-    hd]`` (fused path), ``page_table`` ``None``.  Paged: page pools
-    ``[P, T, KV, page_len, hd]`` and ``page_table [B, MP]`` int32 (page 0
-    is the permanently zero null page)."""
+    hd]`` (fused path), ``page_table`` ``None``, and optionally ``pos
+    [B]`` int32, each slot's live length (its rows at and past it are
+    zero, so a kernel need not read them).  Paged: page pools ``[P, T, KV,
+    page_len, hd]`` and ``page_table [B, MP]`` int32 (page 0 is the
+    permanently zero null page)."""
 
     k: Tensor
     v: Tensor
     page_table: Optional[Tensor] = None
+    pos: Optional[Tensor] = None
 
     @property
     def paged(self) -> bool:
         return self.page_table is not None
 
     @classmethod
-    def dense(cls, k: Tensor, v: Tensor) -> "KVView":
-        return cls(k=k, v=v)
+    def dense(cls, k: Tensor, v: Tensor, pos: Optional[Tensor] = None
+              ) -> "KVView":
+        return cls(k=k, v=v, pos=pos)
 
     @classmethod
     def from_pool(cls, kpool: Tensor, vpool: Tensor, page_table: Tensor

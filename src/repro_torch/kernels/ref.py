@@ -15,10 +15,11 @@ reference's ``lax.scan`` does.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core.aimc import div_const
 
 Tensor = torch.Tensor
@@ -45,6 +46,20 @@ def lif_ref(currents: Tensor, *, beta: float = 0.5, v_thresh: float = 1.0
         out.append(s.to(torch.uint8))
         v = v * (1.0 - s)
     return torch.stack(out)
+
+
+def lif_counts_ref(counts: Tensor, scale: Tensor, bias: Optional[Tensor], *,
+                   beta: float = 0.5, v_thresh: float = 1.0) -> Tensor:
+    """A row-parallel linear's epilogue: integer-valued ``counts [T, M, N]``
+    times ``scale [N]``, plus ``bias [N]`` where given (two roundings, as
+    the reference's ``counts * scale`` then ``+ b``), then the LIF ->
+    uint8 ``[T, M, N]``.  K4's counts entry's plain version."""
+    pre = counts.to(torch.float32) * scale.to(torch.float32)
+    if bias is not None:
+        pre = pre + bias.to(torch.float32)
+    t = pre.shape[0]
+    return lif_ref(pre.reshape(t, -1), beta=beta,
+                   v_thresh=v_thresh).reshape(pre.shape)
 
 
 def aimc_spiking_linear_ref(spikes: Tensor, w_levels: Tensor, scale: Tensor,
@@ -143,6 +158,53 @@ def ssa_decode_ref(q: Tensor, k: Tensor, v: Tensor, rs: Tensor, ra: Tensor
     s = (counts_s > rs).to(torch.float64)
     counts_a = torch.matmul(s, v.to(torch.float64))
     return (counts_a > ra).to(torch.uint8)
+
+
+def draw_comparator_prns(key: Tensor, shape_s: Tuple[int, ...],
+                         shape_a: Tuple[int, ...], d: int, n: int
+                         ) -> Tuple[Tensor, Tensor]:
+    """``r_s ~ U{0..d-1}``, ``r_a ~ U{0..n-1}`` from one key (split in
+    two), vectorised over the key's leading axes."""
+    k = prng.split(key)
+    rs = prng.randint(k[..., 0, :], shape_s, 0, d)
+    ra = prng.randint(k[..., 1, :], shape_a, 0, n)
+    return rs, ra
+
+
+def draw_slot_decode_prns(slot_keys: Tensor, t: int, h: int, l: int, d: int,
+                          i_max: int, h0: Union[int, Tensor] = 0
+                          ) -> Tuple[Tensor, Tensor]:
+    """Per-(slot, global head) comparator integers for one decode step.
+
+    Each slot draws from its own key and each head from ``fold_in(slot_key,
+    h0 + head)``, so a stream is ``f(seed, pos, head)`` and never depends
+    on the other slots in the batch.  Returns ``rs [B,T*H,1,L]``, ``ra
+    [B,T*H,1,D]``, t-major over the ``T*H`` axis.  The keyed K2 draws the
+    same chain in registers (``csrc/threefry.cuh``)."""
+    b = slot_keys.shape[0]
+    heads = torch.as_tensor(h0, dtype=torch.int64, device=slot_keys.device) \
+        + torch.arange(h, dtype=torch.int64, device=slot_keys.device)
+    kh = prng.fold_in(slot_keys[:, None, :], heads[None, :])  # [B,H,2]
+    rs, ra = draw_comparator_prns(kh, (t, 1, l), (t, 1, d), d, i_max)
+    return (rs.movedim(1, 2).reshape(b, t * h, 1, l),
+            ra.movedim(1, 2).reshape(b, t * h, 1, d))
+
+
+def ssa_decode_keyed_ref(q: Tensor, k: Tensor, v: Tensor, slot_keys: Tensor,
+                         h0: Union[int, Tensor] = 0, *, i_max: int) -> Tensor:
+    """The SSA decode row with its draws: ``q [T,B,H,1,D]`` against
+    ``k``/``v [T,B,H,L,D]`` (zeros beyond each slot's position), the
+    comparators of :func:`draw_slot_decode_prns` from ``slot_keys [B, 2]``
+    -> uint8 ``[T,B,H,1,D]``.  The keyed K2's plain version."""
+    t, b, h, _, d = q.shape
+    l = k.shape[3]
+    rs, ra = draw_slot_decode_prns(slot_keys, t, h, l, d, i_max, h0)
+    g = b * t * h
+    out = ssa_decode_ref(q.movedim(1, 0).reshape(g, 1, d),
+                         k.movedim(1, 0).reshape(g, l, d),
+                         v.movedim(1, 0).reshape(g, l, d),
+                         rs.reshape(g, 1, l), ra.reshape(g, 1, d))
+    return out.reshape(b, t, h, 1, d).movedim(0, 1)
 
 
 def scatter_at_pos(cache: Tensor, pos: Tensor, rows: Tensor) -> None:

@@ -3,9 +3,14 @@ per (slot, t, head) over a dense cache (K2) or a block-paged pool (K7),
 and the full N x N SSA tile per (t, b, h) of a whole sequence (K8).
 
 Replace ``repro/kernels/ssa_attention.py:ssa_decode_kernel``,
-``ssa_decode_paged_kernel`` and ``ssa_attention_kernel``.  On a CPU tensor
-each wrapper runs its plain version
+``ssa_decode_paged_kernel`` and ``ssa_attention_kernel``.  K2 has two
+entries over one kernel body: :func:`ssa_decode_kernel` takes its
+comparator draws as tensors, :func:`ssa_decode_keyed_kernel` (the serving
+path's) draws them itself from the slot keys and reads the cache where the
+caller holds it, up to each slot's live length.  On a CPU tensor each
+wrapper runs its plain version
 (:func:`repro_torch.kernels.ref.ssa_decode_ref`,
+:func:`~repro_torch.kernels.ref.ssa_decode_keyed_ref`,
 :func:`~repro_torch.kernels.ref.ssa_decode_paged_ref`,
 :func:`~repro_torch.kernels.ref.ssa_attention_ref`); on a CUDA tensor it
 launches the kernel or raises.
@@ -15,10 +20,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Union
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import build as KB
 from repro_torch.kernels import ref as KREF
 
@@ -51,6 +57,47 @@ def ssa_decode_kernel(q: Tensor, k: Tensor, v: Tensor, rs: Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rs.data_ptr(),
         ra.data_ptr(), out.data_ptr(), g, l, d, KB.stream_ptr(q))
     KB.raise_on_error(err, "ssa_decode")
+    KB.LAUNCHES["ssa_decode"] += 1
+    return out
+
+
+def ssa_decode_keyed_kernel(q: Tensor, k: Tensor, v: Tensor,
+                            slot_keys: Tensor, pos: Optional[Tensor], *,
+                            h0: Union[int, Tensor] = 0, i_max: int) -> Tensor:
+    """The SSA decode row drawing its own comparators: ``q [T,B,H,1,D]``
+    uint8 (contiguous), ``k``/``v [T,B,H,L,D]`` uint8 with contiguous rows
+    and equal strides (a permuted cache: no copy), ``slot_keys [B, 2]``
+    int64 holding uint32 words, ``pos [B]`` int32 each slot's live length
+    (rows at and past it are zero and are not read) or ``None`` (all L) ->
+    uint8 ``[T,B,H,1,D]``.  Query row ``(b, t, h)`` draws from
+    ``fold_in(slot_keys[b], h0 + h)`` what
+    :func:`repro_torch.kernels.ref.draw_slot_decode_prns` draws, score
+    comparators in ``[0, D)`` and output comparators in ``[0, i_max)``."""
+    if not q.is_cuda:
+        return KREF.ssa_decode_keyed_ref(q, k, v, slot_keys, h0, i_max=i_max)
+    t, b, h, l, d = k.shape
+    KB.check_cuda(q, torch.uint8, (t, b, h, 1, d), "q")
+    for x, name in ((k, "k"), (v, "v")):
+        if not x.is_cuda or x.dtype != torch.uint8 or x.stride(4) != 1:
+            raise ValueError(f"ssa_decode_keyed: {name} must be uint8 on the "
+                             "card with contiguous rows")
+    if v.shape != k.shape or v.stride() != k.stride():
+        raise ValueError("ssa_decode_keyed: k and v differ in shape or "
+                         f"strides: {tuple(k.stride())}, {tuple(v.stride())}")
+    KB.check_cuda(slot_keys, torch.int64, (b, 2), "slot_keys")
+    if pos is not None:
+        KB.check_cuda(pos, torch.int32, (b,), "pos")
+    out = torch.empty((t, b, h, 1, d), dtype=torch.uint8, device=q.device)
+    if out.numel() == 0:
+        return out
+    st, sb, sh, sl, _ = k.stride()
+    err = _lib("launch_ssa_decode_keyed", [_P] * 6 + [_I] * 6 + [_L] * 4
+               + [_I] * 4 + [_P])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_keys.data_ptr(),
+        0 if pos is None else pos.data_ptr(), out.data_ptr(), b, t, h, l, d,
+        int(h0), st, sb, sh, sl, d, prng.randint_multiplier(d), i_max,
+        prng.randint_multiplier(i_max), KB.stream_ptr(q))
+    KB.raise_on_error(err, "ssa_decode_keyed")
     KB.LAUNCHES["ssa_decode"] += 1
     return out
 

@@ -323,7 +323,9 @@ def _spiking_attention_decode(params, s: Tensor, cache, cfg, slot_keys: Tensor,
     if kv != h:
         kf = kf.repeat_interleave(h // kv, dim=2)
         vf = vf.repeat_interleave(h // kv, dim=2)
-    return _attention_out(params, KVView.dense(kf, vf), q, lcap, s, cfg,
+    # rows at and past each slot's (advanced) pos are zero: a kernel may
+    # stop there
+    return _attention_out(params, KVView.dense(kf, vf, pos), q, lcap, s, cfg,
                           slot_keys, backend)
 
 

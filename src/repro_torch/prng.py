@@ -13,7 +13,8 @@ reference runs with: ``jax.config.jax_threefry_partitionable``):
   threefry(key, (0, i))``; ``random_bits(key, shape)[i] = y0 ^ y1`` of
   ``threefry(key, (i >> 32, i & 0xffffffff))`` over the flat index ``i``;
 * ``randint`` uses JAX's two-word method (a split key, higher and lower
-  words, a ``2**16 % span`` multiplier) for every span, power of two or not;
+  words, a ``2**16 % span`` multiplier squared in uint32) for every span,
+  power of two or not;
 * ``uniform`` keeps the top 23 bits as the mantissa of a float in [1, 2)
   and subtracts one, which is ``(bits >> 9) * 2**-23`` exactly, then maps
   [0, 1) onto ``[minval, maxval)`` as JAX does;
@@ -97,6 +98,13 @@ def random_bits(key: Tensor, shape: Tuple[int, ...]) -> Tensor:
     return (y0 ^ y1).reshape(*lead, *shape)
 
 
+def randint_multiplier(span: int) -> int:
+    """``randint``'s ``(2**16 % span)**2 % span``, the square wrapping at
+    32 bits as JAX's uint32 product does (0 for any span past 2**16)."""
+    m = 2 ** 16 % span
+    return (m * m & _M32) % span
+
+
 def randint(key: Tensor, shape: Tuple[int, ...], minval: int, maxval: int
             ) -> Tensor:
     """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``."""
@@ -104,7 +112,7 @@ def randint(key: Tensor, shape: Tuple[int, ...], minval: int, maxval: int
     higher = random_bits(k[..., 0, :], shape)
     lower = random_bits(k[..., 1, :], shape)
     span = (maxval - minval) & _M32 if maxval > minval else 1
-    multiplier = (2 ** 16 % span) ** 2 % span
+    multiplier = randint_multiplier(span)
     offset = (((higher % span) * multiplier) & _M32) + lower % span
     offset = (offset & _M32) % span
     return (offset + minval).to(torch.int32)

@@ -110,6 +110,156 @@ def test_ssa_decode_kernel(cuda, g, l, d):
     _eq(got, want)
 
 
+KEYED_CASES = {
+    # name: (t, b, h, l, d, h0, i_max, pos or None): the dense prefill row
+    # of xpikeformer-gpt-4-256, three slots of distinct live lengths, a
+    # rank's head offset, no pos (every row read), ragged widths
+    "prefill": (4, 1, 4, 256, 64, 0, 256, [20]),
+    "b3": (4, 3, 4, 256, 64, 0, 256, [0, 131, 256]),
+    "h0": (4, 3, 2, 256, 64, 2, 256, [7, 256, 64]),
+    "no_pos": (4, 2, 4, 256, 64, 1, 256, None),
+    "ragged": (3, 3, 3, 33, 40, 3, 20, [1, 33, 20]),
+}
+
+
+def keyed_inputs(rng, t, b, h, l, d, pos):
+    """``q``, the cache as the serving path holds it (``[B,T,L,H,D]``,
+    rows at and past each slot's ``pos`` zero) and distinct slot keys."""
+    q = _t(rng.integers(0, 2, (t, b, h, 1, d)).astype(np.uint8))
+    sk = (rng.random((b, t, l, h, d)) < 0.5).astype(np.uint8)
+    sv = (rng.random((b, t, l, h, d)) < 0.5).astype(np.uint8)
+    for i, p in enumerate(pos or []):
+        sk[i, :, p:] = 0
+        sv[i, :, p:] = 0
+    keys = prng.key_from_seeds(_t(rng.integers(0, 2 ** 32, b, dtype=np.uint64)
+                                  .astype(np.int64)))
+    return q, _t(sk), _t(sv), keys
+
+
+@pytest.mark.parametrize("case", sorted(KEYED_CASES))
+def test_keyed_decode_row_kernel(cuda, case):
+    """The K2 that draws its own comparators, over the permuted cache view
+    (no copy) and each slot's ``pos``, equals its plain version (the
+    threefry twin's draws, then ``ssa_decode_ref`` over every row); with
+    garbage in the rows past ``pos`` it still does (it never reads
+    them)."""
+    t, b, h, l, d, h0, i_max, pos = KEYED_CASES[case]
+    rng = np.random.default_rng(l + b + h0)
+    q, sk, sv, keys = keyed_inputs(rng, t, b, h, l, d, pos)
+    view = lambda x: x.permute(1, 0, 3, 2, 4)  # noqa: E731
+    want = KREF.ssa_decode_keyed_ref(q, view(sk), view(sv), keys, h0,
+                                     i_max=i_max)
+    tpos = None if pos is None else _t(np.int32(pos)).to(cuda)
+    n = KB.LAUNCHES["ssa_decode"]
+    got = KS.ssa_decode_keyed_kernel(
+        q.to(cuda), view(sk.to(cuda)), view(sv.to(cuda)), keys.to(cuda), tpos,
+        h0=h0, i_max=i_max)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["ssa_decode"] == n + 1
+    _eq(got, want)
+    assert 0 < int(want.sum()) < want.numel()
+    if pos is not None:
+        gk, gv = sk.clone(), sv.clone()
+        for i, p in enumerate(pos):
+            gk[i, :, p:] = 1
+            gv[i, :, p:] = 1
+        _eq(KS.ssa_decode_keyed_kernel(
+            q.to(cuda), view(gk.to(cuda)), view(gv.to(cuda)), keys.to(cuda),
+            tpos, h0=h0, i_max=i_max), want)
+
+
+def dispatched_ops(fn):
+    """``fn()`` and the names of the PyTorch ops it dispatched (a ctypes
+    launch dispatches none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as ops:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, ops.seen
+
+
+def test_keyed_decode_row_dispatches_no_torch_op(cuda):
+    """On the card the serving path's decode row (``CudaBackend.
+    decode_attention`` over the dense view) is the one K2 launch: no
+    threefry-twin op, no copy of the cache, nothing but the output's
+    allocation reaches PyTorch's dispatcher."""
+    from repro_torch.kernels.plan import AttnSpec, KVView
+
+    t, b, h, l, d, h0, i_max, pos = KEYED_CASES["b3"]
+    q, sk, sv, keys = keyed_inputs(np.random.default_rng(3), t, b, h, l, d,
+                                   pos)
+    q, sk, sv, keys = (x.to(cuda) for x in (q, sk, sv, keys))
+    view = KVView.dense(sk.permute(1, 0, 3, 2, 4), sv.permute(1, 0, 3, 2, 4),
+                        _t(np.int32(pos)).to(cuda))
+    got, seen = dispatched_ops(lambda: CudaBackend().decode_attention(
+        view, q, AttnSpec(i_max, h0), slot_keys=keys))
+    assert [f for f in seen if not f.startswith("aten.empty")] == []
+    _eq(got, KREF.ssa_decode_keyed_ref(q, view.k, view.v, keys, h0,
+                                       i_max=i_max))
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_row_parallel_epilogue_is_one_launch(cuda, bias):
+    """A row-parallel spiking linear on the card (a one-process stand-in
+    for the model group, whose ``all_reduce`` of whole rows is the
+    identity) is K5 then one K4 launch: beside those, only the outputs'
+    allocations and views reach the dispatcher (no ``* scale``, no ``+
+    b``); the spikes are the single-device linear's."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.backend import ShardedBackend
+
+    cfg = reduced_config("xpikeformer-gpt-4-256")
+    mesh = SimpleNamespace(model=2, model_index=0,
+                           all_reduce_model=lambda x: x)
+    be = ShardedBackend(CudaBackend(), mesh, cfg)
+    rng = np.random.default_rng(7 + bias)
+    lv, sc, bi = _triple(rng, 64, 48, bias=bias)
+    p = {"levels": lv.to(cuda), "scale": sc.to(cuda),
+         "b": None if bi is None else bi.to(cuda)}
+    x = _t(rng.integers(0, 2, (4, 3, 1, 64)).astype(np.float32))
+    xc = x.to(cuda)
+    be.spiking_linear(p, xc, part="row")  # K5's scratch is allocated once
+    n = (KB.LAUNCHES["aimc_matmul_counts"], KB.LAUNCHES["lif"])
+    got, seen = dispatched_ops(lambda: be.spiking_linear(p, xc, part="row"))
+    assert (KB.LAUNCHES["aimc_matmul_counts"], KB.LAUNCHES["lif"]) == (
+        n[0] + 1, n[1] + 1)
+    assert [f for f in seen
+            if not f.startswith(("aten.empty", "aten.view"))] == []
+    want = KREF.aimc_spiking_linear_ref(x.reshape(4, 3, 64), lv, sc, bi)
+    _eq(got, want.reshape(4, 3, 1, 48))
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("shape", [(4, 4, 256), (4, 1, 256), (3, 5, 1001)])
+def test_lif_counts_kernel(cuda, shape, bias):
+    """The row-parallel epilogue in one K4 launch (``counts * scale``, ``+
+    bias``, LIF) equals its plain version; dyadic scales and biases put
+    membranes on the threshold; a ragged width takes one column a
+    thread."""
+    t, m, n = shape
+    rng = np.random.default_rng(n + bias)
+    counts = _t(rng.integers(-40, 41, shape).astype(np.float32))
+    scale = _t((rng.integers(1, 4, n) / 32.0).astype(np.float32))
+    b = _t((rng.integers(-4, 9, n) / 8.0).astype(np.float32)) if bias else None
+    want = KREF.lif_counts_ref(counts, scale, b)
+    k = KB.LAUNCHES["lif"]
+    got = KL.lif_counts_kernel(counts.to(cuda), scale.to(cuda),
+                               None if b is None else b.to(cuda))
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["lif"] == k + 1
+    _eq(got, want)
+    assert 0 < int(want.sum()) < want.numel()
+
+
 LAYER_CASES = {
     # name: (t, b, d, h, kv, hd, l, dff, pos, with_tail, with_mlp)
     "main_path": (4, 8, 256, 4, 4, 64, 256, 1024,
@@ -442,9 +592,11 @@ def test_ssa_attention_kernel_past_the_old_limits(cuda, g, n, d, causal,
 
 
 @pytest.mark.parametrize("t,m,beta", [(4, 100_003, 0.5), (3, 257, 0.25),
-                                      (8, 4096, 0.75)])
+                                      (8, 4096, 0.75),
+                                      (4, 64 * 64 * 1536, 0.5)])
 def test_lif_kernel(cuda, t, m, beta):
-    """Dyadic currents put membranes exactly on the threshold."""
+    """Dyadic currents put membranes exactly on the threshold; the last
+    case is the paper ViT's widest pre-activation (B = 64)."""
     rng = np.random.default_rng(m)
     cur = _t((rng.integers(-4, 12, (t, m)) / 8.0).astype(np.float32))
     want = KREF.lif_ref(cur, beta=beta)

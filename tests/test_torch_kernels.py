@@ -211,6 +211,74 @@ def test_backend_decode_attention_matches_integer(backend):
     _eq(got, want)
 
 
+KEYED_CASES = {
+    # name: (t, b, h, l, d, h0, i_max, pos): each slot's live length pos[b]
+    # (its cache rows at and past it are zero)
+    "prefill": (4, 1, 4, 256, 64, 0, 256, [37]),
+    "slots": (2, 3, 2, 40, 16, 0, 40, [0, 17, 40]),
+    "h0": (2, 2, 2, 24, 16, 2, 24, [5, 24]),
+    "i_max": (3, 2, 2, 32, 32, 1, 20, [10, 31]),
+    "ragged": (2, 3, 3, 33, 40, 3, 33, [1, 33, 20]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KEYED_CASES))
+def test_keyed_decode_row_matches_pallas_interpret(case):
+    """The SSA decode row that draws its own comparators, on the CPU (its
+    plain version: the threefry twin, then ``ssa_decode_ref``), fed the
+    cache as the serving path holds it (a permuted ``[B,T,L,H,D]`` view)
+    with each slot's ``pos``: equal to the reference wrapper running the
+    Pallas kernel in interpret mode, over distinct slot keys, ``h0 != 0``,
+    ``i_max != L`` and widths that are not multiples of 32."""
+    t, b, h, l, d, h0, i_max, pos = KEYED_CASES[case]
+    rng = np.random.default_rng(l * d + b)
+    q = rng.integers(0, 2, (t, b, h, 1, d)).astype(np.uint8)
+    sk = (rng.random((b, t, l, h, d)) < 0.5).astype(np.uint8)
+    sv = (rng.random((b, t, l, h, d)) < 0.5).astype(np.uint8)
+    for i, p in enumerate(pos):
+        sk[i, :, p:] = 0
+        sv[i, :, p:] = 0
+    k, v = (x.transpose(1, 0, 3, 2, 4) for x in (sk, sv))
+    seeds = np.random.default_rng(b + h0).integers(0, 2 ** 32, b,
+                                                   dtype=np.uint64)
+    keys = jax.vmap(jax.random.PRNGKey)(jnp.asarray(seeds.astype(np.uint32)))
+    want = JKOPS.ssa_attention_decode_packed(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), keys, h0,
+        i_max=i_max, interpret=True)
+    tkeys = _t(np.asarray(keys).astype(np.int64))
+    kf, vf = (_t(x).permute(1, 0, 3, 2, 4) for x in (sk, sv))
+    got = KOPS.ssa_attention_decode_packed(
+        _t(q), kf, vf, tkeys, h0, i_max=i_max, pos=_t(np.int32(pos)))
+    _eq(got, want)
+    assert int(got.sum()) > 0
+    _eq(KREF.ssa_decode_keyed_ref(_t(q), kf, vf, tkeys, h0, i_max=i_max),
+        want)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("shape", [(4, 4, 256), (4, 1, 256), (3, 5, 33)])
+def test_lif_counts_plain_exact(shape, bias):
+    """The row-parallel epilogue's plain version (``counts * scale``, ``+
+    bias``, LIF) and its wrappers on the CPU == the reference's
+    ``lif_ref(counts * scale + b)``; dyadic scales and biases put
+    membranes exactly on the threshold."""
+    t, m, n = shape
+    rng = np.random.default_rng(sum(shape) + bias)
+    counts = rng.integers(-40, 41, shape).astype(np.float32)
+    scale = (rng.integers(1, 4, n) / 32.0).astype(np.float32)
+    b = (rng.integers(-4, 9, n) / 8.0).astype(np.float32) if bias else None
+    pre = jnp.asarray(counts) * jnp.asarray(scale)
+    if bias:
+        pre = pre + jnp.asarray(b)
+    assert bool(jnp.any(pre[0] == 1.0))  # membranes on the threshold
+    want = np.asarray(JREF.lif_ref(pre.reshape(t, -1))).reshape(shape)
+    args = (_t(counts), _t(scale), None if b is None else _t(b))
+    _eq(KREF.lif_counts_ref(*args), want)
+    _eq(KOPS.lif_counts_fused(*args), want)
+    for name in ("integer", "cuda"):
+        _eq(E.get_backend(name).counts_lif(*args), want)
+
+
 # ---------------------------------------------------------------------------
 # K3: fused decoder layer
 # ---------------------------------------------------------------------------

@@ -284,6 +284,7 @@ def mesh22(setup, programmed):
            for k, v in _layer_ops(tparams, tcfg).items()}
     inputs = _layer_inputs(tcfg)
     inputs.pop("pos_paged")
+    inputs["wo_bias"] = _wo_bias(tcfg)
     pol = AD.DriftPolicy(600.0, recal_interval_s=2400.0, cfg=tacfg)
     named = {
         "layer_integer": dict(kind="layer", cfg=tcfg, backend="integer",
@@ -352,6 +353,35 @@ def test_mesh_linears_equal_jax_sharded_backend(setup, jax_linears, mesh22,
         _eq(single, ref, f"{name}: port single vs JAX")
         for rank, r in enumerate(mesh22[f"layer_{backend}"]):
             _eq(r[name], ref, f"{name} rank {rank}")
+
+
+def _wo_bias(tcfg):
+    """A dyadic bias for the attention-out linear (the LM stack's has
+    none), which puts membranes on the threshold."""
+    rng = np.random.default_rng(8)
+    return (rng.integers(-4, 9, tcfg.d_model) / 8.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("backend", ["integer", "cuda"])
+def test_mesh_row_epilogue_with_bias_equals_jax(setup, mesh22, backend):
+    """The row-parallel epilogue with a bias -- the model group's summed
+    counts through the backend's ``counts_lif`` (``* scale``, ``+ b``,
+    LIF: one K4 launch on the card) -- on the (2, 2) mesh == JAX's
+    ``ShardedBackend`` on the host mesh == the port's single device, on
+    every rank."""
+    cfg, tcfg, jparams, tparams = setup
+    jsb = JShardedBackend(JIntegerBackend(), make_serving_mesh((2, 2)), cfg)
+    blk = jax.tree.map(lambda a: a[0], jparams["periods"]["blk0"])
+    bias = _wo_bias(tcfg)
+    rows = _layer_inputs(tcfg)["x_rows"]
+    ref = np.asarray(jsb.spiking_linear(
+        None, {"w": blk["mixer"]["wo"].reshape(-1, cfg.d_model),
+               "b": jnp.asarray(bias)}, jnp.asarray(rows), part="row"))
+    wo = dict(_layer_ops(tparams, tcfg)["wo"], b=torch.from_numpy(bias))
+    _eq(get_backend(backend).spiking_linear(wo, torch.from_numpy(rows)), ref,
+        "port single vs JAX")
+    for rank, r in enumerate(mesh22[f"layer_{backend}"]):
+        _eq(r["row_wo_b"], ref, f"row_wo_b rank {rank}")
 
 
 @pytest.mark.parametrize("backend", ["integer", "cuda"])

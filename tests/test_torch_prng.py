@@ -83,9 +83,11 @@ def test_random_bits(shape):
     assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
 
 
-@pytest.mark.parametrize("span", [16, 24, 64, 256, 257])
+@pytest.mark.parametrize("span", [16, 24, 64, 256, 257, 65536, 65537,
+                                  100_000, 2 ** 31 - 1])
 def test_randint(span):
-    """JAX's two-word method for every span, power of two or not."""
+    """JAX's two-word method for every span, power of two or not, past
+    2**16 too (where the multiplier's square wraps at 32 bits)."""
     for s in _fuzzed_seeds(span, 2):
         key = jax.random.PRNGKey(int(s))
         want = jax.random.randint(key, (4, 50), 0, span, dtype=jnp.int32)

@@ -300,31 +300,37 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def test_kernel_operands_on_the_serving_path(setup, monkeypatch):
-    """Every tensor the serving path hands a kernel wrapper is contiguous
-    and of the kernel's dtype -- what the CUDA branch checks and raises on,
-    rehearsed here through the plain versions."""
+    """Every tensor the serving path hands a kernel wrapper is of the
+    kernel's dtype and contiguous -- or, for the keyed decode row's cache
+    view, has contiguous rows and the same strides for K and V -- what
+    the CUDA branch checks and raises on, rehearsed here through the plain
+    versions."""
     from repro_torch.kernels import aimc_matmul as KA
     from repro_torch.kernels import decode_fused as KFD
     from repro_torch.kernels import ssa_attention as KS
 
     seen = []
 
-    def checked(fn, dtypes):
+    def checked(fn, dtypes, strided=()):
         def run(*args, **kw):
-            for a, dt in zip(args, dtypes):
+            for i, (a, dt) in enumerate(zip(args, dtypes)):
                 for x in (a if isinstance(a, tuple) else (a,)):
                     if isinstance(x, torch.Tensor):
-                        assert x.is_contiguous(), fn.__name__
+                        assert (x.stride(-1) == 1 if i in strided
+                                else x.is_contiguous()), fn.__name__
                         assert dt is None or x.dtype == dt, (fn.__name__, x.dtype)
+            if strided:
+                assert args[strided[0]].stride() == args[strided[1]].stride()
             seen.append(fn.__name__)
             return fn(*args, **kw)
         return run
 
     f32, u8, i32, i8 = torch.float32, torch.uint8, torch.int32, torch.int8
+    i64 = torch.int64
     monkeypatch.setattr(KA, "aimc_spiking_linear_kernel", checked(
         KA.aimc_spiking_linear_kernel, (f32, i8, f32, f32)))
-    monkeypatch.setattr(KS, "ssa_decode_kernel", checked(
-        KS.ssa_decode_kernel, (u8, u8, u8, i32, i32)))
+    monkeypatch.setattr(KS, "ssa_decode_keyed_kernel", checked(
+        KS.ssa_decode_keyed_kernel, (u8, u8, u8, i64, i32), strided=(1, 2)))
     monkeypatch.setattr(KFD, "fused_decode_layer_kernel", checked(
         KFD.fused_decode_layer_kernel,
         (f32, u8, u8, None, None, None, None, None, None, None, i32, i32)))
@@ -341,7 +347,7 @@ def test_kernel_operands_on_the_serving_path(setup, monkeypatch):
         sch.submit([1, 2, 3], 2, seed=1)
         sch.submit([1, 2, 3, 4, 5, 6, 7, 8, 9, 10], 2, seed=2)
         sch.run()
-    assert {"aimc_spiking_linear_kernel", "ssa_decode_kernel",
+    assert {"aimc_spiking_linear_kernel", "ssa_decode_keyed_kernel",
             "fused_decode_layer_kernel", "ssa_decode_paged_kernel",
             "fused_decode_layer_paged_kernel"} <= set(seen)
 

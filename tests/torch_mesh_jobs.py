@@ -65,7 +65,8 @@ def layer_job(mesh, job):
     ``s [T,B,d]``, ``x_rows [T,B,H*hd]``, ``q [T,B,H,1,hd]``, ``k``/``v
     [T,B,H,L,hd]``, ``slot_keys [B,2]``, ``sk``/``sv [B,T,L,KV,hd]``,
     ``pos [B]``, ``kpool``/``vpool [P,T,KV,page_len,hd]``, ``table
-    [B,MP]``, ``write_pids [B]``.  Returns whole numpy outputs."""
+    [B,MP]``, ``write_pids [B]``, and optionally ``wo_bias [d]`` (the
+    row-parallel wo again with that bias).  Returns whole numpy outputs."""
     cfg, dev = job["cfg"], mesh.device
     hd = cfg.resolved_head_dim
     inner = get_backend(job["backend"])
@@ -89,6 +90,9 @@ def layer_job(mesh, job):
             be.spiking_linear(w[name], t["s"], part="col"), -1)
     rows = _cut(mesh, t["x_rows"], -1) if mesh.model > 1 else t["x_rows"]
     out["row_wo"] = be.spiking_linear(w["wo"], rows, part="row")
+    if "wo_bias" in t:  # the row-parallel epilogue with a bias
+        out["row_wo_b"] = be.spiking_linear(dict(w["wo"], b=t["wo_bias"]),
+                                            rows, part="row")
     i_max = t["k"].shape[3]
     heads = (lambda x: _cut(mesh, x, 2)) if mesh.model > 1 else (lambda x: x)
     out["attn_dense"] = gather(be.decode_attention(
