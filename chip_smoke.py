@@ -34,9 +34,15 @@ Phases, each printing one JSON line:
    took), the wrapper's host microseconds a call and the bare ``ctypes``
    launch's;
    their bound counts only what these inputs need (cached key rows below
-   ``pos``, the value rows whose score spiked); so does the keyed K2's,
-   which reads no draws, and its row carries the profiler's device time,
-   the wrapper's host microseconds and the bare launch's, as K4's rows do.
+   ``pos``, the value rows whose score spiked); so do the keyed K2's and
+   K7's, which read no draws, and their rows carry the profiler's device
+   time, the wrapper's host microseconds and the bare launch's, as K4's
+   rows do.  K7 twice too: its keyed entry (the unfused paged path's: draws
+   in the kernel, q and out in the caller's layout, scores up to each
+   slot's write position) at the paged decode shape, at pos 0, mid-page,
+   ``L - 1``, ``L`` and past it, GQA with ``page_len=5`` and a head
+   offset, and without ``pos``; its given-draws entry at the paged shape
+   and the padding edge.
 3. **serve** -- the full-width ``xpikeformer-gpt-4-256`` (random weights
    from a seed) served by ``BatchScheduler(slots=8, cache_len=256)``: 16
    requests, prompts of 8-32 tokens, 32 new tokens each, submitted in
@@ -55,7 +61,8 @@ Phases, each printing one JSON line:
    copy on write; the tokens must equal the dense port's and the plain
    backend's paged tokens.  A paged run under the unfused plan on four of
    the requests must launch K7 once per layer and step and give the same
-   tokens.
+   tokens, and three profiled steps of 8 busy slots on that plan fewer
+   than 2,000 kernels a step (the keyed K7 draws on the card).
 5. **paper forward** -- the paper's spiking ViT ``xpikeformer-vit-4-384``
    on a batch of 64 images of the ``synthetic_images`` twin, and its
    spiking GPT ``xpikeformer-gpt-4-256`` on 64 ICL sequences of 37 tokens
@@ -73,8 +80,9 @@ Phases, each printing one JSON line:
    recal_interval_s=3600)``, the settings of ``launch/serve.py --program
    --drift-step 60 --recal-every 3600``: the clock must read 60 s a decode
    step, GDC must run at least once, every request must book energy, K6
-   must launch once per programmed leaf per image fold (twice per
-   recalibration), and the plain versions on the card, from the same
+   must launch once per image fold and twice per recalibration (every
+   leaf in one launch; once a leaf at programming), and the plain
+   versions on the card, from the same
    programmed state, must serve the same tokens with the same clock,
    folds, recalibrations and energy.  (b) the paper ViT-4-384 at batch 64,
    programmed, forward at t = 0, 1 h, 1 day, 30 days and 1 year without
@@ -123,9 +131,12 @@ and its currents entry there and at the ViT's ``[4, 64*64*1536]`` (each
 row with the profiler's device time, the wrapper's host microseconds and
 the bare launch's), K1 at the ViT's rows
 (``M = 4,096``, and ``M = 65,536``), and K6
-``drift_requantize`` at the ViT's ``w1`` leaf ``[384, 1536]``, the LM
-stack's stacked ``mlp.wi`` leaf ``[4, 256, 1024]`` and ``[300, 17]``, at
-t = 0, t < t0, 1 h and 1 year, image gains 1 and 7.
+``drift_requantize`` (grouped: a tree's leaves in one launch) at the
+ViT's ``w1`` leaf ``[384, 1536]``, the LM stack's stacked ``mlp.wi`` leaf
+``[4, 256, 1024]`` and ``[300, 17]``, at t = 0, t < t0, 1 h and 1 year,
+image gains 1 and 7, and over trees of 1, 6, 26 and 40 leaves (unaligned
+rows, t = 0, the calibration read), its row timed at one ``[384, 1536]``
+leaf with L2 flushed between launches (``device_ms``) and L2-warm.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
@@ -142,9 +153,11 @@ and of the bare ``ctypes`` launch (1,000 calls each).
 compares another tree of the port (unpacked with ``git archive``) with this
 one instead: each tree's windows (:func:`phase_windows`: K1/K5, K3/K9 at
 the decode shapes, the serve windows with the dense prefill's time and
-kernels a position, and the forward windows) run in a process of its
-own, parent, change, change, parent, and the trees must serve the same
-tokens, give the same logits and the same K3/K9 outputs.
+kernels a position, the unfused paged serve window, the forward windows,
+the whole-tree drift folds of the LM stack and the ViT, and the
+programmed paged serve) run in a process of its own, parent, change,
+change, parent, and the trees must serve the same tokens, give the same
+logits, K3/K9 outputs and folded images, and run the same lifecycle.
 """
 
 from __future__ import annotations
@@ -404,6 +417,83 @@ def keyed_bound(args, got, h0: int, i_max: int):
     return bound(n_bytes, ops, FP32_OPS_PER_S)
 
 
+def paged_keyed_inputs(gen, dev, *, b, t, h, kv, d, pl, mp, pos, idle):
+    """The keyed K7's operands as the unfused paged path passes them: ``q
+    [T,B,H,1,D]``, the pools after the step's scatter (each active slot's
+    rows up to and including its write position live, later ones zero),
+    the table, distinct slot keys and the write positions (or ``None``)."""
+    from repro_torch import prng
+
+    table, _, kp, vp = paged_inputs(
+        gen, b=b, t=t, kv=kv, hd=d, pl=pl, mp=mp,
+        pos=[mp * pl] * b if pos is None else [min(p + 1, mp * pl)
+                                                for p in pos], idle=idle)
+    q = spikes(gen, (t, b, h, 1, d), 0.5, dev)
+    keys = prng.key_from_seeds(torch.randint(0, 2 ** 32, (b,), generator=gen))
+    tpos = None if pos is None else torch.tensor(pos, dtype=torch.int32).to(dev)
+    return (q, kp.to(dev), vp.to(dev), table.to(dev), keys.to(dev), tpos)
+
+
+def bare_paged_keyed(args, out, h0: int, i_max: int):
+    """The keyed K7's ``ctypes`` launcher with every argument ready."""
+    from repro_torch import prng
+    from repro_torch.kernels import build as KB
+
+    q, kp, vp, table, keys, pos = args
+    t, b, h, _, d = q.shape
+    a = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+         keys.data_ptr(), 0 if pos is None else pos.data_ptr(),
+         out.data_ptr(), b, t, h, kp.shape[2], kp.shape[3], table.shape[1],
+         d, h0, d, prng.randint_multiplier(d), i_max,
+         prng.randint_multiplier(i_max), KB.stream_ptr(q))
+    fn = getattr(KB.load("ssa_attention"), "launch_ssa_decode_paged_keyed")
+    return lambda: fn(*a)
+
+
+def paged_keyed_bound(args, got, h0: int, i_max: int):
+    """The least time of one keyed K7 launch on these inputs: ``q``, the
+    table, the slot keys, ``pos`` and the output once; each distinct live
+    key row (rows up to each slot's write position, not in a null page; a
+    page two slots share once; a KV head's row once for its query-head
+    group); the distinct value rows whose score spiked for some query
+    head; no draw is read.  Operations as :func:`keyed_bound` counts them,
+    at the card's f32 rate.  Returns :func:`bound`'s tuple."""
+    from repro_torch.kernels import ref as KREF
+
+    q, kp, vp, table, keys, pos = args
+    t, b, h, _, d = q.shape
+    kv, pl, mp = kp.shape[2], kp.shape[3], table.shape[1]
+    l = mp * pl
+    rs, _ = KREF.draw_slot_decode_prns(keys, t, h, l, d, i_max, h0)
+    rs = rs.reshape(b, t, h, l).permute(1, 0, 2, 3)  # [T, B, H, L]
+    j = torch.arange(l, device=q.device)
+    page = table.long()[:, j // pl]  # [B, L]
+    n = (torch.full((b,), l, device=q.device) if pos is None
+         else torch.where(pos.long() >= l, l, (pos.long() + 1).clamp(min=0)))
+    live = (j[None, :] < n[:, None]) & (page != 0)  # [B, L]
+    phys = page * pl + j % pl
+    kview = KREF.gather_kv_pages_ref(kp, table)  # [T, B, KV, L, D]
+    kq = kview.repeat_interleave(h // kv, dim=2)
+    cnt = (q & kq).sum(-1, dtype=torch.int32)  # [T, B, H, L]
+    spike = (cnt > rs) & live[None, :, None, :]
+    vrows = spike.reshape(t, b, kv, h // kv, l).any(3)  # [T, B, KV, L]
+
+    def distinct(mask):  # (t, kv head, physical row) triples under mask
+        idx = torch.stack(torch.broadcast_tensors(
+            torch.arange(t, device=q.device)[:, None, None, None],
+            torch.arange(kv, device=q.device)[None, None, :, None],
+            phys[None, :, None, :]), -1)
+        return int(torch.unique(idx[mask], dim=0).shape[0])
+
+    k_rows = distinct(live[None, :, None, :].expand(t, b, kv, l))
+    v_rows = distinct(vrows)
+    n_live = t * h * int(live.sum())
+    n_bytes = nbytes(q, table, keys, pos, got) + d * (k_rows + v_rows)
+    ops = (2 * d * (n_live + int(spike.sum()))
+           + DRAW_OPS * (n_live + t * b * h * d))
+    return bound(n_bytes, ops, FP32_OPS_PER_S)
+
+
 def bare_lif_counts(counts, scale, bias, out):
     """K4's counts entry's ``ctypes`` launcher with every argument ready."""
     from repro_torch.kernels import build as KB
@@ -525,14 +615,57 @@ def spikes(gen, shape, p, dev):
     return (torch.rand(shape, generator=gen) < p).to(torch.uint8).to(dev)
 
 
-def drift_inputs(gen, shape, dev):
-    """Programmed-state operands as ``program`` draws them: integer levels
-    in [-15, 15], ``eps ~ 0.45 N(0, 1)``, ``nu ~ max(0.06 + 0.02 N(0, 1),
-    0)``."""
-    lv = torch.randint(-15, 16, shape, generator=gen).float()
-    eps = 0.45 * torch.randn(shape, generator=gen)
-    nu = torch.clamp_min(0.06 + 0.02 * torch.randn(shape, generator=gen), 0)
-    return lv.to(dev), eps.to(dev), nu.to(dev)
+# leaf shapes of the grouped K6: the ViT's widest, the LM stack's stacked
+# mlp.wi, ragged widths (rows past the first not 16-byte aligned), 2-D
+FOLD_SHAPES = ((384, 1536), (4, 256, 1024), (300, 17), (3, 70, 40),
+               (2, 17, 33), (64, 32), (129, 7))
+
+
+def fold_leaf(gen, shape, dev, *, offset=0, gains=(7.0,), times=(3600.0,)):
+    """One programmed leaf's K6 operands as ``program`` draws them --
+    integer levels in [-15, 15], ``eps ~ 0.45 N(0, 1)``, ``nu ~ max(0.06 +
+    0.02 N(0, 1), 0)`` -- ``offset`` elements into their allocations
+    (``offset % 4 != 0``: rows unaligned), with a time and ``1 / gain`` per
+    matrix cycling through ``times`` and ``gains``."""
+    from repro_torch.kernels import drift_requantize as KD
+
+    def put(x):
+        buf = torch.empty(x.numel() + offset, dtype=torch.float32, device=dev)
+        buf[offset:] = x.reshape(-1).to(dev)
+        return buf[offset:].view(shape)
+
+    lead = shape[:-2]
+    m = math.prod(lead)
+    tt = torch.tensor([times[i % len(times)] for i in range(m)],
+                      dtype=torch.float32).reshape(lead)
+    inv = torch.tensor([1.0 / gains[i % len(gains)] for i in range(m)],
+                       dtype=torch.float32).reshape(lead)
+    return KD.FoldLeaf(
+        put(torch.randint(-15, 16, shape, generator=gen).float()),
+        put(0.45 * torch.randn(shape, generator=gen)),
+        put(torch.clamp_min(0.06 + 0.02 * torch.randn(shape, generator=gen),
+                            0)), tt.to(dev), inv.to(dev))
+
+
+def bare_fold(leaves, outs):
+    """The grouped K6's ``ctypes`` launcher with its descriptors ready:
+    what a fold costs the host without the wrapper's checks, descriptors
+    and allocations (``outs`` one image a leaf)."""
+    import ctypes
+
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels import drift_requantize as KD
+
+    descs = (KD._Leaf * len(leaves))()
+    for d, leaf, o in zip(descs, leaves, outs):
+        d.levels, d.eps, d.nu = (x.data_ptr() for x in leaf[:3])
+        d.t_sec = 0 if leaf.t_seconds is None else leaf.t_seconds.data_ptr()
+        d.img_inv, d.out, d.sums = leaf.img_inv.data_ptr(), o.data_ptr(), 0
+        d.n = leaf.levels.shape[-2] * leaf.levels.shape[-1]
+        d.n_mat = math.prod(leaf.levels.shape[:-2])
+    fn, ptr = KD._lib(), ctypes.addressof(descs)
+    stream = KB.stream_ptr(leaves[0].levels)
+    return lambda keep=descs: fn(ptr, len(leaves), T0, stream)
 
 
 def layer_inputs(gen, dev, *, t, b, d, h, kv, hd, l, dff, pos):
@@ -603,6 +736,7 @@ def paged_reads(table, pl: int):
 
 def phase_kernels(dev):
     from repro_torch.kernels import aimc_matmul as KA
+    from repro_torch.kernels import build as KB
     from repro_torch.kernels import decode_fused as KFD
     from repro_torch.kernels import ref as KREF
     from repro_torch.kernels import ssa_attention as KS
@@ -724,8 +858,9 @@ def phase_kernels(dev):
         bare_launch_host_us=host_us(bare_layer(head, ws, draws, 64, False)),
         bound=layer_bound(head, ws, draws, got, 64, False))
 
-    # K7 at the unfused paged decode shape and the padding/GQA edge (its
-    # pools hold each slot's rows up to and including pos: post-scatter)
+    # K7 with given draws (the tests' fuzz surface) at the unfused paged
+    # decode shape and the padding/GQA edge (its pools hold each slot's rows
+    # up to and including pos: post-scatter); every row read
     k7 = {}
     for name, c in {
             "main": dict(b=8, t=4, h=4, kv=4, d=64, pl=8, mp=32,
@@ -755,12 +890,50 @@ def phase_kernels(dev):
     t, h, kv, d, pl = (c[k] for k in ("t", "h", "kv", "d", "pl"))
     n_bytes = (nbytes(args[0], args[3], args[5], got)
                + 4 * t * h * sum(rows) + 2 * pages * t * kv * pl * d)
-    results["ssa_decode_paged"] = dict(
-        shape="B=8 x T=4 x H=4, page_len=8, 32 table columns, hd=64 "
-              "(unfused paged decode)",
+    results["ssa_decode_paged_given_draws"] = dict(
+        shape="B=8 x T=4 x H=4, page_len=8, 32 table columns, hd=64, draws "
+              "given, every row read",
         max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k7.values()),
         ms=time_ms(run), plain_ms=time_ms(plain),
+        device_ms=device_ms(run, "ssa_decode_paged_kernel"),
         bound=bound(n_bytes, 2 * 2 * t * h * d * sum(rows)))
+
+    # K7 keyed (the unfused paged serving path's entry: draws from the slot
+    # keys, q and out in the caller's layout, scores up to each slot's write
+    # position): the paged decode shape with an idle slot, pos 0, mid-page,
+    # L - 1, L and past L, GQA with page_len 5 and a head offset, no pos
+    k7k = {}
+    for name, c in {
+            "main": dict(b=8, t=4, h=4, kv=4, d=64, pl=8, mp=32, h0=0,
+                         pos=[40, 100, 0, 5, 200, 255, 17, 64], idle=(6,)),
+            "pos_edges": dict(b=5, t=4, h=4, kv=4, d=64, pl=8, mp=4, h0=0,
+                              pos=[0, 12, 31, 32, 39], idle=()),
+            "gqa_pl5_h0": dict(b=4, t=4, h=4, kv=2, d=16, pl=5, mp=5, h0=2,
+                               pos=[3, 24, 9, 30], idle=(2,)),
+            "no_pos": dict(b=3, t=4, h=4, kv=4, d=64, pl=8, mp=32, h0=1,
+                           pos=None, idle=())}.items():
+        args = paged_keyed_inputs(gen, dev, **{k: v for k, v in c.items()
+                                               if k != "h0"})
+        i_max = c["mp"] * c["pl"]
+        run = (lambda args=args, h0=c["h0"], i_max=i_max:
+               KS.ssa_decode_paged_keyed_kernel(*args, h0=h0, i_max=i_max))
+        plain = (lambda args=args, h0=c["h0"], i_max=i_max:
+                 KREF.ssa_decode_paged_keyed_ref(*args[:5], h0, i_max=i_max))
+        got, want = run(), plain()
+        k7k[name] = (got, want, run, plain, args)
+        check(torch.equal(got, want), f"keyed K7 case {name} differs")
+    got, want, run, plain, args = k7k["main"]
+    results["ssa_decode_paged"] = dict(
+        shape="T=4 x B=8 x H=4 query rows (unfused paged decode), "
+              "page_len=8, 32 table columns (L=256), hd=64, write positions "
+              "40/100/0/5/200/255/17/64 (slot 6 idle), draws in the kernel",
+        max_abs_err=max(max_abs_err(g, w_) for g, w_, *_ in k7k.values()),
+        ms=time_ms(run), plain_ms=time_ms(plain),
+        device_ms=device_ms(run, "ssa_decode_paged_keyed_kernel"),
+        wrapper_host_us=host_us(run),
+        bare_launch_host_us=host_us(bare_paged_keyed(
+            args, torch.empty_like(got), 0, 256)),
+        bound=paged_keyed_bound(args, got, 0, 256))
 
     # K9 at the paged decode shape, the padding/GQA edge and pos >= L
     k9 = {}
@@ -1036,39 +1209,74 @@ def phase_kernels(dev):
     check(results["division_by_15"]["div_const_differs"] == 0,
           "div_const on the card differs from the CPU's division")
 
-    # K6 at the ViT's widest leaf (w1, [384, 1536]), the LM stack's stacked
-    # mlp.wi leaf ([4, 256, 1024]: a time and a gain per layer) and a
-    # ragged shape, at t = 0, t < t0, an hour and a year, gains 1 and 7
+    # K6, grouped: one leaf at the ViT's widest (w1, [384, 1536]), the LM
+    # stack's stacked mlp.wi leaf ([4, 256, 1024]: a time and a gain per
+    # layer) and a ragged shape, at t = 0, t < t0, an hour and a year,
+    # gains 1 and 7 (1 / img_inv rounded on the card); then trees of 1, 6,
+    # 26 and 40 leaves of mixed shapes, every third one's rows unaligned,
+    # one leaf at t = 0: images and calibration reads
     from repro_torch.kernels import drift_requantize as KD
 
     k6 = {}
     for shape in ((384, 1536), (4, 256, 1024), (300, 17)):
-        lv, eps, nu = drift_inputs(gen, shape, dev)
-        lead = shape[:-2]
         for t in (0.0, 10.0, 3600.0, 3.1536e7):
             for gain in (1.0, 7.0):
-                tt = torch.full(lead, t, device=dev)
-                gg = torch.full(lead, gain, device=dev)
-                if lead:  # per-matrix times and gains
-                    tt[0], gg[-1] = 86400.0, 8.0
-                got = KD.drift_requantize_kernel(lv, eps, nu, tt, gg, t0=T0)
-                want = KREF.drift_requantize_ref(lv, eps, nu, tt, t0=T0,
-                                                 img_gain=gg)
+                leaf = fold_leaf(gen, shape, dev, gains=(gain, 8.0),
+                                 times=(t, 86400.0))
+                (got,) = KD.drift_fold_kernel([leaf], t0=T0)
+                (want,) = KREF.drift_fold_leaves_ref([leaf], t0=T0)
                 check(torch.equal(got, want),
                       f"K6 {shape} t={t} gain={gain} differs")
                 k6[(shape, t, gain)] = max_abs_err(got, want)
-    lv, eps, nu = drift_inputs(gen, (384, 1536), dev)
-    tt, gg = torch.tensor(3600.0, device=dev), torch.tensor(7.0, device=dev)
-    got = KD.drift_requantize_kernel(lv, eps, nu, tt, gg, t0=T0)
+    groups = {}
+    for n_leaves in (1, 6, 26, 40):
+        leaves = [fold_leaf(gen, FOLD_SHAPES[i % len(FOLD_SHAPES)], dev,
+                            offset=1 if i % 3 == 2 else 0,
+                            gains=(7.0, 1.0, 8.0, 7.4),
+                            times=(3600.0 * (i + 1), 10.0, 3.1536e7))
+                  for i in range(n_leaves)]
+        leaves[-1] = leaves[-1]._replace(t_seconds=None)
+        n = KB.LAUNCHES["drift_requantize"]
+        got = KD.drift_fold_kernel(leaves, t0=T0)
+        sums = KD.drift_abs_sums_kernel(leaves, t0=T0)
+        chunks = -(-n_leaves // KD.MAX_LEAVES)
+        check(KB.LAUNCHES["drift_requantize"] == n + 2 * chunks,
+              f"K6 over {n_leaves} leaves: not {chunks} launch(es) a call")
+        want = KREF.drift_fold_leaves_ref(leaves, t0=T0)
+        check(all(torch.equal(g, w_) for g, w_ in zip(got, want)),
+              f"K6 over {n_leaves} leaves differs")
+        check(torch.equal(sums, KREF.drift_abs_sums_ref(leaves, t0=T0)),
+              f"K6's calibration read over {n_leaves} leaves differs")
+        k6[("group", n_leaves)] = max(max_abs_err(g, w_)
+                                      for g, w_ in zip(got, want))
+        groups[n_leaves] = dict(
+            launches_a_call=chunks,
+            elements=sum(x.levels.numel() for x in leaves),
+            ms=time_ms(lambda leaves=leaves: KD.drift_fold_kernel(
+                leaves, t0=T0)),
+            wrapper_host_us=host_us(lambda leaves=leaves: KD.drift_fold_kernel(
+                leaves, t0=T0), 200))
+        del leaves, got, want, sums
+    leaf = fold_leaf(gen, (384, 1536), dev, gains=(7.0,), times=(3600.0,))
+    (got,) = KD.drift_fold_kernel([leaf], t0=T0)
+    run = lambda: KD.drift_fold_kernel([leaf], t0=T0)  # noqa: E731
+    # 7.7 MB of operands fit the 50 MB L2: the flushed reading reads 64 MB
+    # between launches (a read leaves no dirty line for the fold to write
+    # back), as a fold every few serving steps finds them
+    flush = torch.ones(64 << 20, dtype=torch.uint8, device=dev)
     results["drift_requantize"] = dict(
-        shape="[384, 1536] (the ViT-4-384's w1 leaf), t = 1 h, gain 7",
+        shape="one leaf [384, 1536] (the ViT-4-384's w1), t = 1 h, gain 7",
         cases=len(k6), max_abs_err=max(k6.values()),
-        ms=time_ms(lambda: KD.drift_requantize_kernel(lv, eps, nu, tt, gg,
-                                                      t0=T0)),
-        plain_ms=time_ms(lambda: KREF.drift_requantize_ref(
-            lv, eps, nu, tt, t0=T0, img_gain=gg)),
-        bound=bound(nbytes(lv, eps, nu, tt, gg, got),
-                    K6_OPS * lv.numel(), FP32_OPS_PER_S))
+        ms=time_ms(run),
+        plain_ms=time_ms(lambda: KREF.drift_fold_leaves_ref([leaf], t0=T0)),
+        device_ms=device_ms(lambda: (flush.sum(), run()),
+                            "drift_fold_kernel"),
+        device_ms_l2_warm=device_ms(run, "drift_fold_kernel"),
+        wrapper_host_us=host_us(run),
+        bare_launch_host_us=host_us(bare_fold([leaf], [got])),
+        groups=groups,
+        bound=bound(nbytes(leaf, got), K6_OPS * got.numel(), FP32_OPS_PER_S))
+    del flush
     torch.cuda.synchronize()
     return results
 
@@ -1315,7 +1523,23 @@ def phase_paged(dev, eng):
           "unfused paged: K1 is not six launches per layer and step")
     check(ulaunches["fused_decode_layer_paged"] == 0, "unfused ran K9")
     check(uouts == outs[:4], "unfused paged tokens differ")
-    served["unfused_decode_steps"] = ust.decode_steps
+    served.update(unfused_decode_steps=ust.decode_steps,
+                  unfused_tokens_per_s=ust.decoded_tokens
+                  / served["unfused_wall_s"],
+                  unfused_decode_step_ms=1e3 * ust.decode_s / ust.decode_steps)
+    # where an unfused step's time goes: three steps of 8 busy slots; the
+    # keyed K7 draws on the card, so no step launches the twin's ~5,600
+    # draw kernels for it
+    usch.reset()
+    for i, p in enumerate(prompts[:8]):
+        usch.submit(p, 8, seed=2 + i)
+    usch.step()
+    prof = served["profile_unfused_paged_3_steps"] = profile_window(
+        lambda: [usch.step() for _ in range(3)])
+    served["unfused_kernels_per_step"] = prof["kernels"] / 3
+    check(served["unfused_kernels_per_step"] < 2000,
+          f"an unfused paged step launched {served['unfused_kernels_per_step']}"
+          " kernels (the keyed K7 draws on the card)")
     return launches, ulaunches, served, outs
 
 
@@ -1447,6 +1671,7 @@ def phase_drift(dev):
     from repro_torch import prng
     from repro_torch.engine import XpikeformerEngine, get_backend
     from repro_torch.kernels import build as KB
+    from repro_torch.kernels import drift_requantize as KD
 
     out = {}
     # (a) programmed, paged, under the drift policy
@@ -1485,9 +1710,10 @@ def phase_drift(dev):
     check(len(sch.request_energy_j) == len(prompts)
           and all(v > 0 for v in sch.request_energy_j.values()),
           "a request has no energy")
-    want = leaves * (st.image_folds + 2 * st.recalibrations)
+    chunks = -(-leaves // KD.MAX_LEAVES)  # launches a whole-tree pass
+    want = chunks * (st.image_folds + 2 * st.recalibrations)
     check(launches["drift_requantize"] == want > 0,
-          f"K6 launches {launches['drift_requantize']} != {leaves} leaves x "
+          f"K6 launches {launches['drift_requantize']} != {chunks} x "
           f"({st.image_folds} folds + 2 x {st.recalibrations} recalibrations)")
     check(launches["fused_decode_layer_paged"] == cfg.num_layers
           * st.decode_steps, "drift: K9 is not one launch per layer and step")
@@ -1573,9 +1799,9 @@ def phase_drift(dev):
     torch.cuda.synchronize()
     vlaunches = dict(KB.LAUNCHES)
     n_points = len(LIFECYCLE)
-    check(vlaunches["drift_requantize"] == vleaves * (
-        1 + sum(t != 0.0 for t, _ in LIFECYCLE) + 2 * sum(
-            r for _, r in LIFECYCLE)), "ViT lifecycle K6 launches")
+    check(vlaunches["drift_requantize"] == vleaves + -(-vleaves // KD.MAX_LEAVES)
+          * (sum(t != 0.0 for t, _ in LIFECYCLE) + 2 * sum(
+              r for _, r in LIFECYCLE)), "ViT lifecycle K6 launches")
     check(vlaunches["ssa_attention"] == vcfg.depth * n_points
           and vlaunches["aimc_spiking_linear"] == 6 * vcfg.depth * n_points,
           "ViT lifecycle forwards did not run K8/K1")
@@ -1814,7 +2040,13 @@ def phase_windows(dev) -> dict:
     :data:`AB_SERVES` times; then three decode steps of 8 busy slots under
     the profiler) and
     the paper ViT and GPT forwards of phase 5 (unprofiled median of 5, then
-    one profiled), with digests of the tokens and logits."""
+    one profiled), with digests of the tokens and logits; the unfused
+    paged window (phase 4's side run, three times, then three profiled
+    steps), the whole-tree drift folds of the programmed LM stack and ViT
+    (median of 9, with a digest of the images) and phase 6's programmed
+    paged serve (with a digest of its tokens, clock, folds, GDC runs,
+    gains and energy)."""
+    from repro_torch import aimc_device as AD
     from repro_torch import prng
     from repro_torch.engine import XpikeformerEngine
     from repro_torch.kernels import aimc_matmul as KA
@@ -1899,6 +2131,30 @@ def phase_windows(dev) -> dict:
                          step_busy_ms=prof["device_busy_ms"] / 3,
                          kernels_per_step=prof["kernels"] / 3,
                          host_top=prof["host_top"])
+    # the unfused paged plan (K1 linears, K7 rows): the paged phase's side
+    # run, 4 requests of 32 new tokens, then three steps of 8 busy slots
+    prompts = paged_requests(eng.cfg.vocab_size)
+    usch = eng.scheduler(slots=8, cache_len=256, paged=True, page_len=8,
+                         decode_kernel="unfused")
+    drive(usch, prompts[:2], 4)  # warm-up
+    runs = []
+    for _ in range(AB_SERVES):
+        usch.reset()
+        outs, wall_s = drive(usch, prompts[:4], 32)
+        st = usch.stats
+        runs.append((st.decoded_tokens / wall_s,
+                     1e3 * st.decode_s / st.decode_steps))
+    usch.reset()
+    for i, p in enumerate(prompts[:8]):
+        usch.submit(p, 8, seed=2 + i)
+    usch.step()
+    prof = profile_window(lambda: [usch.step() for _ in range(3)])
+    out["unfused_paged"] = dict(
+        tokens_per_s=[r[0] for r in runs], decode_step_ms=[r[1] for r in runs],
+        tokens=digest(outs), profiled_step_ms=prof["wall_ms"] / 3,
+        step_busy_ms=prof["device_busy_ms"] / 3,
+        kernels_per_step=prof["kernels"] / 3)
+    del usch
     key = prng.PRNGKey(42, dev)
     for name, batch in PAPER:
         e = XpikeformerEngine.from_config(name, backend="cuda", device=dev)
@@ -1910,6 +2166,36 @@ def phase_windows(dev) -> dict:
                          profiled_wall_ms=prof["wall_ms"],
                          device_busy_ms=prof["device_busy_ms"],
                          logits=digest(logits))
+    # whole-tree drift folds: the LM stack's 6 leaves and the ViT's 26,
+    # programmed from a seed (host wall to synchronize, median of 9; the
+    # images' digest); then phase 6's programmed paged serve under the
+    # drift policy (tokens, clock, folds, GDC runs, gains and energy)
+    for name, task in ((ARCH, "lm"), (PAPER[0][0], None)):
+        e = XpikeformerEngine.from_config(name, backend="cuda", device=dev,
+                                          **({"task": task} if task else {}))
+        e.init(seed=0)
+        e.program(prng.PRNGKey(42))
+        tree = e.params
+        folded = AD.drift_tree(tree, 7200.0, e.aimc_cfg)  # warm-up
+        out[f"fold_{e.task}"] = dict(
+            leaves=len(AD.device_states(tree)),
+            fold_ms=wall_ms(lambda: AD.drift_tree(tree, 7200.0, e.aimc_cfg),
+                            9),
+            images=digest(torch.cat([s.levels_t.flatten().float() for s in
+                                     AD.device_states(folded)])))
+        if e.task == "lm":
+            sch = e.scheduler(slots=8, cache_len=256, paged=True, page_len=8,
+                              drift=AD.DriftPolicy(
+                                  seconds_per_step=DRIFT_STEP_S,
+                                  recal_interval_s=RECAL_EVERY_S))
+            outs, wall_s = drive(sch, paged_requests(e.cfg.vocab_size), 32)
+            st = sch.stats
+            out["programmed_paged"] = dict(
+                tokens_per_s=st.decoded_tokens / wall_s,
+                decode_step_ms=1e3 * st.decode_s / st.decode_steps,
+                lifecycle=digest([outs, st.t_device_s, st.image_folds,
+                                  st.recalibrations, st.energy_j,
+                                  AD.gdc_gain_summary(sch.source_params)]))
     return out
 
 
@@ -1927,9 +2213,15 @@ def phase_ab(parent_src: str) -> dict:
         check(r.returncode == 0,
               f"windows of {src} failed:\n{r.stdout[-2000:]}{r.stderr[-4000:]}")
         runs.append({"label": label, **json.loads(r.stdout.splitlines()[-1])})
-    for k in ("dense", "paged"):
+    for k in ("dense", "paged", "unfused_paged"):
         check(len({r[k]["tokens"] for r in runs}) == 1,
               f"A/B: the trees' {k} tokens differ")
+    for k in ("fold_lm", "fold_vit"):
+        check(len({r[k]["images"] for r in runs}) == 1,
+              f"A/B: the trees' {k} images differ")
+    check(len({r["programmed_paged"]["lifecycle"] for r in runs}) == 1,
+          "A/B: the trees' programmed paged serves differ (tokens, clock, "
+          "folds, GDC runs, gains or energy)")
     for k in ("k3", "k9"):
         check(len({r[k]["out"] for r in runs}) == 1,
               f"A/B: the trees' {k.upper()} outputs differ")
@@ -2051,7 +2343,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_bytes": n_bytes, "bound_ops": n_ops,
             "library_ms": r.get("library_ms"), "shape": r["shape"],
-            **{k: r[k] for k in ("pos", "entry", "device_ms", "plan_cluster",
+            **{k: r[k] for k in ("pos", "entry", "device_ms",
+                                 "device_ms_l2_warm", "plan_cluster",
                                  "plan_blocks", "cluster", "clusters",
                                  "blocks", "sms_used",
                                  "most_blocks_on_one_sm", "wrapper_host_us",

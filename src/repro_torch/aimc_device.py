@@ -12,10 +12,13 @@ device:
 * **drift_to** -- move the clock and refresh the digital execution image
   ``levels_t``: the drifted conductances ``(levels + eps) * (t/t0)**-nu``
   re-digitised onto the int8 image grid by K6 (:func:`repro_torch.kernels.
-  ops.drift_requantize`: one launch per leaf, on the card);
+  drift_requantize.drift_fold_kernel`: on the card one launch folds a
+  whole tree, :func:`drift_tree`, up to 32 leaves a launch);
 * **recalibrate** -- global drift compensation (paper §V-B): the ratio of
-  the integer abs-sums of the image at t = 0 and at t, folded into the
-  per-column scale until the next recalibration.
+  the integer abs-sums of the image at t = 0 and at t (K6's calibration
+  read, :func:`repro_torch.kernels.drift_requantize.drift_abs_sums_kernel`:
+  two launches a tree, :func:`recalibrate_tree`), folded into the per-column scale until
+  the next recalibration.
 
 The digital backends execute ``levels_t`` and :attr:`AIMCDeviceState.
 eff_scale` (an int8 crossbar product); :func:`analog_matmul` is the analog
@@ -35,7 +38,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core import aimc as AM
 from repro_torch.core.aimc import AIMCConfig
-from repro_torch.kernels import ops as KOPS
+from repro_torch.kernels import drift_requantize as KD
 from repro_torch.kernels import ref as KREF
 
 Tensor = torch.Tensor
@@ -123,16 +126,16 @@ class AIMCDeviceState:
 def _img_gain(state: AIMCDeviceState) -> Tensor:
     """The image grid frozen at program time, per leading index: ``round(1
     / img_inv)`` (the rounding repairs the f32 reciprocal, e.g. of 1/7),
-    never re-derived from a caller's config."""
-    return torch.round(1.0 / state.img_inv)
+    never re-derived from a caller's config; K6 computes the same on the
+    card."""
+    return KREF.img_gain_ref(state.img_inv)
 
 
-def _requantize(levels: Tensor, eps: Tensor, nu: Tensor, t_seconds: Tensor,
-                cfg: AIMCConfig, img_gain) -> Tensor:
-    """``round((levels + eps) * drift * img_gain)`` on the int8 image grid:
-    K6, one launch for the whole (possibly stacked) leaf."""
-    return KOPS.drift_requantize(levels, eps, nu, t_seconds, img_gain,
-                                 t0=cfg.drift_t0_s)
+def _leaf(state: AIMCDeviceState, t_seconds: Optional[Tensor]
+          ) -> KD.FoldLeaf:
+    """K6's operands of one state at ``t_seconds`` (``None``: t = 0)."""
+    return KD.FoldLeaf(state.levels, state.eps, state.nu, t_seconds,
+                       state.img_inv)
 
 
 def program(key: Tensor, w: Tensor, cfg: AIMCConfig) -> AIMCDeviceState:
@@ -149,53 +152,102 @@ def program(key: Tensor, w: Tensor, cfg: AIMCConfig) -> AIMCDeviceState:
     nu = torch.clamp_min(nu, 0.0)
     lead = shape[:-2]
     t0 = torch.zeros(lead, dtype=torch.float32, device=w.device)
-    gain = float(image_gain(cfg))
+    img_inv = torch.full(lead, 1.0 / image_gain(cfg), dtype=torch.float32,
+                         device=w.device)
+    (levels_t,) = KD.drift_fold_kernel(
+        [KD.FoldLeaf(levels, eps, nu, t0, img_inv)], t0=cfg.drift_t0_s)
     return AIMCDeviceState(
         levels=levels, eps=eps, nu=nu, scale=scale, t_seconds=t0,
         gdc_gain=torch.ones(lead, dtype=torch.float32, device=w.device),
-        levels_t=_requantize(levels, eps, nu, t0, cfg, gain),
-        img_inv=torch.full(lead, 1.0 / image_gain(cfg), dtype=torch.float32,
-                           device=w.device))
+        levels_t=levels_t, img_inv=img_inv)
 
 
 def drift_to(state: AIMCDeviceState, t_seconds, cfg: AIMCConfig
              ) -> AIMCDeviceState:
     """Move the clock to ``t_seconds`` (absolute, since programming) and
-    refresh ``levels_t``; the GDC gain moves only at :func:`recalibrate`."""
-    t = torch.broadcast_to(
-        torch.as_tensor(t_seconds, dtype=torch.float32,
-                        device=state.levels.device),
-        state.t_seconds.shape).contiguous()
-    return dataclasses.replace(
-        state, t_seconds=t,
-        levels_t=_requantize(state.levels, state.eps, state.nu, t, cfg,
-                             _img_gain(state)))
+    refresh ``levels_t`` (K6 with one leaf); the GDC gain moves only at
+    :func:`recalibrate`."""
+    return _drift_states([state], t_seconds, cfg)[0]
 
 
 def recalibrate(state: AIMCDeviceState, cfg: AIMCConfig,
                 reduce: Optional[Callable[[Tensor], Tensor]] = None
                 ) -> AIMCDeviceState:
     """GDC at the state's own clock: ``gain = sum|img(0)| / max(sum|img(t)|,
-    1)``, both images re-folded from the programming record (two K6
-    launches) and summed as int32 over each matrix, as the calibration
-    read through the shared ADC accumulates them.
+    1)``, both images re-folded from the programming record (K6's
+    calibration read: two launches, no image written) and summed as
+    integers over each matrix, as the calibration read through the shared
+    ADC accumulates them.
 
     ``reduce`` completes the two sums of a matrix split over a mesh's
     ranks (``ServingMesh.all_reduce_model``): the partial sums travel as
     float64, exact for any integer below 2**53, so every rank measures
     the whole matrix's gain, bit for bit."""
-    gain = _img_gain(state)
-    img0 = _requantize(state.levels, state.eps, state.nu,
-                       torch.zeros_like(state.t_seconds), cfg, gain)
-    imgt = _requantize(state.levels, state.eps, state.nu, state.t_seconds,
-                       cfg, gain)
-    g0 = torch.sum(torch.abs(img0.to(torch.int32)), dim=(-2, -1))
-    gt = torch.sum(torch.abs(imgt.to(torch.int32)), dim=(-2, -1))
+    return _recalibrate_states([state], cfg, reduce)[0]
+
+
+def _views(flat: Tensor, states: List[AIMCDeviceState]) -> List[Tensor]:
+    """``flat`` (one value a matrix of every state in order) cut into one
+    view of each state's leading shape."""
+    out, off = [], 0
+    for s in states:
+        lead = s.t_seconds.shape
+        k = s.t_seconds.numel()
+        out.append(flat[off:off + k].view(lead))
+        off += k
+    return out
+
+
+def _with(state: AIMCDeviceState, **changes) -> AIMCDeviceState:
+    """``dataclasses.replace`` without its introspection (a fold rebuilds
+    every state of a tree)."""
+    fields = {f: getattr(state, f) for f in _FIELDS}
+    fields.update(changes)
+    return AIMCDeviceState(**fields)
+
+
+_FIELDS = tuple(f.name for f in dataclasses.fields(AIMCDeviceState))
+
+
+def _drift_states(states: List[AIMCDeviceState], t_seconds, cfg: AIMCConfig
+                  ) -> List[AIMCDeviceState]:
+    """The states (all on one device) moved to ``t_seconds`` (a scalar, or
+    a tensor that broadcasts to each state's clock) by one grouped K6 fold.
+    A scalar clock is one filled tensor a leading shape, shared by the
+    states of that shape (no state's tensors are written in place)."""
+    dev = states[0].levels.device
+    if not isinstance(t_seconds, (int, float)):
+        t = torch.as_tensor(t_seconds, dtype=torch.float32, device=dev)
+        ts = [torch.broadcast_to(t, s.t_seconds.shape).contiguous()
+              for s in states]
+    else:
+        by_lead, ts = {}, []
+        for s in states:
+            lead = s.t_seconds.shape
+            if lead not in by_lead:
+                by_lead[lead] = torch.full(lead, float(t_seconds),
+                                           dtype=torch.float32, device=dev)
+            ts.append(by_lead[lead])
+    imgs = KD.drift_fold_kernel([_leaf(s, t) for s, t in zip(states, ts)],
+                           t0=cfg.drift_t0_s)
+    return [_with(s, t_seconds=t, levels_t=img)
+            for s, t, img in zip(states, ts, imgs)]
+
+
+def _recalibrate_states(states: List[AIMCDeviceState], cfg: AIMCConfig,
+                        reduce: Optional[Callable[[Tensor], Tensor]]
+                        ) -> List[AIMCDeviceState]:
+    """GDC of the states (all on one device): two grouped calibration reads
+    (t = 0, each state's t), ``reduce`` once on each, the gains of every
+    matrix in one division, one view a state."""
+    t0 = cfg.drift_t0_s
+    g0 = KD.drift_abs_sums_kernel([_leaf(s, None) for s in states], t0=t0)
+    gt = KD.drift_abs_sums_kernel([_leaf(s, s.t_seconds) for s in states], t0=t0)
     if reduce is not None:
         g0 = reduce(g0.to(torch.float64)).to(torch.int32)
         gt = reduce(gt.to(torch.float64)).to(torch.int32)
     gdc = g0.to(torch.float32) / torch.clamp_min(gt, 1).to(torch.float32)
-    return dataclasses.replace(state, gdc_gain=gdc)
+    return [_with(s, gdc_gain=g) for s, g in zip(states, _views(gdc, states))]
 
 
 # ---------------------------------------------------------------------------
@@ -359,28 +411,50 @@ def program_lm_tree(key: Tensor, params: Any, cfg: AIMCConfig) -> Any:
     return params
 
 
+def _collect_states(tree: Any, out: List[AIMCDeviceState]) -> None:
+    """The tree's states in :func:`map_tree`'s order (the tree's own, the
+    same on every rank of a mesh)."""
+    if _is_state(tree):
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _collect_states(v, out)
+    elif isinstance(tree, list):
+        for v in tree:
+            _collect_states(v, out)
+
+
+def _map_states_grouped(fn, params: Any) -> Any:
+    """``fn(states) -> new states`` over the tree's distinct states, once
+    for each device's states; the tree with each state replaced."""
+    found: List[AIMCDeviceState] = []
+    _collect_states(params, found)
+    by_dev = {}
+    for s in found:
+        by_dev.setdefault(s.levels.device, {}).setdefault(id(s), s)
+    new = {}
+    for group in by_dev.values():
+        states = list(group.values())
+        new.update(zip(group, fn(states)))
+    return map_tree(lambda s: new[id(s)], params)
+
+
 def drift_tree(params: Any, t_seconds, cfg: AIMCConfig) -> Any:
-    """Every device state of a tree moved to ``t_seconds`` (copied to each
-    device once, then broadcast there per leaf)."""
-    on_device = {}
-
-    def fold(s: AIMCDeviceState) -> AIMCDeviceState:
-        dev = s.levels.device
-        if dev not in on_device:
-            on_device[dev] = torch.as_tensor(t_seconds, dtype=torch.float32,
-                                             device=dev)
-        return drift_to(s, on_device[dev], cfg)
-
-    return map_tree(fold, params)
+    """Every device state of a tree moved to ``t_seconds``: on each device
+    one fill of the clocks and one grouped K6 fold of every leaf."""
+    return _map_states_grouped(
+        lambda states: _drift_states(states, t_seconds, cfg), params)
 
 
 def recalibrate_tree(params: Any, cfg: AIMCConfig,
                      reduce: Optional[Callable[[Tensor], Tensor]] = None
                      ) -> Any:
-    """Every device state of a tree GDC-recalibrated at its own clock
+    """Every device state of a tree GDC-recalibrated at its own clock: on
+    each device two grouped calibration reads and one ``reduce`` of each
     (``reduce``: see :func:`recalibrate`; a mesh rank's tree holds only
-    split states)."""
-    return map_tree(lambda s: recalibrate(s, cfg, reduce), params)
+    split states, in the same order on every rank)."""
+    return _map_states_grouped(
+        lambda states: _recalibrate_states(states, cfg, reduce), params)
 
 
 def device_states(params: Any) -> List[AIMCDeviceState]:

@@ -165,16 +165,10 @@ class IntegerBackend:
         return out.reshape(currents.shape)
 
     def decode_attention(self, view, q, spec, *, slot_keys):
-        t, b, h, _, d = q.shape
-        if view.paged:
-            l = view.page_table.shape[1] * view.k.shape[3]
-            # the dense layout's streams: paged equals dense bit for bit
-            rs, ra = KOPS.draw_slot_decode_prns(slot_keys, t, h, l, d,
-                                                spec.i_max, spec.h0)
-            out = KREF.ssa_decode_paged_ref(
-                q.movedim(1, 0), view.k, view.v, view.page_table,
-                rs.reshape(b, t, h, 1, l), ra.reshape(b, t, h, 1, d))
-            return out.movedim(0, 1)
+        if view.paged:  # the dense layout's streams: paged equals dense
+            return KREF.ssa_decode_paged_keyed_ref(
+                q, view.k, view.v, view.page_table, slot_keys, spec.h0,
+                i_max=spec.i_max)
         return KREF.ssa_decode_keyed_ref(q, view.k, view.v, slot_keys,
                                          spec.h0, i_max=spec.i_max)
 
@@ -220,7 +214,7 @@ class CudaBackend:
     """The hand-written Hopper kernels: K1 (spiking linear), K5 (crossbar
     counts), K8 (SSA tile), K4 (LIF; with ``counts_lif``, a row-parallel
     linear's scale, bias and LIF in one launch), K2/K7 (SSA decode row,
-    dense/paged; the dense row draws its comparators in the kernel),
+    dense/paged; both draw their comparators in the kernel),
     K3/K9 (fused decoder layer, dense/paged).  A paged view goes to the
     paged kernels, which read the pools through the page table.
     Bit-exact vs :class:`IntegerBackend`."""
@@ -237,7 +231,7 @@ class CudaBackend:
         if view.paged:
             return KOPS.ssa_attention_decode_paged_packed(
                 q, view.k, view.v, view.page_table, slot_keys, spec.h0,
-                i_max=spec.i_max)
+                i_max=spec.i_max, pos=view.pos)
         return KOPS.ssa_attention_decode_packed(
             q, view.k, view.v, slot_keys, spec.h0, i_max=spec.i_max,
             pos=view.pos)

@@ -128,18 +128,62 @@ __device__ void xpk_ssa_scores(const Rows& rows, const uint32_t* qw, int hd,
   }
 }
 
-// Output stage for value lane dd: popcount(s & v[:, dd]), reading only the
-// rows whose score spiked (a thread per lane, so a warp's reads of one row
-// are consecutive bytes).
+// Output stage, all threads of the block: cnt[d] += popcount(s & v[:, d])
+// for every value lane d < hd, reading only the rows whose score spiked.
+// A thread owns four value lanes (a column quad; one 4-byte load a row
+// where hd % 4 == 0 and the row is aligned, else byte loads) and one of
+// `streams` = blockDim / quads row streams: stream r takes the score words
+// r, r + streams, ..., and pulls four spiked rows' quads before it counts
+// them.  At hd = 64 a warp reads two whole rows an instruction, and each of
+// the block's 8 streams has four rows' loads (and a paged row's table
+// lookups) in flight.  Partial counts are exact integers and meet in cnt
+// (shared, zero before the call) by atomics.
 template <class Rows>
-__device__ int xpk_ssa_count(const Rows& rows, const uint32_t* sbits, int L,
-                             int dd) {
-  int cnt = 0;
+__device__ void xpk_ssa_counts(const Rows& rows, const uint32_t* sbits, int L,
+                               int hd, int* cnt) {
+  const int nt = blockDim.x, quads = (hd + 3) / 4;
+  const int streams = quads < nt ? nt / quads : 1;
+  const int r = threadIdx.x / quads;
+  if (r >= streams) return;
   const int wl = (L + 31) / 32;
-  for (int w = 0; w < wl; ++w)
-    for (uint32_t m = sbits[w]; m; m &= m - 1)
-      cnt += rows.v(32 * w + __ffs(static_cast<int>(m)) - 1)[dd] & 1;
-  return cnt;
+  const bool word = hd % 4 == 0;
+  for (int c4 = 4 * (threadIdx.x - r * quads); c4 < hd; c4 += 4 * nt) {
+    int c[4] = {0, 0, 0, 0};
+    for (int w = r; w < wl; w += streams) {
+      uint32_t m = sbits[w];
+      while (m) {
+        const uint8_t* p[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          p[u] = nullptr;
+          if (m) {
+            p[u] = rows.v(32 * w + __ffs(static_cast<int>(m)) - 1);
+            m &= m - 1;
+          }
+        }
+        uint32_t x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          x[u] = 0;
+          if (!p[u]) continue;
+          const uint8_t* q = p[u] + c4;
+          if (word && (reinterpret_cast<uintptr_t>(q) & 3) == 0) {
+            x[u] = *reinterpret_cast<const uint32_t*>(q);
+          } else {
+            for (int e = 0; e < 4 && c4 + e < hd; ++e)
+              x[u] |= static_cast<uint32_t>(q[e]) << (8 * e);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[e] += (x[u] >> (8 * e)) & 1;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c[e]) atomicAdd(cnt + c4 + e, c[e]);
+  }
 }
 
 // Round a byte offset up to 16 so every shared segment takes vector loads.

@@ -28,26 +28,44 @@
 //    the scores stop at each slot's live length pos[b] (rows at and past
 //    it are zero by the serving invariant, and a zero row never beats a
 //    draw); without pos every row is read.
-// K7: q uint8 [B, T, H, D], kpool/vpool uint8 [P, T, KV, page_len, D],
-// table int32 [B, MP], rs [B*T*H, L] and ra [B*T*H, D] with L = MP*page_len
-// -> out uint8 [B, T, H, D].  Logical row j of slot b is in-page row
-// j % page_len of page table[b, j / page_len]; query head h reads KV head
-// h / (H / KV).  The kernel reads each page through the table, never a
-// gathered copy, and skips the null page (page 0, zero by contract).
+// K7 has the same two entries over kpool/vpool uint8 [P, T, KV, page_len,
+// D] and table int32 [B, MP], L = MP*page_len.  Logical row j of slot b is
+// in-page row j % page_len of page table[b, j / page_len]; query head h
+// reads KV head h / (H / KV).  The kernel reads each page through the
+// table, never a gathered copy, and skips the null page (page 0, zero by
+// contract).
+//  * given draws: q uint8 [B, T, H, D], rs [B*T*H, L], ra [B*T*H, D] ->
+//    out [B, T, H, D], every row read;
+//  * keyed (the unfused paged serving path's): the draws of the dense keyed
+//    entry above at the logical length L, q and out [T, B, H, D] as the
+//    caller holds them, and the scores stop at each slot's live length
+//    pos[b] + 1 (pos is the step's write position, after the scatter),
+//    clamped to [0, L]: a slot at pos >= L reads every row, as its plain
+//    version does, and an idle slot (a null table row) reads none.  Rows
+//    past the live length are zero by the serving invariant (freed pages
+//    are zeroed, copy-on-write zeroes the tail it copies); without pos
+//    every row is read.
 //
 // Bound on the card: bytes -- the live cached rows are read once for a few
-// AND/popcount operations per byte; the keyed entry reads no draws (its
+// AND/popcount operations per byte; the keyed entries read no draws (their
 // 2 (live + D) threefry pairs a row are about 200 integer operations each,
-// far below the card's rate).  Design: one block per query row.  The query
-// is packed into uint32 lanes in shared memory; the score stage gives each
-// lane of a warp one cached row (packed with 16-byte loads when aligned) and
-// a warp ballot packs 32 score spikes into a word; the output stage gives
-// each thread one value lane and reads only the rows whose score spiked.
-// Lanes past D and rows past L read as zero (the reference pads both to 32
-// with zeros, and a zero spike never beats a draw).  Counts are exact
-// integers, so the page order cannot change a result.  Any D: the packed
-// query (ceil(D/32) words) sits in dynamic shared memory after the score
-// bits.
+// far below the card's rate), and the paged ones read the slot's table row
+// once.  Design: one block per query row.  The query is packed
+// into uint32 lanes in shared memory; the score stage gives each lane of a
+// warp one cached row (packed with 16-byte loads when aligned) and a warp
+// ballot packs 32 score spikes into a word; the output stage reads only the
+// rows whose score spiked: a thread owns a quad of value lanes and one of
+// the block's row streams (eight at D = 64), each stream a share of the
+// score words with four spiked rows' loads in flight, and the streams'
+// counts meet in shared memory (common.cuh:xpk_ssa_counts): a thread that
+// walked every spiked row of its lane with one dependent load (paged: two)
+// at a time left the row latency-bound.  K7 stages the slot's table row in
+// shared memory (SmemPagedRows), so a spiked row's page lookup is a shared
+// load.  Lanes past D and rows past L read as zero (the reference pads both
+// to 32 with zeros, and a zero spike never beats a draw).  Counts are exact
+// integers, so the page order and the streams' split cannot change a
+// result.  Any D: the dynamic shared memory holds the score bits, the
+// packed query, the D counts and the table row (row_smem_words).
 #include "common.cuh"
 #include "threefry.cuh"
 
@@ -71,19 +89,57 @@ struct KeyedDraws {
   __device__ int out(int d) const { return a.at(a0 + d); }
 };
 
-// One query row over its first L cached rows: pack q, score stage, output
-// stage.
+// K7's rows: the paged policy with the slot's table row staged in shared
+// memory (a spiked row's lookup in the output stage is then a shared load).
+struct SmemPagedRows {
+  const uint8_t* kb;  // in-page row 0 of page 0 at this (t, KV head)
+  const uint8_t* vb;
+  const int* table;   // shared: the slot's page-table row
+  size_t page_stride;
+  int page_len, hd;
+  __device__ const uint8_t* at(const uint8_t* base, int j) const {
+    const int page = table[j / page_len];
+    if (page == XPK_NULL_PAGE) return nullptr;
+    return base + page * page_stride + static_cast<size_t>(j % page_len) * hd;
+  }
+  __device__ const uint8_t* k(int j) const { return at(kb, j); }
+  __device__ const uint8_t* v(int j) const { return at(vb, j); }
+};
+
+// The decode entries' dynamic shared memory: the score bits, the packed
+// query, the output counts, then (paged) the slot's table row.
+__host__ __device__ inline size_t row_smem_words(long long L, int D, int MP) {
+  return static_cast<size_t>((L + 31) / 32 + (D + 31) / 32 + D + MP);
+}
+
+// One query row over its first live <= L cached rows: pack q (and zero the
+// counts), score stage, output stage.  smem is row_smem_words(L, D, .)'s
+// layout.
 template <class Rows, class Draws>
 __device__ void ssa_row(const Rows& rows, const uint8_t* q, const Draws& draws,
-                        uint8_t* out, int L, int D, uint32_t* qw,
-                        uint32_t* sbits) {
+                        uint8_t* out, int live, int L, int D, uint32_t* smem) {
+  uint32_t* sbits = smem;
+  uint32_t* qw = sbits + (L + 31) / 32;
+  int* cnt = reinterpret_cast<int*>(qw + (D + 31) / 32);
   for (int w = threadIdx.x; w < (D + 31) / 32; w += kThreads)
     qw[w] = xpk_pack32(q + 32 * w, D - 32 * w);
+  for (int d = threadIdx.x; d < D; d += kThreads) cnt[d] = 0;
   __syncthreads();
-  xpk_ssa_scores(rows, qw, D, L, draws, sbits);
+  xpk_ssa_scores(rows, qw, D, live, draws, sbits);
+  __syncthreads();
+  xpk_ssa_counts(rows, sbits, live, D, cnt);
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += kThreads)
-    out[d] = xpk_ssa_count(rows, sbits, L, d) > draws.out(d) ? 1 : 0;
+    out[d] = cnt[d] > draws.out(d) ? 1 : 0;
+}
+
+// Stage the slot's table row (global) in shared memory after the counts;
+// the first barrier of ssa_row publishes it.
+__device__ int* stage_table(uint32_t* smem, int L, int D, const int* table,
+                            int MP) {
+  int* stab = reinterpret_cast<int*>(smem) + (L + 31) / 32 + (D + 31) / 32 + D;
+  for (int i = threadIdx.x; i < MP; i += kThreads) stab[i] = __ldg(table + i);
+  return stab;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -91,12 +147,11 @@ ssa_decode_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ k,
                   const uint8_t* __restrict__ v, const int* __restrict__ rs,
                   const int* __restrict__ ra, uint8_t* __restrict__ out, int L,
                   int D) {
-  extern __shared__ uint32_t sbits[];  // [ceil(L/32)] score spikes, then
-  uint32_t* qw = sbits + (L + 31) / 32;  // [ceil(D/32)] the packed query
+  extern __shared__ uint32_t smem[];  // row_smem_words(L, D, 0)
   const size_t g = blockIdx.x;
   const XpkDenseRows rows{k + g * L * D, v + g * L * D, static_cast<size_t>(D)};
   ssa_row(rows, q + g * D, GivenDraws{rs + g * L, ra + g * D}, out + g * D, L,
-          D, qw, sbits);
+          L, D, smem);
 }
 
 // The keyed entry's geometry: k and v share their strides (elements).
@@ -113,8 +168,7 @@ ssa_decode_keyed_kernel(const uint8_t* __restrict__ q,
                         const long long* __restrict__ slot_keys,
                         const int* __restrict__ pos, uint8_t* __restrict__ out,
                         KeyedDims a) {
-  extern __shared__ uint32_t sbits[];
-  uint32_t* qw = sbits + (a.L + 31) / 32;
+  extern __shared__ uint32_t smem[];  // row_smem_words(L, D, 0)
   const int g = blockIdx.x;  // (b, t, h), row-major
   const int h = g % a.H, t = g / a.H % a.T, b = g / (a.H * a.T);
   const int live = pos ? min(max(__ldg(pos + b), 0), a.L) : a.L;
@@ -128,7 +182,7 @@ ssa_decode_keyed_kernel(const uint8_t* __restrict__ q,
   const long long base = t * a.st + b * a.sb + h * a.sh;
   const XpkDenseRows rows{k + base, v + base, static_cast<size_t>(a.sl)};
   const size_t row = (static_cast<size_t>(t) * a.B + b) * a.H + h;
-  ssa_row(rows, q + row * a.D, draws, out + row * a.D, live, a.D, qw, sbits);
+  ssa_row(rows, q + row * a.D, draws, out + row * a.D, live, a.L, a.D, smem);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -139,19 +193,59 @@ ssa_decode_paged_kernel(const uint8_t* __restrict__ q,
                         const int* __restrict__ rs, const int* __restrict__ ra,
                         uint8_t* __restrict__ out, int T, int H, int KV,
                         int page_len, int MP, int D) {
-  extern __shared__ uint32_t sbits[];
-  uint32_t* qw = sbits + (MP * page_len + 31) / 32;
+  extern __shared__ uint32_t smem[];  // row_smem_words(L, D, MP)
   const size_t g = blockIdx.x;  // (b, t, h), row-major
   const int h = static_cast<int>(g % H), t = static_cast<int>(g / H % T);
   const int b = static_cast<int>(g / (static_cast<size_t>(H) * T));
   const int kvh = h / (H / KV), L = MP * page_len;
   const size_t base = (static_cast<size_t>(t) * KV + kvh) * page_len * D;
-  const XpkPagedRows rows{kpool + base, vpool + base,
-                          table + static_cast<size_t>(b) * MP,
-                          static_cast<size_t>(T) * KV * page_len * D,
-                          page_len, D};
+  const SmemPagedRows rows{
+      kpool + base, vpool + base,
+      stage_table(smem, L, D, table + static_cast<size_t>(b) * MP, MP),
+      static_cast<size_t>(T) * KV * page_len * D, page_len, D};
   ssa_row(rows, q + g * D, GivenDraws{rs + g * L, ra + g * D}, out + g * D, L,
-          D, qw, sbits);
+          L, D, smem);
+}
+
+// The paged keyed entry's geometry.
+struct PagedKeyedDims {
+  int B, T, H, KV, page_len, MP, D;
+  uint32_t h0, span_s, mult_s, span_a, mult_a;
+};
+
+__global__ void __launch_bounds__(kThreads)
+ssa_decode_paged_keyed_kernel(const uint8_t* __restrict__ q,
+                              const uint8_t* __restrict__ kpool,
+                              const uint8_t* __restrict__ vpool,
+                              const int* __restrict__ table,
+                              const long long* __restrict__ slot_keys,
+                              const int* __restrict__ pos,
+                              uint8_t* __restrict__ out, PagedKeyedDims a) {
+  const int L = a.MP * a.page_len;
+  extern __shared__ uint32_t smem[];  // row_smem_words(L, D, MP)
+  const int g = blockIdx.x;  // (t, b, h), row-major: q's and out's rows
+  const int h = g % a.H, b = g / a.H % a.B, t = g / (a.H * a.B);
+  int live = L;
+  if (pos) {
+    const int p = __ldg(pos + b);
+    live = p >= L ? L : max(p + 1, 0);
+  }
+  const XpkKey slot{static_cast<uint32_t>(__ldg(slot_keys + 2 * b)),
+                    static_cast<uint32_t>(__ldg(slot_keys + 2 * b + 1))};
+  const XpkKey kh = xpk_fold_in(slot, a.h0 + static_cast<uint32_t>(h));
+  const KeyedDraws draws{
+      XpkRandint::make(xpk_split(kh, 0), 0, a.span_s, a.mult_s),
+      XpkRandint::make(xpk_split(kh, 1), 0, a.span_a, a.mult_a),
+      static_cast<uint64_t>(t) * L, static_cast<uint64_t>(t) * a.D};
+  const int kvh = h / (a.H / a.KV);
+  const size_t base =
+      (static_cast<size_t>(t) * a.KV + kvh) * a.page_len * a.D;
+  const SmemPagedRows rows{
+      kpool + base, vpool + base,
+      stage_table(smem, L, a.D, table + static_cast<size_t>(b) * a.MP, a.MP),
+      static_cast<size_t>(a.T) * a.KV * a.page_len * a.D, a.page_len, a.D};
+  ssa_row(rows, q + static_cast<size_t>(g) * a.D, draws,
+          out + static_cast<size_t>(g) * a.D, live, L, a.D, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -379,8 +473,7 @@ extern "C" int launch_ssa_decode(const uint8_t* q, const uint8_t* k,
                                  const uint8_t* v, const int* rs,
                                  const int* ra, uint8_t* out, int G, int L,
                                  int D, void* stream) {
-  const size_t smem =
-      static_cast<size_t>((L + 31) / 32 + (D + 31) / 32) * sizeof(uint32_t);
+  const size_t smem = row_smem_words(L, D, 0) * sizeof(uint32_t);
   int err = xpk_set_smem(reinterpret_cast<const void*>(ssa_decode_kernel), smem);
   if (err) return err;
   ssa_decode_kernel<<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -403,8 +496,7 @@ extern "C" int launch_ssa_decode_keyed(const uint8_t* q, const uint8_t* k,
   if (blocks <= 0 || blocks > 0x7fffffffLL || L <= 0 || D <= 0 || h0 < 0 ||
       span_s <= 0 || span_a <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      static_cast<size_t>((L + 31) / 32 + (D + 31) / 32) * sizeof(uint32_t);
+  const size_t smem = row_smem_words(L, D, 0) * sizeof(uint32_t);
   int err = xpk_set_smem(
       reinterpret_cast<const void*>(ssa_decode_keyed_kernel), smem);
   if (err) return err;
@@ -425,14 +517,43 @@ extern "C" int launch_ssa_decode_paged(const uint8_t* q, const uint8_t* kpool,
                                        int KV, int page_len, int MP, int D,
                                        void* stream) {
   const int L = MP * page_len;
-  const size_t smem =
-      static_cast<size_t>((L + 31) / 32 + (D + 31) / 32) * sizeof(uint32_t);
+  const size_t smem = row_smem_words(L, D, MP) * sizeof(uint32_t);
   int err = xpk_set_smem(
       reinterpret_cast<const void*>(ssa_decode_paged_kernel), smem);
   if (err) return err;
   ssa_decode_paged_kernel<<<B * T * H, kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       q, kpool, vpool, table, rs, ra, out, T, H, KV, page_len, MP, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The paged keyed entry: slot_keys int64 [B, 2] (uint32 values), pos int32
+// [B] (each slot's write position) or null, the spans' randint multipliers
+// as prng.randint computes them.
+extern "C" int launch_ssa_decode_paged_keyed(
+    const uint8_t* q, const uint8_t* kpool, const uint8_t* vpool,
+    const int* table, const long long* slot_keys, const int* pos,
+    uint8_t* out, int B, int T, int H, int KV, int page_len, int MP, int D,
+    int h0, int span_s, int mult_s, int span_a, int mult_a, void* stream) {
+  const long long blocks = static_cast<long long>(B) * T * H;
+  const long long L = static_cast<long long>(MP) * page_len;
+  if (blocks <= 0 || blocks > 0x7fffffffLL || KV <= 0 || H % KV ||
+      page_len <= 0 || MP <= 0 || L > 0x7fffffffLL || D <= 0 || h0 < 0 ||
+      span_s <= 0 || span_a <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = row_smem_words(L, D, MP) * sizeof(uint32_t);
+  int err = xpk_set_smem(
+      reinterpret_cast<const void*>(ssa_decode_paged_keyed_kernel), smem);
+  if (err) return err;
+  const PagedKeyedDims a{B, T, H, KV, page_len, MP, D,
+                         static_cast<uint32_t>(h0),
+                         static_cast<uint32_t>(span_s),
+                         static_cast<uint32_t>(mult_s),
+                         static_cast<uint32_t>(span_a),
+                         static_cast<uint32_t>(mult_a)};
+  ssa_decode_paged_keyed_kernel<<<static_cast<unsigned>(blocks), kThreads,
+                                  smem, static_cast<cudaStream_t>(stream)>>>(
+      q, kpool, vpool, table, slot_keys, pos, out, a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,8 +7,8 @@ happens inside the kernel (lanes and rows past the logical shape read as
 zero, and a zero spike never beats a comparator draw).  The comparator
 integers are drawn at the *logical* shapes, as in the reference
 (``ops.py:168-191``), so kernel and plain version see the same draws:
-here through the threefry twin, or, for the dense decode row on the card,
-by the keyed K2 itself from the slot keys
+here through the threefry twin, or, for the dense and paged decode rows on
+the card, by the keyed K2 and K7 themselves from the slot keys
 (:func:`~repro_torch.kernels.ref.draw_slot_decode_prns`'s chain).
 :func:`pack_bits` / :func:`unpack_bits` keep the reference's packing
 convention (bit ``i`` of word ``w`` is element ``32 w + i``) for callers
@@ -23,7 +23,6 @@ import torch
 
 from repro_torch.kernels import aimc_matmul as KA
 from repro_torch.kernels import build as KB
-from repro_torch.kernels import drift_requantize as KD
 from repro_torch.kernels import lif as KL
 from repro_torch.kernels import ref as KREF
 from repro_torch.kernels import ssa_attention as KS
@@ -124,25 +123,25 @@ def ssa_attention_decode_paged_packed(q: Tensor, kpool: Tensor,
                                       vpool: Tensor, page_table: Tensor,
                                       slot_keys: Tensor,
                                       h0: Union[int, Tensor] = 0, *,
-                                      i_max: int) -> Tensor:
+                                      i_max: int,
+                                      pos: Optional[Tensor] = None) -> Tensor:
     """Paged SSA decode step: ``q [T,B,H,1,D]`` against the page pools
     ``kpool``/``vpool [P,T,KV,page_len,D]`` through ``page_table [B,MP]``
-    -> uint8 ``[T,B,H,1,D]``.
+    -> uint8 ``[T,B,H,1,D]``; ``pos [B]`` each slot's write position this
+    step (the post-scatter rows past it are zero).
 
     The comparator integers are drawn per (slot, global head) at the
     *logical* cache length ``L = MP*page_len`` with the dense path's
     streams, so paged decode equals :func:`ssa_attention_decode_packed`
-    over the gathered cache.  The kernel reads each page through the table
-    (query head ``h`` reads KV head ``h // (H/KV)``); nothing is padded."""
-    t, b, h, _, d = q.shape
-    l = page_table.shape[1] * kpool.shape[3]
-    rs, ra = draw_slot_decode_prns(slot_keys, t, h, l, d, i_max, h0)
-    qf = q.movedim(1, 0).reshape(b, t, h, d).to(torch.uint8).contiguous()
-    out = KS.ssa_decode_paged_kernel(
-        qf, kpool.to(torch.uint8).contiguous(),
-        vpool.to(torch.uint8).contiguous(),
-        page_table.to(torch.int32).contiguous(), rs, ra)
-    return out.movedim(1, 0)[:, :, :, None, :]
+    over the gathered cache.  On the card the keyed K7 draws them in
+    registers, reads each page through the table (query head ``h`` reads
+    KV head ``h // (H/KV)``) and stops each slot's scores after ``pos``;
+    q, the pools and the output stay where the caller holds them.  On the
+    CPU the plain version draws with the threefry twin and reads every
+    row."""
+    return KS.ssa_decode_paged_keyed_kernel(q, kpool, vpool, page_table,
+                                            slot_keys, pos, h0=h0,
+                                            i_max=i_max)
 
 
 def aimc_spiking_linear(spikes: Tensor, w_levels: Tensor, scale: Tensor,
@@ -164,22 +163,3 @@ def aimc_matmul_counts(spikes: Tensor, w_levels: Tensor) -> Tensor:
     return KA.aimc_matmul_counts_kernel(
         spikes.to(torch.float32).contiguous(),
         w_levels.to(torch.int8).contiguous())
-
-
-def drift_requantize(levels: Tensor, eps: Tensor, nu: Tensor, t_seconds,
-                     img_gain, *, t0: float) -> Tensor:
-    """The drift fold onto the int8 image grid (K6) for programmed state
-    ``[..., d_in, d_out]``; ``t_seconds`` and ``img_gain`` are scalars or
-    one value per leading index, placed on the state's device as f32
-    tensors of the leading shape (no host synchronisation).  One launch
-    for the whole leaf, stacked or not; nothing is padded."""
-    lead = levels.shape[:-2]
-
-    def per_matrix(x):
-        x = torch.as_tensor(x, dtype=torch.float32, device=levels.device)
-        return torch.broadcast_to(x, lead).contiguous()
-
-    return KD.drift_requantize_kernel(
-        levels.to(torch.float32).contiguous(),
-        eps.to(torch.float32).contiguous(), nu.to(torch.float32).contiguous(),
-        per_matrix(t_seconds), per_matrix(img_gain), t0=t0)

@@ -25,7 +25,9 @@ class KVView:
     [B]`` int32, each slot's live length (its rows at and past it are
     zero, so a kernel need not read them).  Paged: page pools ``[P, T, KV,
     page_len, hd]`` and ``page_table [B, MP]`` int32 (page 0 is the
-    permanently zero null page)."""
+    permanently zero null page), and optionally ``pos [B]`` int32, each
+    slot's write position this step (the unfused path attends after the
+    scatter: rows up to and including it are live, later ones zero)."""
 
     k: Tensor
     v: Tensor
@@ -42,9 +44,9 @@ class KVView:
         return cls(k=k, v=v, pos=pos)
 
     @classmethod
-    def from_pool(cls, kpool: Tensor, vpool: Tensor, page_table: Tensor
-                  ) -> "KVView":
-        return cls(k=kpool, v=vpool, page_table=page_table)
+    def from_pool(cls, kpool: Tensor, vpool: Tensor, page_table: Tensor,
+                  pos: Optional[Tensor] = None) -> "KVView":
+        return cls(k=kpool, v=vpool, page_table=page_table, pos=pos)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,7 +15,7 @@ reference's ``lax.scan`` does.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -108,6 +108,30 @@ def drift_requantize_ref(levels: Tensor, eps: Tensor, nu: Tensor, t_seconds,
     leading index of ``levels [..., d_in, d_out]``."""
     return drift_fold_ref(levels, eps, drift_factor_ref(nu, t_seconds, t0),
                           img_gain)
+
+
+def img_gain_ref(img_inv: Tensor) -> Tensor:
+    """The image grid frozen at program time: ``round(1 / img_inv)`` (the
+    rounding repairs the f32 reciprocal, e.g. of 1/7)."""
+    return torch.round(1.0 / img_inv)
+
+
+def drift_fold_leaves_ref(leaves, *, t0: float) -> List[Tensor]:
+    """Grouped K6's plain version: each ``(levels, eps, nu, t_seconds or
+    None (t = 0), img_inv)`` leaf's int8 image by
+    :func:`drift_requantize_ref` at the gain :func:`img_gain_ref`."""
+    return [drift_requantize_ref(lv, eps, nu, 0.0 if t is None else t, t0=t0,
+                                 img_gain=img_gain_ref(inv))
+            for lv, eps, nu, t, inv in leaves]
+
+
+def drift_abs_sums_ref(leaves, *, t0: float) -> Tensor:
+    """The calibration read's plain version: each matrix's sum of
+    ``|image|`` over the images of :func:`drift_fold_leaves_ref`, int64
+    over every matrix of every leaf in order."""
+    sums = [torch.sum(torch.abs(img.to(torch.int64)), dim=(-2, -1)).reshape(-1)
+            for img in drift_fold_leaves_ref(leaves, t0=t0)]
+    return torch.cat(sums)
 
 
 def aimc_programmed_linear_ref(spikes: Tensor, levels: Tensor, eps: Tensor,
@@ -205,6 +229,24 @@ def ssa_decode_keyed_ref(q: Tensor, k: Tensor, v: Tensor, slot_keys: Tensor,
                          v.movedim(1, 0).reshape(g, l, d),
                          rs.reshape(g, 1, l), ra.reshape(g, 1, d))
     return out.reshape(b, t, h, 1, d).movedim(0, 1)
+
+
+def ssa_decode_paged_keyed_ref(q: Tensor, kpool: Tensor, vpool: Tensor,
+                               page_table: Tensor, slot_keys: Tensor,
+                               h0: Union[int, Tensor] = 0, *, i_max: int
+                               ) -> Tensor:
+    """The paged SSA decode row with its draws: ``q [T,B,H,1,D]`` against
+    the pools ``[P,T,KV,page_len,D]`` through ``page_table [B,MP]``, the
+    comparators of :func:`draw_slot_decode_prns` at the logical length ``L
+    = MP*page_len`` (the dense layout's streams) -> uint8 ``[T,B,H,1,D]``.
+    The keyed K7's plain version; every row is read."""
+    t, b, h, _, d = q.shape
+    l = page_table.shape[1] * kpool.shape[3]
+    rs, ra = draw_slot_decode_prns(slot_keys, t, h, l, d, i_max, h0)
+    out = ssa_decode_paged_ref(q.movedim(1, 0), kpool, vpool, page_table,
+                               rs.reshape(b, t, h, 1, l),
+                               ra.reshape(b, t, h, 1, d))
+    return out.movedim(0, 1)
 
 
 def scatter_at_pos(cache: Tensor, pos: Tensor, rows: Tensor) -> None:

@@ -3,15 +3,17 @@ per (slot, t, head) over a dense cache (K2) or a block-paged pool (K7),
 and the full N x N SSA tile per (t, b, h) of a whole sequence (K8).
 
 Replace ``repro/kernels/ssa_attention.py:ssa_decode_kernel``,
-``ssa_decode_paged_kernel`` and ``ssa_attention_kernel``.  K2 has two
-entries over one kernel body: :func:`ssa_decode_kernel` takes its
-comparator draws as tensors, :func:`ssa_decode_keyed_kernel` (the serving
-path's) draws them itself from the slot keys and reads the cache where the
-caller holds it, up to each slot's live length.  On a CPU tensor each
-wrapper runs its plain version
+``ssa_decode_paged_kernel`` and ``ssa_attention_kernel``.  K2 and K7 each
+have two entries over one kernel body: :func:`ssa_decode_kernel` and
+:func:`ssa_decode_paged_kernel` take their comparator draws as tensors;
+:func:`ssa_decode_keyed_kernel` and :func:`ssa_decode_paged_keyed_kernel`
+(the serving paths') draw them themselves from the slot keys, take the
+query and the cache where the caller holds them and read up to each
+slot's live length.  On a CPU tensor each wrapper runs its plain version
 (:func:`repro_torch.kernels.ref.ssa_decode_ref`,
 :func:`~repro_torch.kernels.ref.ssa_decode_keyed_ref`,
 :func:`~repro_torch.kernels.ref.ssa_decode_paged_ref`,
+:func:`~repro_torch.kernels.ref.ssa_decode_paged_keyed_ref`,
 :func:`~repro_torch.kernels.ref.ssa_attention_ref`); on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -135,6 +137,53 @@ def ssa_decode_paged_kernel(q: Tensor, kpool: Tensor, vpool: Tensor,
         page_table.data_ptr(), rs.data_ptr(), ra.data_ptr(), out.data_ptr(),
         b, t, h, kv, page_len, mp, d, KB.stream_ptr(q))
     KB.raise_on_error(err, "ssa_decode_paged")
+    KB.LAUNCHES["ssa_decode_paged"] += 1
+    return out
+
+
+def ssa_decode_paged_keyed_kernel(q: Tensor, kpool: Tensor, vpool: Tensor,
+                                  page_table: Tensor, slot_keys: Tensor,
+                                  pos: Optional[Tensor], *,
+                                  h0: Union[int, Tensor] = 0, i_max: int
+                                  ) -> Tensor:
+    """The paged SSA decode row drawing its own comparators: ``q
+    [T,B,H,1,D]`` uint8 (contiguous), the pools ``kpool``/``vpool
+    [P,T,KV,page_len,D]`` uint8 (contiguous, as stored: checked, never
+    converted), ``page_table [B,MP]`` int32 (page 0 the zero null page),
+    ``slot_keys [B, 2]`` int64 holding uint32 words, ``pos [B]`` int32 each
+    slot's write position this step (its rows up to and including ``pos``
+    are live, later ones zero and not read; ``pos >= L`` reads all ``L =
+    MP*page_len``) or ``None`` (all L) -> uint8 ``[T,B,H,1,D]``.  Query row
+    ``(b, t, h)`` draws from ``fold_in(slot_keys[b], h0 + h)`` what
+    :func:`repro_torch.kernels.ref.draw_slot_decode_prns` draws at length
+    ``L``; query head ``h`` reads KV head ``h // (H/KV)``.  The kernel
+    trusts the table's entries to lie in ``[0, P)``."""
+    if not q.is_cuda:
+        return KREF.ssa_decode_paged_keyed_ref(q, kpool, vpool, page_table,
+                                               slot_keys, h0, i_max=i_max)
+    t, b, h, _, d = q.shape
+    p, _, kv, page_len, _ = kpool.shape
+    mp = page_table.shape[1]
+    if h % kv:
+        raise ValueError(f"ssa_decode_paged_keyed: H={h} is not a multiple "
+                         f"of KV={kv}")
+    KB.check_cuda(q, torch.uint8, (t, b, h, 1, d), "q")
+    KB.check_cuda(kpool, torch.uint8, (p, t, kv, page_len, d), "kpool")
+    KB.check_cuda(vpool, torch.uint8, (p, t, kv, page_len, d), "vpool")
+    KB.check_cuda(page_table, torch.int32, (b, mp), "page_table")
+    KB.check_cuda(slot_keys, torch.int64, (b, 2), "slot_keys")
+    if pos is not None:
+        KB.check_cuda(pos, torch.int32, (b,), "pos")
+    out = torch.empty((t, b, h, 1, d), dtype=torch.uint8, device=q.device)
+    if out.numel() == 0:
+        return out
+    err = _lib("launch_ssa_decode_paged_keyed", [_P] * 7 + [_I] * 12 + [_P])(
+        q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+        page_table.data_ptr(), slot_keys.data_ptr(),
+        0 if pos is None else pos.data_ptr(), out.data_ptr(), b, t, h, kv,
+        page_len, mp, d, int(h0), d, prng.randint_multiplier(d), i_max,
+        prng.randint_multiplier(i_max), KB.stream_ptr(q))
+    KB.raise_on_error(err, "ssa_decode_paged_keyed")
     KB.LAUNCHES["ssa_decode_paged"] += 1
     return out
 

@@ -343,7 +343,9 @@ def _spiking_attention_decode_paged(params, s: Tensor, blk_pool, cfg,
     scatter_into_pages(blk_pool["kp"], write_pids, pos, k_new.movedim(0, 1))
     scatter_into_pages(blk_pool["vp"], write_pids, pos, v_new.movedim(0, 1))
     i_max = page_table.shape[1] * blk_pool["kp"].shape[3]
-    view = KVView.from_pool(blk_pool["kp"], blk_pool["vp"], page_table)
+    # rows after each slot's write position are zero: a kernel may stop
+    # there
+    view = KVView.from_pool(blk_pool["kp"], blk_pool["vp"], page_table, pos)
     return _attention_out(params, view, q, i_max, s, cfg, slot_keys, backend)
 
 

@@ -455,6 +455,89 @@ def test_ssa_decode_paged_kernel(cuda, case):
     _eq(got, want)
 
 
+PAGED_KEYED_CASES = {
+    # name: (b, t, h, kv, d, pl, mp, pos (write positions), idle, h0, i_max):
+    # the unfused paged decode at the serving widths; pos 0, mid-page, L - 1,
+    # L and past L; idle slots (null rows, pos 0); a slot whose table is
+    # mostly null pages; GQA with page_len 5 and a head offset; ragged D
+    "serving_widths": (8, 4, 4, 4, 64, 8, 32, [40, 100, 0, 5, 200, 255, 17, 64],
+                       (6,), 0, 256),
+    "pos_edges": (5, 4, 4, 4, 64, 8, 4, [0, 12, 31, 32, 39], (), 0, 32),
+    "idle_null": (4, 4, 4, 4, 64, 8, 32, [0, 2, 0, 9], (0, 2), 0, 256),
+    "gqa_pl5_h0": (4, 4, 4, 2, 16, 5, 5, [3, 24, 9, 30], (2,), 2, 25),
+    "ragged_d": (3, 3, 3, 3, 40, 7, 5, [6, 20, 34], (), 1, 20),
+}
+
+
+def paged_keyed_inputs(rng, b, t, h, kv, d, pl, mp, pos, idle):
+    """Pools after the step's scatter: each active slot's rows up to and
+    including its write position live, later rows zero; plus ``q`` and
+    distinct slot keys."""
+    table, _, kp, vp = paged_inputs(
+        rng, b=b, t=t, kv=kv, hd=d, pl=pl, mp=mp,
+        pos=[min(p + 1, mp * pl) for p in pos], idle=idle)
+    q = _t(rng.integers(0, 2, (t, b, h, 1, d)).astype(np.uint8))
+    keys = prng.key_from_seeds(_t(rng.integers(0, 2 ** 32, b, dtype=np.uint64)
+                                  .astype(np.int64)))
+    return q, kp, vp, table, keys
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_KEYED_CASES))
+def test_ssa_decode_paged_keyed_kernel(cuda, case):
+    """The K7 that draws its own comparators, reading the pools through the
+    table up to each slot's write position, equals its plain version (the
+    threefry twin's draws, then ``ssa_decode_paged_ref`` over every row);
+    with ones written into every row past the live length it still does
+    (it never reads them); without ``pos`` it reads every row."""
+    b, t, h, kv, d, pl, mp, pos, idle, h0, i_max = PAGED_KEYED_CASES[case]
+    rng = np.random.default_rng(sum(pos) + d)
+    q, kp, vp, table, keys = paged_keyed_inputs(rng, b, t, h, kv, d, pl, mp,
+                                                pos, idle)
+    want = KREF.ssa_decode_paged_keyed_ref(q, kp, vp, table, keys, h0,
+                                           i_max=i_max)
+    tpos = _t(np.int32(pos)).to(cuda)
+    dev = [x.to(cuda) for x in (q, kp, vp, table, keys)]
+    n = KB.LAUNCHES["ssa_decode_paged"]
+    got = KS.ssa_decode_paged_keyed_kernel(*dev, tpos, h0=h0, i_max=i_max)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["ssa_decode_paged"] == n + 1
+    _eq(got, want)
+    assert 0 < int(want.sum()) < want.numel()
+    for i in idle:
+        assert int(got[:, i].sum()) == 0
+    jk, jv = kp.clone(), vp.clone()
+    for i, p in enumerate(pos):
+        for j, pid in enumerate(table[i].tolist()):
+            if pid >= RESERVED_PAGES:
+                lo = min(max(p + 1 - j * pl, 0), pl)
+                jk[pid, :, :, lo:] = 1
+                jv[pid, :, :, lo:] = 1
+    _eq(KS.ssa_decode_paged_keyed_kernel(dev[0], jk.to(cuda), jv.to(cuda),
+                                         *dev[3:], tpos, h0=h0, i_max=i_max),
+        want)
+    _eq(KS.ssa_decode_paged_keyed_kernel(*dev, None, h0=h0, i_max=i_max),
+        want)
+
+
+def test_paged_keyed_decode_row_dispatches_no_torch_op(cuda):
+    """On the card the unfused paged path's decode row (``CudaBackend.
+    decode_attention`` over ``KVView.from_pool(..., pos)``) is the one K7
+    launch: no threefry-twin op, no copy of q or the pools, nothing but
+    the output's allocation reaches PyTorch's dispatcher."""
+    from repro_torch.kernels.plan import AttnSpec, KVView
+
+    b, t, h, kv, d, pl, mp, pos, idle, h0, i_max = PAGED_KEYED_CASES[
+        "serving_widths"]
+    q, kp, vp, table, keys = (x.to(cuda) for x in paged_keyed_inputs(
+        np.random.default_rng(3), b, t, h, kv, d, pl, mp, pos, idle))
+    view = KVView.from_pool(kp, vp, table, _t(np.int32(pos)).to(cuda))
+    got, seen = dispatched_ops(lambda: CudaBackend().decode_attention(
+        view, q, AttnSpec(i_max, h0), slot_keys=keys))
+    assert [f for f in seen if not f.startswith("aten.empty")] == []
+    _eq(got, KREF.ssa_decode_paged_keyed_ref(q, kp, vp, table, keys, h0,
+                                             i_max=i_max))
+
+
 PAGED_LAYER_CASES = {
     # name: (t, b, d, h, kv, hd, pl, mp, dff, pos, idle[, tail, mlp])
     "serving_widths": (4, 8, 256, 4, 4, 64, 8, 32, 1024,
@@ -636,33 +719,91 @@ def test_paper_forward_kernels_equal_plain_on_card(cuda, name):
                        out["cpu", "integer"].argmax(-1))
 
 
+def _fold_leaf(rng, shape, dev, *, offset=0, gains=(7.0,), times=(3600.0,)):
+    """One programmed leaf's K6 operands on ``dev``: levels, eps and nu as
+    ``program`` draws them (``offset`` elements into a larger allocation,
+    so ``offset % 4 != 0`` leaves the rows unaligned), a time and ``1 /
+    gain`` per matrix cycling through ``times`` and ``gains``."""
+    n = int(np.prod(shape))
+
+    def put(x):
+        buf = torch.empty(n + offset, dtype=torch.float32, device=dev)
+        buf[offset:] = _t(x.astype(np.float32)).reshape(-1).to(dev)
+        return buf[offset:].view(shape)
+
+    lead = shape[:-2]
+    m = int(np.prod(lead))
+    tt = _t(np.resize(np.float32(times), m).reshape(lead)).to(dev)
+    inv = _t((1.0 / np.resize(np.float64(gains), m)).astype(np.float32)
+             .reshape(lead)).to(dev)
+    return KD.FoldLeaf(put(rng.integers(-15, 16, shape)),
+                       put(0.45 * rng.standard_normal(shape)),
+                       put(np.maximum(0.06 + 0.02 * rng.standard_normal(shape),
+                                      0)), tt, inv)
+
+
 @pytest.mark.parametrize("shape", [(384, 1536), (4, 256, 1024), (300, 17)])
 def test_drift_requantize_kernel(cuda, shape):
-    """K6 equals its plain version on the card bit for bit, at t = 0,
-    t < t0, an hour and a year, image gains 1 and 7, with a time and a
-    gain per matrix for a stacked leaf."""
+    """K6 (one leaf) equals its plain version on the card bit for bit, at
+    t = 0, t < t0, an hour and a year, image gains 1 and 7 (1 / img_inv
+    rounded on the card as ``aimc_device._img_gain`` rounds it), with a
+    time and a gain per matrix for a stacked leaf, image and calibration
+    read."""
     rng = np.random.default_rng(sum(shape))
-    lv = _t(rng.integers(-15, 16, shape).astype(np.float32)).to(cuda)
-    eps = _t((0.45 * rng.standard_normal(shape)).astype(np.float32)).to(cuda)
-    nu = _t(np.maximum(0.06 + 0.02 * rng.standard_normal(shape), 0)
-            .astype(np.float32)).to(cuda)
-    lead = shape[:-2]
     for t in (0.0, 10.0, 3600.0, 3.1536e7):
         for gain in (1.0, 7.0):
-            tt = torch.full(lead, t, device=cuda)
-            gg = torch.full(lead, gain, device=cuda)
-            if lead:
-                tt[0], gg[-1] = 86400.0, 8.0
-            got = KD.drift_requantize_kernel(lv, eps, nu, tt, gg, t0=20.0)
+            leaf = _fold_leaf(rng, shape, cuda, gains=(gain, 8.0),
+                              times=(t, 86400.0))
+            (got,) = KD.drift_fold_kernel([leaf], t0=20.0)
             torch.cuda.synchronize()
-            _eq(got, KREF.drift_requantize_ref(lv, eps, nu, tt, t0=20.0,
-                                               img_gain=gg))
+            (want,) = KREF.drift_fold_leaves_ref([leaf], t0=20.0)
+            _eq(got, want)
+            _eq(KREF.img_gain_ref(leaf.img_inv),
+                _t(np.resize(np.float32([gain, 8.0]), leaf.img_inv.numel())
+                   .reshape(leaf.img_inv.shape)))
+            _eq(KD.drift_abs_sums_kernel([leaf], t0=20.0),
+                KREF.drift_abs_sums_ref([leaf], t0=20.0))
+
+
+# leaf shapes of the grouped fold: the ViT's widest, the LM stack's stacked
+# mlp.wi, ragged widths (rows not 16-byte aligned past the first), 2-D
+FOLD_SHAPES = ((384, 1536), (4, 256, 1024), (300, 17), (3, 70, 40),
+               (2, 17, 33), (64, 32), (129, 7))
+
+
+@pytest.mark.parametrize("n_leaves", [1, 6, 26, 40])
+def test_drift_fold_kernel_groups(cuda, n_leaves):
+    """The grouped K6 over ``n_leaves`` leaves of :data:`FOLD_SHAPES` in
+    turn, every third one unaligned (its operands one element into their
+    allocation), a time and a gain per matrix (gains 7, 1, 8 and 7.4, which
+    rounds to 7), one leaf at t = 0 (no clock): each image and each
+    calibration read equals its plain version, and each call launches
+    once for every 32 leaves."""
+    rng = np.random.default_rng(n_leaves)
+    leaves = [_fold_leaf(rng, FOLD_SHAPES[i % len(FOLD_SHAPES)], cuda,
+                         offset=1 if i % 3 == 2 else 0,
+                         gains=(7.0, 1.0, 8.0, 7.4),
+                         times=(3600.0 * (i + 1), 10.0, 3.1536e7))
+              for i in range(n_leaves)]
+    leaves[-1] = leaves[-1]._replace(t_seconds=None)
+    chunks = -(-n_leaves // KD.MAX_LEAVES)
+    n = KB.LAUNCHES["drift_requantize"]
+    got = KD.drift_fold_kernel(leaves, t0=20.0)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["drift_requantize"] == n + chunks
+    for g, w in zip(got, KREF.drift_fold_leaves_ref(leaves, t0=20.0)):
+        _eq(g, w)
+    sums = KD.drift_abs_sums_kernel(leaves, t0=20.0)
+    assert KB.LAUNCHES["drift_requantize"] == n + 2 * chunks
+    _eq(sums, KREF.drift_abs_sums_ref(leaves, t0=20.0))
+    assert int(sums.min()) > 0
 
 
 def test_programmed_paper_forward_equal_plain_on_card(cuda):
     """The programmed paper GPT at program, after a year of drift and after
     recalibration: kernel and plain logits bitwise equal on the card; the
-    lifecycle launches K6 once per leaf per fold (twice per recalibration)."""
+    lifecycle launches K6 once per leaf at programming, then once per fold
+    and twice per recalibration (every leaf in one launch)."""
     name = "xpikeformer-gpt-smoke"
     _, cfg = SPIKING_ARCHS[name]
     x = MIMO.sample_batch(0, MIMO.MIMOConfig(), 4)["features"]
@@ -682,7 +823,7 @@ def test_programmed_paper_forward_equal_plain_on_card(cuda):
             eng.recalibrate()
         got = eng.forward(x, key)
         assert torch.equal(got, plain.forward(x, key, eng.params)), stage
-    assert KB.LAUNCHES["drift_requantize"] == 4 * leaves
+    assert KB.LAUNCHES["drift_requantize"] == leaves + 3
 
 
 @pytest.mark.parametrize("t,m,d_in,d_out", [(4, 4, 512, 256),

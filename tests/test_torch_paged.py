@@ -8,7 +8,8 @@ On numpy-seeded inputs and the reduced ``xpikeformer-gpt-4-256``:
 * K7's wrapper (plain path) equals ``repro.kernels.ops.
   ssa_attention_decode_paged_packed`` running the Pallas kernel in
   interpret mode, with GQA, a ``page_len`` that is not a multiple of 32 and
-  null pages; K9's wrapper equals ``repro.kernels.decode_fused.
+  null pages, also through the unfused path's view carrying each slot's
+  write position (idle slots, ``pos >= L``); K9's wrapper equals ``repro.kernels.decode_fused.
   fused_decode_layer_paged`` (interpret mode) with the pool zero at and
   after ``pos``, an idle slot writing the trash page and ``pos >= L``;
 * ``paged_decode_step``: pool and activity exact, logits within
@@ -17,7 +18,8 @@ On numpy-seeded inputs and the reduced ``xpikeformer-gpt-4-256``:
 * the paged ``BatchScheduler``'s token streams and page statistics equal
   JAX's ``BatchScheduler(paged=True)`` on the integer backend under prefix
   hits, a partial-block copy-on-write, head-of-line blocking on page
-  pressure and ``evict(requeue=True)``; paged serving equals dense serving
+  pressure and ``evict(requeue=True)``, with the fused plan and the
+  unfused one; paged serving equals dense serving
   within the port.
 
 All comparisons are exact unless a tolerance is named.
@@ -304,6 +306,43 @@ def test_backend_paged_decode_attention_matches_integer(backend):
     _eq(got, want)
 
 
+# name: (t, b, h, kv, d, pl, mp, pos, idle, h0): the unfused serving path's
+# view, each slot's write position riding it: an idle slot, a slot past L,
+# a slot at L - 1, mid-page and at 0
+K7_POS_CASES = {
+    "idle_past_l": (2, 4, 4, 2, 16, 5, 4, [7, 0, 19, 25], (1,), 2),
+    "pos0_mid": (2, 3, 2, 2, 40, 8, 3, [0, 11, 23], (), 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_POS_CASES))
+def test_paged_view_with_pos_matches_pallas_interpret(case):
+    """The unfused paged path's call -- ``CudaBackend.decode_attention``
+    over ``KVView.from_pool(..., pos)`` -- on the CPU (the keyed K7's plain
+    version) equals JAX's paged wrapper in interpret mode, idle slots and
+    slots at and past ``L`` included."""
+    t, b, h, kv, d, pl, mp, pos, idle, h0 = K7_POS_CASES[case]
+    rng = np.random.default_rng(sum(pos) + d)
+    live = [min(p + 1, mp * pl) for p in pos]
+    table, _, n_pages = _paged_layout(rng, b=b, mp=mp, pl=pl, pos=live,
+                                      idle=idle)
+    kp, vp = _paged_pools(rng, n_pages=n_pages, t=t, kv=kv, pl=pl, hd=d,
+                          table=table, pos=live)
+    q = rng.integers(0, 2, (t, b, h, 1, d)).astype(np.uint8)
+    keys = _keys(np.arange(b) + 5)
+    want = JKOPS.ssa_attention_decode_paged_packed(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
+        keys, h0, i_max=mp * pl, interpret=True)
+    view = KVView.from_pool(_t(kp), _t(vp), _t(table),
+                            _t(np.asarray(pos, np.int32)))
+    got = get_backend("cuda").decode_attention(
+        view, _t(q), AttnSpec(i_max=mp * pl, h0=h0), slot_keys=_tkeys(keys))
+    _eq(got, want)
+    for i in idle:
+        assert int(got[:, i].sum()) == 0
+    assert int(got.sum()) > 0
+
+
 def _triple(rng, d_in, d_out, bias=True):
     lv = rng.integers(-15, 16, (d_in, d_out)).astype(np.int8)
     sc = (rng.random(d_out) * 0.2 + 0.01).astype(np.float32)
@@ -520,6 +559,27 @@ def test_paged_scheduler_matches_reference(setup, reference_paged, scenario):
     free = np.asarray(sch.pages.refcount) == 0
     for leaf in sch.state.leaves():
         assert int(leaf.movedim(-5, 0)[torch.from_numpy(free)].sum()) == 0
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_unfused_paged_scheduler_matches_reference(setup, reference_paged,
+                                                   scenario):
+    """The unfused paged plan (K1 linears, the keyed K7 row over the pool
+    after the scatter, each slot's write position on the view) serves JAX's
+    paged scheduler's tokens and statistics."""
+    _, tcfg, _, tparams = setup
+    drive, slots, cache_len, n_pages = SCENARIOS[scenario]
+    want, jst, jref = reference_paged[scenario]
+    sch = BatchScheduler(tparams, tcfg, "cuda", slots=slots,
+                         cache_len=cache_len, paged=True, page_len=8,
+                         n_pages=n_pages, decode_kernel="unfused",
+                         device="cpu")
+    assert not sch.plan.fused and sch.plan.layout == "paged"
+    assert drive(sch) == want
+    for f in STAT_FIELDS:
+        assert getattr(sch.stats, f) == getattr(jst, f), f
+    assert sch.stats.spike_events == jst.spike_events
+    assert list(sch.pages.refcount) == jref
 
 
 def test_paged_equals_dense_in_the_port(setup):

@@ -27,7 +27,9 @@ packages:
   ``scale``, ``img_inv`` exact, ``eps``/``nu`` within tolerance, leaf by
   leaf (which checks the key each leaf is programmed with).
 * ``drift_to``, ``recalibrate``, ``eff_scale``, ``device_time``,
-  ``gdc_gain_summary`` exact on JAX's state.
+  ``gdc_gain_summary`` exact on JAX's state; ``drift_tree`` and
+  ``recalibrate_tree`` (K6's grouped fold and calibration read) exact on
+  trees of up to 40 states with stacked, ragged and 2-D leaves.
 * The paper models programmed: block spike trains bitwise equal to JAX's
   ``IntegerBackend`` at program, drift and recalibration; logits within
   ``PROG_LOGITS_ATOL``; drift degrades and GDC recovers.
@@ -170,9 +172,9 @@ def test_drift_fold_plain_equals_jax_oracles(shape):
                     jnp.float32(t), t0=JCFG.drift_t0_s, img_gain=gain,
                     interpret=True)
                 _eq(pallas, want, f"pallas t={t}")
-            native = KD.drift_requantize_kernel(
-                _t(lv), _t(eps), _t(nu), torch.tensor(t), torch.tensor(
-                    float(gain)), t0=TCFG.drift_t0_s)
+            (native,) = KD.drift_fold_kernel([KD.FoldLeaf(
+                _t(lv), _t(eps), _t(nu), torch.tensor(t),
+                torch.tensor(np.float32(1.0 / gain)))], t0=TCFG.drift_t0_s)
             assert native.dtype == torch.int8
             diff = np.abs(native.numpy().astype(int) - want.astype(int))
             assert diff.max() <= 1
@@ -197,8 +199,9 @@ def test_drift_fold_stacked_leaf_per_matrix_time_and_gain():
             jnp.asarray(lv[i]), jnp.asarray(eps[i]), jnp.asarray(nu[i]),
             float(t[i]), t0=JCFG.drift_t0_s, img_gain=int(gain[i])))
     launches = KB.LAUNCHES["drift_requantize"]
-    native = KOPS.drift_requantize(_t(lv), _t(eps), _t(nu), _t(t), _t(gain),
-                                   t0=TCFG.drift_t0_s)
+    (native,) = KD.drift_fold_kernel([KD.FoldLeaf(
+        _t(lv), _t(eps), _t(nu), _t(t), _t((1.0 / gain).astype(np.float32)))],
+        t0=TCFG.drift_t0_s)
     assert KB.LAUNCHES["drift_requantize"] == launches  # CPU: no kernel
     assert int(np.abs(native.numpy().astype(int) - want).max()) <= 1
 
@@ -375,6 +378,70 @@ def test_lifecycle_exact_on_jax_state():
             for f in ("levels_t", "t_seconds", "gdc_gain", "eff_scale",
                       "analog_scale"):
                 _eq(getattr(g, f), getattr(w, f), f"t={t} {f}")
+
+
+# leaf shapes of the grouped fold: stacked (a time and a gain per matrix),
+# ragged (an odd width: rows not 16-byte aligned), 2-D
+GROUP_SHAPES = ((3, 70, 40), (300, 17), (64, 32), (2, 17, 33))
+
+
+def _jax_state_tree(n_leaves):
+    """JAX's programmed states, ``n_leaves`` of :data:`GROUP_SHAPES` in
+    turn, in a dict (flatten order = key order); stacked leaves get an
+    image gain per matrix (1/7, 1, 1/8 of ``img_inv``) and a clock per
+    matrix."""
+    rng = np.random.default_rng(n_leaves)
+    tree = {}
+    for i in range(n_leaves):
+        shape = GROUP_SHAPES[i % len(GROUP_SHAPES)]
+        w = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+        st = JAD.program(jax.random.PRNGKey(100 + i), jnp.asarray(w), JCFG)
+        if len(shape) == 3:
+            inv = np.float32([1 / 7, 1.0, 1 / 8][:shape[0]])
+            st = dataclasses.replace(st, img_inv=jnp.asarray(inv))
+            st = JAD.drift_to(st, jnp.asarray(
+                np.float32([60.0, 3600.0, 3.1536e7][:shape[0]])), JCFG)
+        tree[f"leaf{i:02d}"] = st
+    return tree
+
+
+@pytest.mark.parametrize("n_leaves", [1, 6, 40])
+def test_grouped_fold_and_tree_gdc_equal_jax(n_leaves, monkeypatch):
+    """``drift_tree`` (one grouped K6 fold a device, 32 leaves a launch)
+    and ``recalibrate_tree`` (two grouped calibration reads) equal JAX's
+    ``drift_tree`` / ``recalibrate_tree`` state by state on JAX's state --
+    images, clocks and gains, stacked leaves with a clock and a gain per
+    matrix, a ragged width, more than 32 leaves -- with the drift factor
+    JAX's (the fold itself is held, not XLA's exp/log); ``drift_to`` /
+    ``recalibrate`` of one state with a clock per matrix too, and the CPU
+    launches no kernel."""
+    _jax_factor_patch(monkeypatch)
+    jtree = _jax_state_tree(n_leaves)
+    ttree = convert.params_from_numpy(jax.tree.map(np.asarray, jtree))
+    launches = KB.LAUNCHES["drift_requantize"]
+
+    def same(got, want, what):
+        gs, ws = AD.device_states(got), _states(want)
+        assert len(gs) == len(ws) == n_leaves
+        for i, (g, w) in enumerate(zip(gs, ws)):
+            for f in ("levels_t", "t_seconds", "gdc_gain", "img_inv"):
+                _eq(getattr(g, f), getattr(w, f), f"{what} leaf {i} {f}")
+
+    same(AD.recalibrate_tree(ttree, TCFG), JAD.recalibrate_tree(jtree, JCFG),
+         "gdc at per-matrix clocks")
+    for t in (10.0, 86400.0, 3.1536e7):
+        jd = JAD.drift_tree(jtree, t, JCFG)
+        td = AD.drift_tree(ttree, t, TCFG)
+        same(td, jd, f"fold t={t}")
+        same(AD.recalibrate_tree(td, TCFG), JAD.recalibrate_tree(jd, JCFG),
+             f"gdc t={t}")
+    tvec = np.float32([7200.0, 20.0, 1e6])  # leaf00 is the stacked shape
+    js = JAD.recalibrate(JAD.drift_to(jtree["leaf00"], jnp.asarray(tvec),
+                                      JCFG), JCFG)
+    ts = AD.recalibrate(AD.drift_to(ttree["leaf00"], _t(tvec), TCFG), TCFG)
+    for f in ("levels_t", "t_seconds", "gdc_gain"):
+        _eq(getattr(ts, f), getattr(js, f), f"one state {f}")
+    assert KB.LAUNCHES["drift_requantize"] == launches  # CPU: no kernel
 
 
 def test_lifecycle_errors_and_frozen_image_grid():
@@ -767,9 +834,10 @@ def test_float_boundaries_against_jax():
         want_img = np.asarray(JAD._requantize(
             jnp.asarray(lv), jnp.asarray(eps), jnp.asarray(nu),
             jnp.float32(t), JCFG, 7.0))
-        got_img = KD.drift_requantize_kernel(
-            _t(lv), _t(eps), _t(nu), torch.tensor(t), torch.tensor(7.0),
-            t0=TCFG.drift_t0_s).numpy()
+        (got_img,) = KD.drift_fold_kernel([KD.FoldLeaf(
+            _t(lv), _t(eps), _t(nu), torch.tensor(t),
+            torch.tensor(np.float32(1.0 / 7.0)))], t0=TCFG.drift_t0_s)
+        got_img = got_img.numpy()
         d = np.abs(got_img.astype(int) - want_img.astype(int))
         assert d.max() <= 1
         flips += int(d.sum())

@@ -334,8 +334,8 @@ def test_kernel_operands_on_the_serving_path(setup, monkeypatch):
     monkeypatch.setattr(KFD, "fused_decode_layer_kernel", checked(
         KFD.fused_decode_layer_kernel,
         (f32, u8, u8, None, None, None, None, None, None, None, i32, i32)))
-    monkeypatch.setattr(KS, "ssa_decode_paged_kernel", checked(
-        KS.ssa_decode_paged_kernel, (u8, u8, u8, i32, i32, i32)))
+    monkeypatch.setattr(KS, "ssa_decode_paged_keyed_kernel", checked(
+        KS.ssa_decode_paged_keyed_kernel, (u8, u8, u8, i32, i64, i32)))
     monkeypatch.setattr(KFD, "fused_decode_layer_paged_kernel", checked(
         KFD.fused_decode_layer_paged_kernel,
         (f32, u8, u8, i32, None, None, None, None, None, None, None, None,
@@ -348,7 +348,7 @@ def test_kernel_operands_on_the_serving_path(setup, monkeypatch):
         sch.submit([1, 2, 3, 4, 5, 6, 7, 8, 9, 10], 2, seed=2)
         sch.run()
     assert {"aimc_spiking_linear_kernel", "ssa_decode_keyed_kernel",
-            "fused_decode_layer_kernel", "ssa_decode_paged_kernel",
+            "fused_decode_layer_kernel", "ssa_decode_paged_keyed_kernel",
             "fused_decode_layer_paged_kernel"} <= set(seen)
 
 
