@@ -69,10 +69,15 @@ Phases, each printing one JSON line:
    of the ``icl_mimo`` twin (random weights from a seed), through
    ``XpikeformerEngine.forward`` on the kernels and on the plain versions
    (``IntegerBackend``) on the card, from the same params and key: the
-   logits must be bitwise equal and the labels equal, with K8 once and K1
-   six times per block; a reduced config (2 blocks) on the card must give
-   the CPU's labels and logits within 1e-4.  Then ``Backend.lif`` (K4) on
-   the ViT's widest pre-activation shape, equal to the plain version.
+   logits must be bitwise equal and the labels equal, with K8 once per
+   block through its keyed entry (the comparators drawn in the kernel, the
+   heads read and written in place; no given-draws launch) and K1 six
+   times per block; a reduced config (2 blocks) on the card must give
+   the CPU's labels and logits within 1e-4.  Each forward reports the
+   comparators its K8 tiles hold, need (a count above zero) and draw (warp
+   words with a lane that counts), from the operands its blocks hand the
+   backend.  Then ``Backend.lif`` (K4) on the ViT's widest pre-activation
+   shape, equal to the plain version.
 
 6. **drift** -- the programmed-PCM lifecycle.  (a) ``xpikeformer-gpt-4-256``
    on the LM stack, programmed (``engine.program``), served paged (the
@@ -86,7 +91,8 @@ Phases, each printing one JSON line:
    programmed state, must serve the same tokens with the same clock,
    folds, recalibrations and energy.  (b) the paper ViT-4-384 at batch 64,
    programmed, forward at t = 0, 1 h, 1 day, 30 days and 1 year without
-   GDC, then at 1 day and 1 year after ``recalibrate()``: kernel and plain
+   GDC, then at 1 day and 1 year after ``recalibrate()``, each through the
+   keyed K8: kernel and plain
    logits bitwise equal at every point (the mean ``|logit - logit(t=0)|``
    printed), then ``forward(metering=True)``, whose logits must equal the
    unmetered ones (the report printed).
@@ -125,7 +131,17 @@ prefill row, ``128 -> 256`` attention out and ``512 -> 256`` MLP out) and
 at ``M = 4,096``, ``384 -> 384``, timed beside ``torch.matmul`` of the
 same counts (TF32 off), K8 ``ssa_attention`` at the ViT's tile
 (``G = 1,536``, ``N = D = 64``) and the GPT's causal tile (``G = 1,024``,
-``N = 37``), K4 ``lif``'s counts entry (the row-parallel epilogue) at
+``N = 37``) twice: its keyed entry (the paper forwards': comparators drawn
+in the kernel from one key, q/k/v read through the heads views of
+``[T, B, N, H*hd]`` trains, out written into a ``[T, B, N, H, hd]``
+buffer; also at N = 513 and streamed at ``N = 2,048, D = 512``; each row
+with the profiler's device time, the wrapper's host microseconds, the
+comparators the tile holds, needs and draws, and a bound on the draws this
+data needs; the kernels line reads the ViT's) and its given-draws entry
+(also at N = 513 and streamed), and the SASS instructions of one
+in-kernel draw (``cuobjdump -sass`` of probe kernels built from
+``csrc/threefry.cuh``) with what they take at the card's INT32 issue
+rate, K4 ``lif``'s counts entry (the row-parallel epilogue) at
 the mesh's ``[4, 4, 256]`` and ``[4, 1, 256]`` with and without a bias
 and its currents entry there and at the ViT's ``[4, 64*64*1536]`` (each
 row with the profiler's device time, the wrapper's host microseconds and
@@ -143,8 +159,9 @@ Then the ``kernels`` line, the card's name and power limit, and last
 exits non-zero and prints no result.  Without a CUDA device it exits 2.
 Each path's launch counts are read from a run that starts with every count
 at zero: K1-K3 from the dense serve, K9 from the paged serve, K7 from the
-unfused paged run, K8 from the ViT forward, K6 from the programmed paged
-serve, K5 and K4 from the mesh phase (summed over its ranks).  The K1
+unfused paged run, K8 from the ViT forward (its keyed entry), K6 from the
+programmed paged serve, K5 and K4 from the mesh phase (summed over its
+ranks).  The K1
 row at the prefill shape also carries the host-clock cost of a wrapper call
 and of the bare ``ctypes`` launch (1,000 calls each).
 
@@ -155,7 +172,8 @@ one instead: each tree's windows (:func:`phase_windows`: K1/K5, K3/K9 at
 the decode shapes, the serve windows with the dense prefill's time and
 kernels a position, the unfused paged serve window, the forward windows,
 the whole-tree drift folds of the LM stack and the ViT, and the
-programmed paged serve) run in a process of its own, parent, change,
+programmed paged serve; the forwards with their kernels, busy time and
+idle share) run in a process of its own, parent, change,
 change, parent, and the trees must serve the same tokens, give the same
 logits, K3/K9 outputs and folded images, and run the same lifecycle.
 """
@@ -244,16 +262,18 @@ def device_ms(fn, kernel: str, calls: int = BATCH) -> float:
 
     for _ in range(WARMUP):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(3):  # a session that records no kernel is taken again
         torch.cuda.synchronize()
-    ks = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and kernel in e.key]
-    n = sum(e.count for e in ks)
-    check(n > 0, f"the profiler saw no {kernel} launch")
-    return sum(e.self_device_time_total for e in ks) / n / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+        n = sum(e.count for e in ks)
+        if n:
+            return sum(e.self_device_time_total for e in ks) / n / 1e3
+    check(False, f"the profiler saw no {kernel} launch in three sessions")
 
 
 def nbytes(*xs) -> int:
@@ -613,6 +633,170 @@ def triple(gen, d_in, d_out, dev, bias=True):
 
 def spikes(gen, shape, p, dev):
     return (torch.rand(shape, generator=gen) < p).to(torch.uint8).to(dev)
+
+
+# the keyed K8's cases, (T, B, H, N, D, causal): the paper ViT's tile and
+# the paper GPT's (batch 64), N = 513 on the resident design and a tile
+# past a block's shared memory (streamed)
+KEYED_TILES = {"vit": (4, 64, 6, 64, 64, False), "gpt": (4, 64, 4, 37, 64, True),
+               "n513": (1, 2, 32, 513, 64, True),
+               "stream": (1, 1, 2, 2048, 512, True)}
+
+
+def heads(gen, shape, p, dev):
+    """Spikes of a ``[T, B, N, H, hd]``-shaped train seen as ``_heads``
+    hands them over: the ``[T, B, H, N, hd]`` view, no copy."""
+    return spikes(gen, shape, p, dev).movedim(-2, -3)
+
+
+def tile_draws(q, k, v, key, causal) -> dict:
+    """The keyed K8's comparators on these inputs: ``total``, what the
+    tile holds (what the threefry twin draws); ``needed``, those whose
+    count is not zero (no other can fire; a causal score past the diagonal
+    counts zero); ``issued``, the lane draws the warps make (a warp pass
+    takes two words of 32 lanes of a row: 64 lane draws where more than 32
+    of its counts are not zero, 32 where 1 to 32 are, packed onto its
+    lanes, none where none are; padding lanes included)."""
+    from repro_torch.kernels import ref as KREF
+
+    t, b, h, n, d = q.shape
+    g = t * b * h
+    qf, kf, vf = (x.reshape(g, n, d).float() for x in (q, k, v))
+    cs = qf @ kf.transpose(1, 2)  # exact integers in f32 (TF32 is off)
+    if causal:
+        cs = cs * torch.tril(torch.ones((n, n), device=q.device))
+    rs, _ = KREF.draw_comparator_prns(key, (g, n, n), (g, n, d), d, n)
+    ca = (cs > rs).float() @ vf
+
+    def words(c):
+        pad = (-c.shape[-1]) % 64
+        m = torch.nn.functional.pad((c > 0).to(torch.uint8), (0, pad))
+        live = m.reshape(*c.shape[:-1], -1, 64).sum(-1, dtype=torch.int64)
+        return 64 * int((live > 32).sum()) + 32 * int(
+            ((live > 0) & (live <= 32)).sum())
+
+    return dict(total=g * n * (n + d), needed=int((cs > 0).sum())
+                + int((ca > 0).sum()), issued=words(cs) + words(ca))
+
+
+def keyed_tile_bound(q, k, v, key, got, draws, causal):
+    """The least time of one keyed K8 launch on these inputs: bytes, q, k,
+    v, the key and the output once (no comparator is read); operations,
+    :data:`DRAW_OPS` for each comparator this data needs (``needed``: a
+    zero count needs none) at the card's f32 rate, as the keyed K2's and
+    K7's rows count them, plus the AND-popcounts (two operations a lane,
+    both stages) at the int8 tensor rate, as the given-draws row counts
+    them.  Returns :func:`bound`'s tuple."""
+    t, b, h, n, d = q.shape
+    pairs = n * (n + 1) // 2 if causal else n * n
+    pop = 2 * 2 * t * b * h * pairs * d
+    n_bytes = nbytes(q, k, v, key, got)
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = (DRAW_OPS * draws["needed"] / FP32_OPS_PER_S
+              + pop / INT8_OPS_PER_S) * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", n_bytes,
+            DRAW_OPS * draws["needed"] + pop)
+
+
+SASS_PROBE = r"""
+#include "threefry.cuh"
+extern "C" __global__ void draw1(XpkRandintFast r, unsigned long long i0,
+                                 unsigned* out) {
+  const uint64_t i[1] = {i0 + threadIdx.x};
+  uint32_t o[1];
+  r.at<1>(i, o);
+  out[threadIdx.x] = o[0];
+}
+extern "C" __global__ void draw2(XpkRandintFast r, unsigned long long i0,
+                                 unsigned* out) {
+  const uint64_t i[2] = {i0 + threadIdx.x, i0 + threadIdx.x + 32};
+  uint32_t o[2];
+  r.at<2>(i, o);
+  out[threadIdx.x] = o[0] ^ o[1];
+}
+"""
+
+
+def sass_per_draw() -> dict:
+    """The SASS instructions of one keyed K8 draw: two probe kernels built
+    from ``csrc/threefry.cuh`` with the library's flags, one draw and two
+    in lockstep (``XpkRandintFast::at<1>``, ``at<2>``), disassembled by
+    ``cuobjdump -sass``; their difference is what one more draw costs.
+    Returns the counts and the opcodes of the second draw's probe, or the
+    error (the measurement is not a check)."""
+    import re
+
+    from repro_torch.kernels import build as KB
+
+    try:
+        work = KB.BUILD_DIR / "sass_probe"
+        work.mkdir(parents=True, exist_ok=True)
+        (work / "probe.cu").write_text(SASS_PROBE)
+        nvcc = Path(KB._nvcc())
+        flags = [f for f in KB.NVCC_FLAGS
+                 if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+        subprocess.run([str(nvcc), *flags, "-cubin", "-I", str(KB.CSRC), "-o",
+                        str(work / "probe.cubin"), str(work / "probe.cu")],
+                       check=True, capture_output=True, text=True, timeout=300)
+        dump = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass",
+                               str(work / "probe.cubin")], check=True,
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        return {"error": f"{type(e).__name__}: {e}"[:300]}
+    ops, fn = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+            ops[fn] = []
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if m and fn and not m.group(1).startswith("NOP"):
+            ops[fn].append(m.group(1).split(".")[0])
+    n1, n2 = len(ops.get("draw1", [])), len(ops.get("draw2", []))
+    if not n1 or not n2:
+        return {"error": "cuobjdump listed no probe instructions"}
+    return dict(one_draw_kernel=n1, two_draw_kernel=n2, per_draw=n2 - n1,
+                two_draw_opcodes=dict(collections.Counter(ops["draw2"])
+                                      .most_common(10)))
+
+
+def keyed_resources(n: int, d: int) -> dict:
+    """The keyed K8's launch at ``N = n``, ``D = d`` as the card sees it:
+    registers and spill bytes a thread (``cudaFuncGetAttributes``), the
+    blocks of 8 warps an SM holds (``cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor``) and the occupancy those give (warps resident over
+    the SM's 64); the error code where a query fails."""
+    import ctypes
+
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels import ssa_attention as KS
+
+    plan = KS.attention_plan(n, d)
+    out = (ctypes.c_int * 3)()
+    fn = KB.load("ssa_attention").ssa_attention_keyed_resources
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    err = fn(int(plan.design == "stream"), plan.smem, ctypes.addressof(out))
+    if err:
+        return {"error": err}
+    return dict(design=plan.design, smem=plan.smem, registers=out[0],
+                spill_bytes=out[1], blocks_per_sm=out[2],
+                occupancy=out[2] * 8 / 64)
+
+
+def int32_issue_ms(lanes: int, per_draw: int) -> float:
+    """Least time of ``lanes`` draws at ``per_draw`` SASS instructions each
+    on the card's INT32 issue rate: 64 lanes a clock an SM at the card's
+    maximum SM clock (``nvidia-smi clocks.max.sm``)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return lanes * per_draw / (sms * 64 * mhz * 1e6) * 1e3
 
 
 # leaf shapes of the grouped K6: the ViT's widest, the LM stack's stacked
@@ -1069,8 +1253,9 @@ def phase_kernels(dev):
             bound=bound(nbytes(x, lv, got), 2 * t * m * d_in * d_out))
         del x, lv, got, want, lib
 
-    # K8 at the ViT's tile (B = 64) and the paper GPT's causal one (B = 64,
-    # L = 37); the score draws a causal row needs are rs[i, :i+1]
+    # K8 with given draws (the tests' fuzz surface) at the ViT's tile (B =
+    # 64) and the paper GPT's causal one (B = 64, L = 37); the score draws a
+    # causal row needs are rs[i, :i+1]
     k8 = {}
     for name, (g, n, d, causal) in {"vit": (1536, 64, 64, False),
                                     "gpt": (1024, 37, 64, True)}.items():
@@ -1087,13 +1272,14 @@ def phase_kernels(dev):
         pairs = n * (n + 1) // 2 if causal else n * n
         k8[name] = dict(
             shape=(f"G={g} (T=4 x B=64 x H={g // 256}), N={n}, D={d}, "
-                   + ("causal (paper GPT)" if causal else "non-causal (ViT)")),
+                   + ("causal (paper GPT)" if causal else "non-causal (ViT)")
+                   + ", draws given"),
             max_abs_err=max_abs_err(got, want), ms=time_ms(run),
             plain_ms=time_ms(plain),
             bound=bound(nbytes(args[:3], args[4], got) + 4 * g * pairs,
                         2 * 2 * g * pairs * d))
-    results["ssa_attention"] = k8["vit"]
-    results["ssa_attention_gpt"] = k8["gpt"]
+    results["ssa_attention_given"] = k8["vit"]
+    results["ssa_attention_given_gpt"] = k8["gpt"]
     # K8 past the old N, D <= 512: N = 513 on the resident tile, and a tile
     # past a block's shared memory (N = 2,048, D = 512: K and V stream)
     long_tiles = {}
@@ -1112,7 +1298,47 @@ def phase_kernels(dev):
             design=KS.attention_plan(n, d).design,
             max_abs_err=max_abs_err(got, want))
         del args, got, want
-    results["ssa_attention_long"] = long_tiles
+    results["ssa_attention_given_long"] = long_tiles
+
+    # K8 keyed (the paper forwards' entry: the comparators drawn in the
+    # kernel from the block's key, q/k/v read through the heads view of
+    # [T, B, N, H*hd] trains, out written into a [T, B, N, H, hd] buffer)
+    # at the ViT's and the paper GPT's tiles (the kernels line reads the
+    # ViT's), at N = 513 and at a streamed tile (G = 2, N = 2,048, D = 512)
+    sass = sass_per_draw()
+    for name, (t, b, h, n, d, causal) in KEYED_TILES.items():
+        q, k, v = (heads(gen, (t, b, n, h, d), p, dev) for p in (0.5, 0.6, 0.4))
+        key = torch.randint(0, 2 ** 32, (2,), generator=gen).to(dev)
+        run = (lambda q=q, k=k, v=v, key=key, c=causal:
+               KS.ssa_attention_keyed_kernel(q, k, v, key, causal=c))
+        plain = (lambda q=q, k=k, v=v, key=key, c=causal:
+                 KREF.ssa_attention_keyed_ref(q, k, v, key, causal=c))
+        got, want = run(), plain()
+        check(torch.equal(got, want), f"keyed K8 {name} tile differs")
+        check(got.movedim(-3, -2).is_contiguous(),
+              f"keyed K8 {name}: not the heads view of a [T,B,N,H,hd] buffer")
+        draws = tile_draws(q, k, v, key, causal)
+        r = dict(
+            shape=(f"T={t} x B={b} x H={h} tiles, N={n}, D={d}, "
+                   + ("causal" if causal else "non-causal")
+                   + " (heads views of [T,B,N,H*D] trains)"),
+            entry="keyed: comparators drawn in the kernel, heads read and "
+                  "written in place",
+            design=KS.attention_plan(n, d).design,
+            max_abs_err=max_abs_err(got, want), ms=time_ms(run),
+            wrapper_host_us=host_us(run, 200), plain_ms=time_ms(plain),
+            draws=draws, bound=keyed_tile_bound(q, k, v, key, got, draws,
+                                                causal))
+        if name in ("vit", "gpt"):  # the paper tiles: the profiler's time
+            r["device_ms"] = device_ms(run, "ssa_attention_keyed")
+        r["resources"] = keyed_resources(n, d)
+        if "per_draw" in sass:
+            r["int32_issue_ms"] = int32_issue_ms(draws["issued"],
+                                                 sass["per_draw"])
+        results["ssa_attention" + ("" if name == "vit" else "_" + name)] = r
+        del q, k, v, got, want
+    results["ssa_attention"]["sass"] = sass
+    torch.cuda.synchronize()
 
     # K4's counts entry (the row-parallel epilogue, what ShardedBackend's
     # row linears run after the all_reduce) at the (2, 2) mesh's shapes --
@@ -1559,6 +1785,32 @@ def paper_inputs(task: str, cfg, batch: int, dev):
     return data["features"], data
 
 
+def forward_draws(eng, x, key) -> dict:
+    """:func:`tile_draws` summed over a forward's blocks, on the operands
+    each block hands ``Backend.ssa_attention`` (recorded on the way), and
+    the keyed K8's time a launch on the first block's (CUDA events)."""
+    from repro_torch.kernels import ssa_attention as KS
+
+    seen = []
+    inner = eng.backend.ssa_attention
+
+    def record(k, q, kk, v, *, causal=False):
+        seen.append((k, q, kk, v, causal))
+        return inner(k, q, kk, v, causal=causal)
+
+    eng.backend.ssa_attention = record
+    try:
+        eng.forward(x, key)
+    finally:
+        del eng.backend.ssa_attention
+    total = collections.Counter()
+    for k, q, kk, v, causal in seen:
+        total.update(tile_draws(q, kk, v, k, causal))
+    k, q, kk, v, causal = seen[0]
+    return dict(total, block0_ms=time_ms(
+        lambda: KS.ssa_attention_keyed_kernel(q, kk, v, k, causal=causal)))
+
+
 def phase_paper(dev):
     import dataclasses
 
@@ -1583,13 +1835,14 @@ def phase_paper(dev):
         torch.cuda.synchronize()
         got = dict(KB.LAUNCHES)
         launches[name] = got
-        check(got["ssa_attention"] == cfg.depth,
-              f"{name}: K8 launches {got['ssa_attention']} != {cfg.depth} blocks")
+        check(got["ssa_attention_keyed"] == cfg.depth,
+              f"{name}: keyed K8 launches {got['ssa_attention_keyed']} != "
+              f"{cfg.depth} blocks")
         check(got["aimc_spiking_linear"] == 6 * cfg.depth,
               f"{name}: K1 launches {got['aimc_spiking_linear']} != 6 x "
               f"{cfg.depth} blocks")
-        others = {k: v for k, v in got.items()
-                  if v and k not in ("ssa_attention", "aimc_spiking_linear")}
+        others = {k: v for k, v in got.items() if v and k not in (
+            "ssa_attention_keyed", "aimc_spiking_linear")}
         check(not others, f"{name}: the forward launched {others}")
         want_shape = ((batch, cfg.num_classes) if task == "vit"
                       else (batch, x.shape[1], cfg.vocab))
@@ -1611,6 +1864,7 @@ def phase_paper(dev):
                  per_s=batch / ms * 1e3,
                  plain_forward_ms=wall_ms(lambda: plain.forward(x, key), 3),
                  launches_per_forward={k: v for k, v in got.items() if v},
+                 k8_draws_per_forward=forward_draws(eng, x, key),
                  labels_head=labels.reshape(-1)[:8].tolist(),
                  profile_forward=profile_window(lambda: eng.forward(x, key)))
         if data is not None:
@@ -1802,9 +2056,10 @@ def phase_drift(dev):
     check(vlaunches["drift_requantize"] == vleaves + -(-vleaves // KD.MAX_LEAVES)
           * (sum(t != 0.0 for t, _ in LIFECYCLE) + 2 * sum(
               r for _, r in LIFECYCLE)), "ViT lifecycle K6 launches")
-    check(vlaunches["ssa_attention"] == vcfg.depth * n_points
+    check(vlaunches["ssa_attention_keyed"] == vcfg.depth * n_points
+          and vlaunches["ssa_attention"] == 0
           and vlaunches["aimc_spiking_linear"] == 6 * vcfg.depth * n_points,
-          "ViT lifecycle forwards did not run K8/K1")
+          "ViT lifecycle forwards did not run the keyed K8 and K1")
     check(points[3]["mean_abs_logit_err"] > points[1]["mean_abs_logit_err"],
           "a month of drift did not move the logits more than an hour")
     mlogits, report = vit.forward(x, key, metering=True)
@@ -2165,7 +2420,8 @@ def phase_windows(dev) -> dict:
         out[name] = dict(forward_ms=wall_ms(lambda: e.forward(x, key), 5),
                          profiled_wall_ms=prof["wall_ms"],
                          device_busy_ms=prof["device_busy_ms"],
-                         logits=digest(logits))
+                         idle_share=prof["idle_share"],
+                         kernels=prof["kernels"], logits=digest(logits))
     # whole-tree drift folds: the LM stack's 6 leaves and the ViT's 26,
     # programmed from a seed (host wall to synchronize, median of 9; the
     # images' digest); then phase 6's programmed paged serve under the
@@ -2305,7 +2561,7 @@ def main() -> int:
     launches["drift_requantize"] = dlaunches["drift_requantize"]
     launches["fused_decode_layer_paged"] = plaunches["fused_decode_layer_paged"]
     launches["ssa_decode_paged"] = ulaunches["ssa_decode_paged"]
-    launches["ssa_attention"] = flaunches[PAPER[0][0]]["ssa_attention"]
+    launches["ssa_attention"] = flaunches[PAPER[0][0]]["ssa_attention_keyed"]
     launches["lif"] = mlaunches["lif"]  # the row-parallel linears' LIF
 
     meta = {
@@ -2343,7 +2599,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_bytes": n_bytes, "bound_ops": n_ops,
             "library_ms": r.get("library_ms"), "shape": r["shape"],
-            **{k: r[k] for k in ("pos", "entry", "device_ms",
+            **{k: r[k] for k in ("pos", "entry", "design", "draws",
+                                 "int32_issue_ms", "sass", "resources",
+                                 "device_ms",
                                  "device_ms_l2_warm", "plan_cluster",
                                  "plan_blocks", "cluster", "clusters",
                                  "blocks", "sms_used",

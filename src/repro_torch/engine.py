@@ -151,12 +151,7 @@ class IntegerBackend:
     name = "integer"
 
     def ssa_attention(self, key, q, k, v, *, causal=False):
-        t, b, h, n, d = q.shape
-        g = t * b * h
-        rs, ra = KOPS.draw_comparator_prns(key, (g, n, n), (g, n, d), d, n)
-        out = KREF.ssa_attention_ref(q.reshape(g, n, d), k.reshape(g, n, d),
-                                     v.reshape(g, n, d), rs, ra, causal=causal)
-        return out.reshape(t, b, h, n, d)
+        return KREF.ssa_attention_keyed_ref(q, k, v, key, causal=causal)
 
     def lif(self, currents, *, beta=0.5, v_thresh=1.0):
         t = currents.shape[0]
@@ -212,9 +207,11 @@ class IntegerBackend:
 
 class CudaBackend:
     """The hand-written Hopper kernels: K1 (spiking linear), K5 (crossbar
-    counts), K8 (SSA tile), K4 (LIF; with ``counts_lif``, a row-parallel
-    linear's scale, bias and LIF in one launch), K2/K7 (SSA decode row,
-    dense/paged; both draw their comparators in the kernel),
+    counts), K8 (SSA tile; its keyed entry draws its comparators in the
+    kernel and reads and writes the heads in place), K4 (LIF; with
+    ``counts_lif``, a row-parallel linear's scale, bias and LIF in one
+    launch), K2/K7 (SSA decode row, dense/paged; both draw their
+    comparators in the kernel),
     K3/K9 (fused decoder layer, dense/paged).  A paged view goes to the
     paged kernels, which read the pools through the page table.
     Bit-exact vs :class:`IntegerBackend`."""

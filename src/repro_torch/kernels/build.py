@@ -11,7 +11,8 @@ stale build.  Nothing here runs at import time.
 
 Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel
 launch, nowhere else), so a run can show that its path went through the
-kernels.
+kernels; K8's keyed entry counts apart from its given-draws entry
+(``ssa_attention_keyed``), so a run shows which one its path took.
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ SMEM_PER_BLOCK = 232448
 LAUNCHES: Dict[str, int] = {
     "aimc_spiking_linear": 0, "ssa_decode": 0, "fused_decode_layer": 0,
     "ssa_decode_paged": 0, "fused_decode_layer_paged": 0,
-    "ssa_attention": 0, "lif": 0, "drift_requantize": 0,
-    "aimc_matmul_counts": 0}
+    "ssa_attention": 0, "ssa_attention_keyed": 0, "lif": 0,
+    "drift_requantize": 0, "aimc_matmul_counts": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}  # source -> nvcc's stderr (ptxas resources)

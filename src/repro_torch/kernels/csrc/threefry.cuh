@@ -82,3 +82,102 @@ struct XpkRandint {
     return static_cast<int>(off + static_cast<uint32_t>(lo_val));
   }
 };
+
+// ---------------------------------------------------------------------------
+// Draws for kernels whose pace the draws set (K8's keyed tile)
+// ---------------------------------------------------------------------------
+
+// x % span for every uint32 x and every span >= 1, without a division
+// (Lemire, Kaser and Kurz, "Faster remainder by direct computation"): with
+// M = floor((2^64 - 1) / span) + 1 computed on the host (it wraps to 0 at
+// span 1, where the remainder is 0), x % span = (M * x mod 2^64) * span >> 64.
+__device__ __forceinline__ uint32_t xpk_fastmod(uint32_t x, uint64_t M,
+                                                uint32_t span) {
+  return static_cast<uint32_t>(
+      __umul64hi(M * static_cast<uint64_t>(x), static_cast<uint64_t>(span)));
+}
+
+// n threefry2x32 calls in lockstep, round by round: n independent chains
+// whose instructions the scheduler interleaves.
+template <int n>
+__device__ __forceinline__ void xpk_threefry2x32_n(const XpkKey (&key)[n],
+                                                   uint32_t (&x0)[n],
+                                                   uint32_t (&x1)[n]) {
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t ks[n][3];
+#pragma unroll
+  for (int a = 0; a < n; ++a) {
+    ks[a][0] = key[a].k0;
+    ks[a][1] = key[a].k1;
+    ks[a][2] = key[a].k0 ^ key[a].k1 ^ 0x1BD11BDAu;
+    x0[a] += ks[a][0];
+    x1[a] += ks[a][1];
+  }
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int a = 0; a < n; ++a) {
+        x0[a] += x1[a];
+        x1[a] = xpk_rotl(x1[a], rot[i % 2][r]) ^ x0[a];
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < n; ++a) {
+      x0[a] += ks[a][(i + 1) % 3];
+      x1[a] += ks[a][(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+    }
+  }
+}
+
+// jax.random.randint(key, shape, 0, span) at flat indices, n draws at once:
+// the 2n cipher calls (each index's higher and lower word) run in
+// lockstep, and the three remainders are xpk_fastmod's.  hi and lo are
+// randint's own split of its key; mult and M come from the host.
+struct XpkRandintFast {
+  XpkKey hi, lo;
+  uint64_t M;
+  uint32_t span, mult;
+
+  template <int n>
+  __device__ __forceinline__ void at(const uint64_t (&i)[n],
+                                     uint32_t (&out)[n]) const {
+    XpkKey key[2 * n];
+    uint32_t x0[2 * n], x1[2 * n];
+#pragma unroll
+    for (int a = 0; a < n; ++a) {
+      key[2 * a] = hi;
+      key[2 * a + 1] = lo;
+      x0[2 * a] = x0[2 * a + 1] = static_cast<uint32_t>(i[a] >> 32);
+      x1[2 * a] = x1[2 * a + 1] = static_cast<uint32_t>(i[a]);
+    }
+    xpk_threefry2x32_n<2 * n>(key, x0, x1);
+#pragma unroll
+    for (int a = 0; a < n; ++a) {
+      const uint32_t h = xpk_fastmod(x0[2 * a] ^ x1[2 * a], M, span);
+      const uint32_t l = xpk_fastmod(x0[2 * a + 1] ^ x1[2 * a + 1], M, span);
+      out[a] = xpk_fastmod(h * mult + l, M, span);
+    }
+  }
+};
+
+// randint's subkeys of both halves of split(key), a warp at a time: lane l
+// (l < 4) derives split(split(key)[l & 1])[l >> 1], two cipher calls where
+// one thread alone would make six, and the warp shares them by shuffles.
+// Every lane of the warp must call it.
+__device__ __forceinline__ void xpk_split_randint_keys(XpkKey key, XpkKey& hi0,
+                                                       XpkKey& lo0,
+                                                       XpkKey& hi1,
+                                                       XpkKey& lo1) {
+  const unsigned lane = threadIdx.x & 31u;
+  const XpkKey sub = xpk_split(xpk_split(key, lane & 1u), (lane >> 1) & 1u);
+  const auto from = [&](int src) {
+    return XpkKey{__shfl_sync(0xffffffffu, sub.k0, src),
+                  __shfl_sync(0xffffffffu, sub.k1, src)};
+  };
+  hi0 = from(0);
+  hi1 = from(1);
+  lo0 = from(2);
+  lo1 = from(3);
+}

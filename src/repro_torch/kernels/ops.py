@@ -7,8 +7,9 @@ happens inside the kernel (lanes and rows past the logical shape read as
 zero, and a zero spike never beats a comparator draw).  The comparator
 integers are drawn at the *logical* shapes, as in the reference
 (``ops.py:168-191``), so kernel and plain version see the same draws:
-here through the threefry twin, or, for the dense and paged decode rows on
-the card, by the keyed K2 and K7 themselves from the slot keys
+here through the threefry twin, or, on the card, by the keyed K8 from the
+block's key (:func:`draw_comparator_prns`'s chain) and by the keyed K2 and
+K7 from the slot keys
 (:func:`~repro_torch.kernels.ref.draw_slot_decode_prns`'s chain).
 :func:`pack_bits` / :func:`unpack_bits` keep the reference's packing
 convention (bit ``i`` of word ``w`` is element ``32 w + i``) for callers
@@ -56,17 +57,15 @@ def ssa_attention_packed(q: Tensor, k: Tensor, v: Tensor, key: Tensor, *,
     uint8 ``[T,B,H,N,D]``.
 
     The comparator integers ``rs [G,N,N] ~ U{0..D-1}`` and ``ra [G,N,D] ~
-    U{0..N-1}`` are drawn from ``key`` at the logical shapes, with the
-    tiles flattened ``G = (t, b, h)`` in that order, as the reference's
-    wrapper draws them (``ops.py:83``); the kernel runs one block per
-    tile and pads nothing."""
-    t, b, h, n, d = q.shape
-    g = t * b * h
-    rs, ra = draw_comparator_prns(key, (g, n, n), (g, n, d), d, n)
-    qf, kf, vf = (x.reshape(g, n, d).to(torch.uint8).contiguous()
-                  for x in (q, k, v))
-    out = KS.ssa_attention_kernel(qf, kf, vf, rs, ra, causal=causal)
-    return out.reshape(t, b, h, n, d)
+    U{0..N-1}`` are those :func:`draw_comparator_prns` draws from ``key``
+    at the logical shapes, with the tiles flattened ``G = (t, b, h)`` in
+    that order, as the reference's wrapper draws them (``ops.py:83``).  On
+    the card the keyed K8 draws them in registers, reads q, k and v through
+    their strides (the heads view of a ``[T,B,N,H*hd]`` train: no copy)
+    and returns the heads view of a ``[T,B,N,H,hd]`` buffer, which merges
+    back into the train without a copy; on the CPU the plain version draws
+    them with the threefry twin."""
+    return KS.ssa_attention_keyed_kernel(q, k, v, key, causal=causal)
 
 
 def lif_fused(currents: Tensor, *, beta: float = 0.5, v_thresh: float = 1.0

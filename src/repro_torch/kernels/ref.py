@@ -195,6 +195,21 @@ def draw_comparator_prns(key: Tensor, shape_s: Tuple[int, ...],
     return rs, ra
 
 
+def ssa_attention_keyed_ref(q: Tensor, k: Tensor, v: Tensor, key: Tensor,
+                            *, causal: bool = False) -> Tensor:
+    """The full SSA tile with its draws: ``q``/``k``/``v [T,B,H,N,D]``
+    binary (any strides), the comparators of :func:`draw_comparator_prns`
+    from ``key [2]`` at the logical shapes with the tiles flattened ``G =
+    (t, b, h)`` (the reference's wrapper, ``ops.py:83``) -> uint8
+    ``[T,B,H,N,D]``.  The keyed K8's plain version."""
+    t, b, h, n, d = q.shape
+    g = t * b * h
+    rs, ra = draw_comparator_prns(key, (g, n, n), (g, n, d), d, n)
+    out = ssa_attention_ref(q.reshape(g, n, d), k.reshape(g, n, d),
+                            v.reshape(g, n, d), rs, ra, causal=causal)
+    return out.reshape(t, b, h, n, d)
+
+
 def draw_slot_decode_prns(slot_keys: Tensor, t: int, h: int, l: int, d: int,
                           i_max: int, h0: Union[int, Tensor] = 0
                           ) -> Tuple[Tensor, Tensor]:

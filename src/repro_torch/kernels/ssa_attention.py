@@ -3,19 +3,23 @@ per (slot, t, head) over a dense cache (K2) or a block-paged pool (K7),
 and the full N x N SSA tile per (t, b, h) of a whole sequence (K8).
 
 Replace ``repro/kernels/ssa_attention.py:ssa_decode_kernel``,
-``ssa_decode_paged_kernel`` and ``ssa_attention_kernel``.  K2 and K7 each
-have two entries over one kernel body: :func:`ssa_decode_kernel` and
-:func:`ssa_decode_paged_kernel` take their comparator draws as tensors;
-:func:`ssa_decode_keyed_kernel` and :func:`ssa_decode_paged_keyed_kernel`
-(the serving paths') draw them themselves from the slot keys, take the
-query and the cache where the caller holds them and read up to each
-slot's live length.  On a CPU tensor each wrapper runs its plain version
+``ssa_decode_paged_kernel`` and ``ssa_attention_kernel``.  Each has two
+entries over one kernel body: :func:`ssa_decode_kernel`,
+:func:`ssa_decode_paged_kernel` and :func:`ssa_attention_kernel` take
+their comparator draws as tensors; :func:`ssa_decode_keyed_kernel` and
+:func:`ssa_decode_paged_keyed_kernel` (the serving paths') draw them
+themselves from the slot keys, take the query and the cache where the
+caller holds them and read up to each slot's live length, and
+:func:`ssa_attention_keyed_kernel` (the paper forwards') draws them from
+one key and reads and writes the heads where the caller holds them.  On a
+CPU tensor each wrapper runs its plain version
 (:func:`repro_torch.kernels.ref.ssa_decode_ref`,
 :func:`~repro_torch.kernels.ref.ssa_decode_keyed_ref`,
 :func:`~repro_torch.kernels.ref.ssa_decode_paged_ref`,
 :func:`~repro_torch.kernels.ref.ssa_decode_paged_keyed_ref`,
-:func:`~repro_torch.kernels.ref.ssa_attention_ref`); on a CUDA tensor it
-launches the kernel or raises.
+:func:`~repro_torch.kernels.ref.ssa_attention_ref`,
+:func:`~repro_torch.kernels.ref.ssa_attention_keyed_ref`); on a CUDA
+tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,6 +36,12 @@ from repro_torch.kernels import ref as KREF
 
 Tensor = torch.Tensor
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# launch_ssa_attention_keyed's parameters: q, k, v, key, out, the host
+# strides; T, B, H, N, D, causal, the spans' multipliers and xpk_fastmod
+# constants; the plan's rows, keys and shared memory; the stream
+KEYED_ARGTYPES = ([_P] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 7
+                  + [ctypes.c_ulonglong, _I, ctypes.c_ulonglong, _I, _I, _L,
+                     _P])
 
 
 def _lib(name: str, argtypes):
@@ -254,4 +264,52 @@ def ssa_attention_kernel(q: Tensor, k: Tensor, v: Tensor, rs: Tensor,
             KB.stream_ptr(q))
     KB.raise_on_error(err, "ssa_attention")
     KB.LAUNCHES["ssa_attention"] += 1
+    return out
+
+
+def fastmod_m(span: int) -> int:
+    """``csrc/threefry.cuh:xpk_fastmod``'s constant for ``span >= 1``:
+    ``floor((2**64 - 1) / span) + 1`` wrapped to 64 bits (0 at span 1),
+    with which ``x % span == (M * x mod 2**64) * span >> 64`` for every
+    uint32 ``x``."""
+    if span < 1:
+        raise ValueError(f"fastmod_m: span {span} < 1")
+    return ((2 ** 64 - 1) // span + 1) % 2 ** 64
+
+
+def ssa_attention_keyed_kernel(q: Tensor, k: Tensor, v: Tensor, key: Tensor,
+                               *, causal: bool = False) -> Tensor:
+    """The full SSA tile drawing its own comparators: ``q``/``k``/``v
+    [T,B,H,N,D]`` uint8 spikes, any strides with contiguous rows (the heads
+    view of a ``[T,B,N,H*D]`` train: no copy), ``key [2]`` int64 holding
+    uint32 words -> uint8 ``[T,B,H,N,D]``, the heads view of a contiguous
+    ``[T,B,N,H,D]`` buffer (its heads merge back without a copy).  The
+    comparators are :func:`repro_torch.kernels.ref.draw_comparator_prns`'s
+    from ``key`` with the tiles flattened ``(t, b, h)``; the kernel draws
+    only those whose count is not zero (the others cannot fire).
+    :func:`attention_plan` picks the design."""
+    if not q.is_cuda:
+        return KREF.ssa_attention_keyed_ref(q, k, v, key, causal=causal)
+    t, b, h, n, d = q.shape
+    for x, name in ((q, "q"), (k, "k"), (v, "v")):
+        if (not x.is_cuda or x.dtype != torch.uint8 or x.shape != q.shape
+                or (d > 1 and x.stride(4) != 1)):
+            raise ValueError(f"ssa_attention_keyed: {name} must be uint8 on "
+                             f"the card, of shape {tuple(q.shape)}, with "
+                             "contiguous rows")
+    KB.check_cuda(key, torch.int64, (2,), "key")
+    out = torch.empty((t, b, n, h, d), dtype=torch.uint8,
+                      device=q.device).permute(0, 1, 3, 2, 4)
+    if out.numel() == 0:
+        return out
+    plan = attention_plan(n, d)
+    strides = (ctypes.c_longlong * 16)(
+        *(st for x in (q, k, v, out) for st in x.stride()[:4]))
+    err = _lib("launch_ssa_attention_keyed", KEYED_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key.data_ptr(),
+        out.data_ptr(), strides, t, b, h, n, d, int(causal),
+        prng.randint_multiplier(d), fastmod_m(d), prng.randint_multiplier(n),
+        fastmod_m(n), plan.rows, plan.keys, plan.smem, KB.stream_ptr(q))
+    KB.raise_on_error(err, "ssa_attention_keyed")
+    KB.LAUNCHES["ssa_attention_keyed"] += 1
     return out

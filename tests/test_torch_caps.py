@@ -11,6 +11,10 @@ them, and the serve CLI's reference spellings against the port's own.
 versions at the same shapes on the card.
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -235,6 +239,21 @@ def test_attention_plan(n, d, design):
 def test_attention_plan_refuses_past_the_budget():
     with pytest.raises(ValueError, match=r"N=2000000, D=64 needs \d+ bytes"):
         KS.attention_plan(2_000_000, 64)
+
+
+def test_keyed_attention_launcher_takes_the_wrappers_argtypes():
+    """The keyed K8's ctypes parameters match its C launcher's signature
+    type for type (a mismatch shows only on the card, as a wrong value)."""
+    src = (Path(KS.__file__).parent / "csrc" / "ssa_attention.cu").read_text()
+    sig = re.search(r'extern "C" int launch_ssa_attention_keyed\((.*?)\)',
+                    src, re.S).group(1)
+    ptr = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong))
+    kinds = {"int": (ctypes.c_int,), "long long": (ctypes.c_longlong,),
+             "unsigned long long": (ctypes.c_ulonglong,)}
+    params = [" ".join(p.split()[:-1]) for p in sig.split(",")]
+    assert len(params) == len(KS.KEYED_ARGTYPES) == 20
+    for decl, got in zip(params, KS.KEYED_ARGTYPES):
+        assert got in (ptr if "*" in decl else kinds[decl]), (decl, got)
 
 
 # ---------------------------------------------------------------------------

@@ -674,6 +674,94 @@ def test_ssa_attention_kernel_past_the_old_limits(cuda, g, n, d, causal,
     assert 0 < int(want.sum()) < want.numel()
 
 
+# name: (t, b, h, n, d, causal, design) -- the trains are [T, B, N, H*D]
+KEYED_SSA_CASES = {
+    "vit": (4, 64, 6, 64, 64, False, "resident"),  # the ViT's tile, B = 64
+    "gpt": (4, 64, 4, 37, 64, True, "resident"),  # the paper GPT's, L = 37
+    "n513": (1, 2, 2, 513, 64, True, "resident"),
+    "stream": (1, 1, 2, 2048, 512, True, "stream"),
+    "n1": (3, 2, 2, 1, 64, True, "resident"),
+    "ragged": (2, 3, 2, 45, 40, False, "resident"),
+}
+
+
+def heads_inputs(rng, t, b, h, n, d, dev):
+    """q, k, v as ``_heads`` hands them over: the ``[T,B,H,N,D]`` views of
+    ``[T,B,N,H*D]`` trains (one query row in five from the third empty),
+    and a key."""
+    def train(p):
+        x = _t((rng.random((t, b, n, h * d)) < p).astype(np.uint8)).to(dev)
+        return x.reshape(t, b, n, h, d).movedim(-2, -3)
+    q, k, v = (train(p) for p in (0.3, 0.5, 0.4))
+    q[:, :, :, 2::5] = 0
+    key = prng.PRNGKey(int(rng.integers(0, 2 ** 31))).to(dev)
+    return q, k, v, key
+
+
+@pytest.mark.parametrize("case", sorted(KEYED_SSA_CASES))
+def test_ssa_attention_keyed_kernel(cuda, case):
+    """The keyed K8 (comparators drawn in the kernel, the heads read in
+    place) equals its plain version (the twin's draws, then
+    ``ssa_attention_ref``), in both designs, causal and not; it returns the
+    heads view of a ``[T,B,N,H,D]`` buffer and launches once."""
+    t, b, h, n, d, causal, design = KEYED_SSA_CASES[case]
+    assert KS.attention_plan(n, d).design == design
+    q, k, v, key = heads_inputs(np.random.default_rng(n + d), t, b, h, n, d,
+                                cuda)
+    assert q.is_contiguous() == (n == 1 or h == 1)
+    want = KREF.ssa_attention_keyed_ref(q, k, v, key, causal=causal)
+    n0 = KB.LAUNCHES["ssa_attention_keyed"]
+    got = KS.ssa_attention_keyed_kernel(q, k, v, key, causal=causal)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["ssa_attention_keyed"] == n0 + 1
+    _eq(got, want)
+    assert got.movedim(-3, -2).is_contiguous()
+    assert 0 < int(want.sum()) < want.numel()
+
+
+def test_ssa_attention_keyed_reads_views_and_copies_alike(cuda):
+    """The same tile from the ``_heads`` view and from a contiguous copy;
+    its output merges through ``_unheads`` without a copy."""
+    from repro_torch.core.spiking_transformer import _unheads
+
+    q, k, v, key = heads_inputs(np.random.default_rng(5), 2, 3, 4, 37, 64,
+                                cuda)
+    got = KS.ssa_attention_keyed_kernel(q, k, v, key, causal=True)
+    _eq(KS.ssa_attention_keyed_kernel(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), key, causal=True), got)
+    merged = _unheads(got)
+    assert merged.shape == (2, 3, 37, 4 * 64)
+    assert merged.data_ptr() == got.data_ptr()
+
+
+def test_ssa_attention_keyed_refuses_what_it_cannot_read(cuda):
+    """A key off the card, a float train or rows that are not contiguous
+    raise before any launch."""
+    q, k, v, key = heads_inputs(np.random.default_rng(6), 1, 2, 2, 32, 32,
+                                cuda)
+    n0 = KB.LAUNCHES["ssa_attention_keyed"]
+    with pytest.raises(ValueError, match="key: expected a CUDA tensor"):
+        KS.ssa_attention_keyed_kernel(q, k, v, key.cpu())
+    with pytest.raises(ValueError, match="q must be uint8"):
+        KS.ssa_attention_keyed_kernel(q.float(), k, v, key)
+    with pytest.raises(ValueError, match="k must be uint8"):
+        KS.ssa_attention_keyed_kernel(q, k.transpose(-1, -2), v, key)
+    assert KB.LAUNCHES["ssa_attention_keyed"] == n0
+
+
+def test_paper_ssa_dispatches_no_draw_op(cuda):
+    """On the card ``CudaBackend.ssa_attention`` is the one keyed K8
+    launch: no threefry-twin op and no copy of q, k or v reaches PyTorch's
+    dispatcher, only the output's allocation and its heads view."""
+    q, k, v, key = heads_inputs(np.random.default_rng(7), 4, 2, 6, 64, 64,
+                                cuda)
+    got, seen = dispatched_ops(lambda: CudaBackend().ssa_attention(
+        key, q, k, v, causal=False))
+    assert [f for f in seen
+            if not f.startswith(("aten.empty", "aten.permute"))] == []
+    _eq(got, KREF.ssa_attention_keyed_ref(q, k, v, key))
+
+
 @pytest.mark.parametrize("t,m,beta", [(4, 100_003, 0.5), (3, 257, 0.25),
                                       (8, 4096, 0.75),
                                       (4, 64 * 64 * 1536, 0.5)])
@@ -693,8 +781,9 @@ def test_lif_kernel(cuda, t, m, beta):
 @pytest.mark.parametrize("name", ["xpikeformer-vit-smoke",
                                   "xpikeformer-gpt-smoke"])
 def test_paper_forward_kernels_equal_plain_on_card(cuda, name):
-    """The paper forward (two blocks) through K1 and K8 gives the plain
-    versions' logits on the card bit for bit, and the CPU's labels."""
+    """The paper forward (two blocks) through K1 and the keyed K8 gives the
+    plain versions' logits on the card bit for bit, and the CPU's
+    labels."""
     task, cfg = SPIKING_ARCHS[name]
     cfg = dataclasses.replace(cfg, depth=2)
     if task == "vit":
@@ -710,7 +799,8 @@ def test_paper_forward_kernels_equal_plain_on_card(cuda, name):
         KB.reset_launches()
         out[dev, backend] = eng.forward(x, key).cpu()
         if backend == "cuda":
-            assert KB.LAUNCHES["ssa_attention"] == cfg.depth
+            assert KB.LAUNCHES["ssa_attention_keyed"] == cfg.depth
+            assert KB.LAUNCHES["ssa_attention"] == 0
             assert KB.LAUNCHES["aimc_spiking_linear"] == 6 * cfg.depth
     assert torch.equal(out["cuda", "cuda"], out["cuda", "integer"])
     assert torch.allclose(out["cuda", "cuda"], out["cpu", "integer"],
@@ -824,6 +914,7 @@ def test_programmed_paper_forward_equal_plain_on_card(cuda):
         got = eng.forward(x, key)
         assert torch.equal(got, plain.forward(x, key, eng.params)), stage
     assert KB.LAUNCHES["drift_requantize"] == leaves + 3
+    assert KB.LAUNCHES["ssa_attention_keyed"] == 3 * cfg.depth
 
 
 @pytest.mark.parametrize("t,m,d_in,d_out", [(4, 4, 512, 256),
@@ -949,6 +1040,14 @@ def test_launchers_take_the_wrappers_plans_at_the_budget_edge(
             _refused(monkeypatch, KS, "attention_plan",
                      p._replace(smem=p.smem + 4),
                      lambda: KS.ssa_attention_kernel(*dev, causal=True))
+            heads = [a.reshape(1, 1, 1, nn, d) for a in dev[:3]]
+            key = prng.PRNGKey(nn).to(cuda)
+            _eq(KS.ssa_attention_keyed_kernel(*heads, key, causal=True),
+                KREF.ssa_attention_keyed_ref(*heads, key, causal=True))
+            _refused(monkeypatch, KS, "attention_plan",
+                     p._replace(smem=p.smem + 4),
+                     lambda: KS.ssa_attention_keyed_kernel(*heads, key,
+                                                           causal=True))
         return
     b, d, h, kv, hd, l, dff = 2, 128, 2, 1, 64, 32, 256
     t = next(t for t in range(4, 512)

@@ -13,6 +13,16 @@ wraps -- with the multiplier the wrapper computes on the host
 must give JAX's ``draw_slot_decode_prns`` at the keyed row's test shapes,
 so the index arithmetic the CUDA code mirrors is held on the CPU.
 
+The keyed K8 (``ssa_attention_keyed_kernel``) draws one key's chain over
+whole tiles: :func:`keyed_tile` transcribes it block by block -- randint's
+four subkeys as a warp derives and shares them, each word of 32
+comparators drawn only where a lane counts more than zero, the flat
+indices ``(g N + i) N + j`` and ``(g N + i) D + d`` (in the streaming
+design from its row block and key chunk), and the three remainders as
+``xpk_fastmod`` takes them in wrapping uint64 arithmetic with the host's
+``M`` -- and must give JAX's ``draw_comparator_prns`` at every element it
+draws and JAX's tile.
+
 The keyed K7 (``ssa_decode_paged_keyed_kernel``) draws the same chain at
 the logical length ``L = MP * page_len``.  :func:`paged_keyed_row`
 transcribes its whole query row as the block runs it -- the live length
@@ -30,7 +40,9 @@ import pytest
 import torch
 
 from repro.kernels import ops as JKOPS
+from repro.kernels import ref as JREF
 from repro_torch import prng
+from repro_torch.kernels import ssa_attention as KS
 from repro_torch.serving import NULL_PAGE, RESERVED_PAGES
 
 M32 = 0xFFFFFFFF
@@ -197,3 +209,236 @@ def test_paged_keyed_draw_chain_equals_jax(case):
     assert np.array_equal(got.numpy(), np.asarray(want))
     if i_max <= length:  # a wider output span leaves every count below it
         assert 0 < int(got.sum()) < got.numel()
+
+
+# ---------------------------------------------------------------------------
+# K8's keyed tile
+# ---------------------------------------------------------------------------
+
+U64 = np.uint64
+
+
+def fastmod(x, m, span):
+    """``xpk_fastmod`` in wrapping uint64 arithmetic: ``M * x`` wraps at 64
+    bits, then ``__umul64hi`` of it and ``span`` from its two 32-bit
+    halves (neither partial product can wrap for a uint32 span)."""
+    low = U64(m) * np.atleast_1d(np.asarray(x, dtype=U64))
+    span = U64(span)
+    high = (low >> U64(32)) * span + (((low & U64(M32)) * span) >> U64(32))
+    return (high >> U64(32)).astype(np.uint32)
+
+
+SPANS = (1, 2, 37, 64, 65, 513, 2 ** 16 + 1, 2 ** 31 - 1)
+
+
+@pytest.mark.parametrize("span", SPANS)
+def test_fastmod_is_the_remainder(span):
+    """Exact for the edges of uint32 and of the span, and a seeded
+    sample, with the constant the wrapper passes the kernel."""
+    xs = np.concatenate([
+        np.array([0, 1, span - 1, span, 2 ** 32 - 1], dtype=np.uint64),
+        np.random.default_rng(span).integers(0, 2 ** 32, 20_000,
+                                             dtype=np.uint64)])
+    got = fastmod(xs, KS.fastmod_m(span), span)
+    assert np.array_equal(got.astype(np.uint64), xs % U64(span))
+
+
+def tile_subkeys(key):
+    """``xpk_split_randint_keys``: lane ``l < 4`` derives
+    ``split(split(key)[l & 1])[l >> 1]``; the warp takes the score draws'
+    higher and lower subkeys from lanes 0 and 2, the output draws' from 1
+    and 3."""
+    zero = torch.zeros(1, dtype=torch.int64)
+    k = (zero + int(key[0]), zero + int(key[1]))
+    lane = [_cipher(_cipher(k, zero, zero + (l & 1)), zero, zero + (l >> 1))
+            for l in range(4)]
+    return (lane[0], lane[2]), (lane[1], lane[3])
+
+
+def tile_draw(sub, flat, span):
+    """``XpkRandintFast::at`` at uint64 flat indices: the higher and lower
+    words' cipher calls (the twin's cipher), then the three remainders by
+    :func:`fastmod`, the product wrapping at 32 bits."""
+    i = torch.from_numpy(flat.astype(np.int64))
+    words = []
+    for key in sub:
+        y = _cipher(key, i >> 32, i & M32)
+        words.append((y[0] ^ y[1]).numpy().astype(U64))
+    m, mult = KS.fastmod_m(span), prng.randint_multiplier(span)
+    h = fastmod(words[0], m, span).astype(U64)
+    l = fastmod(words[1], m, span).astype(U64)
+    return fastmod((h * U64(mult) + l) & U64(M32), m, span)
+
+
+def nth_set_bit(m, p):
+    """``nth_set_bit``: the p-th (from 0) set bit of m by a binary search
+    over halves."""
+    pos = 0
+    for half in (16, 8, 4, 2, 1):
+        low = bin(m & ((1 << half) - 1)).count("1")
+        if p >= low:
+            p, m, pos = p - low, m >> half, pos + half
+    return pos
+
+
+def warp_draws(passes, sub, span, drawn):
+    """``KeyedTileDraws::draw`` over a stage's warp passes, each two words
+    of 32 lanes ``(counts [64], flat [64])``: where more than 32 counts are
+    not zero every lane draws its own two; where 1..32 are, lane ``e``
+    draws the e-th of them (word 0's, then word 1's) and each lane takes
+    its own back by a shuffle from the lane of its rank.  Returns each
+    pass's 64 comparators (a lane that counts zero may hold any draw: it
+    cannot fire) and records ``(flat, value)`` of every draw made for a
+    counting element."""
+    want, made = [], []
+    for counts, flat in passes:
+        m = [sum(1 << l for l in range(32) if counts[32 * c + l] > 0)
+             for c in (0, 1)]
+        n0 = bin(m[0]).count("1")
+        n = n0 + bin(m[1]).count("1")
+        if n > 32:
+            at = flat
+        else:  # lane e < n draws element e; lanes past n draw nothing used
+            at = np.array([flat[32 * (e >= n0)]
+                           + nth_set_bit(m[e >= n0], e - n0 * (e >= n0))
+                           for e in range(n)], dtype=U64)
+        want.append((m, n0, n, at))
+        made.append(at)
+    flat_all = np.concatenate(made) if made else np.zeros(0, U64)
+    vals = tile_draw(sub, flat_all, span) if flat_all.size else flat_all
+    out, at0 = [], 0
+    for m, n0, n, at in want:
+        u = vals[at0:at0 + at.size].astype(np.int64)
+        at0 += at.size
+        r = np.zeros(64, np.int64)
+        if n > 32:
+            r[:] = u
+            keep = [32 * c + l for c in (0, 1) for l in range(32)
+                    if m[c] >> l & 1]
+        elif n:
+            u = np.pad(u, (0, 32 - n))
+            for l in range(32):
+                below = (1 << l) - 1
+                r[l] = u[bin(m[0] & below).count("1")]
+                r[32 + l] = u[(n0 + bin(m[1] & below).count("1")) & 31]
+            keep = list(range(n))
+        if n:
+            drawn.append((at[keep], u[keep].astype(np.uint32)))
+        out.append(r)
+    return out
+
+
+def keyed_tile(q, k, v, key, causal, plan):
+    """The keyed K8 block by block over ``q``/``k``/``v [G,N,D]`` (the
+    tiles in ``(t, b, h)`` order) under ``plan`` (``rows == 0``: the
+    resident design, a block a tile; else the streaming one, a block per
+    tile and ``rows`` query rows, keys ``keys`` at a time): each warp pass
+    takes two words of 32 lanes, the score stage's from the start of the
+    row (of the chunk, streamed), the output stage's 64 columns at a time.
+    Returns the output and, per stage, the flat indices drawn and their
+    values."""
+    g_, n, d = q.shape
+    subs = tile_subkeys(key)
+    q, k, v = (x.astype(np.int64) for x in (q, k, v))
+    drawn = {0: [], 1: []}
+
+    def pairs(counts, flat):
+        """A row's lanes cut into passes of two words, the last padded
+        with lanes that count zero."""
+        pad = (-counts.size) % 64
+        counts = np.pad(counts, (0, pad))
+        flat = flat[0] + np.arange(counts.size, dtype=U64)
+        return [(counts[x:x + 64], flat[x:x + 64])
+                for x in range(0, counts.size, 64)]
+
+    rq = plan.rows or n
+    nc_max = plan.keys or 32 * -(-n // 32)
+    nrb = -(-n // rq)
+    # score stage: every block's rows, chunk by chunk
+    score_passes, where = [], []
+    for blk in range(g_ * nrb):
+        g, i0 = blk // nrb, blk % nrb * rq
+        rows = min(rq, n - i0)
+        jmax = i0 + rows if causal else n
+        for j0 in range(0, jmax, nc_max):
+            nc = min(nc_max, jmax - j0)
+            jj = np.arange(32 * -(-nc // 32))
+            j = j0 + jj
+            for r in range(rows):
+                i = i0 + r
+                seen = (jj < nc) & (j < (i + 1 if causal else n))
+                cnt = np.where(seen, k[g, np.minimum(j, n - 1)] @ q[g, i], 0)
+                flat = (U64(g) * U64(n) + U64(i)) * U64(n) + j.astype(U64)
+                for x, pp in enumerate(pairs(cnt, flat)):
+                    score_passes.append(pp)
+                    where.append((g, i, j0 + 64 * x, j.size - 64 * x))
+    s = np.zeros((g_, n, 32 * -(-n // 32) + 64), bool)
+    for (g, i, j0, width), counts, r in zip(
+            where, (c for c, _ in score_passes),
+            warp_draws(score_passes, subs[0], d, drawn[0])):
+        w = min(64, width)
+        s[g, i, j0:j0 + w] = (counts > r)[:w]
+    # output stage: each row's columns, 64 at a time
+    lanes_d = 32 * -(-d // 32)
+    col = np.arange(lanes_d)
+    vpad = np.pad(v, ((0, 0), (0, 0), (0, lanes_d - d)))
+    out_passes, rows_of = [], []
+    for g in range(g_):
+        for i in range(n):
+            cnt = np.where(col < d, s[g, i, :n].astype(np.int64) @ vpad[g], 0)
+            flat = (U64(g) * U64(n) + U64(i)) * U64(d) + col.astype(U64)
+            for x, pp in enumerate(pairs(cnt, flat)):
+                out_passes.append(pp)
+                rows_of.append((g, i, 64 * x))
+    out = np.zeros((g_, n, lanes_d + 64), np.uint8)
+    for (g, i, d0), (counts, _), r in zip(
+            rows_of, out_passes, warp_draws(out_passes, subs[1], n,
+                                            drawn[1])):
+        out[g, i, d0:d0 + 64] = counts > r
+    return out[:, :, :d], drawn
+
+
+# (t, b, h, n, d, causal, plan): the ViT's tile, the paper GPT's causal
+# N = 37, N != D with neither a multiple of 32, and the streaming design's
+# row blocks and key chunks at a small forced plan
+TILE_CASES = {
+    "vit_like": (1, 2, 2, 64, 64, False, None),
+    "gpt_causal": (2, 1, 2, 37, 64, True, None),
+    "ragged": (1, 3, 1, 45, 40, False, None),
+    "ragged_causal": (1, 1, 3, 45, 40, True, None),
+    "stream": (1, 2, 1, 70, 24, False, KS.AttentionPlan("stream", 0, 8, 32)),
+    "stream_causal": (2, 1, 1, 77, 40, True,
+                      KS.AttentionPlan("stream", 0, 16, 64)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_keyed_tile_draw_chain_equals_jax(case):
+    """Every comparator the keyed K8 draws equals JAX's at its element,
+    the tile equals JAX's oracle over JAX's draws, and the zero-count
+    words (empty query rows, causal words past the diagonal) are
+    skipped."""
+    t, b, h, n, d, causal, plan = TILE_CASES[case]
+    plan = plan or KS.attention_plan(n, d)
+    g = t * b * h
+    rng = np.random.default_rng(n + d + causal)
+    # the heads view of [T, B, N, H*D] trains, flattened (t, b, h)
+    q, k, v = ((rng.random((t, b, n, h * d)) < p).astype(np.uint8)
+               .reshape(t, b, n, h, d).transpose(0, 1, 3, 2, 4)
+               .reshape(g, n, d) for p in (0.3, 0.5, 0.4))
+    q[:, ::5] = 0  # empty query rows: their words draw nothing
+    jkey = jax.random.PRNGKey(7 * n + d)
+    rs, ra = JKOPS.draw_comparator_prns(jkey, (g, n, n), (g, n, d), d, n)
+    got, drawn = keyed_tile(q, k, v, np.asarray(jkey), causal, plan)
+    for which, want in ((0, np.asarray(rs)), (1, np.asarray(ra))):
+        flat = np.concatenate([f for f, _ in drawn[which]]).astype(np.int64)
+        vals = np.concatenate([x for _, x in drawn[which]])
+        # a drawn word's lanes past the last row's end draw past the tensor
+        inside = flat < want.size
+        assert np.array_equal(vals[inside], want.reshape(-1)[flat[inside]])
+        # some words drawn, and some skipped
+        assert 0 < np.unique(flat[inside]).size < want.size
+    ref = JREF.ssa_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), rs, ra, causal=causal)
+    assert np.array_equal(got, np.asarray(ref))
+    assert 0 < int(got.sum()) < got.size

@@ -465,26 +465,31 @@ def test_data_twins_have_the_reference_layout():
 
 
 def test_paper_path_hands_the_kernels_their_operands(monkeypatch):
-    """Every tensor the paper forward hands K1 and K8 (and ``lif`` hands
-    K4) is contiguous and of the kernel's dtype -- what the CUDA branch
-    checks and raises on, rehearsed through the plain versions."""
+    """Every tensor the paper forward hands K1 (and ``lif`` hands K4) is
+    contiguous and of the kernel's dtype, and K8's keyed entry gets uint8
+    heads views with contiguous rows (read in place, no copy) and an int64
+    key -- what the CUDA branch checks and raises on, rehearsed through the
+    plain versions."""
     seen = []
 
-    def checked(fn, dtypes):
+    def checked(fn, dtypes, rows_only=False):
         def run(*args, **kw):
             for a, dt in zip(args, dtypes):
                 if isinstance(a, torch.Tensor):
-                    assert a.is_contiguous(), fn.__name__
+                    if rows_only and a.dim() == 5:
+                        assert a.stride(-1) == 1, fn.__name__
+                    else:
+                        assert a.is_contiguous(), fn.__name__
                     assert dt is None or a.dtype == dt, (fn.__name__, a.dtype)
             seen.append(fn.__name__)
             return fn(*args, **kw)
         return run
 
-    f32, u8, i32, i8 = torch.float32, torch.uint8, torch.int32, torch.int8
+    f32, u8, i8, i64 = torch.float32, torch.uint8, torch.int8, torch.int64
     monkeypatch.setattr(KA, "aimc_spiking_linear_kernel", checked(
         KA.aimc_spiking_linear_kernel, (f32, i8, f32, f32)))
-    monkeypatch.setattr(KS, "ssa_attention_kernel", checked(
-        KS.ssa_attention_kernel, (u8, u8, u8, i32, i32)))
+    monkeypatch.setattr(KS, "ssa_attention_keyed_kernel", checked(
+        KS.ssa_attention_keyed_kernel, (u8, u8, u8, i64), rows_only=True))
     monkeypatch.setattr(KL, "lif_kernel", checked(KL.lif_kernel, (f32,)))
     key = prng.PRNGKey(4)
     for name in ("xpikeformer-vit-smoke", "xpikeformer-gpt-smoke"):
@@ -495,5 +500,5 @@ def test_paper_path_hands_the_kernels_their_operands(monkeypatch):
         out = eng.forward(x, key)
         assert bool(torch.isfinite(out).all())
     eng.backend.lif(torch.randn(5, 3, 4).permute(2, 1, 0))
-    assert {"aimc_spiking_linear_kernel", "ssa_attention_kernel",
+    assert {"aimc_spiking_linear_kernel", "ssa_attention_keyed_kernel",
             "lif_kernel"} <= set(seen)
