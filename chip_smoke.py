@@ -63,6 +63,16 @@ Phases, each printing one JSON line:
    the requests must launch K7 once per layer and step and give the same
    tokens, and three profiled steps of 8 busy slots on that plan fewer
    than 2,000 kernels a step (the keyed K7 draws on the card).
+   **lm_forward** -- the LM stack's full-sequence forward:
+   ``xpikeformer-gpt-4-256`` (4 layers, ``d=256``, 4 heads of 64,
+   ``d_ff=1024``, vocab 64, ``T=4``) and ``xpikeformer-gpt-8-512`` (8
+   layers, ``d=512``, 8 heads) at full width, random weights from a seed,
+   ``engine.forward(task="lm")`` on tokens ``[8, 256]`` and ``loss_fn`` on
+   ``[8, 257]`` (N = 256, the serve's ``cache_len``): K1 six times and the
+   keyed K8 (causal) once a layer and nothing else, logits and loss equal
+   to ``IntegerBackend``'s on the card bit for bit; the unprofiled median
+   wall of 5 forwards, one profiled forward (kernels, busy, idle share)
+   and the loss.
 5. **paper forward** -- the paper's spiking ViT ``xpikeformer-vit-4-384``
    on a batch of 64 images of the ``synthetic_images`` twin, and its
    spiking GPT ``xpikeformer-gpt-4-256`` on 64 ICL sequences of 37 tokens
@@ -76,8 +86,12 @@ Phases, each printing one JSON line:
    the CPU's labels and logits within 1e-4.  Each forward reports the
    comparators its K8 tiles hold, need (a count above zero) and draw (warp
    words with a lane that counts), from the operands its blocks hand the
-   backend.  Then ``Backend.lif`` (K4) on the ViT's widest pre-activation
-   shape, equal to the plain version.
+   backend.  Each model also runs the paper's baseline rows on the same
+   weights and inputs, ``mode="lif"`` (the LIF attention: K1 six times a
+   block, no K8) and ``mode="ann"`` (the float transformer: no kernel),
+   whose logits must equal the plain backend's; each prints its wall.
+   Then ``Backend.lif`` (K4) on the ViT's widest pre-activation shape,
+   equal to the plain version.
 
 6. **drift** -- the programmed-PCM lifecycle.  (a) ``xpikeformer-gpt-4-256``
    on the LM stack, programmed (``engine.program``), served paged (the
@@ -114,7 +128,9 @@ Phases, each printing one JSON line:
    model group, must hand PyTorch's dispatcher nothing but its outputs'
    allocations and views beside one K5 and one K4 launch (the kernels
    phase holds the same calls, and under the profiler finds no kernel but
-   K5's and K4's).
+   K5's and K4's).  (c) ``Executor.forward`` on tokens ``[8, 64]`` at full
+   width, the batch split over ``data``: every rank's logits must equal
+   one card's ``engine.forward``, bit for bit.
    Its times measure four processes sharing one card and gloo's host
    staging, not NVLink.
 
@@ -131,17 +147,21 @@ prefill row, ``128 -> 256`` attention out and ``512 -> 256`` MLP out) and
 at ``M = 4,096``, ``384 -> 384``, timed beside ``torch.matmul`` of the
 same counts (TF32 off), K8 ``ssa_attention`` at the ViT's tile
 (``G = 1,536``, ``N = D = 64``) and the GPT's causal tile (``G = 1,024``,
-``N = 37``) twice: its keyed entry (the paper forwards': comparators drawn
-in the kernel from one key, q/k/v read through the heads views of
-``[T, B, N, H*hd]`` trains, out written into a ``[T, B, N, H, hd]``
-buffer; also at N = 513 and streamed at ``N = 2,048, D = 512``; each row
-with the profiler's device time, the wrapper's host microseconds, the
-comparators the tile holds, needs and draws, and a bound on the draws this
-data needs; the kernels line reads the ViT's) and its given-draws entry
-(also at N = 513 and streamed), and the SASS instructions of one
-in-kernel draw (``cuobjdump -sass`` of probe kernels built from
-``csrc/threefry.cuh``) with what they take at the card's INT32 issue
-rate, K4 ``lif``'s counts entry (the row-parallel epilogue) at
+``N = 37``) twice: its keyed entry (the paper forwards' and the LM
+stack's: comparators drawn in the kernel from one key, q/k/v read through
+the heads views of ``[T, B, N, H*hd]`` trains, out written into a
+``[T, B, N, H, hd]`` buffer; also at the LM stack's causal tile
+``T=4, B=8, H=4, N=256, D=64``, at a ``(2, 2)`` mesh rank's block of it
+(batch rows from 4, heads from 2: the whole tile's comparators at its own
+tiles, equal to that block of the whole tile), at N = 513 and streamed at
+``N = 2,048, D = 512``; each row with the profiler's device time, the
+wrapper's host microseconds, the comparators the tile holds, needs and
+draws, and a bound on the draws this data needs; the kernels line reads
+the ViT's) and its given-draws entry (also at N = 513 and streamed), and
+the SASS instructions of one in-kernel draw (``cuobjdump -sass`` of probe
+kernels built from ``csrc/threefry.cuh``) with what they take at the
+card's INT32 issue rate (the keyed K2's, K7's and K8's bounds count each
+draw they need at that many instructions on the INT32 pipe), K4 ``lif``'s counts entry (the row-parallel epilogue) at
 the mesh's ``[4, 4, 256]`` and ``[4, 1, 256]`` with and without a bias
 and its currents entry there and at the ViT's ``[4, 64*64*1536]`` (each
 row with the profiler's device time, the wrapper's host microseconds and
@@ -153,6 +173,12 @@ ViT's ``w1`` leaf ``[384, 1536]``, the LM stack's stacked ``mlp.wi`` leaf
 image gains 1 and 7, and over trees of 1, 6, 26 and 40 leaves (unaligned
 rows, t = 0, the calibration read), its row timed at one ``[384, 1536]``
 leaf with L2 flushed between launches (``device_ms``) and L2-warm.
+
+A kernel's device time (``device_ms``, torch.profiler) is refused and the
+session taken again where the profiler saw other than the launches made,
+or where the calls kept the card busy and its busy time differs by more
+than 10% from CUDA events around the same calls; three refused sessions
+fail the run.
 
 Then the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
@@ -182,6 +208,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import math
 import statistics
@@ -207,12 +234,6 @@ HOST_CALLS = 1000
 # the live length of the keyed K2's timed prefill row: the middle of the
 # serve phases' 8-32-token prompts
 PREFILL_POS = 20
-# integer operations of one threefry2x32 call (20 rounds of add, rotate as
-# two shifts and an or, and xor; five key injections of three adds), and of
-# one randint draw (two calls, then two remainders, a multiply, an add and
-# a remainder)
-THREEFRY_OPS = 20 * 5 + 5 * 3
-DRAW_OPS = 2 * THREEFRY_OPS + 5
 
 
 def emit(obj) -> None:
@@ -256,24 +277,51 @@ def device_ms(fn, kernel: str, calls: int = BATCH) -> float:
     ``kernel``: torch.profiler over ``calls`` calls of ``fn`` after warm-up,
     that kernel's device time over its launches (what ``time_ms`` reads
     when the host issues calls slower than the card runs them is the
-    host's rate)."""
+    host's rate).
+
+    A session is taken again, up to three times, where it misreads: where
+    the launches it saw are not ``calls`` (one a call), or where the calls
+    kept the card busy (the host issued them in under half the card's
+    time) and the device time of every kernel the session saw differs by
+    more than 10% from the CUDA events around the same calls.  Three bad sessions fail the run
+    rather than print a wrong time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(WARMUP):
         fn()
-    for _ in range(3):  # a session that records no kernel is taken again
+    bad = []
+    for _ in range(3):
         torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # a lead-in launch: a session can miss the first one it sees
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            a.record()
+            t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
+            issue_ms = 1e3 * (time.perf_counter() - t0) / calls
+            b.record()
             torch.cuda.synchronize()
-        ks = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and kernel in e.key]
+        events_ms = a.elapsed_time(b) / calls
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        ks = [e for e in dev if kernel in e.key]
         n = sum(e.count for e in ks)
-        if n:
-            return sum(e.self_device_time_total for e in ks) / n / 1e3
-    check(False, f"the profiler saw no {kernel} launch in three sessions")
+        if n != calls:
+            bad.append(f"{n} launches seen, {calls} made")
+            continue
+        busy_ms = sum(e.self_device_time_total for e in dev) / calls / 1e3
+        if issue_ms < 0.5 * events_ms and \
+                abs(busy_ms - events_ms) > 0.1 * events_ms:
+            bad.append(f"busy {busy_ms:.5f} ms a call against CUDA events' "
+                       f"{events_ms:.5f}")
+            continue
+        return sum(e.self_device_time_total for e in ks) / n / 1e3
+    check(False, f"the profiler misread {kernel} in three sessions: {bad}")
 
 
 def nbytes(*xs) -> int:
@@ -412,14 +460,30 @@ def bare_keyed(args, out, h0: int, i_max: int):
     return lambda: fn(*a)
 
 
-def keyed_bound(args, got, h0: int, i_max: int):
+def draws_bound(n_bytes: int, pop_ops: int, pop_rate: float, draws: int,
+                pipes: dict):
+    """The least time of a keyed kernel: ``n_bytes`` over the memory rate,
+    or its operations -- ``pop_ops`` AND-popcount operations at
+    ``pop_rate`` and ``draws`` comparators of a draw's compiled
+    instructions (``pipes``, :func:`sass_per_draw`) on the integer pipes
+    and the issue limit (:func:`int32_issue_ms`) -- whichever is longer:
+    :func:`bound`'s tuple, the operations counted as popcount operations
+    plus draw instructions."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = pop_ops / pop_rate * 1e3 + int32_issue_ms(draws, pipes)
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", n_bytes,
+            pop_ops + pipes["issued"] * draws)
+
+
+def keyed_bound(args, got, h0: int, i_max: int, pipes: dict):
     """The least time of one keyed K2 launch on these inputs: ``q``, the
     slot keys, ``pos`` and the output once; each query row's cached key
     rows below its slot's ``pos``; the value rows whose score spiked; no
     draw is read.  Operations: two a lane of each AND-popcount (the live
-    scores and the counted value rows) and :data:`DRAW_OPS` a comparator
-    drawn (one a live row, one an output lane), at the card's f32 rate (the
-    table has no int32 rate).  Returns :func:`bound`'s tuple."""
+    scores and the counted value rows) at the card's f32 rate, and a
+    comparator drawn for each live row and output lane, a draw's
+    instructions on the integer pipes (:func:`draws_bound`)."""
     from repro_torch.kernels import ref as KREF
 
     q, k, v, keys, pos = args
@@ -433,8 +497,8 @@ def keyed_bound(args, got, h0: int, i_max: int):
     n_live = t * h * int(live.sum())
     v_rows = int(spike.sum())
     n_bytes = nbytes(q, keys, pos, got) + d * (n_live + v_rows)
-    ops = 2 * d * (n_live + v_rows) + DRAW_OPS * (n_live + t * b * h * d)
-    return bound(n_bytes, ops, FP32_OPS_PER_S)
+    return draws_bound(n_bytes, 2 * d * (n_live + v_rows), FP32_OPS_PER_S,
+                       n_live + t * b * h * d, pipes)
 
 
 def paged_keyed_inputs(gen, dev, *, b, t, h, kv, d, pl, mp, pos, idle):
@@ -470,14 +534,14 @@ def bare_paged_keyed(args, out, h0: int, i_max: int):
     return lambda: fn(*a)
 
 
-def paged_keyed_bound(args, got, h0: int, i_max: int):
+def paged_keyed_bound(args, got, h0: int, i_max: int, pipes: dict):
     """The least time of one keyed K7 launch on these inputs: ``q``, the
     table, the slot keys, ``pos`` and the output once; each distinct live
     key row (rows up to each slot's write position, not in a null page; a
     page two slots share once; a KV head's row once for its query-head
     group); the distinct value rows whose score spiked for some query
-    head; no draw is read.  Operations as :func:`keyed_bound` counts them,
-    at the card's f32 rate.  Returns :func:`bound`'s tuple."""
+    head; no draw is read.  Operations as :func:`keyed_bound` counts
+    them."""
     from repro_torch.kernels import ref as KREF
 
     q, kp, vp, table, keys, pos = args
@@ -509,9 +573,8 @@ def paged_keyed_bound(args, got, h0: int, i_max: int):
     v_rows = distinct(vrows)
     n_live = t * h * int(live.sum())
     n_bytes = nbytes(q, table, keys, pos, got) + d * (k_rows + v_rows)
-    ops = (2 * d * (n_live + int(spike.sum()))
-           + DRAW_OPS * (n_live + t * b * h * d))
-    return bound(n_bytes, ops, FP32_OPS_PER_S)
+    return draws_bound(n_bytes, 2 * d * (n_live + int(spike.sum())),
+                       FP32_OPS_PER_S, n_live + t * b * h * d, pipes)
 
 
 def bare_lif_counts(counts, scale, bias, out):
@@ -638,25 +701,33 @@ def spikes(gen, shape, p, dev):
 # the keyed K8's cases, (T, B, H, N, D, causal): the paper ViT's tile and
 # the paper GPT's (batch 64), N = 513 on the resident design and a tile
 # past a block's shared memory (streamed)
-KEYED_TILES = {"vit": (4, 64, 6, 64, 64, False), "gpt": (4, 64, 4, 37, 64, True),
-               "n513": (1, 2, 32, 513, 64, True),
-               "stream": (1, 1, 2, 2048, 512, True)}
+# (T, B, H, N, D, causal, block): the LM stack's causal tile of the
+# lm_forward phase (8 sequences of 256), and a (2, 2) mesh rank's block of
+# it (batch rows 4-7, heads 2-3: (b0, h0, rows, heads)), which draws the
+# whole tile's comparators at its own tiles
+KEYED_TILES = {"vit": (4, 64, 6, 64, 64, False, None),
+               "gpt": (4, 64, 4, 37, 64, True, None),
+               "lm": (4, 8, 4, 256, 64, True, None),
+               "lm_shard": (4, 8, 4, 256, 64, True, (4, 2, 4, 2)),
+               "n513": (1, 2, 32, 513, 64, True, None),
+               "stream": (1, 1, 2, 2048, 512, True, None)}
 
 
 def heads(gen, shape, p, dev):
-    """Spikes of a ``[T, B, N, H, hd]``-shaped train seen as ``_heads``
+    """Spikes of a ``[T, B, N, H, hd]``-shaped train seen as ``spikes.heads``
     hands them over: the ``[T, B, H, N, hd]`` view, no copy."""
     return spikes(gen, shape, p, dev).movedim(-2, -3)
 
 
-def tile_draws(q, k, v, key, causal) -> dict:
+def tile_draws(q, k, v, key, causal, tile=None) -> dict:
     """The keyed K8's comparators on these inputs: ``total``, what the
     tile holds (what the threefry twin draws); ``needed``, those whose
     count is not zero (no other can fire; a causal score past the diagonal
     counts zero); ``issued``, the lane draws the warps make (a warp pass
     takes two words of 32 lanes of a row: 64 lane draws where more than 32
     of its counts are not zero, 32 where 1 to 32 are, packed onto its
-    lanes, none where none are; padding lanes included)."""
+    lanes, none where none are; padding lanes included).  ``tile`` places
+    the tiles in a larger grid (``b0``, ``h0``, ``batch``, ``heads``)."""
     from repro_torch.kernels import ref as KREF
 
     t, b, h, n, d = q.shape
@@ -665,7 +736,8 @@ def tile_draws(q, k, v, key, causal) -> dict:
     cs = qf @ kf.transpose(1, 2)  # exact integers in f32 (TF32 is off)
     if causal:
         cs = cs * torch.tril(torch.ones((n, n), device=q.device))
-    rs, _ = KREF.draw_comparator_prns(key, (g, n, n), (g, n, d), d, n)
+    gi = KREF.tile_index(t, b, h, device=q.device, **(tile or {}))
+    rs, _ = KREF.draw_tile_prns(key, gi.reshape(-1), n, d)
     ca = (cs > rs).float() @ vf
 
     def words(c):
@@ -679,24 +751,18 @@ def tile_draws(q, k, v, key, causal) -> dict:
                 + int((ca > 0).sum()), issued=words(cs) + words(ca))
 
 
-def keyed_tile_bound(q, k, v, key, got, draws, causal):
+def keyed_tile_bound(q, k, v, key, got, draws, causal, pipes: dict):
     """The least time of one keyed K8 launch on these inputs: bytes, q, k,
     v, the key and the output once (no comparator is read); operations,
-    :data:`DRAW_OPS` for each comparator this data needs (``needed``: a
-    zero count needs none) at the card's f32 rate, as the keyed K2's and
-    K7's rows count them, plus the AND-popcounts (two operations a lane,
-    both stages) at the int8 tensor rate, as the given-draws row counts
-    them.  Returns :func:`bound`'s tuple."""
+    the AND-popcounts (two operations a lane, both stages) at the int8
+    tensor rate, as the given-draws row counts them, and each comparator
+    this data needs (``needed``: a zero count needs none) at a draw's
+    compiled instructions on the integer pipes (:func:`draws_bound`)."""
     t, b, h, n, d = q.shape
     pairs = n * (n + 1) // 2 if causal else n * n
     pop = 2 * 2 * t * b * h * pairs * d
-    n_bytes = nbytes(q, k, v, key, got)
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = (DRAW_OPS * draws["needed"] / FP32_OPS_PER_S
-              + pop / INT8_OPS_PER_S) * 1e3
-    return (max(by_bytes, by_ops),
-            "bytes" if by_bytes >= by_ops else "operations", n_bytes,
-            DRAW_OPS * draws["needed"] + pop)
+    return draws_bound(nbytes(q, k, v, key, got), pop, INT8_OPS_PER_S,
+                       draws["needed"], pipes)
 
 
 SASS_PROBE = r"""
@@ -723,8 +789,10 @@ def sass_per_draw() -> dict:
     from ``csrc/threefry.cuh`` with the library's flags, one draw and two
     in lockstep (``XpkRandintFast::at<1>``, ``at<2>``), disassembled by
     ``cuobjdump -sass``; their difference is what one more draw costs.
-    Returns the counts and the opcodes of the second draw's probe, or the
-    error (the measurement is not a check)."""
+    Returns the counts, that difference by pipe (``pipes``: on the ALU, on
+    the FMA pipe, all issued; :data:`ALU_OPS`) and the opcodes of the
+    second draw's probe, or the error (the kernels phase fails on one: its
+    keyed bounds count a draw at these instructions)."""
     import re
 
     from repro_torch.kernels import build as KB
@@ -759,7 +827,15 @@ def sass_per_draw() -> dict:
     n1, n2 = len(ops.get("draw1", [])), len(ops.get("draw2", []))
     if not n1 or not n2:
         return {"error": "cuobjdump listed no probe instructions"}
+    c1, c2 = (collections.Counter(ops[f]) for f in ("draw1", "draw2"))
+    one = {op: c2[op] - c1[op] for op in c1.keys() | c2.keys()}
+
+    def on(pipe):
+        return max(0, sum(n for op, n in one.items() if op in pipe))
+
     return dict(one_draw_kernel=n1, two_draw_kernel=n2, per_draw=n2 - n1,
+                pipes=dict(alu=on(ALU_OPS), fma=on(FMA_INT_OPS),
+                           issued=n2 - n1),
                 two_draw_opcodes=dict(collections.Counter(ops["draw2"])
                                       .most_common(10)))
 
@@ -787,16 +863,39 @@ def keyed_resources(n: int, d: int) -> dict:
                 occupancy=out[2] * 8 / 64)
 
 
-def int32_issue_ms(lanes: int, per_draw: int) -> float:
-    """Least time of ``lanes`` draws at ``per_draw`` SASS instructions each
-    on the card's INT32 issue rate: 64 lanes a clock an SM at the card's
-    maximum SM clock (``nvidia-smi clocks.max.sm``)."""
+# the pipes a draw's SASS opcodes run on (Nsight Compute's pipeline
+# list): the ALU takes the logic, shift, add and compare instructions but
+# not IMAD/IMUL, which run on the FMA pipe.  Each pipe retires 64 integer
+# lanes a clock an SM on compute capability 9.0 (the CUDA C++ guide's
+# throughput table), and an SM issues 128 lanes a clock (four schedulers,
+# one warp instruction each).  An opcode listed in neither set (VIADD,
+# MOV, the uniform datapath's) counts toward the issue limit only, so the
+# bound stays a least time whichever pipe runs it.
+ALU_OPS = frozenset({"LOP3", "LOP", "SHF", "IADD3", "ISETP", "SEL", "LEA",
+                     "PRMT", "IMNMX", "IABS", "PLOP3", "BMSK", "SGXT"})
+FMA_INT_OPS = frozenset({"IMAD", "IMUL"})
+INT_PIPE_LANES, ISSUE_LANES = 64, 128
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clocks_per_s() -> float:
+    """The card's SMs times its maximum SM clock (``nvidia-smi
+    clocks.max.sm``): SM-clocks a second."""
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True, timeout=60).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return lanes * per_draw / (sms * 64 * mhz * 1e6) * 1e3
+    return sms * mhz * 1e6
+
+
+def int32_issue_ms(lanes: int, pipes: dict) -> float:
+    """Least time of ``lanes`` draws of a draw's instructions (``pipes``:
+    ``alu``, ``fma`` and all ``issued``, :func:`sass_per_draw`): the
+    busiest of the ALU pipe, the FMA pipe and the SM's issue limit."""
+    clocks = max(pipes["alu"] / INT_PIPE_LANES, pipes["fma"] / INT_PIPE_LANES,
+                 pipes["issued"] / ISSUE_LANES)
+    return lanes * clocks / sm_clocks_per_s() * 1e3
 
 
 # leaf shapes of the grouped K6: the ViT's widest, the LM stack's stacked
@@ -927,6 +1026,11 @@ def phase_kernels(dev):
 
     gen = torch.Generator().manual_seed(1234)
     results = {}
+    # the compiled instructions of one in-kernel draw, by pipe: the keyed
+    # kernels' bounds count their draws at these on the integer pipes
+    sass = sass_per_draw()
+    check("pipes" in sass, f"no SASS count of a draw: {sass}")
+    pipes = sass["pipes"]
 
     # K1 at the prefill shapes (one token: M=1) and a ragged edge
     k1 = {}
@@ -1003,7 +1107,7 @@ def phase_kernels(dev):
         wrapper_host_us=host_us(run),
         bare_launch_host_us=host_us(bare_keyed(args, torch.empty_like(got),
                                                0, 256)),
-        bound=keyed_bound(args, got, 0, 256))
+        bound=keyed_bound(args, got, 0, 256, pipes))
 
     # K3 at the decode shape, the padding edge, GQA, one slot and 32 slots
     # (256 clusters of 8: more than the card holds at once)
@@ -1117,7 +1221,7 @@ def phase_kernels(dev):
         wrapper_host_us=host_us(run),
         bare_launch_host_us=host_us(bare_paged_keyed(
             args, torch.empty_like(got), 0, 256)),
-        bound=paged_keyed_bound(args, got, 0, 256))
+        bound=paged_keyed_bound(args, got, 0, 256, pipes))
 
     # K9 at the paged decode shape, the padding/GQA edge and pos >= L
     k9 = {}
@@ -1300,41 +1404,53 @@ def phase_kernels(dev):
         del args, got, want
     results["ssa_attention_given_long"] = long_tiles
 
-    # K8 keyed (the paper forwards' entry: the comparators drawn in the
-    # kernel from the block's key, q/k/v read through the heads view of
-    # [T, B, N, H*hd] trains, out written into a [T, B, N, H, hd] buffer)
-    # at the ViT's and the paper GPT's tiles (the kernels line reads the
-    # ViT's), at N = 513 and at a streamed tile (G = 2, N = 2,048, D = 512)
-    sass = sass_per_draw()
-    for name, (t, b, h, n, d, causal) in KEYED_TILES.items():
+    # K8 keyed (the paper forwards' and the LM stack's entry: the
+    # comparators drawn in the kernel from the block's key, q/k/v read
+    # through the heads view of [T, B, N, H*hd] trains, out written into a
+    # [T, B, N, H, hd] buffer) at the ViT's and the paper GPT's tiles (the
+    # kernels line reads the ViT's), the LM stack's causal tile and a mesh
+    # rank's block of it, at N = 513 and at a streamed tile (G = 2, N =
+    # 2,048, D = 512)
+    for name, (t, b, h, n, d, causal, block) in KEYED_TILES.items():
         q, k, v = (heads(gen, (t, b, n, h, d), p, dev) for p in (0.5, 0.6, 0.4))
         key = torch.randint(0, 2 ** 32, (2,), generator=gen).to(dev)
-        run = (lambda q=q, k=k, v=v, key=key, c=causal:
-               KS.ssa_attention_keyed_kernel(q, k, v, key, causal=c))
-        plain = (lambda q=q, k=k, v=v, key=key, c=causal:
-                 KREF.ssa_attention_keyed_ref(q, k, v, key, causal=c))
+        tile = {}
+        if block is not None:
+            b0, h0, nb, nh = block
+            sl = (slice(None), slice(b0, b0 + nb), slice(h0, h0 + nh))
+            whole = KS.ssa_attention_keyed_kernel(q, k, v, key, causal=causal)
+            q, k, v = q[sl], k[sl], v[sl]
+            tile = dict(b0=b0, h0=h0, batch=b, heads=h)
+        run = (lambda q=q, k=k, v=v, key=key, c=causal, tile=tile:
+               KS.ssa_attention_keyed_kernel(q, k, v, key, causal=c, **tile))
+        plain = (lambda q=q, k=k, v=v, key=key, c=causal, tile=tile:
+                 KREF.ssa_attention_keyed_ref(q, k, v, key, causal=c, **tile))
         got, want = run(), plain()
         check(torch.equal(got, want), f"keyed K8 {name} tile differs")
         check(got.movedim(-3, -2).is_contiguous(),
               f"keyed K8 {name}: not the heads view of a [T,B,N,H,hd] buffer")
-        draws = tile_draws(q, k, v, key, causal)
+        if block is not None:
+            check(torch.equal(got, whole[sl]),
+                  f"keyed K8 {name}: not the whole tile's block")
+            del whole
+        draws = tile_draws(q, k, v, key, causal, tile)
         r = dict(
-            shape=(f"T={t} x B={b} x H={h} tiles, N={n}, D={d}, "
-                   + ("causal" if causal else "non-causal")
-                   + " (heads views of [T,B,N,H*D] trains)"),
+            shape=(f"T={t} x B={q.shape[1]} x H={q.shape[2]} tiles, N={n}, "
+                   f"D={d}, " + ("causal" if causal else "non-causal")
+                   + " (heads views of [T,B,N,H*D] trains)"
+                   + (f", the block from batch row {tile['b0']} and head "
+                      f"{tile['h0']} of B={b} x H={h}" if tile else "")),
             entry="keyed: comparators drawn in the kernel, heads read and "
                   "written in place",
             design=KS.attention_plan(n, d).design,
             max_abs_err=max_abs_err(got, want), ms=time_ms(run),
             wrapper_host_us=host_us(run, 200), plain_ms=time_ms(plain),
             draws=draws, bound=keyed_tile_bound(q, k, v, key, got, draws,
-                                                causal))
-        if name in ("vit", "gpt"):  # the paper tiles: the profiler's time
+                                                causal, pipes))
+        if name in ("vit", "gpt", "lm", "lm_shard"):  # the profiler's time
             r["device_ms"] = device_ms(run, "ssa_attention_keyed")
         r["resources"] = keyed_resources(n, d)
-        if "per_draw" in sass:
-            r["int32_issue_ms"] = int32_issue_ms(draws["issued"],
-                                                 sass["per_draw"])
+        r["int32_issue_ms"] = int32_issue_ms(draws["issued"], pipes)
         results["ssa_attention" + ("" if name == "vit" else "_" + name)] = r
         del q, k, v, got, want
     results["ssa_attention"]["sass"] = sass
@@ -1794,9 +1910,9 @@ def forward_draws(eng, x, key) -> dict:
     seen = []
     inner = eng.backend.ssa_attention
 
-    def record(k, q, kk, v, *, causal=False):
+    def record(k, q, kk, v, *, causal=False, **tile):
         seen.append((k, q, kk, v, causal))
-        return inner(k, q, kk, v, causal=causal)
+        return inner(k, q, kk, v, causal=causal, **tile)
 
     eng.backend.ssa_attention = record
     try:
@@ -1809,6 +1925,42 @@ def forward_draws(eng, x, key) -> dict:
     k, q, kk, v, causal = seen[0]
     return dict(total, block0_ms=time_ms(
         lambda: KS.ssa_attention_keyed_kernel(q, kk, v, k, causal=causal)))
+
+
+def baseline_modes(eng, plain, x, key) -> dict:
+    """The paper's baseline rows on the same weights and inputs: ``"lif"``
+    (the spiking blocks with the LIF attention: K1 six times a block, no
+    K8), whose logits on the kernels' backend must equal the plain one's
+    bit for bit, and ``"ann"`` (the float transformer: no kernel of the
+    port, so no backend changes its result); for each, its launches and
+    the unprofiled median wall of 3 forwards."""
+    import dataclasses
+
+    from repro_torch.kernels import build as KB
+
+    out = {}
+    for mode in ("lif", "ann"):
+        cfg = dataclasses.replace(eng.cfg, mode=mode)
+        me, mp = (dataclasses.replace(e, cfg=cfg) for e in (eng, plain))
+        me.forward(x, key)  # warm-up
+        KB.reset_launches()
+        logits = me.forward(x, key)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in KB.LAUNCHES.items() if v}
+        want = ({"aimc_spiking_linear": 6 * cfg.depth} if mode == "lif"
+                else {})
+        check(got == want, f"{mode} mode launched {got}, not {want}")
+        check(bool(torch.isfinite(logits).all()), f"{mode}: non-finite")
+        r = out[mode] = dict(launches_per_forward=got,
+                             forward_ms=wall_ms(lambda: me.forward(x, key), 3),
+                             labels_head=logits.argmax(-1).reshape(-1)[:8]
+                             .tolist())
+        if mode == "lif":
+            check(torch.equal(logits, mp.forward(x, key)),
+                  "lif mode: kernel and plain logits differ")
+            r.update(logits_bitwise_equal=True, plain_forward_ms=wall_ms(
+                lambda: mp.forward(x, key), 3))
+    return out
 
 
 def phase_paper(dev):
@@ -1885,6 +2037,7 @@ def phase_paper(dev):
                               small[str(dev)].argmax(-1)),
               f"{name}: the reduced config on the card != the CPU")
         r["reduced_config_matches_cpu"] = True
+        r["baseline_modes"] = baseline_modes(eng, plain, x, key)
         out[name] = r
         if task == "vit":
             vit = eng
@@ -1902,6 +2055,89 @@ def phase_paper(dev):
           "Backend.lif: kernel and plain spikes differ")
     out["lif_path"] = dict(shape=list(cur.shape), launches=launches["lif"])
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase lm_forward: the LM stack's full-sequence forward and loss
+# ---------------------------------------------------------------------------
+
+# (arch, batch, sequence): the serve phases' model at its cache length, and
+# the larger paper GPT on the LM stack
+LM_FORWARD = (("xpikeformer-gpt-4-256", 8, 256), ("xpikeformer-gpt-8-512", 8,
+                                                   256))
+# the (2, 2) mesh's forward: 8 sequences of 64 tokens, key PRNGKey(MESH_KEY)
+MESH_TOKENS, MESH_KEY = (8, 64), 77
+
+
+def lm_tokens(vocab: int, b: int, s: int, seed: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab, (b, s), generator=gen)
+
+
+def phase_lm_forward(dev):
+    """The LM stack's full forward (``engine.forward(task="lm")``) and
+    ``loss_fn`` at full width, random weights from a seed, on 8 sequences
+    of 256 tokens (the loss on 257): K1 on every spiking linear and the
+    keyed K8 causal on every block's tile, nothing else of the port; the
+    logits and the loss equal the plain versions' (``IntegerBackend``) on
+    the card, bit for bit.  Each model reports the unprofiled median wall
+    of 5 forwards (after a warm-up), one profiled forward and the loss.
+    Also the one-card logits of the mesh phase's forward."""
+    from repro_torch import prng
+    from repro_torch.engine import XpikeformerEngine, get_backend
+    from repro_torch.kernels import build as KB
+    from repro_torch.models import transformer as T
+
+    out = {}
+    key = prng.PRNGKey(42, dev)
+    for name, b, n in LM_FORWARD:
+        eng = XpikeformerEngine.from_config(name, task="lm", backend="cuda",
+                                            device=dev)
+        cfg = eng.cfg
+        eng.init(seed=0)
+        plain = XpikeformerEngine(cfg=cfg, backend=get_backend("integer"),
+                                  device=eng.device, params=eng.params)
+        tokens = lm_tokens(cfg.vocab_size, b, n + 1, 5).to(dev)
+        x = tokens[:, :-1]
+        eng.forward(x, key)  # warm-up: first cuBLAS/allocator calls
+        KB.reset_launches()
+        logits = eng.forward(x, key)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in KB.LAUNCHES.items() if v}
+        layers = cfg.num_layers
+        want = {"aimc_spiking_linear": 6 * layers,
+                "ssa_attention_keyed": layers}
+        check(got == want, f"{name}: the forward launched {got}, not {want}")
+        check(tuple(logits.shape) == (b, n, cfg.vocab_size),
+              f"{name}: logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
+        check(torch.equal(logits, plain.forward(x, key)),
+              f"{name}: kernel and plain logits differ")
+        loss, aux = T.loss_fn(eng.params, {"tokens": tokens}, cfg, rng=key,
+                              backend=eng.backend)
+        ploss, paux = T.loss_fn(eng.params, {"tokens": tokens}, cfg, rng=key,
+                                backend=plain.backend)
+        check(float(loss) == float(ploss) and bool(torch.isfinite(loss)),
+              f"{name}: loss {float(loss)} against plain {float(ploss)}")
+        ms = wall_ms(lambda: eng.forward(x, key), 5)
+        out[name] = dict(
+            layers=layers, d_model=cfg.d_model, heads=cfg.num_heads,
+            head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
+            vocab=cfg.vocab_size, T=cfg.spike_T, batch=b, tokens=n,
+            logits_shape=list(logits.shape), logits_bitwise_equal=True,
+            loss=float(loss), xent=float(aux["xent"]),
+            loss_bitwise_equal=True, forward_ms=ms,
+            tokens_per_s=b * n / ms * 1e3,
+            plain_forward_ms=wall_ms(lambda: plain.forward(x, key), 3),
+            launches_per_forward=got,
+            profile_forward=profile_window(lambda: eng.forward(x, key)))
+        if name == ARCH:
+            mesh_tokens = lm_tokens(cfg.vocab_size, *MESH_TOKENS, 6)
+            mesh_ref = (mesh_tokens.numpy(), eng.forward(
+                mesh_tokens.to(dev), prng.PRNGKey(MESH_KEY, dev)).cpu())
+        del eng, plain
+        torch.cuda.empty_cache()
+    return out, mesh_ref
 
 
 # ---------------------------------------------------------------------------
@@ -2094,7 +2330,7 @@ def phase_drift(dev):
 MESH = (2, 2)
 
 
-def phase_mesh(dev, dense_outs, paged_outs):
+def phase_mesh(dev, dense_outs, paged_outs, mesh_ref):
     """The full-width spiking GPT on a (2, 2) mesh of four ranks sharing
     the card over gloo (NCCL refuses two ranks on one device), through
     ``run_ranks`` and the CUDA backend: (a) dense, the serve phase's first
@@ -2103,7 +2339,10 @@ def phase_mesh(dev, dense_outs, paged_outs):
     every 8 steps, seeds ``1000 + i``.  Each stream must be the prefix of
     the single-device stream of the same request; the launches of the
     measured runs (counted from zero on each rank) must show K5, K4, K3,
-    K9 and K1."""
+    K9 and K1.  (c) ``Executor.forward`` on ``mesh_ref``'s tokens ``[8,
+    64]`` (4 rows a data rank): every rank's logits must equal one card's
+    (``mesh_ref``'s), bit for bit, with K1, K5, K4 and the keyed K8
+    launched."""
     from repro_torch.configs import registry
     from repro_torch.distributed import jobs
     from repro_torch.launch.mesh import pick_backend, run_ranks
@@ -2114,9 +2353,11 @@ def phase_mesh(dev, dense_outs, paged_outs):
     dense = dict(base, prompts=make_requests(cfg.vocab_size)[:8], max_new=16)
     paged = dict(base, prompts=paged_requests(cfg.vocab_size), max_new=8,
                  paged=True, page_len=8)
+    forward = dict(kind="forward", cfg=cfg, init_seed=0, backend="cuda",
+                   tokens=mesh_ref[0], key_seed=MESH_KEY, warmup=True)
     t0 = time.perf_counter()
     res = run_ranks(jobs.run_jobs, MESH, device="cuda",
-                    args=([dense, paged],), timeout_s=600)
+                    args=([dense, paged, forward],), timeout_s=600)
     wall_s = time.perf_counter() - t0
     out, total = {"shape": list(MESH),
                   "process_group": pick_backend(4, "cuda"),
@@ -2149,6 +2390,26 @@ def phase_mesh(dev, dense_outs, paged_outs):
             check(ranks[0]["cow_copies"] > 0, "mesh paged: no copy-on-write")
         out[name] = dict(requests=len(want), streams_equal_one_card=True,
                          ranks=ranks)
+    ftotal, franks = {}, []
+    for rank, r in enumerate(res):
+        got = r[2]
+        check(torch.equal(torch.from_numpy(got["logits"]), mesh_ref[1]),
+              f"mesh forward: rank {rank}'s logits differ from one card's")
+        check(got["backend"] == "sharded[cuda]",
+              f"mesh forward: backend {got['backend']}")
+        for k, v in got["launches"].items():
+            ftotal[k] = ftotal.get(k, 0) + v
+            total[k] = total.get(k, 0) + v
+        franks.append(dict(rank=rank, wall_s=got["wall_s"],
+                           launches={k: v for k, v in got["launches"].items()
+                                     if v}))
+    for k in ("aimc_spiking_linear", "aimc_matmul_counts", "lif",
+              "ssa_attention_keyed"):
+        check(ftotal.get(k, 0) > 0, f"mesh forward: {k} never ran")
+    check(ftotal["lif"] == ftotal["aimc_matmul_counts"],
+          "mesh forward: K4 not once per K5")
+    out["forward"] = dict(tokens=list(MESH_TOKENS), logits_equal_one_card=True,
+                          ranks=franks)
     for k in ("aimc_matmul_counts", "lif", "fused_decode_layer",
               "fused_decode_layer_paged", "aimc_spiking_linear"):
         check(total.get(k, 0) > 0, f"mesh: {k} never ran")
@@ -2545,6 +2806,10 @@ def main() -> int:
           "first_tokens": pouts[0][:8]})
 
     t0 = time.perf_counter()
+    lm, mesh_ref = phase_lm_forward(dev)
+    emit({"phase": "lm_forward", "card": card,
+          "seconds": time.perf_counter() - t0, **lm})
+    t0 = time.perf_counter()
     paper, flaunches = phase_paper(dev)
     emit({"phase": "paper_forward", "card": card,
           "seconds": time.perf_counter() - t0, **paper})
@@ -2553,7 +2818,7 @@ def main() -> int:
     emit({"phase": "drift", "card": card,
           "seconds": time.perf_counter() - t0, **drift})
     t0 = time.perf_counter()
-    mesh, mlaunches = phase_mesh(dev, outs, pouts)
+    mesh, mlaunches = phase_mesh(dev, outs, pouts, mesh_ref)
     emit({"phase": "mesh", "card": card,
           "seconds": time.perf_counter() - t0, **mesh})
     # each kernel's launches on its own path

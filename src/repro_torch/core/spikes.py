@@ -29,3 +29,16 @@ def rate_encode(key: Tensor, x: Tensor, T: int) -> Tensor:
 def rate_decode(spikes: Tensor) -> Tensor:
     """Decode a spike train by its firing rate (mean over the T axis 0)."""
     return torch.mean(spikes, dim=0)
+
+
+def heads(x: Tensor, h: int) -> Tensor:
+    """``[..., N, d]`` -> ``[..., H, N, d/H]``: a view, the heads read in
+    place."""
+    *lead, n, d = x.shape
+    return x.reshape(*lead, n, h, d // h).movedim(-2, -3)
+
+
+def unheads(x: Tensor) -> Tensor:
+    """``[..., H, N, hd]`` -> ``[..., N, H*hd]``."""
+    *lead, h, n, hd = x.shape
+    return x.movedim(-3, -2).reshape(*lead, n, h * hd)

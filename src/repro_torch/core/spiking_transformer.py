@@ -1,17 +1,21 @@
 """The paper's models: spiking ViT (Table III) and spiking GPT (Table IV).
 
-Twin of ``repro.core.spiking_transformer`` for the Xpikeformer rows of the
-paper: attention mode ``"ssa"`` (stochastic spiking attention), which is
-every entry of :data:`repro_torch.configs.xpikeformer.SPIKING_ARCHS`, with
-ideal float weights (``wmode="ideal"``) or programmed PCM state
-(``wmode="hw"``, after :func:`program_model`).  The baseline modes
-(``"ann"``, ``"lif"``) and hardware-aware training's noisy forward
-(``"hwat"``) raise :class:`NotImplementedError`.
+Twin of ``repro.core.spiking_transformer`` in its three attention modes,
+the paper's comparison rows: ``"ssa"`` (stochastic spiking attention, the
+Xpikeformer rows, every entry of :data:`repro_torch.configs.xpikeformer.
+SPIKING_ARCHS`), ``"lif"`` (the Spikformer baseline: the same spiking
+blocks with :func:`repro_torch.core.ssa.lif_spiking_attention` in place of
+SSA) and ``"ann"`` (the float transformer: LayerNorm, softmax attention,
+GELU; ``_ln``, ``_ann_block``), with ideal float weights
+(``wmode="ideal"``) or programmed PCM state (``wmode="hw"``, after
+:func:`program_model`).  Hardware-aware training's noisy forward
+(``"hwat"``) raises :class:`NotImplementedError` (ROADMAP A11).
 
 The spiking primitives come from a backend (:mod:`repro_torch.engine`):
 ``spiking_linear`` (K1) for the six crossbar linears of a block, which
 executes a programmed leaf's drifted int8 image, and ``ssa_attention``
-(K8) for the attention tile.  The patch/embed and head linears consume or
+(K8) for the attention tile.  The ``"ann"`` mode runs no spiking
+primitive, so no backend changes its result.  The patch/embed and head linears consume or
 produce real values, so they stay outside the kernels: float ``x @ w + b``
 (``torch.matmul`` in f32) with ideal weights, the analog crossbar
 simulation (:func:`repro_torch.aimc_device.analog_matmul`, with read
@@ -32,6 +36,7 @@ import torch
 from repro_torch import aimc_device as AD
 from repro_torch import prng
 from repro_torch.core import spikes as SP
+from repro_torch.core import ssa as SSA
 from repro_torch.core.aimc import AIMCConfig
 
 Tensor = torch.Tensor
@@ -77,11 +82,10 @@ def check_wmode(wmode: str) -> None:
 
 
 def check_ported(cfg: SpikingConfig, wmode: str = "ideal") -> None:
-    """Raise for the modes this port does not run yet."""
-    if cfg.mode != "ssa":
-        raise NotImplementedError(
-            f"mode={cfg.mode!r} (the paper's ANN / Spikformer baseline rows) "
-            "is not ported yet: ROADMAP A7, baseline modes")
+    """Raise for an unknown attention mode, or a weight mode this port
+    does not run (:func:`check_wmode`)."""
+    if cfg.mode not in ("ann", "lif", "ssa"):
+        raise ValueError(f"unknown mode {cfg.mode!r}; known: ann, lif, ssa")
     check_wmode(wmode)
 
 
@@ -181,42 +185,70 @@ def patchify(images: Tensor, patch: int) -> Tensor:
     return x.movedim(3, 2).reshape(b, ph * pw, patch * patch * c)
 
 
-def _heads(x: Tensor, h: int) -> Tensor:
-    """``[..., N, d]`` -> ``[..., H, N, d/H]``."""
-    *lead, n, d = x.shape
-    return x.reshape(*lead, n, h, d // h).movedim(-2, -3)
+def _ln(p: Dict[str, Tensor], x: Tensor) -> Tensor:
+    """LayerNorm in f32 with ``eps = 1e-6`` (the ANN rows)."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, -1, keepdim=True)
+    var = torch.var(xf, -1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + 1e-6)) * p["scale"] + p["bias"]
 
 
-def _unheads(x: Tensor) -> Tensor:
-    """``[..., H, N, hd]`` -> ``[..., N, H*hd]``."""
-    *lead, h, n, hd = x.shape
-    return x.movedim(-3, -2).reshape(*lead, n, h * hd)
+def _ann_block(p: Dict[str, Any], x: Tensor, cfg: SpikingConfig,
+               keys: Tensor, aimc_cfg: AIMCConfig, *, causal: bool) -> Tensor:
+    """``x [B,N,D]`` -> the same after one float block (the ANN rows):
+    LayerNorm, softmax attention and a GELU MLP (tanh approximation, as
+    ``jax.nn.gelu``), each with its residual.  Programmed linears read
+    their noise from ``keys[0..5]``."""
+    def lin(name, z, i):
+        return linear(p[name], z, aimc_cfg, keys[i])
+
+    h = _ln(p["ln1"], x)
+    q = SP.heads(lin("wq", h, 0), cfg.num_heads)
+    k = SP.heads(lin("wk", h, 1), cfg.num_heads)
+    v = SP.heads(lin("wv", h, 2), cfg.num_heads)
+    a = SSA.ann_attention(q, k, v, causal=causal)
+    x = x + lin("wo", SP.unheads(a), 3)
+    h = _ln(p["ln2"], x)
+    h = torch.nn.functional.gelu(lin("w1", h, 4), approximate="tanh")
+    return x + lin("w2", h, 5)
 
 
 def _spiking_block(p: Dict[str, Any], s: Tensor, cfg: SpikingConfig,
                    rng: Tensor, *, causal: bool, backend) -> Tensor:
     """``s [T,B,N,D]`` integer-valued f32 -> the same after one block:
-    Q/K/V spiking linears, SSA, attention-out and the FFN, each with its
-    residual (Table I's SNN rows; no inter-layer normalisation)."""
+    Q/K/V spiking linears, SSA (``"lif"``: the LIF attention),
+    attention-out and the FFN, each with its residual (Table I's SNN rows;
+    no inter-layer normalisation)."""
     lin = backend.spiking_linear
-    q = _heads(lin(p["wq"], s), cfg.num_heads)  # [T,B,H,N,hd] uint8
-    k = _heads(lin(p["wk"], s), cfg.num_heads)
-    v = _heads(lin(p["wv"], s), cfg.num_heads)
-    a = _unheads(backend.ssa_attention(rng, q, k, v, causal=causal))
-    s = s + lin(p["wo"], a)
+    q = SP.heads(lin(p["wq"], s), cfg.num_heads)  # [T,B,H,N,hd] uint8
+    k = SP.heads(lin(p["wk"], s), cfg.num_heads)
+    v = SP.heads(lin(p["wv"], s), cfg.num_heads)
+    if cfg.mode == "ssa":
+        a = backend.ssa_attention(rng, q, k, v, causal=causal)
+    else:  # "lif": the Spikformer baseline
+        a = SSA.lif_spiking_attention(q.to(s.dtype), k.to(s.dtype),
+                                      v.to(s.dtype), causal=causal)
+    s = s + lin(p["wo"], SP.unheads(a))
     h = lin(p["w1"], s)
     return s + lin(p["w2"], h)
 
 
-def _run_blocks(params: Dict[str, Any], s: Tensor, cfg: SpikingConfig,
-                rng: Tensor, *, causal: bool, backend) -> Tensor:
-    """Every block in turn; block ``i`` takes its attention key from
-    ``split(fold_in(rng, i), 7)[6]`` (keys 0-5 belong to the linears,
-    which draw nothing on the digital backends, programmed or not)."""
+def _run_blocks(params: Dict[str, Any], x_or_s: Tensor, cfg: SpikingConfig,
+                rng: Tensor, *, causal: bool, backend,
+                aimc_cfg: AIMCConfig = AIMCConfig()) -> Tensor:
+    """Every block in turn; block ``i`` takes its keys from
+    ``split(fold_in(rng, i), 7)``: 0-5 the linears' (which draw nothing on
+    the digital backends, and read noise on the ANN rows' programmed
+    linears), 6 the attention's.  ``"ann"`` runs float blocks over ``x
+    [B,N,D]``, the spiking modes spiking blocks over ``s [T,B,N,D]``."""
     for i, bp in enumerate(params["blocks"]):
         kk = prng.split(prng.fold_in(rng, i), 7)
-        s = _spiking_block(bp, s, cfg, kk[6], causal=causal, backend=backend)
-    return s
+        if cfg.mode == "ann":
+            x_or_s = _ann_block(bp, x_or_s, cfg, kk, aimc_cfg, causal=causal)
+        else:
+            x_or_s = _spiking_block(bp, x_or_s, cfg, kk[6], causal=causal,
+                                    backend=backend)
+    return x_or_s
 
 
 # ---------------------------------------------------------------------------
@@ -229,15 +261,22 @@ def vit_forward(params: Dict[str, Any], images: Tensor, cfg: SpikingConfig,
                 aimc_cfg: AIMCConfig = AIMCConfig()) -> Tensor:
     """``images [B,H,W,C]`` -> logits ``[B, classes]``: patch embed, rate
     coding, the spiking blocks (non-causal SSA), firing rates pooled over
-    the patches, float head.  ``aimc_cfg`` is the programmed linears'
-    Table-II configuration."""
+    the patches, float head; ``"ann"``: the float blocks over the
+    embedding, pooled.  ``aimc_cfg`` is the programmed linears' Table-II
+    configuration."""
     check_ported(cfg)
     keys = prng.split(rng, 4)  # embed, encode, blocks, head
     x = linear(params["patch"], patchify(images, cfg.patch_size), aimc_cfg,
                keys[0]) + params["pos"]
-    s = SP.rate_encode(keys[1], torch.sigmoid(x), cfg.T)
-    s = _run_blocks(params, s, cfg, keys[2], causal=False, backend=backend)
-    pooled = torch.mean(SP.rate_decode(s.to(torch.float32)), dim=1)
+    if cfg.mode == "ann":
+        h = _run_blocks(params, x, cfg, keys[2], causal=False,
+                        backend=backend, aimc_cfg=aimc_cfg)
+        pooled = torch.mean(h, dim=1)
+    else:
+        s = SP.rate_encode(keys[1], torch.sigmoid(x), cfg.T)
+        s = _run_blocks(params, s, cfg, keys[2], causal=False,
+                        backend=backend)
+        pooled = torch.mean(SP.rate_decode(s.to(torch.float32)), dim=1)
     return linear(params["head"], pooled, aimc_cfg, keys[3])
 
 
@@ -246,12 +285,17 @@ def gpt_forward(params: Dict[str, Any], feats: Tensor, cfg: SpikingConfig,
                 aimc_cfg: AIMCConfig = AIMCConfig()) -> Tensor:
     """``feats [B,L,input_dim]`` -> logits ``[B,L,vocab]``: embed plus
     position, rate coding, the spiking blocks (causal SSA), firing rates,
-    float head."""
+    float head; ``"ann"``: the float blocks over the embedding."""
     check_ported(cfg)
     keys = prng.split(rng, 4)
     n = feats.shape[1]
     x = linear(params["embed"], feats, aimc_cfg, keys[0]) + params["pos"][:n]
-    s = SP.rate_encode(keys[1], torch.sigmoid(x), cfg.T)
-    s = _run_blocks(params, s, cfg, keys[2], causal=True, backend=backend)
-    return linear(params["head"], SP.rate_decode(s.to(torch.float32)),
-                  aimc_cfg, keys[3])
+    if cfg.mode == "ann":
+        h = _run_blocks(params, x, cfg, keys[2], causal=True,
+                        backend=backend, aimc_cfg=aimc_cfg)
+    else:
+        s = SP.rate_encode(keys[1], torch.sigmoid(x), cfg.T)
+        s = _run_blocks(params, s, cfg, keys[2], causal=True,
+                        backend=backend)
+        h = SP.rate_decode(s.to(torch.float32))
+    return linear(params["head"], h, aimc_cfg, keys[3])

@@ -18,6 +18,9 @@ and this backend computes that rank's share and names the collectives:
   whole sum, in one pass (the inner backend's ``counts_lif``: K4's counts
   entry on the card): the same spikes as the single-device linear, bit
   for bit;
+* **head-parallel SSA tile** (the full-sequence forward) -- the rank's
+  heads of the keyed K8, drawing at its global head offset, as the decode
+  does;
 * **head-parallel SSA decode** -- the rank attends over its own heads
   (its KV heads of the cache or page pool), drawing the comparator
   integers of the ``f(seed, pos, head)`` streams at its global head offset
@@ -102,6 +105,19 @@ class ShardedBackend:
 
     def _h0(self, h0, h_local: int):
         return h0 + self.mesh.model_index * h_local
+
+    # -- head-parallel SSA tile (the full-sequence forward) --------------
+
+    def ssa_attention(self, key, q, k, v, *, causal=False, b0=0,
+                      batch=None):
+        """The rank's heads ``q [T,B,h_local,N,d]`` of the SSA tile grid:
+        the inner keyed tile at the rank's global head offset in a grid of
+        ``h_local * model`` heads, so it draws the comparators one device
+        draws for those heads."""
+        h = q.shape[2]
+        return self.inner.ssa_attention(
+            key, q, k, v, causal=causal, b0=b0, h0=self._h0(0, h),
+            batch=batch, heads=self.plan.tp * h)
 
     def decode_attention(self, view, q, spec, *, slot_keys):
         """The rank's heads ``q [T,B,h_local,1,d]`` over its KV heads of the

@@ -19,7 +19,9 @@ from the same whole parameter tree:
   host decisions identical on every rank.
 
 Tokens, drift clock, folds, recalibrations and energy equal the same
-engine on one device, bit for bit.
+engine on one device, bit for bit, and so do the logits of
+:meth:`Executor.forward`, the full-sequence forward with the batch split
+over ``data``.
 """
 
 from __future__ import annotations
@@ -81,11 +83,33 @@ class Executor:
 
     # -- forward --------------------------------------------------------
 
-    def forward(self, tokens, rng):
-        raise NotImplementedError(
-            "Executor.forward needs the LM stack's full-sequence forward, "
-            "which is not ported yet (ROADMAP 'Next': the LM-stack full "
-            "forward)")
+    def forward(self, tokens: torch.Tensor, rng: torch.Tensor
+                ) -> torch.Tensor:
+        """The full spiking forward on the mesh: tokens ``[B, S]`` ->
+        logits ``[B, S, V]``, the whole batch's on every rank, equal to one
+        device's bit for bit.  The batch rides ``data`` when ``data``
+        divides it (else every rank runs the whole batch, as the
+        reference's ``batch_pspec`` replicates it); each rank runs the
+        spiking stack on its rows through the sharded backend (Q/K/V and
+        MLP in by columns, attention and MLP out by rows, SSA tiles by
+        heads, each at its global batch row and head), the rate-decoded
+        rows are gathered over the data group (a sum of zero-padded rows:
+        exact), and every rank unembeds the whole batch, as one device
+        does."""
+        tokens = tokens.to(self.device)
+        b = tokens.shape[0]
+        data = self.mesh.data
+        n = b // data if data > 1 and b % data == 0 else b
+        b0 = self.mesh.data_index * n if n < b else 0
+        x = T.spiking_features(self.params, {"tokens": tokens}, self.cfg,
+                               rng=rng.to(self.device), backend=self.backend,
+                               rows=(b0, n))
+        if n < b:
+            whole = torch.zeros((b,) + tuple(x.shape[1:]), dtype=x.dtype,
+                                device=x.device)
+            whole[b0:b0 + n] = x
+            x = self.mesh.all_reduce_data(whole)
+        return T._unembed(self.params, x, self.cfg)
 
     # -- data-parallel continuous batching ------------------------------
 

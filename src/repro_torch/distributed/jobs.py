@@ -1,15 +1,21 @@
 """Rank functions for :func:`repro_torch.launch.mesh.run_ranks`.
 
-Each rank of a mesh runs :func:`run_jobs` on the same list of serve jobs
-(plain dicts, so the spawned ranks import nothing but the port) and
-returns one result per job: build the params (a whole tree given as
-numpy, :func:`repro_torch.convert.params_to_numpy`, or random weights
-from ``init_seed``), an :class:`~repro_torch.distributed.Executor`, and
-serve ``prompts``, optionally in waves (``wave`` requests every ``gap``
-steps) after a warm-up; the result holds the token streams, the
-:class:`~repro_torch.serving.ServeStats`, per-request energy and the
-kernel launches of the measured run (counted from zero);
-``program_seed`` programs random weights onto PCM first.
+Each rank of a mesh runs :func:`run_jobs` on the same list of jobs (plain
+dicts, so the spawned ranks import nothing but the port) and returns one
+result per job.  Each builds the params (a whole tree given as numpy,
+:func:`repro_torch.convert.params_to_numpy`, or random weights from
+``init_seed``; ``program_seed`` programs random weights onto PCM first)
+and an :class:`~repro_torch.distributed.Executor`, then:
+
+* a serve job (``kind`` ``"serve"``, the default) serves ``prompts``,
+  optionally in waves (``wave`` requests every ``gap`` steps) after a
+  warm-up; the result holds the token streams, the
+  :class:`~repro_torch.serving.ServeStats`, per-request energy and the
+  kernel launches of the measured run (counted from zero);
+* a forward job (``"forward"``) runs ``Executor.forward`` on ``tokens``
+  (numpy ``[B, S]``) with ``PRNGKey(key_seed)``, after a warm-up forward
+  when ``warmup`` is set; the result holds the logits (numpy), the wall
+  seconds and the launches of the measured forward.
 """
 
 from __future__ import annotations
@@ -28,9 +34,9 @@ from repro_torch.models import transformer as T
 
 
 def run_jobs(mesh, jobs: List[Dict[str, Any]]) -> List[Any]:
-    """Every serve job of ``jobs`` on this rank, in order (see the
-    module)."""
-    return [serve_job(mesh, job) for job in jobs]
+    """Every job of ``jobs`` on this rank, in order (see the module)."""
+    kinds = {"serve": serve_job, "forward": forward_job}
+    return [kinds[job.get("kind", "serve")](mesh, job) for job in jobs]
 
 
 def _params(job, device):
@@ -85,3 +91,20 @@ def serve_job(mesh, job):
             "request_energy_j": [sch.request_energy_j[r]
                                  for r in sorted(sch.request_energy_j)],
             "fused": sch.plan.fused, "backend": sch.backend.name}
+
+
+def forward_job(mesh, job):
+    ex = Executor(_params(job, mesh.device), job["cfg"],
+                  job.get("backend", "cuda"), mesh)
+    tokens = torch.from_numpy(job["tokens"]).to(mesh.device)
+    key = prng.PRNGKey(job["key_seed"], mesh.device)
+    if job.get("warmup"):
+        ex.forward(tokens, key)
+    KB.reset_launches()
+    t0 = time.perf_counter()
+    logits = ex.forward(tokens, key)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"logits": logits.cpu().numpy(),
+            "wall_s": time.perf_counter() - t0,
+            "launches": dict(KB.LAUNCHES), "backend": ex.backend.name}

@@ -20,8 +20,9 @@ Twins of ``repro.engine``, restricted to what the ported paths call:
 * :class:`XpikeformerEngine` -- ``from_config`` (the paper's spiking ViT
   and GPT of ``SPIKING_ARCHS`` first, then the LM-stack registry, as the
   reference resolves names), ``init``, the programmed-PCM lifecycle
-  (``program``, ``drift_to``, ``recalibrate``), ``forward`` (optionally
-  metered), ``classify``, ``detect_symbols`` (tasks ``"vit"``/``"gpt"``),
+  (``program``, ``drift_to``, ``recalibrate``), ``forward`` (tasks
+  ``"vit"``, ``"gpt"`` and ``"lm"``, optionally metered), ``classify``,
+  ``detect_symbols`` (tasks ``"vit"``/``"gpt"``),
   ``serve`` and ``generate`` over the dense or paged scheduler, optionally
   under a :class:`repro_torch.aimc_device.DriftPolicy`, and ``executor``
   for a ``(data, model)`` mesh (task ``"lm"``).
@@ -67,9 +68,14 @@ class Backend(Protocol):
         ...
 
     def ssa_attention(self, key: Tensor, q: Tensor, k: Tensor, v: Tensor, *,
-                      causal: bool = False) -> Tensor:
+                      causal: bool = False, b0: int = 0, h0: int = 0,
+                      batch: Optional[int] = None,
+                      heads: Optional[int] = None) -> Tensor:
         """Stochastic spiking attention over ``[T,B,H,N,d]`` spike trains,
-        comparator integers drawn from ``key``."""
+        comparator integers drawn from ``key`` over a ``[T, batch, heads]``
+        grid of tiles of which these are the block from batch row ``b0``
+        and head ``h0`` (a mesh rank's share; the defaults are the whole
+        grid)."""
         ...
 
     def lif(self, currents: Tensor, *, beta: float = 0.5,
@@ -150,8 +156,9 @@ class IntegerBackend:
 
     name = "integer"
 
-    def ssa_attention(self, key, q, k, v, *, causal=False):
-        return KREF.ssa_attention_keyed_ref(q, k, v, key, causal=causal)
+    def ssa_attention(self, key, q, k, v, *, causal=False, **tile):
+        return KREF.ssa_attention_keyed_ref(q, k, v, key, causal=causal,
+                                            **tile)
 
     def lif(self, currents, *, beta=0.5, v_thresh=1.0):
         t = currents.shape[0]
@@ -218,8 +225,8 @@ class CudaBackend:
 
     name = "cuda"
 
-    def ssa_attention(self, key, q, k, v, *, causal=False):
-        return KOPS.ssa_attention_packed(q, k, v, key, causal=causal)
+    def ssa_attention(self, key, q, k, v, *, causal=False, **tile):
+        return KOPS.ssa_attention_packed(q, k, v, key, causal=causal, **tile)
 
     def lif(self, currents, *, beta=0.5, v_thresh=1.0):
         return KOPS.lif_fused(currents, beta=beta, v_thresh=v_thresh)
@@ -283,10 +290,10 @@ class MeteringBackend:
     def _count(x: Tensor) -> float:
         return float(torch.sum(x, dtype=torch.float64))
 
-    def ssa_attention(self, key, q, k, v, *, causal=False):
+    def ssa_attention(self, key, q, k, v, *, causal=False, **tile):
         from repro_torch.energy import model as EM
 
-        out = self.inner.ssa_attention(key, q, k, v, causal=causal)
+        out = self.inner.ssa_attention(key, q, k, v, causal=causal, **tile)
         t, b, h, n, d = q.shape
         qs, ks, vs = self._count(q), self._count(k), self._count(v)
         e = EM.meter_ssa(t, b * h, n, n, d, qs / q.numel(), ks / k.numel(),
@@ -332,8 +339,8 @@ def get_backend(spec: Union[str, Backend, None]) -> Backend:
 class XpikeformerEngine:
     """One handle over a model of the paper: the spiking ViT (``task=
     "vit"``) or GPT (``"gpt"``) of ``SPIKING_ARCHS``, run by
-    :meth:`forward`, or a spiking GPT on the LM stack (``"lm"``), served
-    by :meth:`serve`.  Holds config, backend, device and params, and the
+    :meth:`forward`, or a spiking GPT on the LM stack (``"lm"``), run by
+    :meth:`forward` and served by :meth:`serve`.  Holds config, backend, device and params, and the
     programmed-PCM settings (``wmode``: ``"ideal"`` float weights or
     ``"hw"`` programmed state; ``aimc_cfg``; the device clock
     ``t_seconds``)."""
@@ -467,27 +474,32 @@ class XpikeformerEngine:
 
     def forward(self, x: Tensor, rng: Tensor, params: Any = None, *,
                 metering: bool = False):
-        """Images ``[B,H,W,C]`` -> class logits ``[B, classes]`` (vit), or
+        """Images ``[B,H,W,C]`` -> class logits ``[B, classes]`` (vit),
         feature sequences ``[B,L,input_dim]`` -> per-token symbol logits
-        ``[B,L,vocab]`` (gpt).  ``rng`` is a key of the threefry twin
+        ``[B,L,vocab]`` (gpt), or token ids ``[B,S]`` -> next-token logits
+        ``[B,S,V]`` (lm: :func:`repro_torch.models.transformer.forward`).
+        ``rng`` is a key of the threefry twin
         (:func:`repro_torch.prng.PRNGKey`): the same key draws the
         reference's spikes.  With ``metering=True`` the primitives run
         through a :class:`MeteringBackend` and the call returns ``(logits,
         report)``, a :class:`repro_torch.energy.model.EnergyReport`."""
-        from repro_torch.core import spiking_transformer as ST
-
-        if self.task == "lm":
-            raise NotImplementedError(
-                "forward() of the LM stack (task='lm') is not ported yet: "
-                "ROADMAP, the LM-stack full forward slice")
         params = self.params if params is None else params
         if params is None:
             raise ValueError("call init() first or pass params")
         backend = MeteringBackend(self.backend) if metering else self.backend
-        fwd = ST.vit_forward if self.task == "vit" else ST.gpt_forward
-        logits = fwd(params, x.to(self.device, torch.float32), self.cfg,
-                     rng.to(self.device), backend=backend,
-                     aimc_cfg=self.aimc_cfg)
+        if self.task == "lm":
+            from repro_torch.models import transformer as T
+
+            logits, _ = T.forward(params, {"tokens": x.to(self.device)},
+                                  self.cfg, rng=rng.to(self.device),
+                                  backend=backend)
+        else:
+            from repro_torch.core import spiking_transformer as ST
+
+            fwd = ST.vit_forward if self.task == "vit" else ST.gpt_forward
+            logits = fwd(params, x.to(self.device, torch.float32), self.cfg,
+                         rng.to(self.device), backend=backend,
+                         aimc_cfg=self.aimc_cfg)
         if metering:
             return logits, backend.report
         return logits

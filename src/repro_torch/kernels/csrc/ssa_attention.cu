@@ -264,11 +264,14 @@ ssa_decode_paged_keyed_kernel(const uint8_t* __restrict__ q,
 // templated on where the comparators come from:
 //  * given draws: q, k, v, out [G, N, D] contiguous, rs [G, N, N], ra
 //    [G, N, D] read from device memory;
-//  * keyed (the paper forwards'): the tile draws its own comparators from
-//    one key, the chain of kernels/ops.py:draw_comparator_prns in
-//    registers (threefry.cuh): (k1, k2) = split(key),
+//  * keyed (the paper forwards' and the LM stack's): the tile draws its own
+//    comparators from one key, the chain of
+//    kernels/ops.py:draw_comparator_prns in registers (threefry.cuh):
+//    (k1, k2) = split(key),
 //      rs = randint(k1, (G, N, N), 0, D)  at flat index (g N + i) N + j,
-//      ra = randint(k2, (G, N, D), 0, N)  at flat index (g N + i) D + d;
+//      ra = randint(k2, (G, N, D), 0, N)  at flat index (g N + i) D + d,
+//    g the tile's index in the grid that was drawn: a launch may hold a
+//    block of it, a mesh rank's batch rows and heads (TileIO::draw_tile);
 //    q, k, v are read where the caller holds them (any strides over (t, b,
 //    h, row) with contiguous rows: the heads view of a [T, B, N, H*hd]
 //    train, no copy) and out is written through strides too (the caller's
@@ -317,14 +320,23 @@ constexpr int kStreamCols = 64;  // V columns a stream chunk: 2 a lane
 
 // Where a tile's spikes live: element strides over (t, b, h, row) of q, k,
 // v and out, rows of D contiguous bytes; tile g = (t * B + b) * H + h.
+// The launch's tiles may be a block of a larger [T, Bg, Hg] grid, from
+// batch row b0 and head h0 (a mesh rank's share): the comparators are the
+// whole grid's, so tile g draws at its grid index (t * Bg + b0 + b) * Hg +
+// h0 + h.  The whole grid is b0 = h0 = 0, Bg = B, Hg = H.
 struct TileIO {
   int B, H;
   long long q[4], k[4], v[4], o[4];
+  int b0, h0, Bg, Hg;
   __device__ long long base(const long long (&s)[4], size_t g) const {
     const long long h = static_cast<long long>(g % H);
     const long long b = static_cast<long long>(g / H % B);
     const long long t = static_cast<long long>(g / H / B);
     return t * s[0] + b * s[1] + h * s[2];
+  }
+  __device__ uint64_t draw_tile(size_t g) const {
+    const uint64_t h = g % H, b = g / H % B, t = g / H / B;
+    return (t * Bg + b0 + b) * Hg + h0 + h;
   }
 };
 
@@ -472,11 +484,12 @@ __device__ void ssa_tile(const uint8_t* q, const uint8_t* k, const uint8_t* v,
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint64_t gd = io.draw_tile(g);  // the tile's index in the draws
   uint32_t* srow = sw + warp * wn;
   for (int i = warp; i < N; i += kTileThreads / 32) {
     const int jend = causal ? i + 1 : N;
     const uint32_t* qi = qw + i * wd;
-    const uint64_t row_s = (static_cast<uint64_t>(g) * N + i) * N;
+    const uint64_t row_s = (gd * N + i) * N;
     for (int w = 0; w < wn; w += 2) {  // two words of keys a pass
       int cnt[2], r[2];
       uint64_t at[2];
@@ -496,7 +509,7 @@ __device__ void ssa_tile(const uint8_t* q, const uint8_t* k, const uint8_t* v,
       }
     }
     __syncwarp();
-    const uint64_t row_a = (static_cast<uint64_t>(g) * N + i) * D;
+    const uint64_t row_a = (gd * N + i) * D;
     uint8_t* oi = og + i * so;
     for (int d0 = 0; d0 < D; d0 += 64) {  // two columns a lane a pass
       int cnt[2], r[2];
@@ -543,6 +556,7 @@ __device__ void ssa_tile_stream(const uint8_t* q, const uint8_t* k,
   uint8_t* og = out + io.base(io.o, g);
   const long long sq = io.q[3], sk = io.k[3], sv = io.v[3], so = io.o[3];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint64_t gd = io.draw_tile(g);  // the tile's index in the draws
 
   for (int idx = threadIdx.x; idx < rows * wd; idx += blockDim.x) {
     const int r = idx / wd, x = idx - r * wd;
@@ -563,7 +577,7 @@ __device__ void ssa_tile_stream(const uint8_t* q, const uint8_t* k,
     for (int r = warp; r < rows; r += kTileThreads / 32) {
       const int i = i0 + r, jend = causal ? i + 1 : N;
       const uint32_t* qi = qw + r * wd;
-      const uint64_t row_s = (static_cast<uint64_t>(g) * N + i) * N;
+      const uint64_t row_s = (gd * N + i) * N;
       for (int w = 0; w < ncw; w += 2) {
         int cnt[2], rr[2];
         uint64_t at[2];
@@ -624,7 +638,7 @@ __device__ void ssa_tile_stream(const uint8_t* q, const uint8_t* k,
     for (int a = 0; a < 8; ++a) {
       const int r = warp + a * (kTileThreads / 32);
       if (r < rows) {  // the same for the whole warp
-        const uint64_t row_a = (static_cast<uint64_t>(g) * N + i0 + r) * D;
+        const uint64_t row_a = (gd * N + i0 + r) * D;
         const uint64_t at[2] = {row_a + d0 + lane, row_a + d0 + 32 + lane};
         int rr[2];
         draws.out(at, cnt[a], rr);
@@ -826,7 +840,7 @@ extern "C" int launch_ssa_decode_paged_keyed(
 static TileIO contiguous_io(int G, int N, int D) {
   const long long nd = static_cast<long long>(N) * D;
   return TileIO{1, G, {0, 0, nd, D}, {0, 0, nd, D}, {0, 0, nd, D},
-                {0, 0, nd, D}};
+                {0, 0, nd, D}, 0, 0, 1, G};
 }
 
 extern "C" int launch_ssa_attention(const uint8_t* q, const uint8_t* k,
@@ -870,17 +884,20 @@ extern "C" int launch_ssa_attention_stream(const uint8_t* q, const uint8_t* k,
 // NC as above): q, k, v [T, B, H, N, D] uint8 and out the same through
 // strides (host int64 [16]: q's, k's, v's and out's element strides over
 // (t, b, h, row), rows contiguous), key int64 [2] (uint32 words) on the
-// card, the spans' randint multipliers as prng.randint computes them and
-// their xpk_fastmod constants (kernels/ssa_attention.py:fastmod_m).
+// card, the tiles' place (b0, h0) in the [T, Bg, Hg] grid whose
+// comparators they draw, the spans' randint multipliers as prng.randint
+// computes them and their xpk_fastmod constants
+// (kernels/ssa_attention.py:fastmod_m).
 extern "C" int launch_ssa_attention_keyed(
     const uint8_t* q, const uint8_t* k, const uint8_t* v,
     const long long* key, uint8_t* out, const long long* strides, int T,
-    int B, int H, int N, int D, int causal, int mult_s,
-    unsigned long long M_s, int mult_a, unsigned long long M_a, int RQ,
-    int NC, long long smem, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || RQ < 0)
+    int B, int H, int N, int D, int causal, int b0, int h0, int Bg, int Hg,
+    int mult_s, unsigned long long M_s, int mult_a, unsigned long long M_a,
+    int RQ, int NC, long long smem, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || RQ < 0 || b0 < 0 || h0 < 0 ||
+      b0 + B > Bg || h0 + H > Hg)
     return static_cast<int>(cudaErrorInvalidValue);
-  TileIO io{B, H, {}, {}, {}, {}};
+  TileIO io{B, H, {}, {}, {}, {}, b0, h0, Bg, Hg};
   for (int i = 0; i < 4; ++i) {
     io.q[i] = strides[i];
     io.k[i] = strides[4 + i];

@@ -52,9 +52,13 @@ def unpack_bits(x: Tensor, n: int, dim: int = -1) -> Tensor:
 
 
 def ssa_attention_packed(q: Tensor, k: Tensor, v: Tensor, key: Tensor, *,
-                         causal: bool = False) -> Tensor:
+                         causal: bool = False, b0: int = 0, h0: int = 0,
+                         batch: Optional[int] = None,
+                         heads: Optional[int] = None) -> Tensor:
     """Full-sequence SSA over ``q``/``k``/``v [T,B,H,N,D]`` spike trains ->
-    uint8 ``[T,B,H,N,D]``.
+    uint8 ``[T,B,H,N,D]``; a mesh rank's block of a ``[T, batch, heads]``
+    grid of tiles, from batch row ``b0`` and head ``h0``, draws the whole
+    grid's comparators at its own tiles (the defaults: the whole grid).
 
     The comparator integers ``rs [G,N,N] ~ U{0..D-1}`` and ``ra [G,N,D] ~
     U{0..N-1}`` are those :func:`draw_comparator_prns` draws from ``key``
@@ -65,7 +69,8 @@ def ssa_attention_packed(q: Tensor, k: Tensor, v: Tensor, key: Tensor, *,
     and returns the heads view of a ``[T,B,N,H,hd]`` buffer, which merges
     back into the train without a copy; on the CPU the plain version draws
     them with the threefry twin."""
-    return KS.ssa_attention_keyed_kernel(q, k, v, key, causal=causal)
+    return KS.ssa_attention_keyed_kernel(q, k, v, key, causal=causal, b0=b0,
+                                         h0=h0, batch=batch, heads=heads)
 
 
 def lif_fused(currents: Tensor, *, beta: float = 0.5, v_thresh: float = 1.0

@@ -15,6 +15,7 @@ reference's ``lax.scan`` does.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple, Union
 
 import torch
@@ -195,18 +196,68 @@ def draw_comparator_prns(key: Tensor, shape_s: Tuple[int, ...],
     return rs, ra
 
 
+def check_tile_block(b: int, h: int, b0: int = 0, h0: int = 0,
+                     batch: Optional[int] = None,
+                     heads: Optional[int] = None) -> Tuple[int, int]:
+    """The grid ``(batch, heads)`` of a ``[b, h]`` block of tiles from
+    ``(b0, h0)`` (defaults: the block is the grid); raises where the block
+    leaves the grid."""
+    batch = b if batch is None else batch
+    heads = h if heads is None else heads
+    if not (0 <= b0 and b0 + b <= batch and 0 <= h0 and h0 + h <= heads):
+        raise ValueError(f"tiles [{b0}, {b0 + b}) x [{h0}, {h0 + h}) lie "
+                         f"outside a grid of {batch} x {heads}")
+    return batch, heads
+
+
+def tile_index(t: int, b: int, h: int, *, b0: int = 0, h0: int = 0,
+               batch: Optional[int] = None, heads: Optional[int] = None,
+               device=None) -> Tensor:
+    """The flat tile index ``g = (t * batch + b0 + b) * heads + h0 + h``
+    of each local tile ``(t, b, h)`` of a ``[T, b, h]`` block that starts at
+    batch row ``b0`` and head ``h0`` of a ``[T, batch, heads]`` tile grid
+    (defaults: the block is the whole grid): int64 ``[T, b, h]``."""
+    batch, heads = check_tile_block(b, h, b0, h0, batch, heads)
+    ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
+    return ((ar(t)[:, None, None] * batch + b0 + ar(b)[None, :, None])
+            * heads + h0 + ar(h)[None, None, :])
+
+
+def draw_tile_prns(key: Tensor, g: Tensor, n: int, d: int
+                   ) -> Tuple[Tensor, Tensor]:
+    """:func:`draw_comparator_prns`'s integers of the tiles ``g`` (flat
+    tile indices, :func:`tile_index`) of a larger draw: ``rs [*g, N, N]``
+    at flat indices ``(g N + i) N + j`` and ``ra [*g, N, D]`` at ``(g N +
+    i) D + d``, the draw of the whole grid's shapes at those tiles."""
+    k = prng.split(key)
+    g = g[..., None, None]
+    i = torch.arange(n, dtype=torch.int64, device=g.device)[:, None]
+    j_s = torch.arange(n, dtype=torch.int64, device=g.device)[None, :]
+    j_a = torch.arange(d, dtype=torch.int64, device=g.device)[None, :]
+    rs = prng.randint_at(k[0], (g * n + i) * n + j_s, 0, d)
+    ra = prng.randint_at(k[1], (g * n + i) * d + j_a, 0, n)
+    return rs, ra
+
+
 def ssa_attention_keyed_ref(q: Tensor, k: Tensor, v: Tensor, key: Tensor,
-                            *, causal: bool = False) -> Tensor:
+                            *, causal: bool = False, b0: int = 0,
+                            h0: int = 0, batch: Optional[int] = None,
+                            heads: Optional[int] = None) -> Tensor:
     """The full SSA tile with its draws: ``q``/``k``/``v [T,B,H,N,D]``
     binary (any strides), the comparators of :func:`draw_comparator_prns`
     from ``key [2]`` at the logical shapes with the tiles flattened ``G =
     (t, b, h)`` (the reference's wrapper, ``ops.py:83``) -> uint8
-    ``[T,B,H,N,D]``.  The keyed K8's plain version."""
+    ``[T,B,H,N,D]``.  A shard of a ``[T, batch, heads]`` grid (a mesh
+    rank's batch rows from ``b0`` and heads from ``h0``) draws the whole
+    grid's comparators at its own tiles (:func:`draw_tile_prns`); the
+    defaults are the whole grid.  The keyed K8's plain version."""
     t, b, h, n, d = q.shape
-    g = t * b * h
-    rs, ra = draw_comparator_prns(key, (g, n, n), (g, n, d), d, n)
-    out = ssa_attention_ref(q.reshape(g, n, d), k.reshape(g, n, d),
-                            v.reshape(g, n, d), rs, ra, causal=causal)
+    g = tile_index(t, b, h, b0=b0, h0=h0, batch=batch, heads=heads,
+                   device=q.device).reshape(-1)
+    rs, ra = draw_tile_prns(key, g, n, d)
+    gl = t * b * h
+    out = ssa_attention_ref(q.reshape(gl, n, d), k.reshape(gl, n, d),
+                            v.reshape(gl, n, d), rs, ra, causal=causal)
     return out.reshape(t, b, h, n, d)
 
 

@@ -37,9 +37,10 @@ from repro_torch.kernels import ref as KREF
 Tensor = torch.Tensor
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # launch_ssa_attention_keyed's parameters: q, k, v, key, out, the host
-# strides; T, B, H, N, D, causal, the spans' multipliers and xpk_fastmod
-# constants; the plan's rows, keys and shared memory; the stream
-KEYED_ARGTYPES = ([_P] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 7
+# strides; T, B, H, N, D, causal, the tiles' place (b0, h0) in the (batch,
+# heads) grid drawn, the spans' multipliers and xpk_fastmod constants; the
+# plan's rows, keys and shared memory; the stream
+KEYED_ARGTYPES = ([_P] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 11
                   + [ctypes.c_ulonglong, _I, ctypes.c_ulonglong, _I, _I, _L,
                      _P])
 
@@ -278,19 +279,26 @@ def fastmod_m(span: int) -> int:
 
 
 def ssa_attention_keyed_kernel(q: Tensor, k: Tensor, v: Tensor, key: Tensor,
-                               *, causal: bool = False) -> Tensor:
+                               *, causal: bool = False, b0: int = 0,
+                               h0: int = 0, batch: Optional[int] = None,
+                               heads: Optional[int] = None) -> Tensor:
     """The full SSA tile drawing its own comparators: ``q``/``k``/``v
     [T,B,H,N,D]`` uint8 spikes, any strides with contiguous rows (the heads
     view of a ``[T,B,N,H*D]`` train: no copy), ``key [2]`` int64 holding
     uint32 words -> uint8 ``[T,B,H,N,D]``, the heads view of a contiguous
     ``[T,B,N,H,D]`` buffer (its heads merge back without a copy).  The
     comparators are :func:`repro_torch.kernels.ref.draw_comparator_prns`'s
-    from ``key`` with the tiles flattened ``(t, b, h)``; the kernel draws
-    only those whose count is not zero (the others cannot fire).
-    :func:`attention_plan` picks the design."""
+    from ``key`` with the tiles flattened ``(t, b, h)`` over a ``[T,
+    batch, heads]`` grid of which these tiles are the block from batch row
+    ``b0`` and head ``h0`` (a mesh rank's share; the defaults are the whole
+    grid); the kernel draws only those whose count is not zero (the others
+    cannot fire).  :func:`attention_plan` picks the design."""
+    tile = dict(b0=b0, h0=h0, batch=batch, heads=heads)
     if not q.is_cuda:
-        return KREF.ssa_attention_keyed_ref(q, k, v, key, causal=causal)
+        return KREF.ssa_attention_keyed_ref(q, k, v, key, causal=causal,
+                                            **tile)
     t, b, h, n, d = q.shape
+    batch, heads = KREF.check_tile_block(b, h, b0, h0, batch, heads)
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
         if (not x.is_cuda or x.dtype != torch.uint8 or x.shape != q.shape
                 or (d > 1 and x.stride(4) != 1)):
@@ -307,7 +315,8 @@ def ssa_attention_keyed_kernel(q: Tensor, k: Tensor, v: Tensor, key: Tensor,
         *(st for x in (q, k, v, out) for st in x.stride()[:4]))
     err = _lib("launch_ssa_attention_keyed", KEYED_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key.data_ptr(),
-        out.data_ptr(), strides, t, b, h, n, d, int(causal),
+        out.data_ptr(), strides, t, b, h, n, d, int(causal), b0, h0, batch,
+        heads,
         prng.randint_multiplier(d), fastmod_m(d), prng.randint_multiplier(n),
         fastmod_m(n), plan.rows, plan.keys, plan.smem, KB.stream_ptr(q))
     KB.raise_on_error(err, "ssa_attention_keyed")

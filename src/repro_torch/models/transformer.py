@@ -1,13 +1,29 @@
-"""The spiking decode step of the generic LM stack (SSA serving path).
+"""The spiking LM stack: its full-sequence forward and its decode step.
 
-Twin of the spiking branch of ``repro/models/transformer.py`` (lines
-456-528, 536-767 and 770-946): the per-slot spike-train KV cache and the
-block-paged page pool, per-slot PRN keys ``f(seed, pos)``, Bernoulli rate
-coding, the unfused and fused attention decodes (dense and paged), the FFN
-tail, and the unembedding.  A Python loop over layers
-takes the place of the reference's ``lax.scan`` over the stacked period
-axis; parameters and caches keep the reference's stacked layout
-(``periods`` leaves carry a leading period axis).
+Twin of the spiking branch of ``repro/models/transformer.py``:
+
+* the forward (lines 198-299, 300-418, 421-455 and 1018): the spiking
+  attention, MLP and residual block (``_spiking_attention``,
+  ``_spiking_mlp``, ``_apply_block_spiking``), ``_embed_inputs``,
+  ``forward`` / ``_forward_spiking``, ``softmax_xent``, ``loss_fn`` and
+  ``prefill``.  The reference's key chain is kept exactly: ``split(rng)``
+  into the coding and block keys, ``split(k_blocks, n_blocks)``, then
+  ``split(key, period)`` a period, ``split(key)`` a block and
+  ``split(k1, 5)`` in its attention, whose ``[3]`` keys the SSA tile;
+* the decode step (lines 456-528, 536-767 and 770-946): the per-slot
+  spike-train KV cache and the block-paged page pool, per-slot PRN keys
+  ``f(seed, pos)``, Bernoulli rate coding, the unfused and fused
+  attention decodes (dense and paged), the FFN tail, and the unembedding.
+
+A Python loop over layers takes the place of the reference's ``lax.scan``
+over the stacked period axis; parameters and caches keep the reference's
+stacked layout (``periods`` leaves carry a leading period axis).  The
+spiking linears go through ``backend.spiking_linear`` (K1 on the card)
+and the SSA tile through ``backend.ssa_attention`` (the keyed K8, reading
+the heads in place); ``attention_kind="lif"`` runs
+:func:`repro_torch.core.ssa.lif_spiking_attention` instead.  The float
+mixers and MoE (``ssd``, ``rglru``), frontends and the float LM stack
+raise, naming ROADMAP A12.
 
 Unlike the reference, the decode updates the cache **in place** (scatter of
 the new K/V trains and ``pos += 1``): one step never needs two copies of a
@@ -25,6 +41,7 @@ import torch
 from repro_torch import aimc_device as AD
 from repro_torch import prng
 from repro_torch.core import spikes as SP
+from repro_torch.core import ssa as SSA
 from repro_torch.kernels.plan import AttnSpec, DecodePlan, KVView
 from repro_torch.kernels.ref import scatter_at_pos, scatter_into_pages
 from repro_torch.models import layers as L
@@ -48,13 +65,33 @@ def paged_decode_supported(cfg) -> bool:
         m in ("attn", "local") for m in cfg.block_pattern)
 
 
-def _require_spiking(cfg) -> None:
-    if not spiking_decode_enabled(cfg):
+_A12 = ("ROADMAP A12 (the non-spiking LM stack: float and recurrent mixers, "
+        "MoE, frontends)")
+
+
+def _require_spiking_stack(cfg) -> None:
+    """Raise for what the port's LM stack does not run: a float stack, a
+    frontend, MoE, or a mixer other than attention."""
+    if not cfg.spiking:
         raise NotImplementedError(
-            f"{cfg.name}: only the spiking SSA decode path is ported")
+            f"{cfg.name}: the float LM stack is not ported: {_A12}")
+    if cfg.frontend != "none" or cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: frontend={cfg.frontend!r}, moe={cfg.is_moe} are "
+            f"not ported: {_A12}")
     if any(m not in ("attn", "local") for m in cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: mixers {cfg.block_pattern} are not ported")
+            f"{cfg.name}: mixers {cfg.block_pattern} are not ported: {_A12}")
+
+
+def _require_spiking(cfg) -> None:
+    """The decode step's condition: a spiking stack with SSA attention
+    (the reference decodes any other through its float path)."""
+    _require_spiking_stack(cfg)
+    if not spiking_decode_enabled(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: attention_kind={cfg.attention_kind!r} decodes on "
+            f"the reference's float path, which is not ported: {_A12}")
 
 
 # ---------------------------------------------------------------------------
@@ -107,7 +144,7 @@ def init_params(cfg, seed: int, device) -> Dict[str, Any]:
     the output axis: ``h*hd`` for the attention out-projection), norm
     scales one.  Drawn with a CPU ``torch.Generator``, so the values do not
     depend on the device."""
-    _require_spiking(cfg)
+    _require_spiking_stack(cfg)
     gen = torch.Generator().manual_seed(seed)
     dtype = model_dtype(cfg)
 
@@ -200,6 +237,201 @@ def _lin_operand(w, d_in: int):
     if isinstance(w, dict):
         return w
     return w.to(torch.float32).reshape(d_in, -1)
+
+
+# ---------------------------------------------------------------------------
+# Spiking forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _attention_key(key: Tensor) -> Tensor:
+    """The key a block hands its SSA tile: ``split(split(key)[0], 5)[3]``
+    (the block's other keys go to the linears and the MLP, which draw
+    nothing on the digital backends).  Vectorised over leading axes."""
+    return prng.split(prng.split(key)[..., 0, :], 5)[..., 3, :]
+
+
+def _spiking_attention(params, s: Tensor, cfg, akey: Tensor, backend,
+                       tile: Optional[Dict[str, int]] = None) -> Tensor:
+    """Attention over spike trains ``s [T,B,S,d]`` (paper Eq. 6): the
+    Q/K/V spiking linears, GQA's repeat of the KV heads, the causal SSA
+    tile keyed ``akey`` (``attention_kind="lif"``: the LIF attention), and
+    the attention-out linear.  The heads are a caller's own (all of them
+    on one device, a mesh rank's share otherwise); ``tile`` places this
+    call's batch rows in the batch whose comparators are drawn."""
+    t, b, n, d = s.shape
+    hd = cfg.resolved_head_dim
+
+    def proj(w):  # LIF(W s^t): spiking Q/K/V generation (Table I)
+        return backend.spiking_linear(_lin_operand(w, d), s, part="col")
+
+    q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+    h, kv = q.shape[-1] // hd, k.shape[-1] // hd
+    if kv != h:  # GQA: repeat the KV spike heads across their group
+        k, v = (x.view(t, b, n, kv, hd).repeat_interleave(h // kv, dim=3)
+                .view(t, b, n, h * hd) for x in (k, v))
+    qh, kh, vh = SP.heads(q, h), SP.heads(k, h), SP.heads(v, h)
+    if cfg.attention_kind == "lif":
+        a = SSA.lif_spiking_attention(qh.to(s.dtype), kh.to(s.dtype),
+                                      vh.to(s.dtype), causal=True)
+    else:
+        a = backend.ssa_attention(akey, qh, kh, vh, causal=True,
+                                  **(tile or {}))
+    a = SP.unheads(a)
+    # LIF on the output projection (spiking neuron tile semantics)
+    return backend.spiking_linear(_lin_operand(params["wo"], a.shape[-1]), a,
+                                  part="row")
+
+
+def _spiking_mlp(params, s: Tensor, backend) -> Tensor:
+    """``LIF(W2 LIF(W1 s^t))``: Table I's feed-forward row."""
+    h = backend.spiking_linear(_lin_operand(params["wi"], s.shape[-1]), s,
+                               part="col")
+    return backend.spiking_linear(_lin_operand(params["wo"], h.shape[-1]), h,
+                                  part="row")
+
+
+def _block_spiking(params, s: Tensor, cfg, akey: Tensor, backend,
+                   tile: Optional[Dict[str, int]] = None) -> Tensor:
+    """One spiking residual block over ``s [T,B,S,d]`` given its attention
+    key: residuals add spike trains directly (Table I: no inter-layer
+    normalisation)."""
+    s = s + _spiking_attention(params["mixer"], s, cfg, akey, backend,
+                               tile).to(s.dtype)
+    if "norm2" in params:
+        s = s + _spiking_mlp(params["mlp"], s, backend).to(s.dtype)
+    return s
+
+
+def _apply_block_spiking(params, s: Tensor, cfg, mixer: str, key: Tensor,
+                         backend, tile: Optional[Dict[str, int]] = None
+                         ) -> Tensor:
+    """The reference's spiking residual block (``mixer`` ``"attn"`` or
+    ``"local"``: the spiking attention sees the whole causal prefix in
+    both, as in the reference), keyed by the block's ``key``.  Returns the
+    new spike trains (no MoE: no auxiliary loss)."""
+    if mixer not in ("attn", "local"):
+        raise NotImplementedError(f"mixer {mixer!r} is not ported: {_A12}")
+    return _block_spiking(params, s, cfg, _attention_key(key), backend, tile)
+
+
+def _embed_inputs(params, batch: Dict[str, Tensor], cfg) -> Tensor:
+    """Token embedding times ``sqrt(d_model)`` in the model dtype."""
+    dt = model_dtype(cfg)
+    x = L.embed(params["embed"], batch["tokens"], dt)
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt, device=x.device)
+
+
+def _block_keys(k_blocks: Tensor, cfg) -> Tensor:
+    """Every layer's key in layer order, ``[L, 2]``: ``split(k_blocks,
+    n_blocks)``, then ``split(key, period)`` a period and ``split(key,
+    remainder_layers)`` for the remainder, as the reference's scan draws
+    them."""
+    n_blocks = cfg.num_periods + (1 if cfg.remainder_layers else 0)
+    keys = prng.split(k_blocks, max(n_blocks, 1))
+    out = []
+    if cfg.num_periods > 0:
+        out.append(prng.split(keys[:cfg.num_periods], cfg.period)
+                   .reshape(-1, 2))
+    if cfg.remainder_layers:
+        out.append(prng.split(keys[-1], cfg.remainder_layers))
+    return torch.cat(out)
+
+
+def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
+                     backend, rows: Optional[Tuple[int, int]] = None
+                     ) -> Tensor:
+    """The spiking forward up to the unembed: embed, rate coding, every
+    block, rate decoding -> ``[B, S, d]`` in the model dtype.  ``rows =
+    (b0, n)`` runs batch rows ``b0 .. b0+n`` only (a mesh rank's share):
+    the coding draws at the whole batch's shape and the SSA tiles at the
+    whole batch's grid, so the rows equal those of the whole batch.
+
+    The key chain runs on the host (a few tiny threefry calls, not a few
+    hundred kernel launches); the keys move to the card once."""
+    _require_spiking_stack(cfg)
+    if rng is None:
+        raise ValueError("the spiking forward needs an rng for Bernoulli "
+                         "coding")
+    x = _embed_inputs(params, batch, cfg)
+    dev = x.device
+    k_enc, k_blocks = prng.split(rng.cpu())
+    s = SP.rate_encode(k_enc.to(dev), torch.sigmoid(x), cfg.spike_T)
+    tile = None
+    if rows is not None:
+        b0, n = rows
+        tile = {"b0": b0, "batch": s.shape[1]}
+        s = s[:, b0:b0 + n]
+    akeys = _attention_key(_block_keys(k_blocks, cfg)).to(dev)
+    layer = 0
+    for p in range(cfg.num_periods):
+        pp = _take(params["periods"], p)
+        for i in range(cfg.period):
+            s = _block_spiking(pp[f"blk{i}"], s, cfg, akeys[layer], backend,
+                               tile)
+            layer += 1
+    for i in range(cfg.remainder_layers):
+        s = _block_spiking(params["remainder"][f"blk{i}"], s, cfg,
+                           akeys[layer], backend, tile)
+        layer += 1
+    # rate-decode the stream (paper: loss on the time-averaged output)
+    return SP.rate_decode(s.to(torch.float32)).to(model_dtype(cfg))
+
+
+def _forward_spiking(params, batch, cfg, *, rng, backend):
+    """Spiking forward: rate-encode, spiking blocks over T, rate-decode,
+    unembed -> ``(logits [B,S,V], aux 0)``."""
+    x = spiking_features(params, batch, cfg, rng=rng, backend=backend)
+    return _unembed(params, x, cfg), torch.zeros((), device=x.device)
+
+
+def forward(params, batch: Dict[str, Tensor], cfg, *,
+            rng: Optional[Tensor] = None, backend=None
+            ) -> Tuple[Tensor, Tensor]:
+    """Train/prefill forward: ``batch["tokens"] [B,S]`` -> ``(logits
+    [B,S,V], aux)``; ``aux`` (MoE's load-balancing loss) is zero.
+    ``backend`` defaults to the CUDA one (:func:`repro_torch.engine.
+    get_backend`)."""
+    from repro_torch.engine import get_backend
+
+    return _forward_spiking(params, batch, cfg, rng=rng,
+                            backend=get_backend(backend))
+
+
+def softmax_xent(logits: Tensor, targets: Tensor,
+                 mask: Optional[Tensor] = None) -> Tensor:
+    """Mean cross-entropy in f32 (over ``mask``'s weight where given)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.take_along_dim(lf, targets[..., None].long(), dim=-1)[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def loss_fn(params, batch, cfg, *, rng: Optional[Tensor] = None,
+            aux_weight: float = 0.01, backend=None
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Next-token loss of ``batch["tokens"] [B, S+1]`` (inputs all but the
+    last, targets all but the first; ``batch["mask"]`` optional) ->
+    ``(loss, {"xent", "moe_aux"})``."""
+    _require_spiking_stack(cfg)
+    logits, aux = forward(params, {"tokens": batch["tokens"][:, :-1]}, cfg,
+                          rng=rng, backend=backend)
+    xent = softmax_xent(logits, batch["tokens"][:, 1:], batch.get("mask"))
+    return xent + aux_weight * aux, {"xent": xent, "moe_aux": aux}
+
+
+def prefill(params, batch, cfg, *, rng: Optional[Tensor] = None,
+            backend=None):
+    """Prefill forward returning ``(logits, aux)`` (the cache is produced
+    by the decode over the prompt in serving).  The reference's
+    ``prefill`` passes no rng to ``forward``, so a spiking config fails
+    its assertion there; this one takes the rng and the backend the
+    spiking forward needs."""
+    return forward(params, batch, cfg, rng=rng, backend=backend)
 
 
 # ---------------------------------------------------------------------------

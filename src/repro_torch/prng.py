@@ -89,13 +89,21 @@ def split(key: Tensor, num: int = 2) -> Tensor:
 
 def random_bits(key: Tensor, shape: Tuple[int, ...]) -> Tensor:
     """32-bit random words ``[..., *shape]`` (int64 holding uint32)."""
-    n = math.prod(shape)
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    return random_bits_at(key, i).reshape(*key.shape[:-1], *shape)
+
+
+def random_bits_at(key: Tensor, index: Tensor) -> Tensor:
+    """The words of :func:`random_bits` at flat indices ``index`` (int64,
+    any shape) of a larger draw: in the partitionable mode a word depends
+    on its flat index alone, so a shard of a draw is drawn where it lies.
+    Vectorised over the key's leading axes: ``[..., *index.shape]``."""
     lead = key.shape[:-1]
-    k0 = key[..., 0].reshape(*lead, 1)
-    k1 = key[..., 1].reshape(*lead, 1)
-    y0, y1 = threefry2x32(k0, k1, i >> 32, i & _M32)
-    return (y0 ^ y1).reshape(*lead, *shape)
+    pad = (1,) * index.dim()
+    k0 = key[..., 0].reshape(*lead, *pad)
+    k1 = key[..., 1].reshape(*lead, *pad)
+    y0, y1 = threefry2x32(k0, k1, index >> 32, index & _M32)
+    return y0 ^ y1
 
 
 def randint_multiplier(span: int) -> int:
@@ -108,9 +116,18 @@ def randint_multiplier(span: int) -> int:
 def randint(key: Tensor, shape: Tuple[int, ...], minval: int, maxval: int
             ) -> Tensor:
     """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``."""
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    return randint_at(key, i, minval, maxval).reshape(*key.shape[:-1],
+                                                       *shape)
+
+
+def randint_at(key: Tensor, index: Tensor, minval: int, maxval: int
+               ) -> Tensor:
+    """The integers of :func:`randint` at flat indices ``index`` of a
+    larger draw (see :func:`random_bits_at`)."""
     k = split(key)
-    higher = random_bits(k[..., 0, :], shape)
-    lower = random_bits(k[..., 1, :], shape)
+    higher = random_bits_at(k[..., 0, :], index)
+    lower = random_bits_at(k[..., 1, :], index)
     span = (maxval - minval) & _M32 if maxval > minval else 1
     multiplier = randint_multiplier(span)
     offset = (((higher % span) * multiplier) & _M32) + lower % span

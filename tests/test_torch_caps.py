@@ -251,7 +251,7 @@ def test_keyed_attention_launcher_takes_the_wrappers_argtypes():
     kinds = {"int": (ctypes.c_int,), "long long": (ctypes.c_longlong,),
              "unsigned long long": (ctypes.c_ulonglong,)}
     params = [" ".join(p.split()[:-1]) for p in sig.split(",")]
-    assert len(params) == len(KS.KEYED_ARGTYPES) == 20
+    assert len(params) == len(KS.KEYED_ARGTYPES) == 24
     for decl, got in zip(params, KS.KEYED_ARGTYPES):
         assert got in (ptr if "*" in decl else kinds[decl]), (decl, got)
 

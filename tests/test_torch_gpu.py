@@ -686,7 +686,7 @@ KEYED_SSA_CASES = {
 
 
 def heads_inputs(rng, t, b, h, n, d, dev):
-    """q, k, v as ``_heads`` hands them over: the ``[T,B,H,N,D]`` views of
+    """q, k, v as ``spikes.heads`` hands them over: the ``[T,B,H,N,D]`` views of
     ``[T,B,N,H*D]`` trains (one query row in five from the third empty),
     and a key."""
     def train(p):
@@ -719,17 +719,43 @@ def test_ssa_attention_keyed_kernel(cuda, case):
     assert 0 < int(want.sum()) < want.numel()
 
 
+@pytest.mark.parametrize("b0,h0,b,h,n,d", [(4, 2, 4, 2, 256, 64),
+                                            (1, 0, 2, 4, 37, 64),
+                                            (0, 1, 3, 1, 2048, 512)])
+def test_ssa_attention_keyed_kernel_at_an_offset(cuda, b0, h0, b, h, n, d):
+    """A block of a ``[T, 8, 4]`` grid of causal tiles (a mesh rank's
+    batch rows from ``b0`` and heads from ``h0``; the LM's shard, a batch
+    shard, and a streamed tile) draws the whole grid's comparators: it
+    equals its plain version at the offset and that block of the whole
+    grid's keyed K8."""
+    t = 2 if n < 2048 else 1
+    bg, hg = (8, 4) if n < 2048 else (4, 2)
+    q, k, v, key = heads_inputs(np.random.default_rng(b0 + h0), t, bg, hg, n,
+                                d, cuda)
+    sl = (slice(None), slice(b0, b0 + b), slice(h0, h0 + h))
+    tile = dict(b0=b0, h0=h0, batch=bg, heads=hg)
+    got = KS.ssa_attention_keyed_kernel(q[sl], k[sl], v[sl], key,
+                                        causal=True, **tile)
+    _eq(got, KREF.ssa_attention_keyed_ref(q[sl], k[sl], v[sl], key,
+                                          causal=True, **tile))
+    _eq(got, KS.ssa_attention_keyed_kernel(q, k, v, key, causal=True)[sl])
+    with pytest.raises(ValueError, match="outside"):
+        KS.ssa_attention_keyed_kernel(q[sl], k[sl], v[sl], key, causal=True,
+                                      b0=bg - b + 1, h0=h0, batch=bg,
+                                      heads=hg)
+
+
 def test_ssa_attention_keyed_reads_views_and_copies_alike(cuda):
-    """The same tile from the ``_heads`` view and from a contiguous copy;
-    its output merges through ``_unheads`` without a copy."""
-    from repro_torch.core.spiking_transformer import _unheads
+    """The same tile from the ``spikes.heads`` view and from a contiguous
+    copy; its output merges through ``spikes.unheads`` without a copy."""
+    from repro_torch.core.spikes import unheads
 
     q, k, v, key = heads_inputs(np.random.default_rng(5), 2, 3, 4, 37, 64,
                                 cuda)
     got = KS.ssa_attention_keyed_kernel(q, k, v, key, causal=True)
     _eq(KS.ssa_attention_keyed_kernel(q.contiguous(), k.contiguous(),
                                       v.contiguous(), key, causal=True), got)
-    merged = _unheads(got)
+    merged = unheads(got)
     assert merged.shape == (2, 3, 37, 4 * 64)
     assert merged.data_ptr() == got.data_ptr()
 
@@ -1140,3 +1166,35 @@ def test_two_rank_mesh_on_one_card(cuda):
             assert r["backend"] == "sharded[cuda]"
             for name in (k, "aimc_matmul_counts", "lif", "aimc_spiking_linear"):
                 assert r["launches"][name] > 0, (k, name)
+
+
+@pytest.mark.parametrize("change", [{}, {"num_kv_heads": 2},
+                                    {"attention_kind": "lif"}])
+def test_lm_forward_on_the_card_equals_the_plain_backend(cuda, change):
+    """The LM stack's full forward (K1 on every linear, the keyed K8 causal
+    on every block's tile) on the reduced config, GQA and the LIF
+    attention: logits and loss equal the plain versions' on the card, bit
+    for bit, with the kernels launched."""
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(reduced_config("xpikeformer-gpt-4-256"),
+                              **change)
+    params = T.init_params(cfg, 3, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (3, 41))).to(cuda)
+    key = prng.PRNGKey(6, cuda)
+    KB.reset_launches()
+    logits, _ = T.forward(params, {"tokens": tokens[:, :-1]}, cfg, rng=key,
+                          backend="cuda")
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["aimc_spiking_linear"] == 6 * cfg.num_layers
+    assert KB.LAUNCHES["ssa_attention_keyed"] == (
+        0 if cfg.attention_kind == "lif" else cfg.num_layers)
+    want, _ = T.forward(params, {"tokens": tokens[:, :-1]}, cfg, rng=key,
+                        backend="integer")
+    _eq(logits, want)
+    loss, _ = T.loss_fn(params, {"tokens": tokens}, cfg, rng=key,
+                        backend="cuda")
+    ploss, _ = T.loss_fn(params, {"tokens": tokens}, cfg, rng=key,
+                         backend="integer")
+    assert float(loss) == float(ploss)

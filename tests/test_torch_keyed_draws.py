@@ -21,7 +21,11 @@ indices ``(g N + i) N + j`` and ``(g N + i) D + d`` (in the streaming
 design from its row block and key chunk), and the three remainders as
 ``xpk_fastmod`` takes them in wrapping uint64 arithmetic with the host's
 ``M`` -- and must give JAX's ``draw_comparator_prns`` at every element it
-draws and JAX's tile.
+draws and JAX's tile.  A launch that holds a block of a larger grid of
+tiles (a mesh rank's batch rows from ``b0`` and heads from ``h0``) draws
+at its tiles' indices in that grid (``TileIO::draw_tile``): the same
+transcription there must give JAX's draws of the whole grid and the block
+of JAX's whole tile.
 
 The keyed K7 (``ssa_decode_paged_keyed_kernel``) draws the same chain at
 the logical length ``L = MP * page_len``.  :func:`paged_keyed_row`
@@ -328,16 +332,30 @@ def warp_draws(passes, sub, span, drawn):
     return out
 
 
-def keyed_tile(q, k, v, key, causal, plan):
+def draw_tile(g, t_b_h, grid):
+    """``TileIO::draw_tile``: local tile ``g`` of a launch of ``(T, B, H)``
+    tiles whose block starts at ``(b0, h0)`` of a ``(Bg, Hg)`` grid ->
+    its index in the grid, in uint64 arithmetic."""
+    _, b, h = t_b_h
+    b0, h0, bg, hg = grid
+    hh, bb, tt = U64(g % h), U64(g // h % b), U64(g // h // b)
+    return (tt * U64(bg) + U64(b0) + bb) * U64(hg) + U64(h0) + hh
+
+
+def keyed_tile(q, k, v, key, causal, plan, tiles=None):
     """The keyed K8 block by block over ``q``/``k``/``v [G,N,D]`` (the
     tiles in ``(t, b, h)`` order) under ``plan`` (``rows == 0``: the
     resident design, a block a tile; else the streaming one, a block per
     tile and ``rows`` query rows, keys ``keys`` at a time): each warp pass
     takes two words of 32 lanes, the score stage's from the start of the
     row (of the chunk, streamed), the output stage's 64 columns at a time.
-    Returns the output and, per stage, the flat indices drawn and their
-    values."""
+    ``tiles`` (``((T, B, H), (b0, h0, Bg, Hg))``) places the launch's
+    tiles in a larger grid whose draws they take (:func:`draw_tile`);
+    by default they are the whole grid.  Returns the output and, per
+    stage, the flat indices drawn and their values."""
     g_, n, d = q.shape
+    gd = [U64(g) if tiles is None else draw_tile(g, *tiles)
+          for g in range(g_)]
     subs = tile_subkeys(key)
     q, k, v = (x.astype(np.int64) for x in (q, k, v))
     drawn = {0: [], 1: []}
@@ -368,7 +386,7 @@ def keyed_tile(q, k, v, key, causal, plan):
                 i = i0 + r
                 seen = (jj < nc) & (j < (i + 1 if causal else n))
                 cnt = np.where(seen, k[g, np.minimum(j, n - 1)] @ q[g, i], 0)
-                flat = (U64(g) * U64(n) + U64(i)) * U64(n) + j.astype(U64)
+                flat = (gd[g] * U64(n) + U64(i)) * U64(n) + j.astype(U64)
                 for x, pp in enumerate(pairs(cnt, flat)):
                     score_passes.append(pp)
                     where.append((g, i, j0 + 64 * x, j.size - 64 * x))
@@ -386,7 +404,7 @@ def keyed_tile(q, k, v, key, causal, plan):
     for g in range(g_):
         for i in range(n):
             cnt = np.where(col < d, s[g, i, :n].astype(np.int64) @ vpad[g], 0)
-            flat = (U64(g) * U64(n) + U64(i)) * U64(d) + col.astype(U64)
+            flat = (gd[g] * U64(n) + U64(i)) * U64(d) + col.astype(U64)
             for x, pp in enumerate(pairs(cnt, flat)):
                 out_passes.append(pp)
                 rows_of.append((g, i, 64 * x))
@@ -442,3 +460,51 @@ def test_keyed_tile_draw_chain_equals_jax(case):
                                  jnp.asarray(v), rs, ra, causal=causal)
     assert np.array_equal(got, np.asarray(ref))
     assert 0 < int(got.sum()) < got.size
+
+
+# (t, bg, hg, b0, h0, b, h, n, d, causal, plan): the LM's shard at (b0, h0)
+# = (4, 2) of (B, H) = (8, 4) cut small, a batch shard alone, a head shard
+# alone, and the streaming design at an offset
+OFFSET_CASES = {
+    "lm_shard": (2, 8, 4, 4, 2, 4, 2, 33, 16, True, None),
+    "batch": (1, 3, 2, 1, 0, 2, 2, 20, 24, False, None),
+    "heads": (2, 1, 6, 0, 3, 1, 3, 17, 16, True, None),
+    "stream": (1, 2, 2, 1, 1, 1, 1, 70, 24, True,
+               KS.AttentionPlan("stream", 0, 8, 32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OFFSET_CASES))
+def test_keyed_tile_at_an_offset_equals_jax(case):
+    """A launch holding the block ``[b0, b0+b) x [h0, h0+h)`` of a ``[T,
+    Bg, Hg]`` grid (a mesh rank's batch rows and heads) draws JAX's
+    comparators of the whole grid at its tiles' global indices, and its
+    output is that block of JAX's whole tile."""
+    t, bg, hg, b0, h0, b, h, n, d, causal, plan = OFFSET_CASES[case]
+    plan = plan or KS.attention_plan(n, d)
+    rng = np.random.default_rng(n + d + b0 + h0)
+    q, k, v = ((rng.random((t, bg, hg, n, d)) < p).astype(np.uint8)
+               for p in (0.3, 0.5, 0.4))
+    gg = t * bg * hg
+    jkey = jax.random.PRNGKey(3 * n + d)
+    rs, ra = JKOPS.draw_comparator_prns(jkey, (gg, n, n), (gg, n, d), d, n)
+    whole = np.asarray(JREF.ssa_attention_ref(
+        *(jnp.asarray(x.reshape(gg, n, d)) for x in (q, k, v)), rs, ra,
+        causal=causal)).reshape(t, bg, hg, n, d)
+    sl = (slice(None), slice(b0, b0 + b), slice(h0, h0 + h))
+    mine = [x[sl].reshape(t * b * h, n, d) for x in (q, k, v)]
+    got, drawn = keyed_tile(*mine, np.asarray(jkey), causal, plan,
+                            tiles=((t, b, h), (b0, h0, bg, hg)))
+    for which, want in ((0, np.asarray(rs)), (1, np.asarray(ra))):
+        flat = np.concatenate([f for f, _ in drawn[which]]).astype(np.int64)
+        vals = np.concatenate([x for _, x in drawn[which]])
+        inside = flat < want.size
+        assert np.array_equal(vals[inside], want.reshape(-1)[flat[inside]])
+        assert inside.any()
+    assert np.array_equal(got.reshape(t, b, h, n, d), whole[sl])
+    # the plain version takes the same block of the same grid
+    plain = KS.ssa_attention_keyed_kernel(
+        *(torch.from_numpy(np.ascontiguousarray(x[sl])) for x in (q, k, v)),
+        torch.from_numpy(np.asarray(jkey).astype(np.int64)), causal=causal,
+        b0=b0, h0=h0, batch=bg, heads=hg)
+    assert np.array_equal(plain.numpy(), whole[sl])

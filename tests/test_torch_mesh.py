@@ -65,6 +65,12 @@ LOW_SCATTER = dict(drift_nu_sigma=0.005, prog_noise_sigma=0.01)
 TIMEOUT_S = 240.0  # per spawn; the whole file runs in well under this
 
 
+# Executor.forward's batches: 4 rows split over data=2, 3 rows replicated
+FWD_TOKENS = {b: np.random.default_rng(b).integers(0, 257, (b, 13))
+              for b in (4, 3)}
+FWD_KEY = 31
+
+
 def _prompt(i, length):
     return list(range(3 + i, 3 + i + length))
 
@@ -301,6 +307,14 @@ def mesh22(setup, programmed):
         "programmed": _serve_job(tcfg, thw, [_prompt(i, 3 + i)
                                              for i in range(4)], 6,
                                  backend="integer", drift=pol, seed0=10),
+        # the full forward: a batch of 4 splits over data, one of 3 does
+        # not (every rank runs it whole)
+        "forward_cuda": dict(kind="forward", cfg=tcfg, backend="cuda",
+                             params=convert.params_to_numpy(tparams),
+                             tokens=FWD_TOKENS[4], key_seed=FWD_KEY),
+        "forward_integer": dict(kind="forward", cfg=tcfg, backend="integer",
+                                params=convert.params_to_numpy(tparams),
+                                tokens=FWD_TOKENS[3], key_seed=FWD_KEY),
         "recalibrate": dict(kind="recalibrate", cfg=tcfg,
                             tree=convert.params_to_numpy(
                                 AD.drift_tree(thw, 86400.0, tacfg)),
@@ -438,6 +452,26 @@ def test_mesh_dense_serve_equals_jax(jax_dense, mesh22, backend):
         assert r["fused"] and r["backend"] == f"sharded[{backend}]"
 
 
+@pytest.mark.parametrize("backend,b", [("cuda", 4), ("integer", 3)])
+def test_mesh_forward_equals_one_device(setup, mesh22, backend, b):
+    """``Executor.forward`` on the (2, 2) mesh: every rank's logits equal
+    one device's ``engine.forward`` bit for bit, with the batch split over
+    ``data`` (4 rows) and replicated (3 rows); the single device agrees
+    with JAX's forward within float rounding."""
+    cfg, tcfg, jparams, tparams = setup
+    eng = XpikeformerEngine.from_config(tcfg, backend=backend, device="cpu")
+    tokens = torch.from_numpy(FWD_TOKENS[b])
+    want = eng.forward(tokens, prng.PRNGKey(FWD_KEY), tparams)
+    for r in mesh22[f"forward_{backend}"]:
+        _eq(r["logits"], want.numpy(), f"mesh forward, batch {b}")
+        assert r["backend"] == f"sharded[{backend}]"
+    jlogits, _ = JT.forward(jparams, {"tokens": jnp.asarray(FWD_TOKENS[b])},
+                            cfg, rng=jax.random.PRNGKey(FWD_KEY),
+                            backend=JIntegerBackend(), remat="none")
+    np.testing.assert_allclose(want.numpy(), np.asarray(jlogits), rtol=0,
+                               atol=1e-4)
+
+
 def test_mesh_paged_serve_and_prefix_hits_equal_jax(setup, jax_dense,
                                                      mesh22):
     """Paged on the (2, 2) mesh (pool whole on each data rank, KV heads
@@ -532,8 +566,8 @@ def test_parse_mesh_spec_matches_jax():
 
 def test_engine_executor_on_a_one_rank_mesh(setup):
     """``XpikeformerEngine.executor`` on the (1, 1) mesh of one process
-    (no process group) serves the engine's own tokens; ``forward`` waits
-    for the LM stack's full forward."""
+    (no process group) serves the engine's own tokens, and its
+    ``forward`` gives the engine's logits."""
     _, tcfg, _, tparams = setup
     eng = XpikeformerEngine.from_config(tcfg, backend="integer", device="cpu")
     eng.params = tparams
@@ -541,8 +575,9 @@ def test_engine_executor_on_a_one_rank_mesh(setup):
     ex = eng.executor(ServingMesh.single("cpu"))
     got, stats = ex.serve(PROMPTS, 5, slots=2, cache_len=32, seed=100)
     assert got == want and (stats.data_shards, stats.model_shards) == (1, 1)
-    with pytest.raises(NotImplementedError, match="full forward"):
-        ex.forward(None, None)
+    tokens = torch.arange(24, dtype=torch.int64).reshape(2, 12) % 257
+    key = prng.PRNGKey(8)
+    assert torch.equal(ex.forward(tokens, key), eng.forward(tokens, key))
     if not torch.cuda.is_available():  # the one-rank mesh defaults to CUDA
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ServingMesh.single()

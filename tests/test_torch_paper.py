@@ -289,14 +289,15 @@ def test_rate_coding_equals_jax():
 
 
 def test_patchify_and_heads_equal_jax():
-    """``patchify``/``_heads``/``_unheads`` move the reference's axes."""
+    """``patchify`` and ``spikes.heads``/``unheads`` move the reference's
+    axes (``_heads``/``_unheads``)."""
     rng = np.random.default_rng(2)
     img = rng.random((2, 16, 16, 3)).astype(np.float32)
     _eq(ST.patchify(_t(img), 4), JST.patchify(jnp.asarray(img), 4))
     x = rng.random((3, 2, 5, 32)).astype(np.float32)
-    heads = ST._heads(_t(x), 4)
+    heads = SP.heads(_t(x), 4)
     _eq(heads, JST._heads(jnp.asarray(x), 4))
-    _eq(ST._unheads(heads), x)
+    _eq(SP.unheads(heads), x)
 
 
 # ---------------------------------------------------------------------------
@@ -354,15 +355,19 @@ def test_paper_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_modes_raise():
-    """The baseline modes (A7), hardware-aware training's noisy forward
-    (A11) and legacy ``{"hw": dict}`` leaves (A12) raise, naming their
-    ROADMAP item; the programmed-PCM lifecycle (A8) runs
-    (``tests/test_torch_pcm.py``)."""
+    """Hardware-aware training's noisy forward (A11) and legacy ``{"hw":
+    dict}`` leaves (A12) raise, naming their ROADMAP item; the baseline
+    modes (A7, ``tests/test_torch_modes.py``) and the LM stack's forward
+    (A1, ``tests/test_torch_lm_forward.py``) run, and so does the
+    programmed-PCM lifecycle (A8, ``tests/test_torch_pcm.py``)."""
     vcfg = X.SPIKING_ARCHS["xpikeformer-vit-smoke"][1]
     for mode in ("ann", "lif"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            XpikeformerEngine.from_config(dataclasses.replace(vcfg, mode=mode),
-                                          device="cpu")
+        beng = XpikeformerEngine.from_config(
+            dataclasses.replace(vcfg, mode=mode), device="cpu")
+        beng.init(0)
+        out = beng.forward(torch.zeros((1, 16, 16, 3)), prng.PRNGKey(0))
+        assert out.shape == (1, vcfg.num_classes)
+        assert bool(torch.isfinite(out).all())
     with pytest.raises(NotImplementedError, match="A11"):
         XpikeformerEngine.from_config(vcfg, wmode="hwat", device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
@@ -378,14 +383,14 @@ def test_unported_modes_raise():
         ST.linear(legacy, img.reshape(1, 16, 48))
     with pytest.raises(NotImplementedError, match="A12"):
         IntegerBackend().spiking_linear(legacy, torch.zeros((1, 1, 48)))
-    with pytest.raises(NotImplementedError, match="A7"):
-        ST.vit_forward(eng.params, img, dataclasses.replace(vcfg, mode="ann"),
-                       key, backend=eng.backend)
+    ann = ST.vit_forward(eng.params, img, dataclasses.replace(vcfg, mode="ann"),
+                         key, backend=eng.backend)
+    assert ann.shape == (1, vcfg.num_classes)
     lm = XpikeformerEngine.from_config("xpikeformer-gpt-4-256", task="lm",
                                        reduced=True, device="cpu")
     lm.init(0)
-    with pytest.raises(NotImplementedError, match="LM-stack"):
-        lm.forward(torch.zeros((1, 4), dtype=torch.int64), key)
+    logits = lm.forward(torch.zeros((1, 4), dtype=torch.int64), key)
+    assert logits.shape == (1, 4, lm.cfg.vocab_size)
     with pytest.raises(ValueError, match="task='lm'"):
         eng.scheduler()
 

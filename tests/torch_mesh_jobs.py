@@ -7,6 +7,8 @@ dicts) and returns one result per job:
 
 * ``{"kind": "serve", ...}`` (the default) -- :func:`repro_torch.
   distributed.jobs.serve_job`;
+* ``{"kind": "forward", ...}`` -- :func:`repro_torch.distributed.jobs.
+  forward_job`, the full-sequence forward on the mesh;
 * ``{"kind": "layer", ...}`` -- one decoder layer's sharded primitives
   (the column- and row-parallel linears, head-parallel decode attention,
   the head-parallel fused layer, dense and paged) on whole operands: each
@@ -36,8 +38,9 @@ from repro_torch.kernels.plan import AttnSpec, KVView
 
 def run_jobs(mesh, todo: List[Dict[str, Any]]) -> List[Any]:
     """Every job of ``todo`` on this rank, in order (see the module)."""
-    kinds = {"serve": jobs.serve_job, "layer": layer_job,
-             "recalibrate": recalibrate_job, "fail": fail_job}
+    kinds = {"serve": jobs.serve_job, "forward": jobs.forward_job,
+             "layer": layer_job, "recalibrate": recalibrate_job,
+             "fail": fail_job}
     return [kinds[job.get("kind", "serve")](mesh, job) for job in todo]
 
 
