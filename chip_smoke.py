@@ -134,6 +134,23 @@ Phases, each printing one JSON line:
    Its times measure four processes sharing one card and gloo's host
    staging, not NVLink.
 
+8. **train** -- training on the card, through the float reference
+   backend (plain PyTorch: no kernel of the port in a step) and AdamW.
+   The paper ViT-4-384 and GPT-4-256 at full width, random weights from a
+   seed, one fixed batch of 64 each: ``two_stage_train`` (6 CT steps,
+   then 3 HWAT steps, lr 1e-3; the GPT through ``train_and_program``,
+   whose programming launches K6); the LM stack's GPT-4-256:
+   ``make_train_step`` on ``MarkovStream`` tokens ``[8, 257]``, 6 steps
+   of float32 state, then one of int8 state and two microbatches.  Every
+   loss and gradient norm must be finite, the CT loss lower after its
+   steps, the first step's loss and gradient norm on the card within
+   ``TRAIN_LOSS_ATOL`` and ``TRAIN_NORM_RTOL`` of the same step on the
+   host CPU, and the trained weights deployed through the kernels (K1
+   and the keyed K8; the programmed GPT's drifted image) must give the
+   plain backend's logits bit for bit.  Each model prints its step times,
+   one profiled step (kernels, busy time, idle share) and the
+   deployment's launches.
+
 Past the port's old caps the kernels phase holds K1 and K5 at T = 9 and
 16 (few rows and many: the split of ``d_in`` and the tensor-core GEMM, on
 residual-valued spikes up to 17), K9 at T = 9, and K8 at N = 513 and at
@@ -2141,6 +2158,237 @@ def phase_lm_forward(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase train: CT -> HWAT on the paper models, the LM stack's train step
+# ---------------------------------------------------------------------------
+
+# (arch, batch, CT steps, HWAT steps, lr): the paper's two models at full
+# width on one fixed batch each (at 3e-3 a first Adam step, about lr *
+# sign(g) on every weight, threw the ViT's loss from 2.5 to 7.6)
+TRAIN_PAPER = (("xpikeformer-vit-4-384", 64, 6, 3, 1e-3),
+               ("xpikeformer-gpt-4-256", 64, 6, 3, 1e-3))
+# the LM stack: tokens [8, 256] (+1 for the targets), float32-state steps
+TRAIN_LM = ("xpikeformer-gpt-4-256", 8, 256, 6, 1e-3)
+# the first step on the card against the host: loss within TRAIN_LOSS_ATOL,
+# the gradients' global norm within TRAIN_NORM_RTOL (float sums in other
+# orders; a spike a membrane an ulp from the threshold may flip)
+TRAIN_LOSS_ATOL, TRAIN_NORM_RTOL = 1e-3, 1e-2
+
+
+def _first_step(forward, params, batch, key, sim, dev):
+    """One step's loss and gradient norm on ``dev`` (``make_step``'s
+    loss and ``value_and_grad``)."""
+    from repro_torch import tree as TR
+    from repro_torch.optim import adamw as A
+    from repro_torch.train import hwat as H
+    from repro_torch.train.loop import value_and_grad
+
+    def loss_fn(p, b, r):
+        logits = forward(p, b, sim, r)
+        return H.xent_loss(logits, b["labels"], b.get("mask")), {}
+
+    params = TR.tree_map(lambda x: x.to(dev), params)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    (loss, _), grads = value_and_grad(loss_fn)(params, batch, key.to(dev))
+    return float(loss), float(A.global_norm(grads))
+
+
+def _deploy(eng_kw, params, x, key, dev, launches_want) -> dict:
+    """Trained weights through ``CudaBackend`` (the kernels) and
+    ``IntegerBackend`` (their plain versions) on the card: logits equal
+    bit for bit, the kernels launched as the path needs."""
+    from repro_torch.engine import XpikeformerEngine
+    from repro_torch.kernels import build as KB
+
+    engs = [XpikeformerEngine.from_config(backend=b, device=dev, **eng_kw)
+            for b in ("cuda", "integer")]
+    for e in engs:
+        e.params = params
+    with torch.no_grad():
+        engs[0].forward(x, key)  # warm-up
+        KB.reset_launches()
+        got = engs[0].forward(x, key)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in KB.LAUNCHES.items() if v}
+        want = engs[1].forward(x, key)
+    check(launches == launches_want,
+          f"deploy launched {launches}, not {launches_want}")
+    check(bool(torch.isfinite(got).all()), "deploy: non-finite logits")
+    check(torch.equal(got, want), "deploy: kernel and plain logits differ")
+    return dict(launches=launches, logits_bitwise_equal=True,
+                labels_head=got.argmax(-1).reshape(-1)[:8].tolist())
+
+
+def phase_train(dev):
+    """Training on the card.  (a) The paper ViT-4-384 and GPT-4-256 at
+    full width, random weights from a seed, one fixed batch each (64
+    images of the ``synthetic_images`` twin, 64 ICL sequences of 37
+    tokens): ``two_stage_train`` (CT then HWAT, the float reference
+    backend, AdamW), every loss finite and the CT loss lower after its
+    steps; the GPT through ``train_and_program`` (K6 programs the trained
+    weights).  The first CT step's loss and gradient norm on the card
+    against the same step on the host CPU.  One CT step profiled.  The
+    trained weights deployed through the kernels (K1, the keyed K8; the
+    programmed GPT's image) equal the plain versions' logits bit for bit.
+    (b) The LM stack ``xpikeformer-gpt-4-256``: ``make_train_step`` on
+    ``MarkovStream`` tokens ``[8, 257]``, a few float32-state steps on one
+    batch (the loss lower, every loss and gradient norm finite), one step
+    of int8 state and two microbatches, the first step against the host,
+    the trained weights deployed through K1 and the keyed K8."""
+    from repro_torch import aimc_device as AD
+    from repro_torch import prng
+    from repro_torch import tree as TR
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.configs.xpikeformer import SPIKING_ARCHS
+    from repro_torch.core.spiking_transformer import AIMCSim
+    from repro_torch.data.pipeline import DataConfig, MarkovStream
+    from repro_torch.engine import XpikeformerEngine
+    from repro_torch.kernels import build as KB
+    from repro_torch.optim import adamw as A
+    from repro_torch.train import hwat as H
+    from repro_torch.train import loop as L
+
+    out = {}
+    key = prng.PRNGKey(42, dev)
+    for name, batch, ct, hw, lr in TRAIN_PAPER:
+        task, cfg = SPIKING_ARCHS[name]
+        eng = XpikeformerEngine.from_config(name, backend="reference",
+                                            device=dev)
+        params = eng.init(seed=0)
+        x, data = paper_inputs(task, cfg, batch, dev)
+        if data is None:
+            from repro_torch.data import synthetic_images as SI
+
+            data = SI.sample_batch(17, SI.ImageConfig(size=cfg.image_size),
+                                   batch, dev)
+        fwd = H.model_forward(cfg, task)
+        first_key = prng.split(prng.fold_in(prng.PRNGKey(0), 0))[1]
+        card = _first_step(fwd, params, data, first_key, AIMCSim(), dev)
+        host = _first_step(fwd, params, data, first_key, AIMCSim(), "cpu")
+        check(all(math.isfinite(v) for v in card + host),
+              f"{name}: a first-step loss or gradient norm is not finite")
+        check(abs(card[0] - host[0]) <= TRAIN_LOSS_ATOL
+              and abs(card[1] - host[1]) <= TRAIN_NORM_RTOL * host[1],
+              f"{name}: first step on the card {card} != host {host}")
+        log = []
+
+        def data_fn(k):
+            torch.cuda.synchronize()
+            log.append(time.perf_counter())
+            return data
+
+        KB.reset_launches()
+        if task == "gpt":
+            trained, curves = H.train_and_program(
+                params, fwd, data_fn, ct_steps=ct, hwat_steps=hw, lr=lr)
+            torch.cuda.synchronize()
+            k6 = KB.LAUNCHES["drift_requantize"]
+            check(k6 > 0, f"{name}: programming launched no K6")
+            check(AD.has_device_state(trained), f"{name}: not programmed")
+        else:
+            trained, curves = H.two_stage_train(
+                params, fwd, data_fn, ct_steps=ct, hwat_steps=hw, lr=lr)
+            torch.cuda.synchronize()
+            k6 = 0
+        log.append(time.perf_counter())
+        # step i's time: a stage reads each loss to the host before it asks
+        # for the next batch
+        times = [1e3 * (b - a) for a, b in zip(log, log[1:])]
+        losses = curves["ct"] + curves["hwat"]
+        check(len(losses) == ct + hw and all(map(math.isfinite, losses)),
+              f"{name}: losses {losses}")
+        check(curves["ct"][-1] < curves["ct"][0],
+              f"{name}: {ct} CT steps did not lower the loss {curves['ct']}")
+        weights = [v.levels if isinstance(v, AD.AIMCDeviceState) else v
+                   for v in TR.flatten(trained, lambda t: isinstance(
+                       t, AD.AIMCDeviceState))[0]]
+        check(all(bool(torch.isfinite(v).all()) for v in weights),
+              f"{name}: non-finite trained weights")
+        step = H.make_step(fwd, A.AdamWConfig(lr=lr), AIMCSim())
+        opt_state = A.init_opt_state(params, A.AdamWConfig(lr=lr))
+        prof = profile_window(lambda: step(params, opt_state, data,
+                                           first_key.to(dev)))
+        if task == "vit":
+            dep = _deploy(dict(name_or_cfg=name), trained, x, key, dev,
+                          {"aimc_spiking_linear": 6 * cfg.depth,
+                           "ssa_attention_keyed": cfg.depth})
+        else:
+            dep = _deploy(dict(name_or_cfg=name, wmode="hw"), trained, x,
+                          key, dev, {"aimc_spiking_linear": 6 * cfg.depth,
+                                     "ssa_attention_keyed": cfg.depth})
+        out[name] = dict(
+            batch=batch, ct_steps=ct, hwat_steps=hw, lr=lr,
+            ct_losses=curves["ct"], hwat_losses=curves["hwat"],
+            ct_step_ms=statistics.median(times[1:ct]),
+            # the stage's first step sets up its optimizer; the GPT's
+            # last one is followed by programming
+            hwat_step_ms=statistics.median(times[ct + 1:ct + hw - 1]),
+            first_ct_step_ms=times[0], first_step_card=card,
+            first_step_host=host, k6_launches_programming=k6,
+            profile_ct_step=prof, deploy=dep)
+        del eng, params, trained
+        torch.cuda.empty_cache()
+
+    name, b, n, steps, lr = TRAIN_LM
+    eng = XpikeformerEngine.from_config(name, task="lm", backend="reference",
+                                        device=dev)
+    cfg = eng.cfg
+    stream = MarkovStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=n,
+                                     global_batch=b, seed=0), device=dev)
+    batch = stream.batch_at(0)
+    opt = A.AdamWConfig(lr=lr, warmup_steps=1, total_steps=steps)
+    params, state = L.init_state(0, cfg, opt, device=dev)
+    loss_f = L.value_and_grad(L.make_loss(cfg))
+    card = loss_f(params, batch, prng.PRNGKey(1, dev))
+    host = loss_f(TR.tree_map(lambda t: t.cpu(), params),
+                  {"tokens": batch["tokens"].cpu()}, prng.PRNGKey(1))
+    card_v = (float(card[0][0]), float(A.global_norm(card[1])))
+    host_v = (float(host[0][0]), float(A.global_norm(host[1])))
+    del card, host
+    check(abs(card_v[0] - host_v[0]) <= TRAIN_LOSS_ATOL
+          and abs(card_v[1] - host_v[1]) <= TRAIN_NORM_RTOL * host_v[1],
+          f"{name} LM: first step on the card {card_v} != host {host_v}")
+    step = L.make_train_step(cfg, ParallelConfig(), opt)
+    losses, norms, times = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, prng.PRNGKey(1, dev))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(1e3 * (time.perf_counter() - t0))
+    check(all(map(math.isfinite, losses + norms)),
+          f"{name} LM: losses {losses}, gradient norms {norms}")
+    check(losses[-1] < losses[0], f"{name} LM: {steps} steps did not lower "
+          f"the loss {losses}")
+    prof = profile_window(lambda: step(params, state, batch,
+                                       prng.PRNGKey(1, dev)))
+    iopt = A.AdamWConfig(lr=lr, state_dtype="int8", warmup_steps=1)
+    par = ParallelConfig(microbatches=2)
+    p8, s8 = L.init_state(0, cfg, iopt, par, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p8, s8, m8 = L.make_train_step(cfg, par, iopt)(p8, s8, batch,
+                                                   prng.PRNGKey(1, dev))
+    int8_ms = 1e3 * (time.perf_counter() - t0)
+    check(math.isfinite(float(m8["loss"])) and math.isfinite(
+        float(m8["grad_norm"])), f"{name} LM: the int8 step is not finite")
+    check(any(isinstance(v, dict) for v in TR.flatten(
+        s8["m"], lambda t: isinstance(t, dict) and "q" in t)[0]),
+        f"{name} LM: no int8 moment")
+    dep = _deploy(dict(name_or_cfg=name, task="lm"), params,
+                  batch["tokens"][:, :-1], key, dev,
+                  {"aimc_spiking_linear": 6 * cfg.num_layers,
+                   "ssa_attention_keyed": cfg.num_layers})
+    out[f"{name} (LM stack)"] = dict(
+        batch=b, tokens=n, steps=steps, lr=lr, losses=losses,
+        grad_norms=norms, step_ms=statistics.median(times[1:]),
+        first_step_ms=times[0], first_step_card=card_v,
+        first_step_host=host_v, int8_microbatch2_loss=float(m8["loss"]),
+        int8_microbatch2_step_ms=int8_ms, profile_step=prof, deploy=dep)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the programmed-PCM lifecycle and energy metering
 # ---------------------------------------------------------------------------
 
@@ -2821,6 +3069,10 @@ def main() -> int:
     mesh, mlaunches = phase_mesh(dev, outs, pouts, mesh_ref)
     emit({"phase": "mesh", "card": card,
           "seconds": time.perf_counter() - t0, **mesh})
+    t0 = time.perf_counter()
+    train = phase_train(dev)
+    emit({"phase": "train", "card": card,
+          "seconds": time.perf_counter() - t0, **train})
     # each kernel's launches on its own path
     launches["aimc_matmul_counts"] = mlaunches["aimc_matmul_counts"]
     launches["drift_requantize"] = dlaunches["drift_requantize"]

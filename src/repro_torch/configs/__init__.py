@@ -1,4 +1,4 @@
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.configs.registry import get_config, list_archs, reduced_config
 
-__all__ = ["ModelConfig", "get_config", "list_archs", "reduced_config"]
+__all__ = ["ModelConfig", "ParallelConfig", "get_config", "list_archs", "reduced_config"]

@@ -102,3 +102,14 @@ class ModelConfig:
                 f"{self.name}: heads {self.num_heads} not a multiple of kv "
                 f"heads {self.num_kv_heads}")
         return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The fields of ``repro.configs.base.ParallelConfig`` that the train
+    step reads (:mod:`repro_torch.train.loop`)."""
+
+    remat: str = "block"  # none | block | full
+    grad_compression: bool = False  # int8 error-feedback round trip
+    grad_dtype: str = "native"  # native | bfloat16 (cast before the update)
+    microbatches: int = 1  # gradient accumulation steps

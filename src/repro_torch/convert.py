@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.aimc_device import AIMCDeviceState
+from repro_torch.device import resolve_device
 
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(AIMCDeviceState))
 
@@ -41,16 +42,34 @@ def device_state_from_numpy(state: Any, device: Union[str, torch.device] = "cpu"
         for f in _STATE_FIELDS))
 
 
-def params_from_numpy(tree: Any, device: Union[str, torch.device] = "cpu") -> Any:
+def params_from_numpy(tree: Any, device: Union[str, torch.device, None] = None
+                      ) -> Any:
     """Nested dicts and lists of numpy arrays -> the same tree of torch
-    tensors (device states -> :class:`AIMCDeviceState`)."""
+    tensors (device states -> :class:`AIMCDeviceState`) on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     if _is_device_state(tree):
         return device_state_from_numpy(tree, device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    a = np.array(tree, copy=True)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: no numpy view in torch
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
+def opt_state_from_numpy(state: Any, device: Union[str, torch.device, None]
+                         = None) -> Any:
+    """A reference AdamW state (``repro.optim.adamw.init_opt_state`` or a
+    later one, through ``jax.tree.map(numpy.asarray, state)``) -> the
+    port's (:mod:`repro_torch.optim.adamw`): ``m``/``v`` mirror the
+    parameter tree (an int8 moment a ``{"q", "scale"}`` dict), ``step``
+    an int32 scalar, ``ef`` (compression's residuals) where present; every
+    value and dtype kept, on ``device``."""
+    return params_from_numpy(state, device)
 
 
 def layer_params(params: Dict[str, Any], cfg, layer: int) -> Dict[str, Any]:

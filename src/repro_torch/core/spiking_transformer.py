@@ -6,23 +6,28 @@ Xpikeformer rows, every entry of :data:`repro_torch.configs.xpikeformer.
 SPIKING_ARCHS`), ``"lif"`` (the Spikformer baseline: the same spiking
 blocks with :func:`repro_torch.core.ssa.lif_spiking_attention` in place of
 SSA) and ``"ann"`` (the float transformer: LayerNorm, softmax attention,
-GELU; ``_ln``, ``_ann_block``), with ideal float weights
-(``wmode="ideal"``) or programmed PCM state (``wmode="hw"``, after
-:func:`program_model`).  Hardware-aware training's noisy forward
-(``"hwat"``) raises :class:`NotImplementedError` (ROADMAP A11).
+GELU; ``_ln``, ``_ann_block``), and its three weight modes (an
+:class:`AIMCSim`): ideal float weights (``"ideal"``, conventional
+training), hardware-aware training's noisy forward (``"hwat"``:
+:func:`repro_torch.core.aimc.hwat_weights` for every float linear, one
+draw a linear a forward from its key) and programmed PCM state (``"hw"``,
+after :func:`program_model`).
 
 The spiking primitives come from a backend (:mod:`repro_torch.engine`):
-``spiking_linear`` (K1) for the six crossbar linears of a block, which
-executes a programmed leaf's drifted int8 image, and ``ssa_attention``
-(K8) for the attention tile.  The ``"ann"`` mode runs no spiking
-primitive, so no backend changes its result.  The patch/embed and head linears consume or
-produce real values, so they stay outside the kernels: float ``x @ w + b``
-(``torch.matmul`` in f32) with ideal weights, the analog crossbar
-simulation (:func:`repro_torch.aimc_device.analog_matmul`, with read
-noise drawn from the linear's key) when programmed, as the reference does.
-Spike randomness comes from the threefry twin (:mod:`repro_torch.prng`):
-with the same key a forward draws the reference's rate-coding uniforms
-and comparator integers.
+``spiking_linear`` (K1 on the card) for the six crossbar linears of a
+block, given the linear's key and the sim, and ``ssa_attention`` (K8) for
+the attention tile.  The float reference backend (``"reference"``) is the
+differentiable one that training runs; the digital backends execute a
+weight's int8 image and ignore the key and the sim.  The ``"ann"`` mode
+runs no spiking primitive, so no backend changes its result.  The
+patch/embed and head linears consume or produce real values, so they stay
+outside the kernels: float ``x @ w + b`` (``torch.matmul`` in f32) with
+ideal or HWAT weights, the analog crossbar simulation
+(:func:`repro_torch.aimc_device.analog_matmul`, with read noise drawn from
+the linear's key) when programmed, as the reference does.  Spike
+randomness comes from the threefry twin (:mod:`repro_torch.prng`): with
+the same key a forward draws the reference's rate-coding uniforms,
+comparator integers and HWAT noise.
 """
 
 from __future__ import annotations
@@ -35,11 +40,26 @@ import torch
 
 from repro_torch import aimc_device as AD
 from repro_torch import prng
+from repro_torch.core import aimc as AM
 from repro_torch.core import spikes as SP
 from repro_torch.core import ssa as SSA
 from repro_torch.core.aimc import AIMCConfig
+from repro_torch.device import resolve_device
 
 Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class AIMCSim:
+    """``repro.core.spiking_transformer.AIMCSim`` without the legacy
+    state's clock and GDC flag (a programmed leaf carries its own): the
+    weight mode and the Table-II configuration."""
+
+    wmode: str = "ideal"  # ideal | hwat | hw
+    cfg: AIMCConfig = AIMCConfig()
+
+
+IDEAL_SIM = AIMCSim()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,19 +91,13 @@ class SpikingConfig:
 
 
 def check_wmode(wmode: str) -> None:
-    """Raise for a weight mode this port does not run: ``"hwat"`` is
-    training's."""
-    if wmode == "hwat":
-        raise NotImplementedError(
-            "wmode='hwat' (hardware-aware training's noisy forward) is not "
-            "ported yet: ROADMAP A11, training")
-    if wmode not in ("ideal", "hw"):
+    """Raise for an unknown weight mode."""
+    if wmode not in ("ideal", "hwat", "hw"):
         raise ValueError(f"unknown wmode {wmode!r}; known: ideal, hw, hwat")
 
 
 def check_ported(cfg: SpikingConfig, wmode: str = "ideal") -> None:
-    """Raise for an unknown attention mode, or a weight mode this port
-    does not run (:func:`check_wmode`)."""
+    """Raise for an unknown attention or weight mode."""
     if cfg.mode not in ("ann", "lif", "ssa"):
         raise ValueError(f"unknown mode {cfg.mode!r}; known: ann, lif, ssa")
     check_wmode(wmode)
@@ -120,10 +134,12 @@ def _to(tree: Any, device) -> Any:
 
 
 def init_vit(cfg: SpikingConfig, seed: int,
-             device: Union[str, torch.device] = "cpu") -> Dict[str, Any]:
+             device: Union[str, torch.device, None] = None) -> Dict[str, Any]:
     """Random ViT weights from ``seed`` (a CPU ``torch.Generator``, so the
-    values do not depend on the device); the reference's tree and shapes
+    values do not depend on the device), placed on ``device`` (the card
+    unless the caller asks for the CPU); the reference's tree and shapes
     (the unused ``ln1``/``ln2`` included)."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     pdim = cfg.patch_size * cfg.patch_size * cfg.in_channels
     params = {
@@ -136,9 +152,10 @@ def init_vit(cfg: SpikingConfig, seed: int,
 
 
 def init_gpt(cfg: SpikingConfig, seed: int,
-             device: Union[str, torch.device] = "cpu") -> Dict[str, Any]:
-    """Random GPT weights from ``seed``; a 512-row position table, as in
-    the reference."""
+             device: Union[str, torch.device, None] = None) -> Dict[str, Any]:
+    """Random GPT weights from ``seed`` on ``device`` (as :func:`init_vit`);
+    a 512-row position table, as in the reference."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     params = {
         "embed": _linear_def(gen, cfg.input_dim, cfg.dim),
@@ -154,19 +171,24 @@ def init_gpt(cfg: SpikingConfig, seed: int,
 # ---------------------------------------------------------------------------
 
 
-def linear(p: Dict[str, Any], x: Tensor, cfg: AIMCConfig = AIMCConfig(),
+def linear(p: Dict[str, Any], x: Tensor, sim: AIMCSim = IDEAL_SIM,
            key: Tensor = None) -> Tensor:
-    """A float-valued linear: ``x @ w + b`` in f32 for ideal weights; for a
-    programmed ``{"hw", "b"}`` leaf the analog crossbar simulation at the
-    state's clock with read noise from ``key``, plus ``b``."""
+    """A float-valued linear: ``x @ w + b`` in f32 for float weights
+    (``sim.wmode == "hwat"``: :func:`repro_torch.core.aimc.hwat_weights`
+    drawn from ``key``); for a programmed ``{"hw", "b"}`` leaf the analog
+    crossbar simulation at the state's clock with read noise from ``key``,
+    plus ``b``."""
     if "hw" in p:
         hw = p["hw"]
         if not isinstance(hw, AD.AIMCDeviceState):
             raise NotImplementedError(
                 "legacy {'hw': dict} leaves (core/aimc.py:program_weights) "
                 "are not ported: ROADMAP A12")
-        return AD.analog_matmul(key, x, hw, cfg) + p["b"]
-    return torch.matmul(x, p["w"]) + p["b"]
+        return AD.analog_matmul(key, x, hw, sim.cfg) + p["b"]
+    w = p["w"]
+    if sim.wmode == "hwat":
+        w = AM.hwat_weights(key, w, sim.cfg)
+    return torch.matmul(x, w) + p["b"]
 
 
 def program_model(key: Tensor, params: Any, cfg: AIMCConfig) -> Any:
@@ -194,13 +216,14 @@ def _ln(p: Dict[str, Tensor], x: Tensor) -> Tensor:
 
 
 def _ann_block(p: Dict[str, Any], x: Tensor, cfg: SpikingConfig,
-               keys: Tensor, aimc_cfg: AIMCConfig, *, causal: bool) -> Tensor:
+               keys: Tensor, sim: AIMCSim, *, causal: bool) -> Tensor:
     """``x [B,N,D]`` -> the same after one float block (the ANN rows):
     LayerNorm, softmax attention and a GELU MLP (tanh approximation, as
-    ``jax.nn.gelu``), each with its residual.  Programmed linears read
-    their noise from ``keys[0..5]``."""
+    ``jax.nn.gelu``), each with its residual.  The linears draw their
+    noise (HWAT's or the programmed crossbars' read noise) from
+    ``keys[0..5]``."""
     def lin(name, z, i):
-        return linear(p[name], z, aimc_cfg, keys[i])
+        return linear(p[name], z, sim, keys[i])
 
     h = _ln(p["ln1"], x)
     q = SP.heads(lin("wq", h, 0), cfg.num_heads)
@@ -214,40 +237,45 @@ def _ann_block(p: Dict[str, Any], x: Tensor, cfg: SpikingConfig,
 
 
 def _spiking_block(p: Dict[str, Any], s: Tensor, cfg: SpikingConfig,
-                   rng: Tensor, *, causal: bool, backend) -> Tensor:
+                   keys: Tensor, rng: Tensor, *, causal: bool, backend,
+                   sim: AIMCSim = IDEAL_SIM) -> Tensor:
     """``s [T,B,N,D]`` integer-valued f32 -> the same after one block:
     Q/K/V spiking linears, SSA (``"lif"``: the LIF attention),
     attention-out and the FFN, each with its residual (Table I's SNN rows;
-    no inter-layer normalisation)."""
-    lin = backend.spiking_linear
-    q = SP.heads(lin(p["wq"], s), cfg.num_heads)  # [T,B,H,N,hd] uint8
-    k = SP.heads(lin(p["wk"], s), cfg.num_heads)
-    v = SP.heads(lin(p["wv"], s), cfg.num_heads)
+    no inter-layer normalisation).  The six linears take ``keys[0..5]``,
+    the attention ``rng``."""
+    def lin(name, z, i):
+        return backend.spiking_linear(p[name], z, key=keys[i], sim=sim)
+
+    q = SP.heads(lin("wq", s, 0), cfg.num_heads)  # [T,B,H,N,hd]
+    k = SP.heads(lin("wk", s, 1), cfg.num_heads)
+    v = SP.heads(lin("wv", s, 2), cfg.num_heads)
     if cfg.mode == "ssa":
         a = backend.ssa_attention(rng, q, k, v, causal=causal)
     else:  # "lif": the Spikformer baseline
         a = SSA.lif_spiking_attention(q.to(s.dtype), k.to(s.dtype),
                                       v.to(s.dtype), causal=causal)
-    s = s + lin(p["wo"], SP.unheads(a))
-    h = lin(p["w1"], s)
-    return s + lin(p["w2"], h)
+    s = s + lin("wo", SP.unheads(a), 3)
+    h = lin("w1", s, 4)
+    return s + lin("w2", h, 5)
 
 
 def _run_blocks(params: Dict[str, Any], x_or_s: Tensor, cfg: SpikingConfig,
                 rng: Tensor, *, causal: bool, backend,
-                aimc_cfg: AIMCConfig = AIMCConfig()) -> Tensor:
+                sim: AIMCSim = IDEAL_SIM) -> Tensor:
     """Every block in turn; block ``i`` takes its keys from
-    ``split(fold_in(rng, i), 7)``: 0-5 the linears' (which draw nothing on
-    the digital backends, and read noise on the ANN rows' programmed
-    linears), 6 the attention's.  ``"ann"`` runs float blocks over ``x
-    [B,N,D]``, the spiking modes spiking blocks over ``s [T,B,N,D]``."""
+    ``split(fold_in(rng, i), 7)``: 0-5 the linears' (HWAT's noise, or the
+    reference backend's read noise on programmed linears; the digital
+    backends draw nothing), 6 the attention's.  ``"ann"`` runs float
+    blocks over ``x [B,N,D]``, the spiking modes spiking blocks over ``s
+    [T,B,N,D]``."""
     for i, bp in enumerate(params["blocks"]):
         kk = prng.split(prng.fold_in(rng, i), 7)
         if cfg.mode == "ann":
-            x_or_s = _ann_block(bp, x_or_s, cfg, kk, aimc_cfg, causal=causal)
+            x_or_s = _ann_block(bp, x_or_s, cfg, kk, sim, causal=causal)
         else:
-            x_or_s = _spiking_block(bp, x_or_s, cfg, kk[6], causal=causal,
-                                    backend=backend)
+            x_or_s = _spiking_block(bp, x_or_s, cfg, kk, kk[6], causal=causal,
+                                    backend=backend, sim=sim)
     return x_or_s
 
 
@@ -257,45 +285,43 @@ def _run_blocks(params: Dict[str, Any], x_or_s: Tensor, cfg: SpikingConfig,
 
 
 def vit_forward(params: Dict[str, Any], images: Tensor, cfg: SpikingConfig,
-                rng: Tensor, *, backend,
-                aimc_cfg: AIMCConfig = AIMCConfig()) -> Tensor:
+                rng: Tensor, *, backend, sim: AIMCSim = IDEAL_SIM) -> Tensor:
     """``images [B,H,W,C]`` -> logits ``[B, classes]``: patch embed, rate
     coding, the spiking blocks (non-causal SSA), firing rates pooled over
     the patches, float head; ``"ann"``: the float blocks over the
-    embedding, pooled.  ``aimc_cfg`` is the programmed linears' Table-II
+    embedding, pooled.  ``sim`` is the weight mode and the Table-II
     configuration."""
-    check_ported(cfg)
+    check_ported(cfg, sim.wmode)
     keys = prng.split(rng, 4)  # embed, encode, blocks, head
-    x = linear(params["patch"], patchify(images, cfg.patch_size), aimc_cfg,
+    x = linear(params["patch"], patchify(images, cfg.patch_size), sim,
                keys[0]) + params["pos"]
     if cfg.mode == "ann":
         h = _run_blocks(params, x, cfg, keys[2], causal=False,
-                        backend=backend, aimc_cfg=aimc_cfg)
+                        backend=backend, sim=sim)
         pooled = torch.mean(h, dim=1)
     else:
         s = SP.rate_encode(keys[1], torch.sigmoid(x), cfg.T)
         s = _run_blocks(params, s, cfg, keys[2], causal=False,
-                        backend=backend)
+                        backend=backend, sim=sim)
         pooled = torch.mean(SP.rate_decode(s.to(torch.float32)), dim=1)
-    return linear(params["head"], pooled, aimc_cfg, keys[3])
+    return linear(params["head"], pooled, sim, keys[3])
 
 
 def gpt_forward(params: Dict[str, Any], feats: Tensor, cfg: SpikingConfig,
-                rng: Tensor, *, backend,
-                aimc_cfg: AIMCConfig = AIMCConfig()) -> Tensor:
+                rng: Tensor, *, backend, sim: AIMCSim = IDEAL_SIM) -> Tensor:
     """``feats [B,L,input_dim]`` -> logits ``[B,L,vocab]``: embed plus
     position, rate coding, the spiking blocks (causal SSA), firing rates,
     float head; ``"ann"``: the float blocks over the embedding."""
-    check_ported(cfg)
+    check_ported(cfg, sim.wmode)
     keys = prng.split(rng, 4)
     n = feats.shape[1]
-    x = linear(params["embed"], feats, aimc_cfg, keys[0]) + params["pos"][:n]
+    x = linear(params["embed"], feats, sim, keys[0]) + params["pos"][:n]
     if cfg.mode == "ann":
         h = _run_blocks(params, x, cfg, keys[2], causal=True,
-                        backend=backend, aimc_cfg=aimc_cfg)
+                        backend=backend, sim=sim)
     else:
         s = SP.rate_encode(keys[1], torch.sigmoid(x), cfg.T)
         s = _run_blocks(params, s, cfg, keys[2], causal=True,
-                        backend=backend)
+                        backend=backend, sim=sim)
         h = SP.rate_decode(s.to(torch.float32))
-    return linear(params["head"], h, aimc_cfg, keys[3])
+    return linear(params["head"], h, sim, keys[3])

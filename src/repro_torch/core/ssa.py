@@ -1,11 +1,20 @@
-"""The baseline attentions of the paper's comparison rows.
+"""The float attentions: differentiable SSA and the baseline rows.
 
-Twins of ``repro/core/ssa.py:40`` (``_causal_mask``) and ``:147-196``
-(``lif_spiking_attention``, the Spikformer-style LIF attention of the
-``"lif"`` rows, and ``ann_attention``, the softmax attention of the
-``"ann"`` rows).  Neither is a TPU kernel: plain tensor ops written as
-the reference writes them.  SSA itself (the ``"ssa"`` rows) is the
-backend's ``ssa_attention`` (K8).
+Twins of ``repro/core/ssa.py:40`` (``_causal_mask``), ``:44-90``
+(``ssa_attention``, the differentiable SSA of the reference backend, which
+training runs) and ``:147-196`` (``lif_spiking_attention``, the
+Spikformer-style LIF attention of the ``"lif"`` rows, and
+``ann_attention``, the softmax attention of the ``"ann"`` rows).  None is
+a TPU kernel: plain tensor ops written as the reference writes them.  SSA
+on the digital backends is the backend's ``ssa_attention`` (K8).
+
+The float SSA draws its uniforms from the threefry twin with the
+reference's keys (``split(key, 2T)``, two a timestep), so its spikes equal
+the reference's wherever its probabilities do.  Its counts are exact
+integers; ``/ d`` and ``/ N`` are XLA's products with the reciprocal (the
+reference's training step is jitted), and the output probability's clip
+is :func:`repro_torch.core.spikes.clip01` (gradient 0.5 at a tie, which a
+zero count is).  The sampler is straight-through.
 
 The LIF attention's spikes equal the reference's exactly.  Its membranes
 are updated in the reference's order, and its ``/ d`` and ``/ N`` are
@@ -19,6 +28,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
+from repro_torch.core import spikes as SP
+from repro_torch.core.aimc import mul_reciprocal
+
 Tensor = torch.Tensor
 
 
@@ -26,13 +39,25 @@ def _causal_mask(n: int, dtype=torch.float32, device=None) -> Tensor:
     return torch.tril(torch.ones((n, n), dtype=dtype, device=device))
 
 
-def mul_reciprocal(x: Tensor, c: float) -> Tensor:
-    """``x / c`` as XLA computes a division by a constant under ``jit``:
-    ``x * (1 / c)`` with the reciprocal rounded to float32 first (a
-    float32 division of CPU tensors, then a product with a float32-exact
-    scalar: no copy to the card)."""
-    r = torch.ones((), dtype=torch.float32) / torch.tensor(float(c))
-    return x * r.item()
+def ssa_attention(key: Tensor, q: Tensor, k: Tensor, v: Tensor, *,
+                  causal: bool = False) -> Tensor:
+    """Differentiable SSA over float spike trains ``[T, B, H, N, d]``:
+    per timestep ``S ~ Bern(Q K^T / d)`` (causal: masked), ``A ~ Bern(clip(S
+    V / N))``, both straight-through, ``S`` drawn from ``split(key,
+    2T)[2t]`` and ``A`` from ``[2t + 1]`` (every timestep at once: the
+    twin is vectorised over keys).  Returns spikes of ``q``'s dtype."""
+    t, b, h, n, d = q.shape
+    keys = prng.split(key, 2 * t).reshape(t, 2, 2)
+    counts_s = torch.einsum("tbhnd,tbhmd->tbhnm", q, k)
+    p_s = mul_reciprocal(counts_s, d)
+    if causal:
+        p_s = p_s * _causal_mask(n, q.dtype, q.device)
+    s = SP.bernoulli_st(p_s, prng.uniform(keys[:, 0], tuple(p_s.shape[1:])))
+    counts_a = torch.einsum("tbhnm,tbhmd->tbhnd", s, v)
+    # the output comparator's range is N in causal mode too (Sec. IV-B-2)
+    p_a = SP.clip01(mul_reciprocal(counts_a, n))
+    return SP.bernoulli_st(p_a, prng.uniform(keys[:, 1],
+                                             tuple(p_a.shape[1:])))
 
 
 def lif_spiking_attention(q: Tensor, k: Tensor, v: Tensor, *,

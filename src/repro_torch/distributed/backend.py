@@ -93,7 +93,13 @@ class ShardedBackend:
     operands are the rank's shards (:func:`repro_torch.convert.
     shard_params`)."""
 
+    differentiable = False
+    bit_exact = True
+
     def __init__(self, inner, mesh, cfg):
+        if not inner.bit_exact:
+            raise ValueError(f"the mesh shards a bit-exact backend, not "
+                             f"{inner.name!r}")
         self.inner = inner
         self.mesh = mesh
         self.cfg = cfg
@@ -149,7 +155,9 @@ class ShardedBackend:
 
     # -- tensor-parallel spiking linear --------------------------------
 
-    def spiking_linear(self, p, spikes, *, part=None):
+    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None):
+        """The rank's share of a spiking linear (the digital backends'
+        ``key`` and ``sim`` are ignored, as on one device)."""
         if part == "row" and self.plan.tp > 1:
             return self._row_linear(p, spikes)
         if part not in (None, "col", "row"):

@@ -5,7 +5,14 @@ Twins of ``repro.engine``, restricted to what the ported paths call:
 
 * :class:`Backend` -- ``spiking_linear``, ``ssa_attention`` and ``lif``
   (the paper models' primitives), ``decode_attention`` and
-  ``decode_layer_fused`` (serving);
+  ``decode_layer_fused`` (serving), each backend flagged
+  ``differentiable`` and ``bit_exact``;
+* ``"reference"`` (:class:`ReferenceBackend`) -- the float ops with
+  straight-through surrogates (``repro.engine.ReferenceBackend``): the
+  backend training runs under autograd, and the only one that simulates
+  the analog crossbar (HWAT's noise, programmed state's read noise and
+  ADC).  Plain PyTorch, no kernel; it has no ``decode_layer_fused``, so
+  serving runs it unfused;
 * ``"integer"`` (:class:`IntegerBackend`) -- the plain PyTorch versions
   (``kernels/ref.py``), mirroring ``repro.engine.IntegerBackend``: the
   bit-exact oracle;
@@ -45,6 +52,10 @@ from typing import Any, Dict, Optional, Protocol, Union
 import torch
 
 from repro_torch import aimc_device as AD
+from repro_torch import prng
+from repro_torch.core import aimc as AM
+from repro_torch.core import spikes as SP
+from repro_torch.core import ssa as SSA
 from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_fused as KFD
 from repro_torch.kernels import ops as KOPS
@@ -59,9 +70,16 @@ class Backend(Protocol):
 
     name: str
 
+    differentiable: bool
+    bit_exact: bool
+
     def spiking_linear(self, p: Any, spikes: Tensor, *,
+                       key: Optional[Tensor] = None, sim: Any = None,
                        part: Optional[str] = None) -> Tensor:
         """``LIF(W s^t + b)`` over a ``[T, ..., d_in]`` spike train.
+        ``key`` and ``sim`` (an :class:`repro_torch.core.
+        spiking_transformer.AIMCSim`) are the analog simulation's, which
+        only the reference backend runs; the digital backends ignore them.
         ``part`` (``"col"``/``"row"``) is the tensor-parallel hint a mesh
         backend reads (:mod:`repro_torch.distributed`); one device ignores
         it."""
@@ -140,6 +158,19 @@ def _triples(*ws):
     return [None if w is None else _w_triple(w) for w in ws]
 
 
+def _gather_paged_kv(q: Tensor, kpool: Tensor, vpool: Tensor,
+                     page_table: Tensor):
+    """Dense ``[T,B,H,L,d]`` K/V views of a paged pool, GQA-repeated to
+    ``q``'s heads: the float backend's paged decode reads the dense view."""
+    h, kv = q.shape[2], kpool.shape[2]
+    k = KOPS.gather_kv_pages(kpool, page_table)  # [T, B, KV, L, d]
+    v = KOPS.gather_kv_pages(vpool, page_table)
+    if kv != h:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+    return k, v
+
+
 def _flatten_time(spikes: Tensor):
     """``[T, *lead, d_in] -> ([T, M, d_in], unflatten)``."""
     t, lead, d_in = spikes.shape[0], spikes.shape[1:-1], spikes.shape[-1]
@@ -150,11 +181,88 @@ def _flatten_time(spikes: Tensor):
     return spikes.reshape(t, -1, d_in), unflatten
 
 
+class ReferenceBackend:
+    """Float ops with straight-through Bernoulli/Heaviside surrogates
+    (``repro.engine.ReferenceBackend``): the backend autograd trains
+    through, and the only one that applies the AIMC analog simulation
+    (``wmode="hwat"``'s noisy weights; programmed state's drift, read noise
+    and ADC).  Spikes come out as float tensors of the input's dtype."""
+
+    name = "reference"
+    differentiable = True
+    bit_exact = False
+
+    def ssa_attention(self, key, q, k, v, *, causal=False, b0=0, h0=0,
+                      batch=None, heads=None):
+        t, b, h = q.shape[:3]
+        if (b0, h0) != (0, 0) or batch not in (None, b) or heads not in (
+                None, h):
+            raise NotImplementedError(
+                "the float SSA draws the whole tile grid: a block of it "
+                "(a mesh rank's share) is not ported")
+        return SSA.ssa_attention(key, q, k, v, causal=causal)
+
+    def lif(self, currents, *, beta=0.5, v_thresh=1.0):
+        return SP.lif(currents, SP.LIFParams(beta=beta, v_thresh=v_thresh))
+
+    def decode_attention(self, view, q, spec, *, slot_keys):
+        """One query row per (slot, head): keys ``fold_in(slot_key, h0 +
+        h)`` split in two, the score and output uniforms drawn from them;
+        a paged view is gathered to the dense one."""
+        if view.paged:
+            k, v = _gather_paged_kv(q, view.k, view.v, view.page_table)
+        else:
+            k, v = view.k, view.v
+        t, b, h, n1, d = q.shape
+        heads = torch.arange(h, device=slot_keys.device) + spec.h0
+        kk = prng.split(prng.fold_in(slot_keys[:, None, :], heads))  # [B,H,2,2]
+        qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
+        counts_s = torch.einsum("tbhnd,tbhld->tbhnl", qf, kf)
+        p_s = AM.mul_reciprocal(counts_s, d)
+        u_s = prng.uniform(kk[:, :, 0], (t, n1, k.shape[3])).permute(
+            2, 0, 1, 3, 4)
+        s = SP.bernoulli_st(p_s, u_s)
+        counts_a = torch.einsum("tbhnl,tbhld->tbhnd", s, vf)
+        p_a = SP.clip01(AM.mul_reciprocal(counts_a, spec.i_max))
+        u_a = prng.uniform(kk[:, :, 1], (t, n1, d)).permute(2, 0, 1, 3, 4)
+        return SP.bernoulli_st(p_a, u_a)
+
+    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None):
+        """``LIF(pre + b)`` with the float LIF: ``pre = s^t @ w`` for float
+        weights (``sim.wmode == "hwat"``: HWAT's noisy weights from
+        ``key``); for programmed state the analog crossbar at the state's
+        clock, with the same read noise (``key``) at every timestep, as the
+        reference's ``vmap`` over ``T`` draws it."""
+        from repro_torch.core.spiking_transformer import IDEAL_SIM
+
+        sim = sim or IDEAL_SIM
+        p = _linear_parts(p)
+        if "hw" in p:
+            hw = p["hw"]
+            if not isinstance(hw, AD.AIMCDeviceState):
+                raise NotImplementedError(
+                    f"programmed {{'hw': dict}} leaves are not ported: {_A12}")
+            pre = torch.stack([AD.analog_matmul(key, zt, hw, sim.cfg)
+                               for zt in spikes])
+        else:
+            w = p["w"]
+            if sim.wmode == "hwat":
+                if key is None:
+                    raise ValueError("wmode='hwat' draws its noise from a key")
+                w = AM.hwat_weights(key, w, sim.cfg)
+            pre = torch.matmul(spikes, w)
+        if p.get("b") is not None:
+            pre = pre + p["b"]
+        return SP.lif(pre)
+
+
 class IntegerBackend:
     """The bit-exact oracle: plain PyTorch versions of every kernel, with
     the comparator draws of the reference's integer backend."""
 
     name = "integer"
+    differentiable = False
+    bit_exact = True
 
     def ssa_attention(self, key, q, k, v, *, causal=False, **tile):
         return KREF.ssa_attention_keyed_ref(q, k, v, key, causal=causal,
@@ -203,7 +311,7 @@ class IntegerBackend:
         return KREF.lif_counts_ref(counts, scale, bias, beta=beta,
                                    v_thresh=v_thresh)
 
-    def spiking_linear(self, p, spikes, *, part=None):
+    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None):
         p = _linear_parts(p)
         levels, scale = _levels_scale(p)
         flat, unflatten = _flatten_time(spikes)
@@ -224,6 +332,8 @@ class CudaBackend:
     Bit-exact vs :class:`IntegerBackend`."""
 
     name = "cuda"
+    differentiable = False
+    bit_exact = True
 
     def ssa_attention(self, key, q, k, v, *, causal=False, **tile):
         return KOPS.ssa_attention_packed(q, k, v, key, causal=causal, **tile)
@@ -259,7 +369,7 @@ class CudaBackend:
         return KOPS.lif_counts_fused(counts, scale, bias, beta=beta,
                                      v_thresh=v_thresh)
 
-    def spiking_linear(self, p, spikes, *, part=None):
+    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None):
         p = _linear_parts(p)
         levels, scale = _levels_scale(p)
         flat, unflatten = _flatten_time(spikes)
@@ -285,6 +395,8 @@ class MeteringBackend:
         self.inner = inner
         self.report = EM.EnergyReport()
         self.name = f"metered[{inner.name}]"
+        self.differentiable = False
+        self.bit_exact = inner.bit_exact
 
     @staticmethod
     def _count(x: Tensor) -> float:
@@ -304,10 +416,11 @@ class MeteringBackend:
         self.report.calls += 1
         return out
 
-    def spiking_linear(self, p, spikes, *, part=None):
+    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None):
         from repro_torch.energy import model as EM
 
-        out = self.inner.spiking_linear(p, spikes, part=part)
+        out = self.inner.spiking_linear(p, spikes, key=key, sim=sim,
+                                        part=part)
         t = spikes.shape[0]
         d_in, d_out = spikes.shape[-1], out.shape[-1]
         tokens = int(spikes.numel() // (t * d_in))
@@ -321,7 +434,8 @@ class MeteringBackend:
         return out
 
 
-BACKENDS = {"integer": IntegerBackend, "cuda": CudaBackend}
+BACKENDS = {"reference": ReferenceBackend, "integer": IntegerBackend,
+            "cuda": CudaBackend}
 
 
 def get_backend(spec: Union[str, Backend, None]) -> Backend:
@@ -341,16 +455,16 @@ class XpikeformerEngine:
     "vit"``) or GPT (``"gpt"``) of ``SPIKING_ARCHS``, run by
     :meth:`forward`, or a spiking GPT on the LM stack (``"lm"``), run by
     :meth:`forward` and served by :meth:`serve`.  Holds config, backend, device and params, and the
-    programmed-PCM settings (``wmode``: ``"ideal"`` float weights or
-    ``"hw"`` programmed state; ``aimc_cfg``; the device clock
-    ``t_seconds``)."""
+    programmed-PCM settings (``wmode``: ``"ideal"`` float weights,
+    ``"hwat"`` their noisy training forward or ``"hw"`` programmed state;
+    ``aimc_cfg``; the device clock ``t_seconds``)."""
 
     cfg: Any  # SpikingConfig (vit, gpt) or ModelConfig (lm)
     backend: Backend
     device: torch.device
     params: Any = None
     task: str = "lm"  # vit | gpt | lm
-    wmode: str = "ideal"  # ideal | hw
+    wmode: str = "ideal"  # ideal | hwat | hw
     aimc_cfg: Any = dataclasses.field(default_factory=AD.AIMCConfig)
     t_seconds: float = 0.0
     _schedulers: Dict[Any, Any] = dataclasses.field(
@@ -370,7 +484,8 @@ class XpikeformerEngine:
         :class:`SpikingConfig` is ``"gpt"`` when it has ``input_dim``, else
         ``"vit"``.  ``aimc_cfg`` (Table II by default) and ``t_seconds``
         (the device age :meth:`program` starts at) set the PCM lifecycle;
-        ``wmode="hwat"`` is training's and raises."""
+        ``wmode="hwat"`` (hardware-aware training's noisy forward) runs on
+        the reference backend, which alone simulates the analog weights."""
         from repro_torch.configs import ModelConfig, registry
         from repro_torch.configs.xpikeformer import SPIKING_ARCHS
         from repro_torch.core import spiking_transformer as ST
@@ -414,6 +529,14 @@ class XpikeformerEngine:
             init = ST.init_vit if self.task == "vit" else ST.init_gpt
             self.params = init(self.cfg, seed, self.device)
         return self.params
+
+    @property
+    def sim(self):
+        """The paper models' :class:`repro_torch.core.spiking_transformer.
+        AIMCSim`: the weight mode and the Table-II configuration."""
+        from repro_torch.core.spiking_transformer import AIMCSim
+
+        return AIMCSim(wmode=self.wmode, cfg=self.aimc_cfg)
 
     # -- the programmed-PCM lifecycle ------------------------------------
 
@@ -498,8 +621,7 @@ class XpikeformerEngine:
 
             fwd = ST.vit_forward if self.task == "vit" else ST.gpt_forward
             logits = fwd(params, x.to(self.device, torch.float32), self.cfg,
-                         rng.to(self.device), backend=backend,
-                         aimc_cfg=self.aimc_cfg)
+                         rng.to(self.device), backend=backend, sim=self.sim)
         if metering:
             return logits, backend.report
         return logits

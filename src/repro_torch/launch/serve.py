@@ -14,7 +14,8 @@ without ``--full`` it serves the reduced config (``--smoke`` says so
 explicitly); ``--pages N`` sizes the page pool (0, the default: ``slots *
 cache_len / page_len`` + 2 reserved pages; ``--n-pages`` is an alias);
 ``--backend pallas`` is the kernel backend (an alias of ``cuda``), and
-``--backend reference``, the float backend, is not ported yet.
+``--backend reference`` the float backend (plain PyTorch ops, float
+weights; it has no fused layer, so it decodes unfused).
 
 Serves ``--requests`` synthetic prompts (the reference CLI's prompts:
 ``randint(fold_in(PRNGKey(seed + 1), i), (4 + 3 * (i % 4),), 0, vocab)``)
@@ -58,11 +59,6 @@ BACKEND_ALIASES = {"pallas": "cuda"}
 
 
 def _backend(name: str) -> str:
-    if name == "reference":
-        raise NotImplementedError(
-            "--backend reference: the float reference backend is not ported "
-            "yet (ROADMAP queue A, item 2(a)); use cuda (alias pallas) or "
-            "integer")
     return BACKEND_ALIASES.get(name, name)
 
 
@@ -197,7 +193,7 @@ def parse_args(argv=None) -> Dict[str, Any]:
     ap.add_argument("--backend", default="cuda",
                     choices=["cuda", "integer", "pallas", "reference"],
                     help="cuda (alias pallas): the kernels; integer: their "
-                         "plain versions; reference: not ported yet")
+                         "plain versions; reference: the float backend")
     ap.add_argument("--decode-kernel", default="auto",
                     choices=["auto", "fused", "unfused"])
     ap.add_argument("--paged", action="store_true",

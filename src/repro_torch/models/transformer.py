@@ -8,8 +8,11 @@ Twin of the spiking branch of ``repro/models/transformer.py``:
   ``forward`` / ``_forward_spiking``, ``softmax_xent``, ``loss_fn`` and
   ``prefill``.  The reference's key chain is kept exactly: ``split(rng)``
   into the coding and block keys, ``split(k_blocks, n_blocks)``, then
-  ``split(key, period)`` a period, ``split(key)`` a block and
-  ``split(k1, 5)`` in its attention, whose ``[3]`` keys the SSA tile;
+  ``split(key, period)`` a period, ``split(key)`` a block, ``split(k1, 5)``
+  in its attention (Q, K, V, the SSA tile, out) and ``split(k2)`` in its
+  MLP.  On the reference backend (``"reference"``) the forward and loss
+  are differentiable (training, :mod:`repro_torch.train.loop`), and
+  ``remat`` recomputes each layer in the backward;
 * the decode step (lines 456-528, 536-767 and 770-946): the per-slot
   spike-train KV cache and the block-paged page pool, per-slot PRN keys
   ``f(seed, pos)``, Bernoulli rate coding, the unfused and fused
@@ -37,6 +40,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import aimc_device as AD
 from repro_torch import prng
@@ -229,12 +233,11 @@ def _take(tree, i: int):
 
 
 def _lin_operand(w, d_in: int):
-    """A spiking-linear weight operand: pre-quantised leaves pass through,
-    programmed state gives its image operands, float arrays reshape to the
-    ``[d_in, d_out]`` crossbar view."""
-    if isinstance(w, AD.AIMCDeviceState):
-        return device_operands(w)
-    if isinstance(w, dict):
+    """A spiking-linear weight operand: pre-quantised leaves and programmed
+    state pass through (a digital backend executes the state's drifted
+    image, the reference backend its analog simulation), float arrays
+    reshape to the ``[d_in, d_out]`` crossbar view."""
+    if isinstance(w, (AD.AIMCDeviceState, dict)):
         return w
     return w.to(torch.float32).reshape(d_in, -1)
 
@@ -244,28 +247,34 @@ def _lin_operand(w, d_in: int):
 # ---------------------------------------------------------------------------
 
 
-def _attention_key(key: Tensor) -> Tensor:
-    """The key a block hands its SSA tile: ``split(split(key)[0], 5)[3]``
-    (the block's other keys go to the linears and the MLP, which draw
-    nothing on the digital backends).  Vectorised over leading axes."""
-    return prng.split(prng.split(key)[..., 0, :], 5)[..., 3, :]
+def _layer_keys(key: Tensor) -> Tensor:
+    """A block's seven keys ``[..., 7, 2]`` from its key: ``split(split(key)
+    [0], 5)`` (Q, K, V, the SSA tile, attention-out) then ``split(split(key)
+    [1])`` (MLP in, MLP out), as the reference's block, attention and MLP
+    split them.  The digital backends' linears draw nothing; the reference
+    backend's read programmed state's noise from them.  Vectorised over
+    leading axes."""
+    k12 = prng.split(key)
+    return torch.cat([prng.split(k12[..., 0, :], 5),
+                      prng.split(k12[..., 1, :])], dim=-2)
 
 
-def _spiking_attention(params, s: Tensor, cfg, akey: Tensor, backend,
+def _spiking_attention(params, s: Tensor, cfg, keys: Tensor, backend,
                        tile: Optional[Dict[str, int]] = None) -> Tensor:
     """Attention over spike trains ``s [T,B,S,d]`` (paper Eq. 6): the
     Q/K/V spiking linears, GQA's repeat of the KV heads, the causal SSA
-    tile keyed ``akey`` (``attention_kind="lif"``: the LIF attention), and
-    the attention-out linear.  The heads are a caller's own (all of them
-    on one device, a mesh rank's share otherwise); ``tile`` places this
-    call's batch rows in the batch whose comparators are drawn."""
+    tile keyed ``keys[3]`` (``attention_kind="lif"``: the LIF attention),
+    and the attention-out linear.  The heads are a caller's own (all of
+    them on one device, a mesh rank's share otherwise); ``tile`` places
+    this call's batch rows in the batch whose comparators are drawn."""
     t, b, n, d = s.shape
     hd = cfg.resolved_head_dim
 
-    def proj(w):  # LIF(W s^t): spiking Q/K/V generation (Table I)
-        return backend.spiking_linear(_lin_operand(w, d), s, part="col")
+    def proj(w, i):  # LIF(W s^t): spiking Q/K/V generation (Table I)
+        return backend.spiking_linear(_lin_operand(w, d), s, key=keys[i],
+                                      part="col")
 
-    q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+    q, k, v = (proj(params[w], i) for i, w in enumerate(("wq", "wk", "wv")))
     h, kv = q.shape[-1] // hd, k.shape[-1] // hd
     if kv != h:  # GQA: repeat the KV spike heads across their group
         k, v = (x.view(t, b, n, kv, hd).repeat_interleave(h // kv, dim=3)
@@ -275,31 +284,32 @@ def _spiking_attention(params, s: Tensor, cfg, akey: Tensor, backend,
         a = SSA.lif_spiking_attention(qh.to(s.dtype), kh.to(s.dtype),
                                       vh.to(s.dtype), causal=True)
     else:
-        a = backend.ssa_attention(akey, qh, kh, vh, causal=True,
+        a = backend.ssa_attention(keys[3], qh, kh, vh, causal=True,
                                   **(tile or {}))
     a = SP.unheads(a)
     # LIF on the output projection (spiking neuron tile semantics)
     return backend.spiking_linear(_lin_operand(params["wo"], a.shape[-1]), a,
-                                  part="row")
+                                  key=keys[4], part="row")
 
 
-def _spiking_mlp(params, s: Tensor, backend) -> Tensor:
-    """``LIF(W2 LIF(W1 s^t))``: Table I's feed-forward row."""
+def _spiking_mlp(params, s: Tensor, keys: Tensor, backend) -> Tensor:
+    """``LIF(W2 LIF(W1 s^t))``: Table I's feed-forward row, keyed
+    ``keys[5]``, ``keys[6]``."""
     h = backend.spiking_linear(_lin_operand(params["wi"], s.shape[-1]), s,
-                               part="col")
+                               key=keys[5], part="col")
     return backend.spiking_linear(_lin_operand(params["wo"], h.shape[-1]), h,
-                                  part="row")
+                                  key=keys[6], part="row")
 
 
-def _block_spiking(params, s: Tensor, cfg, akey: Tensor, backend,
+def _block_spiking(params, s: Tensor, cfg, keys: Tensor, backend,
                    tile: Optional[Dict[str, int]] = None) -> Tensor:
-    """One spiking residual block over ``s [T,B,S,d]`` given its attention
-    key: residuals add spike trains directly (Table I: no inter-layer
-    normalisation)."""
-    s = s + _spiking_attention(params["mixer"], s, cfg, akey, backend,
+    """One spiking residual block over ``s [T,B,S,d]`` given its seven
+    keys (:func:`_layer_keys`): residuals add spike trains directly (Table
+    I: no inter-layer normalisation)."""
+    s = s + _spiking_attention(params["mixer"], s, cfg, keys, backend,
                                tile).to(s.dtype)
     if "norm2" in params:
-        s = s + _spiking_mlp(params["mlp"], s, backend).to(s.dtype)
+        s = s + _spiking_mlp(params["mlp"], s, keys, backend).to(s.dtype)
     return s
 
 
@@ -312,7 +322,7 @@ def _apply_block_spiking(params, s: Tensor, cfg, mixer: str, key: Tensor,
     new spike trains (no MoE: no auxiliary loss)."""
     if mixer not in ("attn", "local"):
         raise NotImplementedError(f"mixer {mixer!r} is not ported: {_A12}")
-    return _block_spiking(params, s, cfg, _attention_key(key), backend, tile)
+    return _block_spiking(params, s, cfg, _layer_keys(key), backend, tile)
 
 
 def _embed_inputs(params, batch: Dict[str, Tensor], cfg) -> Tensor:
@@ -338,14 +348,37 @@ def _block_keys(k_blocks: Tensor, cfg) -> Tensor:
     return torch.cat(out)
 
 
+def _remat_block(remat: str, backend):
+    """``remat`` as a wrapper of one layer: ``"none"`` runs it as it is;
+    ``"block"`` and ``"full"`` recompute it in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+    activations, where the reference wraps its period in
+    ``jax.checkpoint``.  Every draw is keyed, so the recomputation is
+    exact.  Where autograd records nothing, or the backend is not
+    differentiable, nothing is kept anyway."""
+    if remat not in ("none", "block", "full"):
+        raise ValueError(f"remat must be none|block|full, got {remat!r}")
+    if (remat == "none" or not torch.is_grad_enabled()
+            or not getattr(backend, "differentiable", False)):
+        return _block_spiking
+
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(_block_spiking, *args,
+                                                 use_reentrant=False)
+
+    return run
+
+
 def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
-                     backend, rows: Optional[Tuple[int, int]] = None
-                     ) -> Tensor:
+                     backend, rows: Optional[Tuple[int, int]] = None,
+                     remat: str = "none") -> Tensor:
     """The spiking forward up to the unembed: embed, rate coding, every
     block, rate decoding -> ``[B, S, d]`` in the model dtype.  ``rows =
     (b0, n)`` runs batch rows ``b0 .. b0+n`` only (a mesh rank's share):
     the coding draws at the whole batch's shape and the SSA tiles at the
     whole batch's grid, so the rows equal those of the whole batch.
+    ``remat`` (:func:`_remat_block`) trades a layer's kept activations for
+    its recomputation in training.
 
     The key chain runs on the host (a few tiny threefry calls, not a few
     hundred kernel launches); the keys move to the card once."""
@@ -362,40 +395,44 @@ def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
         b0, n = rows
         tile = {"b0": b0, "batch": s.shape[1]}
         s = s[:, b0:b0 + n]
-    akeys = _attention_key(_block_keys(k_blocks, cfg)).to(dev)
+    lkeys = _layer_keys(_block_keys(k_blocks, cfg)).to(dev)
+    block = _remat_block(remat, backend)
     layer = 0
     for p in range(cfg.num_periods):
         pp = _take(params["periods"], p)
         for i in range(cfg.period):
-            s = _block_spiking(pp[f"blk{i}"], s, cfg, akeys[layer], backend,
-                               tile)
+            s = block(pp[f"blk{i}"], s, cfg, lkeys[layer], backend, tile)
             layer += 1
     for i in range(cfg.remainder_layers):
-        s = _block_spiking(params["remainder"][f"blk{i}"], s, cfg,
-                           akeys[layer], backend, tile)
+        s = block(params["remainder"][f"blk{i}"], s, cfg, lkeys[layer],
+                  backend, tile)
         layer += 1
     # rate-decode the stream (paper: loss on the time-averaged output)
     return SP.rate_decode(s.to(torch.float32)).to(model_dtype(cfg))
 
 
-def _forward_spiking(params, batch, cfg, *, rng, backend):
+def _forward_spiking(params, batch, cfg, *, rng, backend,
+                     remat: str = "none"):
     """Spiking forward: rate-encode, spiking blocks over T, rate-decode,
     unembed -> ``(logits [B,S,V], aux 0)``."""
-    x = spiking_features(params, batch, cfg, rng=rng, backend=backend)
+    x = spiking_features(params, batch, cfg, rng=rng, backend=backend,
+                         remat=remat)
     return _unembed(params, x, cfg), torch.zeros((), device=x.device)
 
 
 def forward(params, batch: Dict[str, Tensor], cfg, *,
-            rng: Optional[Tensor] = None, backend=None
+            rng: Optional[Tensor] = None, backend=None, remat: str = "block"
             ) -> Tuple[Tensor, Tensor]:
     """Train/prefill forward: ``batch["tokens"] [B,S]`` -> ``(logits
     [B,S,V], aux)``; ``aux`` (MoE's load-balancing loss) is zero.
     ``backend`` defaults to the CUDA one (:func:`repro_torch.engine.
-    get_backend`)."""
+    get_backend`); the reference backend (``"reference"``) is the one
+    autograd trains through.  ``remat`` applies where autograd records
+    (:func:`_remat_block`)."""
     from repro_torch.engine import get_backend
 
     return _forward_spiking(params, batch, cfg, rng=rng,
-                            backend=get_backend(backend))
+                            backend=get_backend(backend), remat=remat)
 
 
 def softmax_xent(logits: Tensor, targets: Tensor,
@@ -412,14 +449,15 @@ def softmax_xent(logits: Tensor, targets: Tensor,
 
 
 def loss_fn(params, batch, cfg, *, rng: Optional[Tensor] = None,
-            aux_weight: float = 0.01, backend=None
+            aux_weight: float = 0.01, backend=None, remat: str = "block"
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Next-token loss of ``batch["tokens"] [B, S+1]`` (inputs all but the
     last, targets all but the first; ``batch["mask"]`` optional) ->
-    ``(loss, {"xent", "moe_aux"})``."""
+    ``(loss, {"xent", "moe_aux"})``; differentiable on the reference
+    backend."""
     _require_spiking_stack(cfg)
     logits, aux = forward(params, {"tokens": batch["tokens"][:, :-1]}, cfg,
-                          rng=rng, backend=backend)
+                          rng=rng, backend=backend, remat=remat)
     xent = softmax_xent(logits, batch["tokens"][:, 1:], batch.get("mask"))
     return xent + aux_weight * aux, {"xent": xent, "moe_aux": aux}
 
@@ -431,7 +469,8 @@ def prefill(params, batch, cfg, *, rng: Optional[Tensor] = None,
     ``prefill`` passes no rng to ``forward``, so a spiking config fails
     its assertion there; this one takes the rng and the backend the
     spiking forward needs."""
-    return forward(params, batch, cfg, rng=rng, backend=backend)
+    return forward(params, batch, cfg, rng=rng, backend=backend,
+                   remat="none")
 
 
 # ---------------------------------------------------------------------------

@@ -164,5 +164,31 @@ def normal(key: Tensor, shape: Tuple[int, ...]) -> Tensor:
     (``jax._src.random._normal_real``).  The uniform is JAX's bit for bit;
     ``torch.erfinv`` and XLA's ``erf_inv`` are different approximations,
     so the normals agree with JAX's to a few float32 ulps, not exactly."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return torch.erfinv(u) * math.sqrt(2.0)
+    return normal_erfinv(key, shape) * math.sqrt(2.0)
+
+
+def normal_erfinv(key: Tensor, shape: Tuple[int, ...]) -> Tensor:
+    """``erf_inv(u)`` of :func:`normal`'s uniform, before the ``sqrt(2)``
+    (for callers that fold that factor as XLA does)."""
+    return torch.erfinv(uniform(key, shape, _NORMAL_LO, 1.0))
+
+
+# the smallest normal float32, gumbel's lower bound (``finfo.tiny``)
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(key: Tensor, shape: Tuple[int, ...]) -> Tensor:
+    """``jax.random.gumbel(key, shape, jnp.float32)`` in its default
+    ``"low"`` mode: ``-log(-log(u))`` of a uniform on ``[tiny, 1)``.  The
+    uniform is JAX's bit for bit; the two logs are float boundaries, so
+    the values agree with JAX's to a few float32 ulps."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0)))
+
+
+def categorical(key: Tensor, logits: Tensor, axis: int = -1) -> Tensor:
+    """``jax.random.categorical(key, logits, axis)``: the Gumbel-max
+    sample, ``argmax(gumbel(key, logits.shape) + logits, axis)`` (the
+    first index of a tie, as ``jnp.argmax``)."""
+    lead = key.shape[:-1]
+    g = gumbel(key, tuple(logits.shape[len(lead):]))
+    return torch.argmax(g + logits, dim=axis)

@@ -200,6 +200,15 @@ class BatchScheduler:
         self.set_params(params)
         self.reset()
 
+    def _operands(self, tree: Any) -> Any:
+        """The step's weight operands: a digital backend's quantised once
+        (:func:`repro_torch.models.transformer.quantize_params`); the float
+        reference backend reads the weights (and programmed state) as they
+        are, as the reference's does."""
+        if getattr(self.backend, "differentiable", False):
+            return tree
+        return T.quantize_params(tree, self.cfg)
+
     def set_params(self, params: Any) -> None:
         """Serve ``params`` (e.g. a newly programmed tree): place them on
         the device, derive the step's operands, and read the device clock
@@ -207,7 +216,7 @@ class BatchScheduler:
         does not rejuvenate)."""
         self.source_params = params
         self._state_params = _to_device(params, self.device)
-        self.params = T.quantize_params(self._state_params, self.cfg)
+        self.params = self._operands(self._state_params)
         self.programmed = AD.has_device_state(params)
         self._t_device = AD.device_time(params)
         self._last_recal = self._t_device
@@ -676,7 +685,7 @@ class BatchScheduler:
                 self._last_recal = self._t_device
                 self.stats.recalibrations += 1
             self.source_params = self._state_params = tree
-            self.params = T.quantize_params(tree, self.cfg)
+            self.params = self._operands(tree)
         self.stats.t_device_s = self._t_device
 
     def run(self) -> Dict[int, List[int]]:

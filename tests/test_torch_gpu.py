@@ -1198,3 +1198,52 @@ def test_lm_forward_on_the_card_equals_the_plain_backend(cuda, change):
     ploss, _ = T.loss_fn(params, {"tokens": tokens}, cfg, rng=key,
                          backend="integer")
     assert float(loss) == float(ploss)
+
+
+def test_reference_train_step_on_the_card_equals_the_cpu(cuda):
+    """One CT step and one HWAT step of the paper GPT (smoke config)
+    through the float reference backend and AdamW, on the card and on
+    the host from the same weights, batch and key (TF32 off): the losses
+    within 1e-4, the updated weights within 1e-6 but for at most 0.1% of
+    them, and those within twice the learning rate (a first Adam step
+    moves a weight by about ``lr * sign(g)``: a gradient near zero may
+    change sign with the sum order); and one LM train step with two
+    microbatches and int8 state, its loss within 1e-4."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.optim import adamw as A
+    from repro_torch.train import hwat as H
+    from repro_torch.train import loop as L
+    from repro_torch import tree as TR
+    from repro_torch.core.spiking_transformer import AIMCSim, init_gpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SPIKING_ARCHS["xpikeformer-gpt-smoke"][1]
+    batch = MIMO.sample_batch(3, MIMO.MIMOConfig(), 8)
+    opt = A.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    for wmode in ("ideal", "hwat"):
+        out = {}
+        for dev in ("cpu", cuda):
+            params = init_gpt(cfg, 0, dev)
+            step = H.make_step(H.model_forward(cfg, "gpt"), opt,
+                               AIMCSim(wmode=wmode))
+            p, _, loss = step(params, A.init_opt_state(params, opt),
+                              {k: v.to(dev) for k, v in batch.items()},
+                              prng.PRNGKey(5))
+            out[str(dev)] = (float(loss), [x.cpu() for x in TR.flatten(p)[0]])
+        (lc, pc), (lg, pg) = out["cpu"], out[str(cuda)]
+        assert np.isfinite(lg) and abs(lg - lc) <= 1e-4, (wmode, lg, lc)
+        d = torch.cat([torch.abs(a - b).flatten() for a, b in zip(pc, pg)])
+        assert float(d.max()) <= 2 * opt.lr
+        assert float((d > 1e-6).float().mean()) <= 1e-3
+    lcfg = reduced_config("xpikeformer-gpt-4-256")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 64, (4, 17)))
+    par = ParallelConfig(microbatches=2)
+    iopt = A.AdamWConfig(lr=1e-3, state_dtype="int8", warmup_steps=1)
+    res = {}
+    for dev in ("cpu", cuda):
+        params, state = L.init_state(0, lcfg, iopt, par, device=dev)
+        _, _, m = L.make_train_step(lcfg, par, iopt)(
+            params, state, {"tokens": tokens.to(dev)}, prng.PRNGKey(2))
+        res[str(dev)] = float(m["loss"])
+    assert abs(res["cpu"] - res[str(cuda)]) <= 1e-4

@@ -150,7 +150,7 @@ def _case(name):
     return dict(name=name, jcfg=jcfg, tcfg=tcfg, jparams=jparams,
                 long_tokens=long_tokens, losses=losses,
                 tparams=convert.params_from_numpy(
-                    jax.tree.map(np.asarray, jparams)),
+                    jax.tree.map(np.asarray, jparams), device="cpu"),
                 tokens=tokens, jrng=jrng,
                 trng=_t(np.asarray(jrng).astype(np.int64)), ins=ins,
                 outs=outs, bkeys=bkeys, k_blocks=k_blocks,
@@ -289,7 +289,8 @@ def test_programmed_forward_equals_jax():
     jrng = jax.random.PRNGKey(5)
     ins, outs, _, k_blocks, jlogits = _jax_blocks(jcfg)(
         jhw, jnp.asarray(tokens), jrng)
-    thw = convert.params_from_numpy(jax.tree.map(np.asarray, jhw))
+    thw = convert.params_from_numpy(jax.tree.map(np.asarray, jhw),
+                                    device="cpu")
     keys = T._block_keys(_t(np.asarray(k_blocks).astype(np.int64)), tcfg)
     for layer, (s_in, want) in enumerate(zip(ins, outs)):
         got = T._apply_block_spiking(_layer_params(thw, tcfg, layer),

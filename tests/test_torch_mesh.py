@@ -90,7 +90,8 @@ def _eq(got, want, what=""):
 def setup():
     cfg = JR.reduced_config(ARCH)
     jparams = JT.init_params(jax.random.PRNGKey(0), cfg)
-    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        device="cpu")
     return cfg, R.reduced_config(ARCH), jparams, tparams
 
 
@@ -101,7 +102,8 @@ def programmed(setup):
     cfg, tcfg, jparams, _ = setup
     jacfg = JAD.AIMCConfig(**LOW_SCATTER)
     jhw = JAD.program_lm_tree(jax.random.PRNGKey(42), jparams, jacfg)
-    thw = convert.params_from_numpy(jax.tree.map(np.asarray, jhw))
+    thw = convert.params_from_numpy(jax.tree.map(np.asarray, jhw),
+                                    device="cpu")
     return jhw, thw, jacfg, AD.AIMCConfig(**LOW_SCATTER)
 
 

@@ -132,7 +132,8 @@ def _setup(name, mode):
                             3)["images"].numpy()
     else:
         x = MIMO.sample_batch(5, MIMO.MIMOConfig(), 3)["features"].numpy()
-    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        device="cpu")
     return task, jcfg, tcfg, jparams, tparams, x
 
 

@@ -82,7 +82,8 @@ def _eq(got, want):
 def setup():
     cfg = JR.reduced_config(ARCH)
     jparams = JT.init_params(jax.random.PRNGKey(0), cfg)
-    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        device="cpu")
     return cfg, R.reduced_config(ARCH), jparams, tparams
 
 
@@ -174,7 +175,7 @@ def _random_paged_states(cfg, tcfg, rng, n_pages=6):
         getattr(jst, f) for f in ("page_table", "pos", "tokens", "seeds",
                                   "active")))
     tst = ST.init_paged_state(tcfg, 1, 32, 8, n_pages, "cpu")
-    tst.pool = convert.params_from_numpy(pool)
+    tst.pool = convert.params_from_numpy(pool, device="cpu")
     return jst, tst
 
 
@@ -455,7 +456,7 @@ def test_paged_decode_step_matches_reference(setup, kernel):
         jnp.asarray(tok), jnp.asarray(pos, jnp.int32), jnp.asarray(seeds),
         jnp.asarray(write))
     tbe = get_backend("cuda")
-    tpool = convert.params_from_numpy(pool)
+    tpool = convert.params_from_numpy(pool, device="cpu")
     tl, tpool2, tact = T.paged_decode_step(
         tparams, tpool, _t(table), _t(tok.astype(np.int64)), _t(args[1]),
         _t(seeds.astype(np.int64)), _t(write), tcfg, backend=tbe,

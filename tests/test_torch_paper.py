@@ -253,7 +253,8 @@ def test_forward_equals_jax_integer_backend(case):
         jparams, jnp.asarray(x), jrng)
     jlogits = np.asarray(jlogits)
 
-    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        device="cpu")
     for backend in ("integer", "cuda"):
         eng = XpikeformerEngine.from_config(tcfg, backend=backend,
                                             device="cpu")
@@ -334,7 +335,8 @@ def test_from_config_resolution_edges():
                                             task="lm", reduced=True)
     assert dataclasses.asdict(red.cfg) == dataclasses.asdict(jred.cfg)
     with pytest.raises(KeyError):
-        XpikeformerEngine.from_config("xpikeformer-vit", task="lm", device="cpu")
+        XpikeformerEngine.from_config("xpikeformer-vit", task="lm",
+                         device="cpu")
     with pytest.raises(KeyError):
         XpikeformerEngine.from_config("no-such-arch", device="cpu")
     gcfg = X.SPIKING_ARCHS["xpikeformer-gpt-smoke"][1]
@@ -355,10 +357,11 @@ def test_paper_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_modes_raise():
-    """Hardware-aware training's noisy forward (A11) and legacy ``{"hw":
-    dict}`` leaves (A12) raise, naming their ROADMAP item; the baseline
-    modes (A7, ``tests/test_torch_modes.py``) and the LM stack's forward
-    (A1, ``tests/test_torch_lm_forward.py``) run, and so does the
+    """Legacy ``{"hw": dict}`` leaves (A12) raise, naming their ROADMAP
+    item; hardware-aware training's noisy forward (A11, ported: held to the
+    reference in ``tests/test_torch_train.py``), the baseline modes (A7,
+    ``tests/test_torch_modes.py``) and the LM stack's forward (A1,
+    ``tests/test_torch_lm_forward.py``) run, and so does the
     programmed-PCM lifecycle (A8, ``tests/test_torch_pcm.py``)."""
     vcfg = X.SPIKING_ARCHS["xpikeformer-vit-smoke"][1]
     for mode in ("ann", "lif"):
@@ -368,11 +371,15 @@ def test_unported_modes_raise():
         out = beng.forward(torch.zeros((1, 16, 16, 3)), prng.PRNGKey(0))
         assert out.shape == (1, vcfg.num_classes)
         assert bool(torch.isfinite(out).all())
-    with pytest.raises(NotImplementedError, match="A11"):
-        XpikeformerEngine.from_config(vcfg, wmode="hwat", device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        XpikeformerEngine.from_config("xpikeformer-gpt-4-256", task="lm",
-                                      reduced=True, wmode="hwat", device="cpu")
+    heng = XpikeformerEngine.from_config(vcfg, wmode="hwat",
+                                         backend="reference", device="cpu")
+    heng.init(0)
+    out = heng.forward(torch.zeros((1, 16, 16, 3)), prng.PRNGKey(0))
+    assert out.shape == (1, vcfg.num_classes)
+    assert bool(torch.isfinite(out).all())
+    assert XpikeformerEngine.from_config(
+        "xpikeformer-gpt-4-256", task="lm", reduced=True, wmode="hwat",
+        device="cpu").wmode == "hwat"
     eng = XpikeformerEngine.from_config(vcfg, wmode="hw", device="cpu")
     assert eng.wmode == "hw"
     eng.init(0)
@@ -420,7 +427,8 @@ def test_params_have_the_jax_tree(name):
     assert all(x.dtype == torch.float32 for x in jax.tree.leaves(params))
     if name.endswith("smoke"):
         jparams = jax.jit(lambda k: jinit(k, jcfg))(jax.random.PRNGKey(0))
-        conv = convert.params_from_numpy(jax.tree.map(np.asarray, jparams))
+        conv = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                         device="cpu")
         assert _shapes(conv) == want
         _eq(conv["blocks"][0]["wq"]["w"], jparams["blocks"][0]["wq"]["w"])
 

@@ -323,7 +323,7 @@ def test_program_tree_keys_equal_jax(name):
     jk, tk = _key(21)
     jprog = jax.jit(JAD.program_tree, static_argnums=2)(jk, jparams, JCFG)
     tprog = AD.program_tree(tk, _reversed_dicts(convert.params_from_numpy(
-        jax.tree.map(np.asarray, jparams))), TCFG)
+        jax.tree.map(np.asarray, jparams), device="cpu")), TCFG)
     jstates, tstates = _states(jprog), AD.device_states(tprog)
     assert len(tstates) == len(jstates) == 2 + 6 * jcfg.depth
     for i, (g, w) in enumerate(zip(tstates, jstates)):
@@ -338,7 +338,7 @@ def test_program_lm_tree_keys_equal_jax(programmed_lm):
     jparams = JT.init_params(jax.random.PRNGKey(0), cfg)
     tprog = AD.program_lm_tree(
         prng.PRNGKey(42), convert.params_from_numpy(
-            jax.tree.map(np.asarray, jparams)), AD.AIMCConfig(**LOW_SCATTER))
+            jax.tree.map(np.asarray, jparams), device="cpu"), AD.AIMCConfig(**LOW_SCATTER))
     n = 0
     for group in ("periods", "remainder"):
         for bk in jprog.get(group, {}):
@@ -364,7 +364,8 @@ def test_lifecycle_exact_on_jax_state():
     cfg = JR.reduced_config("xpikeformer-gpt-4-256")
     jparams = JT.init_params(jax.random.PRNGKey(0), cfg)
     jprog = JAD.program_lm_tree(jax.random.PRNGKey(7), jparams, JCFG)
-    tprog = convert.params_from_numpy(jax.tree.map(np.asarray, jprog))
+    tprog = convert.params_from_numpy(jax.tree.map(np.asarray, jprog),
+                                      device="cpu")
     assert AD.has_device_state(tprog) and AD.device_time(tprog) == 0.0
     for t in TIMES[1:]:
         jd = JAD.recalibrate_tree(JAD.drift_tree(jprog, t, JCFG), JCFG)
@@ -417,7 +418,8 @@ def test_grouped_fold_and_tree_gdc_equal_jax(n_leaves, monkeypatch):
     launches no kernel."""
     _jax_factor_patch(monkeypatch)
     jtree = _jax_state_tree(n_leaves)
-    ttree = convert.params_from_numpy(jax.tree.map(np.asarray, jtree))
+    ttree = convert.params_from_numpy(jax.tree.map(np.asarray, jtree),
+                                      device="cpu")
     launches = KB.LAUNCHES["drift_requantize"]
 
     def same(got, want, what):
@@ -550,7 +552,8 @@ def test_programmed_forward_equals_jax_integer_backend(name):
         elif stage == "recalibrated":
             jparams = JAD.recalibrate_tree(jparams, jacfg)
         js_in, js_out, jlogits = run(jparams, jnp.asarray(x), jrng)
-        tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams))
+        tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                            device="cpu")
         for eng in engines:
             s_out = ST._run_blocks(tparams, _t(js_in), tcfg,
                                    prng.split(trng, 4)[2],
@@ -602,7 +605,8 @@ def test_forward_metering_equals_jax():
     jrng, trng = _key(4)
     jeng = JE.XpikeformerEngine.from_config(jcfg, backend="integer")
     jlogits, jrep = jeng.forward(jnp.asarray(x), jrng, jparams, metering=True)
-    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        device="cpu")
     eng = XpikeformerEngine.from_config(tcfg, backend="cuda", device="cpu")
     logits, rep = eng.forward(_t(x), trng, tparams, metering=True)
     assert torch.equal(logits, eng.forward(_t(x), trng, tparams))
@@ -630,7 +634,8 @@ def programmed_lm():
     jacfg = JAD.AIMCConfig(**LOW_SCATTER)
     jhw = jax.jit(JAD.program_lm_tree, static_argnums=2)(
         jax.random.PRNGKey(42), jparams, jacfg)
-    thw = convert.params_from_numpy(jax.tree.map(np.asarray, jhw))
+    thw = convert.params_from_numpy(jax.tree.map(np.asarray, jhw),
+                                    device="cpu")
     return cfg, R.reduced_config("xpikeformer-gpt-4-256"), jhw, thw, jacfg
 
 

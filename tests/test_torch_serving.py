@@ -56,7 +56,8 @@ LOGITS_ATOL = 1e-4
 def setup():
     cfg = JR.reduced_config(ARCH)
     jparams = JT.init_params(jax.random.PRNGKey(0), cfg)
-    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                        device="cpu")
     return cfg, R.reduced_config(ARCH), jparams, tparams
 
 
@@ -384,3 +385,26 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                          timeout=120)
     assert run.returncode != 0
     assert '"ok"' not in run.stdout
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_reference_backend_serving_equals_jax(setup, paged):
+    """``--backend reference`` (the float backend, float weights, unfused)
+    serves JAX's reference-backend token streams, dense and paged."""
+    from repro.engine import ReferenceBackend as JReferenceBackend
+
+    cfg, tcfg, jparams, tparams = setup
+    prompts = [[5, 7, 9, 11], [3, 1], [2, 4, 6, 8, 10, 12], [9]]
+    kw = dict(slots=2, cache_len=24)
+    if paged:
+        kw.update(paged=True, page_len=4)
+    jsch = JBatchScheduler(jparams, cfg, JReferenceBackend(), **kw)
+    tsch = BatchScheduler(tparams, tcfg, get_backend("reference"),
+                          device="cpu", **kw)
+    assert not tsch.plan.fused
+    outs = []
+    for sch in (jsch, tsch):
+        rids = [sch.submit(p, 4, seed=i) for i, p in enumerate(prompts)]
+        res = sch.run()
+        outs.append([list(res[r]) for r in rids])
+    assert outs[0] == outs[1]
