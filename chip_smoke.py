@@ -63,6 +63,36 @@ Phases, each printing one JSON line:
    the requests must launch K7 once per layer and step and give the same
    tokens, and three profiled steps of 8 busy slots on that plan fewer
    than 2,000 kernels a step (the keyed K7 draws on the card).
+   **front_door** -- the serving front door and its telemetry
+   (``repro_torch.server``, ``repro_torch.obs``) over the same model, dense
+   then paged.  (a) Phase 3's / 4's requests served again the same way
+   with a telemetry bundle attached (metrics, tracer, flight recorder; no
+   profiler), then detached: the tokens, every request's metered joules
+   and every kernel's launches must equal the direct run's both times.
+   It prints tokens/s and ``decode_step_ms`` of the three runs (phase
+   3/4's without telemetry, with, without), ``obs_overhead_rel`` (with
+   over the run without that follows it) beside the two runs without
+   telemetry's spread, and the host seconds the telemetry itself took
+   (every trace event and per-step hook timed).  (b) The same requests
+   through ``HttpFrontDoor`` on 127.0.0.1, all at once, as three tenants:
+   ``interactive`` at priority 0, ``batch`` and ``metered`` at 1;
+   ``metered`` holds a joule bucket of a quarter of its cheapest
+   request's metered energy, ``preempt=True`` and no refill until its
+   first preemption, when an operator loop turns on a refill of 50 times
+   the direct run's joules a second.  Every SSE stream must equal the
+   direct run's stream token for token; the metered tenant, and only it,
+   must be preempted and re-admitted; every other request must book the
+   direct run's joules exactly (paged: where its prefix-cache hits equal
+   the direct run's); K3 (dense, and K1/K2 a prefill position) / K9
+   (paged) must run on every step; a ``GET /metrics`` scrape mid-run and
+   after must parse, the latter's ``decoded_tokens_total`` and
+   ``energy_joules_total`` equal to ``ServeStats``.  The run's telemetry
+   holds a ``StepProfiler(3)`` window over decode steps 1-3, opened and
+   closed in the pump thread (the ``--http --profile-steps`` path): it
+   must end ``done`` and its Chrome trace hold 4 K3 (dense) / K9 (paged)
+   launches a step.  It prints TTFT p50/p99 and tokens/s through HTTP
+   beside the direct run's (and less the window's own host seconds), and
+   the admission records' counts.
    **lm_forward** -- the LM stack's full-sequence forward:
    ``xpikeformer-gpt-4-256`` (4 layers, ``d=256``, 4 heads of 64,
    ``d_ff=1024``, vocab 64, ``T=4``) and ``xpikeformer-gpt-8-512`` (8
@@ -228,9 +258,11 @@ import collections
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -248,6 +280,8 @@ T0 = 20.0  # PCM drift reference time (Table II)
 K6_OPS = 11
 REPS, BATCH, WARMUP = 9, 20, 5
 HOST_CALLS = 1000
+# launches that open each device_ms profiler session, ahead of the timed ones
+LEAD_IN = 16
 # the live length of the keyed K2's timed prefill row: the middle of the
 # serve phases' 8-32-token prompts
 PREFILL_POS = 20
@@ -313,8 +347,11 @@ def device_ms(fn, kernel: str, calls: int = BATCH) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # a lead-in launch: a session can miss the first one it sees
-            torch.ones(1, device="cuda").add_(1)
+            # lead-in launches (ATen's spin_kernel, left out of the busy
+            # time): a session can miss the first few launches it sees,
+            # more of them as a run's sessions accumulate
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
             a.record()
             t0 = time.perf_counter()
@@ -325,7 +362,8 @@ def device_ms(fn, kernel: str, calls: int = BATCH) -> float:
             torch.cuda.synchronize()
         events_ms = a.elapsed_time(b) / calls
         dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.key]
         ks = [e for e in dev if kernel in e.key]
         n = sum(e.count for e in ks)
         if n != calls:
@@ -1666,6 +1704,12 @@ def drive(sch, prompts, max_new: int, wave: int = 4, gap: int = 8):
     return [out[r] for r in rids], time.perf_counter() - t0
 
 
+def request_energies(sch) -> list:
+    """The metered joules of each request of the scheduler's run since
+    its last reset, in submission order."""
+    return [sch.request_energy_j[r] for r in sorted(sch.request_energy_j)]
+
+
 def profile_window(fn) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, the card's busy
     time (sum of kernel times; one stream, so they do not overlap), the
@@ -1715,6 +1759,7 @@ def phase_serve(dev):
     KB.reset_launches()
     outs, wall_s = drive(sch, prompts, max_new)
     launches = dict(KB.LAUNCHES)
+    energy = request_energies(sch)
     st = sch.stats
     layers = cfg.num_layers
     check(st.admissions == len(prompts) and st.evictions == len(prompts),
@@ -1739,7 +1784,8 @@ def phase_serve(dev):
         tokens_per_s=st.decoded_tokens / wall_s,
         decode_tokens_per_s=st.decode_tokens_per_sec,
         decode_step_ms=1e3 * st.decode_s / st.decode_steps,
-        prefill_token_ms=1e3 * st.prefill_s / st.prefill_tokens)
+        prefill_token_ms=1e3 * st.prefill_s / st.prefill_tokens,
+        request_energy_j=energy)
 
     # where a step's time goes: one admission (15 prefill positions), then
     # three decode steps of 8 busy slots
@@ -1826,6 +1872,7 @@ def phase_paged(dev, eng):
     KB.reset_launches()
     outs, wall_s = drive(sch, prompts, max_new)
     launches = dict(KB.LAUNCHES)
+    energy = request_energies(sch)
     st = sch.stats
     check(st.admissions == len(prompts) and st.evictions == len(prompts),
           "paged: not every request was admitted and evicted")
@@ -1847,7 +1894,8 @@ def phase_paged(dev, eng):
         cow_copies=st.cow_copies, pages_in_use_peak=st.pages_in_use_peak,
         peak_active_slots=st.peak_active_slots, wall_s=wall_s,
         decode_s=st.decode_s, tokens_per_s=st.decoded_tokens / wall_s,
-        decode_step_ms=1e3 * st.decode_s / st.decode_steps)
+        decode_step_ms=1e3 * st.decode_s / st.decode_steps,
+        request_energy_j=energy)
 
     # where a step's time goes: three steps of 8 busy slots
     sch.reset()
@@ -1900,6 +1948,372 @@ def phase_paged(dev, eng):
           f"an unfused paged step launched {served['unfused_kernels_per_step']}"
           " kernels (the keyed K7 draws on the card)")
     return launches, ulaunches, served, outs
+
+
+# ---------------------------------------------------------------------------
+# Phase front_door: the HTTP/SSE front door and the telemetry
+# ---------------------------------------------------------------------------
+
+
+FD_TENANTS = ("interactive", "batch", "metered")  # request i: i % 3
+FD_PROFILE_STEPS = 3
+# one Prometheus text 0.0.4 sample: series (name and labels), value
+PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|'
+    r'\\.)*"(,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*")*\})?) '
+    r'(-?(\d+(\.\d+)?([eE][+-]?\d+)?|\+Inf|inf|nan))$')
+
+
+def parse_prometheus(text: str) -> dict:
+    """Prometheus text 0.0.4 -> {series: value}; raises on a line that is
+    neither a HELP/TYPE comment nor a well-formed sample."""
+    check(text.endswith("\n"), "a /metrics scrape does not end in a newline")
+    out = {}
+    for line in text.rstrip("\n").split("\n"):
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            continue
+        m = PROM_SAMPLE.match(line)
+        check(m is not None, f"malformed /metrics line: {line!r}")
+        out[m.group(1)] = float(m.group(4))
+    return out
+
+
+async def http_call(host: str, port: int, path: str, body=None):
+    """One HTTP/1.1 request over a socket: ``GET path`` returns the raw
+    response; with a JSON ``body``, ``POST path`` reads its SSE stream and
+    returns (token ids, the done payload)."""
+    import asyncio
+
+    from repro_torch.server import read_sse
+
+    reader, writer = await asyncio.open_connection(host, port)
+    if body is None:
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: {host}\r\n\r\n".encode())
+    else:
+        data = json.dumps(body).encode()
+        writer.write((f"POST {path} HTTP/1.1\r\nHost: {host}\r\n"
+                      f"Content-Length: {len(data)}\r\n\r\n").encode() + data)
+    await writer.drain()
+    if body is None:
+        out = await reader.read()
+    else:
+        toks, done = [], None
+        async for ev, payload in read_sse(reader):
+            check(ev in ("token", "done"), f"SSE event {ev}: {payload}")
+            if ev == "token":
+                check(payload["index"] == len(toks), "SSE tokens out of order")
+                toks.append(payload["token"])
+            else:
+                done = payload
+        out = toks, done
+    writer.close()
+    await writer.wait_closed()
+    return out
+
+
+def percentile(xs, q: float) -> float:
+    """Nearest-rank percentile."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, round(q / 100 * (len(xs) - 1))))]
+
+
+def admits(events) -> dict:
+    """The scheduler's ADMIT trace events: rid -> prefix-hit tokens (0 on
+    the dense path)."""
+    return {e["rid"]: e.get("prefix_hit_tokens", 0) for e in events
+            if e["event"] == "admit" and "slot" in e}
+
+
+def timed(fn, spent: list):
+    """``fn`` adding its host seconds to ``spent[0]``."""
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t0
+    return wrapper
+
+
+def serve_http(sch, prompts, max_new: int, energy_scale: float,
+               refill_j_per_s: float, out_dir: str):
+    """Serve ``prompts`` (request ``i`` on seed ``1000 + i``, the direct
+    runs' streams) through ``HttpFrontDoor`` on 127.0.0.1, as the three
+    :data:`FD_TENANTS`: ``interactive`` at priority 0, ``batch`` and
+    ``metered`` at 1; ``metered`` holds a joule bucket of
+    ``energy_scale`` with ``preempt=True`` and no refill until its first
+    preemption is recorded, when the operator loop turns a refill of
+    ``refill_j_per_s`` on.  The telemetry holds a
+    :data:`FD_PROFILE_STEPS`-step profiler window, which the pump thread
+    opens and closes (the ``--http --profile-steps`` path).  Returns the
+    streams, results, records, trace events, the profiler and its own
+    host seconds, two ``/metrics`` scrapes (mid-run, after the streams)
+    and the makespan."""
+    import asyncio
+
+    from repro_torch.obs import ListSink, StepProfiler, Telemetry
+    from repro_torch.server import (FrontDoor, HttpFrontDoor, TenantPolicy,
+                                    admission as ADM)
+
+    sch.reset()
+    prof = StepProfiler(FD_PROFILE_STEPS, out_dir)
+    prof_s = [0.0]
+    prof._start = timed(prof._start, prof_s)
+    prof.stop = timed(prof.stop, prof_s)
+    obs = Telemetry.create(flight_dir=out_dir, profiler=prof)
+    sink = ListSink()
+    obs.tracer.add_sink(sink)
+    metered = dict(priority=1, energy_budget_j=energy_scale, preempt=True)
+    front = FrontDoor(sch, telemetry=obs, policies={
+        "interactive": TenantPolicy(priority=0),
+        "batch": TenantPolicy(priority=1),
+        "metered": TenantPolicy(refill_j_per_s=0.0, **metered)})
+
+    async def operator():
+        while not any(r.decision == ADM.PREEMPT_ENERGY
+                      for r in front.adm.records):
+            await asyncio.sleep(0.005)
+        front.adm.set_policy("metered", TenantPolicy(
+            refill_j_per_s=refill_j_per_s, **metered))
+
+    async def go():
+        async with HttpFrontDoor(front, host="127.0.0.1", port=0) as srv:
+            op = asyncio.create_task(operator())
+            t0 = time.perf_counter()
+            gens = [asyncio.create_task(http_call(
+                srv.host, srv.port, "/generate",
+                dict(prompt=p, max_new=max_new, seed=1000 + i,
+                     tenant=FD_TENANTS[i % 3])))
+                for i, p in enumerate(prompts)]
+            await asyncio.sleep(0.5)
+            live = await http_call(srv.host, srv.port, "/metrics")
+            got = await asyncio.gather(*gens)
+            makespan = time.perf_counter() - t0
+            done = await http_call(srv.host, srv.port, "/metrics")
+            stats = json.loads((await http_call(
+                srv.host, srv.port, "/stats")).split(b"\r\n\r\n", 1)[1])
+            preempted = op.done()
+            op.cancel()
+            return got, live, done, stats, makespan, preempted
+
+    got, live, done, stats, makespan, preempted = asyncio.run(go())
+    sch.detach_obs()
+    check(preempted, "the metered tenant was never preempted")
+    return dict(front=front, got=got, live=live, done=done, stats=stats,
+                makespan=makespan, events=sink.events, prof=prof,
+                prof_s=prof_s[0])
+
+
+def front_door_layout(eng, name: str, prompts, direct_outs, direct,
+                      direct_launches) -> dict:
+    """One layout of the front_door phase (``direct``: phase 3 or 4's
+    served dict, telemetry off): the 16 requests with telemetry attached
+    (no profiler), then detached, each against the direct run; then the
+    same requests through HTTP with a :data:`FD_PROFILE_STEPS`-step
+    profiler window in the pump thread."""
+    from repro_torch.kernels import build as KB
+    from repro_torch.obs import ListSink, Telemetry
+
+    paged = name == "paged"
+    kw = dict(paged=True, page_len=8) if paged else {}
+    sch = eng.scheduler(slots=8, cache_len=256, **kw)
+    layers = eng.cfg.num_layers
+    max_new = 32
+    direct_energy = direct["request_energy_j"]
+    res = {}
+
+    def leg() -> dict:
+        sch.reset()
+        KB.reset_launches()
+        outs, wall_s = drive(sch, prompts, max_new)
+        st = sch.stats
+        check(outs == direct_outs, f"{name}: telemetry "
+              f"{'on' if sch.obs else 'off'} changed the tokens")
+        check(request_energies(sch) == direct_energy,
+              f"{name}: telemetry {'on' if sch.obs else 'off'} changed the "
+              "energy")
+        return dict(launches=dict(KB.LAUNCHES), wall_s=wall_s,
+                    tokens_per_s=st.decoded_tokens / wall_s,
+                    decode_step_ms=1e3 * st.decode_s / st.decode_steps,
+                    decode_steps=st.decode_steps)
+
+    # telemetry on, unprofiled, between two runs without it (phase 3/4's
+    # and the next): the same tokens, joules and launches, and the host
+    # seconds the telemetry itself took (every trace event and per-step
+    # hook timed)
+    sink = ListSink()
+    spent = [0.0]
+    with tempfile.TemporaryDirectory() as tmp:
+        obs = Telemetry.create(flight_dir=tmp)
+        obs.tracer.add_sink(sink)
+        obs.trace = timed(obs.trace, spent)
+        sch._obs_step = timed(sch._obs_step, spent)
+        sch.attach_obs(obs)
+        try:
+            on = leg()
+        finally:
+            sch.detach_obs()
+            del sch._obs_step
+    check(on["launches"] == direct_launches,
+          f"{name}: telemetry changed the kernel launches: {on['launches']} "
+          f"!= {direct_launches}")
+    off = leg()
+    check(off["launches"] == direct_launches, f"{name}: launches off")
+    direct_hits = admits(sink.events)
+    direct_hits = [direct_hits[r] for r in sorted(direct_hits)]
+    rel = on["tokens_per_s"] / off["tokens_per_s"]
+    spread = abs(direct["tokens_per_s"] / off["tokens_per_s"] - 1)
+    res["telemetry"] = dict(
+        tokens_per_s_on=on["tokens_per_s"],
+        tokens_per_s_off=off["tokens_per_s"],
+        tokens_per_s_direct=direct["tokens_per_s"],
+        wall_s_on=on["wall_s"], wall_s_off=off["wall_s"],
+        wall_s_direct=direct["wall_s"],
+        decode_step_ms_on=on["decode_step_ms"],
+        decode_step_ms_off=off["decode_step_ms"],
+        decode_step_ms_direct=direct["decode_step_ms"],
+        obs_overhead_rel=rel, off_runs_spread_rel=spread,
+        obs_host_s=spent[0], obs_host_share=spent[0] / on["wall_s"],
+        obs_host_us_per_step=1e6 * spent[0] / on["decode_steps"],
+        decode_steps=on["decode_steps"], trace_events=len(sink.events),
+        launches_per_step={k: v / on["decode_steps"]
+                           for k, v in on["launches"].items() if v})
+
+    # through HTTP/SSE: three tenants, one preempted by its joule bucket;
+    # the pump thread's profiler window over steps 1-3 (K3 / K9 4 a step)
+    e_min = min(direct_energy[2::3])
+    KB.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        run = serve_http(sch, prompts, max_new, 0.25 * e_min,
+                         50 * sum(direct_energy) / (len(prompts) * max_new)
+                         * direct["tokens_per_s"], tmp)
+        prof = run["prof"]
+        check(prof.state == "done", f"{name}: profiler window {prof.state}: "
+              f"{prof.error}")
+        with open(prof.trace_path) as f:
+            trace = json.load(f)
+        size = Path(prof.trace_path).stat().st_size
+    launches = dict(KB.LAUNCHES)
+    kernel = "fused_decode_layer_paged" if paged else "fused_decode_layer"
+    cache = "PagedCache" if paged else "DenseCache"
+    kern = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    del trace
+    k39 = [e for e in kern if "fused_decode_layer_kernel" in e["name"]
+           and cache in e["name"]]
+    check(len(k39) == layers * FD_PROFILE_STEPS,
+          f"{name}: the profiler window holds {len(k39)} {kernel} launches, "
+          f"not {layers} x {FD_PROFILE_STEPS} steps")
+    res["profiler"] = dict(state=prof.state, steps=FD_PROFILE_STEPS,
+                           thread="pump", kernels=len(kern), k3_k9=len(k39),
+                           k3_k9_device_ms=sum(e["dur"] for e in k39) / 1e3,
+                           host_s=run["prof_s"], trace_mb=size / 2**20)
+    st = sch.stats
+    front = run["front"]
+    check(launches[kernel] == layers * st.decode_steps > 0,
+          f"{name} HTTP: {kernel} launches {launches[kernel]} != {layers} x "
+          f"{st.decode_steps} steps")
+    if not paged:
+        check(launches["aimc_spiking_linear"] == 6 * layers * st.prefill_tokens
+              and launches["ssa_decode"] == layers * st.prefill_tokens,
+              f"dense HTTP: K1/K2 launches {launches} for "
+              f"{st.prefill_tokens} prefill positions")
+    for i, ((toks, done), want) in enumerate(zip(run["got"], direct_outs)):
+        check(toks == want and done is not None and done["tokens"] == want,
+              f"{name} HTTP: request {i}'s stream differs from the direct run")
+    # fid -> the scheduler rids it ran as (one a streak)
+    rids = collections.defaultdict(list)
+    for e in run["events"]:
+        if e["event"] in ("admit", "readmit") and "fid" in e:
+            rids[e["fid"]].append(e["rid"])
+    hits = admits(run["events"])
+    results = {r.request_id: r for r in front.results}
+    check(len(results) == len(prompts), f"{name} HTTP: missing results")
+    fid_of = {done["request_id"]: i for i, (_, done) in enumerate(run["got"])}
+    compared = 0
+    preempted_tenants = {results[f].tenant for f in results
+                         if results[f].preemptions}
+    check(preempted_tenants == {"metered"},
+          f"{name} HTTP: preempted tenants {preempted_tenants}")
+    for fid, r in results.items():
+        i = fid_of[fid]
+        check(r.tenant == FD_TENANTS[i % 3], f"{name}: tenant of {i}")
+        booked = sum(sch.request_energy_j[rid] for rid in rids[fid])
+        check(math.isclose(r.energy_j, booked, rel_tol=1e-9),
+              f"{name} HTTP: request {i} streamed {r.energy_j} J, booked "
+              f"{booked}")
+        if r.preemptions:
+            check(len(rids[fid]) == r.preemptions + 1 and
+                  r.energy_j > direct_energy[i],
+                  f"{name} HTTP: request {i}'s replays were not charged")
+            continue
+        (rid,) = rids[fid]
+        if hits[rid] != direct_hits[i]:
+            continue  # the prefix cache skipped other prompt positions
+        compared += 1
+        check(sch.request_energy_j[rid] == direct_energy[i],
+              f"{name} HTTP: request {i} booked {sch.request_energy_j[rid]} "
+              f"J, the direct run {direct_energy[i]}")
+    check(compared >= 1, f"{name} HTTP: no request's energy compared")
+    check(front.preemptions >= 1, f"{name}: no preemption")
+    records = collections.Counter(r.decision for r in front.adm.records)
+    check(records["readmit"] >= 1, f"{name}: no re-admission")
+    # the scrapes parse; the counters mirror ServeStats
+    for key in ("live", "done"):
+        head, _, body = run[key].partition(b"\r\n\r\n")
+        check(b" 200 " in head.split(b"\r\n", 1)[0] and
+              b"text/plain; version=0.0.4" in head, f"{name}: /metrics {key}")
+        run[key] = parse_prometheus(body.decode())
+    scrape = run["done"]
+    check(scrape["xpike_decoded_tokens_total"] == st.decoded_tokens,
+          f"{name}: decoded_tokens_total {scrape['xpike_decoded_tokens_total']}"
+          f" != {st.decoded_tokens}")
+    check(math.isclose(scrape["xpike_energy_joules_total"], st.energy_j,
+                       rel_tol=1e-12),
+          f"{name}: energy_joules_total {scrape['xpike_energy_joules_total']}"
+          f" != {st.energy_j}")
+    check(run["stats"]["scheduler"]["decoded_tokens"] == st.decoded_tokens,
+          f"{name}: /stats")
+    ttft = [r.ttft_s for r in results.values()]
+    delivered = sum(len(t) for t, _ in run["got"])
+    res["http"] = dict(
+        requests=len(prompts), tokens=delivered,
+        decoded_tokens=st.decoded_tokens, makespan_s=run["makespan"],
+        tokens_per_s=delivered / run["makespan"],
+        tokens_per_s_less_profiler=delivered / (run["makespan"]
+                                                - run["prof_s"]),
+        direct_tokens_per_s=direct["tokens_per_s"],
+        profiler_host_s=run["prof_s"],
+        ttft_p50_s=percentile(ttft, 50), ttft_p99_s=percentile(ttft, 99),
+        ttft_by_tenant={t: percentile([r.ttft_s for r in results.values()
+                                       if r.tenant == t], 50)
+                        for t in FD_TENANTS},
+        decode_steps=st.decode_steps, prefill_tokens=st.prefill_tokens,
+        preemptions=front.preemptions, records=dict(records),
+        energy_compared=compared, bucket_j=0.25 * e_min,
+        live_scrape_series=len(run["live"]),
+        metered_energy_j=sum(r.energy_j for r in results.values()
+                             if r.tenant == "metered"),
+        metered_direct_energy_j=sum(direct_energy[2::3]),
+        launches={k: v for k, v in launches.items() if v})
+    return res
+
+
+def phase_front_door(eng, dense, paged) -> dict:
+    """The front door and the telemetry over the card's decode path, dense
+    then paged (``dense``/``paged``: the direct streams, the served dict
+    and the launches of phase 3 / 4): telemetry on against off at the
+    served size, HTTP/SSE against the direct runs, the metrics scrape,
+    the pump thread's profiler window."""
+    cfg = eng.cfg
+    out = {}
+    for name, prompts, (direct, srv, launches) in (
+            ("dense", make_requests(cfg.vocab_size), dense),
+            ("paged", paged_requests(cfg.vocab_size), paged)):
+        t0 = time.perf_counter()
+        out[name] = front_door_layout(eng, name, prompts, direct, srv,
+                                      launches)
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3052,6 +3466,13 @@ def main() -> int:
           "seconds": time.perf_counter() - t0, **pserved,
           "launches": plaunches, "unfused_launches": ulaunches,
           "first_tokens": pouts[0][:8]})
+
+    t0 = time.perf_counter()
+    fd = phase_front_door(eng, (outs, served, dict(launches)),
+                          (pouts, pserved, dict(plaunches)))
+    emit({"phase": "front_door", "card": card, "arch": ARCH, "slots": 8,
+          "cache_len": 256, "page_len": 8,
+          "seconds": time.perf_counter() - t0, **fd})
 
     t0 = time.perf_counter()
     lm, mesh_ref = phase_lm_forward(dev)

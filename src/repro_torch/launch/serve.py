@@ -8,6 +8,8 @@
         --program --drift-step 60 --recal-every 3600   # PCM lifecycle + energy
     python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --full \
         --mesh 2x2
+    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --full \
+        --http --trace-out events.jsonl          # HTTP/SSE front door
 
 It takes the reference CLI's spellings (``src/repro/launch/serve.py``):
 without ``--full`` it serves the reduced config (``--smoke`` says so
@@ -32,12 +34,26 @@ under ``torchrun --nproc-per-node D*M``, joins the ranks torchrun started;
 slots split over ``data`` (``--slots`` a multiple of D), heads and
 crossbars over ``model``; the tokens are one device's.  Every run prints
 the metered energy.  ``--device cpu`` runs the plain PyTorch versions.
+
+One device's scheduler always carries a telemetry bundle
+(:class:`repro_torch.obs.Telemetry`: metrics, lifecycle tracer, flight
+recorder).  ``--trace-out events.jsonl`` appends the lifecycle events
+(one JSON object a line; ``repro_torch.obs.perfetto_export`` converts them
+for ui.perfetto.dev); ``--profile-steps N`` captures N decode steps with
+``torch.profiler`` into a Chrome trace under ``--profile-dir``.
+``--http`` serves ``POST /generate`` (SSE token stream), ``GET /stats``,
+``GET /metrics`` (Prometheus text) and ``GET /healthz`` on ``--host``:
+``--port`` through :mod:`repro_torch.server` instead of the synthetic
+requests, until Ctrl-C.  The front door, the trace sink and the profiler
+serve one device: with ``--mesh`` (a process a rank) they raise (ROADMAP
+A9(b)).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import tempfile
 import time
 from typing import Any, Dict, List, Optional
 
@@ -46,6 +62,9 @@ import torch
 from repro_torch import aimc_device as AD
 from repro_torch import prng
 from repro_torch.engine import XpikeformerEngine
+from repro_torch.obs import JsonlSink, StepProfiler, Telemetry
+
+DEFAULT_PROFILE_DIR = os.path.join(tempfile.gettempdir(), "xpike-profile")
 
 
 def make_prompts(n: int, vocab: int, seed: int) -> List[List[int]]:
@@ -68,8 +87,15 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
           paged: bool = False, page_len: int = 8,
           n_pages: Optional[int] = None, device: str = "cuda",
           program: bool = False, drift_step_s: float = 0.0,
-          recal_every_s: float = 0.0, mesh: Optional[str] = None):
+          recal_every_s: float = 0.0, mesh: Optional[str] = None,
+          http: bool = False, host: str = "127.0.0.1", port: int = 8000,
+          trace_out: str = "", profile_steps: int = 0,
+          profile_dir: str = DEFAULT_PROFILE_DIR):
     backend = _backend(backend)
+    if mesh and (http or trace_out or profile_steps):
+        raise ValueError(
+            "--http, --trace-out and --profile-steps serve one device; a "
+            "front door over the process-per-rank mesh is ROADMAP A9(b)")
     if mesh:
         return serve_mesh(
             arch, mesh, smoke=smoke, n_requests=n_requests, slots=slots,
@@ -93,6 +119,21 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
                         page_len=page_len, n_pages=n_pages, drift=drift)
     print(f"[serve] {eng.cfg.name} on {eng.device} through the "
           f"'{eng.backend.name}' backend; decode kernel: {sch.plan.describe()}")
+    # telemetry: metrics + tracer + flight recorder, plus the opt-in JSONL
+    # sink and torch.profiler window; host-side only
+    profiler = None
+    if profile_steps > 0:
+        profiler = StepProfiler(profile_steps, profile_dir)
+        print(f"[serve] profiling {profile_steps} decode steps -> "
+              f"{profile_dir} (torch.profiler)")
+    obs = Telemetry.create(profiler=profiler)
+    if trace_out:
+        obs.tracer.add_sink(JsonlSink(trace_out))
+        print(f"[serve] tracing request lifecycle -> {trace_out} (JSONL)")
+    sch.attach_obs(obs)
+    if http:
+        _serve_http(sch, host=host, port=port)
+        return []
     prompts = make_prompts(n_requests, eng.cfg.vocab_size, seed)
     rids = [sch.submit(p, max_new, seed=seed + i) for i, p in enumerate(prompts)]
     t0 = time.perf_counter()
@@ -118,6 +159,42 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
         print(f"[serve] device clock t={st.t_device_s:.1f}s, "
               f"{st.recalibrations} GDC recalibrations")
     return [outs[r] for r in rids]
+
+
+def _serve_http(sch, *, host: str, port: int) -> None:
+    """Run the async HTTP/SSE front door over a built scheduler until
+    interrupted, then print the serve summary."""
+    import asyncio
+
+    from repro_torch.server import FrontDoor, HttpFrontDoor
+
+    async def _run():
+        srv = HttpFrontDoor(FrontDoor(sch), host=host, port=port)
+        await srv.start()
+        print(f"[serve] HTTP front door on http://{srv.host}:{srv.port} "
+              "(POST /generate, GET /stats, GET /metrics, GET /healthz); "
+              "Ctrl-C to stop", flush=True)
+        try:
+            await srv._server.serve_forever()
+        except asyncio.CancelledError:
+            pass
+        finally:
+            await srv.stop()
+
+    t0 = time.perf_counter()
+    try:
+        asyncio.run(_run())
+    except KeyboardInterrupt:
+        pass
+    st = sch.stats
+    st.wall_s += time.perf_counter() - t0
+    print(f"\n[serve] served {st.requests} requests, {st.decoded_tokens} "
+          f"tokens ({st.tokens_per_sec:.1f} tok/s, {st.decode_steps} batched "
+          f"decode steps, {st.admissions} admissions)")
+    if st.energy_j > 0:
+        print(f"[serve] energy: {st.energy_j*1e6:.2f} uJ total "
+              f"({st.j_per_token*1e9:.1f} nJ/token, "
+              f"{st.spike_events:.0f} spike events)")
 
 
 def serve_mesh(arch: str, spec: str, *, smoke: bool, n_requests: int,
@@ -218,6 +295,19 @@ def parse_args(argv=None) -> Dict[str, Any]:
                          "(0 = never)")
     ap.add_argument("--mesh", default=None,
                     help="serve on a (data, model) mesh, e.g. 2x2")
+    ap.add_argument("--http", action="store_true",
+                    help="serve over HTTP/SSE (POST /generate streams "
+                         "tokens) instead of running synthetic requests")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--trace-out", default="",
+                    help="append request-lifecycle trace events to this "
+                         "JSONL file")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="capture this many decode steps with "
+                         "torch.profiler (0 = off)")
+    ap.add_argument("--profile-dir", default=DEFAULT_PROFILE_DIR,
+                    help="where --profile-steps writes its Chrome trace")
     a = ap.parse_args(argv)
     return dict(arch=a.arch, smoke=a.smoke, n_requests=a.requests,
                 slots=a.slots, max_new=a.max_new, cache_len=a.cache_len,
@@ -226,7 +316,9 @@ def parse_args(argv=None) -> Dict[str, Any]:
                 page_len=a.page_len, n_pages=a.pages or None,
                 device=a.device, program=a.program,
                 drift_step_s=a.drift_step, recal_every_s=a.recal_every,
-                mesh=a.mesh)
+                mesh=a.mesh, http=a.http, host=a.host, port=a.port,
+                trace_out=a.trace_out, profile_steps=a.profile_steps,
+                profile_dir=a.profile_dir)
 
 
 def main(argv=None):

@@ -8,7 +8,9 @@ lives here, in O(pages) host bookkeeping:
 
 * **free list + refcounts** -- a page is writable iff its refcount is 1;
   releasing the last reference frees it (the scheduler zeroes freed pages
-  on the device before reuse).  Double free and use after free raise.
+  on the device before reuse).  Double free and use after free raise,
+  after calling :attr:`PagePool.on_violation` (the flight recorder's dump
+  site, :mod:`repro_torch.obs`).
 * **prefix cache** -- an exact-match LRU map from *chained block keys* to
   physical pages: a full prompt block is keyed by ``(parent chain id, its
   own page_len tokens)``, the parent id naming the cache entry of the
@@ -27,7 +29,7 @@ lives here, in O(pages) host bookkeeping:
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -57,6 +59,16 @@ class PagePool:
         self.prefix_misses = 0
         self.cow_copies = 0
         self.peak_in_use = 0
+        # invariant-guard hook: called with the violation message right
+        # before a double-free / use-after-free raise, so a flight recorder
+        # can dump a postmortem while its rings still hold the events that
+        # led here.  The raise always proceeds.
+        self.on_violation: Optional[Callable[[str], None]] = None
+
+    def _violate(self, msg: str) -> str:
+        if self.on_violation is not None:
+            self.on_violation(msg)
+        return msg
 
     # -- capacity -------------------------------------------------------
 
@@ -100,9 +112,10 @@ class PagePool:
     def retain(self, pid: int) -> None:
         """Add a reference to a live page (prefix hit / registration)."""
         if pid in (NULL_PAGE, TRASH_PAGE):
-            raise ValueError(f"cannot retain reserved page {pid}")
+            raise ValueError(self._violate(f"cannot retain reserved page {pid}"))
         if self.refcount[pid] <= 0:
-            raise ValueError(f"retain of dead page {pid} (use-after-free)")
+            raise ValueError(
+                self._violate(f"retain of dead page {pid} (use-after-free)"))
         self.refcount[pid] += 1
 
     def release(self, pid: int) -> bool:
@@ -110,9 +123,10 @@ class PagePool:
         zeroes it on the device before reuse).  Releasing a free page
         raises: the double-free guard."""
         if pid in (NULL_PAGE, TRASH_PAGE):
-            raise ValueError(f"cannot release reserved page {pid}")
+            raise ValueError(
+                self._violate(f"cannot release reserved page {pid}"))
         if self.refcount[pid] <= 0:
-            raise ValueError(f"double free of page {pid}")
+            raise ValueError(self._violate(f"double free of page {pid}"))
         self.refcount[pid] -= 1
         if self.refcount[pid] == 0:
             self._free.append(int(pid))

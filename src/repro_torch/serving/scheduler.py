@@ -45,8 +45,17 @@ layout: paged and dense serving give the same tokens.
   new K/V rows are exchanged over the data group; a wall-clock drift step
   is rank 0's.
 
-The scheduler's telemetry (obs gauges, GDC trace events) is not ported
-(ROADMAP A9).
+* **telemetry** (``obs=``, a :class:`repro_torch.obs.Telemetry`) --
+  host-side bookkeeping only: lifecycle trace events (submit, admit,
+  prefill chunk, first token, decode, finish, evict, preempt, GDC
+  recalibration), counters mirroring :class:`ServeStats` by delta once a
+  step, occupancy and pool gauges read from Python state, a decode-step
+  latency histogram and the profiler window's tick.  Attaching it changes
+  no token and no joule, and adds no kernel launch and no host-device
+  synchronisation to a step; the mean GDC gain is read from the device at
+  attach and after each recalibration only.  :meth:`free_slots`,
+  :meth:`queued_requests`, :meth:`slot_of` and :meth:`preempt` are what
+  the front door (:mod:`repro_torch.server`) drives.
 """
 
 from __future__ import annotations
@@ -65,6 +74,8 @@ from repro_torch.energy import model as EM
 from repro_torch.engine import get_backend
 from repro_torch.kernels.plan import build_decode_plan
 from repro_torch.models import transformer as T
+from repro_torch.obs import Telemetry
+from repro_torch.obs import trace as TR
 from repro_torch.parallel import sharding as SH
 from repro_torch.serving import state as ST
 from repro_torch.serving.pages import PagePool
@@ -139,8 +150,9 @@ class BatchScheduler:
     programmed state from :func:`repro_torch.aimc_device.program_lm_tree`);
     the scheduler moves it to ``device`` and derives the spiking linears'
     operands once (and after every drift fold).  ``drift`` runs the PCM
-    lifecycle on programmed params.  ``device`` defaults to CUDA and raises
-    without it.
+    lifecycle on programmed params.  ``obs`` attaches a telemetry bundle
+    (:meth:`attach_obs`).  ``device`` defaults to CUDA and raises without
+    it.
     """
 
     def __init__(self, params: Any, cfg, backend=None, *, slots: int = 4,
@@ -148,7 +160,8 @@ class BatchScheduler:
                  paged: bool = False, page_len: int = 8,
                  n_pages: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda",
-                 drift: Optional[AD.DriftPolicy] = None, placement=None):
+                 drift: Optional[AD.DriftPolicy] = None, placement=None,
+                 obs: Optional[Telemetry] = None):
         self.placement = placement  # repro_torch.distributed.Executor | None
         if placement is not None:
             device = placement.device
@@ -197,8 +210,133 @@ class BatchScheduler:
             cfg.num_layers, cfg.spike_T, cache_len, cfg.vocab_size)
         self._e_event_pj = EM.decode_synapse_energy_pj()
         self.stats = ServeStats()
+        # telemetry: host-side only (see repro_torch.obs)
+        self.obs: Optional[Telemetry] = None
+        self._stat_counters: Dict[str, Any] = {}
+        self._stat_marks: Dict[str, float] = {}
+        self._pool_marks: Dict[str, float] = {}
         self.set_params(params)
         self.reset()
+        if obs is not None:
+            self.attach_obs(obs)
+
+    # -- telemetry -------------------------------------------------------
+
+    # ServeStats fields mirrored into monotone counters (ServeStats stays
+    # the one source of truth; the registry syncs by delta once a step)
+    _STAT_COUNTERS = (
+        ("decode_steps", "decode_steps_total",
+         "batched decode_step invocations"),
+        ("decoded_tokens", "decoded_tokens_total", "greedy tokens decoded"),
+        ("prefill_tokens", "prefill_tokens_total",
+         "prompt positions prefilled (chunked or batch-1)"),
+        ("admissions", "admissions_total", "requests admitted into slots"),
+        ("evictions", "evictions_total", "slot evictions (finish or preempt)"),
+        ("spike_events", "spike_events_total",
+         "measured residual-stream spike events"),
+        ("energy_j", "energy_joules_total",
+         "metered inference energy (spike events x op energies)"),
+        ("recalibrations", "gdc_recalibrations_total",
+         "GDC recalibrations run by the drift policy"),
+        ("prefix_hits", "prefix_page_hits_total",
+         "prefix-cache page hits across admissions"),
+        ("prefix_hit_tokens", "prefix_hit_tokens_total",
+         "prompt positions skipped via shared pages"),
+        ("cow_copies", "cow_copies_total", "copy-on-write page duplications"),
+    )
+
+    def attach_obs(self, obs: Telemetry) -> None:
+        """Install (or replace) the telemetry bundle: resolve metric
+        handles once and arm the page-pool guard dump sites."""
+        self.obs = obs
+        m = obs.metrics
+        self._h_step = m.histogram(
+            "decode_step_seconds", "batched decode_step latency")
+        self._g_active = m.gauge("active_slots", "slots holding a request")
+        self._g_queue = m.gauge(
+            "scheduler_queue_depth", "submitted-not-yet-admitted requests")
+        self._g_clock = m.gauge(
+            "device_clock_seconds", "PCM device clock (drift lifecycle)")
+        self._g_gain = m.gauge(
+            "gdc_gain_mean", "mean GDC gain across programmed crossbars "
+            "(set at bind and after each recalibration)")
+        self._g_pages_in_use = m.gauge(
+            "pool_pages_in_use", "physical KV pages referenced")
+        self._g_pages_free = m.gauge(
+            "pool_pages_free", "physical KV pages on the free list")
+        self._c_lookups = m.counter(
+            "prefix_lookups_total", "prefix-cache block lookups",
+            ("result",))
+        self._stat_counters = {
+            field: m.counter(name, help) for field, name, help in
+            self._STAT_COUNTERS}
+        self._stat_marks = {f: 0.0 for f, _, _ in self._STAT_COUNTERS}
+        self._pool_marks = {"hit": 0.0, "miss": 0.0}
+        self._g_clock.set(self._t_device)
+        if self.programmed:
+            self._g_gain.set(AD.gdc_gain_summary(self._state_params))
+        if obs.profiler is not None:
+            obs.profiler.cuda = self.device.type == "cuda"
+        self._sync_stat_counters()
+        self._arm_pool_guard()
+
+    def detach_obs(self) -> None:
+        """Remove the telemetry bundle (the inverse of :meth:`attach_obs`):
+        metric handles are dropped, the page-pool guard hook is disarmed,
+        and later runs book nothing.  The registry keeps its lifetime
+        values; a re-attach mirrors the *current* ServeStats as fresh
+        deltas, so :meth:`reset` between detach and re-attach to the same
+        registry avoids booking the interlude twice."""
+        self.obs = None
+        self._stat_counters = {}
+        self._stat_marks = {}
+        if self.paged:
+            self.pages.on_violation = None
+
+    def _arm_pool_guard(self) -> None:
+        if self.obs is not None and self.paged:
+            self.pages.on_violation = self._on_guard
+
+    def _on_guard(self, reason: str) -> None:
+        """Invariant-guard dump site (page-pool double free / use after
+        free, evict of an unoccupied slot): the postmortem first, then the
+        raise proceeds."""
+        if self.obs is not None:
+            self.obs.guard_dump(reason)
+
+    def _sync_stat_counters(self) -> None:
+        """Mirror ServeStats into the registry's counters by delta."""
+        st = self.stats
+        marks = self._stat_marks
+        for field, counter in self._stat_counters.items():
+            cur = float(getattr(st, field))
+            delta = cur - marks[field]
+            if delta > 0:
+                counter.inc(delta)
+                marks[field] = cur
+
+    def _obs_step(self, step_s: float) -> None:
+        """Per-step telemetry: latency histogram, occupancy gauges,
+        counter sync, pool stats, profiler window.  Python state only."""
+        obs = self.obs
+        if obs is None:
+            return
+        self._h_step.observe(step_s)
+        self._g_active.set(sum(r is not None for r in self._slot_req))
+        self._g_queue.set(len(self._queue))
+        if self.paged:
+            pool = self.pages
+            self._g_pages_in_use.set(pool.in_use)
+            self._g_pages_free.set(pool.free_pages)
+            for result, cur in (("hit", pool.prefix_hits),
+                                ("miss", pool.prefix_misses)):
+                delta = cur - self._pool_marks[result]
+                if delta > 0:
+                    self._c_lookups.inc(delta, result)
+                    self._pool_marks[result] = cur
+        self._sync_stat_counters()
+        if obs.profiler is not None:
+            obs.profiler.tick()
 
     def _operands(self, tree: Any) -> Any:
         """The step's weight operands: a digital backend's quantised once
@@ -254,6 +392,12 @@ class BatchScheduler:
         self.request_energy_j: Dict[int, float] = {}
         self.request_spikes: Dict[int, float] = {}
         self.stats = self._fresh_stats()
+        if self.obs is not None:
+            # counters are lifetime-monotone; only the delta marks rebase
+            # onto the fresh ServeStats / PagePool
+            self._stat_marks = {f: 0.0 for f, _, _ in self._STAT_COUNTERS}
+            self._pool_marks = {"hit": 0.0, "miss": 0.0}
+            self._arm_pool_guard()
 
     def _fresh_stats(self) -> ServeStats:
         st = ServeStats(t_device_s=self._t_device)
@@ -306,10 +450,13 @@ class BatchScheduler:
                     f"has {usable} usable: it could never be admitted")
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append(Request(rid, p, max_new,
-                                   rid if seed is None else int(seed),
-                                   ST.content_keys(p[:-1])))
+        req = Request(rid, p, max_new, rid if seed is None else int(seed),
+                      ST.content_keys(p[:-1]))
+        self._queue.append(req)
         self.stats.requests += 1
+        if self.obs is not None:
+            self.obs.trace(TR.SUBMIT, rid=rid, prompt_len=int(p.shape[0]),
+                           max_new=max_new, seed=req.seed)
         return rid
 
     # -- slot management -----------------------------------------------
@@ -355,6 +502,9 @@ class BatchScheduler:
             self.stats.prefill_tokens += req.n_ctx
             self.stats.admissions += 1
             admitted += 1
+            if self.obs is not None:
+                self.obs.trace(TR.ADMIT, rid=req.rid, slot=slot,
+                               prefill_tokens=req.n_ctx, mode="dense")
         self._note_occupancy()
         return admitted
 
@@ -485,17 +635,66 @@ class BatchScheduler:
             self.stats.prefix_hits += len(hits) + (partial_pid is not None)
             self.stats.admissions += 1
             admitted += 1
+            if self.obs is not None:
+                self.obs.trace(TR.ADMIT, rid=req.rid, slot=slot, mode="paged",
+                               prefix_hit_tokens=cursor,
+                               reserved_pages=needed)
         self._note_occupancy()
         return admitted
+
+    def free_slots(self) -> int:
+        """Slots not holding a request (queued submissions are *not*
+        counted: they claim a slot at the next ``step()``'s admission; see
+        :meth:`queued_requests`)."""
+        return sum(r is None for r in self._slot_req)
+
+    def queued_requests(self) -> List[Request]:
+        """Submitted-but-not-yet-admitted requests, first in first out
+        (the front door reads this to budget the slots and pages it has
+        already committed)."""
+        return list(self._queue)
+
+    def slot_of(self, rid: int) -> Optional[int]:
+        """The slot decoding request ``rid`` (None when it is queued,
+        finished or unknown)."""
+        for slot, req in enumerate(self._slot_req):
+            if req is not None and req.rid == rid:
+                return slot
+        return None
+
+    def preempt(self, rid: int) -> Request:
+        """Take request ``rid`` out of the server -- release its slot (or
+        drop it from the queue) and forget its collected output -- and
+        return its :class:`Request`, so the caller decides when to submit
+        it again.  The same (prompt, max_new, seed) decodes the same tokens
+        again; energy already booked to ``rid`` stays booked."""
+        slot = self.slot_of(rid)
+        if slot is not None:
+            req = self._slot_req[slot]
+            if self.obs is not None:
+                self.obs.trace(TR.PREEMPT, rid=rid, slot=slot,
+                               streamed=len(self.outputs.get(rid, ())))
+            self.evict(slot)
+            self.outputs.pop(rid, None)
+            return req
+        for req in self._queue:
+            if req.rid == rid:
+                self._queue.remove(req)
+                self.outputs.pop(rid, None)
+                return req
+        raise ValueError(f"preempt of unknown/finished request rid={rid}")
 
     def evict(self, slot: int, requeue: bool = False) -> None:
         """Release a slot's state.  With ``requeue=True`` the request
         restarts from its prompt on a later admission.  Evicting an
-        unoccupied slot raises."""
+        unoccupied slot raises (after the telemetry's guard dump)."""
         req = self._slot_req[slot]
         if req is None:
+            self._on_guard(f"evict of unoccupied slot {slot}")
             raise ValueError(f"evict of unoccupied slot {slot} "
                              "(double-evict or use-after-evict)")
+        if self.obs is not None:
+            self.obs.trace(TR.EVICT, rid=req.rid, slot=slot, requeue=requeue)
         if requeue:
             self._queue.appendleft(req)
             self.outputs.pop(req.rid, None)
@@ -548,19 +747,28 @@ class BatchScheduler:
         step_s = time.perf_counter() - t0
         self.stats.decode_s += step_s
         self.stats.decode_steps += 1
+        obs = self.obs
         decoded = 0
         for slot in range(self.slots):
             req = self._slot_req[slot]
             if req is None:
                 continue
-            self.outputs[req.rid].append(int(nxt[slot]))
+            out = self.outputs[req.rid]
+            out.append(int(nxt[slot]))
             decoded += 1
+            if obs is not None:
+                obs.trace(TR.FIRST_TOKEN if len(out) == 1 else TR.DECODE,
+                          rid=req.rid, slot=slot, token=out[-1], pos=len(out))
             self._book_position(req.rid, float(act[slot]))
             self._remaining[slot] -= 1
             if self._remaining[slot] == 0:
+                if obs is not None:
+                    obs.trace(TR.FINISH, rid=req.rid, slot=slot,
+                              tokens=len(out))
                 self.evict(slot)
         self.stats.decoded_tokens += decoded
         self._advance_device_clock(step_s)
+        self._obs_step(step_s)
         return decoded
 
     def _step_paged(self) -> int:
@@ -619,6 +827,7 @@ class BatchScheduler:
         step_s = time.perf_counter() - t0
         self.stats.decode_s += step_s
         self.stats.decode_steps += 1
+        obs = self.obs
         decoded = 0
         for slot in range(b):
             req = self._slot_req[slot]
@@ -630,6 +839,9 @@ class BatchScheduler:
                 self._cursor[slot] += 1
                 cur = self._cursor[slot]
                 self.stats.prefill_tokens += 1
+                if obs is not None:
+                    obs.trace(TR.PREFILL_CHUNK, rid=req.rid, slot=slot,
+                              pos=cur, n_ctx=req.n_ctx)
                 if cur % self.page_len == 0:  # completed block: publish it
                     self._register_prefix(slot, cur)
                 if cur == req.n_ctx:
@@ -637,18 +849,27 @@ class BatchScheduler:
                         self._register_prefix(slot, req.n_ctx)
                     self._phase[slot] = HANDOFF
             else:
-                self.outputs[req.rid].append(int(nxt[slot]))
+                out = self.outputs[req.rid]
+                out.append(int(nxt[slot]))
                 decoded += 1
+                if obs is not None:
+                    obs.trace(TR.FIRST_TOKEN if len(out) == 1 else TR.DECODE,
+                              rid=req.rid, slot=slot, token=out[-1],
+                              pos=len(out))
                 self._phase[slot] = DECODE
                 self._remaining[slot] -= 1
             self._book_position(req.rid, float(act[slot]))
             if self._remaining[slot] == 0:
+                if obs is not None:
+                    obs.trace(TR.FINISH, rid=req.rid, slot=slot,
+                              tokens=len(self.outputs[req.rid]))
                 self.evict(slot)
         self.stats.decoded_tokens += decoded
         self.stats.pages_in_use_peak = max(self.stats.pages_in_use_peak,
                                            self.pages.peak_in_use)
         self.stats.cow_copies = self.pages.cow_copies
         self._advance_device_clock(step_s)
+        self._obs_step(step_s)
         return decoded
 
     def _advance_device_clock(self, step_wall_s: float) -> None:
@@ -686,7 +907,16 @@ class BatchScheduler:
                 self.stats.recalibrations += 1
             self.source_params = self._state_params = tree
             self.params = self._operands(tree)
+            if due_recal and self.obs is not None:
+                # one host read a recalibration (rare): the gain after GDC
+                # is the signal that it repaired the drift
+                gain = AD.gdc_gain_summary(tree)
+                self._g_gain.set(gain)
+                self.obs.trace(TR.GDC_RECAL, t_device_s=self._t_device,
+                               gain=gain, n=self.stats.recalibrations)
         self.stats.t_device_s = self._t_device
+        if self.obs is not None:
+            self._g_clock.set(self._t_device)
 
     def run(self) -> Dict[int, List[int]]:
         """Serve until the queue and all slots drain; returns outputs."""
@@ -694,6 +924,8 @@ class BatchScheduler:
         while self._queue or any(r is not None for r in self._slot_req):
             self.step()
         self.stats.wall_s += time.perf_counter() - t0
+        if self.obs is not None and self.obs.profiler is not None:
+            self.obs.profiler.stop()  # close a capture wider than the run
         return self.outputs
 
 

@@ -327,3 +327,27 @@ def test_serve_cli_reference_command_runs_on_cpu(capsys):
                     "--cache-len", "32", "--paged", "--pages", "12"])
     out = capsys.readouterr().out
     assert "served 2 requests, 4 tokens" in out and "12 pages of 8" in out
+
+
+def test_serve_cli_takes_the_front_door_and_telemetry_flags(tmp_path):
+    """``--http``, ``--host``, ``--port``, ``--trace-out``,
+    ``--profile-steps`` and ``--profile-dir`` parse into ``serve``'s
+    arguments; the front door and the trace serve one device, so with
+    ``--mesh`` they raise before a rank is spawned."""
+    kw = serve_cli.parse_args([
+        "--arch", ARCH, "--http", "--host", "0.0.0.0", "--port", "9001",
+        "--trace-out", str(tmp_path / "ev.jsonl"), "--profile-steps", "3",
+        "--profile-dir", str(tmp_path / "prof")])
+    assert (kw["http"], kw["host"], kw["port"], kw["profile_steps"]) == (
+        True, "0.0.0.0", 9001, 3)
+    assert kw["trace_out"].endswith("ev.jsonl")
+    assert kw["profile_dir"].endswith("prof")
+    dflt = serve_cli.parse_args(["--arch", ARCH])
+    assert (dflt["http"], dflt["host"], dflt["port"], dflt["trace_out"],
+            dflt["profile_steps"]) == (False, "127.0.0.1", 8000, "", 0)
+    assert dflt["profile_dir"].endswith("xpike-profile")
+    for extra in (["--http"], ["--trace-out", "x.jsonl"],
+                  ["--profile-steps", "2"]):
+        with pytest.raises(ValueError, match="A9"):
+            serve_cli.main(["--arch", ARCH, "--device", "cpu", "--mesh",
+                            "2x2", *extra])

@@ -292,6 +292,15 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/distributed/backend.py",
             "src/repro_torch/distributed/executor.py",
             "src/repro_torch/distributed/jobs.py",
+            "src/repro_torch/obs/__init__.py",
+            "src/repro_torch/obs/metrics.py",
+            "src/repro_torch/obs/trace.py",
+            "src/repro_torch/obs/recorder.py",
+            "src/repro_torch/obs/profiler.py",
+            "src/repro_torch/server/__init__.py",
+            "src/repro_torch/server/admission.py",
+            "src/repro_torch/server/frontdoor.py",
+            "src/repro_torch/server/http.py",
             "tests/torch_mesh_jobs.py"} <= names
     for f in files:
         for mod in _imports(f):
