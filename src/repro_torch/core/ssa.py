@@ -40,24 +40,27 @@ def _causal_mask(n: int, dtype=torch.float32, device=None) -> Tensor:
 
 
 def ssa_attention(key: Tensor, q: Tensor, k: Tensor, v: Tensor, *,
-                  causal: bool = False) -> Tensor:
+                  causal: bool = False, b0: int = 0) -> Tensor:
     """Differentiable SSA over float spike trains ``[T, B, H, N, d]``:
     per timestep ``S ~ Bern(Q K^T / d)`` (causal: masked), ``A ~ Bern(clip(S
     V / N))``, both straight-through, ``S`` drawn from ``split(key,
     2T)[2t]`` and ``A`` from ``[2t + 1]`` (every timestep at once: the
-    twin is vectorised over keys).  Returns spikes of ``q``'s dtype."""
+    twin is vectorised over keys).  ``b0``: these are rows ``b0 ..
+    b0+B`` of a larger batch, and draw that batch's comparators for those
+    rows (a data rank's share).  Returns spikes of ``q``'s dtype."""
     t, b, h, n, d = q.shape
     keys = prng.split(key, 2 * t).reshape(t, 2, 2)
     counts_s = torch.einsum("tbhnd,tbhmd->tbhnm", q, k)
     p_s = mul_reciprocal(counts_s, d)
     if causal:
         p_s = p_s * _causal_mask(n, q.dtype, q.device)
-    s = SP.bernoulli_st(p_s, prng.uniform(keys[:, 0], tuple(p_s.shape[1:])))
+    s = SP.bernoulli_st(p_s, prng.uniform_rows(keys[:, 0],
+                                               tuple(p_s.shape[1:]), b0))
     counts_a = torch.einsum("tbhnm,tbhmd->tbhnd", s, v)
     # the output comparator's range is N in causal mode too (Sec. IV-B-2)
     p_a = SP.clip01(mul_reciprocal(counts_a, n))
-    return SP.bernoulli_st(p_a, prng.uniform(keys[:, 1],
-                                             tuple(p_a.shape[1:])))
+    return SP.bernoulli_st(p_a, prng.uniform_rows(keys[:, 1],
+                                                  tuple(p_a.shape[1:]), b0))
 
 
 def lif_spiking_attention(q: Tensor, k: Tensor, v: Tensor, *,

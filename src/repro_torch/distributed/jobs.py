@@ -3,9 +3,10 @@
 Each rank of a mesh runs :func:`run_jobs` on the same list of jobs (plain
 dicts, so the spawned ranks import nothing but the port) and returns one
 result per job.  Each builds the params (a whole tree given as numpy,
-:func:`repro_torch.convert.params_to_numpy`, or random weights from
-``init_seed``; ``program_seed`` programs random weights onto PCM first)
-and an :class:`~repro_torch.distributed.Executor`, then:
+:func:`repro_torch.convert.params_to_numpy`; a training checkpoint's,
+``ckpt`` its directory, read with the rank's serving placement; or random
+weights from ``init_seed``, which ``program_seed`` programs onto PCM
+first) and an :class:`~repro_torch.distributed.Executor`, then:
 
 * a serve job (``kind`` ``"serve"``, the default) serves ``prompts``,
   optionally in waves (``wave`` requests every ``gap`` steps) after a
@@ -39,11 +40,37 @@ def run_jobs(mesh, jobs: List[Dict[str, Any]]) -> List[Any]:
     return [kinds[job.get("kind", "serve")](mesh, job) for job in jobs]
 
 
-def _params(job, device):
-    """The whole tree: given, or random from ``init_seed`` (then
-    programmed with ``PRNGKey(program_seed)`` if that is set)."""
+def _restored(job, mesh):
+    """The parameters of the newest checkpoint of a training run in
+    ``job["ckpt"]`` (``repro_torch.launch.train``'s ``(params,
+    opt_state)``, float32 moments), each leaf read as this rank's serving
+    placement holds it (:func:`repro_torch.launch.elastic.
+    state_shardings`: a float linear whole, to be quantised before it is
+    cut); the optimizer state is not read."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import elastic
+    from repro_torch.optim import adamw as A
+
+    cfg = job["cfg"]
+    opt = A.AdamWConfig()
+    whole = T.init_params(cfg, 0, "cpu")
+    placement = elastic.state_shardings(cfg, mesh.shape, opt,
+                                        device=mesh.device, rank=mesh.rank,
+                                        serving=True)
+    (params, _), _ = CheckpointManager(job["ckpt"]).restore(
+        (whole, A.init_opt_state(whole, opt)), placement=placement)
+    return params
+
+
+def _params(job, mesh):
+    """The whole tree: given, from a checkpoint, or random from
+    ``init_seed`` (then programmed with ``PRNGKey(program_seed)`` if that
+    is set)."""
+    device = mesh.device
     if job.get("params") is not None:
         return convert.params_from_numpy(job["params"], device)
+    if job.get("ckpt") is not None:
+        return _restored(job, mesh)
     params = T.init_params(job["cfg"], job["init_seed"], device)
     if job.get("program_seed") is not None:
         params = AD.program_lm_tree(
@@ -73,8 +100,7 @@ def drive(sch, prompts, max_new: int, seed0: int, wave: int = 0,
 
 def serve_job(mesh, job):
     cfg = job["cfg"]
-    ex = Executor(_params(job, mesh.device), cfg, job.get("backend", "cuda"),
-                  mesh)
+    ex = Executor(_params(job, mesh), cfg, job.get("backend", "cuda"), mesh)
     sch = ex.scheduler(slots=job["slots"], cache_len=job["cache_len"],
                        drift=job.get("drift"), paged=job.get("paged", False),
                        page_len=job.get("page_len", 8),
@@ -94,7 +120,7 @@ def serve_job(mesh, job):
 
 
 def forward_job(mesh, job):
-    ex = Executor(_params(job, mesh.device), job["cfg"],
+    ex = Executor(_params(job, mesh), job["cfg"],
                   job.get("backend", "cuda"), mesh)
     tokens = torch.from_numpy(job["tokens"]).to(mesh.device)
     key = prng.PRNGKey(job["key_seed"], mesh.device)

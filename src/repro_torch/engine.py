@@ -194,13 +194,12 @@ class ReferenceBackend:
 
     def ssa_attention(self, key, q, k, v, *, causal=False, b0=0, h0=0,
                       batch=None, heads=None):
-        t, b, h = q.shape[:3]
-        if (b0, h0) != (0, 0) or batch not in (None, b) or heads not in (
-                None, h):
+        h = q.shape[2]
+        if h0 != 0 or heads not in (None, h):
             raise NotImplementedError(
-                "the float SSA draws the whole tile grid: a block of it "
-                "(a mesh rank's share) is not ported")
-        return SSA.ssa_attention(key, q, k, v, causal=causal)
+                "the float SSA draws every head of the tile grid: a block "
+                "of heads (a model rank's share) is not ported")
+        return SSA.ssa_attention(key, q, k, v, causal=causal, b0=b0)
 
     def lif(self, currents, *, beta=0.5, v_thresh=1.0):
         return SP.lif(currents, SP.LIFParams(beta=beta, v_thresh=v_thresh))

@@ -412,27 +412,30 @@ def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
 
 
 def _forward_spiking(params, batch, cfg, *, rng, backend,
-                     remat: str = "none"):
+                     remat: str = "none", rows=None):
     """Spiking forward: rate-encode, spiking blocks over T, rate-decode,
-    unembed -> ``(logits [B,S,V], aux 0)``."""
+    unembed -> ``(logits [B,S,V], aux 0)`` (``rows``: those rows only)."""
     x = spiking_features(params, batch, cfg, rng=rng, backend=backend,
-                         remat=remat)
+                         remat=remat, rows=rows)
     return _unembed(params, x, cfg), torch.zeros((), device=x.device)
 
 
 def forward(params, batch: Dict[str, Tensor], cfg, *,
-            rng: Optional[Tensor] = None, backend=None, remat: str = "block"
-            ) -> Tuple[Tensor, Tensor]:
+            rng: Optional[Tensor] = None, backend=None, remat: str = "block",
+            rows: Optional[Tuple[int, int]] = None) -> Tuple[Tensor, Tensor]:
     """Train/prefill forward: ``batch["tokens"] [B,S]`` -> ``(logits
     [B,S,V], aux)``; ``aux`` (MoE's load-balancing loss) is zero.
     ``backend`` defaults to the CUDA one (:func:`repro_torch.engine.
     get_backend`); the reference backend (``"reference"``) is the one
     autograd trains through.  ``remat`` applies where autograd records
-    (:func:`_remat_block`)."""
+    (:func:`_remat_block`).  ``rows = (b0, n)``: the logits of batch rows
+    ``b0 .. b0+n`` only, equal to those rows of the whole batch's (a data
+    rank's share, :func:`spiking_features`)."""
     from repro_torch.engine import get_backend
 
     return _forward_spiking(params, batch, cfg, rng=rng,
-                            backend=get_backend(backend), remat=remat)
+                            backend=get_backend(backend), remat=remat,
+                            rows=rows)
 
 
 def softmax_xent(logits: Tensor, targets: Tensor,
@@ -449,15 +452,19 @@ def softmax_xent(logits: Tensor, targets: Tensor,
 
 
 def loss_fn(params, batch, cfg, *, rng: Optional[Tensor] = None,
-            aux_weight: float = 0.01, backend=None, remat: str = "block"
+            aux_weight: float = 0.01, backend=None, remat: str = "block",
+            rows: Optional[Tuple[int, int]] = None
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Next-token loss of ``batch["tokens"] [B, S+1]`` (inputs all but the
     last, targets all but the first; ``batch["mask"]`` optional) ->
     ``(loss, {"xent", "moe_aux"})``; differentiable on the reference
-    backend."""
+    backend.  ``rows = (b0, n)``: the mean over those rows of the batch
+    only, drawn as the whole batch draws them (a data rank's share)."""
     _require_spiking_stack(cfg)
     logits, aux = forward(params, {"tokens": batch["tokens"][:, :-1]}, cfg,
-                          rng=rng, backend=backend, remat=remat)
+                          rng=rng, backend=backend, remat=remat, rows=rows)
+    if rows is not None:
+        batch = {k: v[rows[0]:rows[0] + rows[1]] for k, v in batch.items()}
     xent = softmax_xent(logits, batch["tokens"][:, 1:], batch.get("mask"))
     return xent + aux_weight * aux, {"xent": xent, "moe_aux": aux}
 

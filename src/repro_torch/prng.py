@@ -47,16 +47,27 @@ def _rotl(x: Tensor, r: int) -> Tensor:
 def threefry2x32(k0: Tensor, k1: Tensor, x0: Tensor, x1: Tensor
                  ) -> Tuple[Tensor, Tensor]:
     """The Threefry-2x32 block cipher (20 rounds), elementwise over
-    broadcastable int64 tensors holding uint32 values."""
+    broadcastable int64 tensors holding uint32 values.  The first mix runs
+    out of place, which gives both words the full broadcast shape as fresh
+    tensors; every later op updates them in place (the same ops, without
+    an allocation each)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
+    hi = None
     for i in range(5):
         for r in _ROT[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+            if hi is None:
+                x0 = (x0 + x1) & _M32
+                x1 = _rotl(x1, r) ^ x0
+                hi = torch.empty_like(x1)
+                continue
+            x0.add_(x1).bitwise_and_(_M32)
+            torch.bitwise_left_shift(x1, r, out=hi)
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(hi).bitwise_and_(
+                _M32).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
+        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_M32)
     return x0, x1
 
 
@@ -151,6 +162,18 @@ def uniform(key: Tensor, shape: Tuple[int, ...], minval: float = 0.0,
     span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
     out = (u.double() * span.double() + lo.double()).to(torch.float32)
     return torch.maximum(lo, out)
+
+
+def uniform_rows(key: Tensor, shape: Tuple[int, ...], b0: int = 0) -> Tensor:
+    """Rows ``b0 .. b0+shape[0]`` of :func:`uniform`'s ``[0, 1)`` draw
+    over a larger leading axis (the other axes ``shape[1:]``), drawn where
+    they lie (:func:`random_bits_at`): a data rank's share of a batch's
+    draw.  ``b0 = 0`` is :func:`uniform` itself."""
+    per = math.prod(shape[1:])
+    i = torch.arange(b0 * per, (b0 + shape[0]) * per, dtype=torch.int64,
+                     device=key.device)
+    bits = random_bits_at(key, i).reshape(*key.shape[:-1], *shape)
+    return (bits >> 9).to(torch.float32) * (2.0 ** -23)
 
 
 # the open interval's lower end of ``jax._src.random._normal_real``:

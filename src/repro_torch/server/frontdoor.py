@@ -193,6 +193,9 @@ class FrontDoor:
         self._intake: Deque[_FrontRequest] = deque()  # loop -> pump handoff
         self._pending: Dict[str, Deque[_FrontRequest]] = {}
         self._running: Dict[int, _FrontRequest] = {}  # scheduler rid -> req
+        # streams a pump round ended: signalled only once the round has set
+        # its gauges, so a client that saw its end reads them up to date
+        self._ended: List[_FrontRequest] = []
         self._requests: Dict[int, _FrontRequest] = {}  # fid -> req (all)
         self._results: List[RequestResult] = []
         self._next_fid = 0
@@ -390,6 +393,14 @@ class FrontDoor:
             return self._pump()
 
     def _pump(self) -> bool:
+        try:
+            return self._pump_round()
+        finally:
+            ended, self._ended = self._ended, []
+            for req in ended:
+                self._finish_signal(req)
+
+    def _pump_round(self) -> bool:
         busy = False
         now = _now()
         self.adm.refill(now - self._last_refill)
@@ -583,7 +594,7 @@ class FrontDoor:
                     self.obs.trace(TR.FINISH, fid=req.fid, rid=rid,
                                    tenant=req.tenant, outcome="failed",
                                    error=req.error)
-                self._finish_signal(req)
+                self._ended.append(req)
                 continue
             req.t_done = now
             if self.obs is not None:
@@ -603,4 +614,4 @@ class FrontDoor:
             )
             self._results.append(req.result)
             self.completed += 1
-            self._finish_signal(req)
+            self._ended.append(req)

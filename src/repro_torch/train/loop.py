@@ -17,6 +17,15 @@ from a :class:`repro_torch.configs.base.ParallelConfig`:
   ``opt_state["ef"]``;
 * ``remat`` -- each layer recomputed in the backward.
 
+On a data-parallel mesh (``mesh``, a :class:`repro_torch.launch.mesh.
+ServingMesh` of shape ``(data, 1)``) every rank holds the whole state and
+the whole batch, and computes the loss and gradient of its rows
+(``MarkovStream.host_slice``'s block), drawn as the whole batch draws them;
+the loss and the gradients are summed over the data group in one
+``all_reduce`` and divided by ``data``, so the AdamW update is the same on
+every rank.  ``model > 1`` raises: model-parallel training is not ported
+(ROADMAP A2(c)).
+
 Parameters and state live on the card unless the caller asks for the CPU
 (:func:`init_state`); the step runs where they are.
 """
@@ -69,16 +78,51 @@ def _differentiable(backend):
 
 
 def make_loss(cfg, parallel: ParallelConfig = ParallelConfig(),
-              backend="reference"):
+              backend="reference", rows=None):
     """``loss_f(params, batch, rng) -> (loss, {"xent", "moe_aux"})`` on
-    ``backend`` (the reference backend: autograd trains through it)."""
+    ``backend`` (the reference backend: autograd trains through it);
+    ``rows = (b0, n)``: over those rows of the batch only."""
     be = _differentiable(backend)
 
     def loss_f(params, batch, rng):
         return T.loss_fn(params, batch, cfg, rng=rng, backend=be,
-                         remat=parallel.remat)
+                         remat=parallel.remat, rows=rows)
 
     return loss_f
+
+
+def data_rows(mesh, global_batch: int):
+    """``(b0, n)``: the batch rows data rank ``mesh.data_index`` trains on
+    (``MarkovStream.host_slice``'s block), or ``None`` off a mesh.  Raises
+    on a model axis (ROADMAP A2(c)) or a batch the data axis does not
+    split."""
+    if mesh is None or mesh.data * mesh.model == 1:
+        return None
+    if mesh.model > 1:
+        raise NotImplementedError(
+            f"a training mesh of model={mesh.model}: model-parallel "
+            "training is not ported (ROADMAP A2(c)); the float reference "
+            "backend has no sharded form")
+    if global_batch % mesh.data:
+        raise ValueError(f"a batch of {global_batch} does not split over "
+                         f"data={mesh.data} ranks")
+    n = global_batch // mesh.data
+    return mesh.data_index * n, n
+
+
+def _data_mean(mesh, loss: Tensor, grads):
+    """The loss and gradients summed over the data group (one
+    ``all_reduce`` of a flat float32 buffer) and divided by ``data``."""
+    leaves, structure = TR.flatten(grads)
+    flat = torch.cat([loss.reshape(1).to(torch.float32)]
+                     + [g.reshape(-1).to(torch.float32) for g in leaves])
+    flat = mesh.all_reduce_data(flat.to(mesh.host_device)).to(loss.device)
+    flat = flat * (1.0 / mesh.data)  # XLA's product with the reciprocal
+    out, at = [], 1
+    for g in leaves:
+        out.append(flat[at:at + g.numel()].reshape(g.shape).to(g.dtype))
+        at += g.numel()
+    return flat[0].to(loss.dtype), TR.unflatten(structure, out)
 
 
 def _split_microbatches(batch: Dict[str, Tensor], n: int, i: int
@@ -89,9 +133,15 @@ def _split_microbatches(batch: Dict[str, Tensor], n: int, i: int
 
 def make_train_step(cfg, parallel: ParallelConfig = ParallelConfig(),
                     opt: A.AdamWConfig = A.AdamWConfig(),
-                    backend="reference") -> Callable:
+                    backend="reference", mesh=None) -> Callable:
     """The train step (see the module docstring); ``rng`` is a key of the
-    threefry twin."""
+    threefry twin.  ``mesh``: the data-parallel step of this rank, given
+    the whole batch."""
+    dp = data_rows(mesh, mesh.data) is not None if mesh is not None else False
+    if dp and parallel.microbatches > 1:
+        raise NotImplementedError(
+            "microbatches on a data-parallel mesh are not ported: a rank's "
+            "microbatch would not be one device's")
     grad_f = value_and_grad(make_loss(cfg, parallel, backend))
 
     def train_step(params, opt_state, batch, rng):
@@ -99,7 +149,12 @@ def make_train_step(cfg, parallel: ParallelConfig = ParallelConfig(),
         rng = rng.to(leaves[0].device)
         nmb = parallel.microbatches
         metrics: Dict[str, Tensor] = {}
-        if nmb > 1:
+        if dp:
+            rows = data_rows(mesh, batch["tokens"].shape[0])
+            (loss, _), grads = value_and_grad(
+                make_loss(cfg, parallel, backend, rows))(params, batch, rng)
+            loss, grads = _data_mean(mesh, loss, grads)
+        elif nmb > 1:
             keys = prng.split(rng, nmb)
             grads = TR.tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.bfloat16, device=p.device), params)

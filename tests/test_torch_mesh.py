@@ -18,6 +18,8 @@ is compared bit for bit:
   ``IntegerBackend`` scheduler; programmed under a ``DriftPolicy``
   against the port's single device (tokens, folds, recalibrations,
   energy) and JAX (tokens); GDC of a cut tree against the whole tree;
+  dense from a training checkpoint, each rank reading its serving
+  placement, against JAX's tokens;
 * a data-only ``(4, 1)`` and a model-only ``(1, 4)`` mesh, dense;
 * ``parse_mesh_spec`` with JAX's cases, ``shard_params`` against JAX's
   placement, and a rank that raises failing ``run_ranks`` in time.
@@ -47,6 +49,7 @@ from repro.models import transformer as JT
 from repro.serving import BatchScheduler as JBatchScheduler
 from repro_torch import aimc_device as AD
 from repro_torch import convert, prng
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import registry as R
 from repro_torch.distributed import Executor, TPPlan
 from repro_torch.engine import XpikeformerEngine, get_backend
@@ -56,6 +59,7 @@ from repro_torch.kernels import ref as KREF
 from repro_torch.kernels.plan import KVView
 from repro_torch.launch.mesh import ServingMesh, parse_mesh_spec, run_ranks
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw as A
 from repro_torch.serving import BatchScheduler
 
 import torch_mesh_jobs as MJ
@@ -284,10 +288,13 @@ def test_fused_layer_without_tail_then_tail_equals_with_tail(
 
 
 @pytest.fixture(scope="module")
-def mesh22(setup, programmed):
+def mesh22(setup, programmed, tmp_path_factory):
     """Every (2, 2) scenario in one spawn; ``{name: [result per rank]}``."""
     _, tcfg, _, tparams = setup
     _, thw, _, tacfg = programmed
+    ckpt = tmp_path_factory.mktemp("train_ckpt")
+    CheckpointManager(ckpt).save(7, (tparams, A.init_opt_state(
+        tparams, A.AdamWConfig())), blocking=True)
     ops = {k: convert.params_to_numpy(v)
            for k, v in _layer_ops(tparams, tcfg).items()}
     inputs = _layer_inputs(tcfg)
@@ -302,6 +309,10 @@ def mesh22(setup, programmed):
         "dense_integer": _serve_job(tcfg, tparams, PROMPTS, 5,
                                     backend="integer"),
         "dense_cuda": _serve_job(tcfg, tparams, PROMPTS, 5),
+        # a training checkpoint's params, read with each rank's serving
+        # placement (launch/elastic.state_shardings)
+        "dense_checkpoint": dict(_serve_job(tcfg, tparams, PROMPTS, 5),
+                                 params=None, ckpt=str(ckpt)),
         "paged": _serve_job(tcfg, tparams, PROMPTS, 5, paged=True,
                             page_len=8),
         "prefix": _serve_job(tcfg, tparams, [SHARED, SHARED], 4, paged=True,
@@ -452,6 +463,17 @@ def test_mesh_dense_serve_equals_jax(jax_dense, mesh22, backend):
         assert (st["admissions"], st["evictions"]) == (5, 5)
         assert (st["data_shards"], st["model_shards"]) == (2, 2)
         assert r["fused"] and r["backend"] == f"sharded[{backend}]"
+
+
+def test_mesh_serves_a_training_checkpoint(jax_dense, mesh22):
+    """Each rank restores a training checkpoint ``(params, opt_state)``
+    with its serving placement (the parameters only) and serves JAX's
+    single-device tokens."""
+    ref, _ = jax_dense
+    for r in mesh22["dense_checkpoint"]:
+        assert r["outputs"] == ref
+        assert (r["stats"]["data_shards"], r["stats"]["model_shards"]) == (2, 2)
+        assert r["fused"] and r["backend"] == "sharded[cuda]"
 
 
 @pytest.mark.parametrize("backend,b", [("cuda", 4), ("integer", 3)])

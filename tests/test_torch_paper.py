@@ -184,11 +184,13 @@ def test_lif_plain_equals_jax(beta, t, m, dyadic):
 # ---------------------------------------------------------------------------
 
 # name, depth, batch: the smoke configs deepened to 2 blocks exercise the
-# per-block fold_in(rng, i) keys; the paper ViT runs whole (4 blocks, d=384)
+# per-block fold_in(rng, i) keys; the paper ViT runs at its full width
+# (d=384, its 64 patches) with one block (the keys of later blocks are the
+# smoke cases')
 FORWARD_CASES = {
     "vit-smoke": ("xpikeformer-vit-smoke", 2, 2),
     "gpt-smoke": ("xpikeformer-gpt-smoke", 2, 2),
-    "vit-4-384": ("xpikeformer-vit-4-384", 4, 2),
+    "vit-4-384": ("xpikeformer-vit-4-384", 1, 2),
 }
 
 

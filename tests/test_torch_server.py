@@ -21,6 +21,7 @@ on the reduced ``xpikeformer-gpt-4-256``.
 
 import asyncio
 import json
+import time
 import types
 
 import jax
@@ -429,6 +430,46 @@ def test_http_metrics_scrape_live(setup, paged_sched):
     assert text == render_prometheus(sch.obs.metrics)
     assert [t for t, _ in got] == want
     sch.detach_obs()
+
+
+def test_stream_end_follows_the_pumps_gauges(setup, dense_sched,
+                                             monkeypatch):
+    """A stream's end reaches its client only after the pump round that
+    ended it has set the front door's gauges: with the gauge updates made
+    slow (each sleeps before it sets), the ``running`` and ``queue_depth``
+    gauges read right after ``done`` already describe the state in which
+    the stream ended, and the tokens are the direct run's."""
+    sch = dense_sched
+    prompt, max_new, seed = JOBS["dense"][1][0]
+    want = setup[2]["dense"][0][0]
+    sch.detach_obs()
+    sch.reset()
+
+    async def go():
+        front = FrontDoor(sch)
+        for gauge in (front._g_pending, front._g_running):
+            set_now = gauge.set
+
+            def slow_set(value, *labels, set_now=set_now):
+                time.sleep(0.3)  # the pump thread, between end and gauge
+                set_now(value, *labels)
+
+            monkeypatch.setattr(gauge, "set", slow_set)
+        await front.start()
+        try:
+            ts = await front.submit(prompt, max_new, seed=seed)
+            toks = await ts.tokens()
+            gauges = {g.name: g.series.get(())
+                      for g in (front._g_running, front._g_pending)}
+            return toks, gauges
+        finally:
+            await front.stop()
+
+    toks, gauges = asyncio.run(go())
+    sch.detach_obs()
+    assert toks == want
+    assert gauges == {"xpike_frontdoor_running": 0.0,
+                      "xpike_frontdoor_queue_depth": 0.0}
 
 
 def test_energy_budget_defers_until_granted(setup, dense_sched):

@@ -444,7 +444,18 @@ def test_train_and_program_gives_device_state():
     assert len(curves["ct"]) == 1 and len(curves["hwat"]) == 1
 
 
-def test_example_twins_run_end_to_end():
+@pytest.fixture
+def one_thread():
+    """Torch's CPU ops on one thread for the test: the examples run
+    thousands of tiny ops, and each op's thread team waits on threads the
+    other test workers hold (about 50x slower on a busy host)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_example_twins_run_end_to_end(one_thread):
     from repro_torch.examples import icl_symbol_detection, image_classify
 
     out = image_classify.main(["--device", "cpu", "--steps", "2", "--depth",
