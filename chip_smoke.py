@@ -201,6 +201,33 @@ Phases, each printing one JSON line:
    It prints each run's step times, its seconds and its launches (the
    ``kernels`` line's ``launches_train_launch``).
 
+10. **float_lm** -- the float LM stack, which launches none of K1-K9
+   (its products are cuBLAS; the launch counts, zeroed before the serve,
+   must stay zero), run after phase 9 and before the mesh.  (a) yi-9b at
+   full width and depth in its config's bfloat16 (48 layers, d=4,096, 32
+   heads on 4 KV heads of 128, d_ff=11,008, vocab 64,000; 8.83B random
+   weights drawn on the card through the threefry twin, as the
+   reference's ``init_params`` draws them): ``BatchScheduler(slots=8,
+   cache_len=256)`` serves the serve phase's 16 requests, 32 new tokens
+   each; every request must get its tokens, every decode step's logits be
+   finite and the metered energy zero.  It prints the draw's seconds,
+   tokens/s, ``decode_step_ms``, ``prefill_token_ms``,
+   ``max_memory_allocated``, a profiled window of three decode steps of 8
+   busy slots (kernels a step, busy time, idle share) and the greedy
+   tokens' agreement with a batch-1 replay of the two shortest requests
+   (reported, not asserted: cuBLAS may round a GEMM of 8 rows and of one
+   row differently).  (b) yi-9b cut to 2 layers and (c) mamba2-780m at
+   full depth and recurrentgemma-9b cut to one period (rglru, rglru,
+   local), in float32 with TF32 off: the forward's logits on tokens [2,
+   64] on the card against the same parameters on the host
+   (``FLOAT_HOST_ATOL``), teacher-forced decode against the forward on
+   the card (the reference's own 5e-3), and the long-sequence paths on
+   the card against their plain forms: flash (s = 4,096) against the
+   masked attention, the windowed flash and banded loops (2 and 3
+   windows) against the window mask (``FLOAT_PATH_ATOL``), chunked SSD (s
+   = 1,024) against the float64 step recurrence (``FLOAT_SSD_RTOL``,
+   relative).  Each error is printed beside its tolerance.
+
 Past the port's old caps the kernels phase holds K1 and K5 at T = 9 and
 16 (few rows and many: the split of ``d_in`` and the tensor-core GEMM, on
 residual-valued spikes up to 17), K9 at T = 9, and K8 at N = 513 and at
@@ -275,6 +302,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import functools
 import json
 import math
@@ -3246,6 +3274,259 @@ def phase_drift(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase float_lm: the float LM stack (no kernel of the port)
+# ---------------------------------------------------------------------------
+
+# (a) the served model: full width and depth, its config's bfloat16
+FLOAT_SERVE = "yi-9b"
+# (b), (c): (arch, layers kept (None: all), the cut) in float32, TF32 off
+FLOAT_CHECKS = (
+    ("yi-9b", 2, "full width, 2 of 48 layers"),
+    ("mamba2-780m", None, "full width and depth"),
+    ("recurrentgemma-9b", 3,
+     "full width, one period (rglru, rglru, local) of 38 layers"),
+)
+FLOAT_TOKENS = (2, 64)  # the checks' [batch, sequence]
+# tolerances: the card against the host (float32 sums in other orders,
+# over d_model = 4,096 and 11,008-12,288 wide products); teacher-forced
+# decode against the forward (the reference's own, tests/test_transformer
+# .py); a long-sequence path (flash, banded, chunked SSD) against its
+# masked / one-chunk form on the same inputs
+FLOAT_HOST_ATOL, FLOAT_DECODE_ATOL, FLOAT_PATH_ATOL = 1e-3, 5e-3, 1e-4
+# chunked SSD in float32 against the float64 recurrence, relative to the
+# output's largest value: the chunk's decays exp(cumsum(log a)) lose
+# float32 digits over 256 steps (2.2e-5 measured on the reduced config)
+FLOAT_SSD_RTOL = 1e-4
+
+
+def _float_serve(dev) -> dict:
+    """(a): yi-9b at full width and depth in bfloat16 served by
+    ``BatchScheduler(slots=8, cache_len=256)``: the serve phase's 16
+    requests (8-32 prompt tokens, 32 new, waves of 4 every 8 steps)."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import registry
+    from repro_torch.kernels import build as KB
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import BatchScheduler
+
+    cfg = registry.get_config(FLOAT_SERVE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in TR.flatten(params)[0])
+    sch = BatchScheduler(params, cfg, slots=8, cache_len=256, device=dev)
+    check(sch.plan is None, "a float config built a decode plan")
+    prompts = make_requests(cfg.vocab_size)
+    max_new = 32
+    spent = {"init_s": init_s}
+    t0 = time.perf_counter()
+    drive(sch, [p[:2] for p in prompts[:2]], 2)  # warm-up: cuBLAS, allocator
+    sch.reset()
+    spent["warmup_s"] = time.perf_counter() - t0
+
+    finite = []  # every decode step's logits finite (read after the run)
+    decode = sch._decode
+
+    def watched(p, state):
+        logits, state, act = decode(p, state)
+        finite.append(torch.isfinite(logits).all())
+        return logits, state, act
+
+    sch._decode = watched
+    KB.reset_launches()
+    outs, wall_s = drive(sch, prompts, max_new)
+    launched = {k: v for k, v in KB.LAUNCHES.items() if v}
+    sch._decode = decode
+    st = sch.stats
+    check(launched == {}, f"the float path launched port kernels {launched}")
+    check(st.admissions == len(prompts) and st.evictions == len(prompts),
+          "not every request was admitted and evicted")
+    check(all(len(o) == max_new for o in outs), "a request got too few tokens")
+    check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          "a token is out of the vocabulary")
+    check(len(finite) == st.decode_steps and bool(torch.stack(finite).all()),
+          "non-finite decode logits")
+    check(st.energy_j == 0.0, f"a float serve booked {st.energy_j} J")
+    out = dict(
+        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        dtype=cfg.dtype, params=n_params, init_s=init_s, slots=8,
+        cache_len=256, requests=len(prompts), tokens=st.decoded_tokens,
+        decode_steps=st.decode_steps, prefill_tokens=st.prefill_tokens,
+        wall_s=wall_s, tokens_per_s=st.decoded_tokens / wall_s,
+        decode_step_ms=1e3 * st.decode_s / st.decode_steps,
+        prefill_token_ms=1e3 * st.prefill_s / st.prefill_tokens,
+        energy_j=st.energy_j, logits_finite=True,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        first_tokens=outs[0][:8])
+
+    spent["serve_s"] = wall_s
+    # three decode steps of 8 busy slots under the profiler (2-token
+    # prompts: the window reads decode steps, not prefill)
+    t0 = time.perf_counter()
+    sch.reset()
+    for i, p in enumerate(prompts[:8]):
+        sch.submit(p[:2], 8, seed=i)
+    sch.admit()
+    prof = profile_window(lambda: [sch.step() for _ in range(3)])
+    out["profile_decode_3_steps"] = prof
+    out["kernels_per_step"] = prof["kernels"] / 3
+    out["busy_ms_per_step"] = prof["device_busy_ms"] / 3
+    spent["profile_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # the two shortest requests replayed alone (batch 1): cuBLAS may round
+    # a GEMM of 8 rows and of one row differently, so the agreement is
+    # reported only
+    one = BatchScheduler(params, cfg, slots=1, cache_len=256, device=dev)
+    agree = []
+    for i in sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:2]:
+        rid = one.submit(prompts[i], max_new, seed=1000 + i)
+        alone = one.run()[rid]
+        same = [a == b for a, b in zip(alone, outs[i])]
+        agree.append({"request": i, "equal": sum(same), "of": max_new,
+                      "first_difference": same.index(False)
+                      if False in same else None})
+    out["batch1_replay"] = agree
+    spent["replay_s"] = time.perf_counter() - t0
+    out["spent"] = spent
+    del sch, one, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _max_err(a, b) -> float:
+    return float((a.float() - b.float().to(a.device)).abs().max())
+
+
+def _float_paths(cfg, params, dev) -> dict:
+    """A long sequence's path against its plain form on the card, on the
+    first layer of each mixer, over random inputs: flash (s = 4,096, four
+    KV blocks) against the masked attention; a windowed layer's flash (s = 2
+    windows) and banded (s = 3 windows) loops against the window mask;
+    SSD in chunks of ``ssm_chunk`` (s = 1,024: four chunks) against the
+    step recurrence in float64."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for layer, blk, mixer, _ in T._layers(params, cfg):
+        if mixer == "ssd" and "ssd_chunked" not in out:
+            x = torch.randn((1, 1024, cfg.d_model), generator=gen, device=dev)
+            got = S.ssd_mixer(blk["mixer"], x, cfg)
+            # the step recurrence (ssd_decode) in float64
+            p64 = {k: v.double() for k, v in blk["mixer"].items()}
+            c64 = {k: v.double() if v.is_floating_point() else v
+                   for k, v in S.ssd_cache(cfg, 1, dev).items()}
+            rec = torch.cat([S.ssd_decode(p64, x[:, i:i + 1].double(), c64,
+                                          cfg)[0] for i in range(1024)], 1)
+            err = _max_err(got, rec)
+            out["ssd_chunked"] = dict(
+                layer=layer, s=1024, chunk=cfg.ssm_chunk, max_abs_err=err,
+                rel_err=err / float(rec.abs().max()), rtol=FLOAT_SSD_RTOL)
+            check(out["ssd_chunked"]["rel_err"] <= FLOAT_SSD_RTOL,
+                  f"{cfg.name}: chunked SSD {err} from the recurrence")
+        if mixer in ("attn", "local") and mixer not in out:
+            window = cfg.window_size if mixer == "local" else 0
+            runs = ([("flash", 2 * window), ("banded", 3 * window)] if window
+                    else [("flash", 4096)])
+            res = {}
+            for path, s in runs:
+                x = torch.randn((1, s, cfg.d_model), generator=gen, device=dev)
+                pos = torch.arange(s, device=dev).expand(1, s)
+                q, k, v = L._qkv(blk["mixer"], x, pos, cfg)
+                if path == "flash":
+                    got = L._flash_attention(q, k, v, cfg.attn_softcap,
+                                             window=window, blk=s // 4)
+                else:
+                    got = L._banded_local(q, k, v, cfg, window)
+                mask = (L.window_mask(s, s, window, device=dev) if window
+                        else L.causal_mask(s, s, device=dev))
+                want = L._sdpa(q, k, v, mask[None, None, None],
+                               cfg.attn_softcap)
+                res[path] = dict(s=s, max_abs_err=_max_err(got, want),
+                                 atol=FLOAT_PATH_ATOL)
+                del q, k, v, got, want
+            out[mixer] = dict(layer=layer, window=window, **res)
+    for what in out.values():
+        for r in [what] + [v for v in what.values() if isinstance(v, dict)]:
+            if "atol" in r:
+                check(r["max_abs_err"] <= r["atol"],
+                      f"{cfg.name}: a long-sequence path is "
+                      f"{r['max_abs_err']} from its plain form")
+    return out
+
+
+def _float_check(name: str, layers, cut: str, dev) -> dict:
+    """(b)/(c): float32 at full width (``layers`` of the depth kept):
+    forward logits on [2, 64] on the card against the same parameters on
+    the host, teacher-forced decode against the forward on the card, and
+    the long-sequence paths (:func:`_float_paths`)."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(registry.get_config(name), dtype="float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    gen = torch.Generator().manual_seed(11)
+    b, s = FLOAT_TOKENS
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 1, dev)
+    with torch.no_grad():
+        card = T.forward(params, {"tokens": tokens.to(dev)}, cfg,
+                         remat="none")[0]
+        check(bool(torch.isfinite(card).all()), f"{name}: non-finite logits")
+        host = T.forward(TR.tree_map(torch.Tensor.cpu, params),
+                         {"tokens": tokens}, cfg, remat="none")[0]
+        host_err = _max_err(card, host)
+        del host
+        cache = T.init_cache(cfg, b, s, dev)
+        dec = torch.cat([T.decode_step(params, cache, tokens[:, i:i + 1]
+                                       .to(dev), cfg)[0] for i in range(s)],
+                        dim=1)
+        decode_err = _max_err(dec, card)
+        paths = _float_paths(cfg, params, dev)
+    check(host_err <= FLOAT_HOST_ATOL,
+          f"{name}: card logits {host_err} from the host's")
+    check(decode_err <= FLOAT_DECODE_ATOL,
+          f"{name}: decode logits {decode_err} from the forward's")
+    out = dict(
+        arch=name, reduced=cut, layers=cfg.num_layers,
+        block_pattern=list(cfg.block_pattern), d_model=cfg.d_model,
+        dtype="float32", tf32=torch.backends.cuda.matmul.allow_tf32,
+        tokens=[b, s], logit_max=float(card.abs().max()),
+        card_vs_host=dict(max_abs_err=host_err, atol=FLOAT_HOST_ATOL),
+        decode_vs_forward=dict(max_abs_err=decode_err,
+                               atol=FLOAT_DECODE_ATOL),
+        paths=paths, seconds=time.perf_counter() - t0)
+    del params, card, dec, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_float_lm(dev) -> dict:
+    """The float LM stack on the card (it launches none of K1-K9): (a)
+    yi-9b served at full width and depth in bfloat16; (b) yi-9b cut to 2
+    layers and (c) mamba2-780m whole and recurrentgemma-9b cut to one
+    period, in float32 with TF32 off, checked against the host, decode
+    against forward, and the long-sequence paths against their plain
+    forms."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    out = {"serve": _float_serve(dev)}
+    for name, layers, cut in FLOAT_CHECKS:
+        out[name] = _float_check(name, layers, cut, dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the (data, model) mesh on one card
 # ---------------------------------------------------------------------------
 
@@ -3777,6 +4058,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="xpk_train_launch_") as root:
         tl, tlaunches, launched = phase_train_launch(dev, Path(root))
         emit({"phase": "train_launch", "card": card, **tl})
+        t0 = time.perf_counter()
+        flm = phase_float_lm(dev)
+        emit({"phase": "float_lm", "card": card,
+              "seconds": time.perf_counter() - t0, **flm})
         t0 = time.perf_counter()
         mesh, mlaunches = phase_mesh(dev, outs, pouts, mesh_ref, launched)
         emit({"phase": "mesh", "card": card,

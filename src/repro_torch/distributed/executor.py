@@ -51,7 +51,7 @@ class Executor:
         if not T.spiking_decode_enabled(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: the port's mesh serves the spiking SSA stack; "
-                "the ANN architectures on a mesh wait (ROADMAP A12)")
+                f"the other stacks on a mesh wait: {T.MOE_ITEM}")
         self.mesh = mesh
         self.cfg = cfg
         self.device = mesh.device

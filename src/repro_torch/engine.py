@@ -452,8 +452,9 @@ def get_backend(spec: Union[str, Backend, None]) -> Backend:
 class XpikeformerEngine:
     """One handle over a model of the paper: the spiking ViT (``task=
     "vit"``) or GPT (``"gpt"``) of ``SPIKING_ARCHS``, run by
-    :meth:`forward`, or a spiking GPT on the LM stack (``"lm"``), run by
-    :meth:`forward` and served by :meth:`serve`.  Holds config, backend, device and params, and the
+    :meth:`forward`, or an arch of the LM stack (``"lm"``: a spiking GPT or
+    a float arch of the registry), run by :meth:`forward` and served by
+    :meth:`serve` and :meth:`generate`.  Holds config, backend, device and params, and the
     programmed-PCM settings (``wmode``: ``"ideal"`` float weights,
     ``"hwat"`` their noisy training forward or ``"hw"`` programmed state;
     ``aimc_cfg``; the device clock ``t_seconds``)."""
@@ -594,15 +595,17 @@ class XpikeformerEngine:
 
     # -- forward ---------------------------------------------------------
 
-    def forward(self, x: Tensor, rng: Tensor, params: Any = None, *,
-                metering: bool = False):
+    def forward(self, x: Tensor, rng: Optional[Tensor] = None,
+                params: Any = None, *, metering: bool = False):
         """Images ``[B,H,W,C]`` -> class logits ``[B, classes]`` (vit),
         feature sequences ``[B,L,input_dim]`` -> per-token symbol logits
         ``[B,L,vocab]`` (gpt), or token ids ``[B,S]`` -> next-token logits
-        ``[B,S,V]`` (lm: :func:`repro_torch.models.transformer.forward`).
+        ``[B,S,V]`` (lm: :func:`repro_torch.models.transformer.forward`;
+        a frontend arch takes its embeddings ``[B,S,frontend_dim]``).
         ``rng`` is a key of the threefry twin
         (:func:`repro_torch.prng.PRNGKey`): the same key draws the
-        reference's spikes.  With ``metering=True`` the primitives run
+        reference's spikes (a float LM stack draws nothing and needs
+        none).  With ``metering=True`` the primitives run
         through a :class:`MeteringBackend` and the call returns ``(logits,
         report)``, a :class:`repro_torch.energy.model.EnergyReport`."""
         params = self.params if params is None else params
@@ -612,12 +615,15 @@ class XpikeformerEngine:
         if self.task == "lm":
             from repro_torch.models import transformer as T
 
-            logits, _ = T.forward(params, {"tokens": x.to(self.device)},
-                                  self.cfg, rng=rng.to(self.device),
-                                  backend=backend)
+            name = "embeddings" if self.cfg.frontend != "none" else "tokens"
+            logits, _ = T.forward(params, {name: x.to(self.device)},
+                                  self.cfg, rng=None if rng is None
+                                  else rng.to(self.device), backend=backend)
         else:
             from repro_torch.core import spiking_transformer as ST
 
+            if rng is None:
+                raise ValueError("the paper models' forward needs an rng")
             fwd = ST.vit_forward if self.task == "vit" else ST.gpt_forward
             logits = fwd(params, x.to(self.device, torch.float32), self.cfg,
                          rng.to(self.device), backend=backend, sim=self.sim)

@@ -1,7 +1,8 @@
-"""Serving CLI of the port: continuous batching of a spiking GPT.
+"""Serving CLI of the port: continuous batching of an LM-stack arch.
 
     python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --full \
         --requests 8
+    python -m repro_torch.launch.serve --arch yi-9b --requests 4 --device cpu
     python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --full \
         --paged --page-len 8 [--pages N]
     python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --full \
@@ -35,6 +36,13 @@ slots split over ``data`` (``--slots`` a multiple of D), heads and
 crossbars over ``model``; the tokens are one device's.  Every run prints
 the metered energy.  ``--device cpu`` runs the plain PyTorch versions.
 
+Any non-MoE name of the registry serves: a float arch (dense,
+local:global, SSD, RG-LRU, or a frontend backbone, which decodes its
+tokens through the embedding: "serving over stub embeddings") decodes on
+the float path, where ``--backend`` has no part and ``--program``,
+``--paged``, ``--decode-kernel fused`` and ``--mesh`` raise; a MoE name
+raises, naming the ROADMAP item that ports it.
+
 One device's scheduler always carries a telemetry bundle
 (:class:`repro_torch.obs.Telemetry`: metrics, lifecycle tracer, flight
 recorder).  ``--trace-out events.jsonl`` appends the lifecycle events
@@ -62,6 +70,7 @@ import torch
 from repro_torch import aimc_device as AD
 from repro_torch import prng
 from repro_torch.engine import XpikeformerEngine
+from repro_torch.models import transformer as T
 from repro_torch.obs import JsonlSink, StepProfiler, Telemetry
 
 DEFAULT_PROFILE_DIR = os.path.join(tempfile.gettempdir(), "xpike-profile")
@@ -105,6 +114,12 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
             recal_every_s=recal_every_s)
     eng = XpikeformerEngine.from_config(arch, task="lm", backend=backend,
                                         reduced=smoke, device=device)
+    cfg = eng.cfg
+    if program and not T.spiking_decode_enabled(cfg):
+        raise SystemExit(f"--program needs a spiking SSA arch, not {arch}")
+    if cfg.frontend != "none":
+        print(f"[serve] {arch} is a {cfg.family} backbone; serving over stub "
+              "embeddings")
     eng.init(seed)
     drift = None
     if program:
@@ -117,8 +132,13 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
     sch = eng.scheduler(slots=slots, cache_len=cache_len,
                         decode_kernel=decode_kernel, paged=paged,
                         page_len=page_len, n_pages=n_pages, drift=drift)
-    print(f"[serve] {eng.cfg.name} on {eng.device} through the "
-          f"'{eng.backend.name}' backend; decode kernel: {sch.plan.describe()}")
+    if sch.plan is not None:
+        print(f"[serve] {cfg.name} on {eng.device} through the "
+              f"'{eng.backend.name}' backend; decode kernel: "
+              f"{sch.plan.describe()}")
+    else:
+        print(f"[serve] {cfg.name} on {eng.device}: the float decode path "
+              f"({cfg.dtype})")
     # telemetry: metrics + tracer + flight recorder, plus the opt-in JSONL
     # sink and torch.profiler window; host-side only
     profiler = None

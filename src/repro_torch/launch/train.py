@@ -2,8 +2,10 @@
 
     python -m repro_torch.launch.train --arch xpikeformer-gpt-4-256 --steps 20
     python -m repro_torch.launch.train --arch xpikeformer-gpt-4-256 --device cpu
+    python -m repro_torch.launch.train --arch mamba2-780m --device cpu
 
-The LM stack trains on the float reference backend
+The LM stack (a spiking GPT on the float reference backend, or any float
+arch of the registry but MoE, which raises) trains
 (:mod:`repro_torch.train.loop`) on the card unless ``--device cpu``:
 
 * **checkpoint/restart** -- an async checkpoint every ``ckpt_every``

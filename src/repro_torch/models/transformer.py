@@ -1,21 +1,37 @@
-"""The spiking LM stack: its full-sequence forward and its decode step.
+"""The generic LM stack: float and spiking, full-sequence forward and
+decode step.
 
-Twin of the spiking branch of ``repro/models/transformer.py``:
+Twin of ``repro/models/transformer.py`` for every architecture family but
+MoE (which raises, naming :data:`MOE_ITEM`):
 
-* the forward (lines 198-299, 300-418, 421-455 and 1018): the spiking
-  attention, MLP and residual block (``_spiking_attention``,
-  ``_spiking_mlp``, ``_apply_block_spiking``), ``_embed_inputs``,
-  ``forward`` / ``_forward_spiking``, ``softmax_xent``, ``loss_fn`` and
-  ``prefill``.  The reference's key chain is kept exactly: ``split(rng)``
-  into the coding and block keys, ``split(k_blocks, n_blocks)``, then
-  ``split(key, period)`` a period, ``split(key)`` a block, ``split(k1, 5)``
-  in its attention (Q, K, V, the SSA tile, out) and ``split(k2)`` in its
-  MLP.  On the reference backend (``"reference"``) the forward and loss
-  are differentiable (training, :mod:`repro_torch.train.loop`), and
-  ``remat`` recomputes each layer in the backward;
-* the decode step (lines 456-528, 536-767 and 770-946): the per-slot
-  spike-train KV cache and the block-paged page pool, per-slot PRN keys
-  ``f(seed, pos)``, Bernoulli rate coding, the unfused and fused
+* the float stack (lines 53-191, 300-373, 421-453, 483-533, 949-1025):
+  dense and local:global attention, Mamba-2's SSD, RecurrentGemma's
+  RG-LRU and the frontend backbones (precomputed embeddings through a
+  projection), tied embeddings, the forward with ``remat``, the loss, the
+  per-slot decode caches (``{k, v, pos}``, a ring buffer for a windowed
+  layer; ``{ssd, conv_x, conv_bc, pos}``; ``{h, conv, pos}``) and the
+  float decode step, which also decodes a spiking stack whose attention
+  is not SSA (``attention_kind="lif"``), as the reference's does.  Its
+  products are plain ``torch.matmul``/``einsum`` (the reference's are
+  plain einsums outside any Pallas kernel).  ``init_params`` draws a float
+  stack's weights as the reference's ``init_params(PRNGKey(seed), cfg)``
+  does, through the threefry twin on the device: the same values, up to
+  ``erfinv``'s last bits;
+* the spiking forward (lines 198-299, 300-418, 421-455 and 1018): the
+  spiking attention, MLP and residual block (``_spiking_attention``,
+  ``_spiking_mlp``, ``_apply_block_spiking``; SSD and RG-LRU mixers on the
+  rate interface), ``_embed_inputs``, ``forward`` / ``_forward_spiking``,
+  ``softmax_xent``, ``loss_fn`` and ``prefill``.  The reference's key
+  chain is kept exactly: ``split(rng)`` into the coding and block keys,
+  ``split(k_blocks, n_blocks)``, then ``split(key, period)`` a period,
+  ``split(key)`` a block, ``split(k1, 5)`` in its attention (Q, K, V, the
+  SSA tile, out) and ``split(k2)`` in its MLP.  On the reference backend
+  (``"reference"``) the forward and loss are differentiable (training,
+  :mod:`repro_torch.train.loop`), and ``remat`` recomputes each layer in
+  the backward;
+* the spiking decode step (lines 456-528, 536-767 and 770-946): the
+  per-slot spike-train KV cache and the block-paged page pool, per-slot
+  PRN keys ``f(seed, pos)``, Bernoulli rate coding, the unfused and fused
   attention decodes (dense and paged), the FFN tail, and the unembedding.
 
 A Python loop over layers takes the place of the reference's ``lax.scan``
@@ -24,20 +40,19 @@ stacked layout (``periods`` leaves carry a leading period axis).  The
 spiking linears go through ``backend.spiking_linear`` (K1 on the card)
 and the SSA tile through ``backend.ssa_attention`` (the keyed K8, reading
 the heads in place); ``attention_kind="lif"`` runs
-:func:`repro_torch.core.ssa.lif_spiking_attention` instead.  The float
-mixers and MoE (``ssd``, ``rglru``), frontends and the float LM stack
-raise, naming ROADMAP A12.
+:func:`repro_torch.core.ssa.lif_spiking_attention` instead.
 
 Unlike the reference, the decode updates the cache **in place** (scatter of
-the new K/V trains and ``pos += 1``): one step never needs two copies of a
-cache that is the largest state on the card.  ``decode_step`` returns the
-same cache object it was given, ``paged_decode_step`` the same pool.
+the new K/V rows and ``pos += 1``, the recurrent states overwritten): one
+step never needs two copies of a cache that is the largest state on the
+card.  ``decode_step`` returns the same cache object it was given,
+``paged_decode_step`` the same pool.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -49,6 +64,8 @@ from repro_torch.core import ssa as SSA
 from repro_torch.kernels.plan import AttnSpec, DecodePlan, KVView
 from repro_torch.kernels.ref import scatter_at_pos, scatter_into_pages
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 
 Tensor = torch.Tensor
 
@@ -69,33 +86,17 @@ def paged_decode_supported(cfg) -> bool:
         m in ("attn", "local") for m in cfg.block_pattern)
 
 
-_A12 = ("ROADMAP A12 (the non-spiking LM stack: float and recurrent mixers, "
-        "MoE, frontends)")
+MOE_ITEM = ("ROADMAP A13 (the mesh slice: MoE's router, dense MoE and the "
+            "expert-parallel all-to-all, model-parallel training, the front "
+            "door over the mesh, the ANN mesh)")
 
 
-def _require_spiking_stack(cfg) -> None:
-    """Raise for what the port's LM stack does not run: a float stack, a
-    frontend, MoE, or a mixer other than attention."""
-    if not cfg.spiking:
+def require_supported(cfg) -> None:
+    """Raise for what the port's LM stack does not run: MoE."""
+    if cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: the float LM stack is not ported: {_A12}")
-    if cfg.frontend != "none" or cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: frontend={cfg.frontend!r}, moe={cfg.is_moe} are "
-            f"not ported: {_A12}")
-    if any(m not in ("attn", "local") for m in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: mixers {cfg.block_pattern} are not ported: {_A12}")
-
-
-def _require_spiking(cfg) -> None:
-    """The decode step's condition: a spiking stack with SSA attention
-    (the reference decodes any other through its float path)."""
-    _require_spiking_stack(cfg)
-    if not spiking_decode_enabled(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: attention_kind={cfg.attention_kind!r} decodes on "
-            f"the reference's float path, which is not ported: {_A12}")
+            f"{cfg.name}: MoE ({cfg.num_experts} experts) is not ported: "
+            f"{MOE_ITEM}")
 
 
 # ---------------------------------------------------------------------------
@@ -103,68 +104,163 @@ def _require_spiking(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _block_shapes(cfg) -> Dict[str, Any]:
+def _attention_schema(cfg) -> Dict[str, Any]:
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
-    s: Dict[str, Any] = {
-        "norm1": {"scale": (d,)},
-        "mixer": {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
-                  "wo": (h, hd, d)},
-    }
+    s = {"wq": ((d, h, hd), "normal"), "wk": ((d, kv, hd), "normal"),
+         "wv": ((d, kv, hd), "normal"), "wo": ((h, hd, d), "normal")}
+    if cfg.qkv_bias:
+        s.update(bq=((h, hd), "zeros"), bk=((kv, hd), "zeros"),
+                 bv=((kv, hd), "zeros"))
+    return s
+
+
+def _block_schema(cfg, mixer: str) -> Dict[str, Any]:
+    """One block's leaves as ``(shape, init)``, ``init`` one of
+    ``normal``, ``zeros``, ``ones`` (the reference's ``block_schema``)."""
+    d = cfg.d_model
+    s: Dict[str, Any] = {"norm1": {"scale": ((d,), "ones")}}
+    if mixer in ("attn", "local"):
+        s["mixer"] = _attention_schema(cfg)
+    elif mixer == "ssd":
+        s["mixer"] = S.ssd_schema(cfg)
+    elif mixer == "rglru":
+        s["mixer"] = R.rglru_schema(cfg)
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
     if cfg.d_ff > 0:
-        s["norm2"] = {"scale": (d,)}
-        s["mlp"] = {"wi": (d, cfg.d_ff), "wo": (cfg.d_ff, d)}
+        s["norm2"] = {"scale": ((d,), "ones")}
+        s["mlp"] = {"wi": ((d, cfg.d_ff), "normal"),
+                    "wo": ((cfg.d_ff, d), "normal")}
         if cfg.gated_mlp:
-            s["mlp"]["wg"] = (d, cfg.d_ff)
+            s["mlp"]["wg"] = ((d, cfg.d_ff), "normal")
+    return s
+
+
+def _map_schema(f, tree):
+    return ({k: _map_schema(f, v) for k, v in tree.items()}
+            if isinstance(tree, dict) else f(tree))
+
+
+def _model_schema(cfg) -> Dict[str, Any]:
+    """The reference's ``model_schema``: stacked ``periods`` (a leading
+    period axis), the unrolled ``remainder``, the unembedding unless tied,
+    a frontend's projection."""
+    s: Dict[str, Any] = {
+        "embed": {"table": ((cfg.vocab_size, cfg.d_model), "normal")},
+        "final_norm": {"scale": ((cfg.d_model,), "ones")},
+    }
+    if cfg.num_periods > 0:
+        period = {f"blk{i}": _block_schema(cfg, m)
+                  for i, m in enumerate(cfg.block_pattern)}
+        s["periods"] = _map_schema(
+            lambda leaf: ((cfg.num_periods,) + leaf[0], leaf[1]), period)
+    if cfg.remainder_layers:
+        s["remainder"] = {f"blk{i}": _block_schema(cfg, cfg.block_pattern[i])
+                          for i in range(cfg.remainder_layers)}
+    if not cfg.tie_embeddings:
+        s["unembed"] = {"w": ((cfg.d_model, cfg.vocab_size), "normal")}
+    if cfg.frontend != "none":
+        s["frontend"] = {"proj": ((cfg.frontend_dim, cfg.d_model), "normal")}
     return s
 
 
 def _model_shapes(cfg) -> Dict[str, Any]:
     """Leaf shapes of the reference's parameter tree (stacked periods)."""
-    period = {f"blk{i}": _block_shapes(cfg) for i in range(cfg.period)}
+    return _map_schema(lambda leaf: leaf[0], _model_schema(cfg))
 
-    def stack(tree, n):
-        if isinstance(tree, dict):
-            return {k: stack(v, n) for k, v in tree.items()}
-        return (n,) + tree
 
-    s: Dict[str, Any] = {
-        "embed": {"table": (cfg.vocab_size, cfg.d_model)},
-        "final_norm": {"scale": (cfg.d_model,)},
-    }
-    if cfg.num_periods > 0:
-        s["periods"] = stack(period, cfg.num_periods)
-    if cfg.remainder_layers:
-        s["remainder"] = {f"blk{i}": _block_shapes(cfg)
-                          for i in range(cfg.remainder_layers)}
-    if not cfg.tie_embeddings:
-        s["unembed"] = {"w": (cfg.d_model, cfg.vocab_size)}
-    return s
+def _schema_leaves(schema, path=()):
+    """``(path, shape, init)`` in the reference's leaf order (sorted keys
+    at every level, as ``jax.tree`` flattens a dict)."""
+    for k in sorted(schema):
+        v = schema[k]
+        if isinstance(v, dict):
+            yield from _schema_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v[0], v[1]
+
+
+def _set_path(tree: Dict[str, Any], path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+# the largest piece of one normal draw made at once: its index words and
+# threefry temporaries take about 48 bytes an element
+_DRAW_CHUNK = 1 << 25
+
+
+def _reference_normal(key: Tensor, shape, std: float, dtype, device
+                      ) -> Tensor:
+    """``(jax.random.normal(key, shape) * std).astype(dtype)``, drawn on
+    ``device`` a bounded piece at a time (a draw's words depend on their
+    flat index alone), so no host or device buffer holds more than one
+    piece of the draw's temporaries."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for a in range(0, flat.numel(), _DRAW_CHUNK):
+        b = min(a + _DRAW_CHUNK, flat.numel())
+        idx = torch.arange(a, b, dtype=torch.int64, device=device)
+        flat[a:b] = (prng.normal_at(key, idx) * std).to(dtype)
+    return out
+
+
+def _init_like_reference(cfg, seed: int, device) -> Dict[str, Any]:
+    """The reference's ``init_tree``: one key per leaf from
+    ``split(PRNGKey(seed), n_leaves)`` in its leaf order; a normal leaf
+    is ``normal * 1/sqrt(fan)``, the fan its (per-layer) first axis."""
+    dtype = model_dtype(cfg)
+    leaves = list(_schema_leaves(_model_schema(cfg)))
+    keys = prng.split(prng.PRNGKey(seed), len(leaves)).to(device)
+    out: Dict[str, Any] = {}
+    for (path, shape, init), key in zip(leaves, keys):
+        if init == "normal":
+            stacked = path[0] == "periods"
+            fan_in = shape[1] if stacked and len(shape) > 2 else None
+            fan = fan_in or (shape[0] if len(shape) > 1 else max(shape[0], 1))
+            w = _reference_normal(key, shape, 1.0 / math.sqrt(fan), dtype,
+                                  device)
+        else:
+            fill = torch.zeros if init == "zeros" else torch.ones
+            w = fill(shape, dtype=dtype, device=device)
+        _set_path(out, path, w)
+    return out
+
+
+def _init_spiking(cfg, seed: int, device) -> Dict[str, Any]:
+    """A spiking stack's weights: normal with std ``1/sqrt(fan_in)``, the
+    fan-in being every axis of one layer's matrix but the last (``d*h``
+    for a Q projection, ``h*hd`` for the attention out-projection), drawn
+    in the reference's leaf order from a CPU ``torch.Generator``, so the
+    values do not depend on the device; norm scales one, biases zero."""
+    gen = torch.Generator().manual_seed(seed)
+    dtype = model_dtype(cfg)
+    out: Dict[str, Any] = {}
+    for path, shape, init in _schema_leaves(_model_schema(cfg)):
+        if init == "normal":
+            per_layer = shape[1:] if path[0] == "periods" else shape
+            fan = math.prod(per_layer[:-1])
+            w = torch.randn(shape, generator=gen, dtype=torch.float32)
+            w = (w / math.sqrt(fan)).to(dtype=dtype, device=device)
+        else:
+            fill = torch.zeros if init == "zeros" else torch.ones
+            w = fill(shape, dtype=dtype, device=device)
+        _set_path(out, path, w)
+    return out
 
 
 def init_params(cfg, seed: int, device) -> Dict[str, Any]:
-    """Random weights from ``seed``: normal with std ``1/sqrt(fan_in)``,
-    the fan-in being the input width of one layer's matrix (every axis but
-    the output axis: ``h*hd`` for the attention out-projection), norm
-    scales one.  Drawn with a CPU ``torch.Generator``, so the values do not
-    depend on the device."""
-    _require_spiking_stack(cfg)
-    gen = torch.Generator().manual_seed(seed)
-    dtype = model_dtype(cfg)
-
-    def make(path, shape):
-        if path[-1] == "scale":
-            return torch.ones(shape, dtype=dtype, device=device)
-        per_layer = shape[1:] if path[0] == "periods" else shape
-        fan = math.prod(per_layer[:-1])
-        w = torch.randn(shape, generator=gen, dtype=torch.float32)
-        return (w / math.sqrt(fan)).to(dtype=dtype, device=device)
-
-    def walk(tree, path):
-        return {k: walk(v, path + (k,)) if isinstance(v, dict) else make(path + (k,), v)
-                for k, v in sorted(tree.items())}
-
-    return walk(_model_shapes(cfg), ())
+    """Random weights from ``seed`` on ``device``.  A float stack's are the
+    reference's ``init_params(PRNGKey(seed), cfg)`` (drawn on the device
+    through the threefry twin, equal up to ``erfinv``'s last bits); a
+    spiking stack's come from a CPU ``torch.Generator``
+    (:func:`_init_spiking`).  MoE raises."""
+    require_supported(cfg)
+    if cfg.spiking:
+        return _init_spiking(cfg, seed, device)
+    return _init_like_reference(cfg, seed, device)
 
 
 def _linear_fan_ins(cfg) -> Dict[Tuple[str, str], int]:
@@ -248,15 +344,16 @@ def _lin_operand(w, d_in: int):
 
 
 def _layer_keys(key: Tensor) -> Tensor:
-    """A block's seven keys ``[..., 7, 2]`` from its key: ``split(split(key)
-    [0], 5)`` (Q, K, V, the SSA tile, attention-out) then ``split(split(key)
-    [1])`` (MLP in, MLP out), as the reference's block, attention and MLP
+    """A block's eight keys ``[..., 8, 2]`` from its key: ``split(split(key)
+    [0], 5)`` (Q, K, V, the SSA tile, attention-out), ``split(split(key)
+    [1])`` (MLP in, MLP out), and ``split(key)[0]`` itself (a recurrent
+    mixer's rate coding), as the reference's block, attention and MLP
     split them.  The digital backends' linears draw nothing; the reference
     backend's read programmed state's noise from them.  Vectorised over
     leading axes."""
     k12 = prng.split(key)
     return torch.cat([prng.split(k12[..., 0, :], 5),
-                      prng.split(k12[..., 1, :])], dim=-2)
+                      prng.split(k12[..., 1, :]), k12[..., :1, :]], dim=-2)
 
 
 def _spiking_attention(params, s: Tensor, cfg, keys: Tensor, backend,
@@ -301,13 +398,28 @@ def _spiking_mlp(params, s: Tensor, keys: Tensor, backend) -> Tensor:
                                   key=keys[6], part="row")
 
 
+# the attention-free mixers: (train/prefill, one-token decode)
+_RECURRENT = {"ssd": (S.ssd_mixer, S.ssd_decode),
+              "rglru": (R.rglru_mixer, R.rglru_decode)}
+
+
 def _block_spiking(params, s: Tensor, cfg, keys: Tensor, backend,
-                   tile: Optional[Dict[str, int]] = None) -> Tensor:
-    """One spiking residual block over ``s [T,B,S,d]`` given its seven
-    keys (:func:`_layer_keys`): residuals add spike trains directly (Table
-    I: no inter-layer normalisation)."""
-    s = s + _spiking_attention(params["mixer"], s, cfg, keys, backend,
-                               tile).to(s.dtype)
+                   tile: Optional[Dict[str, int]] = None,
+                   mixer: str = "attn") -> Tensor:
+    """One spiking residual block over ``s [T,B,S,d]`` given its keys
+    (:func:`_layer_keys`): residuals add spike trains directly (Table I:
+    no inter-layer normalisation).  An SSD or RG-LRU mixer runs on the
+    rate interface (decode the rate, the float mixer, re-encode its
+    sigmoid keyed ``keys[7]``), as the reference's does."""
+    if mixer in ("attn", "local"):
+        h = _spiking_attention(params["mixer"], s, cfg, keys, backend, tile)
+    else:
+        if tile is not None:
+            raise NotImplementedError(
+                f"a {mixer} mixer on a mesh rank's rows: {MOE_ITEM}")
+        y = _RECURRENT[mixer][0](params["mixer"], SP.rate_decode(s), cfg)
+        h = SP.rate_encode(keys[7], torch.sigmoid(y), s.shape[0])
+    s = s + h.to(s.dtype)
     if "norm2" in params:
         s = s + _spiking_mlp(params["mlp"], s, keys, backend).to(s.dtype)
     return s
@@ -318,17 +430,21 @@ def _apply_block_spiking(params, s: Tensor, cfg, mixer: str, key: Tensor,
                          ) -> Tensor:
     """The reference's spiking residual block (``mixer`` ``"attn"`` or
     ``"local"``: the spiking attention sees the whole causal prefix in
-    both, as in the reference), keyed by the block's ``key``.  Returns the
-    new spike trains (no MoE: no auxiliary loss)."""
-    if mixer not in ("attn", "local"):
-        raise NotImplementedError(f"mixer {mixer!r} is not ported: {_A12}")
-    return _block_spiking(params, s, cfg, _layer_keys(key), backend, tile)
+    both, as in the reference; ``"ssd"``/``"rglru"`` on the rate
+    interface), keyed by the block's ``key``.  Returns the new spike
+    trains (no MoE: no auxiliary loss)."""
+    return _block_spiking(params, s, cfg, _layer_keys(key), backend, tile,
+                          mixer)
 
 
 def _embed_inputs(params, batch: Dict[str, Tensor], cfg) -> Tensor:
-    """Token embedding times ``sqrt(d_model)`` in the model dtype."""
+    """Token embedding (a frontend arch: its precomputed embeddings
+    through the projection) times ``sqrt(d_model)`` in the model dtype."""
     dt = model_dtype(cfg)
-    x = L.embed(params["embed"], batch["tokens"], dt)
+    if cfg.frontend != "none":
+        x = batch["embeddings"].to(dt) @ params["frontend"]["proj"].to(dt)
+    else:
+        x = L.embed(params["embed"], batch["tokens"], dt)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt, device=x.device)
 
 
@@ -348,25 +464,42 @@ def _block_keys(k_blocks: Tensor, cfg) -> Tensor:
     return torch.cat(out)
 
 
-def _remat_block(remat: str, backend):
-    """``remat`` as a wrapper of one layer: ``"none"`` runs it as it is;
-    ``"block"`` and ``"full"`` recompute it in the backward
+def _remat(fn: Callable, remat: str, differentiable: bool = True) -> Callable:
+    """``remat`` as a wrapper of one layer ``fn``: ``"none"`` runs it as it
+    is; ``"block"`` and ``"full"`` recompute it in the backward
     (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
     activations, where the reference wraps its period in
     ``jax.checkpoint``.  Every draw is keyed, so the recomputation is
-    exact.  Where autograd records nothing, or the backend is not
+    exact.  Where autograd records nothing, or the layer is not
     differentiable, nothing is kept anyway."""
     if remat not in ("none", "block", "full"):
         raise ValueError(f"remat must be none|block|full, got {remat!r}")
-    if (remat == "none" or not torch.is_grad_enabled()
-            or not getattr(backend, "differentiable", False)):
-        return _block_spiking
+    if remat == "none" or not torch.is_grad_enabled() or not differentiable:
+        return fn
 
     def run(*args):
-        return torch.utils.checkpoint.checkpoint(_block_spiking, *args,
+        return torch.utils.checkpoint.checkpoint(fn, *args,
                                                  use_reentrant=False)
 
     return run
+
+
+def _layers(params, cfg, tree=None):
+    """``(layer index, block params, mixer, block of tree)`` in layer
+    order: the stacked periods' views, then the remainder.  ``tree`` (a
+    cache or page pool, indexed like the params) is optional."""
+    layer = 0
+    for p in range(cfg.num_periods):
+        pp = _take(params["periods"], p)
+        pt = None if tree is None else _take(tree["periods"], p)
+        for i, mixer in enumerate(cfg.block_pattern):
+            yield (layer, pp[f"blk{i}"], mixer,
+                   None if pt is None else pt[f"blk{i}"])
+            layer += 1
+    for i in range(cfg.remainder_layers):
+        yield (layer, params["remainder"][f"blk{i}"], cfg.block_pattern[i],
+               None if tree is None else tree["remainder"][f"blk{i}"])
+        layer += 1
 
 
 def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
@@ -377,12 +510,12 @@ def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
     (b0, n)`` runs batch rows ``b0 .. b0+n`` only (a mesh rank's share):
     the coding draws at the whole batch's shape and the SSA tiles at the
     whole batch's grid, so the rows equal those of the whole batch.
-    ``remat`` (:func:`_remat_block`) trades a layer's kept activations for
-    its recomputation in training.
+    ``remat`` (:func:`_remat`) trades a layer's kept activations for its
+    recomputation in training.
 
     The key chain runs on the host (a few tiny threefry calls, not a few
     hundred kernel launches); the keys move to the card once."""
-    _require_spiking_stack(cfg)
+    require_supported(cfg)
     if rng is None:
         raise ValueError("the spiking forward needs an rng for Bernoulli "
                          "coding")
@@ -396,17 +529,10 @@ def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
         tile = {"b0": b0, "batch": s.shape[1]}
         s = s[:, b0:b0 + n]
     lkeys = _layer_keys(_block_keys(k_blocks, cfg)).to(dev)
-    block = _remat_block(remat, backend)
-    layer = 0
-    for p in range(cfg.num_periods):
-        pp = _take(params["periods"], p)
-        for i in range(cfg.period):
-            s = block(pp[f"blk{i}"], s, cfg, lkeys[layer], backend, tile)
-            layer += 1
-    for i in range(cfg.remainder_layers):
-        s = block(params["remainder"][f"blk{i}"], s, cfg, lkeys[layer],
-                  backend, tile)
-        layer += 1
+    block = _remat(_block_spiking, remat,
+                   getattr(backend, "differentiable", False))
+    for layer, bp, mixer, _ in _layers(params, cfg):
+        s = block(bp, s, cfg, lkeys[layer], backend, tile, mixer)
     # rate-decode the stream (paper: loss on the time-averaged output)
     return SP.rate_decode(s.to(torch.float32)).to(model_dtype(cfg))
 
@@ -420,17 +546,58 @@ def _forward_spiking(params, batch, cfg, *, rng, backend,
     return _unembed(params, x, cfg), torch.zeros((), device=x.device)
 
 
+# ---------------------------------------------------------------------------
+# Float (conventional) stack
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(params, x: Tensor, positions: Tensor, cfg, mixer: str
+                 ) -> Tensor:
+    """Residual block: norm -> mixer -> +res; norm -> MLP -> +res."""
+    h = L.apply_norm(cfg.norm_type, params["norm1"], x)
+    if mixer == "attn":
+        h = L.attention(params["mixer"], h, positions, cfg)
+    elif mixer == "local":
+        h = L.attention(params["mixer"], h, positions, cfg,
+                        window=cfg.window_size)
+    else:
+        h = _RECURRENT[mixer][0](params["mixer"], h, cfg)
+    x = x + h
+    if "norm2" in params:
+        h = L.apply_norm(cfg.norm_type, params["norm2"], x)
+        x = x + L.mlp(params["mlp"], h, cfg)
+    return x
+
+
+def _forward_float(params, batch, cfg, *, remat: str = "block"):
+    """The float forward -> ``(logits [B,S,V], aux 0)``."""
+    x = _embed_inputs(params, batch, cfg)
+    b, sl, _ = x.shape
+    positions = torch.arange(sl, dtype=torch.int32, device=x.device).expand(b, sl)
+    block = _remat(_apply_block, remat)
+    for _, bp, mixer, _ in _layers(params, cfg):
+        x = block(bp, x, positions, cfg, mixer)
+    return _unembed(params, x, cfg), torch.zeros((), device=x.device)
+
+
 def forward(params, batch: Dict[str, Tensor], cfg, *,
             rng: Optional[Tensor] = None, backend=None, remat: str = "block",
             rows: Optional[Tuple[int, int]] = None) -> Tuple[Tensor, Tensor]:
-    """Train/prefill forward: ``batch["tokens"] [B,S]`` -> ``(logits
-    [B,S,V], aux)``; ``aux`` (MoE's load-balancing loss) is zero.
-    ``backend`` defaults to the CUDA one (:func:`repro_torch.engine.
-    get_backend`); the reference backend (``"reference"``) is the one
-    autograd trains through.  ``remat`` applies where autograd records
-    (:func:`_remat_block`).  ``rows = (b0, n)``: the logits of batch rows
-    ``b0 .. b0+n`` only, equal to those rows of the whole batch's (a data
-    rank's share, :func:`spiking_features`)."""
+    """Train/prefill forward: ``batch["tokens"] [B,S]`` (a frontend arch:
+    ``batch["embeddings"] [B,S,frontend_dim]``) -> ``(logits [B,S,V],
+    aux)``; ``aux`` (MoE's load-balancing loss) is zero.  A spiking stack
+    runs on ``backend`` (default: the CUDA one, :func:`repro_torch.engine.
+    get_backend`; the reference backend, ``"reference"``, is the one
+    autograd trains through) and needs ``rng``; a float stack needs
+    neither.  ``remat`` applies where autograd records (:func:`_remat`).
+    ``rows = (b0, n)``: the logits of batch rows ``b0 .. b0+n`` only,
+    equal to those rows of the whole batch's (a data rank's share,
+    :func:`spiking_features`)."""
+    require_supported(cfg)
+    if not cfg.spiking:
+        if rows is not None:
+            batch = {k: v[rows[0]:rows[0] + rows[1]] for k, v in batch.items()}
+        return _forward_float(params, batch, cfg, remat=remat)
     from repro_torch.engine import get_backend
 
     return _forward_spiking(params, batch, cfg, rng=rng,
@@ -456,16 +623,25 @@ def loss_fn(params, batch, cfg, *, rng: Optional[Tensor] = None,
             rows: Optional[Tuple[int, int]] = None
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Next-token loss of ``batch["tokens"] [B, S+1]`` (inputs all but the
-    last, targets all but the first; ``batch["mask"]`` optional) ->
-    ``(loss, {"xent", "moe_aux"})``; differentiable on the reference
-    backend.  ``rows = (b0, n)``: the mean over those rows of the batch
-    only, drawn as the whole batch draws them (a data rank's share)."""
-    _require_spiking_stack(cfg)
-    logits, aux = forward(params, {"tokens": batch["tokens"][:, :-1]}, cfg,
-                          rng=rng, backend=backend, remat=remat, rows=rows)
+    last, targets all but the first; a frontend arch: ``batch
+    ["embeddings"]`` and ``batch["targets"]``; ``batch["mask"]``
+    optional) -> ``(loss, {"xent", "moe_aux"})``; differentiable (a
+    spiking stack on the reference backend).  ``rows = (b0, n)``: the mean
+    over those rows of the batch only, drawn as the whole batch draws them
+    (a data rank's share)."""
+    if cfg.frontend != "none":
+        inputs, targets = {"embeddings": batch["embeddings"]}, batch["targets"]
+    else:
+        inputs = {"tokens": batch["tokens"][:, :-1]}
+        targets = batch["tokens"][:, 1:]
+    logits, aux = forward(params, inputs, cfg, rng=rng, backend=backend,
+                          remat=remat, rows=rows)
+    mask = batch.get("mask")
     if rows is not None:
-        batch = {k: v[rows[0]:rows[0] + rows[1]] for k, v in batch.items()}
-    xent = softmax_xent(logits, batch["tokens"][:, 1:], batch.get("mask"))
+        cut = slice(rows[0], rows[0] + rows[1])
+        targets = targets[cut]
+        mask = None if mask is None else mask[cut]
+    xent = softmax_xent(logits, targets, mask)
     return xent + aux_weight * aux, {"xent": xent, "moe_aux": aux}
 
 
@@ -481,39 +657,56 @@ def prefill(params, batch, cfg, *, rng: Optional[Tensor] = None,
 
 
 # ---------------------------------------------------------------------------
-# Spiking KV cache
+# Decode caches
 # ---------------------------------------------------------------------------
 
 
 def _per_block(cfg, blk) -> Dict[str, Any]:
-    """``blk(lead)`` for every attention block: stacked ``periods`` leaves
+    """``blk(mixer, lead)`` for every block: stacked ``periods`` leaves
     get a leading period axis, ``remainder`` leaves none."""
     out: Dict[str, Any] = {}
     if cfg.num_periods > 0:
-        out["periods"] = {f"blk{i}": blk((cfg.num_periods,))
-                          for i in range(cfg.period)}
+        out["periods"] = {f"blk{i}": blk(m, (cfg.num_periods,))
+                          for i, m in enumerate(cfg.block_pattern)}
     if cfg.remainder_layers:
-        out["remainder"] = {f"blk{i}": blk(())
+        out["remainder"] = {f"blk{i}": blk(cfg.block_pattern[i], ())
                             for i in range(cfg.remainder_layers)}
     return out
 
 
 def init_cache(cfg, batch: int, seq_len: int, device,
                kv_heads: Optional[int] = None) -> Dict[str, Any]:
-    """Zero per-slot spike-train caches: ``sk``/``sv [B, T, L, KV, hd]``
-    uint8 and ``pos [B]`` int32 per attention block (stacked periods get a
-    leading period axis).  Positions past ``pos`` hold zero spikes, which
-    masks them out of the SSA comparators.  ``kv_heads`` (default: all)
-    is the KV heads a mesh rank caches."""
-    _require_spiking(cfg)
-    kv, hd = kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim
+    """Zero per-slot decode caches, one per block (stacked periods get a
+    leading period axis), each with its ``pos [B]`` int32:
 
-    def blk(lead):
-        shape = lead + (batch, cfg.spike_T, seq_len, kv, hd)
-        return {"sk": torch.zeros(shape, dtype=torch.uint8, device=device),
-                "sv": torch.zeros(shape, dtype=torch.uint8, device=device),
-                "pos": torch.zeros(lead + (batch,), dtype=torch.int32,
-                                   device=device)}
+    * a spiking SSA stack's attention: the spike-train cache ``sk``/``sv
+      [B, T, L, KV, hd]`` uint8 (positions past ``pos`` hold zero spikes,
+      which masks them out of the SSA comparators); ``kv_heads``
+      (default: all) is the KV heads a mesh rank caches;
+    * float attention: ``k``/``v [B, L, KV, hd]``, a windowed layer's
+      ``L`` its window (a ring buffer);
+    * SSD: ``ssd [B, H, S, P]``, ``conv_x``, ``conv_bc``; RG-LRU: ``h [B,
+      W]`` float32, ``conv``."""
+    require_supported(cfg)
+
+    def blk(mixer, lead):
+        if mixer in ("attn", "local") and spiking_decode_enabled(cfg):
+            kv, hd = kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim
+            shape = lead + (batch, cfg.spike_T, seq_len, kv, hd)
+            return {"sk": torch.zeros(shape, dtype=torch.uint8, device=device),
+                    "sv": torch.zeros(shape, dtype=torch.uint8, device=device),
+                    "pos": torch.zeros(lead + (batch,), dtype=torch.int32,
+                                       device=device)}
+        if kv_heads is not None:
+            raise NotImplementedError(
+                f"a {mixer} cache on a mesh rank: {MOE_ITEM}")
+        if mixer in ("attn", "local"):
+            window = cfg.window_size if mixer == "local" else 0
+            return L.attention_cache(cfg, batch, seq_len, device,
+                                     window=window, lead=lead)
+        if mixer == "ssd":
+            return S.ssd_cache(cfg, batch, device, lead)
+        return R.rglru_cache(cfg, batch, device, lead)
 
     return _per_block(cfg, blk)
 
@@ -526,10 +719,12 @@ def init_paged_pool(cfg, n_pages: int, page_len: int, device,
     table entries read as zero spikes), page 1 the trash page idle slots
     write into (never in a table).  ``kv_heads`` (default: all) is the KV
     heads a mesh rank holds."""
-    _require_spiking(cfg)
+    if not paged_decode_supported(cfg):
+        raise ValueError(f"{cfg.name}: paged decode needs a spiking SSA "
+                         "stack of attention blocks")
     kv, hd = kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim
 
-    def blk(lead):
+    def blk(mixer, lead):
         shape = lead + (n_pages, cfg.spike_T, kv, page_len, hd)
         return {"kp": torch.zeros(shape, dtype=torch.uint8, device=device),
                 "vp": torch.zeros(shape, dtype=torch.uint8, device=device)}
@@ -693,10 +888,18 @@ def _apply_block_spiking_decode(params, s: Tensor, cache, cfg, slot_keys,
                                 uid: int, backend,
                                 plan: Optional[DecodePlan] = None) -> Tensor:
     """Spiking residual block, decode flavour; block ``uid`` keys its
-    draws ``fold_in(slot_key, tag + uid)``."""
+    draws ``fold_in(slot_key, tag + uid)``.  An SSD or RG-LRU mixer runs on
+    the rate interface over its float cache, re-encoded with tag
+    100003, as the reference's does."""
     def keys_for(tag):
         return prng.fold_in(slot_keys, tag + uid)
 
+    mixer = cfg.block_pattern[uid % cfg.period]
+    if mixer not in ("attn", "local"):
+        rate = SP.rate_decode(s.to(torch.float32)).to(model_dtype(cfg))
+        y, _ = _RECURRENT[mixer][1](params["mixer"], rate, cache, cfg)
+        s = s + _slot_rate_encode(keys_for(100003), y, s.shape[0])
+        return _spiking_decode_ffn_tail(params, s, cfg, backend)
     if plan is not None and plan.fused:
         return _fused_block_spiking_decode(params, s, cache, cfg, keys_for(1),
                                            backend)
@@ -751,16 +954,8 @@ def _decode_stack(params, tree, tokens: Tensor, cfg, slot_keys: Tensor,
         return torch.sum(st.to(torch.float32), dim=(0, 2, 3))
 
     act = slot_events(s)
-    for p in range(cfg.num_periods):
-        pp = _take(params["periods"], p)
-        pt = _take(tree["periods"], p)
-        for i in range(cfg.period):
-            s = block(pp[f"blk{i}"], s, pt[f"blk{i}"], p * cfg.period + i)
-            act = act + slot_events(s)
-    base_uid = cfg.num_periods * cfg.period
-    for i in range(cfg.remainder_layers):
-        s = block(params["remainder"][f"blk{i}"], s,
-                  tree["remainder"][f"blk{i}"], base_uid + i)
+    for uid, bp, _, bt in _layers(params, cfg, tree):
+        s = block(bp, s, bt, uid)
         act = act + slot_events(s)
     xr = SP.rate_decode(s.to(torch.float32)).to(dt)
     return _unembed(params, xr, cfg), act
@@ -779,14 +974,52 @@ def _decode_step_spiking(params, cache, tokens: Tensor, cfg, backend,
     return _decode_stack(params, cache, tokens, cfg, slot_keys, block)
 
 
-def decode_step(params, cache, tokens: Tensor, cfg, *, backend,
+def _apply_block_decode(params, x: Tensor, cache, cfg, mixer: str) -> Tensor:
+    """A float residual block, decode flavour: its cache is updated in
+    place."""
+    h = L.apply_norm(cfg.norm_type, params["norm1"], x)
+    if mixer in ("attn", "local"):
+        window = cfg.window_size if mixer == "local" else 0
+        h, _ = L.attention_decode(params["mixer"], h, cache, cfg,
+                                  window=window)
+    else:
+        h, _ = _RECURRENT[mixer][1](params["mixer"], h, cache, cfg)
+    x = x + h
+    if "norm2" in params:
+        h = L.apply_norm(cfg.norm_type, params["norm2"], x)
+        x = x + L.mlp(params["mlp"], h, cfg)
+    return x
+
+
+def _decode_step_float(params, cache, tokens: Tensor, cfg) -> Tensor:
+    """The float decode step: tokens ``[B,1]`` -> logits ``[B,1,V]`` (a
+    frontend arch decodes its tokens through the embedding, as the
+    reference's does)."""
+    dt = model_dtype(cfg)
+    x = L.embed(params["embed"], tokens, dt) * torch.tensor(
+        math.sqrt(cfg.d_model), dtype=dt, device=tokens.device)
+    for _, bp, mixer, bc in _layers(params, cfg, cache):
+        x = _apply_block_decode(bp, x, bc, cfg, mixer)
+    return _unembed(params, x, cfg)
+
+
+def decode_step(params, cache, tokens: Tensor, cfg, *, backend=None,
                 seeds: Optional[Tensor] = None, with_activity: bool = False,
                 plan: Optional[DecodePlan] = None):
-    """One spiking decode step: tokens ``[B,1]`` -> ``(logits [B,1,V],
-    cache)`` (plus ``activity [B]`` with ``with_activity``).  The cache is
-    updated in place and returned.  ``seeds [B]`` are the per-slot PRN
-    stream ids (zeros by default)."""
-    _require_spiking(cfg)
+    """One decode step: tokens ``[B,1]`` -> ``(logits [B,1,V], cache)``
+    (plus ``activity [B]`` with ``with_activity``).  The cache is updated
+    in place and returned.  A spiking SSA stack decodes through
+    ``backend``'s primitives (``seeds [B]``, the per-slot PRN stream ids,
+    zeros by default; ``plan`` picks the fused layer kernel); every other
+    stack, a LIF-attention one included, on the float path, which ignores
+    ``backend``, ``seeds`` and ``plan`` and whose activity is zero."""
+    require_supported(cfg)
+    if not spiking_decode_enabled(cfg):
+        logits = _decode_step_float(params, cache, tokens, cfg)
+        if with_activity:
+            return logits, cache, torch.zeros(
+                tokens.shape[0], dtype=torch.float32, device=tokens.device)
+        return logits, cache
     if seeds is None:
         seeds = torch.zeros(tokens.shape[0], dtype=torch.int64,
                             device=tokens.device)

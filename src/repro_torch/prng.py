@@ -154,7 +154,15 @@ def uniform(key: Tensor, shape: Tuple[int, ...], minval: float = 0.0,
     product of two float32 values is exact in float64, so the sum is
     taken there and rounded to float32 once (for the default range the
     draw is returned as it is)."""
-    bits = random_bits(key, shape)
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    return uniform_at(key, i, minval, maxval).reshape(*key.shape[:-1], *shape)
+
+
+def uniform_at(key: Tensor, index: Tensor, minval: float = 0.0,
+               maxval: float = 1.0) -> Tensor:
+    """The values of :func:`uniform` at flat indices ``index`` of a larger
+    draw (see :func:`random_bits_at`)."""
+    bits = random_bits_at(key, index)
     u = (bits >> 9).to(torch.float32) * (2.0 ** -23)
     if minval == 0.0 and maxval == 1.0:
         return u
@@ -188,6 +196,13 @@ def normal(key: Tensor, shape: Tuple[int, ...]) -> Tensor:
     ``torch.erfinv`` and XLA's ``erf_inv`` are different approximations,
     so the normals agree with JAX's to a few float32 ulps, not exactly."""
     return normal_erfinv(key, shape) * math.sqrt(2.0)
+
+
+def normal_at(key: Tensor, index: Tensor) -> Tensor:
+    """The values of :func:`normal` at flat indices ``index`` of a larger
+    draw (see :func:`random_bits_at`): a draw too large to hold its index
+    words at once is made a piece at a time."""
+    return torch.erfinv(uniform_at(key, index, _NORMAL_LO, 1.0)) * math.sqrt(2.0)
 
 
 def normal_erfinv(key: Tensor, shape: Tuple[int, ...]) -> Tensor:

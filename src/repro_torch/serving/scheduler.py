@@ -21,6 +21,14 @@ Per-slot PRN streams ``f(seed, pos)`` make a request's tokens a pure
 function of ``(params, prompt, seed)``, never of batch composition or
 layout: paged and dense serving give the same tokens.
 
+* **float stacks** (a non-spiking config, or a spiking one whose
+  attention is not SSA) serve dense on the float decode path
+  (:func:`repro_torch.models.transformer.decode_step`): no decode plan,
+  no kernel of the port, the per-slot caches ``{k, v, pos}`` (a ring
+  buffer for a windowed layer), ``{ssd, conv_x, conv_bc, pos}`` or ``{h,
+  conv, pos}``; ``decode_kernel="fused"`` and ``paged=True`` raise, and
+  the metered energy is zero, as in the reference.
+
 * **energy** -- every served position (a dense prefill at admission, a
   decode or paged prompt position) books its measured residual-stream
   spike events times the per-event op energy plus the static per-token
@@ -181,10 +189,18 @@ class BatchScheduler:
         self.cache_len = cache_len
         self.paged = bool(paged)
         self.drift = drift
-        # one plan per scheduler lifetime; dense prefill always runs unfused
-        self.plan = build_decode_plan(
-            cfg, self.backend, layout="paged" if self.paged else "dense",
-            kernel=decode_kernel, page_len=page_len)
+        # one plan per scheduler lifetime for a spiking SSA stack (dense
+        # prefill always runs unfused); the float decode has none
+        self.spiking = T.spiking_decode_enabled(cfg)
+        if self.spiking:
+            self.plan = build_decode_plan(
+                cfg, self.backend, layout="paged" if self.paged else "dense",
+                kernel=decode_kernel, page_len=page_len)
+        elif decode_kernel == "fused":
+            raise ValueError("decode kernel 'fused' needs a spiking SSA "
+                             f"config, not {cfg.name!r}")
+        else:
+            self.plan = None
         if self.paged:
             if not T.paged_decode_supported(cfg):
                 raise ValueError("paged serving needs a spiking SSA stack of "
@@ -204,10 +220,13 @@ class BatchScheduler:
             self._decode = ST.make_decode_fn(cfg, self.backend, plan=self.plan)
             self._prefill = ST.make_prefill_fn(cfg, self.backend)
         self._next_rid = 0
-        # static per-token and per-spike-event energies (pJ)
+        # static per-decoded-token energy of a spiking SSA stack (the
+        # activity-independent ADC, periphery, LIF and comparator work);
+        # none for any other stack, as in the reference
         self._e_token_pj = EM.lm_decode_token_energy_pj(
             cfg.d_model, cfg.num_heads, cfg.resolved_head_dim, cfg.d_ff,
-            cfg.num_layers, cfg.spike_T, cache_len, cfg.vocab_size)
+            cfg.num_layers, cfg.spike_T, cache_len, cfg.vocab_size
+        ) if self.spiking else 0.0
         self._e_event_pj = EM.decode_synapse_energy_pj()
         self.stats = ServeStats()
         # telemetry: host-side only (see repro_torch.obs)
@@ -342,8 +361,9 @@ class BatchScheduler:
         """The step's weight operands: a digital backend's quantised once
         (:func:`repro_torch.models.transformer.quantize_params`); the float
         reference backend reads the weights (and programmed state) as they
-        are, as the reference's does."""
-        if getattr(self.backend, "differentiable", False):
+        are, as the reference's does; the float decode reads the weights
+        as they are."""
+        if not self.spiking or getattr(self.backend, "differentiable", False):
             return tree
         return T.quantize_params(tree, self.cfg)
 

@@ -2,9 +2,10 @@
 
 ``make_train_step(cfg, parallel, opt)`` returns ``train_step(params,
 opt_state, batch, rng) -> (params, opt_state, metrics)``: the next-token
-loss of :func:`repro_torch.models.transformer.loss_fn` on the float
-reference backend (the one autograd trains through: straight-through
-samplers and surrogate spikes), its gradient, and an AdamW update
+loss of :func:`repro_torch.models.transformer.loss_fn` (a spiking stack
+on the float reference backend, the one autograd trains through:
+straight-through samplers and surrogate spikes; a float stack as it is,
+drawing nothing from ``rng``), its gradient, and an AdamW update
 (:mod:`repro_torch.optim.adamw`).  Options, as the reference reads them
 from a :class:`repro_torch.configs.base.ParallelConfig`:
 

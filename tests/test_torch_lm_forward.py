@@ -326,16 +326,62 @@ def test_keyed_tile_at_an_offset_is_the_whole_tiles_slice(b0, h0, b, h):
                                      h0=h0, batch=b0 + b, heads=4)
 
 
+def test_spiking_stack_with_an_ssd_mixer():
+    """A spiking SSA stack whose second layer is SSD, run on the rate
+    interface (the rate decoded, the float mixer, its sigmoid coded
+    again): the forward's logits and twelve decode steps' against JAX's on
+    its ``IntegerBackend`` within ``ATOL`` (the rate coding's sigmoid is
+    the float boundary; no spike flips at these seeds)."""
+    change = {"block_pattern": ("attn", "ssd"), "ssm_state_dim": 16}
+    jcfg = dataclasses.replace(JR.reduced_config(ARCH), **change)
+    tcfg = dataclasses.replace(R.reduced_config(ARCH), **change)
+    tparams = T.init_params(tcfg, 0, "cpu")
+    jparams = jax.tree.map(jnp.asarray, convert.params_to_numpy(tparams))
+    tokens = np.random.default_rng(5).integers(0, 257, (2, 12)).astype(
+        np.int32)
+    want = jax.jit(lambda p, x, k: JT.forward(
+        p, {"tokens": x}, jcfg, rng=k, backend=JIntegerBackend())[0])(
+            jparams, tokens, jax.random.PRNGKey(3))
+    with torch.no_grad():
+        got, _ = T.forward(tparams, {"tokens": _t(tokens).long()}, tcfg,
+                           rng=_t(np.asarray(jax.random.PRNGKey(3)).astype(
+                               np.int64)), backend="integer")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+    seeds = np.arange(2, dtype=np.uint32)
+    step = jax.jit(lambda p, c, t: JT.decode_step(
+        p, c, t, jcfg, backend=JIntegerBackend(), seeds=seeds))
+    jcache = JT.init_cache(jcfg, 2, 12)
+    tcache = T.init_cache(tcfg, 2, 12, "cpu")
+    for i in range(12):
+        want, jcache = step(jparams, jcache, tokens[:, i:i + 1])
+        got, tcache = T.decode_step(
+            tparams, tcache, _t(tokens[:, i:i + 1]).long(), tcfg,
+            backend=get_backend("integer"), seeds=_t(seeds.astype(np.int64)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=ATOL, err_msg=f"step {i}")
+
+
 def test_unported_stacks_raise():
-    """The float LM stack, MoE and recurrent mixers raise, naming A12;
-    the decode of a LIF-attention stack too (the reference decodes it on
-    its float path)."""
+    """Only MoE raises, naming the ROADMAP item that ports it (A13, the
+    mesh slice).  The float stack, a spiking stack with an SSD mixer (on
+    the rate interface) and the decode of a LIF-attention stack (the
+    reference's float path) run: a decode step gives finite logits."""
     _, tcfg = _cfgs("base")
-    for change in ({"spiking": False}, {"num_experts": 4, "moe_top_k": 2},
-                   {"block_pattern": ("attn", "ssd")}):
-        with pytest.raises(NotImplementedError, match="A12"):
-            T.init_params(dataclasses.replace(tcfg, **change), 0, "cpu")
-    lif = dataclasses.replace(tcfg, attention_kind="lif")
-    T.init_params(lif, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        T.init_cache(lif, 1, 8, "cpu")
+    moe = dataclasses.replace(tcfg, num_experts=4, moe_top_k=2)
+    for run in (lambda: T.init_params(moe, 0, "cpu"),
+                lambda: T.init_cache(moe, 1, 8, "cpu"),
+                lambda: T.forward({}, {"tokens": None}, moe)):
+        with pytest.raises(NotImplementedError, match="A13"):
+            run()
+    tokens = torch.tensor([[3], [5]])
+    for change in ({"spiking": False}, {"block_pattern": ("attn", "ssd"),
+                                        "ssm_state_dim": 16},
+                   {"attention_kind": "lif"}):
+        cfg = dataclasses.replace(tcfg, **change)
+        params = T.init_params(cfg, 0, "cpu")
+        cache = T.init_cache(cfg, 2, 8, "cpu")
+        logits, _ = T.decode_step(params, cache, tokens, cfg,
+                                  backend=get_backend("integer"))
+        assert logits.shape == (2, 1, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
