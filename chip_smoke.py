@@ -228,6 +228,30 @@ Phases, each printing one JSON line:
    = 1,024) against the float64 step recurrence (``FLOAT_SSD_RTOL``,
    relative).  Each error is printed beside its tolerance.
 
+11. **moe** -- Mixture-of-Experts on one card (``models/moe.py``), run
+   after phase 10 and before the mesh, in a budget of 90 s.  (a)
+   phi3.5-moe-42b-a6.6b at full width in bfloat16 (d=4,096, 32 heads on 8
+   KV heads of 128, 16 experts of d_ff 6,400, top 2), cut to 8 of its 32
+   layers (all 32 take ~83.8 GB), 10.7B weights drawn on the card as in
+   phase 10, served as phase 10 serves (the same checks and readings, no
+   replay) with the scheduler's default ``moe_impl="ep_a2a"``: no kernel
+   of the port, and the step's weight-read bound (every expert read).
+   (b) the same cut to 2 layers in float32, TF32 off, on tokens [2, 64]:
+   the forward (``ep_a2a``) against the host's, teacher-forced decode
+   under ``"dense"`` against the dense forward, and layer 0's ``moe_ep``
+   at capacity factor 16 (no choice dropped) against ``moe_dense``
+   (``MOE_EP_RTOL`` of the largest output).  (c) arctic-480b's MoE at full
+   width (128 experts of d_ff 4,864 beside the dense residual MLP, d =
+   7,168), one of 35 layers, bfloat16: ``moe_ep`` at factor 16 against
+   ``moe_dense``, logits and the MoE's output (``ARCTIC_RTOL`` of the
+   largest value), and the choices dropped at the config's 1.25.  (d)
+   the reduced phi3.5-moe as a spiking SSA stack (T = 4) through the CUDA
+   backend: the forward's logits equal to the plain backend's bit for bit
+   (K1 four times a layer, the keyed K8 once), then dense (K1, K2) and
+   paged (K1, K7) serves whose streams equal the plain backend's; the
+   launches, counted from zero before these runs, are the ``kernels``
+   line's ``launches_moe``.
+
 Past the port's old caps the kernels phase holds K1 and K5 at T = 9 and
 16 (few rows and many: the split of ``d_in`` and the tensor-core GEMM, on
 residual-valued spikes up to 17), K9 at T = 9, and K8 at N = 513 and at
@@ -3299,24 +3323,26 @@ FLOAT_HOST_ATOL, FLOAT_DECODE_ATOL, FLOAT_PATH_ATOL = 1e-3, 5e-3, 1e-4
 FLOAT_SSD_RTOL = 1e-4
 
 
-def _float_serve(dev) -> dict:
-    """(a): yi-9b at full width and depth in bfloat16 served by
-    ``BatchScheduler(slots=8, cache_len=256)``: the serve phase's 16
-    requests (8-32 prompt tokens, 32 new, waves of 4 every 8 steps)."""
+def _float_serve(dev, cfg, *, replay: bool = True) -> dict:
+    """(a): a float config (yi-9b at full width and depth) in bfloat16
+    served by ``BatchScheduler(slots=8, cache_len=256)`` (a MoE config
+    with its default ``moe_impl``, ``"ep_a2a"``): the serve phase's 16
+    requests (8-32 prompt tokens, 32 new, waves of 4 every 8 steps).
+    ``replay``: two requests again at batch 1."""
     from repro_torch import tree as TR
-    from repro_torch.configs import registry
     from repro_torch.kernels import build as KB
     from repro_torch.models import transformer as T
     from repro_torch.serving import BatchScheduler
 
-    cfg = registry.get_config(FLOAT_SERVE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init_params(cfg, 0, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(x.numel() for x in TR.flatten(params)[0])
+    leaves = TR.flatten(params)[0]
+    n_params = sum(x.numel() for x in leaves)
+    weight_bytes = sum(x.numel() * x.element_size() for x in leaves)
     sch = BatchScheduler(params, cfg, slots=8, cache_len=256, device=dev)
     check(sch.plan is None, "a float config built a decode plan")
     prompts = make_requests(cfg.vocab_size)
@@ -3354,12 +3380,16 @@ def _float_serve(dev) -> dict:
         arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
-        dtype=cfg.dtype, params=n_params, init_s=init_s, slots=8,
+        dtype=cfg.dtype, params=n_params, init_s=init_s,
+        moe_impl=sch.moe_impl if cfg.is_moe else None, slots=8,
         cache_len=256, requests=len(prompts), tokens=st.decoded_tokens,
         decode_steps=st.decode_steps, prefill_tokens=st.prefill_tokens,
         wall_s=wall_s, tokens_per_s=st.decoded_tokens / wall_s,
         decode_step_ms=1e3 * st.decode_s / st.decode_steps,
         prefill_token_ms=1e3 * st.prefill_s / st.prefill_tokens,
+        # every weight read once a step (moe_ep runs every expert on its
+        # rows, so a MoE step reads all of them too)
+        weight_read_bound_ms=1e3 * weight_bytes / HBM_BYTES_PER_S,
         energy_j=st.energy_j, logits_finite=True,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         first_tokens=outs[0][:8])
@@ -3377,24 +3407,26 @@ def _float_serve(dev) -> dict:
     out["kernels_per_step"] = prof["kernels"] / 3
     out["busy_ms_per_step"] = prof["device_busy_ms"] / 3
     spent["profile_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-
-    # the two shortest requests replayed alone (batch 1): cuBLAS may round
-    # a GEMM of 8 rows and of one row differently, so the agreement is
-    # reported only
-    one = BatchScheduler(params, cfg, slots=1, cache_len=256, device=dev)
-    agree = []
-    for i in sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:2]:
-        rid = one.submit(prompts[i], max_new, seed=1000 + i)
-        alone = one.run()[rid]
-        same = [a == b for a, b in zip(alone, outs[i])]
-        agree.append({"request": i, "equal": sum(same), "of": max_new,
-                      "first_difference": same.index(False)
-                      if False in same else None})
-    out["batch1_replay"] = agree
-    spent["replay_s"] = time.perf_counter() - t0
+    if replay:
+        # the two shortest requests replayed alone (batch 1): cuBLAS may
+        # round a GEMM of 8 rows and of one row differently, so the
+        # agreement is reported only
+        t0 = time.perf_counter()
+        one = BatchScheduler(params, cfg, slots=1, cache_len=256, device=dev)
+        agree = []
+        for i in sorted(range(len(prompts)),
+                        key=lambda i: len(prompts[i]))[:2]:
+            rid = one.submit(prompts[i], max_new, seed=1000 + i)
+            alone = one.run()[rid]
+            same = [a == b for a, b in zip(alone, outs[i])]
+            agree.append({"request": i, "equal": sum(same), "of": max_new,
+                          "first_difference": same.index(False)
+                          if False in same else None})
+        out["batch1_replay"] = agree
+        spent["replay_s"] = time.perf_counter() - t0
+        del one
     out["spent"] = spent
-    del sch, one, params
+    del sch, params
     torch.cuda.empty_cache()
     return out
 
@@ -3519,11 +3551,272 @@ def phase_float_lm(dev) -> dict:
     period, in float32 with TF32 off, checked against the host, decode
     against forward, and the long-sequence paths against their plain
     forms."""
+    from repro_torch.configs import registry
+
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
-    out = {"serve": _float_serve(dev)}
+    out = {"serve": _float_serve(dev, registry.get_config(FLOAT_SERVE))}
     for name, layers, cut in FLOAT_CHECKS:
         out[name] = _float_check(name, layers, cut, dev)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase moe: Mixture-of-Experts (models/moe.py; the float stacks launch no
+# kernel of the port, a spiking MoE runs K1, K2, K7 and K8)
+# ---------------------------------------------------------------------------
+
+MOE_NAME = "phi3.5-moe-42b-a6.6b"
+# (a) served in its config's bfloat16 at full width, 8 of its 32 layers:
+# all 32 take ~83.8 GB of weights, past the card's 80 GB
+MOE_SERVE_LAYERS = 8
+# (b) float32, TF32 off, 2 layers, on tokens [2, 64] (as float_lm's
+# checks): the card against the host (FLOAT_HOST_ATOL), teacher-forced
+# decode under moe_impl="dense" against the dense forward
+# (FLOAT_DECODE_ATOL), and moe_ep with no drop against moe_dense within
+# MOE_EP_RTOL of the largest |y|: the reference's init draws an expert's
+# weights with std 1/sqrt(E) (its fan is the leaf's first axis), so a
+# unit-scale input gives outputs in the thousands, and the two paths sum
+# their float32 products in other orders
+MOE_CHECK_LAYERS = 2
+MOE_EP_RTOL = 1e-4
+# (c) arctic-480b, one of its 35 layers, bfloat16: moe_ep (capacity factor
+# 16: no choice dropped) against moe_dense.  Both round each expert's
+# output and the combine in bfloat16 (2**-8 relative), at other points:
+# held within ARCTIC_RTOL of the largest |value|, 8 ulps of it
+ARCTIC = "arctic-480b"
+ARCTIC_RTOL = 2.0 ** -5
+MOE_NO_DROP_CF = 16.0
+# (d) the spiking MoE's served requests: 4 of the serve phase's prompts,
+# 8 new tokens, 4 slots, cache_len 64 (paged: pages of 8); the plain
+# backend's serves draw through the threefry twin, the phase's slowest part
+MOE_SPIKING_SERVE = dict(requests=4, max_new=8, slots=4, cache_len=64,
+                         page_len=8)
+MOE_BUDGET_S = 90.0
+
+
+def dropped_choices(idx, cfg) -> dict:
+    """How many of the router's choices ``idx [tokens, k]`` moe_ep drops
+    on one device: past the packed buffer's ``cap`` rows, then past an
+    expert's ``c2`` rows (``models/moe.py:capacities``)."""
+    from repro_torch.models import moe as M
+
+    n_tok, k = idx.shape
+    cap, c2 = M.capacities(n_tok, cfg)
+    cnt = torch.bincount(idx.reshape(-1)[:cap], minlength=cfg.num_experts)
+    return dict(choices=n_tok * k, cap=cap, c2=c2,
+                past_cap=max(n_tok * k - cap, 0),
+                past_c2=int((cnt - c2).clamp(min=0).sum()),
+                busiest_expert=int(cnt.max()))
+
+
+def _moe_check(dev) -> dict:
+    """(b): phi3.5-moe cut to 2 layers in float32 (TF32 off) on tokens
+    [2, 64]: the forward (``ep_a2a``) on the card against the same
+    parameters on the host; teacher-forced decode under ``"dense"``
+    against the dense forward; layer 0's ``moe_ep`` at capacity factor 16
+    (no choice dropped) against ``moe_dense``."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import registry
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(registry.get_config(MOE_NAME), dtype="float32",
+                              num_layers=MOE_CHECK_LAYERS)
+    gen = torch.Generator().manual_seed(13)
+    b, s = FLOAT_TOKENS
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 1, dev)
+    with torch.no_grad():
+        card, card_aux = T.forward(params, {"tokens": tokens.to(dev)}, cfg,
+                                   remat="none")
+        check(bool(torch.isfinite(card).all()), "phi3.5-moe: non-finite logits")
+        host, host_aux = T.forward(TR.tree_map(torch.Tensor.cpu, params),
+                                   {"tokens": tokens}, cfg, remat="none")
+        host_err = _max_err(card, host)
+        aux_err = abs(float(card_aux) - float(host_aux))
+        del host
+        dense, _ = T.forward(params, {"tokens": tokens.to(dev)}, cfg,
+                             remat="none", moe_impl="dense")
+        cache = T.init_cache(cfg, b, s, dev)
+        dec = torch.cat([T.decode_step(params, cache, tokens[:, i:i + 1]
+                                       .to(dev), cfg, moe_impl="dense")[0]
+                         for i in range(s)], dim=1)
+        decode_err = _max_err(dec, dense)
+        wide = dataclasses.replace(cfg, capacity_factor=MOE_NO_DROP_CF)
+        blk = T._take(params["periods"], 0)["blk0"]["moe"]
+        x = torch.randn((b, s, cfg.d_model), generator=gen).to(dev)
+        ye, _ = M.moe_ep(blk, x, wide)
+        yd, _ = M.moe_dense(blk, x, wide)
+        ep_err, y_max = _max_err(ye, yd), float(yd.abs().max())
+        drops = dropped_choices(M.router(blk, x, wide)[1].reshape(b * s, -1),
+                                wide)
+    check(host_err <= FLOAT_HOST_ATOL,
+          f"phi3.5-moe: card logits {host_err} from the host's")
+    check(aux_err <= FLOAT_HOST_ATOL, f"phi3.5-moe: aux {aux_err} from the host's")
+    check(decode_err <= FLOAT_DECODE_ATOL,
+          f"phi3.5-moe: dense decode {decode_err} from the dense forward")
+    check(drops["past_cap"] + drops["past_c2"] == 0,
+          f"phi3.5-moe: capacity factor 16 dropped choices {drops}")
+    check(ep_err <= MOE_EP_RTOL * y_max,
+          f"phi3.5-moe: moe_ep {ep_err} from moe_dense (max {y_max})")
+    out = dict(
+        arch=MOE_NAME, layers=cfg.num_layers, dtype="float32",
+        tf32=torch.backends.cuda.matmul.allow_tf32, tokens=[b, s],
+        logit_max=float(card.abs().max()), aux=float(card_aux),
+        card_vs_host=dict(max_abs_err=host_err, aux_err=aux_err,
+                          atol=FLOAT_HOST_ATOL),
+        decode_vs_forward_dense=dict(max_abs_err=decode_err,
+                                     atol=FLOAT_DECODE_ATOL),
+        ep_vs_dense_cf16=dict(max_abs_err=ep_err, y_max=y_max,
+                              rtol_of_max=MOE_EP_RTOL, **drops),
+        seconds=time.perf_counter() - t0)
+    del params, card, dense, dec, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _arctic_check(dev) -> dict:
+    """(c): arctic-480b's MoE at full width (128 experts of d_ff 4,864 and
+    the dense residual MLP at d = 7,168), one layer, bfloat16, on tokens
+    [2, 64]: the forward's logits and the layer's MoE on unit-scale inputs
+    under ``moe_ep`` at capacity factor 16 against ``moe_dense``
+    (``ARCTIC_RTOL``); at the config's 1.25 the dropped choices."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import registry
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(registry.get_config(ARCTIC), num_layers=1)
+    wide = dataclasses.replace(cfg, capacity_factor=MOE_NO_DROP_CF)
+    gen = torch.Generator().manual_seed(17)
+    b, s = FLOAT_TOKENS
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen).to(dev)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, 2, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in TR.flatten(params)[0])
+    blk = T._take(params["periods"], 0)["blk0"]["moe"]
+    x = torch.randn((b, s, cfg.d_model), generator=gen).to(dev, torch.bfloat16)
+    res = {}
+    with torch.no_grad():
+        le, _ = T.forward(params, {"tokens": tokens}, wide, remat="none")
+        ld, _ = T.forward(params, {"tokens": tokens}, wide, remat="none",
+                          moe_impl="dense")
+        ye, _ = M.moe_ep(blk, x, wide)
+        yd, _ = M.moe_dense(blk, x, wide)
+        for what, got, want in (("logits", le, ld), ("moe", ye, yd)):
+            check(bool(torch.isfinite(got).all()), f"arctic: non-finite {what}")
+            err, top = _max_err(got, want), float(want.float().abs().max())
+            res[what] = dict(max_abs_err=err, max_abs=top,
+                             rtol_of_max=ARCTIC_RTOL)
+            check(err <= ARCTIC_RTOL * top,
+                  f"arctic: moe_ep {what} {err} from moe_dense's (max {top})")
+        idx = M.router(blk, x, cfg)[1].reshape(b * s, -1)
+        wide_drops = dropped_choices(idx, wide)
+        check(wide_drops["past_cap"] + wide_drops["past_c2"] == 0,
+              f"arctic: capacity factor 16 dropped choices {wide_drops}")
+        y125, _ = M.moe_ep(blk, x, cfg)
+        default = dict(capacity_factor=cfg.capacity_factor,
+                       **dropped_choices(idx, cfg),
+                       max_abs_err_vs_dense=_max_err(y125, yd))
+    out = dict(arch=ARCTIC, layers=1, experts=cfg.num_experts,
+               d_model=cfg.d_model, d_ff=cfg.d_ff,
+               moe_dense_ff=cfg.moe_dense_ff, dtype=cfg.dtype,
+               params=n_params, init_s=init_s, tokens=[b, s],
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               ep_vs_dense_cf16=res, drops_cf16=wide_drops,
+               drops_default=default, seconds=time.perf_counter() - t0)
+    del params, blk, le, ld, ye, yd, y125
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_spiking(dev) -> tuple:
+    """(d): the reduced phi3.5-moe as a spiking SSA stack (T = 4; its FFN
+    ``moe_dense`` on the rate interface) through the CUDA backend: the
+    forward's logits (K1 on q/k/v/o, the keyed K8 once a layer) equal to
+    the plain backend's bit for bit, then dense (K1, K2) and paged (K1,
+    K7; the fused plan refuses MoE) serves whose streams equal the plain
+    backend's.  Every count starts at zero before the CUDA runs."""
+    from repro_torch import prng
+    from repro_torch.configs import registry
+    from repro_torch.engine import XpikeformerEngine, get_backend
+    from repro_torch.kernels import build as KB
+
+    cfg = dataclasses.replace(registry.reduced_config(MOE_NAME), spiking=True,
+                              attention_kind="ssa", spike_T=4)
+    eng = XpikeformerEngine.from_config(cfg, backend="cuda", device=dev)
+    eng.init(seed=0)
+    plain = XpikeformerEngine(cfg=cfg, backend=get_backend("integer"),
+                              device=eng.device, params=eng.params)
+    key = prng.PRNGKey(42, dev)
+    x = lm_tokens(cfg.vocab_size, 8, 64, 5).to(dev)
+    sv = MOE_SPIKING_SERVE
+    prompts = make_requests(cfg.vocab_size, sv["requests"])
+    kw = dict(slots=sv["slots"], cache_len=sv["cache_len"])
+    paged = dict(kw, paged=True, page_len=sv["page_len"])
+    t0 = time.perf_counter()
+    KB.reset_launches()
+    logits = eng.forward(x, key)
+    torch.cuda.synchronize()
+    fwd = {k: v for k, v in KB.LAUNCHES.items() if v}
+    dense_outs, _ = eng.serve(prompts, sv["max_new"], **kw)
+    plan = eng.scheduler(**kw).plan
+    paged_outs, pst = eng.serve(prompts, sv["max_new"], **paged)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in KB.LAUNCHES.items() if v}
+    layers = cfg.num_layers
+    want_fwd = {"aimc_spiking_linear": 4 * layers,
+                "ssa_attention_keyed": layers}
+    check(fwd == want_fwd, f"spiking MoE: the forward launched {fwd}")
+    check(not plan.fused, f"spiking MoE: {plan.describe()}")
+    for name in ("aimc_spiking_linear", "ssa_decode", "ssa_decode_paged",
+                 "ssa_attention_keyed"):
+        check(launched.get(name, 0) > 0, f"spiking MoE: {name} never ran")
+    check(not launched.get("fused_decode_layer")
+          and not launched.get("fused_decode_layer_paged"),
+          f"spiking MoE: a fused layer ran {launched}")
+    check(torch.equal(logits, plain.forward(x, key)),
+          "spiking MoE: kernel and plain logits differ")
+    check(dense_outs == plain.serve(prompts, sv["max_new"], **kw)[0],
+          "spiking MoE: dense streams differ from the plain backend's")
+    check(paged_outs == plain.serve(prompts, sv["max_new"], **paged)[0],
+          "spiking MoE: paged streams differ from the plain backend's")
+    check(paged_outs == dense_outs, "spiking MoE: paged streams differ from dense")
+    out = dict(arch=cfg.name, layers=layers, d_model=cfg.d_model,
+               experts=cfg.num_experts, T=cfg.spike_T, tokens=list(x.shape),
+               logits_bitwise_equal=True, streams_equal_plain=True,
+               plan=plan.describe(), launches_forward=fwd,
+               launches=launched, prefix_hits=pst.prefix_hits,
+               first_tokens=dense_outs[0], seconds=time.perf_counter() - t0)
+    del eng, plain
+    torch.cuda.empty_cache()
+    return out, launched
+
+
+def phase_moe(dev) -> tuple:
+    """Mixture-of-Experts on one card: (a) phi3.5-moe at full width, 8 of
+    32 layers, bfloat16, served as the float serve is (``moe_impl=
+    "ep_a2a"``); (b) its float32 checks; (c) arctic-480b's MoE at full
+    width, one layer; (d) a spiking MoE through K1, K2, K7 and K8.  ->
+    (the phase's line, the spiking MoE's launches)."""
+    from repro_torch.configs import registry
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config(MOE_NAME),
+                              num_layers=MOE_SERVE_LAYERS)
+    out = {"serve": _float_serve(dev, cfg, replay=False)}
+    out["serve"]["reduced"] = f"{MOE_SERVE_LAYERS} of 32 layers"
+    out["check"] = _moe_check(dev)
+    out["arctic"] = _arctic_check(dev)
+    out["spiking"], launched = _moe_spiking(dev)
+    out["budget_s"] = MOE_BUDGET_S
+    out["seconds"] = time.perf_counter() - t0
+    return out, launched
 
 
 # ---------------------------------------------------------------------------
@@ -4062,6 +4355,8 @@ def main() -> int:
         flm = phase_float_lm(dev)
         emit({"phase": "float_lm", "card": card,
               "seconds": time.perf_counter() - t0, **flm})
+        moe, moe_launches = phase_moe(dev)
+        emit({"phase": "moe", "card": card, **moe})
         t0 = time.perf_counter()
         mesh, mlaunches = phase_mesh(dev, outs, pouts, mesh_ref, launched)
         emit({"phase": "mesh", "card": card,
@@ -4105,6 +4400,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "launches_train_launch": tlaunches.get(name, 0),
+            "launches_moe": moe_launches.get(
+                "ssa_attention_keyed" if name == "ssa_attention" else name, 0),
             "exact": r["max_abs_err"] == 0.0,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,

@@ -113,3 +113,4 @@ class ParallelConfig:
     grad_compression: bool = False  # int8 error-feedback round trip
     grad_dtype: str = "native"  # native | bfloat16 (cast before the update)
     microbatches: int = 1  # gradient accumulation steps
+    moe_impl: str = "ep_a2a"  # ep_a2a | dense

@@ -48,6 +48,7 @@ class Executor:
     rank's share, and every scheduler serves that share."""
 
     def __init__(self, params, cfg, backend, mesh):
+        T.require_mesh_supported(cfg)
         if not T.spiking_decode_enabled(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: the port's mesh serves the spiking SSA stack; "
@@ -101,9 +102,9 @@ class Executor:
         data = self.mesh.data
         n = b // data if data > 1 and b % data == 0 else b
         b0 = self.mesh.data_index * n if n < b else 0
-        x = T.spiking_features(self.params, {"tokens": tokens}, self.cfg,
-                               rng=rng.to(self.device), backend=self.backend,
-                               rows=(b0, n))
+        x, _ = T.spiking_features(self.params, {"tokens": tokens}, self.cfg,
+                                  rng=rng.to(self.device),
+                                  backend=self.backend, rows=(b0, n))
         if n < b:
             whole = torch.zeros((b,) + tuple(x.shape[1:]), dtype=x.dtype,
                                 device=x.device)

@@ -650,20 +650,22 @@ class XpikeformerEngine:
     def scheduler(self, *, slots: int = 4, cache_len: int = 64,
                   decode_kernel: str = "auto", paged: bool = False,
                   page_len: int = 8, n_pages: Optional[int] = None,
-                  drift=None):
+                  drift=None, moe_impl: Optional[str] = None):
         """A :class:`repro_torch.serving.BatchScheduler`, dense or (with
         ``paged=True``) over a block-paged pool of ``n_pages`` pages of
         ``page_len`` tokens; cached per geometry, reset on reuse and given
         the engine's current params (the device clock is read from them,
         never reset).  ``drift`` (a :class:`repro_torch.aimc_device.
-        DriftPolicy`) runs the PCM lifecycle on programmed params."""
+        DriftPolicy`) runs the PCM lifecycle on programmed params;
+        ``moe_impl`` a MoE stack's path (the scheduler's default when
+        ``None``), part of the cache key."""
         from repro_torch.serving import BatchScheduler
 
         if self.task != "lm":
             raise ValueError("serving drives the LM stack (task='lm')")
         if self.params is None:
             raise ValueError("call init() first or set params")
-        key = (slots, cache_len, decode_kernel, paged) + (
+        key = (slots, cache_len, moe_impl, decode_kernel, paged) + (
             (page_len, n_pages) if paged else ())
         sch = self._schedulers.get(key)
         if sch is not None:
@@ -675,14 +677,16 @@ class XpikeformerEngine:
         sch = BatchScheduler(self.params, self.cfg, self.backend, slots=slots,
                              cache_len=cache_len, decode_kernel=decode_kernel,
                              paged=paged, page_len=page_len, n_pages=n_pages,
-                             device=self.device, drift=drift)
+                             device=self.device, drift=drift,
+                             moe_impl=moe_impl)
         self._schedulers[key] = sch
         return sch
 
     def serve(self, prompts, max_new: int = 16, *, slots: int = 4,
               cache_len: int = 64, seed: int = 0, decode_kernel: str = "auto",
               paged: bool = False, page_len: int = 8,
-              n_pages: Optional[int] = None, drift=None):
+              n_pages: Optional[int] = None, drift=None,
+              moe_impl: Optional[str] = None):
         """Continuous-batching serve: prompts -> (outputs, ServeStats);
         request ``i`` draws from the PRN stream ``seed + i``.  Paged and
         dense serving give the same tokens.  Under a ``drift`` policy the
@@ -690,7 +694,8 @@ class XpikeformerEngine:
         so a later call continues from the aged clock."""
         sch = self.scheduler(slots=slots, cache_len=cache_len,
                              decode_kernel=decode_kernel, paged=paged,
-                             page_len=page_len, n_pages=n_pages, drift=drift)
+                             page_len=page_len, n_pages=n_pages, drift=drift,
+                             moe_impl=moe_impl)
         rids = [sch.submit(p, max_new, seed=seed + i)
                 for i, p in enumerate(prompts)]
         outs = sch.run()

@@ -36,12 +36,14 @@ slots split over ``data`` (``--slots`` a multiple of D), heads and
 crossbars over ``model``; the tokens are one device's.  Every run prints
 the metered energy.  ``--device cpu`` runs the plain PyTorch versions.
 
-Any non-MoE name of the registry serves: a float arch (dense,
-local:global, SSD, RG-LRU, or a frontend backbone, which decodes its
-tokens through the embedding: "serving over stub embeddings") decodes on
-the float path, where ``--backend`` has no part and ``--program``,
-``--paged``, ``--decode-kernel fused`` and ``--mesh`` raise; a MoE name
-raises, naming the ROADMAP item that ports it.
+Every name of the registry serves: a float arch (dense, local:global,
+SSD, RG-LRU, MoE, or a frontend backbone, which decodes its tokens
+through the embedding: "serving over stub embeddings") decodes on the
+float path, where ``--backend`` has no part and ``--program``,
+``--paged``, ``--decode-kernel fused`` and ``--mesh`` raise.  A MoE name
+routes its experts with the scheduler's default ``moe_impl="ep_a2a"``
+(the sort-based dispatch, as the reference CLI does); with ``--mesh`` it
+raises, naming the ROADMAP item that ports MoE on a mesh (A13(b)).
 
 One device's scheduler always carries a telemetry bundle
 (:class:`repro_torch.obs.Telemetry`: metrics, lifecycle tracer, flight
@@ -232,6 +234,7 @@ def serve_mesh(arch: str, spec: str, *, smoke: bool, n_requests: int,
     shape = M.parse_mesh_spec(spec)
     cfg = (registry.reduced_config(arch) if smoke
            else registry.get_config(arch))
+    T.require_mesh_supported(cfg)
     drift = (AD.DriftPolicy(seconds_per_step=drift_step_s,
                             recal_interval_s=recal_every_s)
              if program else None)

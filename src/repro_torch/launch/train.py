@@ -5,8 +5,9 @@
     python -m repro_torch.launch.train --arch mamba2-780m --device cpu
 
 The LM stack (a spiking GPT on the float reference backend, or any float
-arch of the registry but MoE, which raises) trains
-(:mod:`repro_torch.train.loop`) on the card unless ``--device cpu``:
+arch of the registry; a MoE arch with ``moe_impl="ep_a2a"``, as the
+reference launcher trains it) trains (:mod:`repro_torch.train.loop`) on
+the card unless ``--device cpu``:
 
 * **checkpoint/restart** -- an async checkpoint every ``ckpt_every``
   steps (:class:`repro_torch.checkpoint.CheckpointManager`, the reference's
@@ -19,7 +20,8 @@ arch of the registry but MoE, which raises) trains
   (:mod:`repro_torch.launch.elastic`).  On a ``(data, 1)`` mesh the ranks
   run in processes of their own (:func:`repro_torch.launch.mesh.
   run_ranks`), each holding the whole state; rank 0 writes the
-  checkpoints.  A model axis raises (ROADMAP A2(c));
+  checkpoints.  A model axis raises (ROADMAP A2(c)), and so does a MoE
+  arch on any mesh (ROADMAP A13(b));
 * **failure injection** -- ``fail_at=k`` waits for the in-flight save,
   then raises ``RuntimeError("injected failure at step k")``;
 * **straggler watchdog** -- a step slower than ``straggler_factor`` times
@@ -87,7 +89,7 @@ def _train(mesh: ServingMesh, arch: str, *, smoke: bool, steps: int,
     cfg = reduced_config(arch) if smoke else get_config(arch)
     dev = mesh.device
     writer = mesh.rank == 0
-    parallel = ParallelConfig(remat="none")
+    parallel = ParallelConfig(remat="none")  # moe_impl "ep_a2a"
     opt = A.AdamWConfig(lr=lr, warmup_steps=max(steps // 10, 1),
                         total_steps=steps)
     data = MarkovStream(DataConfig(cfg.vocab_size, seq_len, batch, seed=seed),
@@ -118,7 +120,8 @@ def _train(mesh: ServingMesh, arch: str, *, smoke: bool, steps: int,
         def probe_fn(p):
             with torch.no_grad():
                 return float(T.loss_fn(p, probe_batch, cfg, rng=probe_rng,
-                                       backend="reference", remat="none")[0])
+                                       backend="reference", remat="none",
+                                       moe_impl=parallel.moe_impl)[0])
 
         out["probe_before"] = probe_fn(params)
 
@@ -187,6 +190,10 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
               straggler_factor=straggler_factor, seed=seed,
               log_every=log_every, lr=lr, probe=probe)
     if mesh_shape[0] * mesh_shape[1] > 1:
+        from repro_torch.models import transformer as T
+
+        T.require_mesh_supported(reduced_config(arch) if smoke
+                                 else get_config(arch))
         if mesh_shape[1] > 1:
             raise NotImplementedError(
                 f"mesh {mesh_shape}: model-parallel training is not ported "

@@ -1,14 +1,17 @@
 """The generic LM stack: float and spiking, full-sequence forward and
 decode step.
 
-Twin of ``repro/models/transformer.py`` for every architecture family but
-MoE (which raises, naming :data:`MOE_ITEM`):
+Twin of ``repro/models/transformer.py`` on one device (a MoE config on a
+mesh raises, naming :data:`MOE_ITEM`):
 
 * the float stack (lines 53-191, 300-373, 421-453, 483-533, 949-1025):
   dense and local:global attention, Mamba-2's SSD, RecurrentGemma's
   RG-LRU and the frontend backbones (precomputed embeddings through a
-  projection), tied embeddings, the forward with ``remat``, the loss, the
-  per-slot decode caches (``{k, v, pos}``, a ring buffer for a windowed
+  projection), MoE blocks (:mod:`repro_torch.models.moe`, ``moe_impl``
+  ``"dense"`` or the sort-based ``"ep_a2a"``; arctic's dense residual MLP
+  beside the experts; the load-balancing loss summed over the blocks),
+  tied embeddings, the forward with ``remat``, the loss, the per-slot
+  decode caches (``{k, v, pos}``, a ring buffer for a windowed
   layer; ``{ssd, conv_x, conv_bc, pos}``; ``{h, conv, pos}``) and the
   float decode step, which also decodes a spiking stack whose attention
   is not SSA (``attention_kind="lif"``), as the reference's does.  Its
@@ -21,18 +24,23 @@ MoE (which raises, naming :data:`MOE_ITEM`):
   spiking attention, MLP and residual block (``_spiking_attention``,
   ``_spiking_mlp``, ``_apply_block_spiking``; SSD and RG-LRU mixers on the
   rate interface), ``_embed_inputs``, ``forward`` / ``_forward_spiking``,
-  ``softmax_xent``, ``loss_fn`` and ``prefill``.  The reference's key
-  chain is kept exactly: ``split(rng)`` into the coding and block keys,
-  ``split(k_blocks, n_blocks)``, then ``split(key, period)`` a period,
-  ``split(key)`` a block, ``split(k1, 5)`` in its attention (Q, K, V, the
-  SSA tile, out) and ``split(k2)`` in its MLP.  On the reference backend
+  ``softmax_xent``, ``loss_fn`` and ``prefill``; a MoE block's FFN on the
+  rate interface (decode the rate, ``moe_dense``, re-encode its sigmoid
+  keyed by the block's second key; the dense MLP ignored, as in the
+  reference).  The reference's key chain is kept exactly: ``split(rng)``
+  into the coding and block keys, ``split(k_blocks, n_blocks)``, then
+  ``split(key, period)`` a period, ``split(key)`` a block, ``split(k1,
+  5)`` in its attention (Q, K, V, the SSA tile, out) and ``split(k2)`` in
+  its MLP.  On the reference backend
   (``"reference"``) the forward and loss are differentiable (training,
   :mod:`repro_torch.train.loop`), and ``remat`` recomputes each layer in
   the backward;
 * the spiking decode step (lines 456-528, 536-767 and 770-946): the
   per-slot spike-train KV cache and the block-paged page pool, per-slot
   PRN keys ``f(seed, pos)``, Bernoulli rate coding, the unfused and fused
-  attention decodes (dense and paged), the FFN tail, and the unembedding.
+  attention decodes (dense and paged), the FFN tail (a MoE block's on the
+  rate interface, keyed ``fold_in(slot_key, 200003 + layer)``), and the
+  unembedding.
 
 A Python loop over layers takes the place of the reference's ``lax.scan``
 over the stacked period axis; parameters and caches keep the reference's
@@ -64,6 +72,7 @@ from repro_torch.core import ssa as SSA
 from repro_torch.kernels.plan import AttnSpec, DecodePlan, KVView
 from repro_torch.kernels.ref import scatter_at_pos, scatter_into_pages
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
@@ -86,17 +95,19 @@ def paged_decode_supported(cfg) -> bool:
         m in ("attn", "local") for m in cfg.block_pattern)
 
 
-MOE_ITEM = ("ROADMAP A13 (the mesh slice: MoE's router, dense MoE and the "
-            "expert-parallel all-to-all, model-parallel training, the front "
+MOE_ITEM = ("ROADMAP A13(b) (the mesh slice: MoE's expert-parallel "
+            "all-to-all and FSDP gathers, model-parallel training, the front "
             "door over the mesh, the ANN mesh)")
 
 
-def require_supported(cfg) -> None:
-    """Raise for what the port's LM stack does not run: MoE."""
+def require_mesh_supported(cfg) -> None:
+    """Raise for what the port does not run on a mesh: MoE (its
+    expert-parallel dispatch and gathers need collectives, and a mesh's
+    per-device capacities drop other choices than one device's)."""
     if cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: MoE ({cfg.num_experts} experts) is not ported: "
-            f"{MOE_ITEM}")
+            f"{cfg.name}: MoE ({cfg.num_experts} experts) on a mesh is not "
+            f"ported: {MOE_ITEM}")
 
 
 # ---------------------------------------------------------------------------
@@ -130,10 +141,13 @@ def _block_schema(cfg, mixer: str) -> Dict[str, Any]:
         raise ValueError(f"unknown mixer {mixer!r}")
     if cfg.d_ff > 0:
         s["norm2"] = {"scale": ((d,), "ones")}
-        s["mlp"] = {"wi": ((d, cfg.d_ff), "normal"),
-                    "wo": ((cfg.d_ff, d), "normal")}
-        if cfg.gated_mlp:
-            s["mlp"]["wg"] = ((d, cfg.d_ff), "normal")
+        if cfg.is_moe:
+            s["moe"] = M.moe_schema(cfg)
+        ff = cfg.moe_dense_ff if cfg.is_moe else cfg.d_ff
+        if ff > 0:
+            s["mlp"] = {"wi": ((d, ff), "normal"), "wo": ((ff, d), "normal")}
+            if cfg.gated_mlp:
+                s["mlp"]["wg"] = ((d, ff), "normal")
     return s
 
 
@@ -232,7 +246,8 @@ def _init_like_reference(cfg, seed: int, device) -> Dict[str, Any]:
 def _init_spiking(cfg, seed: int, device) -> Dict[str, Any]:
     """A spiking stack's weights: normal with std ``1/sqrt(fan_in)``, the
     fan-in being every axis of one layer's matrix but the last (``d*h``
-    for a Q projection, ``h*hd`` for the attention out-projection), drawn
+    for a Q projection, ``h*hd`` for the attention out-projection; an
+    expert's own input axis for a MoE leaf), drawn
     in the reference's leaf order from a CPU ``torch.Generator``, so the
     values do not depend on the device; norm scales one, biases zero."""
     gen = torch.Generator().manual_seed(seed)
@@ -241,7 +256,8 @@ def _init_spiking(cfg, seed: int, device) -> Dict[str, Any]:
     for path, shape, init in _schema_leaves(_model_schema(cfg)):
         if init == "normal":
             per_layer = shape[1:] if path[0] == "periods" else shape
-            fan = math.prod(per_layer[:-1])
+            fan = (per_layer[-2] if "moe" in path
+                   else math.prod(per_layer[:-1]))
             w = torch.randn(shape, generator=gen, dtype=torch.float32)
             w = (w / math.sqrt(fan)).to(dtype=dtype, device=device)
         else:
@@ -256,8 +272,7 @@ def init_params(cfg, seed: int, device) -> Dict[str, Any]:
     reference's ``init_params(PRNGKey(seed), cfg)`` (drawn on the device
     through the threefry twin, equal up to ``erfinv``'s last bits); a
     spiking stack's come from a CPU ``torch.Generator``
-    (:func:`_init_spiking`).  MoE raises."""
-    require_supported(cfg)
+    (:func:`_init_spiking`)."""
     if cfg.spiking:
         return _init_spiking(cfg, seed, device)
     return _init_like_reference(cfg, seed, device)
@@ -292,7 +307,9 @@ def quantize_params(params: Dict[str, Any], cfg, *, keep_state: bool = False
 
     def block(blk, stacked: bool):
         out = dict(blk)
-        for group in ("mixer", "mlp"):
+        # a MoE block's FFN runs on the rate interface: its dense MLP is
+        # not a spiking linear (the reference's spiking blocks ignore it)
+        for group in ("mixer",) if "moe" in blk else ("mixer", "mlp"):
             if group not in blk:
                 continue
             g = dict(blk[group])
@@ -344,16 +361,16 @@ def _lin_operand(w, d_in: int):
 
 
 def _layer_keys(key: Tensor) -> Tensor:
-    """A block's eight keys ``[..., 8, 2]`` from its key: ``split(split(key)
+    """A block's nine keys ``[..., 9, 2]`` from its key: ``split(split(key)
     [0], 5)`` (Q, K, V, the SSA tile, attention-out), ``split(split(key)
-    [1])`` (MLP in, MLP out), and ``split(key)[0]`` itself (a recurrent
-    mixer's rate coding), as the reference's block, attention and MLP
-    split them.  The digital backends' linears draw nothing; the reference
-    backend's read programmed state's noise from them.  Vectorised over
-    leading axes."""
+    [1])`` (MLP in, MLP out), and ``split(key)[0]`` and ``[1]`` themselves
+    (a recurrent mixer's and a MoE FFN's rate coding), as the reference's
+    block, attention and MLP split them.  The digital backends' linears
+    draw nothing; the reference backend's read programmed state's noise
+    from them.  Vectorised over leading axes."""
     k12 = prng.split(key)
     return torch.cat([prng.split(k12[..., 0, :], 5),
-                      prng.split(k12[..., 1, :]), k12[..., :1, :]], dim=-2)
+                      prng.split(k12[..., 1, :]), k12], dim=-2)
 
 
 def _spiking_attention(params, s: Tensor, cfg, keys: Tensor, backend,
@@ -405,12 +422,14 @@ _RECURRENT = {"ssd": (S.ssd_mixer, S.ssd_decode),
 
 def _block_spiking(params, s: Tensor, cfg, keys: Tensor, backend,
                    tile: Optional[Dict[str, int]] = None,
-                   mixer: str = "attn") -> Tensor:
+                   mixer: str = "attn") -> Tuple[Tensor, Optional[Tensor]]:
     """One spiking residual block over ``s [T,B,S,d]`` given its keys
-    (:func:`_layer_keys`): residuals add spike trains directly (Table I:
-    no inter-layer normalisation).  An SSD or RG-LRU mixer runs on the
-    rate interface (decode the rate, the float mixer, re-encode its
-    sigmoid keyed ``keys[7]``), as the reference's does."""
+    (:func:`_layer_keys`) -> ``(s, aux)``: residuals add spike trains
+    directly (Table I: no inter-layer normalisation).  An SSD or RG-LRU
+    mixer runs on the rate interface (decode the rate, the float mixer,
+    re-encode its sigmoid keyed ``keys[7]``), as the reference's does, and
+    so does a MoE FFN (``moe_dense``, keyed ``keys[8]``; ``aux`` its
+    load-balancing loss, ``None`` without MoE)."""
     if mixer in ("attn", "local"):
         h = _spiking_attention(params["mixer"], s, cfg, keys, backend, tile)
     else:
@@ -420,9 +439,18 @@ def _block_spiking(params, s: Tensor, cfg, keys: Tensor, backend,
         y = _RECURRENT[mixer][0](params["mixer"], SP.rate_decode(s), cfg)
         h = SP.rate_encode(keys[7], torch.sigmoid(y), s.shape[0])
     s = s + h.to(s.dtype)
-    if "norm2" in params:
+    aux = None
+    if "moe" in params:
+        if tile is not None:
+            raise NotImplementedError(
+                f"a MoE FFN on a mesh rank's rows: {MOE_ITEM}")
+        ym, aux = M.moe_apply(params["moe"], SP.rate_decode(s), cfg,
+                              impl="dense")
+        s = s + SP.rate_encode(keys[8], torch.sigmoid(ym),
+                               s.shape[0]).to(s.dtype)
+    elif "norm2" in params:
         s = s + _spiking_mlp(params["mlp"], s, keys, backend).to(s.dtype)
-    return s
+    return s, aux
 
 
 def _apply_block_spiking(params, s: Tensor, cfg, mixer: str, key: Tensor,
@@ -432,9 +460,9 @@ def _apply_block_spiking(params, s: Tensor, cfg, mixer: str, key: Tensor,
     ``"local"``: the spiking attention sees the whole causal prefix in
     both, as in the reference; ``"ssd"``/``"rglru"`` on the rate
     interface), keyed by the block's ``key``.  Returns the new spike
-    trains (no MoE: no auxiliary loss)."""
+    trains (a MoE block's auxiliary loss dropped)."""
     return _block_spiking(params, s, cfg, _layer_keys(key), backend, tile,
-                          mixer)
+                          mixer)[0]
 
 
 def _embed_inputs(params, batch: Dict[str, Tensor], cfg) -> Tensor:
@@ -504,9 +532,10 @@ def _layers(params, cfg, tree=None):
 
 def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
                      backend, rows: Optional[Tuple[int, int]] = None,
-                     remat: str = "none") -> Tensor:
+                     remat: str = "none") -> Tuple[Tensor, Tensor]:
     """The spiking forward up to the unembed: embed, rate coding, every
-    block, rate decoding -> ``[B, S, d]`` in the model dtype.  ``rows =
+    block, rate decoding -> ``([B, S, d]`` in the model dtype, the MoE
+    blocks' summed load-balancing loss ``aux``).  ``rows =
     (b0, n)`` runs batch rows ``b0 .. b0+n`` only (a mesh rank's share):
     the coding draws at the whole batch's shape and the SSA tiles at the
     whole batch's grid, so the rows equal those of the whole batch.
@@ -515,7 +544,6 @@ def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
 
     The key chain runs on the host (a few tiny threefry calls, not a few
     hundred kernel launches); the keys move to the card once."""
-    require_supported(cfg)
     if rng is None:
         raise ValueError("the spiking forward needs an rng for Bernoulli "
                          "coding")
@@ -531,19 +559,22 @@ def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
     lkeys = _layer_keys(_block_keys(k_blocks, cfg)).to(dev)
     block = _remat(_block_spiking, remat,
                    getattr(backend, "differentiable", False))
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for layer, bp, mixer, _ in _layers(params, cfg):
-        s = block(bp, s, cfg, lkeys[layer], backend, tile, mixer)
+        s, a = block(bp, s, cfg, lkeys[layer], backend, tile, mixer)
+        if a is not None:
+            aux = aux + a
     # rate-decode the stream (paper: loss on the time-averaged output)
-    return SP.rate_decode(s.to(torch.float32)).to(model_dtype(cfg))
+    return SP.rate_decode(s.to(torch.float32)).to(model_dtype(cfg)), aux
 
 
 def _forward_spiking(params, batch, cfg, *, rng, backend,
                      remat: str = "none", rows=None):
     """Spiking forward: rate-encode, spiking blocks over T, rate-decode,
-    unembed -> ``(logits [B,S,V], aux 0)`` (``rows``: those rows only)."""
-    x = spiking_features(params, batch, cfg, rng=rng, backend=backend,
-                         remat=remat, rows=rows)
-    return _unembed(params, x, cfg), torch.zeros((), device=x.device)
+    unembed -> ``(logits [B,S,V], aux)`` (``rows``: those rows only)."""
+    x, aux = spiking_features(params, batch, cfg, rng=rng, backend=backend,
+                              remat=remat, rows=rows)
+    return _unembed(params, x, cfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -551,9 +582,25 @@ def _forward_spiking(params, batch, cfg, *, rng, backend,
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(params, x: Tensor, positions: Tensor, cfg, mixer: str
-                 ) -> Tensor:
-    """Residual block: norm -> mixer -> +res; norm -> MLP -> +res."""
+def _ffn(params, h: Tensor, cfg, moe_impl: str
+         ) -> Tuple[Tensor, Optional[Tensor]]:
+    """A float block's FFN of the normed ``h``: the MoE's output plus the
+    MLP's (arctic's dense residual, or a dense block's), as the reference
+    sums them into one ``y`` -> ``(y, aux)``, ``aux`` ``None`` without
+    MoE."""
+    y = aux = None
+    if "moe" in params:
+        y, aux = M.moe_apply(params["moe"], h, cfg, impl=moe_impl)
+    if "mlp" in params:
+        m = L.mlp(params["mlp"], h, cfg)
+        y = m if y is None else y + m
+    return y, aux
+
+
+def _apply_block(params, x: Tensor, positions: Tensor, cfg, mixer: str,
+                 moe_impl: str) -> Tuple[Tensor, Optional[Tensor]]:
+    """Residual block: norm -> mixer -> +res; norm -> FFN (MLP, MoE or
+    both) -> +res -> ``(x, aux)`` (:func:`_ffn`)."""
     h = L.apply_norm(cfg.norm_type, params["norm1"], x)
     if mixer == "attn":
         h = L.attention(params["mixer"], h, positions, cfg)
@@ -563,29 +610,40 @@ def _apply_block(params, x: Tensor, positions: Tensor, cfg, mixer: str
     else:
         h = _RECURRENT[mixer][0](params["mixer"], h, cfg)
     x = x + h
+    aux = None
     if "norm2" in params:
-        h = L.apply_norm(cfg.norm_type, params["norm2"], x)
-        x = x + L.mlp(params["mlp"], h, cfg)
-    return x
+        y, aux = _ffn(params, L.apply_norm(cfg.norm_type, params["norm2"], x),
+                      cfg, moe_impl)
+        x = x + y
+    return x, aux
 
 
-def _forward_float(params, batch, cfg, *, remat: str = "block"):
-    """The float forward -> ``(logits [B,S,V], aux 0)``."""
+def _forward_float(params, batch, cfg, *, remat: str = "block",
+                   moe_impl: str = "ep_a2a"):
+    """The float forward -> ``(logits [B,S,V], aux)``."""
     x = _embed_inputs(params, batch, cfg)
     b, sl, _ = x.shape
     positions = torch.arange(sl, dtype=torch.int32, device=x.device).expand(b, sl)
     block = _remat(_apply_block, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, bp, mixer, _ in _layers(params, cfg):
-        x = block(bp, x, positions, cfg, mixer)
-    return _unembed(params, x, cfg), torch.zeros((), device=x.device)
+        x, a = block(bp, x, positions, cfg, mixer, moe_impl)
+        if a is not None:
+            aux = aux + a
+    return _unembed(params, x, cfg), aux
 
 
 def forward(params, batch: Dict[str, Tensor], cfg, *,
             rng: Optional[Tensor] = None, backend=None, remat: str = "block",
-            rows: Optional[Tuple[int, int]] = None) -> Tuple[Tensor, Tensor]:
+            rows: Optional[Tuple[int, int]] = None,
+            moe_impl: str = "ep_a2a") -> Tuple[Tensor, Tensor]:
     """Train/prefill forward: ``batch["tokens"] [B,S]`` (a frontend arch:
     ``batch["embeddings"] [B,S,frontend_dim]``) -> ``(logits [B,S,V],
-    aux)``; ``aux`` (MoE's load-balancing loss) is zero.  A spiking stack
+    aux)``; ``aux`` is MoE's load-balancing loss summed over the blocks
+    (zero without MoE).  A float stack's MoE blocks run ``moe_impl``
+    (``"ep_a2a"``, the reference's default: the sort-based dispatch with
+    its capacity drops; ``"dense"``: every expert); a spiking stack's run
+    ``"dense"`` on the rate interface, as the reference's do.  A spiking stack
     runs on ``backend`` (default: the CUDA one, :func:`repro_torch.engine.
     get_backend`; the reference backend, ``"reference"``, is the one
     autograd trains through) and needs ``rng``; a float stack needs
@@ -593,11 +651,11 @@ def forward(params, batch: Dict[str, Tensor], cfg, *,
     ``rows = (b0, n)``: the logits of batch rows ``b0 .. b0+n`` only,
     equal to those rows of the whole batch's (a data rank's share,
     :func:`spiking_features`)."""
-    require_supported(cfg)
     if not cfg.spiking:
         if rows is not None:
             batch = {k: v[rows[0]:rows[0] + rows[1]] for k, v in batch.items()}
-        return _forward_float(params, batch, cfg, remat=remat)
+        return _forward_float(params, batch, cfg, remat=remat,
+                              moe_impl=moe_impl)
     from repro_torch.engine import get_backend
 
     return _forward_spiking(params, batch, cfg, rng=rng,
@@ -620,8 +678,8 @@ def softmax_xent(logits: Tensor, targets: Tensor,
 
 def loss_fn(params, batch, cfg, *, rng: Optional[Tensor] = None,
             aux_weight: float = 0.01, backend=None, remat: str = "block",
-            rows: Optional[Tuple[int, int]] = None
-            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+            rows: Optional[Tuple[int, int]] = None,
+            moe_impl: str = "ep_a2a") -> Tuple[Tensor, Dict[str, Tensor]]:
     """Next-token loss of ``batch["tokens"] [B, S+1]`` (inputs all but the
     last, targets all but the first; a frontend arch: ``batch
     ["embeddings"]`` and ``batch["targets"]``; ``batch["mask"]``
@@ -635,7 +693,7 @@ def loss_fn(params, batch, cfg, *, rng: Optional[Tensor] = None,
         inputs = {"tokens": batch["tokens"][:, :-1]}
         targets = batch["tokens"][:, 1:]
     logits, aux = forward(params, inputs, cfg, rng=rng, backend=backend,
-                          remat=remat, rows=rows)
+                          remat=remat, rows=rows, moe_impl=moe_impl)
     mask = batch.get("mask")
     if rows is not None:
         cut = slice(rows[0], rows[0] + rows[1])
@@ -646,14 +704,14 @@ def loss_fn(params, batch, cfg, *, rng: Optional[Tensor] = None,
 
 
 def prefill(params, batch, cfg, *, rng: Optional[Tensor] = None,
-            backend=None):
+            backend=None, moe_impl: str = "ep_a2a"):
     """Prefill forward returning ``(logits, aux)`` (the cache is produced
     by the decode over the prompt in serving).  The reference's
     ``prefill`` passes no rng to ``forward``, so a spiking config fails
     its assertion there; this one takes the rng and the backend the
     spiking forward needs."""
     return forward(params, batch, cfg, rng=rng, backend=backend,
-                   remat="none")
+                   remat="none", moe_impl=moe_impl)
 
 
 # ---------------------------------------------------------------------------
@@ -687,7 +745,6 @@ def init_cache(cfg, batch: int, seq_len: int, device,
       ``L`` its window (a ring buffer);
     * SSD: ``ssd [B, H, S, P]``, ``conv_x``, ``conv_bc``; RG-LRU: ``h [B,
       W]`` float32, ``conv``."""
-    require_supported(cfg)
 
     def blk(mixer, lead):
         if mixer in ("attn", "local") and spiking_decode_enabled(cfg):
@@ -822,10 +879,17 @@ def _spiking_attention_decode_paged(params, s: Tensor, blk_pool, cfg,
     return _attention_out(params, view, q, i_max, s, cfg, slot_keys, backend)
 
 
-def _spiking_decode_ffn_tail(params, s: Tensor, cfg, backend) -> Tensor:
-    """The FFN half of a spiking decode block: ``s + LIF(W2 LIF(W1 s))``."""
+def _spiking_decode_ffn_tail(params, s: Tensor, cfg, backend,
+                             keys_for: Callable[[int], Tensor]) -> Tensor:
+    """The FFN half of a spiking decode block: ``s + LIF(W2 LIF(W1 s))``,
+    or a MoE block's on the rate interface (``moe_dense`` of the rate,
+    its sigmoid coded with the keys ``keys_for(200003)``)."""
     if "norm2" not in params:
         return s
+    if "moe" in params:
+        rate = SP.rate_decode(s.to(torch.float32)).to(model_dtype(cfg))
+        ym, _ = M.moe_apply(params["moe"], rate, cfg, impl="dense")
+        return s + _slot_rate_encode(keys_for(200003), ym, s.shape[0])
     h1 = backend.spiking_linear(
         _lin_operand(params["mlp"]["wi"], s.shape[-1]), s, part="col")
     return s + backend.spiking_linear(
@@ -840,7 +904,7 @@ def _fused_block_weights(params, cfg, d: int):
     wk = _lin_operand(mx["wk"], d)
     wv = _lin_operand(mx["wv"], d)
     wo = _lin_operand(mx["wo"], h * hd)
-    with_mlp = "norm2" in params
+    with_mlp = "norm2" in params and "moe" not in params
     wi = wo2 = None
     if with_mlp:
         wi = _lin_operand(params["mlp"]["wi"], d)
@@ -899,14 +963,14 @@ def _apply_block_spiking_decode(params, s: Tensor, cache, cfg, slot_keys,
         rate = SP.rate_decode(s.to(torch.float32)).to(model_dtype(cfg))
         y, _ = _RECURRENT[mixer][1](params["mixer"], rate, cache, cfg)
         s = s + _slot_rate_encode(keys_for(100003), y, s.shape[0])
-        return _spiking_decode_ffn_tail(params, s, cfg, backend)
+        return _spiking_decode_ffn_tail(params, s, cfg, backend, keys_for)
     if plan is not None and plan.fused:
         return _fused_block_spiking_decode(params, s, cache, cfg, keys_for(1),
                                            backend)
     h = _spiking_attention_decode(params["mixer"], s, cache, cfg, keys_for(1),
                                   backend)
     s = s + h.to(s.dtype)
-    return _spiking_decode_ffn_tail(params, s, cfg, backend)
+    return _spiking_decode_ffn_tail(params, s, cfg, backend, keys_for)
 
 
 def _apply_block_spiking_decode_paged(params, s: Tensor, blk_pool, cfg,
@@ -917,16 +981,18 @@ def _apply_block_spiking_decode_paged(params, s: Tensor, blk_pool, cfg,
                                       ) -> Tensor:
     """Spiking residual block over the page pool (decode flavour); the
     same draws as :func:`_apply_block_spiking_decode`."""
-    keys = prng.fold_in(slot_keys, 1 + uid)
+    def keys_for(tag):
+        return prng.fold_in(slot_keys, tag + uid)
+
     if plan is not None and plan.fused:
         return _fused_block_spiking_decode_paged(
-            params, s, blk_pool, cfg, page_table, pos, write_pids, keys,
-            backend)
+            params, s, blk_pool, cfg, page_table, pos, write_pids,
+            keys_for(1), backend)
     h = _spiking_attention_decode_paged(params["mixer"], s, blk_pool, cfg,
-                                        page_table, pos, write_pids, keys,
-                                        backend)
+                                        page_table, pos, write_pids,
+                                        keys_for(1), backend)
     s = s + h.to(s.dtype)
-    return _spiking_decode_ffn_tail(params, s, cfg, backend)
+    return _spiking_decode_ffn_tail(params, s, cfg, backend, keys_for)
 
 
 def _unembed(params, x: Tensor, cfg) -> Tensor:
@@ -974,9 +1040,12 @@ def _decode_step_spiking(params, cache, tokens: Tensor, cfg, backend,
     return _decode_stack(params, cache, tokens, cfg, slot_keys, block)
 
 
-def _apply_block_decode(params, x: Tensor, cache, cfg, mixer: str) -> Tensor:
+def _apply_block_decode(params, x: Tensor, cache, cfg, mixer: str,
+                        moe_impl: str) -> Tensor:
     """A float residual block, decode flavour: its cache is updated in
-    place."""
+    place.  A MoE block routes the step's ``B`` tokens (the ``"ep_a2a"``
+    capacities are those of ``B`` tokens, so its decode need not equal
+    its forward)."""
     h = L.apply_norm(cfg.norm_type, params["norm1"], x)
     if mixer in ("attn", "local"):
         window = cfg.window_size if mixer == "local" else 0
@@ -986,12 +1055,13 @@ def _apply_block_decode(params, x: Tensor, cache, cfg, mixer: str) -> Tensor:
         h, _ = _RECURRENT[mixer][1](params["mixer"], h, cache, cfg)
     x = x + h
     if "norm2" in params:
-        h = L.apply_norm(cfg.norm_type, params["norm2"], x)
-        x = x + L.mlp(params["mlp"], h, cfg)
+        x = x + _ffn(params, L.apply_norm(cfg.norm_type, params["norm2"], x),
+                     cfg, moe_impl)[0]
     return x
 
 
-def _decode_step_float(params, cache, tokens: Tensor, cfg) -> Tensor:
+def _decode_step_float(params, cache, tokens: Tensor, cfg,
+                       moe_impl: str) -> Tensor:
     """The float decode step: tokens ``[B,1]`` -> logits ``[B,1,V]`` (a
     frontend arch decodes its tokens through the embedding, as the
     reference's does)."""
@@ -999,23 +1069,24 @@ def _decode_step_float(params, cache, tokens: Tensor, cfg) -> Tensor:
     x = L.embed(params["embed"], tokens, dt) * torch.tensor(
         math.sqrt(cfg.d_model), dtype=dt, device=tokens.device)
     for _, bp, mixer, bc in _layers(params, cfg, cache):
-        x = _apply_block_decode(bp, x, bc, cfg, mixer)
+        x = _apply_block_decode(bp, x, bc, cfg, mixer, moe_impl)
     return _unembed(params, x, cfg)
 
 
 def decode_step(params, cache, tokens: Tensor, cfg, *, backend=None,
                 seeds: Optional[Tensor] = None, with_activity: bool = False,
-                plan: Optional[DecodePlan] = None):
+                plan: Optional[DecodePlan] = None, moe_impl: str = "ep_a2a"):
     """One decode step: tokens ``[B,1]`` -> ``(logits [B,1,V], cache)``
     (plus ``activity [B]`` with ``with_activity``).  The cache is updated
     in place and returned.  A spiking SSA stack decodes through
     ``backend``'s primitives (``seeds [B]``, the per-slot PRN stream ids,
     zeros by default; ``plan`` picks the fused layer kernel); every other
     stack, a LIF-attention one included, on the float path, which ignores
-    ``backend``, ``seeds`` and ``plan`` and whose activity is zero."""
-    require_supported(cfg)
+    ``backend``, ``seeds`` and ``plan`` and whose activity is zero, and
+    whose MoE blocks run ``moe_impl`` (a spiking SSA stack's run
+    ``"dense"`` on the rate interface, as the reference's do)."""
     if not spiking_decode_enabled(cfg):
-        logits = _decode_step_float(params, cache, tokens, cfg)
+        logits = _decode_step_float(params, cache, tokens, cfg, moe_impl)
         if with_activity:
             return logits, cache, torch.zeros(
                 tokens.shape[0], dtype=torch.float32, device=tokens.device)

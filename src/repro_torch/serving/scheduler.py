@@ -27,7 +27,10 @@ layout: paged and dense serving give the same tokens.
   no kernel of the port, the per-slot caches ``{k, v, pos}`` (a ring
   buffer for a windowed layer), ``{ssd, conv_x, conv_bc, pos}`` or ``{h,
   conv, pos}``; ``decode_kernel="fused"`` and ``paged=True`` raise, and
-  the metered energy is zero, as in the reference.
+  the metered energy is zero, as in the reference.  A MoE stack
+  (:mod:`repro_torch.models.moe`) routes each step's slots through
+  ``moe_impl``; a spiking SSA MoE stack serves dense or paged, unfused
+  (its FFN runs on the rate interface).
 
 * **energy** -- every served position (a dense prefill at admission, a
   decode or paged prompt position) books its measured residual-stream
@@ -159,8 +162,9 @@ class BatchScheduler:
     the scheduler moves it to ``device`` and derives the spiking linears'
     operands once (and after every drift fold).  ``drift`` runs the PCM
     lifecycle on programmed params.  ``obs`` attaches a telemetry bundle
-    (:meth:`attach_obs`).  ``device`` defaults to CUDA and raises without
-    it.
+    (:meth:`attach_obs`).  ``moe_impl`` (default: ``"ep_a2a"`` for a MoE
+    config, the reference's) is a float stack's MoE path at decode and
+    prefill.  ``device`` defaults to CUDA and raises without it.
     """
 
     def __init__(self, params: Any, cfg, backend=None, *, slots: int = 4,
@@ -169,7 +173,8 @@ class BatchScheduler:
                  n_pages: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda",
                  drift: Optional[AD.DriftPolicy] = None, placement=None,
-                 obs: Optional[Telemetry] = None):
+                 obs: Optional[Telemetry] = None,
+                 moe_impl: Optional[str] = None):
         self.placement = placement  # repro_torch.distributed.Executor | None
         if placement is not None:
             device = placement.device
@@ -189,6 +194,9 @@ class BatchScheduler:
         self.cache_len = cache_len
         self.paged = bool(paged)
         self.drift = drift
+        # a float MoE stack's decode and prefill path (a spiking one's MoE
+        # runs dense on the rate interface), as the reference resolves it
+        self.moe_impl = moe_impl or ("ep_a2a" if cfg.is_moe else "dense")
         # one plan per scheduler lifetime for a spiking SSA stack (dense
         # prefill always runs unfused); the float decode has none
         self.spiking = T.spiking_decode_enabled(cfg)
@@ -217,8 +225,10 @@ class BatchScheduler:
             self._decode = ST.make_paged_decode_fn(cfg, self.backend,
                                                    plan=self.plan)
         else:
-            self._decode = ST.make_decode_fn(cfg, self.backend, plan=self.plan)
-            self._prefill = ST.make_prefill_fn(cfg, self.backend)
+            self._decode = ST.make_decode_fn(cfg, self.backend, plan=self.plan,
+                                             moe_impl=self.moe_impl)
+            self._prefill = ST.make_prefill_fn(cfg, self.backend,
+                                               moe_impl=self.moe_impl)
         self._next_rid = 0
         # static per-decoded-token energy of a spiking SSA stack (the
         # activity-independent ADC, periphery, LIF and comparator work);

@@ -277,23 +277,25 @@ def content_keys(tokens) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def make_decode_fn(cfg, backend, plan=None):
+def make_decode_fn(cfg, backend, plan=None, moe_impl: str = "ep_a2a"):
     """The batched decode step: ``(params, state) -> (logits [slots,1,V],
     state, activity [slots])``.  Every slot advances one token (greedy
     argmax written back into ``state.tokens``); ``plan`` picks the fused
-    layer kernel or the unfused primitives."""
+    layer kernel or the unfused primitives; ``moe_impl`` a float stack's
+    MoE path."""
 
     def step(params, state: DecodeState):
         logits, _, act = T.decode_step(
             params, state.cache, state.tokens[:, None], cfg, backend=backend,
-            seeds=state.seeds, with_activity=True, plan=plan)
+            seeds=state.seeds, with_activity=True, plan=plan,
+            moe_impl=moe_impl)
         state.tokens = torch.argmax(logits[:, 0, :], dim=-1)
         return logits, state, act
 
     return step
 
 
-def make_prefill_fn(cfg, backend):
+def make_prefill_fn(cfg, backend, moe_impl: str = "ep_a2a"):
     """Batch-1 prompt prefill through the same decode path, with **no**
     plan (the unfused primitives, as in the reference).
 
@@ -308,7 +310,8 @@ def make_prefill_fn(cfg, backend):
         for i in range(prompt.shape[0]):
             _, cache1, a = T.decode_step(
                 params, cache1, prompt[i].view(1, 1), cfg, backend=backend,
-                seeds=seeds[i].view(1), with_activity=True)
+                seeds=seeds[i].view(1), with_activity=True,
+                moe_impl=moe_impl)
             act = act + a[0]
         return cache1, act
 

@@ -25,7 +25,7 @@ the whole batch, and computes the loss and gradient of its rows
 the loss and the gradients are summed over the data group in one
 ``all_reduce`` and divided by ``data``, so the AdamW update is the same on
 every rank.  ``model > 1`` raises: model-parallel training is not ported
-(ROADMAP A2(c)).
+(ROADMAP A2(c)); so does a MoE config on any mesh (ROADMAP A13(b)).
 
 Parameters and state live on the card unless the caller asks for the CPU
 (:func:`init_state`); the step runs where they are.
@@ -82,12 +82,14 @@ def make_loss(cfg, parallel: ParallelConfig = ParallelConfig(),
               backend="reference", rows=None):
     """``loss_f(params, batch, rng) -> (loss, {"xent", "moe_aux"})`` on
     ``backend`` (the reference backend: autograd trains through it);
-    ``rows = (b0, n)``: over those rows of the batch only."""
+    ``rows = (b0, n)``: over those rows of the batch only; MoE blocks run
+    ``parallel.moe_impl``, their load-balancing loss mixed in."""
     be = _differentiable(backend)
 
     def loss_f(params, batch, rng):
         return T.loss_fn(params, batch, cfg, rng=rng, backend=be,
-                         remat=parallel.remat, rows=rows)
+                         remat=parallel.remat, rows=rows,
+                         moe_impl=parallel.moe_impl)
 
     return loss_f
 
@@ -139,6 +141,8 @@ def make_train_step(cfg, parallel: ParallelConfig = ParallelConfig(),
     threefry twin.  ``mesh``: the data-parallel step of this rank, given
     the whole batch."""
     dp = data_rows(mesh, mesh.data) is not None if mesh is not None else False
+    if dp:
+        T.require_mesh_supported(cfg)
     if dp and parallel.microbatches > 1:
         raise NotImplementedError(
             "microbatches on a data-parallel mesh are not ported: a rank's "

@@ -20,7 +20,7 @@ over through numpy, on the CPU:
   equal to JAX's ``BatchScheduler``, with JAX's joules (zero: the static
   per-token energy is a spiking SSA stack's only);
 * the entry points: ``launch.train.run`` (its first loss JAX's on the
-  same stream batch), the serve CLI, the engine, and MoE's refusal.
+  same stream batch), the serve CLI (a MoE arch too), the engine.
 
 Logits agree within ``ATOL``: ``exp``, ``sigmoid``, ``sin``/``cos`` and
 ``pow`` are float boundaries against XLA, and XLA's CPU fusions contract
@@ -368,9 +368,10 @@ def test_train_launcher(refs, tmp_path, monkeypatch):
 
 
 def test_serve_cli_and_engine(refs, capsys):
-    """The serve CLI on ``--device cpu`` for a dense and a frontend arch;
-    the engine's ``forward`` and ``generate``; MoE names the ROADMAP item
-    that ports it; ``--program`` needs a spiking SSA arch."""
+    """The serve CLI on ``--device cpu`` for a dense, a frontend and a MoE
+    arch (the reduced arctic, whose experts ``tests/test_torch_moe.py``
+    holds to JAX); the engine's ``forward`` and ``generate``;
+    ``--program`` needs a spiking SSA arch."""
     serve_cli.main(["--arch", "yi-9b", "--requests", "3", "--max-new", "4",
                     "--device", "cpu"])
     serve_cli.main(["--arch", "musicgen-medium", "--requests", "2",
@@ -378,8 +379,10 @@ def test_serve_cli_and_engine(refs, capsys):
     out = capsys.readouterr().out
     assert "served 3 requests, 12 tokens" in out
     assert "serving over stub embeddings" in out and "served 2 requests" in out
-    with pytest.raises(NotImplementedError, match="A13"):
-        serve_cli.serve("arctic-480b", smoke=True, device="cpu")
+    outs = serve_cli.serve("arctic-480b", smoke=True, device="cpu",
+                           n_requests=2, max_new=3)
+    assert "served 2 requests, 6 tokens" in capsys.readouterr().out
+    assert [len(o) for o in outs] == [3, 3]
     with pytest.raises(SystemExit, match="spiking SSA"):
         serve_cli.serve("yi-9b", smoke=True, device="cpu", program=True)
 

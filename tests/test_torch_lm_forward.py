@@ -363,21 +363,29 @@ def test_spiking_stack_with_an_ssd_mixer():
 
 
 def test_unported_stacks_raise():
-    """Only MoE raises, naming the ROADMAP item that ports it (A13, the
-    mesh slice).  The float stack, a spiking stack with an SSD mixer (on
-    the rate interface) and the decode of a LIF-attention stack (the
-    reference's float path) run: a decode step gives finite logits."""
+    """MoE builds and decodes on one device (``tests/test_torch_moe.py``
+    holds it to JAX); on a mesh it raises, naming the ROADMAP item that
+    ports it (A13(b)).  The float stack, a spiking stack with an SSD mixer
+    (on the rate interface), the decode of a LIF-attention stack (the
+    reference's float path) and a spiking MoE run: a decode step gives
+    finite logits."""
+    from repro_torch.distributed import Executor
+    from repro_torch.launch.mesh import ServingMesh
+
     _, tcfg = _cfgs("base")
     moe = dataclasses.replace(tcfg, num_experts=4, moe_top_k=2)
-    for run in (lambda: T.init_params(moe, 0, "cpu"),
-                lambda: T.init_cache(moe, 1, 8, "cpu"),
-                lambda: T.forward({}, {"tokens": None}, moe)):
-        with pytest.raises(NotImplementedError, match="A13"):
+    mesh = ServingMesh((1, 2), 0, torch.device("cpu"))
+    for run in (lambda: T.require_mesh_supported(moe),
+                lambda: Executor(T.init_params(moe, 0, "cpu"), moe,
+                                 "integer", mesh)):
+        with pytest.raises(NotImplementedError, match=r"A13\(b\)"):
             run()
     tokens = torch.tensor([[3], [5]])
     for change in ({"spiking": False}, {"block_pattern": ("attn", "ssd"),
                                         "ssm_state_dim": 16},
-                   {"attention_kind": "lif"}):
+                   {"attention_kind": "lif"},
+                   {"num_experts": 4, "moe_top_k": 2},
+                   {"num_experts": 4, "moe_top_k": 2, "spiking": False}):
         cfg = dataclasses.replace(tcfg, **change)
         params = T.init_params(cfg, 0, "cpu")
         cache = T.init_cache(cfg, 2, 8, "cpu")
