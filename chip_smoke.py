@@ -165,7 +165,23 @@ Phases, each printing one JSON line:
    (``launch/elastic.state_shardings``) and served dense: every rank's
    streams must equal one card's.  The phase runs after phase 9.
    Its times measure four processes sharing one card and gloo's host
-   staging, not NVLink.
+   staging, not NVLink.  In the same spawn, the float and MoE stacks
+   (budget 90 s): (e) phi3.5-moe at full width in bfloat16, 4 of its 32
+   layers, each rank drawing only its share (8 experts a layer and the
+   whole rest, at their flat indices in the whole draw), serving (a)'s 8
+   requests x 16 new tokens with 8 slots: every request gets its tokens,
+   every rank's streams are rank 0's, and after the timed run the served
+   tree's ``Executor.forward`` logits on tokens [8, 16] are finite; per
+   rank tokens/s, ``decode_step_ms``, the choices dropped at each
+   capacity, the all-to-alls a decode step and their bytes.  (f) the same
+   cut to 2 layers in float32 on tokens [8, 64]: each rank's
+   ``Executor.forward`` (one card's dispatch over the whole batch, the
+   experts' products split over the model group) within 1e-5 of one
+   card's largest logit, and three teacher-forced decode steps within
+   1e-4 of it where neither side drops a choice.  (g) phase moe (d)'s
+   spiking MoE, its attention held whole (one KV head): forward logits
+   and dense and paged streams equal to one card's, bit for bit; its
+   launches join the phase's sums.
 
 8. **train** -- training on the card, through the float reference
    backend (plain PyTorch: no kernel of the port in a step) and AdamW.
@@ -3792,9 +3808,12 @@ def _moe_spiking(dev) -> tuple:
                plan=plan.describe(), launches_forward=fwd,
                launches=launched, prefix_hits=pst.prefix_hits,
                first_tokens=dense_outs[0], seconds=time.perf_counter() - t0)
+    # one card's results, which the mesh phase's (g) must equal
+    ref = dict(cfg=cfg, tokens=x.cpu().numpy(), logits=logits.cpu(),
+               prompts=prompts, dense=dense_outs, paged=paged_outs)
     del eng, plain
     torch.cuda.empty_cache()
-    return out, launched
+    return out, launched, ref
 
 
 def phase_moe(dev) -> tuple:
@@ -3802,7 +3821,8 @@ def phase_moe(dev) -> tuple:
     32 layers, bfloat16, served as the float serve is (``moe_impl=
     "ep_a2a"``); (b) its float32 checks; (c) arctic-480b's MoE at full
     width, one layer; (d) a spiking MoE through K1, K2, K7 and K8.  ->
-    (the phase's line, the spiking MoE's launches)."""
+    (the phase's line, the spiking MoE's launches, its one-card results
+    for the mesh phase)."""
     from repro_torch.configs import registry
 
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
@@ -3813,10 +3833,10 @@ def phase_moe(dev) -> tuple:
     out["serve"]["reduced"] = f"{MOE_SERVE_LAYERS} of 32 layers"
     out["check"] = _moe_check(dev)
     out["arctic"] = _arctic_check(dev)
-    out["spiking"], launched = _moe_spiking(dev)
+    out["spiking"], launched, ref = _moe_spiking(dev)
     out["budget_s"] = MOE_BUDGET_S
     out["seconds"] = time.perf_counter() - t0
-    return out, launched
+    return out, launched, ref
 
 
 # ---------------------------------------------------------------------------
@@ -3825,9 +3845,160 @@ def phase_moe(dev) -> tuple:
 
 
 MESH = (2, 2)
+# (e)-(g), the float and MoE stacks on the same mesh, in a budget of 90 s
+# (its ranks' job seconds, the slowest rank's sum, and this process's
+# one-card references).  (e) phi3.5-moe at full width in bfloat16, 4 of
+# its 32 layers, each rank drawing its share (8 experts a layer and the
+# whole rest): ~2.9B weights, 5.9 GB, a rank.  (f) 2 layers in float32:
+# the forward within MESH_FWD_RTOL of one card's largest |logit| (every
+# rank runs one card's dispatch over the whole batch; only cuBLAS's
+# batching of the expert products differs), three teacher-forced decode
+# steps within MESH_DECODE_RTOL where neither side drops a choice (a
+# data rank routes its 4 slots with the reference's per-device
+# capacities); (g) the spiking MoE of phase moe (d), bit for bit
+MESH_MOE_LAYERS, MESH_MOE_CHECK_LAYERS = 4, 2
+MESH_FWD_RTOL, MESH_DECODE_RTOL = 1e-5, 1e-4
+MESH_DECODE_STEPS = 3
+MESH_STACKS_BUDGET_S = 90.0
 
 
-def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched):
+def mesh_moe_one_card(dev, cfg, seed: int, tokens) -> dict:
+    """(f)'s one-card side: the whole tree's forward (``ep_a2a``) on
+    ``tokens [8, 64]`` and three teacher-forced decode steps of 8 slots,
+    each with the choices it dropped."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed, dev)
+    x = tokens.to(dev)
+    with torch.no_grad():
+        M.DISPATCH.reset()
+        fwd = T.forward(params, {"tokens": x}, cfg, remat="none")[0]
+        fwd_drops = M.DISPATCH.read()
+        cache = T.init_cache(cfg, x.shape[0], MESH_DECODE_STEPS, dev)
+        dec, drops = [], []
+        for i in range(MESH_DECODE_STEPS):
+            M.DISPATCH.reset()
+            dec.append(T.decode_step(params, cache, x[:, i:i + 1], cfg)[0])
+            drops.append(M.DISPATCH.read())
+        M.DISPATCH.reset(enabled=False)
+    out = dict(forward=fwd.float().cpu(), forward_drops=fwd_drops,
+               decode=torch.cat(dec, 1).float().cpu(), decode_drops=drops,
+               seconds=time.perf_counter() - t0)
+    del params, cache, fwd, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dropped(d: dict) -> int:
+    return d["past_cap"] + d["past_c2"]
+
+
+def mesh_stacks(res, first: int, jobs: dict, one_card: dict, spiking: dict,
+                total: dict) -> dict:
+    """(e)-(g)'s checks and readings from the ranks' results (the jobs of
+    ``jobs``, in order, from ``first``); (g)'s launches join ``total``."""
+    names = list(jobs)
+    got = {n: [r[first + i] for r in res] for i, n in enumerate(names)}
+    out = {}
+    # (e) the served phi3.5-moe
+    serve, ranks = jobs["moe_serve"], []
+    for rank, r in enumerate(got["moe_serve"]):
+        st, moe = r["stats"], r["moe"]
+        check(all(len(o) == serve["max_new"] for o in r["outputs"]),
+              f"mesh moe: rank {rank}: a request got too few tokens")
+        check(r["logits_finite"],
+              f"mesh moe: rank {rank}: the served tree's logits are not "
+              "all finite")
+        check(r["outputs"] == got["moe_serve"][0]["outputs"],
+              f"mesh moe: rank {rank}'s streams differ from rank 0's")
+        step = moe["by_tokens"].get(serve["slots"] // MESH[0], {})
+        ranks.append(dict(
+            rank=rank, params=r["params"],
+            tokens_per_s=st["decoded_tokens"] / r["wall_s"],
+            wall_s=r["wall_s"], job_s=r["job_s"],
+            decode_steps=st["decode_steps"],
+            decode_step_ms=1e3 * st["decode_s"] / st["decode_steps"],
+            prefill_tokens=st["prefill_tokens"],
+            prefill_token_ms=1e3 * st["prefill_s"] / st["prefill_tokens"],
+            dropped_past_cap=moe["past_cap"], dropped_past_c2=moe["past_c2"],
+            all_to_alls_per_step=step.get("all_to_alls", 0)
+            / st["decode_steps"],
+            a2a_bytes_per_step=step.get("a2a_bytes", 0) / st["decode_steps"],
+            by_tokens=moe["by_tokens"]))
+    out["moe_serve"] = dict(
+        arch=serve["cfg"].name, layers=serve["cfg"].num_layers,
+        reduced=f"{MESH_MOE_LAYERS} of 32 layers", dtype=serve["cfg"].dtype,
+        requests=len(serve["prompts"]), max_new=serve["max_new"],
+        slots=serve["slots"], ranks=ranks)
+    # (f) the float32 forward and decode against one card's
+    fcfg = jobs["moe_forward"]["cfg"]
+    ref_max = float(one_card["forward"].abs().max())
+    errs = []
+    for rank, r in enumerate(got["moe_forward"]):
+        err = float((torch.from_numpy(r["logits"]).float()
+                     - one_card["forward"]).abs().max())
+        check(err <= MESH_FWD_RTOL * ref_max,
+              f"mesh moe forward: rank {rank} {err} from one card's "
+              f"(max {ref_max})")
+        errs.append(err)
+    dec_max = float(one_card["decode"].abs().max())
+    steps = []
+    for i in range(MESH_DECODE_STEPS):
+        card_drops = _dropped(one_card["decode_drops"][i])
+        row = dict(step=i, one_card_dropped=card_drops, ranks=[])
+        for rank, r in enumerate(got["moe_decode"]):
+            mesh_drops = _dropped(r["drops"][i])
+            err = float((torch.from_numpy(r["logits"][:, i])
+                         - one_card["decode"][:, i]).abs().max())
+            if card_drops == 0 and mesh_drops == 0:
+                check(err <= MESH_DECODE_RTOL * dec_max,
+                      f"mesh moe decode: step {i} rank {rank} {err} from "
+                      f"one card's (max {dec_max})")
+            row["ranks"].append(dict(rank=rank, dropped=mesh_drops,
+                                     max_abs_err=err))
+        steps.append(row)
+    check(any(all(x["dropped"] == 0 for x in row["ranks"])
+              and row["one_card_dropped"] == 0 for row in steps),
+          "mesh moe decode: every step dropped a choice: nothing compared")
+    out["moe_check"] = dict(
+        layers=fcfg.num_layers, dtype=fcfg.dtype,
+        tokens=list(jobs["moe_forward"]["tokens"].shape),
+        forward=dict(max_abs_err=max(errs), logit_max=ref_max,
+                     rtol_of_max=MESH_FWD_RTOL,
+                     one_card_dropped=_dropped(one_card["forward_drops"])),
+        decode=dict(logit_max=dec_max, rtol_of_max=MESH_DECODE_RTOL,
+                    steps=steps),
+        one_card_s=one_card["seconds"])
+    # (g) the spiking MoE, the attention held whole (one KV head)
+    g = {}
+    for rank in range(len(res)):
+        fwd = got["spiking_forward"][rank]
+        check(torch.equal(torch.from_numpy(fwd["logits"]), spiking["logits"]),
+              f"mesh spiking moe: rank {rank}'s logits differ from one card's")
+        for name in ("spiking_dense", "spiking_paged"):
+            r = got[name][rank]
+            check(r["outputs"] == spiking[name.split("_")[1]],
+                  f"mesh {name}: rank {rank}'s streams differ from one card's")
+        for name in ("spiking_forward", "spiking_dense", "spiking_paged"):
+            for k, v in got[name][rank]["launches"].items():
+                g[k] = g.get(k, 0) + v
+                total[k] = total.get(k, 0) + v
+    for k in ("aimc_spiking_linear", "ssa_attention_keyed"):
+        check(g.get(k, 0) > 0, f"mesh spiking moe: {k} never ran")
+    out["spiking_moe"] = dict(
+        arch=spiking["cfg"].name, kv_heads=spiking["cfg"].num_kv_heads,
+        attention="held whole (one KV head does not split over model=2)",
+        logits_equal_one_card=True, streams_equal_one_card=True,
+        launches={k: v for k, v in g.items() if v})
+    slowest = max(sum(r[first + i]["job_s"] for i in range(len(names)))
+                  for r in res)
+    out["rank_job_s"] = slowest
+    return out
+
+
+def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched, spiking):
     """The full-width spiking GPT on a (2, 2) mesh of four ranks sharing
     the card over gloo (NCCL refuses two ranks on one device), through
     ``run_ranks`` and the CUDA backend: (a) dense, the serve phase's first
@@ -3843,7 +4014,9 @@ def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched):
     directory, requests and one card's streams of the restored tree),
     read on every rank with its serving placement
     (``elastic.state_shardings``) and served dense: every rank's streams
-    must equal one card's."""
+    must equal one card's.  (e)-(g): the float and MoE stacks on the same
+    spawn (:func:`mesh_stacks`; ``spiking`` is phase moe (d)'s one-card
+    results)."""
     from repro_torch.configs import registry
     from repro_torch.distributed import jobs
     from repro_torch.launch.mesh import pick_backend, run_ranks
@@ -3858,9 +4031,38 @@ def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched):
                    tokens=mesh_ref[0], key_seed=MESH_KEY, warmup=True)
     restored = dict(base, ckpt=launched["ckpt"], prompts=launched["prompts"],
                     max_new=LAUNCH_NEW, warmup=False)
+    t_stacks = time.perf_counter()
+    moe_cfg = dataclasses.replace(registry.get_config(MOE_NAME),
+                                  num_layers=MESH_MOE_LAYERS)
+    check_cfg = dataclasses.replace(moe_cfg, dtype="float32",
+                                    num_layers=MESH_MOE_CHECK_LAYERS)
+    check_tokens = lm_tokens(check_cfg.vocab_size, *MESH_TOKENS, 19)
+    one_card = mesh_moe_one_card(dev, check_cfg, 4, check_tokens)
+    sv = MOE_SPIKING_SERVE
+    skw = dict(cfg=spiking["cfg"], init_seed=0, backend="cuda",
+               prompts=spiking["prompts"], max_new=sv["max_new"],
+               slots=sv["slots"], cache_len=sv["cache_len"])
+    stack_jobs = {
+        "moe_serve": dict(base, cfg=moe_cfg, init_seed=3,
+                          prompts=make_requests(moe_cfg.vocab_size)[:8],
+                          max_new=16, check_tokens=lm_tokens(
+                              moe_cfg.vocab_size, 8, 16, 23).numpy()),
+        "moe_forward": dict(kind="forward", cfg=check_cfg, init_seed=4,
+                            tokens=check_tokens.numpy(), key_seed=0),
+        "moe_decode": dict(kind="decode", cfg=check_cfg, init_seed=4,
+                           tokens=check_tokens.numpy(),
+                           steps=MESH_DECODE_STEPS),
+        "spiking_forward": dict(kind="forward", cfg=spiking["cfg"],
+                                init_seed=0, backend="cuda",
+                                tokens=spiking["tokens"], key_seed=42),
+        "spiking_dense": skw,
+        "spiking_paged": dict(skw, paged=True, page_len=sv["page_len"]),
+    }
+    t_stacks = time.perf_counter() - t_stacks
     t0 = time.perf_counter()
     res = run_ranks(jobs.run_jobs, MESH, device="cuda",
-                    args=([dense, paged, forward, restored],), timeout_s=600)
+                    args=([dense, paged, forward, restored,
+                           *stack_jobs.values()],), timeout_s=900)
     wall_s = time.perf_counter() - t0
     out, total = {"shape": list(MESH),
                   "process_group": pick_backend(4, "cuda"),
@@ -3920,6 +4122,10 @@ def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched):
     check(total["lif"] == total["aimc_matmul_counts"],
           f"mesh: {total['lif']} K4 launches for "
           f"{total['aimc_matmul_counts']} row-parallel linears")
+    stacks = mesh_stacks(res, 4, stack_jobs, one_card, spiking, total)
+    stacks["seconds"] = t_stacks + stacks["rank_job_s"]
+    stacks["budget_s"] = MESH_STACKS_BUDGET_S
+    out["stacks"] = stacks
     out["launches_summed_over_ranks"] = {k: v for k, v in total.items() if v}
     out["row_linear_dispatched"] = row_linear_dispatch(cfg)
     return out, total
@@ -4355,10 +4561,11 @@ def main() -> int:
         flm = phase_float_lm(dev)
         emit({"phase": "float_lm", "card": card,
               "seconds": time.perf_counter() - t0, **flm})
-        moe, moe_launches = phase_moe(dev)
+        moe, moe_launches, spiking_moe = phase_moe(dev)
         emit({"phase": "moe", "card": card, **moe})
         t0 = time.perf_counter()
-        mesh, mlaunches = phase_mesh(dev, outs, pouts, mesh_ref, launched)
+        mesh, mlaunches = phase_mesh(dev, outs, pouts, mesh_ref, launched,
+                                     spiking_moe)
         emit({"phase": "mesh", "card": card,
               "seconds": time.perf_counter() - t0, **mesh})
     # each kernel's launches on its own path
@@ -4421,6 +4628,10 @@ def main() -> int:
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
+    # the ranks' spawns started multiprocessing's resource tracker, which
+    # would outlive this process by a moment: stop it before exiting
+    from multiprocessing import resource_tracker
+    resource_tracker._resource_tracker._stop()
     return 0
 
 

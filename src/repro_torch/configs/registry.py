@@ -1,11 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
 Twin of ``repro.configs.registry``: the ten public architectures and the
-paper's two spiking GPT decoders on the generic LM stack (the two MoE
-names, ``arctic-480b`` and ``phi3.5-moe-42b-a6.6b``, run on one device;
-on a mesh they raise, :func:`repro_torch.models.transformer.
-require_mesh_supported`).  ``reduced_config`` is the reference's CPU smoke
-reduction.
+paper's two spiking GPT decoders on the generic LM stack (every name
+serves and forwards on one device and on a serving mesh; training the two
+MoE names, ``arctic-480b`` and ``phi3.5-moe-42b-a6.6b``, on a mesh
+raises, :func:`repro_torch.models.transformer.require_mesh_supported`).
+``reduced_config`` is the reference's CPU smoke reduction.
 """
 
 from __future__ import annotations

@@ -120,12 +120,28 @@ def _shard_leaf(leaf, part: str, dims, model: int, index: int):
     return out
 
 
+def _shard_experts(w, model: int, index: int, n_experts: int):
+    """A MoE leaf's block of experts (its axis -3): contiguous, ``E /
+    model`` of them.  A leaf already holding one block is the rank's own
+    (drawn or restored as its share) and is kept."""
+    e = w.shape[-3]
+    if e == n_experts // model:
+        return w
+    if e != n_experts:
+        raise ValueError(f"a MoE leaf of {e} experts is neither the whole "
+                         f"{n_experts} nor a block of {n_experts // model}")
+    return _cut(w, -3, model, index)
+
+
 def shard_params(params: Dict[str, Any], cfg, model: int, index: int
                  ) -> Dict[str, Any]:
-    """The tree rank ``index`` of the ``model`` axis holds: every spiking
-    linear of every block cut per :data:`repro_torch.distributed.backend.
-    TP_PARTS` (Q/K/V and MLP in by columns, attention and MLP out by rows,
-    whole heads and contiguous blocks), everything else whole.
+    """The tree rank ``index`` of the ``model`` axis holds
+    (:func:`repro_torch.parallel.sharding.model_cut`): a spiking SSA
+    stack's linears of each block part that splits cut per
+    :data:`repro_torch.distributed.backend.TP_PARTS` (Q/K/V and MLP in by
+    columns, attention and MLP out by rows, whole heads and contiguous
+    blocks), a float stack's MoE experts (``wi``, ``wg``, ``wo [.., E,
+    ...]``) in contiguous blocks of ``E / model``, everything else whole.
 
     Linear leaves are quantised operands ``{"levels", "scale"}`` (cut
     after quantising the whole matrix, so a share's levels and scales are
@@ -133,24 +149,29 @@ def shard_params(params: Dict[str, Any], cfg, model: int, index: int
     :class:`AIMCDeviceState` (matrix fields and, by columns, ``scale`` are
     cut; the clock, ``gdc_gain`` and ``img_inv`` stay whole, as JAX's
     ``_state_specs`` places them).  ``model == 1`` returns the tree."""
-    from repro_torch.distributed.backend import TP_PARTS, mat_dims
+    from repro_torch.distributed.backend import mat_dims
+    from repro_torch.parallel.sharding import model_cut
 
-    if model <= 1:
+    cut = model_cut(cfg, model)
+    if not cut:
         return params
 
     def block(blk):
         out = dict(blk)
-        for group in ("mixer", "mlp"):
+        for group in ("mixer", "mlp", "moe"):
             if group not in blk:
                 continue
             g = dict(blk[group])
             for name, w in blk[group].items():
-                if name in TP_PARTS:
+                part = cut.get((group, name))
+                if part == "experts":
+                    g[name] = _shard_experts(w, model, index, cfg.num_experts)
+                elif part is not None:
                     if not isinstance(w, (dict, AIMCDeviceState)):
                         raise ValueError(
                             f"{group}.{name}: quantise float weights "
                             "before sharding (quantize_params)")
-                    g[name] = _shard_leaf(w, TP_PARTS[name],
+                    g[name] = _shard_leaf(w, part,
                                           mat_dims(cfg, group, name), model,
                                           index)
             out[group] = g

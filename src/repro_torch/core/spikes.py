@@ -10,7 +10,8 @@
 * :func:`rate_encode` -- Bernoulli rate coding (Eq. 1) with its uniforms
   from the threefry twin, so with the same key it emits the reference's
   spikes wherever the probabilities agree bitwise; straight-through, so the
-  broadcast of ``x`` over ``T`` sums its gradient;
+  broadcast of ``x`` over ``T`` sums its gradient; :func:`rate_encode_rows`
+  draws a mesh rank's rows of a batch's coding;
 * :func:`lif_step` / :func:`lif` -- the float LIF neuron of the reference
   backend (lines 130-151): ``v = beta v + i``, spike ``H(v - v_th)``,
   reset ``v (1 - s)``, the gradient flowing through the reset too.
@@ -24,6 +25,7 @@ clip of rate coding is ``min(max(x, 0), 1)``: at a tie its gradient is
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -88,6 +90,22 @@ def rate_encode(key: Tensor, x: Tensor, T: int) -> Tensor:
     lead = key.shape[:-1]
     u = prng.uniform(key, (T,) + tuple(x.shape[len(lead):]))
     return bernoulli_st(x.unsqueeze(len(lead)).expand(u.shape), u)
+
+
+def rate_encode_rows(key: Tensor, x: Tensor, T: int, b0: int, batch: int
+                     ) -> Tensor:
+    """``rate_encode(key, whole, T)[:, b0:b0+n]`` for ``x = whole[b0:b0+n]``,
+    the rows of a batch of ``batch`` on ``x``'s first axis (one key): only
+    those rows' uniforms are drawn, where they lie in the whole draw."""
+    x = clip01(x)
+    n, rest = x.shape[0], tuple(x.shape[1:])
+    per = math.prod(rest)
+    dev = key.device
+    t = torch.arange(T, dtype=torch.int64, device=dev)[:, None, None]
+    b = torch.arange(b0, b0 + n, dtype=torch.int64, device=dev)[None, :, None]
+    j = torch.arange(per, dtype=torch.int64, device=dev)[None, None, :]
+    u = prng.uniform_at(key, (t * batch + b) * per + j).reshape((T, n) + rest)
+    return bernoulli_st(x.unsqueeze(0).expand(u.shape), u)
 
 
 def rate_decode(spikes: Tensor) -> Tensor:

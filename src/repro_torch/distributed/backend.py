@@ -30,7 +30,13 @@ and this backend computes that rank's share and names the collectives:
   K9) over the rank's heads with ``with_tail=False``, then the tail
   through the row- and column-parallel linears above.
 
-The residual stream is whole on every rank of a model group.
+The residual stream is whole on every rank of a model group.  A block part
+that does not split (:class:`TPPlan`: heads that ``model`` does not
+divide, a ``d_ff`` it does not divide) is held whole on every rank and
+computed whole there, with no collective: all heads at head offset 0, a
+row-parallel linear of a part held whole without its sum (the caller
+names the part, ``group``).  Spikes are integer data, so the result is
+one device's bit for bit either way.
 """
 
 from __future__ import annotations
@@ -49,10 +55,21 @@ TP_PARTS = {"wq": "col", "wk": "col", "wv": "col", "wi": "col", "wo": "row"}
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
     """What the ``model`` axis splits for a config: shared by parameter
-    placement and :class:`ShardedBackend`, so the two agree."""
+    placement (:func:`repro_torch.convert.shard_params`,
+    :func:`repro_torch.parallel.sharding.param_placement`) and
+    :class:`ShardedBackend`, so the two agree.  The reference's per-leaf
+    rule (``col_ok``/``row_ok``, an attention's ``heads``), taken a block
+    part at a time: the attention's four linears split when its heads do
+    (its heads stay whole on each rank), the MLP's two when ``d_ff`` does;
+    a part that does not split is held whole and computed whole on every
+    rank of the model group.  (Where the heads do not split, the
+    reference still cuts Q/K/V and the attention out by their widths and
+    gathers between them; the port holds the part whole: the same
+    values.)"""
 
     tp: int = 1  # model-axis size
     heads: bool = False  # h % tp == 0 and kv % tp == 0: SSA cores split
+    mlp: bool = False  # d_ff % tp == 0: the MLP's columns and rows split
 
     @classmethod
     def from_config(cls, cfg, tp: int) -> "TPPlan":
@@ -60,21 +77,13 @@ class TPPlan:
             return cls()
         nh = getattr(cfg, "num_heads", 0) or 0
         kv = getattr(cfg, "num_kv_heads", 0) or 0
-        return cls(tp=tp, heads=(nh > 0 and nh % tp == 0 and kv % tp == 0))
+        return cls(tp=tp, heads=nh > 0 and nh % tp == 0 and kv % tp == 0,
+                   mlp=cfg.d_ff > 0 and cfg.d_ff % tp == 0)
 
-    def col_ok(self, d_out: int) -> bool:
-        return self.tp > 1 and d_out % self.tp == 0
-
-    def require(self, cfg) -> None:
-        """Raise unless every head and MLP column splits evenly: the port
-        splits every spiking linear of a block or none (ROADMAP: uneven
-        splits that replicate a leaf wait)."""
-        if self.tp > 1 and not (self.heads and self.col_ok(cfg.d_ff)):
-            raise NotImplementedError(
-                f"{cfg.name}: model={self.tp} must divide the heads "
-                f"({cfg.num_heads}), the KV heads ({cfg.num_kv_heads}) and "
-                f"d_ff ({cfg.d_ff}); replicated leaves on a mesh are not "
-                "ported")
+    def splits(self, group: str) -> bool:
+        """Whether the block part ``"mixer"`` (the attention) or ``"mlp"``
+        is cut over the model group."""
+        return self.heads if group == "mixer" else self.mlp
 
 
 def mat_dims(cfg, group: str, name: str):
@@ -104,12 +113,15 @@ class ShardedBackend:
         self.mesh = mesh
         self.cfg = cfg
         self.plan = TPPlan.from_config(cfg, mesh.model)
-        self.plan.require(cfg)
         self.name = f"sharded[{inner.name}]"
 
     # -- head-parallel SSA decode --------------------------------------
 
     def _h0(self, h0, h_local: int):
+        """A call's global head offset: the rank's heads when the heads
+        split, all of them (``h0`` itself) when they do not."""
+        if not self.plan.heads:
+            return h0
         return h0 + self.mesh.model_index * h_local
 
     # -- head-parallel SSA tile (the full-sequence forward) --------------
@@ -121,6 +133,9 @@ class ShardedBackend:
         ``h_local * model`` heads, so it draws the comparators one device
         draws for those heads."""
         h = q.shape[2]
+        if not self.plan.heads:
+            return self.inner.ssa_attention(key, q, k, v, causal=causal,
+                                            b0=b0, batch=batch)
         return self.inner.ssa_attention(
             key, q, k, v, causal=causal, b0=b0, h0=self._h0(0, h),
             batch=batch, heads=self.plan.tp * h)
@@ -147,22 +162,28 @@ class ShardedBackend:
             with_tail=False, write_pids=write_pids)
         if not with_tail:
             return a, k_new, v_new
-        s1 = s + self.spiking_linear(wo, a, part="row").to(torch.float32)
+        s1 = s + self.spiking_linear(wo, a, part="row",
+                                     group="mixer").to(torch.float32)
         if with_mlp:
             h1 = self.spiking_linear(wi, s1, part="col").to(torch.float32)
-            s1 = s1 + self.spiking_linear(wo2, h1, part="row").to(torch.float32)
+            s1 = s1 + self.spiking_linear(wo2, h1, part="row",
+                                          group="mlp").to(torch.float32)
         return s1, k_new, v_new
 
     # -- tensor-parallel spiking linear --------------------------------
 
-    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None):
+    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None,
+                       group=None):
         """The rank's share of a spiking linear (the digital backends'
-        ``key`` and ``sim`` are ignored, as on one device)."""
-        if part == "row" and self.plan.tp > 1:
+        ``key`` and ``sim`` are ignored, as on one device).  A row linear
+        sums over the model group when its block part ``group`` is cut
+        (``None``: the leaf is a cut row-parallel one)."""
+        if part == "row" and (group is None or self.plan.splits(group)):
             return self._row_linear(p, spikes)
         if part not in (None, "col", "row"):
             raise ValueError(f"part must be 'col' or 'row', got {part!r}")
-        # columns: the rank's own LIF columns, no communication
+        # columns: the rank's own LIF columns, no communication; a linear
+        # held whole runs whole
         return self.inner.spiking_linear(p, spikes, part=part)
 
     def _row_linear(self, p, spikes):

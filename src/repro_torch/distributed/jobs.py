@@ -6,17 +6,29 @@ result per job.  Each builds the params (a whole tree given as numpy,
 :func:`repro_torch.convert.params_to_numpy`; a training checkpoint's,
 ``ckpt`` its directory, read with the rank's serving placement; or random
 weights from ``init_seed``, which ``program_seed`` programs onto PCM
-first) and an :class:`~repro_torch.distributed.Executor`, then:
+first, and of whose MoE leaves a rank of a model group draws only its
+block of experts) and an :class:`~repro_torch.distributed.Executor`,
+then:
 
 * a serve job (``kind`` ``"serve"``, the default) serves ``prompts``,
   optionally in waves (``wave`` requests every ``gap`` steps) after a
   warm-up; the result holds the token streams, the
-  :class:`~repro_torch.serving.ServeStats`, per-request energy and the
-  kernel launches of the measured run (counted from zero);
+  :class:`~repro_torch.serving.ServeStats`, per-request energy, the
+  kernel launches of the measured run (counted from zero), what its MoE
+  dispatches did (:data:`repro_torch.models.moe.DISPATCH`) and the
+  weights the rank holds; with ``check_tokens`` (numpy ``[B, S]``), also
+  whether the served tree's ``Executor.forward`` logits on them are all
+  finite, read after the measured run;
 * a forward job (``"forward"``) runs ``Executor.forward`` on ``tokens``
-  (numpy ``[B, S]``) with ``PRNGKey(key_seed)``, after a warm-up forward
+  (numpy ``[B, S]``; a frontend arch: ``embeddings [B, S, F]``) with
+  ``PRNGKey(key_seed)``, after a warm-up forward
   when ``warmup`` is set; the result holds the logits (numpy), the wall
-  seconds and the launches of the measured forward.
+  seconds and the launches of the measured forward;
+* a decode job (``"decode"``) runs ``steps`` teacher-forced decode steps
+  of ``tokens`` (numpy ``[B, S]``, one slot a row, the slots split over
+  ``data``) through the executor's share and ``pctx``; the result holds
+  each step's logits gathered over ``data`` (numpy ``[B, steps, V]``) and
+  each step's MoE drops.
 """
 
 from __future__ import annotations
@@ -29,15 +41,33 @@ import torch
 
 from repro_torch import aimc_device as AD
 from repro_torch import convert, prng
+from repro_torch import tree as TR
 from repro_torch.distributed.executor import Executor
 from repro_torch.kernels import build as KB
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as SH
 
 
 def run_jobs(mesh, jobs: List[Dict[str, Any]]) -> List[Any]:
-    """Every job of ``jobs`` on this rank, in order (see the module)."""
-    kinds = {"serve": serve_job, "forward": forward_job}
-    return [kinds[job.get("kind", "serve")](mesh, job) for job in jobs]
+    """Every job of ``jobs`` on this rank, in order (see the module);
+    each result also holds ``job_s``, the job's wall seconds (its set-up
+    included), and on the card ``max_memory_allocated``, the job's peak."""
+    kinds = {"serve": serve_job, "forward": forward_job,
+             "decode": decode_job}
+    cuda = mesh.device.type == "cuda"
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        res = kinds[job.get("kind", "serve")](mesh, job)
+        if cuda:
+            torch.cuda.synchronize()
+            res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()  # the job's tree is gone
+        out.append(dict(res, job_s=time.perf_counter() - t0))
+    return out
 
 
 def _restored(job, mesh):
@@ -63,15 +93,17 @@ def _restored(job, mesh):
 
 
 def _params(job, mesh):
-    """The whole tree: given, from a checkpoint, or random from
-    ``init_seed`` (then programmed with ``PRNGKey(program_seed)`` if that
-    is set)."""
+    """The tree: given, from a checkpoint, or random from ``init_seed``
+    (then programmed with ``PRNGKey(program_seed)`` if that is set), a
+    float MoE's experts drawn as the rank's block when ``model > 1``, so
+    that no rank holds every expert of a full-width config."""
     device = mesh.device
     if job.get("params") is not None:
         return convert.params_from_numpy(job["params"], device)
     if job.get("ckpt") is not None:
         return _restored(job, mesh)
-    params = T.init_params(job["cfg"], job["init_seed"], device)
+    share = (mesh.model_index, mesh.model) if mesh.model > 1 else None
+    params = T.init_params(job["cfg"], job["init_seed"], device, share)
     if job.get("program_seed") is not None:
         params = AD.program_lm_tree(
             prng.PRNGKey(job["program_seed"], device), params,
@@ -111,18 +143,29 @@ def serve_job(mesh, job):
         drive(sch, job["prompts"][:2], 4, *args[1:])
         sch.reset()
     KB.reset_launches()
+    M.DISPATCH.reset()
     outs, wall_s = drive(sch, job["prompts"], *args)
-    return {"outputs": outs, "stats": dataclasses.asdict(sch.stats),
-            "wall_s": wall_s, "launches": dict(KB.LAUNCHES),
-            "request_energy_j": [sch.request_energy_j[r]
-                                 for r in sorted(sch.request_energy_j)],
-            "fused": sch.plan.fused, "backend": sch.backend.name}
+    moe = M.DISPATCH.read()
+    M.DISPATCH.reset(enabled=False)
+    res = {"outputs": outs, "stats": dataclasses.asdict(sch.stats),
+           "params": sum(x.numel() for x in TR.flatten(ex.params)[0]
+                         if isinstance(x, torch.Tensor)),
+           "wall_s": wall_s, "launches": dict(KB.LAUNCHES),
+           "request_energy_j": [sch.request_energy_j[r]
+                                for r in sorted(sch.request_energy_j)],
+           "fused": bool(sch.plan and sch.plan.fused),
+           "backend": sch.backend.name, "moe": moe}
+    if job.get("check_tokens") is not None:  # after the measured run
+        logits = ex.forward(torch.from_numpy(job["check_tokens"]))
+        res["logits_finite"] = bool(torch.isfinite(logits).all())
+    return res
 
 
 def forward_job(mesh, job):
     ex = Executor(_params(job, mesh), job["cfg"],
                   job.get("backend", "cuda"), mesh)
-    tokens = torch.from_numpy(job["tokens"]).to(mesh.device)
+    tokens = ({"embeddings": torch.from_numpy(job["embeddings"])}
+              if "embeddings" in job else torch.from_numpy(job["tokens"]))
     key = prng.PRNGKey(job["key_seed"], mesh.device)
     if job.get("warmup"):
         ex.forward(tokens, key)
@@ -134,3 +177,28 @@ def forward_job(mesh, job):
     return {"logits": logits.cpu().numpy(),
             "wall_s": time.perf_counter() - t0,
             "launches": dict(KB.LAUNCHES), "backend": ex.backend.name}
+
+
+def decode_job(mesh, job):
+    """Teacher-forced decode steps on the mesh (see the module): each data
+    rank decodes its block of the rows, a MoE block routing them over the
+    model group with the executor's ``pctx``."""
+    cfg = job["cfg"]
+    ex = Executor(_params(job, mesh), cfg, job.get("backend", "cuda"), mesh)
+    tokens = torch.from_numpy(job["tokens"]).to(mesh.device)
+    b, steps = tokens.shape[0], job.get("steps", tokens.shape[1])
+    own = SH.slot_range(b, mesh.data, mesh.data_index)
+    cache = T.init_cache(cfg, len(own), steps, mesh.device,
+                         SH.local_kv_heads(cfg, mesh.model))
+    seeds = torch.arange(own.start, own.stop, device=mesh.device)
+    logits, drops = [], []
+    for i in range(steps):
+        M.DISPATCH.reset()
+        out, cache = T.decode_step(
+            ex.params, cache, tokens[own.start:own.stop, i:i + 1], cfg,
+            backend=ex.backend, seeds=seeds, pctx=ex.pctx)
+        drops.append(M.DISPATCH.read())
+        logits.append(ex._gather_rows(out, own.start, b))
+    M.DISPATCH.reset(enabled=False)
+    return {"logits": torch.cat(logits, 1).float().cpu().numpy(),
+            "drops": drops}

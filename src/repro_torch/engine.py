@@ -75,14 +75,17 @@ class Backend(Protocol):
 
     def spiking_linear(self, p: Any, spikes: Tensor, *,
                        key: Optional[Tensor] = None, sim: Any = None,
-                       part: Optional[str] = None) -> Tensor:
+                       part: Optional[str] = None,
+                       group: Optional[str] = None) -> Tensor:
         """``LIF(W s^t + b)`` over a ``[T, ..., d_in]`` spike train.
         ``key`` and ``sim`` (an :class:`repro_torch.core.
         spiking_transformer.AIMCSim`) are the analog simulation's, which
         only the reference backend runs; the digital backends ignore them.
-        ``part`` (``"col"``/``"row"``) is the tensor-parallel hint a mesh
-        backend reads (:mod:`repro_torch.distributed`); one device ignores
-        it."""
+        ``part`` (``"col"``/``"row"``) and ``group`` (the block part,
+        ``"mixer"`` or ``"mlp"``, whose split decides whether a row
+        linear sums over the model group) are the tensor-parallel hints a
+        mesh backend reads (:mod:`repro_torch.distributed`); one device
+        ignores them."""
         ...
 
     def ssa_attention(self, key: Tensor, q: Tensor, k: Tensor, v: Tensor, *,
@@ -226,7 +229,8 @@ class ReferenceBackend:
         u_a = prng.uniform(kk[:, :, 1], (t, n1, d)).permute(2, 0, 1, 3, 4)
         return SP.bernoulli_st(p_a, u_a)
 
-    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None):
+    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None,
+                       group=None):
         """``LIF(pre + b)`` with the float LIF: ``pre = s^t @ w`` for float
         weights (``sim.wmode == "hwat"``: HWAT's noisy weights from
         ``key``); for programmed state the analog crossbar at the state's
@@ -310,7 +314,8 @@ class IntegerBackend:
         return KREF.lif_counts_ref(counts, scale, bias, beta=beta,
                                    v_thresh=v_thresh)
 
-    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None):
+    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None,
+                       group=None):
         p = _linear_parts(p)
         levels, scale = _levels_scale(p)
         flat, unflatten = _flatten_time(spikes)
@@ -368,7 +373,8 @@ class CudaBackend:
         return KOPS.lif_counts_fused(counts, scale, bias, beta=beta,
                                      v_thresh=v_thresh)
 
-    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None):
+    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None,
+                       group=None):
         p = _linear_parts(p)
         levels, scale = _levels_scale(p)
         flat, unflatten = _flatten_time(spikes)
@@ -415,11 +421,12 @@ class MeteringBackend:
         self.report.calls += 1
         return out
 
-    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None):
+    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None,
+                       group=None):
         from repro_torch.energy import model as EM
 
         out = self.inner.spiking_linear(p, spikes, key=key, sim=sim,
-                                        part=part)
+                                        part=part, group=group)
         t = spikes.shape[0]
         d_in, d_out = spikes.shape[-1], out.shape[-1]
         tokens = int(spikes.numel() // (t * d_in))
@@ -714,10 +721,11 @@ class XpikeformerEngine:
         """A :class:`repro_torch.distributed.Executor` of this engine's
         params on ``mesh`` (a :class:`repro_torch.launch.mesh.ServingMesh`
         of the calling rank): decode slots data-parallel, the spiking
-        linears and SSA heads tensor-parallel.  Called on every rank of the
-        mesh (one process each, :func:`repro_torch.launch.mesh.run_ranks`);
-        the tokens equal this engine's on one device, bit for bit.  The
-        mesh rank's device must be this engine's."""
+        linears and SSA heads tensor-parallel, a float MoE stack's experts
+        expert-parallel.  Called on every rank of the mesh (one process
+        each, :func:`repro_torch.launch.mesh.run_ranks`); a spiking stack's
+        tokens equal this engine's on one device, bit for bit.  The mesh
+        rank's device must be this engine's."""
         from repro_torch.distributed import Executor
 
         if self.task != "lm":

@@ -20,10 +20,12 @@ communication explicitly:
 The process-group backend follows where the ranks run: ``nccl`` when
 every rank has a card of its own, ``gloo`` otherwise -- on the CPU, and
 for several ranks sharing one card (NCCL refuses two ranks on one
-device; gloo stages each collective through the host).  On CUDA tensors
-gloo offers ``all_reduce`` and ``broadcast``, so every gather here is an
-``all_reduce`` of a zero-filled buffer, which is exact for the integer
-data it carries.
+device; gloo stages each collective through the host).  Gloo runs
+``all_reduce`` and ``broadcast`` on CUDA tensors (staging them itself) and
+``all_to_all`` on CPU tensors only, so a caller under gloo moves the
+operand of an all-to-all to :attr:`ServingMesh.host_device` first, and
+every gather here is an ``all_reduce`` of a zero-filled buffer, which is
+exact for the data it carries (each element is filled by one rank).
 """
 
 from __future__ import annotations
@@ -116,6 +118,20 @@ class ServingMesh:
         if self.model > 1:
             dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.model_group)
         return x
+
+    def all_to_all_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The tiled all-to-all over the model group on the leading axis
+        (``lax.all_to_all(x, "model", 0, 0, tiled=True)``): ``x``'s
+        ``model`` equal blocks go to the group's ranks in order, and the
+        result holds the blocks the ranks sent this one, in rank order.
+        On the card under NCCL; through the host under gloo (which runs an
+        all-to-all on CPU tensors only).  The identity at ``model = 1``."""
+        if self.model <= 1:
+            return x
+        src = x.to(self.host_device).contiguous()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.model_group)
+        return out.to(x.device)
 
     def all_reduce_data(self, x: torch.Tensor) -> torch.Tensor:
         """In place: the sum of ``x`` over the data group."""

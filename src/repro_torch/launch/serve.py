@@ -32,18 +32,20 @@ step and the GDC recalibration interval of the drift lifecycle (0: wall
 clock / never).  ``--mesh DxM`` serves on a ``(data, model)`` mesh: it
 spawns the D*M ranks (:func:`repro_torch.launch.mesh.run_ranks`), or, run
 under ``torchrun --nproc-per-node D*M``, joins the ranks torchrun started;
-slots split over ``data`` (``--slots`` a multiple of D), heads and
-crossbars over ``model``; the tokens are one device's.  Every run prints
-the metered energy.  ``--device cpu`` runs the plain PyTorch versions.
+slots split over ``data`` (``--slots`` a multiple of D), a spiking
+stack's heads and crossbars over ``model`` (a part they do not divide is
+held whole), a MoE stack's experts over ``model``; a spiking stack's
+tokens are one device's.  Every run prints the metered energy.
+``--device cpu`` runs the plain PyTorch versions.
 
-Every name of the registry serves: a float arch (dense, local:global,
-SSD, RG-LRU, MoE, or a frontend backbone, which decodes its tokens
-through the embedding: "serving over stub embeddings") decodes on the
-float path, where ``--backend`` has no part and ``--program``,
-``--paged``, ``--decode-kernel fused`` and ``--mesh`` raise.  A MoE name
-routes its experts with the scheduler's default ``moe_impl="ep_a2a"``
-(the sort-based dispatch, as the reference CLI does); with ``--mesh`` it
-raises, naming the ROADMAP item that ports MoE on a mesh (A13(b)).
+Every name of the registry serves, on one device or a mesh: a float arch
+(dense, local:global, SSD, RG-LRU, MoE, or a frontend backbone, which
+decodes its tokens through the embedding: "serving over stub
+embeddings") decodes on the float path, where ``--backend`` has no part
+and ``--program``, ``--paged`` and ``--decode-kernel fused`` raise.  A MoE
+name routes its experts with the scheduler's default
+``moe_impl="ep_a2a"`` (the sort-based dispatch, as the reference CLI
+does); on a mesh the dispatch all-to-alls over the model group.
 
 One device's scheduler always carries a telemetry bundle
 (:class:`repro_torch.obs.Telemetry`: metrics, lifecycle tracer, flight
@@ -234,7 +236,8 @@ def serve_mesh(arch: str, spec: str, *, smoke: bool, n_requests: int,
     shape = M.parse_mesh_spec(spec)
     cfg = (registry.reduced_config(arch) if smoke
            else registry.get_config(arch))
-    T.require_mesh_supported(cfg)
+    if program and not T.spiking_decode_enabled(cfg):
+        raise SystemExit(f"--program needs a spiking SSA arch, not {arch}")
     drift = (AD.DriftPolicy(seconds_per_step=drift_step_s,
                             recal_interval_s=recal_every_s)
              if program else None)
@@ -261,9 +264,11 @@ def serve_mesh(arch: str, spec: str, *, smoke: bool, n_requests: int,
         layout = (f"{M.pick_backend(world, device)}, {world} spawned ranks "
                   f"on {device}")
     st = res["stats"]
+    path = (f"through '{res['backend']}'; decode kernel "
+            f"{'fused' if res['fused'] else 'unfused'}"
+            if T.spiking_decode_enabled(cfg) else "on the float decode path")
     print(f"[serve] {cfg.name} on a (data={shape[0]}, model={shape[1]}) mesh "
-          f"({layout}) through '{res['backend']}'; decode kernel "
-          f"{'fused' if res['fused'] else 'unfused'}")
+          f"({layout}) {path}")
     print(f"[serve] served {st['requests']} requests, {st['decoded_tokens']} "
           f"tokens in {res['wall_s']:.2f}s "
           f"({st['decoded_tokens'] / res['wall_s']:.1f} tok/s, "

@@ -21,7 +21,7 @@ the card unless ``--device cpu``:
   run in processes of their own (:func:`repro_torch.launch.mesh.
   run_ranks`), each holding the whole state; rank 0 writes the
   checkpoints.  A model axis raises (ROADMAP A2(c)), and so does a MoE
-  arch on any mesh (ROADMAP A13(b));
+  arch on any mesh (ROADMAP A2(c): a data-parallel MoE step);
 * **failure injection** -- ``fail_at=k`` waits for the in-flight save,
   then raises ``RuntimeError("injected failure at step k")``;
 * **straggler watchdog** -- a step slower than ``straggler_factor`` times

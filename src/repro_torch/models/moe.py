@@ -1,4 +1,4 @@
-"""Mixture-of-Experts on one device: a twin of ``repro/models/moe.py``.
+"""Mixture-of-Experts: a twin of ``repro/models/moe.py``.
 
 * :func:`router` -- the float32 softmax over the experts, its top-k
   (ties to the lower expert, as ``lax.top_k`` breaks them), the weights
@@ -6,24 +6,45 @@
   load-balancing loss ``E * sum(mean(probs) * mean(choices per expert))``;
 * :func:`moe_dense` -- every expert on every token, combined through the
   one-hot of the choices (the reference's smoke-test path);
-* :func:`moe_ep` -- the reference's sort-based dispatch (``_ep_local``)
-  with no mesh: one model column and one ``d_ff`` shard, so no
-  collective.  The ``(token, choice)`` pairs pack into a buffer of
-  ``cap = round_up(int(T * k * capacity_factor) + 1, 8)`` rows, then
-  group by expert into ``C2`` rows an expert; a choice past either
-  capacity is dropped (its slot takes ``+0``), so this is not
-  :func:`moe_dense` unless the capacities hold every choice.
+* :func:`moe_ep` -- the reference's sort-based dispatch (``_ep_local``).
+  On one device: one destination column, no collective.  The ``(token,
+  choice)`` pairs pack into a buffer of ``cap = round_up(int(T * k *
+  capacity_factor / tp) + 1, 8)`` rows a destination column, then group
+  by expert into ``C2`` rows an expert; a choice past either capacity is
+  dropped (its slot takes ``+0``), so this is not :func:`moe_dense`
+  unless the capacities hold every choice.
+
+On a serving mesh (:class:`ParallelCtx`) each rank of a model group holds
+``E / tp`` experts, a contiguous block (``convert.shard_params``), and
+:func:`moe_ep` is the reference's ``shard_map`` body on the rank's own
+tokens: the pairs sort by destination column (``idx // E_l``) into ``tp``
+send buffers of ``cap`` rows, an all-to-all over the model group
+(:meth:`repro_torch.launch.mesh.ServingMesh.all_to_all_model`) brings each
+column its rows, ``C2`` applies over the ``tp * cap`` rows received, the
+column's experts run, and a second all-to-all returns the rows to their
+senders, which combine them.  Every rank of a model group routes the same
+tokens (the reference splits them over ``data`` only), so a column
+receives ``tp`` copies of each, and the copies count against ``C2`` as in
+the reference.  ``C2`` keeps sender 0's copies first, so where it drops,
+the group's senders would combine different outputs; the reference's
+``shard_map`` declares its output whole over ``model`` and holds sender
+0's, and so every rank here takes sender 0's results.  There is no FSDP
+axis: the serving mesh has none (its weight and token gathers are
+training's, ROADMAP A2(c)).  With ``whole_batch`` the ranks route the
+whole batch with one device's capacities and only the expert products
+split (the reference's mesh forward, which passes no ``pctx``).
 
 The expert products are plain ``einsum`` (the reference's are plain
 ``jnp`` outside any Pallas kernel); ``index_add`` and ``scatter_reduce
 ("amin")`` take the place of ``.at[].add`` and ``.at[].min``.  Gradients
-flow through autograd.  The expert-parallel all-to-all over a mesh is
-ROADMAP A13(b).
+flow through autograd off a mesh.  :data:`DISPATCH` counts drops and
+all-to-alls when enabled.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +52,60 @@ import torch.nn.functional as F
 from repro_torch.models.layers import _act
 
 Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """Where a MoE block's tokens and experts are: the twin of the
+    reference's ``ParallelCtx`` on the serving mesh (``dp_axes=("data",)``,
+    ``tp_axis="model"``, no FSDP axis, no sequence split).
+
+    mesh  -- the rank's :class:`repro_torch.launch.mesh.ServingMesh`
+             (``None``: one device), whose ``data`` ranks split the batch
+             (a rank's tokens are already its own share) and whose model
+             group of ``tp`` ranks holds ``E / tp`` experts a rank;
+    whole_batch -- every rank routes the whole batch with one device's
+             capacities (the mesh forward); otherwise the all-to-all
+             dispatch over the model group."""
+
+    mesh: Any = None
+    whole_batch: bool = False
+
+    @property
+    def tp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.model
+
+
+@dataclasses.dataclass
+class DispatchStats:
+    """What the dispatch did since :meth:`reset`, when ``enabled``: the
+    dispatches, the choices dropped past ``cap`` and past ``C2`` (device
+    tensors summed without a host sync until :meth:`read`), and the
+    all-to-alls and their bytes, by the dispatch's local token count."""
+
+    enabled: bool = False
+    drops: Optional[Tensor] = None  # [past_cap, past_c2]
+    by_tokens: Dict[int, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
+
+    def reset(self, enabled: bool = True) -> None:
+        self.enabled, self.drops, self.by_tokens = enabled, None, {}
+
+    def _note(self, n_tok: int, drops: Tensor, a2a: int, nbytes: int) -> None:
+        self.drops = drops if self.drops is None else self.drops + drops
+        row = self.by_tokens.setdefault(
+            n_tok, {"dispatches": 0, "all_to_alls": 0, "a2a_bytes": 0})
+        row["dispatches"] += 1
+        row["all_to_alls"] += a2a
+        row["a2a_bytes"] += nbytes
+
+    def read(self) -> Dict[str, Any]:
+        past = [0, 0] if self.drops is None else self.drops.tolist()
+        return {"past_cap": int(past[0]), "past_c2": int(past[1]),
+                "by_tokens": {k: dict(v) for k, v in self.by_tokens.items()}}
+
+
+DISPATCH = DispatchStats()
 
 
 def moe_schema(cfg) -> Dict[str, Any]:
@@ -42,6 +117,15 @@ def moe_schema(cfg) -> Dict[str, Any]:
     if cfg.gated_mlp:
         s["wg"] = ((e, d, f), "normal")
     return s
+
+
+def expert_block(num_experts: int, model: int) -> int:
+    """Experts a rank of a ``model`` group holds: ``E / model``."""
+    if num_experts % model:
+        raise ValueError(f"{num_experts} experts do not split over "
+                         f"model={model} ranks: the expert-parallel "
+                         "dispatch holds E / model experts a rank")
+    return num_experts // model
 
 
 def router(params, x: Tensor, cfg) -> Tuple[Tensor, Tensor, Tensor]:
@@ -73,6 +157,17 @@ def _experts(params, xg: Tensor, cfg) -> Tensor:
     return torch.einsum("ecf,efd->ecd", h, params["wo"].to(dt))
 
 
+def _own_experts(params, cfg, tp: int):
+    """The expert leaves of a rank's block, as the placement cut them
+    (:func:`repro_torch.convert.shard_params`, or drawn as the block)."""
+    n = expert_block(cfg.num_experts, tp)
+    for k, v in params.items():
+        if k != "router" and v.shape[-3] != n:
+            raise ValueError(f"moe.{k} holds {v.shape[-3]} experts, not a "
+                             f"rank's block of {n}: place the tree first")
+    return params
+
+
 def moe_dense(params, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
     """Every expert on every token of ``x [B, S, d]``, combined with the
     router's top-k weights -> ``(y [B, S, d], aux)``."""
@@ -94,84 +189,137 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def capacities(n_tok: int, cfg) -> Tuple[int, int]:
-    """The dispatch's two capacities for ``n_tok`` tokens on one device:
-    ``cap`` rows of packed ``(token, choice)`` pairs, and ``c2`` rows an
-    expert (the reference's, with its Python ``int`` of a float)."""
-    e = cfg.num_experts
-    cap = _round_up(int(max(n_tok, 1) * cfg.moe_top_k * cfg.capacity_factor)
-                    + 1, 8)
-    return cap, _round_up(min(cap, max(int(cap // max(e, 1) * 1.25), 8)), 8)
+def capacities(n_tok: int, cfg, tp: int = 1) -> Tuple[int, int]:
+    """The dispatch's two capacities for ``n_tok`` local tokens on a model
+    group of ``tp`` ranks (one device: ``tp = 1``): ``cap`` rows of packed
+    ``(token, choice)`` pairs a destination column, and ``c2`` rows an
+    expert over the ``tp * cap`` rows a column receives (the reference's,
+    with its Python ``int`` of a float)."""
+    e_l = max(cfg.num_experts // tp, 1)
+    cap = _round_up(int(max(n_tok, 1) * cfg.moe_top_k * cfg.capacity_factor
+                        / tp) + 1, 8)
+    tg = tp * cap
+    return cap, _round_up(min(tg, max(int(tg // e_l * 1.25), 8)), 8)
 
 
-def _ep_local(x: Tensor, weights: Tensor, idx: Tensor, params, cfg
-              ) -> Tensor:
-    """The reference's ``_ep_local`` on one device (``tp_size = fsdp_size
-    = 1``): ``x [T, d]``, ``weights``/``idx [T, k]`` -> ``y [T, d]``."""
+def _ep_local(x: Tensor, weights: Tensor, idx: Tensor, params, cfg,
+              pctx: Optional[ParallelCtx] = None) -> Tensor:
+    """The reference's ``_ep_local`` (``fsdp_size = 1``): ``x [T, d]``,
+    ``weights``/``idx [T, k]`` (global expert ids) -> ``y [T, d]``.  One
+    device, or a rank of a model group holding its ``E / tp`` experts
+    (:class:`ParallelCtx`: the all-to-all dispatch, or ``whole_batch``)."""
     n_tok, d = x.shape
     k, e = cfg.moe_top_k, cfg.num_experts
     dev = x.device
-    cap, c2 = capacities(n_tok, cfg)
+    pctx = pctx or ParallelCtx()
+    mesh, tp = pctx.mesh, pctx.tp
+    split = tp > 1 and pctx.whole_batch  # one device's dispatch, experts cut
+    if tp > 1:
+        params = _own_experts(params, cfg, tp)
+    m = 1 if split else tp  # destination columns
+    e_l = e // m
+    cap, c2 = capacities(n_tok, cfg, m)
     pn = n_tok * k
-    # 1. the (token, choice) pairs in order (one destination column, so
-    # the reference's stable sort by column keeps them so), packed into
-    # ``cap`` rows; a pair past it is dropped onto the last slot as +0
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+
+    # 1. the (token, choice) pairs sorted (stably) by destination column,
+    # ranked within it, packed into ``m`` send buffers of ``cap`` rows; a
+    # pair past ``cap`` is dropped onto its column's last slot as +0
     flat_idx = idx.reshape(pn)
     flat_w = weights.reshape(pn)
     tok_of = torch.arange(pn, device=dev) // k
     rank = torch.arange(pn, device=dev)
+    if m > 1:  # (one column: the stable sort keeps the pairs in order)
+        dest = flat_idx // e_l
+        order = torch.sort(dest, stable=True).indices
+        dest_s = dest[order]
+        cnt = torch.bincount(dest_s, minlength=m)
+        rank = rank - (torch.cumsum(cnt, 0) - cnt)[dest_s]
+        tok_of, flat_idx, flat_w = (tok_of[order], flat_idx[order] % e_l,
+                                    flat_w[order])
     keep = rank < cap
-    slot = torch.where(keep, rank, cap - 1)
-    zero = torch.zeros((), dtype=x.dtype, device=dev)
-    rx = torch.zeros((cap, d), dtype=x.dtype, device=dev).index_add(
-        0, slot, torch.where(keep[:, None], x[tok_of], zero))
-    # each slot's expert, ``e`` (the reference's empty sentinel) where none
-    re = torch.full((cap,), e, dtype=torch.int64, device=dev).scatter_reduce(
-        0, slot, torch.where(keep, flat_idx, e), "amin")
+    flat = torch.where(keep, rank, cap - 1)
+    if m > 1:
+        flat = dest_s * cap + flat
+    send_x = torch.zeros((m * cap, d), dtype=x.dtype, device=dev).index_add(
+        0, flat, torch.where(keep[:, None], x[tok_of], zero))
+    # each slot's expert, ``e_l`` (the reference's empty sentinel) where none
+    send_e = torch.full((m * cap,), e_l, dtype=torch.int64,
+                        device=dev).scatter_reduce(
+        0, flat, torch.where(keep, flat_idx, e_l), "amin")
+
+    # 2. each column's rows from every rank of the group
+    rx = mesh.all_to_all_model(send_x) if m > 1 else send_x
+    re = mesh.all_to_all_model(send_e) if m > 1 else send_e
+    tg = m * cap
 
     # 4. group by expert (stable sort), ``c2`` rows an expert
-    tg = cap
     order2 = torch.sort(re, stable=True).indices
     re_s = re[order2]
-    cnt = torch.bincount(re_s, minlength=e + 1)
-    st = torch.cumsum(cnt, 0) - cnt
+    cnt2 = torch.bincount(re_s, minlength=e_l + 1)
+    st = torch.cumsum(cnt2, 0) - cnt2
     rank2 = torch.arange(tg, device=dev) - st[re_s]
-    keep2 = (rank2 < c2) & (re_s < e)
+    real = re_s < e_l
+    keep2 = (rank2 < c2) & real
     slot2 = torch.where(keep2, rank2, c2 - 1)
     eid2 = torch.where(keep2, re_s, 0)
     flat2 = eid2 * c2 + slot2
-    xg = torch.zeros((e * c2, d), dtype=x.dtype, device=dev).index_add(
+    xg = torch.zeros((e_l * c2, d), dtype=x.dtype, device=dev).index_add(
         0, flat2, torch.where(keep2[:, None], rx[order2], zero))
-    yg = _experts(params, xg.view(e, c2, d), cfg).reshape(e * c2, d)
+    if split:
+        # the rank's block of experts on its rows; the group sums the
+        # blocks in float32 (one rank fills each row: exact)
+        n = e // tp
+        mine = xg.view(e, c2, d)[mesh.model_index * n:][:n]
+        yg = torch.zeros((e, c2, d), dtype=torch.float32,
+                         device=mesh.host_device)
+        yg[mesh.model_index * n:][:n] = _experts(params, mine, cfg).to(yg)
+        yg = mesh.all_reduce_model(yg).to(x).reshape(e * c2, d)
+    else:
+        yg = _experts(params, xg.view(e_l, c2, d), cfg).reshape(e_l * c2, d)
 
-    # 5. each row back to its packed slot; 6. the weighted combine at the
-    # token (k additions from zero, in choice order)
+    # 5. each row back to its packed slot; 6. back to the senders, and the
+    # weighted combine at the token.  The group's senders packed the same
+    # rows, and ``C2`` ranks sender 0's copies first: every sender gets
+    # sender 0's results, the value the reference's ``shard_map`` output
+    # (declared whole over ``model``) holds
     ry = torch.zeros((tg, d), dtype=x.dtype, device=dev).index_add(
         0, order2, torch.where(keep2[:, None], yg[flat2], zero))
-    contrib = torch.where(keep[:, None], ry[slot] * flat_w[:, None], zero)
+    if m > 1:
+        ry = ry[:cap].repeat(m, 1)
+    back = mesh.all_to_all_model(ry) if m > 1 else ry
+    if DISPATCH.enabled:
+        drops = torch.stack([(~keep).sum(), (real & ~keep2).sum()])
+        a2a = (send_x, send_e, ry) if m > 1 else ()
+        DISPATCH._note(n_tok, drops, len(a2a),
+                       sum(t.numel() * t.element_size() for t in a2a))
+    contrib = torch.where(keep[:, None], back[flat] * flat_w[:, None], zero)
     return torch.zeros((n_tok, d), dtype=x.dtype, device=dev).index_add(
         0, tok_of, contrib)
 
 
-def moe_ep(params, x: Tensor, cfg) -> Tuple[Tensor, Tensor]:
-    """The sort-based dispatch on one device: ``x [B, S, d]`` -> ``(y,
-    aux)``, with the reference's capacities for ``B * S`` local tokens."""
+def moe_ep(params, x: Tensor, cfg, pctx: Optional[ParallelCtx] = None
+           ) -> Tuple[Tensor, Tensor]:
+    """The sort-based dispatch: ``x [B, S, d]`` (a mesh rank's own
+    tokens) -> ``(y, aux)``, with the reference's capacities for ``B * S``
+    local tokens."""
     b, s, d = x.shape
     weights, idx, aux = router(params, x, cfg)
     y = _ep_local(x.reshape(b * s, d), weights.reshape(b * s, -1),
-                  idx.reshape(b * s, -1), params, cfg)
+                  idx.reshape(b * s, -1), params, cfg, pctx)
     return y.reshape(b, s, d), aux
 
 
 MOE_IMPLS = ("dense", "ep_a2a")
 
 
-def moe_apply(params, x: Tensor, cfg, *, impl: str = "ep_a2a"
-              ) -> Tuple[Tensor, Tensor]:
-    """``impl="dense"``: :func:`moe_dense`; ``"ep_a2a"`` (the reference's
-    default): :func:`moe_ep`."""
+def moe_apply(params, x: Tensor, cfg, *, impl: str = "ep_a2a",
+              pctx: Optional[ParallelCtx] = None) -> Tuple[Tensor, Tensor]:
+    """``impl="dense"``: :func:`moe_dense` (one device, every expert
+    whole); ``"ep_a2a"`` (the reference's default): :func:`moe_ep`, on a
+    mesh where ``pctx`` places it."""
     if impl == "dense":
         return moe_dense(params, x, cfg)
     if impl != "ep_a2a":
         raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got {impl!r}")
-    return moe_ep(params, x, cfg)
+    return moe_ep(params, x, cfg, pctx)

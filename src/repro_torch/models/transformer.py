@@ -1,8 +1,10 @@
 """The generic LM stack: float and spiking, full-sequence forward and
 decode step.
 
-Twin of ``repro/models/transformer.py`` on one device (a MoE config on a
-mesh raises, naming :data:`MOE_ITEM`):
+Twin of ``repro/models/transformer.py``, on one device or a rank of the
+serving mesh (a MoE block routes over the model group through its
+``pctx``; training a MoE config on a mesh raises, naming
+:data:`MOE_ITEM`):
 
 * the float stack (lines 53-191, 300-373, 421-453, 483-533, 949-1025):
   dense and local:global attention, Mamba-2's SSD, RecurrentGemma's
@@ -95,19 +97,21 @@ def paged_decode_supported(cfg) -> bool:
         m in ("attn", "local") for m in cfg.block_pattern)
 
 
-MOE_ITEM = ("ROADMAP A13(b) (the mesh slice: MoE's expert-parallel "
-            "all-to-all and FSDP gathers, model-parallel training, the front "
-            "door over the mesh, the ANN mesh)")
+MOE_ITEM = ("ROADMAP A2(c) (model-parallel training, MoE's FSDP weight and "
+            "token gathers and a data-parallel MoE training step) and A9(b) "
+            "(the front door over the mesh)")
 
 
 def require_mesh_supported(cfg) -> None:
-    """Raise for what the port does not run on a mesh: MoE (its
-    expert-parallel dispatch and gathers need collectives, and a mesh's
-    per-device capacities drop other choices than one device's)."""
+    """Raise for what the port does not run on a mesh: serving and the
+    forward run every config, but a training mesh does not take a MoE
+    config (the reference's training step gathers the experts' weights or
+    tokens over its FSDP axis and takes the load-balancing loss over the
+    whole batch).  The training entry points call it."""
     if cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: MoE ({cfg.num_experts} experts) on a mesh is not "
-            f"ported: {MOE_ITEM}")
+            f"{cfg.name}: training MoE ({cfg.num_experts} experts) on a mesh "
+            f"is not ported: {MOE_ITEM}")
 
 
 # ---------------------------------------------------------------------------
@@ -206,25 +210,46 @@ def _set_path(tree: Dict[str, Any], path, value) -> None:
 _DRAW_CHUNK = 1 << 25
 
 
-def _reference_normal(key: Tensor, shape, std: float, dtype, device
+def _reference_normal(key: Tensor, shape, std: float, dtype, device,
+                      block: Optional[Tuple[int, int, int]] = None
                       ) -> Tensor:
     """``(jax.random.normal(key, shape) * std).astype(dtype)``, drawn on
     ``device`` a bounded piece at a time (a draw's words depend on their
     flat index alone), so no host or device buffer holds more than one
-    piece of the draw's temporaries."""
-    out = torch.empty(shape, dtype=dtype, device=device)
+    piece of the draw's temporaries.  ``block = (axis, start, n)``: only
+    indices ``start .. start+n`` of ``axis``, drawn where they lie in the
+    whole draw."""
+    shape = tuple(shape)
+    out_shape = list(shape)
+    if block is None:
+        segments = [(0, 0, math.prod(shape))]
+    else:
+        axis, start, n = block
+        ax = axis % len(shape)
+        out_shape[ax] = n
+        inner = math.prod(shape[ax + 1:])
+        segments = [((lead * shape[ax] + start) * inner, lead * n * inner,
+                     n * inner) for lead in range(math.prod(shape[:ax]))]
+    out = torch.empty(out_shape, dtype=dtype, device=device)
     flat = out.view(-1)
-    for a in range(0, flat.numel(), _DRAW_CHUNK):
-        b = min(a + _DRAW_CHUNK, flat.numel())
-        idx = torch.arange(a, b, dtype=torch.int64, device=device)
-        flat[a:b] = (prng.normal_at(key, idx) * std).to(dtype)
+    for src, dst, length in segments:
+        for a in range(0, length, _DRAW_CHUNK):
+            b = min(a + _DRAW_CHUNK, length)
+            idx = torch.arange(src + a, src + b, dtype=torch.int64,
+                               device=device)
+            flat[dst + a:dst + b] = (prng.normal_at(key, idx) * std).to(dtype)
     return out
 
 
-def _init_like_reference(cfg, seed: int, device) -> Dict[str, Any]:
+def _init_like_reference(cfg, seed: int, device,
+                         experts: Optional[Tuple[int, int]] = None
+                         ) -> Dict[str, Any]:
     """The reference's ``init_tree``: one key per leaf from
     ``split(PRNGKey(seed), n_leaves)`` in its leaf order; a normal leaf
-    is ``normal * 1/sqrt(fan)``, the fan its (per-layer) first axis."""
+    is ``normal * 1/sqrt(fan)``, the fan its (per-layer) first axis.
+    ``experts = (index, model)``: each MoE leaf holds only the block of
+    experts rank ``index`` of a ``model`` group holds, at its values in
+    the whole draw."""
     dtype = model_dtype(cfg)
     leaves = list(_schema_leaves(_model_schema(cfg)))
     keys = prng.split(prng.PRNGKey(seed), len(leaves)).to(device)
@@ -234,8 +259,12 @@ def _init_like_reference(cfg, seed: int, device) -> Dict[str, Any]:
             stacked = path[0] == "periods"
             fan_in = shape[1] if stacked and len(shape) > 2 else None
             fan = fan_in or (shape[0] if len(shape) > 1 else max(shape[0], 1))
+            block = None
+            if experts is not None and "moe" in path and path[-1] != "router":
+                n = M.expert_block(cfg.num_experts, experts[1])
+                block = (-3, experts[0] * n, n)
             w = _reference_normal(key, shape, 1.0 / math.sqrt(fan), dtype,
-                                  device)
+                                  device, block)
         else:
             fill = torch.zeros if init == "zeros" else torch.ones
             w = fill(shape, dtype=dtype, device=device)
@@ -267,15 +296,17 @@ def _init_spiking(cfg, seed: int, device) -> Dict[str, Any]:
     return out
 
 
-def init_params(cfg, seed: int, device) -> Dict[str, Any]:
+def init_params(cfg, seed: int, device,
+                experts: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
     """Random weights from ``seed`` on ``device``.  A float stack's are the
     reference's ``init_params(PRNGKey(seed), cfg)`` (drawn on the device
-    through the threefry twin, equal up to ``erfinv``'s last bits); a
-    spiking stack's come from a CPU ``torch.Generator``
+    through the threefry twin, equal up to ``erfinv``'s last bits; with
+    ``experts = (index, model)`` only a serving mesh rank's block of each
+    MoE leaf); a spiking stack's come from a CPU ``torch.Generator``
     (:func:`_init_spiking`)."""
     if cfg.spiking:
         return _init_spiking(cfg, seed, device)
-    return _init_like_reference(cfg, seed, device)
+    return _init_like_reference(cfg, seed, device, experts)
 
 
 def _linear_fan_ins(cfg) -> Dict[Tuple[str, str], int]:
@@ -403,7 +434,7 @@ def _spiking_attention(params, s: Tensor, cfg, keys: Tensor, backend,
     a = SP.unheads(a)
     # LIF on the output projection (spiking neuron tile semantics)
     return backend.spiking_linear(_lin_operand(params["wo"], a.shape[-1]), a,
-                                  key=keys[4], part="row")
+                                  key=keys[4], part="row", group="mixer")
 
 
 def _spiking_mlp(params, s: Tensor, keys: Tensor, backend) -> Tensor:
@@ -412,7 +443,7 @@ def _spiking_mlp(params, s: Tensor, keys: Tensor, backend) -> Tensor:
     h = backend.spiking_linear(_lin_operand(params["wi"], s.shape[-1]), s,
                                key=keys[5], part="col")
     return backend.spiking_linear(_lin_operand(params["wo"], h.shape[-1]), h,
-                                  key=keys[6], part="row")
+                                  key=keys[6], part="row", group="mlp")
 
 
 # the attention-free mixers: (train/prefill, one-token decode)
@@ -429,25 +460,27 @@ def _block_spiking(params, s: Tensor, cfg, keys: Tensor, backend,
     mixer runs on the rate interface (decode the rate, the float mixer,
     re-encode its sigmoid keyed ``keys[7]``), as the reference's does, and
     so does a MoE FFN (``moe_dense``, keyed ``keys[8]``; ``aux`` its
-    load-balancing loss, ``None`` without MoE)."""
+    load-balancing loss, ``None`` without MoE).  On a mesh rank's rows
+    (``tile``) the coding draws what the whole batch draws at them."""
+    def encode(key, y):  # the rows' draws of the whole batch's coding
+        if tile is None:
+            return SP.rate_encode(key, torch.sigmoid(y), s.shape[0])
+        return SP.rate_encode_rows(key, torch.sigmoid(y), s.shape[0],
+                                   tile["b0"], tile["batch"])
+
     if mixer in ("attn", "local"):
         h = _spiking_attention(params["mixer"], s, cfg, keys, backend, tile)
     else:
-        if tile is not None:
-            raise NotImplementedError(
-                f"a {mixer} mixer on a mesh rank's rows: {MOE_ITEM}")
-        y = _RECURRENT[mixer][0](params["mixer"], SP.rate_decode(s), cfg)
-        h = SP.rate_encode(keys[7], torch.sigmoid(y), s.shape[0])
+        h = encode(keys[7], _RECURRENT[mixer][0](params["mixer"],
+                                                 SP.rate_decode(s), cfg))
     s = s + h.to(s.dtype)
     aux = None
     if "moe" in params:
-        if tile is not None:
-            raise NotImplementedError(
-                f"a MoE FFN on a mesh rank's rows: {MOE_ITEM}")
+        # row by row, every expert whole on each rank (a spiking stack's
+        # experts are not cut); ``aux`` is these rows' loss
         ym, aux = M.moe_apply(params["moe"], SP.rate_decode(s), cfg,
                               impl="dense")
-        s = s + SP.rate_encode(keys[8], torch.sigmoid(ym),
-                               s.shape[0]).to(s.dtype)
+        s = s + encode(keys[8], ym).to(s.dtype)
     elif "norm2" in params:
         s = s + _spiking_mlp(params["mlp"], s, keys, backend).to(s.dtype)
     return s, aux
@@ -582,15 +615,16 @@ def _forward_spiking(params, batch, cfg, *, rng, backend,
 # ---------------------------------------------------------------------------
 
 
-def _ffn(params, h: Tensor, cfg, moe_impl: str
+def _ffn(params, h: Tensor, cfg, moe_impl: str,
+         pctx: Optional[M.ParallelCtx] = None
          ) -> Tuple[Tensor, Optional[Tensor]]:
-    """A float block's FFN of the normed ``h``: the MoE's output plus the
-    MLP's (arctic's dense residual, or a dense block's), as the reference
-    sums them into one ``y`` -> ``(y, aux)``, ``aux`` ``None`` without
-    MoE."""
+    """A float block's FFN of the normed ``h``: the MoE's output (routed
+    over the model group of ``pctx`` on a mesh) plus the MLP's (arctic's
+    dense residual, or a dense block's), as the reference sums them into
+    one ``y`` -> ``(y, aux)``, ``aux`` ``None`` without MoE."""
     y = aux = None
     if "moe" in params:
-        y, aux = M.moe_apply(params["moe"], h, cfg, impl=moe_impl)
+        y, aux = M.moe_apply(params["moe"], h, cfg, impl=moe_impl, pctx=pctx)
     if "mlp" in params:
         m = L.mlp(params["mlp"], h, cfg)
         y = m if y is None else y + m
@@ -598,7 +632,8 @@ def _ffn(params, h: Tensor, cfg, moe_impl: str
 
 
 def _apply_block(params, x: Tensor, positions: Tensor, cfg, mixer: str,
-                 moe_impl: str) -> Tuple[Tensor, Optional[Tensor]]:
+                 moe_impl: str, pctx: Optional[M.ParallelCtx] = None
+                 ) -> Tuple[Tensor, Optional[Tensor]]:
     """Residual block: norm -> mixer -> +res; norm -> FFN (MLP, MoE or
     both) -> +res -> ``(x, aux)`` (:func:`_ffn`)."""
     h = L.apply_norm(cfg.norm_type, params["norm1"], x)
@@ -613,13 +648,14 @@ def _apply_block(params, x: Tensor, positions: Tensor, cfg, mixer: str,
     aux = None
     if "norm2" in params:
         y, aux = _ffn(params, L.apply_norm(cfg.norm_type, params["norm2"], x),
-                      cfg, moe_impl)
+                      cfg, moe_impl, pctx)
         x = x + y
     return x, aux
 
 
 def _forward_float(params, batch, cfg, *, remat: str = "block",
-                   moe_impl: str = "ep_a2a"):
+                   moe_impl: str = "ep_a2a",
+                   pctx: Optional[M.ParallelCtx] = None):
     """The float forward -> ``(logits [B,S,V], aux)``."""
     x = _embed_inputs(params, batch, cfg)
     b, sl, _ = x.shape
@@ -627,7 +663,7 @@ def _forward_float(params, batch, cfg, *, remat: str = "block",
     block = _remat(_apply_block, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, bp, mixer, _ in _layers(params, cfg):
-        x, a = block(bp, x, positions, cfg, mixer, moe_impl)
+        x, a = block(bp, x, positions, cfg, mixer, moe_impl, pctx)
         if a is not None:
             aux = aux + a
     return _unembed(params, x, cfg), aux
@@ -636,7 +672,8 @@ def _forward_float(params, batch, cfg, *, remat: str = "block",
 def forward(params, batch: Dict[str, Tensor], cfg, *,
             rng: Optional[Tensor] = None, backend=None, remat: str = "block",
             rows: Optional[Tuple[int, int]] = None,
-            moe_impl: str = "ep_a2a") -> Tuple[Tensor, Tensor]:
+            moe_impl: str = "ep_a2a",
+            pctx: Optional[M.ParallelCtx] = None) -> Tuple[Tensor, Tensor]:
     """Train/prefill forward: ``batch["tokens"] [B,S]`` (a frontend arch:
     ``batch["embeddings"] [B,S,frontend_dim]``) -> ``(logits [B,S,V],
     aux)``; ``aux`` is MoE's load-balancing loss summed over the blocks
@@ -650,12 +687,13 @@ def forward(params, batch: Dict[str, Tensor], cfg, *,
     neither.  ``remat`` applies where autograd records (:func:`_remat`).
     ``rows = (b0, n)``: the logits of batch rows ``b0 .. b0+n`` only,
     equal to those rows of the whole batch's (a data rank's share,
-    :func:`spiking_features`)."""
+    :func:`spiking_features`).  ``pctx`` places a float stack's MoE blocks
+    on a mesh (:class:`repro_torch.models.moe.ParallelCtx`)."""
     if not cfg.spiking:
         if rows is not None:
             batch = {k: v[rows[0]:rows[0] + rows[1]] for k, v in batch.items()}
         return _forward_float(params, batch, cfg, remat=remat,
-                              moe_impl=moe_impl)
+                              moe_impl=moe_impl, pctx=pctx)
     from repro_torch.engine import get_backend
 
     return _forward_spiking(params, batch, cfg, rng=rng,
@@ -704,14 +742,15 @@ def loss_fn(params, batch, cfg, *, rng: Optional[Tensor] = None,
 
 
 def prefill(params, batch, cfg, *, rng: Optional[Tensor] = None,
-            backend=None, moe_impl: str = "ep_a2a"):
+            backend=None, moe_impl: str = "ep_a2a",
+            pctx: Optional[M.ParallelCtx] = None):
     """Prefill forward returning ``(logits, aux)`` (the cache is produced
     by the decode over the prompt in serving).  The reference's
     ``prefill`` passes no rng to ``forward``, so a spiking config fails
     its assertion there; this one takes the rng and the backend the
     spiking forward needs."""
     return forward(params, batch, cfg, rng=rng, backend=backend,
-                   remat="none", moe_impl=moe_impl)
+                   remat="none", moe_impl=moe_impl, pctx=pctx)
 
 
 # ---------------------------------------------------------------------------
@@ -742,7 +781,9 @@ def init_cache(cfg, batch: int, seq_len: int, device,
       which masks them out of the SSA comparators); ``kv_heads``
       (default: all) is the KV heads a mesh rank caches;
     * float attention: ``k``/``v [B, L, KV, hd]``, a windowed layer's
-      ``L`` its window (a ring buffer);
+      ``L`` its window (a ring buffer), whole over a mesh's ``model``
+      axis (the reference splits its length there, a layout of the same
+      values);
     * SSD: ``ssd [B, H, S, P]``, ``conv_x``, ``conv_bc``; RG-LRU: ``h [B,
       W]`` float32, ``conv``."""
 
@@ -754,9 +795,6 @@ def init_cache(cfg, batch: int, seq_len: int, device,
                     "sv": torch.zeros(shape, dtype=torch.uint8, device=device),
                     "pos": torch.zeros(lead + (batch,), dtype=torch.int32,
                                        device=device)}
-        if kv_heads is not None:
-            raise NotImplementedError(
-                f"a {mixer} cache on a mesh rank: {MOE_ITEM}")
         if mixer in ("attn", "local"):
             window = cfg.window_size if mixer == "local" else 0
             return L.attention_cache(cfg, batch, seq_len, device,
@@ -833,7 +871,7 @@ def _attention_out(params, view: KVView, q: Tensor, i_max: int, s: Tensor,
                                  AttnSpec(i_max=i_max), slot_keys=slot_keys)
     a = a.reshape(t, b, 1, -1).to(s.dtype)
     return backend.spiking_linear(_lin_operand(params["wo"], a.shape[-1]), a,
-                                  part="row")
+                                  part="row", group="mixer")
 
 
 def _spiking_attention_decode(params, s: Tensor, cache, cfg, slot_keys: Tensor,
@@ -894,7 +932,7 @@ def _spiking_decode_ffn_tail(params, s: Tensor, cfg, backend,
         _lin_operand(params["mlp"]["wi"], s.shape[-1]), s, part="col")
     return s + backend.spiking_linear(
         _lin_operand(params["mlp"]["wo"], h1.shape[-1]),
-        h1.to(s.dtype), part="row").to(s.dtype)
+        h1.to(s.dtype), part="row", group="mlp").to(s.dtype)
 
 
 def _fused_block_weights(params, cfg, d: int):
@@ -1041,11 +1079,12 @@ def _decode_step_spiking(params, cache, tokens: Tensor, cfg, backend,
 
 
 def _apply_block_decode(params, x: Tensor, cache, cfg, mixer: str,
-                        moe_impl: str) -> Tensor:
+                        moe_impl: str, pctx: Optional[M.ParallelCtx] = None
+                        ) -> Tensor:
     """A float residual block, decode flavour: its cache is updated in
     place.  A MoE block routes the step's ``B`` tokens (the ``"ep_a2a"``
     capacities are those of ``B`` tokens, so its decode need not equal
-    its forward)."""
+    its forward; on a mesh, over the model group of ``pctx``)."""
     h = L.apply_norm(cfg.norm_type, params["norm1"], x)
     if mixer in ("attn", "local"):
         window = cfg.window_size if mixer == "local" else 0
@@ -1056,12 +1095,13 @@ def _apply_block_decode(params, x: Tensor, cache, cfg, mixer: str,
     x = x + h
     if "norm2" in params:
         x = x + _ffn(params, L.apply_norm(cfg.norm_type, params["norm2"], x),
-                     cfg, moe_impl)[0]
+                     cfg, moe_impl, pctx)[0]
     return x
 
 
 def _decode_step_float(params, cache, tokens: Tensor, cfg,
-                       moe_impl: str) -> Tensor:
+                       moe_impl: str, pctx: Optional[M.ParallelCtx] = None
+                       ) -> Tensor:
     """The float decode step: tokens ``[B,1]`` -> logits ``[B,1,V]`` (a
     frontend arch decodes its tokens through the embedding, as the
     reference's does)."""
@@ -1069,13 +1109,14 @@ def _decode_step_float(params, cache, tokens: Tensor, cfg,
     x = L.embed(params["embed"], tokens, dt) * torch.tensor(
         math.sqrt(cfg.d_model), dtype=dt, device=tokens.device)
     for _, bp, mixer, bc in _layers(params, cfg, cache):
-        x = _apply_block_decode(bp, x, bc, cfg, mixer, moe_impl)
+        x = _apply_block_decode(bp, x, bc, cfg, mixer, moe_impl, pctx)
     return _unembed(params, x, cfg)
 
 
 def decode_step(params, cache, tokens: Tensor, cfg, *, backend=None,
                 seeds: Optional[Tensor] = None, with_activity: bool = False,
-                plan: Optional[DecodePlan] = None, moe_impl: str = "ep_a2a"):
+                plan: Optional[DecodePlan] = None, moe_impl: str = "ep_a2a",
+                pctx: Optional[M.ParallelCtx] = None):
     """One decode step: tokens ``[B,1]`` -> ``(logits [B,1,V], cache)``
     (plus ``activity [B]`` with ``with_activity``).  The cache is updated
     in place and returned.  A spiking SSA stack decodes through
@@ -1083,10 +1124,12 @@ def decode_step(params, cache, tokens: Tensor, cfg, *, backend=None,
     zeros by default; ``plan`` picks the fused layer kernel); every other
     stack, a LIF-attention one included, on the float path, which ignores
     ``backend``, ``seeds`` and ``plan`` and whose activity is zero, and
-    whose MoE blocks run ``moe_impl`` (a spiking SSA stack's run
-    ``"dense"`` on the rate interface, as the reference's do)."""
+    whose MoE blocks run ``moe_impl`` over the model group of ``pctx`` on
+    a mesh (a spiking SSA stack's run ``"dense"`` on the rate interface,
+    as the reference's do)."""
     if not spiking_decode_enabled(cfg):
-        logits = _decode_step_float(params, cache, tokens, cfg, moe_impl)
+        logits = _decode_step_float(params, cache, tokens, cfg, moe_impl,
+                                    pctx)
         if with_activity:
             return logits, cache, torch.zeros(
                 tokens.shape[0], dtype=torch.float32, device=tokens.device)

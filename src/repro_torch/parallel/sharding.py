@@ -13,11 +13,14 @@ PartitionSpecs:
   of a data group;
 * **parameters** (``param_pspecs``): :func:`param_placement` -- on a
   data-parallel training mesh every leaf is whole on every rank; on a
-  serving mesh each spiking linear's quantised or programmed operands are
-  the model cut :func:`repro_torch.convert.shard_params` gives (a float
-  linear is held whole: the column scale is taken over the whole matrix
-  before it is cut), everything else whole.  The port keeps no FSDP
-  layout.
+  serving mesh each spiking linear that the model axis splits
+  (:class:`repro_torch.distributed.backend.TPPlan`) has the quantised or
+  programmed operands of the model cut :func:`repro_torch.convert.
+  shard_params` gives (a float linear is held whole: the column scale is
+  taken over the whole matrix before it is cut), a float stack's MoE
+  experts are cut on their expert axis into contiguous blocks of ``E /
+  model`` (the reference's ``shard_map`` in-spec ``P("model", None,
+  None)``), and everything else is whole.  The port keeps no FSDP layout.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ class Placement:
     cut by columns (``"col"``) or by input rows (``"row"``)."""
 
     device: torch.device
-    part: Optional[str] = None
+    part: Optional[str] = None  # "col", "row" or "experts"
     parts: int = 1
     index: int = 0
 
@@ -55,10 +58,15 @@ class Placement:
         weight, held whole).  Matrix fields are cut on their output axis
         (``col``) or input axis (``row``), the per-column ``scale`` and
         ``b`` by ``col`` only; the clock, ``gdc_gain`` and ``img_inv`` stay
-        whole, as :func:`repro_torch.convert.shard_params` cuts them."""
-        if self.whole or field is None:
+        whole, as :func:`repro_torch.convert.shard_params` cuts them.  A
+        MoE leaf (``"experts"``) is cut on its expert axis (-3)."""
+        if self.whole:
             return x
-        if field in _MATRIX_FIELDS:
+        if self.part == "experts":
+            axis = -3
+        elif field is None:
+            return x
+        elif field in _MATRIX_FIELDS:
             axis = -1 if self.part == "col" else -2
         elif field in _COLUMN_FIELDS and self.part == "col":
             axis = -1
@@ -75,10 +83,31 @@ def _spiking_linears(cfg):
     from repro_torch.distributed.backend import TP_PARTS
 
     out = {("mixer", n): TP_PARTS[n] for n in ("wq", "wk", "wv", "wo")}
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 and not cfg.is_moe:
         out[("mlp", "wi")] = TP_PARTS["wi"]
         out[("mlp", "wo")] = TP_PARTS["wo"]
     return out
+
+
+def model_cut(cfg, model: int) -> Dict[tuple, str]:
+    """``{(group, name): part}`` of the block leaves a serving mesh of
+    ``model`` ranks cuts: a spiking SSA stack's linears whose block part
+    splits (``TPPlan``), a float stack's MoE experts (``"experts"``, which
+    ``model`` must divide); nothing at ``model = 1``."""
+    from repro_torch.distributed.backend import TPPlan
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    if model <= 1:
+        return {}
+    if T.spiking_decode_enabled(cfg):
+        plan = TPPlan.from_config(cfg, model)
+        return {k: part for k, part in _spiking_linears(cfg).items()
+                if plan.splits(k[0])}
+    if cfg.is_moe and not cfg.spiking:
+        M.expert_block(cfg.num_experts, model)
+        return {("moe", n): "experts" for n in ("wi", "wg", "wo")}
+    return {}
 
 
 def param_placement(cfg, mesh_shape, *, device, model_index: int = 0,
@@ -89,7 +118,7 @@ def param_placement(cfg, mesh_shape, *, device, model_index: int = 0,
     "scale", "b"}`` or a programmed state).  ``serving=False``: the
     data-parallel training mesh, every leaf whole (``model > 1`` raises:
     model-parallel training is not ported, ROADMAP A2(c)).  ``serving``:
-    the ``model`` cut of rank ``model_index``."""
+    the ``model`` cut of rank ``model_index`` (:func:`model_cut`)."""
     from repro_torch.models import transformer as T
 
     data, model = mesh_shape
@@ -101,15 +130,15 @@ def param_placement(cfg, mesh_shape, *, device, model_index: int = 0,
             "not ported (ROADMAP A2(c)); the float reference backend has no "
             "sharded form")
     whole = Placement(torch.device(device))
-    linears = _spiking_linears(cfg)
+    cut = model_cut(cfg, model)
 
     def block(shapes):
         out = {}
         for group, leaves in shapes.items():
             out[group] = {
-                name: (Placement(whole.device, linears[(group, name)], model,
+                name: (Placement(whole.device, cut[(group, name)], model,
                                  model_index)
-                       if (group, name) in linears and model > 1 else whole)
+                       if (group, name) in cut else whole)
                 for name in leaves}
         return out
 
@@ -154,9 +183,16 @@ def slot_range(slots: int, data: int, index: int) -> range:
     return range(index * n, (index + 1) * n)
 
 
-def local_kv_heads(cfg, model: int) -> int:
-    """KV heads one rank caches: ``num_kv_heads / model``."""
-    if cfg.num_kv_heads % model:
-        raise ValueError(f"{cfg.num_kv_heads} KV heads do not split over "
-                         f"model={model} ranks")
-    return cfg.num_kv_heads // model
+def local_kv_heads(cfg, model: int) -> Optional[int]:
+    """KV heads one rank caches of a spiking SSA stack: ``num_kv_heads /
+    model`` where the heads split (``TPPlan``), all of them where they do
+    not; ``None`` for any other stack (its caches are whole over
+    ``model``)."""
+    from repro_torch.distributed.backend import TPPlan
+    from repro_torch.models import transformer as T
+
+    if not T.spiking_decode_enabled(cfg):
+        return None
+    if TPPlan.from_config(cfg, model).heads:
+        return cfg.num_kv_heads // model
+    return cfg.num_kv_heads

@@ -48,13 +48,15 @@ layout: paged and dense serving give the same tokens.
   -- one scheduler per rank of a ``(data, model)`` mesh, all making the
   same host decisions from the same submits: ``params`` is the rank's
   share (the executor cuts it), a rank's device state holds
-  its data block of slots (and its model share of KV heads), its decode
-  step computes those slots, and each step's tokens and activity are
-  gathered over the data group; a batch-1 prefill runs on every data
-  rank (tensor-parallel over the model group) and only the slot's owner
-  splices it; the page pool is whole on every data rank, and each step's
-  new K/V rows are exchanged over the data group; a wall-clock drift step
-  is rank 0's.
+  its data block of slots (and its model share of a spiking stack's KV
+  heads; a float stack's caches are whole over the model group), its
+  decode step computes those slots (a MoE block routing them over the
+  model group through the executor's ``pctx``), and each step's tokens
+  and activity are gathered over the data group; a batch-1 prefill runs
+  on every data rank (tensor- or expert-parallel over the model group)
+  and only the slot's owner splices it; the page pool is whole on every
+  data rank, and each step's new K/V rows are exchanged over the data
+  group; a wall-clock drift step is rank 0's.
 
 * **telemetry** (``obs=``, a :class:`repro_torch.obs.Telemetry`) --
   host-side bookkeeping only: lifecycle trace events (submit, admit,
@@ -176,11 +178,13 @@ class BatchScheduler:
                  obs: Optional[Telemetry] = None,
                  moe_impl: Optional[str] = None):
         self.placement = placement  # repro_torch.distributed.Executor | None
+        pctx = None
         if placement is not None:
             device = placement.device
             mesh = placement.mesh
             self._own = SH.slot_range(slots, mesh.data, mesh.data_index)
             self._kv_local = SH.local_kv_heads(cfg, mesh.model)
+            pctx = placement.pctx
         else:
             self._own = range(slots)
             self._kv_local = None
@@ -226,9 +230,10 @@ class BatchScheduler:
                                                    plan=self.plan)
         else:
             self._decode = ST.make_decode_fn(cfg, self.backend, plan=self.plan,
-                                             moe_impl=self.moe_impl)
+                                             moe_impl=self.moe_impl, pctx=pctx)
             self._prefill = ST.make_prefill_fn(cfg, self.backend,
-                                               moe_impl=self.moe_impl)
+                                               moe_impl=self.moe_impl,
+                                               pctx=pctx)
         self._next_rid = 0
         # static per-decoded-token energy of a spiking SSA stack (the
         # activity-independent ADC, periphery, LIF and comparator work);

@@ -277,27 +277,36 @@ def content_keys(tokens) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def make_decode_fn(cfg, backend, plan=None, moe_impl: str = "ep_a2a"):
+def make_decode_fn(cfg, backend, plan=None, moe_impl: str = "ep_a2a",
+                   pctx=None):
     """The batched decode step: ``(params, state) -> (logits [slots,1,V],
     state, activity [slots])``.  Every slot advances one token (greedy
     argmax written back into ``state.tokens``); ``plan`` picks the fused
     layer kernel or the unfused primitives; ``moe_impl`` a float stack's
-    MoE path."""
+    MoE path, and ``pctx`` (:class:`repro_torch.models.moe.ParallelCtx`)
+    its placement on a mesh."""
 
     def step(params, state: DecodeState):
         logits, _, act = T.decode_step(
             params, state.cache, state.tokens[:, None], cfg, backend=backend,
             seeds=state.seeds, with_activity=True, plan=plan,
-            moe_impl=moe_impl)
+            moe_impl=moe_impl, pctx=pctx)
         state.tokens = torch.argmax(logits[:, 0, :], dim=-1)
         return logits, state, act
 
     return step
 
 
-def make_prefill_fn(cfg, backend, moe_impl: str = "ep_a2a"):
+def make_prefill_fn(cfg, backend, moe_impl: str = "ep_a2a", pctx=None):
     """Batch-1 prompt prefill through the same decode path, with **no**
     plan (the unfused primitives, as in the reference).
+
+    On a mesh every data rank prefills the prompt, and a MoE block routes
+    its one token over the rank's model group (``pctx``): the dispatch the
+    reference computes on a ``(1, model)`` mesh.  The reference cannot
+    split a batch of one over ``data > 1`` (its ``shard_map`` raises), so
+    this is the port's definition of that path; its tokens equal one
+    device's wherever no choice drops.
 
     ``(params, prompt [n], seeds [n], cache1) -> (cache1, activity)``:
     one decode step per prompt position, position ``i`` keyed by the
@@ -311,7 +320,7 @@ def make_prefill_fn(cfg, backend, moe_impl: str = "ep_a2a"):
             _, cache1, a = T.decode_step(
                 params, cache1, prompt[i].view(1, 1), cfg, backend=backend,
                 seeds=seeds[i].view(1), with_activity=True,
-                moe_impl=moe_impl)
+                moe_impl=moe_impl, pctx=pctx)
             act = act + a[0]
         return cache1, act
 

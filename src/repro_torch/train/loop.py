@@ -25,7 +25,7 @@ the whole batch, and computes the loss and gradient of its rows
 the loss and the gradients are summed over the data group in one
 ``all_reduce`` and divided by ``data``, so the AdamW update is the same on
 every rank.  ``model > 1`` raises: model-parallel training is not ported
-(ROADMAP A2(c)); so does a MoE config on any mesh (ROADMAP A13(b)).
+(ROADMAP A2(c)); so does a MoE config on any mesh (ROADMAP A2(c)).
 
 Parameters and state live on the card unless the caller asks for the CPU
 (:func:`init_state`); the step runs where they are.

@@ -1168,6 +1168,72 @@ def test_two_rank_mesh_on_one_card(cuda):
                 assert r["launches"][name] > 0, (k, name)
 
 
+def test_two_rank_moe_mesh_on_one_card(cuda):
+    """A (1, 2) mesh of two ranks sharing the card over gloo serves the
+    reduced phi3.5-moe (4 experts, two a rank, the dispatch's all-to-alls
+    staged through the host) with one card's tokens, no choice dropped."""
+    from repro_torch.distributed import jobs
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg = reduced_config("phi3.5-moe-42b-a6.6b")
+    prompts = [[1, 2, 3, 4], [9, 8, 7, 6, 5, 4, 3], [100, 200]]
+    eng = XpikeformerEngine.from_config(cfg, task="lm", device=cuda)
+    eng.init(0)
+    want, _ = eng.serve(prompts, 6, slots=2, cache_len=32)
+    job = dict(cfg=cfg, init_seed=0, prompts=prompts, max_new=6, slots=2,
+               cache_len=32)
+    for (r,) in run_ranks(jobs.run_jobs, (1, 2), device="cuda",
+                          args=([job],), timeout_s=300):
+        assert r["outputs"] == want
+        assert (r["moe"]["past_cap"], r["moe"]["past_c2"]) == (0, 0)
+        assert sum(v["all_to_alls"] for v in r["moe"]["by_tokens"].values()) > 0
+
+
+def test_every_registry_name_on_a_two_by_two_mesh_on_one_card(cuda):
+    """Every registry name's reduced config on a (2, 2) mesh of four ranks
+    sharing the card: the served streams equal one card's, the forward's
+    logits too (a spiking stack's bit for bit, a float stack's within
+    1e-5: its rows split over ``data`` meet cuBLAS at another size)."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import jobs
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as T
+
+    prompts = [[1, 2, 3], [4, 5, 6, 7], [9], [3, 3]]
+    rng = np.random.default_rng(0)
+    todo, cases = [], []
+    for arch in registry.list_archs():
+        cfg = reduced_config(arch)
+        todo.append(dict(cfg=cfg, init_seed=0, prompts=prompts, max_new=3,
+                         slots=4, cache_len=16))
+        fwd = dict(kind="forward", cfg=cfg, init_seed=0, key_seed=1)
+        if cfg.frontend != "none":
+            fwd["embeddings"] = rng.standard_normal(
+                (4, 6, cfg.frontend_dim)).astype(np.float32)
+        else:
+            fwd["tokens"] = rng.integers(0, cfg.vocab_size, (4, 6))
+        todo.append(fwd)
+        cases.append(cfg)
+    res = run_ranks(jobs.run_jobs, (2, 2), device="cuda", args=(todo,),
+                    timeout_s=600)
+    for i, cfg in enumerate(cases):
+        eng = XpikeformerEngine.from_config(cfg, task="lm", device=cuda)
+        eng.init(0)
+        want = eng.serve(prompts, 3, slots=4, cache_len=16)[0]
+        fwd = todo[2 * i + 1]
+        batch = {k: torch.from_numpy(fwd[k]).to(cuda)
+                 for k in ("tokens", "embeddings") if k in fwd}
+        logits = T.forward(eng.params, batch, cfg, rng=prng.PRNGKey(1, cuda),
+                           backend="cuda", remat="none")[0].float().cpu()
+        for ranks in res:
+            assert ranks[2 * i]["outputs"] == want, cfg.name
+            got = torch.from_numpy(ranks[2 * i + 1]["logits"]).float()
+            if cfg.spiking:
+                assert torch.equal(got, logits), cfg.name
+            else:
+                assert float((got - logits).abs().max()) <= 1e-5, cfg.name
+
+
 @pytest.mark.parametrize("change", [{}, {"num_kv_heads": 2},
                                     {"attention_kind": "lif"}])
 def test_lm_forward_on_the_card_equals_the_plain_backend(cuda, change):

@@ -364,22 +364,38 @@ def test_spiking_stack_with_an_ssd_mixer():
 
 def test_unported_stacks_raise():
     """MoE builds and decodes on one device (``tests/test_torch_moe.py``
-    holds it to JAX); on a mesh it raises, naming the ROADMAP item that
-    ports it (A13(b)).  The float stack, a spiking stack with an SSD mixer
-    (on the rate interface), the decode of a LIF-attention stack (the
-    reference's float path) and a spiking MoE run: a decode step gives
-    finite logits."""
+    holds it to JAX) and builds on a mesh (``tests/test_torch_mesh.py``
+    serves it there); what still raises names its ROADMAP item: training
+    a MoE config or a model axis on a mesh (A2(c)), and the front door,
+    trace sink and profiler with ``--mesh`` (A9(b)).  The float stack, a
+    spiking stack with an SSD mixer (on the rate interface), the decode of
+    a LIF-attention stack (the reference's float path) and a spiking MoE
+    run: a decode step gives finite logits."""
+    from repro_torch.configs import ParallelConfig
     from repro_torch.distributed import Executor
+    from repro_torch.launch import serve as serve_cli
     from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import loop as TL
 
     _, tcfg = _cfgs("base")
     moe = dataclasses.replace(tcfg, num_experts=4, moe_top_k=2)
     mesh = ServingMesh((1, 2), 0, torch.device("cpu"))
+    for cfg in (moe, dataclasses.replace(moe, spiking=False)):
+        ex = Executor(T.init_params(cfg, 0, "cpu"), cfg, "integer", mesh)
+        assert ex.pctx.tp == 2
     for run in (lambda: T.require_mesh_supported(moe),
-                lambda: Executor(T.init_params(moe, 0, "cpu"), moe,
-                                 "integer", mesh)):
-        with pytest.raises(NotImplementedError, match=r"A13\(b\)"):
+                lambda: TL.make_train_step(
+                    moe, ParallelConfig(),
+                    mesh=ServingMesh((2, 1), 0, torch.device("cpu"))),
+                lambda: SH.param_placement(tcfg, (1, 2), device="cpu")):
+        with pytest.raises(NotImplementedError, match=r"A2\(c\)"):
             run()
+    for flag in ({"http": True}, {"trace_out": "t.jsonl"},
+                 {"profile_steps": 2}):
+        with pytest.raises(ValueError, match=r"A9\(b\)"):
+            serve_cli.serve("xpikeformer-gpt-4-256", smoke=True,
+                            device="cpu", mesh="2x2", **flag)
     tokens = torch.tensor([[3], [5]])
     for change in ({"spiking": False}, {"block_pattern": ("attn", "ssd"),
                                         "ssm_state_dim": 16},

@@ -23,10 +23,36 @@ is compared bit for bit:
 * a data-only ``(4, 1)`` and a model-only ``(1, 4)`` mesh, dense;
 * ``parse_mesh_spec`` with JAX's cases, ``shard_params`` against JAX's
   placement, and a rank that raises failing ``run_ranks`` in time.
+
+The float and MoE stacks on the mesh (reduced configs, the port's weights
+carried to JAX through numpy; float32 outputs within ``ATOL``, token
+streams and spikes exact), in the same spawns:
+
+* MoE's expert-parallel ``_ep_local`` (the all-to-all over the model
+  group) on ``(2, 2)`` against JAX's ``moe_ep`` under ``shard_map`` with
+  the executor's ``pctx`` on the host mesh, given JAX's routing, at
+  capacity factor 1.25 and at one where both capacities drop;
+* the reduced phi3.5-moe: three teacher-forced ``decode_step``s on
+  ``(2, 2)`` against JAX's with the executor's ``pctx``; served on
+  ``(1, 4)`` against JAX's ``Executor`` and on ``(2, 2)`` (where JAX's
+  executor raises) against one device;
+* yi-9b, mamba2-780m and recurrentgemma-9b served on ``(2, 2)`` against
+  JAX's ``Executor``; ``Executor.forward`` of yi-9b and phi3.5-moe on
+  ``(2, 2)`` against JAX's, and of pixtral-12b's embeddings against JAX's
+  forward on one device;
+* an uneven split: the reduced phi3.5-moe as a spiking SSA stack (one KV
+  head: the attention is held whole) on ``(2, 2)``, its forward and its
+  dense and paged streams against JAX's ``Executor``;
+* ``convert.shard_params``'s expert blocks against JAX's in-spec slices.
+
+The JAX references compile in a pool of threads while the ranks run
+(``mesh_refs``).
 """
 
 import dataclasses
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -45,11 +71,15 @@ from repro.kernels import ops as JKOPS
 from repro.kernels import ref as JKREF
 from repro.launch.mesh import make_serving_mesh
 from repro.launch.mesh import parse_mesh_spec as j_parse_mesh_spec
+from repro.configs.base import ModelConfig as JModelConfig
+from repro.distributed import Executor as JExecutor
+from repro.models import moe as JM
 from repro.models import transformer as JT
 from repro.serving import BatchScheduler as JBatchScheduler
 from repro_torch import aimc_device as AD
 from repro_torch import convert, prng
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import ModelConfig
 from repro_torch.configs import registry as R
 from repro_torch.distributed import Executor, TPPlan
 from repro_torch.engine import XpikeformerEngine, get_backend
@@ -58,6 +88,7 @@ from repro_torch.kernels import ops as KOPS
 from repro_torch.kernels import ref as KREF
 from repro_torch.kernels.plan import KVView
 from repro_torch.launch.mesh import ServingMesh, parse_mesh_spec, run_ranks
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw as A
 from repro_torch.serving import BatchScheduler
@@ -81,6 +112,25 @@ def _prompt(i, length):
 
 PROMPTS = [_prompt(i, 3 + (2 * i) % 5) for i in range(5)]
 SHARED = _prompt(9, 17)  # two full pages of context at page_len=8
+
+
+# float32 outputs of the float and MoE stacks (einsum and exp round in
+# other orders than XLA's); the spiking stack's logits against JAX's (the
+# rate coding's sigmoid, layernorm and the unembed are float boundaries)
+ATOL = 1e-5
+SPIKE_ATOL = 1e-4
+MOE = "phi3.5-moe-42b-a6.6b"
+SPIKING_MOE = "phi3.5-moe-spiking"
+FLOATS = ("yi-9b", "mamba2-780m", "recurrentgemma-9b")
+MOE_PROMPTS = [[1, 2, 3], [4, 5, 6, 7, 8], [9], [10, 11, 12, 13],
+               [5, 5, 5, 5, 5]]
+SERVE = dict(max_new=4, slots=4, cache_len=16, seed0=0)
+STACK_TOKENS = np.random.default_rng(21).integers(0, 257, (4, 8)).astype(
+    np.int32)
+FRONT = "pixtral-12b"  # a frontend arch: its forward takes embeddings
+STACK_EMBED = np.random.default_rng(22).standard_normal((4, 8, 24)).astype(
+    np.float32)
+EP_SHAPE, EP_CFS = (4, 16, 16), (1.25, 0.5)
 
 
 def _eq(got, want, what=""):
@@ -283,12 +333,180 @@ def test_fused_layer_without_tail_then_tail_equals_with_tail(
 
 
 # ---------------------------------------------------------------------------
+# The float and MoE stacks: configs, weights and the JAX references
+# ---------------------------------------------------------------------------
+
+
+_STACKS = {}
+
+
+def _stack(arch):
+    """``(jcfg, tcfg, JAX params, the port's)``: the port's
+    ``init_params(seed 0)`` carried to JAX through numpy."""
+    if arch not in _STACKS:
+        if arch == SPIKING_MOE:
+            change = dict(spiking=True, attention_kind="ssa", spike_T=4)
+            jcfg, tcfg = (dataclasses.replace(reg.reduced_config(MOE),
+                                              **change) for reg in (JR, R))
+        else:
+            jcfg, tcfg = JR.reduced_config(arch), R.reduced_config(arch)
+        tp = T.init_params(tcfg, 0, "cpu")
+        jp = jax.tree.map(jnp.asarray, convert.params_to_numpy(tp))
+        _STACKS[arch] = (jcfg, tcfg, jp, tp)
+    return _STACKS[arch]
+
+
+def _ep_cfgs(cf):
+    j = JModelConfig(name="ep", family="moe", num_layers=1, d_model=16,
+                     num_heads=2, num_kv_heads=2, d_ff=32, vocab_size=64,
+                     num_experts=8, moe_top_k=2, capacity_factor=cf,
+                     dtype="float32")
+    return j, ModelConfig(**dataclasses.asdict(j))
+
+
+def _ep_inputs():
+    """numpy MoE leaves ``normal / sqrt(fan)`` and the input ``x``."""
+    rng = np.random.default_rng(4)
+    params = {n: (rng.standard_normal(shape) / np.sqrt(shape[-2])).astype(
+        np.float32) for n, (shape, _) in M.moe_schema(_ep_cfgs(1.0)[1]).items()}
+    return params, rng.standard_normal(EP_SHAPE).astype(np.float32)
+
+
+def _jax_serve(arch, shape):
+    """JAX's executor on ``shape`` (``None``: one device's scheduler) on
+    ``MOE_PROMPTS`` with the port's weights."""
+    jcfg, _, jp, _ = _stack(arch)
+    if shape is None:
+        sch = JBatchScheduler(jp, jcfg, slots=SERVE["slots"],
+                              cache_len=SERVE["cache_len"])
+        return _drive(sch, MOE_PROMPTS, SERVE["max_new"], SERVE["seed0"])
+    ex = JExecutor(jp, jcfg, "integer", make_serving_mesh(shape))
+    return ex.serve(MOE_PROMPTS, SERVE["max_new"], slots=SERVE["slots"],
+                    cache_len=SERVE["cache_len"], seed=SERVE["seed0"])[0]
+
+
+def _jax_spiking():
+    """JAX's executor on (2, 2) for the spiking MoE: the forward's logits
+    and the dense and paged streams (``IntegerBackend``)."""
+    jcfg, _, jp, _ = _stack(SPIKING_MOE)
+    ex = JExecutor(jp, jcfg, "integer", make_serving_mesh((2, 2)))
+    logits = np.asarray(ex.forward(jnp.asarray(STACK_TOKENS),
+                                   jax.random.PRNGKey(FWD_KEY)))
+    kw = dict(slots=SERVE["slots"], cache_len=SERVE["cache_len"],
+              seed=SERVE["seed0"])
+    dense = ex.serve(MOE_PROMPTS, SERVE["max_new"], **kw)[0]
+    paged = ex.serve(MOE_PROMPTS, SERVE["max_new"], paged=True, page_len=8,
+                     **kw)[0]
+    return logits, dense, paged
+
+
+def _jax_forward(arch):
+    """JAX's ``Executor.forward`` on (2, 2); a frontend arch's forward of
+    its embeddings on one device (JAX's executor takes tokens only)."""
+    jcfg, _, jp, _ = _stack(arch)
+    if arch == FRONT:
+        return np.asarray(jax.jit(lambda p, e: JT.forward(
+            p, {"embeddings": e}, jcfg, remat="none")[0])(jp, STACK_EMBED))
+    ex = JExecutor(jp, jcfg, "integer", make_serving_mesh((2, 2)))
+    return np.asarray(ex.forward(jnp.asarray(STACK_TOKENS),
+                                 jax.random.PRNGKey(FWD_KEY)))
+
+
+def _jax_decode():
+    """Three teacher-forced steps of JAX's ``decode_step`` with the
+    executor's ``pctx`` on the (2, 2) host mesh (4 slots)."""
+    jcfg, _, jp, _ = _stack(MOE)
+    pctx = JExecutor(jp, jcfg, "integer", make_serving_mesh((2, 2))).pctx
+    step = jax.jit(lambda p, c, t: JT.decode_step(p, c, t, jcfg, pctx,
+                                                  moe_impl="ep_a2a"))
+    cache = jax.tree.map(lambda x: np.zeros(x.shape, x.dtype),
+                         JT.cache_schema(jcfg, 4, 3))
+    out = []
+    for i in range(3):
+        logits, cache = step(jp, cache, STACK_TOKENS[:, i:i + 1])
+        out.append(np.asarray(logits))
+    return np.concatenate(out, 1)
+
+
+def _jax_ep(cf, x):
+    jcfg, _ = _ep_cfgs(cf)
+    params, _ = _ep_inputs()
+    pctx = JM.ParallelCtx(mesh=make_serving_mesh((2, 2)), dp_axes=("data",),
+                          fsdp_axis=None, tp_axis="model", seq_shard=False)
+    return np.asarray(jax.jit(lambda p, v: JM.moe_ep(
+        p, v, jcfg, pctx, seq_sharded=False)[0])(params, x))
+
+
+@pytest.fixture(scope="module")
+def ep_routing():
+    """JAX's router outputs ``(weights, idx)`` on the ``_ep_local`` case,
+    per capacity factor (the routing does not depend on it)."""
+    params, x = _ep_inputs()
+    jcfg, _ = _ep_cfgs(1.0)
+    w, idx, _ = JM.router(params, x, jcfg)
+    return np.asarray(w), np.asarray(idx)
+
+
+@pytest.fixture(scope="module")
+def mesh_refs():
+    """The JAX references of the float and MoE stacks, submitted to a
+    pool of threads (XLA compiles in parallel) before the ranks spawn;
+    ``{name: future}``."""
+    _, x = _ep_inputs()
+    for arch in FLOATS + (MOE, SPIKING_MOE, FRONT):
+        _stack(arch)
+    jobs = {("ep", cf): (_jax_ep, cf, x) for cf in EP_CFS}
+    jobs["decode"] = (_jax_decode,)
+    jobs["serve14"] = (_jax_serve, MOE, (1, 4))
+    jobs["serve1"] = (_jax_serve, MOE, None)
+    jobs.update({("serve22", a): (_jax_serve, a, (2, 2)) for a in FLOATS})
+    jobs.update({("forward", a): (_jax_forward, a)
+                 for a in ("yi-9b", MOE, FRONT)})
+    jobs["spiking"] = (_jax_spiking,)
+    pool = ThreadPoolExecutor(max_workers=os.cpu_count() or 4)
+    yield {k: pool.submit(*v) for k, v in jobs.items()}
+    pool.shutdown(wait=True)
+
+
+def _stack_jobs(ep_routing):
+    """The float and MoE stacks' rank jobs of the (2, 2) spawn."""
+    params, x = _ep_inputs()
+    w, idx = ep_routing
+    named = {f"ep_{cf}": dict(kind="ep_local", cfg=_ep_cfgs(cf)[1],
+                              params=params, x=x, weights=w, idx=idx)
+             for cf in EP_CFS}
+
+    def serve(arch, **kw):
+        return _serve_job(_stack(arch)[1], _stack(arch)[3], MOE_PROMPTS,
+                          backend="cuda", **dict(SERVE, **kw))
+
+    moe = _stack(MOE)
+    named["moe_decode"] = dict(kind="decode", cfg=moe[1],
+                               params=convert.params_to_numpy(moe[3]),
+                               tokens=STACK_TOKENS, steps=3)
+    named["moe_serve"] = serve(MOE)
+    named.update({f"serve_{a}": serve(a) for a in FLOATS})
+    for a in ("yi-9b", MOE, SPIKING_MOE):
+        named[f"forward_{a}"] = dict(
+            kind="forward", cfg=_stack(a)[1], backend="cuda",
+            params=convert.params_to_numpy(_stack(a)[3]),
+            tokens=STACK_TOKENS, key_seed=FWD_KEY)
+    named[f"forward_{FRONT}"] = dict(
+        kind="forward", cfg=_stack(FRONT)[1],
+        params=convert.params_to_numpy(_stack(FRONT)[3]),
+        embeddings=STACK_EMBED, key_seed=FWD_KEY)
+    named["spiking_dense"] = serve(SPIKING_MOE)
+    named["spiking_paged"] = serve(SPIKING_MOE, paged=True, page_len=8)
+    return named
+
+
+# ---------------------------------------------------------------------------
 # The (2, 2) mesh: one spawn, every scenario
 # ---------------------------------------------------------------------------
 
 
 @pytest.fixture(scope="module")
-def mesh22(setup, programmed, tmp_path_factory):
+def mesh22(setup, programmed, tmp_path_factory, mesh_refs, ep_routing):
     """Every (2, 2) scenario in one spawn; ``{name: [result per rank]}``."""
     _, tcfg, _, tparams = setup
     _, thw, _, tacfg = programmed
@@ -332,6 +550,7 @@ def mesh22(setup, programmed, tmp_path_factory):
                             tree=convert.params_to_numpy(
                                 AD.drift_tree(thw, 86400.0, tacfg)),
                             aimc_cfg=tacfg),
+        **_stack_jobs(ep_routing),
     }
     res = run_ranks(MJ.run_jobs, (2, 2), device="cpu",
                     args=(list(named.values()),), timeout_s=TIMEOUT_S)
@@ -556,19 +775,182 @@ def test_mesh_recalibrate_of_cut_tree_equals_whole(programmed, mesh22):
 
 
 # ---------------------------------------------------------------------------
+# The float and MoE stacks on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _close(got, want, atol=ATOL, what=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
+                               atol=atol, err_msg=what)
+
+
+@pytest.mark.parametrize("cf", EP_CFS)
+def test_ep_all_to_all_equals_jax_shard_map(mesh_refs, mesh22, cf):
+    """Each rank's ``_ep_local`` over its data block of the rows, its block
+    of experts and the all-to-all over its model group, given JAX's
+    routing, == JAX's ``moe_ep`` under ``shard_map`` on the (2, 2) host
+    mesh with the executor's ``pctx`` within ``ATOL``, with the same rows
+    zeroed.  At factor 0.5 choices drop past ``cap`` and past ``C2`` (the
+    model group's copies of each token count against ``C2``)."""
+    want = mesh_refs["ep", cf].result()
+    zero_j = np.all(want == 0, axis=-1)
+    past = np.zeros(2, np.int64)
+    for rank, r in enumerate(mesh22[f"ep_{cf}"]):
+        _close(r["y"], want, what=f"rank {rank}")
+        np.testing.assert_array_equal(np.all(r["y"] == 0, axis=-1), zero_j)
+        past += [r["drops"]["past_cap"], r["drops"]["past_c2"]]
+    if cf < 1:
+        assert past.min() > 0 and zero_j.any()
+    else:
+        assert past.sum() == 0 and not zero_j.any()
+
+
+def test_moe_decode_steps_equal_jax_pctx(mesh_refs, mesh22):
+    """Three teacher-forced ``decode_step``s of the reduced phi3.5-moe on
+    the (2, 2) mesh (2 slots a data rank, the dispatch over the model
+    group) == JAX's ``decode_step(..., pctx=Executor.pctx)`` on the host
+    mesh, within ``ATOL``, on every rank."""
+    want = mesh_refs["decode"].result()
+    for rank, r in enumerate(mesh22["moe_decode"]):
+        _close(r["logits"], want, what=f"rank {rank}")
+        assert [d["past_cap"] + d["past_c2"] for d in r["drops"]] == [0] * 3
+
+
+def test_moe_serve_on_a_model_mesh_equals_jax_executor(mesh_refs, mesh14):
+    """The reduced phi3.5-moe served on the (1, 4) mesh (one expert a
+    rank) == JAX's ``Executor`` on the (1, 4) host mesh, on every rank."""
+    want = mesh_refs["serve14"].result()
+    for r in mesh14:
+        assert r[1]["outputs"] == want
+        assert r[1]["backend"] == "cuda" and not r[1]["fused"]
+
+
+def test_moe_serve_with_data_split_equals_one_device(mesh_refs, mesh22):
+    """The reduced phi3.5-moe served on the (2, 2) mesh: the streams of the
+    port's one device and JAX's, and no rank drops a choice.  JAX's
+    ``Executor`` raises here (its batch-1 prefill cannot split over
+    ``data``, ``repro/models/moe.py:322``): the port routes a prefill's
+    token over the model group alone (``serving/state.py:
+    make_prefill_fn``)."""
+    _, tcfg, _, tp = _stack(MOE)
+    want = mesh_refs["serve1"].result()
+    sch = BatchScheduler(tp, tcfg, slots=SERVE["slots"],
+                         cache_len=SERVE["cache_len"], device="cpu")
+    assert _drive(sch, MOE_PROMPTS, SERVE["max_new"], SERVE["seed0"]) == want
+    for r in mesh22["moe_serve"]:
+        assert r["outputs"] == want
+        assert (r["moe"]["past_cap"], r["moe"]["past_c2"]) == (0, 0)
+        assert r["moe"]["by_tokens"][1]["all_to_alls"] > 0  # the prefills
+
+
+@pytest.mark.parametrize("arch", FLOATS)
+def test_float_serve_on_mesh_equals_jax_executor(mesh_refs, mesh22, arch):
+    """yi-9b (dense), mamba2-780m (SSD) and recurrentgemma-9b (RG-LRU and
+    a windowed attention) served on the (2, 2) mesh, their caches whole
+    over ``model``: JAX's ``Executor`` streams on the host mesh, no
+    joules."""
+    want = mesh_refs["serve22", arch].result()
+    for r in mesh22[f"serve_{arch}"]:
+        assert r["outputs"] == want
+        assert r["stats"]["energy_j"] == 0.0
+        assert (r["stats"]["data_shards"], r["stats"]["model_shards"]) == (2, 2)
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", MOE, FRONT])
+def test_float_and_moe_forward_on_mesh_equal_jax(mesh_refs, mesh22, arch):
+    """``Executor.forward`` on the (2, 2) mesh: yi-9b's rows split over
+    ``data``, phi3.5-moe's whole batch on every rank with one device's
+    capacities (its experts' products split) == JAX's ``Executor.forward``
+    within ``ATOL``, on every rank; pixtral-12b's embeddings (rows split)
+    == JAX's forward of them on one device (JAX's executor takes tokens
+    only)."""
+    want = mesh_refs["forward", arch].result()
+    for rank, r in enumerate(mesh22[f"forward_{arch}"]):
+        _close(r["logits"], want, what=f"rank {rank}")
+
+
+def test_uneven_spiking_split_equals_jax_executor(mesh_refs, mesh22):
+    """The reduced phi3.5-moe as a spiking SSA stack on the (2, 2) mesh:
+    one KV head does not split over ``model = 2``, so the attention is
+    held whole on every rank (and the MoE tail, ``moe_dense`` on the rate
+    interface, is row by row).  The forward's logits equal one device's
+    bit for bit and JAX's ``Executor.forward`` within ``SPIKE_ATOL``; the
+    dense and paged streams equal JAX's ``Executor`` streams."""
+    jlogits, jdense, jpaged = mesh_refs["spiking"].result()
+    _, tcfg, _, tp = _stack(SPIKING_MOE)
+    eng = XpikeformerEngine.from_config(tcfg, backend="integer", device="cpu")
+    eng.params = tp
+    want = eng.forward(torch.from_numpy(STACK_TOKENS).long(),
+                       prng.PRNGKey(FWD_KEY)).numpy()
+    _close(want, jlogits, SPIKE_ATOL)
+    for rank in range(4):
+        _eq(mesh22[f"forward_{SPIKING_MOE}"][rank]["logits"], want,
+            f"forward rank {rank}")
+        assert mesh22["spiking_dense"][rank]["outputs"] == jdense
+        assert mesh22["spiking_paged"][rank]["outputs"] == jpaged
+        assert mesh22["spiking_dense"][rank]["backend"] == "sharded[cuda]"
+
+
+def test_shard_params_expert_blocks_equal_jax_in_spec(setup):
+    """``convert.shard_params`` of a float MoE tree on a model axis of 2:
+    each rank's ``wi``/``wg``/``wo`` are JAX's slices under ``moe_ep``'s
+    in-spec ``P("model", None, None)`` (a period axis ahead), the router
+    and attention whole; ``param_placement`` cuts the same leaves; a
+    model size that does not divide ``E`` raises."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro_torch.parallel import sharding as SH
+
+    jcfg, tcfg, jp, tp = _stack(MOE)
+    jmesh = make_serving_mesh((1, 2))
+    for m in range(2):
+        mine = convert.shard_params(tp, tcfg, 2, m)["periods"]["blk0"]
+        for name in ("wi", "wg", "wo"):
+            leaf = jax.device_put(jp["periods"]["blk0"]["moe"][name],
+                                  NamedSharding(jmesh, P(None, "model")))
+            shard = [s for s in leaf.addressable_shards
+                     if s.device == jmesh.devices[0, m]][0]
+            _eq(mine["moe"][name], np.asarray(shard.data), f"{name} {m}")
+        assert mine["moe"]["router"] is tp["periods"]["blk0"]["moe"]["router"]
+        assert mine["mixer"]["wq"] is tp["periods"]["blk0"]["mixer"]["wq"]
+    place = SH.param_placement(tcfg, (1, 2), device="cpu", model_index=1,
+                               serving=True)["periods"]["blk0"]
+    assert {n: p.part for n, p in place["moe"].items()} == {
+        "router": None, "wi": "experts", "wg": "experts", "wo": "experts"}
+    assert place["mixer"]["wq"].whole
+    with pytest.raises(ValueError, match="do not split"):
+        convert.shard_params(tp, tcfg, 3, 0)
+
+
+# ---------------------------------------------------------------------------
 # Data-only and model-only meshes
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture(scope="module")
+def mesh14(setup, mesh_refs):
+    """The (1, 4) spawn: the spiking dense serve, then phi3.5-moe's."""
+    _, tcfg, _, tparams = setup
+    moe = _stack(MOE)
+    todo = [_serve_job(tcfg, tparams, PROMPTS, 5, slots=4),
+            _serve_job(moe[1], moe[3], MOE_PROMPTS, **SERVE)]
+    return run_ranks(MJ.run_jobs, (1, 4), device="cpu", args=(todo,),
+                     timeout_s=TIMEOUT_S)
+
+
 @pytest.mark.parametrize("shape", [(4, 1), (1, 4)])
-def test_dp_only_and_tp_only_meshes_equal_jax(setup, jax_dense, shape):
+def test_dp_only_and_tp_only_meshes_equal_jax(setup, jax_dense, shape,
+                                              request):
     """A data-only (4, 1) mesh (4 slots, one a rank; the inner backend
     unwrapped) and a model-only (1, 4) mesh (one head a rank) serve JAX's
     single-device tokens (a stream does not depend on the slot count)."""
     _, tcfg, _, tparams = setup
     ref, _ = jax_dense
-    res = run_ranks(MJ.run_jobs, shape, device="cpu", args=([_serve_job(
-        tcfg, tparams, PROMPTS, 5, slots=4)],), timeout_s=TIMEOUT_S)
+    if shape == (1, 4):
+        res = [r[:1] for r in request.getfixturevalue("mesh14")]
+    else:
+        res = run_ranks(MJ.run_jobs, shape, device="cpu", args=([_serve_job(
+            tcfg, tparams, PROMPTS, 5, slots=4)],), timeout_s=TIMEOUT_S)
     for (r,) in res:
         assert r["outputs"] == ref
         assert (r["stats"]["data_shards"], r["stats"]["model_shards"]) == shape
@@ -637,15 +1019,46 @@ def test_shard_params_equals_jax_placement(setup, programmed):
             convert.shard_params(mine, tcfg, 2, m)
 
 
-def test_uneven_split_raises():
-    """A model axis that does not divide the heads is refused (no silent
-    replication)."""
-    cfg = R.reduced_config(ARCH)
-    with pytest.raises(NotImplementedError, match="must divide"):
-        TPPlan.from_config(cfg, 3).require(cfg)
-    with pytest.raises(NotImplementedError, match="must divide"):
-        Executor(T.init_params(cfg, 0, "cpu"), cfg, "integer",
-                 ServingMesh((1, 3), 0, torch.device("cpu")))
+def test_uneven_split_raises(setup):
+    """A model axis that divides neither the heads nor ``d_ff`` (3 of 4
+    heads, ``d_ff = 128``): every spiking linear is held whole, as JAX's
+    ``TPPlan`` finds nothing to split and its placement replicates every
+    leaf; the rank's executor (no collective is needed) serves and
+    forwards one device's tokens and logits, bit for bit, and within
+    ``SPIKE_ATOL`` of JAX's forward.  A model axis of 2 splits the MLP
+    only when the heads do not (``TPPlan.splits``)."""
+    from repro.distributed.backend import TPPlan as JTPPlan
+
+    cfg, tcfg, jparams, tparams = setup
+    plan, jplan = TPPlan.from_config(tcfg, 3), JTPPlan.from_config(cfg, 3)
+    assert (plan.heads, jplan.heads) == (False, False)
+    assert not plan.splits("mlp") and not jplan.col_ok(cfg.d_ff)
+    specs = param_pspecs_for_tree(cfg, jparams, make_serving_mesh((1, 3)))
+    assert all(s == jax.sharding.PartitionSpec() for s in jax.tree.leaves(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)))
+    ex = Executor(tparams, tcfg, "integer",
+                  ServingMesh((1, 3), 1, torch.device("cpu")))
+    whole = T.quantize_params(tparams, tcfg, keep_state=True)
+    blk, wblk = ex.params["periods"]["blk0"], whole["periods"]["blk0"]
+    for grp, name in (("mixer", "wq"), ("mixer", "wo"), ("mlp", "wo")):
+        _eq(blk[grp][name]["levels"], wblk[grp][name]["levels"].numpy())
+    eng = XpikeformerEngine.from_config(tcfg, backend="integer", device="cpu")
+    eng.params = tparams
+    tokens = torch.from_numpy(FWD_TOKENS[4])
+    key = prng.PRNGKey(FWD_KEY)
+    want = eng.forward(tokens, key)
+    _eq(ex.forward(tokens, key), want.numpy(), "held-whole forward")
+    assert ex.serve(PROMPTS, 5, slots=2, cache_len=32, seed=100)[0] == \
+        eng.serve(PROMPTS, 5, slots=2, cache_len=32, seed=100)[0]
+    jlogits, _ = JT.forward(jparams, {"tokens": jnp.asarray(FWD_TOKENS[4])},
+                            cfg, rng=jax.random.PRNGKey(FWD_KEY),
+                            backend=JIntegerBackend(), remat="none")
+    np.testing.assert_allclose(want.numpy(), np.asarray(jlogits), rtol=0,
+                               atol=SPIKE_ATOL)
+    # heads that split, an MLP that does not: each part by its own rule
+    odd = dataclasses.replace(tcfg, d_ff=129)
+    p2 = TPPlan.from_config(odd, 2)
+    assert p2.splits("mixer") and not p2.splits("mlp")
 
 
 def test_a_failing_rank_fails_run_ranks_in_time():

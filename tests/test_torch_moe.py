@@ -16,7 +16,8 @@
 * a spiking SSA MoE (the reduced phi3.5-moe with ``spiking=True``): the
   forward's logits and twelve decode steps against JAX's
   ``IntegerBackend`` (the FFN on the rate interface);
-* a MoE config on a mesh raises, naming ROADMAP A13(b).
+* training a MoE config on a mesh raises, naming ROADMAP A2(c) (serving
+  and the forward run there: ``tests/test_torch_mesh.py``).
 
 The JAX references compile once, in a pool of threads (``refs``).
 """
@@ -528,19 +529,24 @@ def test_spiking_moe_forward_and_decode(refs):
 
 
 def test_moe_on_a_mesh_raises(tmp_path):
-    """Every mesh entry point refuses a MoE config, naming A13(b): the
-    executor (a spiking MoE too), the data-parallel train step, the train
-    launcher and the serve CLI (before any rank is spawned)."""
+    """Training a MoE config on a mesh raises, naming A2(c): the
+    data-parallel train step and the train launcher (before any rank is
+    spawned).  Serving does not: the executor builds for the float MoE
+    (its experts cut in blocks of ``E / model``) and for the spiking one
+    (its experts whole, their FFN on the rate interface)."""
     _, tcfg, _, tp = _setup("phi3.5-moe-42b-a6.6b")
     _, scfg, _, sp = _setup(SPIKING)
     mesh = ServingMesh((2, 1), 0, torch.device("cpu"))
     for run in (
-            lambda: Executor(tp, tcfg, "integer", mesh),
-            lambda: Executor(sp, scfg, "integer", mesh),
             lambda: TL.make_train_step(tcfg, ParallelConfig(), mesh=mesh),
             lambda: LT.run("arctic-480b", steps=1, ckpt_dir=str(tmp_path),
-                           mesh_shape=(2, 1), device="cpu"),
-            lambda: serve_cli.serve("phi3.5-moe-42b-a6.6b", smoke=True,
-                                    device="cpu", mesh="2x1")):
-        with pytest.raises(NotImplementedError, match=r"A13\(b\)"):
+                           mesh_shape=(2, 1), device="cpu")):
+        with pytest.raises(NotImplementedError, match=r"A2\(c\)"):
             run()
+    split = ServingMesh((1, 2), 1, torch.device("cpu"))
+    ex = Executor(tp, tcfg, "integer", split)
+    wi = tp["periods"]["blk0"]["moe"]["wi"]
+    assert torch.equal(ex.params["periods"]["blk0"]["moe"]["wi"], wi[:, 2:])
+    ex = Executor(sp, scfg, "integer", split)
+    assert ex.params["periods"]["blk0"]["moe"]["wi"] is \
+        sp["periods"]["blk0"]["moe"]["wi"]

@@ -16,6 +16,12 @@ dicts) and returns one result per job:
   whole tensors, to be held against one device;
 * ``{"kind": "recalibrate", ...}`` -- GDC of a programmed tree cut over
   the model group; returns each state's gain;
+* ``{"kind": "decode", ...}`` -- :func:`repro_torch.distributed.jobs.
+  decode_job`, teacher-forced decode steps on the mesh;
+* ``{"kind": "ep_local", ...}`` -- MoE's expert-parallel dispatch
+  (``models/moe.py:_ep_local`` with the all-to-all over the model group)
+  on each data rank's rows of given routing; the outputs are gathered
+  back to the whole batch;
 * ``{"kind": "fail", "rank": r}`` -- rank ``r`` raises while the others
   wait in a collective (the failure path of ``run_ranks``).
 """
@@ -34,12 +40,14 @@ from repro_torch.distributed.backend import ShardedBackend
 from repro_torch.distributed.executor import Executor
 from repro_torch.engine import get_backend
 from repro_torch.kernels.plan import AttnSpec, KVView
+from repro_torch.models import moe as M
 
 
 def run_jobs(mesh, todo: List[Dict[str, Any]]) -> List[Any]:
     """Every job of ``todo`` on this rank, in order (see the module)."""
     kinds = {"serve": jobs.serve_job, "forward": jobs.forward_job,
-             "layer": layer_job, "recalibrate": recalibrate_job,
+             "decode": jobs.decode_job, "layer": layer_job,
+             "recalibrate": recalibrate_job, "ep_local": ep_local_job,
              "fail": fail_job}
     return [kinds[job.get("kind", "serve")](mesh, job) for job in todo]
 
@@ -123,6 +131,37 @@ def layer_job(mesh, job):
         KVView.from_pool(pool(t["kpool"]), pool(t["vpool"]), t["table"]),
         heads(t["q"]), AttnSpec(i_max=l), slot_keys=t["slot_keys"]), 2)
     return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def ep_local_job(mesh, job):
+    """``job``: ``cfg``, numpy ``params`` (the MoE leaves, whole), ``x [B,
+    S, d]``, the router's ``weights`` and ``idx [B, S, k]``.  Each rank
+    holds its block of experts (``convert.shard_params``'s cut) and
+    dispatches its data block of the rows -> the whole ``y`` and the
+    rank's drops past ``cap`` and ``C2``."""
+    cfg, dev = job["cfg"], mesh.device
+    params = {k: torch.from_numpy(np.array(v)).to(dev)
+              for k, v in job["params"].items()}
+    params = {k: (v if k == "router" else convert._shard_experts(
+        v, mesh.model, mesh.model_index, cfg.num_experts))
+        for k, v in params.items()}
+    b, s, d = job["x"].shape
+    n = b // mesh.data
+    rows = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+
+    def mine(a):
+        return torch.from_numpy(np.array(a[rows])).to(dev).reshape(n * s, -1)
+
+    M.DISPATCH.reset()
+    y = M._ep_local(mine(job["x"]), mine(job["weights"]),
+                    mine(job["idx"]).long(), params, cfg,
+                    M.ParallelCtx(mesh))
+    drops = M.DISPATCH.read()
+    M.DISPATCH.reset(enabled=False)
+    whole = torch.zeros((b * s, d), dtype=y.dtype, device=dev)
+    whole[mesh.data_index * n * s:(mesh.data_index + 1) * n * s] = y
+    return {"y": mesh.all_reduce_data(whole).reshape(b, s, d).numpy(),
+            "drops": drops}
 
 
 # ---------------------------------------------------------------------------
