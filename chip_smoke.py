@@ -181,7 +181,23 @@ Phases, each printing one JSON line:
    1e-4 of it where neither side drops a choice.  (g) phase moe (d)'s
    spiking MoE, its attention held whole (one KV head): forward logits
    and dense and paged streams equal to one card's, bit for bit; its
-   launches join the phase's sums.
+   launches join the phase's sums.  Training on the same spawn (budget
+   90 s, the memory reckoning printed first): (h) phi3.5-moe at full
+   width in bfloat16, 2 of its 32 layers, each rank drawing only its cut
+   (its 16 heads, its 8 experts' half of ``d_ff``, the rest whole), 4
+   steps of ``make_train_step`` on ``MarkovStream`` tokens ``[8, 257]``:
+   every loss finite and equal on all ranks, the fixed-batch probe loss
+   lower after the steps; per rank the step ms, the all-to-alls and
+   gathers a step and their bytes, the FSDP branch taken, the choices
+   dropped and ``max_memory_allocated``.  (i) the reduced spiking GPT
+   and the reduced phi3.5-moe (capacity factor 16: nothing drops), one
+   step each: every rank's loss and gradient norm within
+   ``MESH_TRAIN_LOSS_ATOL``/``MESH_TRAIN_NORM_RTOL`` of one card's whole
+   step; then
+   the spiking GPT trained 2 steps through the launcher's rank function
+   on the mesh, its checkpoint (gathered whole) read with each rank's
+   serving placement and served through K5/K4/K3: every rank's streams
+   equal to one card's serve of the same checkpoint.
 
 8. **train** -- training on the card, through the float reference
    backend (plain PyTorch: no kernel of the port in a step) and AdamW.
@@ -3862,6 +3878,207 @@ MESH_DECODE_STEPS = 3
 MESH_STACKS_BUDGET_S = 90.0
 
 
+# (h)-(i): training on the same spawn, in a budget of 90 s (the ranks' job
+# seconds, the slowest rank's sum, and this process's one-card steps and
+# serve).  (h) phi3.5-moe at full width in bfloat16, 2 of its 32 layers
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 4
+MESH_TRAIN_DATA = (8, 256, 7)  # MarkovStream (batch, seq_len, seed)
+MESH_TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=MESH_TRAIN_STEPS)
+# bytes a weight of (h)'s state: bfloat16 weight and gradient, two float32
+# moments
+MESH_TRAIN_BYTES_PER_WEIGHT = 2 + 2 + 4 + 4
+# (i) the reduced configs, one step each on (8, 32) tokens; the spiking
+# GPT's launcher run and the serve of its checkpoint
+MESH_TRAIN_SMALL = (8, 32, 0)
+MESH_TRAIN_SERVE = dict(requests=4, max_new=8, slots=4, cache_len=64)
+MESH_TRAIN_BUDGET_S = 90.0
+# (i) a mesh rank's first step against one card's: the same float32 work
+# in other orders (no choice drops at factor 16), read 4.8e-7 apart on
+# the GPT's loss and equal on its gradient norm and on phi3.5-moe's loss
+# (NVIDIA H100 80GB HBM3, 700 W); tight enough that the router's
+# statistics left unaveraged or a leaf left out of the norm would fail
+MESH_TRAIN_LOSS_ATOL, MESH_TRAIN_NORM_RTOL = 1e-5, 1e-4
+
+
+def mesh_train_reckoning(cfg, opt_bytes: int = MESH_TRAIN_BYTES_PER_WEIGHT
+                         ) -> dict:
+    """(h)'s memory reckoning, before its first call: the weights each
+    rank of ``MESH`` holds under the training cut, and their state's
+    bytes at ``opt_bytes`` a weight, per rank and for the card."""
+    from repro_torch import tree as TR
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import loop as TL
+
+    whole = TL.whole_like(cfg)[0]
+    shapes = [x.shape for x in TR.flatten(whole)[0]]
+    ranks = []
+    for rank in range(MESH[0] * MESH[1]):
+        place = SH.param_placement(cfg, MESH, device="cpu",
+                                   data_index=rank // MESH[1],
+                                   model_index=rank % MESH[1])
+        held = 0
+        for shape, where in zip(shapes, SH.leaf_placements(whole, place)):
+            n = math.prod(shape)
+            for a in where.cut_over:
+                n //= where.axis_size(a)
+            held += n
+        ranks.append(held)
+    return {"weights_whole": sum(math.prod(x) for x in shapes),
+            "weights_per_rank": ranks, "bytes_per_weight": opt_bytes,
+            "gb_per_rank": [r * opt_bytes / 1e9 for r in ranks],
+            "gb_card": sum(ranks) * opt_bytes / 1e9}
+
+
+def mesh_train_jobs(root: Path) -> dict:
+    """(h)-(i)'s rank jobs, in spawn order."""
+    from repro_torch.configs import registry
+
+    full = dataclasses.replace(registry.get_config(MOE_NAME),
+                               num_layers=MESH_TRAIN_LAYERS)
+    gpt = registry.reduced_config(ARCH)
+    moe = dataclasses.replace(registry.reduced_config(MOE_NAME),
+                              capacity_factor=MOE_NO_DROP_CF)
+    par = dict(remat="none")
+    small = dict(kind="train", init_seed=0, data=MESH_TRAIN_SMALL, steps=1,
+                 key_seed=0, parallel=par, opt=MESH_TRAIN_OPT)
+    sv = MESH_TRAIN_SERVE
+    return {
+        "train_full": dict(kind="train", cfg=full, init_seed=5,
+                           data=MESH_TRAIN_DATA, steps=MESH_TRAIN_STEPS,
+                           key_seed=0, probe=True, parallel=par,
+                           opt=MESH_TRAIN_OPT),
+        "train_gpt": dict(small, cfg=gpt),
+        "train_moe": dict(small, cfg=moe),
+        "launch_gpt": dict(kind="launch", arch=ARCH, kw=dict(
+            smoke=True, steps=2, batch=MESH_TRAIN_SMALL[0],
+            seq_len=MESH_TRAIN_SMALL[1], ckpt_dir=str(root / "mesh_launch"),
+            ckpt_every=0, fail_at=-1, restore=False, straggler_factor=3.0,
+            seed=0, log_every=0, lr=1e-3, probe=False)),
+        "serve_trained": dict(
+            cfg=gpt, ckpt=str(root / "mesh_launch"), backend="cuda",
+            prompts=[p[:12] for p in make_requests(gpt.vocab_size)[
+                :sv["requests"]]], max_new=sv["max_new"], slots=sv["slots"],
+            cache_len=sv["cache_len"], seed0=1000),
+    }
+
+
+def mesh_train_one_card(dev, jobs: dict) -> dict:
+    """(i)'s one-card side: the whole step of each reduced config (the
+    same train job on a mesh of one rank)."""
+    from repro_torch.distributed import jobs as J
+    from repro_torch.launch.mesh import ServingMesh
+
+    t0 = time.perf_counter()
+    one = ServingMesh.single(dev)
+    out = {n: J.train_job(one, jobs[n])["metrics"][0]
+           for n in ("train_gpt", "train_moe")}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_train(res, first: int, jobs: dict, one_card: dict, dev,
+               total: dict) -> dict:
+    """(h)-(i)'s checks and readings from the ranks' results (``jobs`` in
+    order from ``first``); (i)'s serve launches join ``total``."""
+    from repro_torch.distributed import jobs as J
+    from repro_torch.launch.mesh import ServingMesh
+
+    names = list(jobs)
+    got = {n: [r[first + i] for r in res] for i, n in enumerate(names)}
+    out = {}
+    # (h) the full-width MoE
+    ranks = []
+    for rank, r in enumerate(got["train_full"]):
+        losses = [m["loss"] for m in r["metrics"]]
+        check(all(math.isfinite(x) for x in losses),
+              f"mesh train (h): rank {rank}: a loss is not finite")
+        check(losses == [m["loss"] for m in got["train_full"][0]["metrics"]],
+              f"mesh train (h): rank {rank}'s losses differ from rank 0's")
+        check(r["probe_after"] < r["probe_before"],
+              f"mesh train (h): rank {rank}: probe loss {r['probe_before']} "
+              f"-> {r['probe_after']}")
+        steps = []
+        for d in r["dispatch"]:
+            rows = list(d["by_tokens"].values())
+            steps.append(dict(
+                all_to_alls=sum(x["all_to_alls"] for x in rows),
+                a2a_bytes=sum(x["a2a_bytes"] for x in rows),
+                gathers=sum(x.get("gathers", 0) for x in rows),
+                gather_bytes=sum(x.get("gather_bytes", 0) for x in rows),
+                branches=sorted({b for x in rows
+                                 for b in x.get("branches", [])}),
+                dropped_past_cap=d["past_cap"], dropped_past_c2=d["past_c2"]))
+        ranks.append(dict(
+            rank=rank, weights_held=r["held"], losses=losses,
+            grad_norms=[m["grad_norm"] for m in r["metrics"]],
+            probe_before=r["probe_before"], probe_after=r["probe_after"],
+            step_ms=[1e3 * t for t in r["step_s"]],
+            per_step_forward_dispatch=steps,
+            max_memory_allocated=r["max_memory_allocated"],
+            job_s=r["job_s"]))
+    full = jobs["train_full"]["cfg"]
+    out["moe_full"] = dict(
+        arch=full.name, layers=full.num_layers,
+        reduced=f"{MESH_TRAIN_LAYERS} of 32 layers", dtype=full.dtype,
+        tokens=[MESH_TRAIN_DATA[0], MESH_TRAIN_DATA[1] + 1],
+        steps=MESH_TRAIN_STEPS, ranks=ranks,
+        note="dispatch counts are the forward's; the backward moves the "
+             "same bytes back")
+    # (i) the reduced configs' first step against one card's
+    first_step = {}
+    for name in ("train_gpt", "train_moe"):
+        want = one_card[name]
+        rows = []
+        for rank, r in enumerate(got[name]):
+            m = r["metrics"][0]
+            check(abs(m["loss"] - want["loss"]) <= MESH_TRAIN_LOSS_ATOL,
+                  f"mesh train (i) {name}: rank {rank} loss {m['loss']} vs "
+                  f"one card's {want['loss']}")
+            check(abs(m["grad_norm"] - want["grad_norm"])
+                  <= MESH_TRAIN_NORM_RTOL * abs(want["grad_norm"]),
+                  f"mesh train (i) {name}: rank {rank} grad norm "
+                  f"{m['grad_norm']} vs one card's {want['grad_norm']}")
+            rows.append(dict(rank=rank, loss=m["loss"],
+                             grad_norm=m["grad_norm"],
+                             dropped=sum(d["past_cap"] + d["past_c2"]
+                                         for d in r["dispatch"])))
+        first_step[name] = dict(arch=jobs[name]["cfg"].name,
+                                one_card_loss=want["loss"],
+                                one_card_grad_norm=want["grad_norm"],
+                                ranks=rows)
+    out["first_step"] = dict(loss_atol=MESH_TRAIN_LOSS_ATOL,
+                             norm_rtol=MESH_TRAIN_NORM_RTOL, **first_step)
+    # (i) the launcher's (2, 2) checkpoint served on the mesh and one card
+    t0 = time.perf_counter()
+    serve = jobs["serve_trained"]
+    card = J.serve_job(ServingMesh.single(dev), serve)
+    card_s = time.perf_counter() - t0
+    served = {}
+    for rank, r in enumerate(got["serve_trained"]):
+        check(r["outputs"] == card["outputs"],
+              f"mesh train (i): rank {rank}'s streams of the trained "
+              "checkpoint differ from one card's")
+        check(r["fused"] and r["backend"] == "sharded[cuda]",
+              f"mesh train (i): plan {r['fused']}, {r['backend']}")
+        for k, v in r["launches"].items():
+            served[k] = served.get(k, 0) + v
+            total[k] = total.get(k, 0) + v
+    for k in ("aimc_matmul_counts", "lif", "fused_decode_layer"):
+        check(served.get(k, 0) > 0, f"mesh train (i): {k} never ran")
+    out["trained_checkpoint_served"] = dict(
+        launcher_losses=got["launch_gpt"][0]["losses"],
+        requests=len(serve["prompts"]), max_new=serve["max_new"],
+        streams_equal_one_card=True,
+        launches={k: v for k, v in served.items() if v})
+    slowest = max(sum(r[first + i]["job_s"] for i in range(len(names)))
+                  for r in res)
+    out["rank_job_s"] = slowest
+    out["one_card_s"] = one_card["seconds"] + card_s
+    out["seconds"] = slowest + out["one_card_s"]
+    out["budget_s"] = MESH_TRAIN_BUDGET_S
+    return out
+
+
 def mesh_moe_one_card(dev, cfg, seed: int, tokens) -> dict:
     """(f)'s one-card side: the whole tree's forward (``ep_a2a``) on
     ``tokens [8, 64]`` and three teacher-forced decode steps of 8 slots,
@@ -4016,7 +4233,8 @@ def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched, spiking):
     (``elastic.state_shardings``) and served dense: every rank's streams
     must equal one card's.  (e)-(g): the float and MoE stacks on the same
     spawn (:func:`mesh_stacks`; ``spiking`` is phase moe (d)'s one-card
-    results)."""
+    results).  (h)-(i): training on the same spawn (:func:`mesh_train`,
+    its memory reckoning emitted first)."""
     from repro_torch.configs import registry
     from repro_torch.distributed import jobs
     from repro_torch.launch.mesh import pick_backend, run_ranks
@@ -4059,10 +4277,17 @@ def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched, spiking):
         "spiking_paged": dict(skw, paged=True, page_len=sv["page_len"]),
     }
     t_stacks = time.perf_counter() - t_stacks
+    root = Path(launched["ckpt"]).parent
+    train_jobs = mesh_train_jobs(root)
+    reckoning = mesh_train_reckoning(train_jobs["train_full"]["cfg"])
+    emit({"phase": "mesh_train_reckoning", "card": card_line(),
+          "arch": MOE_NAME, "layers": MESH_TRAIN_LAYERS, **reckoning})
+    train_one = mesh_train_one_card(dev, train_jobs)
     t0 = time.perf_counter()
     res = run_ranks(jobs.run_jobs, MESH, device="cuda",
                     args=([dense, paged, forward, restored,
-                           *stack_jobs.values()],), timeout_s=900)
+                           *stack_jobs.values(), *train_jobs.values()],),
+                    timeout_s=900)
     wall_s = time.perf_counter() - t0
     out, total = {"shape": list(MESH),
                   "process_group": pick_backend(4, "cuda"),
@@ -4126,6 +4351,8 @@ def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched, spiking):
     stacks["seconds"] = t_stacks + stacks["rank_job_s"]
     stacks["budget_s"] = MESH_STACKS_BUDGET_S
     out["stacks"] = stacks
+    out["train"] = dict(reckoning=reckoning, **mesh_train(
+        res, 4 + len(stack_jobs), train_jobs, train_one, dev, total))
     out["launches_summed_over_ranks"] = {k: v for k, v in total.items() if v}
     out["row_linear_dispatched"] = row_linear_dispatch(cfg)
     return out, total

@@ -107,8 +107,16 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """The fields of ``repro.configs.base.ParallelConfig`` that the train
-    step reads (:mod:`repro_torch.train.loop`)."""
+    step reads (:mod:`repro_torch.train.loop`), with the reference's
+    meanings on a ``(data, model)`` mesh: ``fsdp`` cuts the experts'
+    ``d_ff`` over ``data`` (the reference's ZeRO-3 cut of the ``embed``
+    axis is not ported: those leaves stay whole), ``seq_shard`` splits a
+    MoE block's tokens over ``model`` by sequence, and ``pure_dp`` holds
+    every leaf whole and splits the batch over ``data x model``."""
 
+    fsdp: bool = True  # experts' d_ff over "data"
+    seq_shard: bool = True  # MoE tokens over "model" by sequence
+    pure_dp: bool = False  # every leaf whole, the batch over every rank
     remat: str = "block"  # none | block | full
     grad_compression: bool = False  # int8 error-feedback round trip
     grad_dtype: str = "native"  # native | bfloat16 (cast before the update)

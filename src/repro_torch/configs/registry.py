@@ -2,9 +2,8 @@
 
 Twin of ``repro.configs.registry``: the ten public architectures and the
 paper's two spiking GPT decoders on the generic LM stack (every name
-serves and forwards on one device and on a serving mesh; training the two
-MoE names, ``arctic-480b`` and ``phi3.5-moe-42b-a6.6b``, on a mesh
-raises, :func:`repro_torch.models.transformer.require_mesh_supported`).
+serves, forwards and trains on one device and on a ``(data, model)``
+mesh).
 ``reduced_config`` is the reference's CPU smoke reduction.
 """
 

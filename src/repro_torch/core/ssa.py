@@ -26,6 +26,8 @@ threshold fires by it.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch import prng
@@ -40,27 +42,37 @@ def _causal_mask(n: int, dtype=torch.float32, device=None) -> Tensor:
 
 
 def ssa_attention(key: Tensor, q: Tensor, k: Tensor, v: Tensor, *,
-                  causal: bool = False, b0: int = 0) -> Tensor:
+                  causal: bool = False, b0: int = 0, h0: int = 0,
+                  heads: Optional[int] = None) -> Tensor:
     """Differentiable SSA over float spike trains ``[T, B, H, N, d]``:
     per timestep ``S ~ Bern(Q K^T / d)`` (causal: masked), ``A ~ Bern(clip(S
     V / N))``, both straight-through, ``S`` drawn from ``split(key,
     2T)[2t]`` and ``A`` from ``[2t + 1]`` (every timestep at once: the
     twin is vectorised over keys).  ``b0``: these are rows ``b0 ..
     b0+B`` of a larger batch, and draw that batch's comparators for those
-    rows (a data rank's share).  Returns spikes of ``q``'s dtype."""
+    rows (a data rank's share); ``h0``, ``heads``: these are heads ``h0 ..
+    h0+H`` of ``heads`` (a model rank's share), drawn where they lie in
+    the whole draw.  Returns spikes of ``q``'s dtype."""
     t, b, h, n, d = q.shape
+    heads = h if heads is None else heads
     keys = prng.split(key, 2 * t).reshape(t, 2, 2)
+
+    def draws(k2, last):
+        shape = (b, h, n, last)
+        if h0 == 0 and heads == h:
+            return prng.uniform_rows(k2, shape, b0)
+        return prng.uniform_block(k2, shape, (b0, h0, 0, 0),
+                                  (None, heads, n, last))
+
     counts_s = torch.einsum("tbhnd,tbhmd->tbhnm", q, k)
     p_s = mul_reciprocal(counts_s, d)
     if causal:
         p_s = p_s * _causal_mask(n, q.dtype, q.device)
-    s = SP.bernoulli_st(p_s, prng.uniform_rows(keys[:, 0],
-                                               tuple(p_s.shape[1:]), b0))
+    s = SP.bernoulli_st(p_s, draws(keys[:, 0], n))
     counts_a = torch.einsum("tbhnm,tbhmd->tbhnd", s, v)
     # the output comparator's range is N in causal mode too (Sec. IV-B-2)
     p_a = SP.clip01(mul_reciprocal(counts_a, n))
-    return SP.bernoulli_st(p_a, prng.uniform_rows(keys[:, 1],
-                                                  tuple(p_a.shape[1:]), b0))
+    return SP.bernoulli_st(p_a, draws(keys[:, 1], d))
 
 
 def lif_spiking_attention(q: Tensor, k: Tensor, v: Tensor, *,

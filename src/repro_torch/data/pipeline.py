@@ -17,6 +17,7 @@ caller asks for the CPU).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Union
 
 import torch
@@ -38,6 +39,15 @@ class DataConfig:
     order: int = 2  # markov order
 
 
+@functools.lru_cache(maxsize=4)
+def _chain_logits(v: int, seed: int, device: torch.device) -> Tensor:
+    """The chain's transition logits ``[v, v, v]``: ``v**3`` Gumbel draws,
+    the stream's costliest part, drawn once a process for each ``(v,
+    seed, device)`` (every stream of a run, a restart's included, shares
+    them; no caller writes into them)."""
+    return prng.gumbel(prng.PRNGKey(seed, device), (v, v, v)) * 2.0
+
+
 class MarkovStream:
     """Pure-function batch source: ``batch_at(step)`` is deterministic."""
 
@@ -46,8 +56,7 @@ class MarkovStream:
         self.cfg = cfg
         self.device = resolve_device(device)
         v = min(cfg.vocab_size, 512)  # active vocabulary of the chain
-        self.logits = prng.gumbel(prng.PRNGKey(cfg.seed, self.device),
-                                  (v, v, v)) * 2.0
+        self.logits = _chain_logits(v, cfg.seed, self.device)
         self.v = v
 
     def noise(self, key: Tensor) -> Dict[str, Tensor]:

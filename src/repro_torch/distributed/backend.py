@@ -198,3 +198,69 @@ class ShardedBackend:
         self.mesh.all_reduce_model(counts)  # exact: integer-valued f32
         # scale, bias and LIF in one pass (K4's counts entry on the card)
         return unflatten(self.inner.counts_lif(counts, scale, parts.get("b")))
+
+
+class TrainingShardBackend:
+    """A training rank's share of the float reference backend
+    (``engine.ReferenceBackend``, the one autograd trains through) on a
+    ``(data, model)`` mesh: the spiking stack's linears cut as
+    :func:`repro_torch.parallel.sharding.train_cut` places them.
+
+    * a column-parallel linear of a cut part (Q/K/V, MLP in) takes its
+      input through ``copy_to_model`` (the model group's cotangents
+      summed) and fires the rank's own LIF columns;
+    * a row-parallel linear of a cut part (attention out, MLP out) sums
+      the rank's partial currents over the model group
+      (``reduce_from_model``: a float sum split over the group, so not
+      one device's bits) and fires the LIF once on the sum;
+    * the float SSA draws the rank's heads' comparators where they lie in
+      the whole tile's draw (``h0``, ``heads``).
+
+    A part the model axis does not cut runs whole on every rank.  Only
+    float weights are cut (HWAT's noise and programmed state are drawn
+    and read over whole matrices)."""
+
+    differentiable = True
+    bit_exact = False
+
+    def __init__(self, inner, mesh, cfg, cut):
+        self.inner = inner
+        self.mesh = mesh
+        self.cfg = cfg
+        self.heads = ("mixer", "wq") in cut
+        self.mlp = ("mlp", "wi") in cut
+        self.name = f"sharded[{inner.name}]"
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def ssa_attention(self, key, q, k, v, *, causal=False, b0=0, h0=0,
+                      batch=None, heads=None):
+        if self.heads:
+            h = q.shape[2]
+            h0, heads = self.mesh.model_index * h, self.mesh.model * h
+        return self.inner.ssa_attention(key, q, k, v, causal=causal, b0=b0,
+                                        h0=h0, batch=batch, heads=heads)
+
+    def spiking_linear(self, p, spikes, *, key=None, sim=None, part=None,
+                       group=None):
+        cut = self.heads if group == "mixer" else (
+            self.mlp if group == "mlp" else False)
+        if not cut:
+            return self.inner.spiking_linear(p, spikes, key=key, sim=sim,
+                                             part=part)
+        parts = E._linear_parts(p)
+        if "w" not in parts or (sim is not None and sim.wmode != "ideal"):
+            raise NotImplementedError(
+                "a cut spiking linear trains float weights only: HWAT's "
+                "noise and programmed state are drawn over whole matrices")
+        if part == "col":
+            return self.inner.spiking_linear(
+                p, self.mesh.copy_to_model(spikes), key=key, sim=sim,
+                part=part)
+        from repro_torch.core import spikes as SP
+
+        pre = self.mesh.reduce_from_model(torch.matmul(spikes, parts["w"]))
+        if parts.get("b") is not None:
+            pre = pre + parts["b"]
+        return SP.lif(pre)

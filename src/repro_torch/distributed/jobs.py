@@ -28,7 +28,23 @@ then:
   of ``tokens`` (numpy ``[B, S]``, one slot a row, the slots split over
   ``data``) through the executor's share and ``pctx``; the result holds
   each step's logits gathered over ``data`` (numpy ``[B, steps, V]``) and
-  each step's MoE drops.
+  each step's MoE drops;
+* a train job (``"train"``) takes ``steps`` steps of
+  :func:`repro_torch.train.loop.make_train_step` on the mesh, the rank
+  holding its cut of the state: the whole ``params`` given as numpy (cut
+  here) or drawn from ``init_seed`` (each rank drawing only its cut), a
+  ``parallel`` and ``opt`` dict of :class:`repro_torch.configs.
+  ParallelConfig` and ``AdamWConfig`` fields, and each step's batch
+  ``tokens`` (numpy ``[B, S+1]``, every step) or ``MarkovStream``'s
+  ``batch_at(step)`` of ``data = (batch, seq_len, seed)``, keyed
+  ``fold_in(PRNGKey(key_seed), step)``.  The result holds each step's
+  metrics, seconds and MoE dispatches (forward only: the backward moves
+  the same bytes back), with ``probe`` the loss on step 0's batch before
+  and after, and with ``return_state`` the rank's final cut of the
+  parameters and moments (numpy);
+* a launch job (``"launch"``) runs the train launcher's rank function
+  (:func:`repro_torch.launch.train._rank_train`) for ``arch`` with the
+  keywords ``kw``; the result is its report.
 """
 
 from __future__ import annotations
@@ -54,7 +70,8 @@ def run_jobs(mesh, jobs: List[Dict[str, Any]]) -> List[Any]:
     each result also holds ``job_s``, the job's wall seconds (its set-up
     included), and on the card ``max_memory_allocated``, the job's peak."""
     kinds = {"serve": serve_job, "forward": forward_job,
-             "decode": decode_job}
+             "decode": decode_job, "train": train_job,
+             "launch": launch_job}
     cuda = mesh.device.type == "cuda"
     out = []
     for job in jobs:
@@ -202,3 +219,69 @@ def decode_job(mesh, job):
     M.DISPATCH.reset(enabled=False)
     return {"logits": torch.cat(logits, 1).float().cpu().numpy(),
             "drops": drops}
+
+
+def train_job(mesh, job):
+    """Training steps on the mesh, each rank on its cut (see the
+    module)."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.data.pipeline import DataConfig, MarkovStream
+    from repro_torch.optim import adamw as A
+    from repro_torch.train import loop as TL
+
+    cfg, dev = job["cfg"], mesh.device
+    parallel = ParallelConfig(**job.get("parallel", {}))
+    opt = A.AdamWConfig(**job.get("opt", {}))
+    if job.get("params") is not None:
+        params, state = TL.rank_state(
+            cfg, mesh, parallel, opt,
+            convert.params_from_numpy(job["params"], dev))
+    else:
+        params, state = TL.init_state(job["init_seed"], cfg, opt, parallel,
+                                      device=dev, mesh=mesh)
+    if job.get("tokens") is not None:
+        fixed = {"tokens": torch.from_numpy(job["tokens"]).to(dev)}
+        batch_at = lambda step: fixed  # noqa: E731
+    else:
+        b, s, seed = job["data"]
+        batch_at = MarkovStream(DataConfig(cfg.vocab_size, s, b, seed=seed),
+                                device=dev).batch_at
+    step_fn = TL.make_train_step(cfg, parallel, opt, mesh=mesh,
+                                 donate=True)
+    key = prng.PRNGKey(job.get("key_seed", 0))
+    cuda = dev.type == "cuda"
+    out: Dict[str, Any] = {"metrics": [], "step_s": [], "dispatch": []}
+    probe = TL.mesh_loss(cfg, parallel, mesh) if job.get("probe") else None
+    probe_key = prng.PRNGKey(job.get("key_seed", 0) + 555, dev)
+    if probe is not None:
+        with torch.no_grad():
+            out["probe_before"] = float(probe(params, batch_at(0),
+                                              probe_key)[0])
+    for step in range(job.get("steps", 1)):
+        batch = batch_at(step)
+        M.DISPATCH.reset()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batch,
+                                         prng.fold_in(key, step))
+        if cuda:
+            torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["dispatch"].append(M.DISPATCH.read())
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+    M.DISPATCH.reset(enabled=False)
+    if probe is not None:
+        with torch.no_grad():
+            out["probe_after"] = float(probe(params, batch_at(0),
+                                             probe_key)[0])
+    out["held"] = sum(x.numel() for x in TR.flatten(params)[0])
+    if job.get("return_state"):
+        out["params"] = convert.params_to_numpy(params)
+        out["m"] = convert.params_to_numpy(state["m"])
+        out["v"] = convert.params_to_numpy(state["v"])
+    return out
+
+
+def launch_job(mesh, job):
+    from repro_torch.launch import train as LT
+
+    return LT._rank_train(mesh, job["arch"], job["kw"])

@@ -197,12 +197,10 @@ class ReferenceBackend:
 
     def ssa_attention(self, key, q, k, v, *, causal=False, b0=0, h0=0,
                       batch=None, heads=None):
-        h = q.shape[2]
-        if h0 != 0 or heads not in (None, h):
-            raise NotImplementedError(
-                "the float SSA draws every head of the tile grid: a block "
-                "of heads (a model rank's share) is not ported")
-        return SSA.ssa_attention(key, q, k, v, causal=causal, b0=b0)
+        """The float SSA; ``b0``/``h0`` of a ``heads`` grid: a mesh rank's
+        rows and heads, drawing the whole tile's comparators there."""
+        return SSA.ssa_attention(key, q, k, v, causal=causal, b0=b0, h0=h0,
+                                 heads=heads)
 
     def lif(self, currents, *, beta=0.5, v_thresh=1.0):
         return SP.lif(currents, SP.LIFParams(beta=beta, v_thresh=v_thresh))

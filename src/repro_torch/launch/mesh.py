@@ -26,6 +26,38 @@ device; gloo stages each collective through the host).  Gloo runs
 operand of an all-to-all to :attr:`ServingMesh.host_device` first, and
 every gather here is an ``all_reduce`` of a zero-filled buffer, which is
 exact for the data it carries (each element is filled by one rank).
+
+Training on the mesh moves gradients through the collectives, so each has
+an autograd form (:class:`torch.autograd.Function`) whose backward is the
+transposed collective.  Two conventions meet there.  Over ``model`` the
+activations outside a cut are *replicated*: every rank of a model group
+holds the same tensor and, in the backward, the same cotangent of it.
+Over ``data`` each rank holds its own rows, and the cotangents of a
+gathered tensor differ by rank.  Hence:
+
+* :meth:`ServingMesh.copy_to_model` -- identity forward, sum over the
+  model group backward (Megatron's ``f``: the input of a column-parallel
+  part, whose ranks each give a partial cotangent);
+* :meth:`ServingMesh.reduce_from_model` -- sum over the model group
+  forward, identity backward (``g``: the output of a row-parallel part);
+  :meth:`ServingMesh.reduce_tokens` is the same over the ranks that split
+  a batch's tokens (the router's statistics);
+* :meth:`ServingMesh.split_model` -- the rank's block forward, the
+  blocks gathered backward (a replicated tensor cut into sequence blocks);
+* :meth:`ServingMesh.all_gather` -- over ``model`` its backward takes the
+  rank's own block of the cotangent (the cotangents are equal: what
+  follows is replicated); over ``data`` it is a reduce-scatter (each data
+  rank's cotangent is its own rows' contribution, and the block's
+  gradient is their sum);
+* :meth:`ServingMesh.reduce_scatter_data` -- ``lax.psum_scatter``'s
+  twin, the all-gather backward.  Gloo has no reduce-scatter, so under
+  gloo it is an all-to-all of the blocks and a sum of the received blocks
+  in rank order (the bytes of a reduce-scatter, and the same sum on every
+  rank); under NCCL ``reduce_scatter_tensor``;
+* :meth:`ServingMesh.all_to_all_model` -- its own transpose.
+
+Under gloo the gathers and all-to-alls run on CPU tensors (the operand
+goes through :attr:`ServingMesh.host_device`); sums stay ``all_reduce``.
 """
 
 from __future__ import annotations
@@ -125,19 +157,95 @@ class ServingMesh:
         ``model`` equal blocks go to the group's ranks in order, and the
         result holds the blocks the ranks sent this one, in rank order.
         On the card under NCCL; through the host under gloo (which runs an
-        all-to-all on CPU tensors only).  The identity at ``model = 1``."""
+        all-to-all on CPU tensors only).  Its backward is the same
+        all-to-all.  The identity at ``model = 1``."""
         if self.model <= 1:
             return x
-        src = x.to(self.host_device).contiguous()
-        out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, group=self.model_group)
-        return out.to(x.device)
+        return _AllToAll.apply(x, self, "model")
+
+    # -- collectives that carry gradients (see the module) --------------
+
+    def axis_size(self, axis: str) -> int:
+        """The ranks of ``axis`` (``"data"`` or ``"model"``)."""
+        return self._group(axis)[1]
+
+    def _group(self, over: str):
+        """``(process group, size, this rank's index)`` of ``over``."""
+        if over == "model":
+            return self.model_group, self.model, self.model_index
+        if over == "data":
+            return self.data_group, self.data, self.data_index
+        raise ValueError(f"over must be 'model' or 'data', not {over!r}")
+
+    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity forward; the cotangent summed over the model group."""
+        if self.model <= 1:
+            return x
+        return _SumBackward.apply(x, self, ("model",))
+
+    def reduce_from_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model group; identity backward."""
+        if self.model <= 1:
+            return x
+        return _SumForward.apply(x, self, ("model",))
+
+    def reduce_tokens(self, x: torch.Tensor, over=("data", "model")
+                      ) -> torch.Tensor:
+        """The sum over the groups ``over`` (the ranks that split a batch's
+        tokens); identity backward: each rank's share of a replicated
+        result gets the result's cotangent."""
+        over = tuple(a for a in over if self._group(a)[1] > 1)
+        if not over:
+            return x
+        return _SumForward.apply(x, self, over)
+
+    def split_model(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """This rank's block of ``axis`` (``model`` equal blocks); the
+        blocks' cotangents gathered backward."""
+        if self.model <= 1:
+            return x
+        return _Split.apply(x, self, axis)
+
+    def all_gather(self, x: torch.Tensor, axis: int, over: str
+                   ) -> torch.Tensor:
+        """The group's blocks of ``axis`` concatenated in rank order
+        (``lax.all_gather(x, over, axis=axis, tiled=True)``).  Backward:
+        over ``model`` the rank's own block of the cotangent (the
+        cotangents of the ranks are equal), over ``data`` the
+        reduce-scatter of the cotangents (they differ by rank)."""
+        if self._group(over)[1] <= 1:
+            return x
+        return _Gather.apply(x, self, axis, over)
+
+    def reduce_scatter_data(self, x: torch.Tensor, axis: int
+                            ) -> torch.Tensor:
+        """The sum over the data group of ``x``, of which this rank keeps
+        its block of ``axis`` (``lax.psum_scatter(x, "data",
+        scatter_dimension=axis, tiled=True)``); the all-gather backward."""
+        if self.data <= 1:
+            return x
+        return _ReduceScatter.apply(x, self, axis)
+
+    def all_reduce(self, x: torch.Tensor, over=("data", "model"),
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """In place: ``x`` reduced (``op``) over each group of ``over`` in
+        turn (no gradient)."""
+        for a in over:
+            group, size, _ = self._group(a)
+            if size > 1:
+                dist.all_reduce(x, op=op, group=group)
+        return x
 
     def all_reduce_data(self, x: torch.Tensor) -> torch.Tensor:
         """In place: the sum of ``x`` over the data group."""
         if self.data > 1:
             dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.data_group)
         return x
+
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh reaches this point."""
+        if self.data * self.model > 1:
+            dist.barrier()
 
     def broadcast_float(self, x: float) -> float:
         """Global rank 0's value of ``x`` on every rank."""
@@ -146,6 +254,139 @@ class ServingMesh:
         t = torch.tensor([x], dtype=torch.float64, device=self.host_device)
         dist.broadcast(t, src=0)
         return float(t[0])
+
+
+# ---------------------------------------------------------------------------
+# The collectives' autograd forms (eager functions first)
+# ---------------------------------------------------------------------------
+
+
+def _gather(x: torch.Tensor, mesh: ServingMesh, axis: int, over: str
+            ) -> torch.Tensor:
+    group, size, _ = mesh._group(over)
+    axis = axis % x.dim()
+    src = x.detach().movedim(axis, 0).contiguous()
+    if mesh.backend == "nccl":
+        out = torch.empty((size * src.shape[0],) + src.shape[1:],
+                          dtype=src.dtype, device=src.device)
+        dist.all_gather_into_tensor(out, src, group=group)
+    else:
+        host = src.to(mesh.host_device)
+        parts = [torch.empty_like(host) for _ in range(size)]
+        dist.all_gather(parts, host, group=group)
+        out = torch.cat(parts).to(x.device)
+    return out.movedim(0, axis)
+
+
+def _block(x: torch.Tensor, axis: int, size: int, index: int
+           ) -> torch.Tensor:
+    n = x.shape[axis] // size
+    return x.narrow(axis, index * n, n).contiguous()
+
+
+def _reduce_scatter(x: torch.Tensor, mesh: ServingMesh, axis: int
+                    ) -> torch.Tensor:
+    group, size, _ = mesh._group("data")
+    axis = axis % x.dim()
+    if x.shape[axis] % size:
+        raise ValueError(f"axis {axis} of {tuple(x.shape)} does not split "
+                         f"over data={size}")
+    src = x.detach().movedim(axis, 0).contiguous()
+    n = src.shape[0] // size
+    if mesh.backend == "nccl":
+        out = torch.empty((n,) + src.shape[1:], dtype=src.dtype,
+                          device=src.device)
+        dist.reduce_scatter_tensor(out, src, group=group)
+    else:
+        # gloo: the blocks all-to-all, then their sum in rank order
+        host = src.to(mesh.host_device)
+        got = torch.empty_like(host)
+        dist.all_to_all_single(got, host, group=group)
+        parts = got.view(size, n, *src.shape[1:])
+        out = parts[0].clone()
+        for r in range(1, size):
+            out += parts[r]
+        out = out.to(x.device)
+    return out.movedim(0, axis)
+
+
+def _all_to_all(x: torch.Tensor, mesh: ServingMesh, over: str
+                ) -> torch.Tensor:
+    group = mesh._group(over)[0]
+    src = x.detach().to(mesh.host_device).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device)
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, over):
+        return mesh.all_reduce(x.detach().clone(), over)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, over):
+        ctx.mesh, ctx.over = mesh, over
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(), ctx.over), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _block(x.detach(), axis, mesh.model, mesh.model_index)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axis, "model"), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, over):
+        ctx.mesh, ctx.axis, ctx.over = mesh, axis, over
+        return _gather(x, mesh, axis, over)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        if ctx.over == "model":
+            gx = _block(g, ctx.axis, mesh.model, mesh.model_index)
+        else:
+            gx = _reduce_scatter(g, mesh, ctx.axis)
+        return gx, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _reduce_scatter(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axis, "data"), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, over):
+        ctx.mesh, ctx.over = mesh, over
+        return _all_to_all(x, mesh, over)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.mesh, ctx.over), None, None
 
 
 def _groups(shape: Shape, timeout: datetime.timedelta):

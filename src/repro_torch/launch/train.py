@@ -17,11 +17,13 @@ the card unless ``--device cpu``:
   the replay is exact;
 * **elastic restart** -- ``mesh_shape`` may differ between runs: restore
   reads each rank's piece with the new mesh's placement
-  (:mod:`repro_torch.launch.elastic`).  On a ``(data, 1)`` mesh the ranks
-  run in processes of their own (:func:`repro_torch.launch.mesh.
-  run_ranks`), each holding the whole state; rank 0 writes the
-  checkpoints.  A model axis raises (ROADMAP A2(c)), and so does a MoE
-  arch on any mesh (ROADMAP A2(c): a data-parallel MoE step);
+  (:mod:`repro_torch.launch.elastic`).  On a ``(data, model)`` mesh the
+  ranks run in processes of their own (:func:`repro_torch.launch.mesh.
+  run_ranks`), each holding its cut of the state (:mod:`repro_torch.
+  train.loop`: heads and ``ffn`` columns over ``model``, a MoE's experts
+  over ``model`` and their ``d_ff`` over ``data``); the cut state is
+  gathered whole for each checkpoint, which rank 0 writes in the
+  reference's files;
 * **failure injection** -- ``fail_at=k`` waits for the in-flight save,
   then raises ``RuntimeError("injected failure at step k")``;
 * **straggler watchdog** -- a step slower than ``straggler_factor`` times
@@ -49,6 +51,7 @@ from repro_torch.data.pipeline import DataConfig, MarkovStream
 from repro_torch.launch import elastic
 from repro_torch.launch.mesh import ServingMesh, run_ranks
 from repro_torch.optim import adamw as A
+from repro_torch.parallel.sharding import Placement
 from repro_torch.train import loop as TL
 
 _now = time.perf_counter  # the watchdog's clock
@@ -100,28 +103,37 @@ def _train(mesh: ServingMesh, arch: str, *, smoke: bool, steps: int,
         if writer:
             print(f"[train] {msg}", flush=True)
 
-    params, opt_state = TL.init_state(seed, cfg, opt, parallel, device=dev)
+    params, opt_state = TL.init_state(seed, cfg, opt, parallel, device=dev,
+                                      mesh=mesh)
+    placement = TL.state_placement(cfg, mesh, parallel)
+    cut = not isinstance(placement[1], Placement)
     start_step = 0
     if restore and mgr.latest_step() is not None:
-        placement = elastic.state_shardings(cfg, mesh.shape, opt, device=dev,
-                                            rank=mesh.rank)
         (params, opt_state), start_step = mgr.restore(
-            (params, opt_state), placement=placement)
+            TL.whole_like(cfg, opt, parallel), placement=placement)
         say(f"restored step {start_step} from {ckpt_dir}")
 
-    step_fn = TL.make_train_step(cfg, parallel, opt, mesh=mesh)
+    def save(step, blocking=False):
+        state = (params, opt_state)
+        if cut:  # every rank gathers, a leaf at a time; rank 0 writes
+            state = elastic.gather_whole(state, placement, mesh)
+        if writer:
+            mgr.save(step, state, blocking=blocking)
+        if blocking:  # the files are on disk before any rank reads them
+            mesh.barrier()
+
+    # donated: the step writes the new state over the old one, which the
+    # loop drops (a checkpoint copies it to the host first)
+    step_fn = TL.make_train_step(cfg, parallel, opt, mesh=mesh, donate=True)
     out: Dict[str, Any] = {"start_step": start_step}
     if probe:
-        from repro_torch.models import transformer as T
-
         probe_batch = data.batch_at(0)
         probe_rng = prng.PRNGKey(seed + 555, dev)
+        probe_loss = TL.mesh_loss(cfg, parallel, mesh)
 
         def probe_fn(p):
             with torch.no_grad():
-                return float(T.loss_fn(p, probe_batch, cfg, rng=probe_rng,
-                                       backend="reference", remat="none",
-                                       moe_impl=parallel.moe_impl)[0])
+                return float(probe_loss(p, probe_batch, probe_rng)[0])
 
         out["probe_before"] = probe_fn(params)
 
@@ -145,10 +157,9 @@ def _train(mesh: ServingMesh, arch: str, *, smoke: bool, steps: int,
                 " -- re-dispatch hook")
         if log_every and step % log_every == 0:
             say(f"step {step:5d} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
-        if writer and ckpt_every and (step + 1) % ckpt_every == 0:
-            mgr.save(step + 1, (params, opt_state))
-    if writer:
-        mgr.save(steps, (params, opt_state), blocking=True)
+        if ckpt_every and (step + 1) % ckpt_every == 0:
+            save(step + 1)
+    save(steps, blocking=True)
     final = f"{losses[-1]:.4f}" if losses else "none (nothing left to run)"
     say(f"done: final loss {final}, stragglers {watchdog.stragglers}")
     out.update(losses=losses, step_s=watchdog.times,
@@ -161,8 +172,8 @@ def _train(mesh: ServingMesh, arch: str, *, smoke: bool, steps: int,
 
 
 def _rank_train(mesh: ServingMesh, arch: str, kw: Dict[str, Any]):
-    """A rank of a data-parallel run (for :func:`run_ranks`): its report
-    (plain data)."""
+    """A rank of a mesh run (for :func:`run_ranks`): its report (plain
+    data)."""
     return _train(mesh, arch, **kw)[0]
 
 
@@ -178,11 +189,12 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
 
     ``probe=True`` returns ``(losses, probe_before, probe_after)``: the
     loss on step 0's batch with ``PRNGKey(seed + 555)``, before and after
-    training.  ``device``: the card unless the caller asks for the CPU
-    (a data-parallel mesh's ranks share it).  ``report``, a dict, receives
-    the restored step, each step's seconds and the straggler count (rank
-    0's on a mesh, with every rank's losses; off a mesh also the final
-    ``params``)."""
+    training.  ``mesh_shape = (data, model)``: any mesh, for every
+    registry name (:mod:`repro_torch.train.loop`).  ``device``: the card
+    unless the caller asks for the CPU (a mesh's ranks share it).
+    ``report``, a dict, receives the restored step, each step's seconds
+    and the straggler count (rank 0's on a mesh, with every rank's
+    losses; off a mesh also the final ``params``)."""
     mesh_shape = tuple(int(x) for x in mesh_shape)
     kw = dict(smoke=smoke, steps=steps, batch=batch, seq_len=seq_len,
               ckpt_dir=ckpt_dir or default_ckpt_dir(), ckpt_every=ckpt_every,
@@ -190,14 +202,6 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
               straggler_factor=straggler_factor, seed=seed,
               log_every=log_every, lr=lr, probe=probe)
     if mesh_shape[0] * mesh_shape[1] > 1:
-        from repro_torch.models import transformer as T
-
-        T.require_mesh_supported(reduced_config(arch) if smoke
-                                 else get_config(arch))
-        if mesh_shape[1] > 1:
-            raise NotImplementedError(
-                f"mesh {mesh_shape}: model-parallel training is not ported "
-                "(ROADMAP A2(c))")
         from repro_torch.device import resolve_device
 
         ranks = run_ranks(_rank_train, mesh_shape,
@@ -227,7 +231,7 @@ def main(argv=None):
     ap.add_argument("--fail-at", type=int, default=-1)
     ap.add_argument("--no-restore", dest="restore", action="store_false")
     ap.add_argument("--mesh", type=int, nargs="+", default=[1, 1],
-                    help="DATA [MODEL]: ranks of a data-parallel mesh")
+                    help="DATA [MODEL]: the ranks of the training mesh")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")

@@ -10,6 +10,16 @@ einsums, outside any Pallas kernel, so here they are ``torch.einsum`` and
 matmuls on the card.  The reference's ``lax.scan`` over KV blocks (flash)
 and Q blocks (banded local) are Python loops with the same arithmetic.
 
+On a training mesh (``pctx``: :func:`repro_torch.parallel.sharding.
+make_pctx`) :func:`attention` and :func:`mlp` run on a rank's cut: a
+rank's heads (Q/K/V by columns, the out-projection by rows; RoPE and the
+GQA grouping act on the rank's heads as on any others) and a rank's
+``ffn`` columns.  Each cut part is Megatron's pair: its input through
+:meth:`repro_torch.launch.mesh.ServingMesh.copy_to_model` (the model
+group's cotangents summed), its output through ``reduce_from_model`` (the
+rows' partial products summed).  A leaf held whole is computed whole on
+every rank.
+
 ``attention_decode`` updates the cache **in place** (the new K/V row at
 each slot's position, ``pos += 1``) and returns it, as the port's spiking
 decode does.
@@ -192,12 +202,24 @@ def _banded_local(q: Tensor, k: Tensor, v: Tensor, cfg, window: int) -> Tensor:
     return torch.cat(out, dim=1)
 
 
+def _cut_mesh(pctx, leaf: Tensor, axis: int, whole: int):
+    """The training mesh when ``leaf`` holds a rank's cut of its ``axis``
+    (``whole`` long uncut), else ``None``."""
+    if pctx is None or not getattr(pctx, "train", False):
+        return None
+    return pctx.mesh if leaf.shape[axis] != whole else None
+
+
 def attention(params, x: Tensor, positions: Tensor, cfg, *,
-              window: int = 0) -> Tensor:
+              window: int = 0, pctx=None) -> Tensor:
     """Causal (or sliding-window) self-attention for train/prefill: the
     banded Q-block loop for a windowed layer longer than two windows, the
-    flash loop from ``FLASH_MIN_SEQ`` tokens, the masked einsum below."""
+    flash loop from ``FLASH_MIN_SEQ`` tokens, the masked einsum below.
+    On a training mesh's cut, the rank's heads (see the module)."""
     b, s, _ = x.shape
+    mesh = _cut_mesh(pctx, params["wq"], -2, cfg.num_heads)
+    if mesh is not None:
+        x = mesh.copy_to_model(x)
     q, k, v = _qkv(params, x, positions, cfg)
     blk = FLASH_BLOCK
     while blk > 128 and s % blk:
@@ -211,7 +233,8 @@ def attention(params, x: Tensor, positions: Tensor, cfg, *,
         m = (window_mask(s, s, window, device=x.device) if window
              else causal_mask(s, s, device=x.device))
         out = _sdpa(q, k, v, m[None, None, None], cfg.attn_softcap)
-    return torch.einsum("bshd,hdk->bsk", out, params["wo"].to(x.dtype))
+    out = torch.einsum("bshd,hdk->bsk", out, params["wo"].to(x.dtype))
+    return out if mesh is None else mesh.reduce_from_model(out)
 
 
 def attention_decode(params, x: Tensor, cache: Dict[str, Tensor], cfg, *,
@@ -270,13 +293,20 @@ def _act(kind: str, x: Tensor) -> Tensor:
     return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
 
 
-def mlp(params, x: Tensor, cfg) -> Tensor:
+def mlp(params, x: Tensor, cfg, pctx=None) -> Tensor:
+    """The (gated) MLP; on a training mesh's cut, the rank's ``ffn``
+    columns (see the module)."""
+    mesh = _cut_mesh(pctx, params["wo"], -2,
+                     cfg.moe_dense_ff if cfg.is_moe else cfg.d_ff)
+    if mesh is not None:
+        x = mesh.copy_to_model(x)
     h = x @ params["wi"].to(x.dtype)
     if "wg" in params:
         h = _act(cfg.act, x @ params["wg"].to(x.dtype)) * h
     else:
         h = _act(cfg.act, h)
-    return h @ params["wo"].to(x.dtype)
+    out = h @ params["wo"].to(x.dtype)
+    return out if mesh is None else mesh.reduce_from_model(out)
 
 
 # ---------------------------------------------------------------------------

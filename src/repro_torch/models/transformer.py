@@ -1,10 +1,11 @@
 """The generic LM stack: float and spiking, full-sequence forward and
 decode step.
 
-Twin of ``repro/models/transformer.py``, on one device or a rank of the
-serving mesh (a MoE block routes over the model group through its
-``pctx``; training a MoE config on a mesh raises, naming
-:data:`MOE_ITEM`):
+Twin of ``repro/models/transformer.py``, on one device or a rank of a
+mesh (a MoE block routes over the model group through its ``pctx``; on a
+training mesh, :func:`repro_torch.parallel.sharding.make_pctx`'s, the
+attention and MLP run on the rank's cut, the batch on its rows, and the
+loss is the global mean):
 
 * the float stack (lines 53-191, 300-373, 421-453, 483-533, 949-1025):
   dense and local:global attention, Mamba-2's SSD, RecurrentGemma's
@@ -95,23 +96,6 @@ def paged_decode_supported(cfg) -> bool:
     to page)."""
     return spiking_decode_enabled(cfg) and all(
         m in ("attn", "local") for m in cfg.block_pattern)
-
-
-MOE_ITEM = ("ROADMAP A2(c) (model-parallel training, MoE's FSDP weight and "
-            "token gathers and a data-parallel MoE training step) and A9(b) "
-            "(the front door over the mesh)")
-
-
-def require_mesh_supported(cfg) -> None:
-    """Raise for what the port does not run on a mesh: serving and the
-    forward run every config, but a training mesh does not take a MoE
-    config (the reference's training step gathers the experts' weights or
-    tokens over its FSDP axis and takes the load-balancing loss over the
-    whole batch).  The training entry points call it."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: training MoE ({cfg.num_experts} experts) on a mesh "
-            f"is not ported: {MOE_ITEM}")
 
 
 # ---------------------------------------------------------------------------
@@ -211,61 +195,82 @@ _DRAW_CHUNK = 1 << 25
 
 
 def _reference_normal(key: Tensor, shape, std: float, dtype, device,
-                      block: Optional[Tuple[int, int, int]] = None
+                      blocks: Optional[Dict[int, Tuple[int, int]]] = None
                       ) -> Tensor:
     """``(jax.random.normal(key, shape) * std).astype(dtype)``, drawn on
     ``device`` a bounded piece at a time (a draw's words depend on their
     flat index alone), so no host or device buffer holds more than one
-    piece of the draw's temporaries.  ``block = (axis, start, n)``: only
-    indices ``start .. start+n`` of ``axis``, drawn where they lie in the
-    whole draw."""
+    piece of the draw's temporaries.  ``blocks = {axis: (start, n)}``:
+    only indices ``start .. start+n`` of each such axis, drawn where they
+    lie in the whole draw."""
     shape = tuple(shape)
-    out_shape = list(shape)
-    if block is None:
-        segments = [(0, 0, math.prod(shape))]
-    else:
-        axis, start, n = block
-        ax = axis % len(shape)
-        out_shape[ax] = n
-        inner = math.prod(shape[ax + 1:])
-        segments = [((lead * shape[ax] + start) * inner, lead * n * inner,
-                     n * inner) for lead in range(math.prod(shape[:ax]))]
-    out = torch.empty(out_shape, dtype=dtype, device=device)
+    nd = len(shape)
+    starts, sizes = [0] * nd, list(shape)
+    for ax, (start, n) in (blocks or {}).items():
+        starts[ax % nd], sizes[ax % nd] = start, n
+    out = torch.empty(sizes, dtype=dtype, device=device)
     flat = out.view(-1)
-    for src, dst, length in segments:
-        for a in range(0, length, _DRAW_CHUNK):
-            b = min(a + _DRAW_CHUNK, length)
-            idx = torch.arange(src + a, src + b, dtype=torch.int64,
-                               device=device)
-            flat[dst + a:dst + b] = (prng.normal_at(key, idx) * std).to(dtype)
+    total = flat.numel()
+    for a in range(0, total, _DRAW_CHUNK):
+        idx = torch.arange(a, min(a + _DRAW_CHUNK, total), dtype=torch.int64,
+                           device=device)
+        if blocks:  # the block's flat positions -> the whole draw's
+            rem, whole, stride = idx, torch.zeros_like(idx), 1
+            for ax in range(nd - 1, -1, -1):
+                whole += (starts[ax] + rem % sizes[ax]) * stride
+                rem = rem // sizes[ax]
+                stride *= shape[ax]
+            idx = whole
+        flat[a:a + idx.numel()] = (prng.normal_at(key, idx) * std).to(dtype)
     return out
 
 
+def _blocks(where, shape) -> Optional[Dict[int, Tuple[int, int]]]:
+    """A training :class:`repro_torch.parallel.sharding.Placement`'s cut
+    of a leaf of ``shape`` as :func:`_reference_normal`'s ``blocks``."""
+    if where is None or not where.spec:
+        return None
+    out = {}
+    for ax, name in enumerate(where.spec):
+        size = where.axis_size(name)
+        if size > 1:
+            n = shape[ax] // size
+            out[ax] = (where.coords[0 if name == "data" else 1] * n, n)
+    return out or None
+
+
 def _init_like_reference(cfg, seed: int, device,
-                         experts: Optional[Tuple[int, int]] = None
-                         ) -> Dict[str, Any]:
+                         experts: Optional[Tuple[int, int]] = None,
+                         placement=None) -> Dict[str, Any]:
     """The reference's ``init_tree``: one key per leaf from
     ``split(PRNGKey(seed), n_leaves)`` in its leaf order; a normal leaf
     is ``normal * 1/sqrt(fan)``, the fan its (per-layer) first axis.
     ``experts = (index, model)``: each MoE leaf holds only the block of
     experts rank ``index`` of a ``model`` group holds, at its values in
-    the whole draw."""
+    the whole draw; ``placement`` (a training rank's): each leaf only the
+    rank's cut, likewise."""
     dtype = model_dtype(cfg)
     leaves = list(_schema_leaves(_model_schema(cfg)))
     keys = prng.split(prng.PRNGKey(seed), len(leaves)).to(device)
     out: Dict[str, Any] = {}
     for (path, shape, init), key in zip(leaves, keys):
+        where = placement
+        for k in path:
+            where = where[k] if isinstance(where, dict) else where
+        blocks = _blocks(where, shape)
         if init == "normal":
             stacked = path[0] == "periods"
             fan_in = shape[1] if stacked and len(shape) > 2 else None
             fan = fan_in or (shape[0] if len(shape) > 1 else max(shape[0], 1))
-            block = None
             if experts is not None and "moe" in path and path[-1] != "router":
                 n = M.expert_block(cfg.num_experts, experts[1])
-                block = (-3, experts[0] * n, n)
+                blocks = {-3: (experts[0] * n, n)}
             w = _reference_normal(key, shape, 1.0 / math.sqrt(fan), dtype,
-                                  device, block)
+                                  device, blocks)
         else:
+            if blocks:
+                shape = tuple(blocks.get(a, (0, n))[1]
+                              for a, n in enumerate(shape))
             fill = torch.zeros if init == "zeros" else torch.ones
             w = fill(shape, dtype=dtype, device=device)
         _set_path(out, path, w)
@@ -297,16 +302,25 @@ def _init_spiking(cfg, seed: int, device) -> Dict[str, Any]:
 
 
 def init_params(cfg, seed: int, device,
-                experts: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
+                experts: Optional[Tuple[int, int]] = None,
+                placement=None) -> Dict[str, Any]:
     """Random weights from ``seed`` on ``device``.  A float stack's are the
     reference's ``init_params(PRNGKey(seed), cfg)`` (drawn on the device
     through the threefry twin, equal up to ``erfinv``'s last bits; with
     ``experts = (index, model)`` only a serving mesh rank's block of each
-    MoE leaf); a spiking stack's come from a CPU ``torch.Generator``
-    (:func:`_init_spiking`)."""
+    MoE leaf, with a training ``placement`` only the rank's cut of each
+    leaf); a spiking stack's come from a CPU ``torch.Generator``
+    (:func:`_init_spiking`, cut after the whole draw)."""
     if cfg.spiking:
-        return _init_spiking(cfg, seed, device)
-    return _init_like_reference(cfg, seed, device, experts)
+        params = _init_spiking(cfg, seed, device)
+        if placement is None:
+            return params
+        from repro_torch.checkpoint.manager import map_with_placement
+
+        return map_with_placement(
+            lambda x, where, field: x if where.whole
+            else where.piece(x, field).contiguous(), params, placement)
+    return _init_like_reference(cfg, seed, device, experts, placement)
 
 
 def _linear_fan_ins(cfg) -> Dict[Tuple[str, str], int]:
@@ -417,7 +431,7 @@ def _spiking_attention(params, s: Tensor, cfg, keys: Tensor, backend,
 
     def proj(w, i):  # LIF(W s^t): spiking Q/K/V generation (Table I)
         return backend.spiking_linear(_lin_operand(w, d), s, key=keys[i],
-                                      part="col")
+                                      part="col", group="mixer")
 
     q, k, v = (proj(params[w], i) for i, w in enumerate(("wq", "wk", "wv")))
     h, kv = q.shape[-1] // hd, k.shape[-1] // hd
@@ -441,7 +455,7 @@ def _spiking_mlp(params, s: Tensor, keys: Tensor, backend) -> Tensor:
     """``LIF(W2 LIF(W1 s^t))``: Table I's feed-forward row, keyed
     ``keys[5]``, ``keys[6]``."""
     h = backend.spiking_linear(_lin_operand(params["wi"], s.shape[-1]), s,
-                               key=keys[5], part="col")
+                               key=keys[5], part="col", group="mlp")
     return backend.spiking_linear(_lin_operand(params["wo"], h.shape[-1]), h,
                                   key=keys[6], part="row", group="mlp")
 
@@ -453,7 +467,8 @@ _RECURRENT = {"ssd": (S.ssd_mixer, S.ssd_decode),
 
 def _block_spiking(params, s: Tensor, cfg, keys: Tensor, backend,
                    tile: Optional[Dict[str, int]] = None,
-                   mixer: str = "attn") -> Tuple[Tensor, Optional[Tensor]]:
+                   mixer: str = "attn", pctx: Optional[M.ParallelCtx] = None
+                   ) -> Tuple[Tensor, Optional[Tensor]]:
     """One spiking residual block over ``s [T,B,S,d]`` given its keys
     (:func:`_layer_keys`) -> ``(s, aux)``: residuals add spike trains
     directly (Table I: no inter-layer normalisation).  An SSD or RG-LRU
@@ -461,7 +476,8 @@ def _block_spiking(params, s: Tensor, cfg, keys: Tensor, backend,
     re-encode its sigmoid keyed ``keys[7]``), as the reference's does, and
     so does a MoE FFN (``moe_dense``, keyed ``keys[8]``; ``aux`` its
     load-balancing loss, ``None`` without MoE).  On a mesh rank's rows
-    (``tile``) the coding draws what the whole batch draws at them."""
+    (``tile``) the coding draws what the whole batch draws at them; on a
+    training mesh (``pctx``) the router's statistics are the batch's."""
     def encode(key, y):  # the rows' draws of the whole batch's coding
         if tile is None:
             return SP.rate_encode(key, torch.sigmoid(y), s.shape[0])
@@ -477,9 +493,10 @@ def _block_spiking(params, s: Tensor, cfg, keys: Tensor, backend,
     aux = None
     if "moe" in params:
         # row by row, every expert whole on each rank (a spiking stack's
-        # experts are not cut); ``aux`` is these rows' loss
+        # experts are not cut); ``aux`` is these rows' loss, the batch's
+        # on a training mesh
         ym, aux = M.moe_apply(params["moe"], SP.rate_decode(s), cfg,
-                              impl="dense")
+                              impl="dense", pctx=pctx)
         s = s + encode(keys[8], ym).to(s.dtype)
     elif "norm2" in params:
         s = s + _spiking_mlp(params["mlp"], s, keys, backend).to(s.dtype)
@@ -565,7 +582,9 @@ def _layers(params, cfg, tree=None):
 
 def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
                      backend, rows: Optional[Tuple[int, int]] = None,
-                     remat: str = "none") -> Tuple[Tensor, Tensor]:
+                     remat: str = "none",
+                     pctx: Optional[M.ParallelCtx] = None
+                     ) -> Tuple[Tensor, Tensor]:
     """The spiking forward up to the unembed: embed, rate coding, every
     block, rate decoding -> ``([B, S, d]`` in the model dtype, the MoE
     blocks' summed load-balancing loss ``aux``).  ``rows =
@@ -594,7 +613,7 @@ def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
                    getattr(backend, "differentiable", False))
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for layer, bp, mixer, _ in _layers(params, cfg):
-        s, a = block(bp, s, cfg, lkeys[layer], backend, tile, mixer)
+        s, a = block(bp, s, cfg, lkeys[layer], backend, tile, mixer, pctx)
         if a is not None:
             aux = aux + a
     # rate-decode the stream (paper: loss on the time-averaged output)
@@ -602,11 +621,11 @@ def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
 
 
 def _forward_spiking(params, batch, cfg, *, rng, backend,
-                     remat: str = "none", rows=None):
+                     remat: str = "none", rows=None, pctx=None):
     """Spiking forward: rate-encode, spiking blocks over T, rate-decode,
     unembed -> ``(logits [B,S,V], aux)`` (``rows``: those rows only)."""
     x, aux = spiking_features(params, batch, cfg, rng=rng, backend=backend,
-                              remat=remat, rows=rows)
+                              remat=remat, rows=rows, pctx=pctx)
     return _unembed(params, x, cfg), aux
 
 
@@ -626,7 +645,7 @@ def _ffn(params, h: Tensor, cfg, moe_impl: str,
     if "moe" in params:
         y, aux = M.moe_apply(params["moe"], h, cfg, impl=moe_impl, pctx=pctx)
     if "mlp" in params:
-        m = L.mlp(params["mlp"], h, cfg)
+        m = L.mlp(params["mlp"], h, cfg, pctx)
         y = m if y is None else y + m
     return y, aux
 
@@ -638,10 +657,10 @@ def _apply_block(params, x: Tensor, positions: Tensor, cfg, mixer: str,
     both) -> +res -> ``(x, aux)`` (:func:`_ffn`)."""
     h = L.apply_norm(cfg.norm_type, params["norm1"], x)
     if mixer == "attn":
-        h = L.attention(params["mixer"], h, positions, cfg)
+        h = L.attention(params["mixer"], h, positions, cfg, pctx=pctx)
     elif mixer == "local":
         h = L.attention(params["mixer"], h, positions, cfg,
-                        window=cfg.window_size)
+                        window=cfg.window_size, pctx=pctx)
     else:
         h = _RECURRENT[mixer][0](params["mixer"], h, cfg)
     x = x + h
@@ -698,7 +717,7 @@ def forward(params, batch: Dict[str, Tensor], cfg, *,
 
     return _forward_spiking(params, batch, cfg, rng=rng,
                             backend=get_backend(backend), remat=remat,
-                            rows=rows)
+                            rows=rows, pctx=pctx)
 
 
 def softmax_xent(logits: Tensor, targets: Tensor,
@@ -717,28 +736,62 @@ def softmax_xent(logits: Tensor, targets: Tensor,
 def loss_fn(params, batch, cfg, *, rng: Optional[Tensor] = None,
             aux_weight: float = 0.01, backend=None, remat: str = "block",
             rows: Optional[Tuple[int, int]] = None,
-            moe_impl: str = "ep_a2a") -> Tuple[Tensor, Dict[str, Tensor]]:
+            moe_impl: str = "ep_a2a",
+            pctx: Optional[M.ParallelCtx] = None
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Next-token loss of ``batch["tokens"] [B, S+1]`` (inputs all but the
     last, targets all but the first; a frontend arch: ``batch
     ["embeddings"]`` and ``batch["targets"]``; ``batch["mask"]``
     optional) -> ``(loss, {"xent", "moe_aux"})``; differentiable (a
     spiking stack on the reference backend).  ``rows = (b0, n)``: the mean
     over those rows of the batch only, drawn as the whole batch draws them
-    (a data rank's share)."""
+    (a data rank's share).
+
+    On a training mesh (``pctx`` with ``train``, and ``rows`` the rank's)
+    the loss and ``xent`` are the global batch's: their values are summed
+    over the ranks that split the rows, while their gradient is that of
+    this rank's share of the mean (its rows' sum over the batch's count),
+    so the gradients summed over those ranks are the global loss's.
+    ``moe_aux`` is the batch's (:func:`repro_torch.models.moe.router`)."""
     if cfg.frontend != "none":
         inputs, targets = {"embeddings": batch["embeddings"]}, batch["targets"]
     else:
         inputs = {"tokens": batch["tokens"][:, :-1]}
         targets = batch["tokens"][:, 1:]
     logits, aux = forward(params, inputs, cfg, rng=rng, backend=backend,
-                          remat=remat, rows=rows, moe_impl=moe_impl)
+                          remat=remat, rows=rows, moe_impl=moe_impl,
+                          pctx=pctx)
     mask = batch.get("mask")
+    n_rows = targets.shape[0]
     if rows is not None:
         cut = slice(rows[0], rows[0] + rows[1])
         targets = targets[cut]
         mask = None if mask is None else mask[cut]
-    xent = softmax_xent(logits, targets, mask)
+    if pctx is None or not pctx.train:
+        xent = softmax_xent(logits, targets, mask)
+    else:
+        xent = _global_xent(logits, targets, mask, n_rows, pctx)
     return xent + aux_weight * aux, {"xent": xent, "moe_aux": aux}
+
+
+def _global_xent(logits: Tensor, targets: Tensor, mask: Optional[Tensor],
+                 n_rows: int, pctx: M.ParallelCtx) -> Tensor:
+    """A training rank's cross-entropy term: the value of the global
+    batch's mean, the gradient of this rank's share of it (see
+    :func:`loss_fn`)."""
+    axes = pctx.token_axes(False)
+    mesh = pctx.mesh
+    if mask is None:
+        share = softmax_xent(logits, targets) * (targets.shape[0] / n_rows)
+    else:
+        lf = logits.to(torch.float32)
+        nll = torch.logsumexp(lf, dim=-1) - torch.take_along_dim(
+            lf, targets[..., None].long(), dim=-1)[..., 0]
+        mask = mask.to(torch.float32)
+        total = mesh.all_reduce(torch.sum(mask).detach(), axes)
+        share = torch.sum(nll * mask) / torch.clamp(total, min=1.0)
+    value = mesh.all_reduce(share.detach().clone(), axes)
+    return share + (value - share).detach()
 
 
 def prefill(params, batch, cfg, *, rng: Optional[Tensor] = None,

@@ -184,6 +184,27 @@ def uniform_rows(key: Tensor, shape: Tuple[int, ...], b0: int = 0) -> Tensor:
     return (bits >> 9).to(torch.float32) * (2.0 ** -23)
 
 
+def uniform_block(key: Tensor, shape: Tuple[int, ...],
+                  starts: Tuple[int, ...], whole: Tuple[int, ...]) -> Tensor:
+    """The block ``shape`` at ``starts`` of :func:`uniform`'s ``[0, 1)``
+    draw of shape ``whole`` (the leading axis of ``whole`` is not read),
+    drawn where it lies (:func:`random_bits_at`): a mesh rank's rows and
+    heads of a batch's draw."""
+    dev = key.device
+    idx = torch.zeros((1,) * len(shape), dtype=torch.int64, device=dev)
+    stride = 1
+    for ax in range(len(shape) - 1, -1, -1):
+        view = [1] * len(shape)
+        view[ax] = shape[ax]
+        pos = torch.arange(starts[ax], starts[ax] + shape[ax],
+                           dtype=torch.int64, device=dev)
+        idx = idx + pos.view(view) * stride
+        stride *= whole[ax] if ax else 1
+    bits = random_bits_at(key, idx.reshape(-1)).reshape(*key.shape[:-1],
+                                                         *shape)
+    return (bits >> 9).to(torch.float32) * (2.0 ** -23)
+
+
 # the open interval's lower end of ``jax._src.random._normal_real``:
 # nextafter(-1, 0) in float32
 _NORMAL_LO = -(1.0 - 2.0 ** -24)

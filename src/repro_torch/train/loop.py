@@ -18,14 +18,25 @@ from a :class:`repro_torch.configs.base.ParallelConfig`:
   ``opt_state["ef"]``;
 * ``remat`` -- each layer recomputed in the backward.
 
-On a data-parallel mesh (``mesh``, a :class:`repro_torch.launch.mesh.
-ServingMesh` of shape ``(data, 1)``) every rank holds the whole state and
-the whole batch, and computes the loss and gradient of its rows
-(``MarkovStream.host_slice``'s block), drawn as the whole batch draws them;
-the loss and the gradients are summed over the data group in one
-``all_reduce`` and divided by ``data``, so the AdamW update is the same on
-every rank.  ``model > 1`` raises: model-parallel training is not ported
-(ROADMAP A2(c)); so does a MoE config on any mesh (ROADMAP A2(c)).
+On a ``(data, model)`` mesh (``mesh``, a :class:`repro_torch.launch.mesh.
+ServingMesh`) a rank holds its cut of the parameters and of the AdamW
+moments (:func:`repro_torch.parallel.sharding.param_placement`, the
+reference's rules where the port cuts) and computes on its batch rows
+(``MarkovStream.host_slice``'s block of the ``data`` axis; ``pure_dp``:
+of every rank), drawn as the whole batch draws them.  The attention and
+MLP run on the rank's heads and columns, a MoE block on the rank's
+sequence block with the reference's per-device capacities and FSDP
+gathers, and the loss is the global batch's (:func:`repro_torch.models.
+transformer.loss_fn` with :func:`repro_torch.parallel.sharding.make_pctx`).
+Each gradient is then reduced by its leaf's placement: summed over the
+ranks that split the rows, except over an axis that cuts the leaf (the
+model group computes a whole leaf identically, and a cut leaf's collectives
+already summed what reaches it: a column- or row-parallel part through
+Megatron's pair, the router through the sum of its sequence blocks, an
+FSDP-cut expert through its gather's backward).  The gradient norm is
+the global one (:mod:`repro_torch.optim.adamw`).  ``microbatches > 1`` on
+a mesh raises, and so does ``grad_compression`` on a cut (its int8 rows
+would need the whole leaf's scale).
 
 Parameters and state live on the card unless the caller asks for the CPU
 (:func:`init_state`); the step runs where they are.
@@ -79,53 +90,107 @@ def _differentiable(backend):
 
 
 def make_loss(cfg, parallel: ParallelConfig = ParallelConfig(),
-              backend="reference", rows=None):
+              backend="reference", rows=None, pctx=None):
     """``loss_f(params, batch, rng) -> (loss, {"xent", "moe_aux"})`` on
     ``backend`` (the reference backend: autograd trains through it);
-    ``rows = (b0, n)``: over those rows of the batch only; MoE blocks run
+    ``rows = (b0, n)``: over those rows of the batch only; ``pctx``: a
+    training mesh rank's (the loss the global batch's); MoE blocks run
     ``parallel.moe_impl``, their load-balancing loss mixed in."""
     be = _differentiable(backend)
 
     def loss_f(params, batch, rng):
         return T.loss_fn(params, batch, cfg, rng=rng, backend=be,
                          remat=parallel.remat, rows=rows,
-                         moe_impl=parallel.moe_impl)
+                         moe_impl=parallel.moe_impl, pctx=pctx)
 
     return loss_f
 
 
-def data_rows(mesh, global_batch: int):
-    """``(b0, n)``: the batch rows data rank ``mesh.data_index`` trains on
-    (``MarkovStream.host_slice``'s block), or ``None`` off a mesh.  Raises
-    on a model axis (ROADMAP A2(c)) or a batch the data axis does not
-    split."""
-    if mesh is None or mesh.data * mesh.model == 1:
+def data_rows(mesh, global_batch: int, pure_dp: bool = False):
+    """``(b0, n)``: the batch rows this rank trains on
+    (``MarkovStream.host_slice``'s block of the ``data`` axis; with
+    ``pure_dp`` of every rank), or ``None`` where one rank holds them all.
+    Raises on a batch the axis does not split."""
+    if mesh is None:
         return None
-    if mesh.model > 1:
-        raise NotImplementedError(
-            f"a training mesh of model={mesh.model}: model-parallel "
-            "training is not ported (ROADMAP A2(c)); the float reference "
-            "backend has no sharded form")
-    if global_batch % mesh.data:
+    split = mesh.data * mesh.model if pure_dp else mesh.data
+    if split == 1:
+        return None
+    if global_batch % split:
         raise ValueError(f"a batch of {global_batch} does not split over "
-                         f"data={mesh.data} ranks")
-    n = global_batch // mesh.data
-    return mesh.data_index * n, n
+                         f"{split} ranks")
+    n = global_batch // split
+    return (mesh.rank if pure_dp else mesh.data_index) * n, n
 
 
-def _data_mean(mesh, loss: Tensor, grads):
-    """The loss and gradients summed over the data group (one
-    ``all_reduce`` of a flat float32 buffer) and divided by ``data``."""
-    leaves, structure = TR.flatten(grads)
-    flat = torch.cat([loss.reshape(1).to(torch.float32)]
-                     + [g.reshape(-1).to(torch.float32) for g in leaves])
-    flat = mesh.all_reduce_data(flat.to(mesh.host_device)).to(loss.device)
-    flat = flat * (1.0 / mesh.data)  # XLA's product with the reciprocal
-    out, at = [], 1
-    for g in leaves:
-        out.append(flat[at:at + g.numel()].reshape(g.shape).to(g.dtype))
-        at += g.numel()
-    return flat[0].to(loss.dtype), TR.unflatten(structure, out)
+class MeshStep:
+    """What a rank's train step needs of its mesh: the context, the
+    placement, the (wrapped) backend and each leaf's reduction."""
+
+    def __init__(self, cfg, parallel: ParallelConfig, mesh, backend):
+        from repro_torch.distributed.backend import TrainingShardBackend
+        from repro_torch.parallel import sharding as SH
+
+        self.mesh = mesh
+        self.pure_dp = parallel.pure_dp
+        self.pctx = SH.make_pctx(mesh, parallel)
+        self.placement = SH.param_placement(
+            cfg, mesh.shape, device=mesh.device, data_index=mesh.data_index,
+            model_index=mesh.model_index, fsdp=parallel.fsdp,
+            pure_dp=parallel.pure_dp)
+        cut = SH.train_cut(cfg, mesh.shape, fsdp=parallel.fsdp,
+                           pure_dp=parallel.pure_dp)
+        be = _differentiable(backend)
+        self.cut = cut
+        self.backend = (TrainingShardBackend(be, mesh, cfg, cut)
+                        if cfg.spiking and cut else be)
+        self.row_axes = self.pctx.token_axes(False)
+
+    def reduce(self, grads):
+        """Each gradient summed over the row axes that do not cut its
+        leaf (one float32 ``all_reduce`` a group of leaves)."""
+        from repro_torch.parallel import sharding as SH
+
+        leaves, structure = TR.flatten(grads)
+        places = SH.leaf_placements(grads, self.placement)
+        out = list(leaves)
+        by_axes: Dict[tuple, list] = {}
+        for i, p in enumerate(places):
+            axes = tuple(a for a in self.row_axes if a not in p.cut_over)
+            by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
+            if not any(self.mesh.axis_size(a) > 1 for a in axes):
+                continue
+            flat = self.mesh.all_reduce(torch.cat(
+                [leaves[i].reshape(-1).to(torch.float32) for i in idx]), axes)
+            at = 0
+            for i in idx:
+                g = leaves[i]
+                out[i] = flat[at:at + g.numel()].reshape(g.shape).to(g.dtype)
+                at += g.numel()
+        return TR.unflatten(structure, out)
+
+    def cuts(self, params):
+        from repro_torch.parallel import sharding as SH
+
+        return SH.leaf_cuts(params, self.placement)
+
+
+def mesh_loss(cfg, parallel: ParallelConfig, mesh, backend="reference"):
+    """``loss_f(params, batch, rng) -> (loss, metrics)`` of a mesh rank
+    holding its cut (the global batch's loss, every rank of the mesh
+    calling it), or of one device off a mesh."""
+    if mesh is None or mesh.data * mesh.model == 1:
+        return make_loss(cfg, parallel, backend)
+    ms = MeshStep(cfg, parallel, mesh, backend)
+
+    def loss_f(params, batch, rng):
+        key = "tokens" if "tokens" in batch else "targets"
+        rows = data_rows(mesh, batch[key].shape[0], ms.pure_dp)
+        return make_loss(cfg, parallel, ms.backend, rows, ms.pctx)(
+            params, batch, rng)
+
+    return loss_f
 
 
 def _split_microbatches(batch: Dict[str, Tensor], n: int, i: int
@@ -136,17 +201,24 @@ def _split_microbatches(batch: Dict[str, Tensor], n: int, i: int
 
 def make_train_step(cfg, parallel: ParallelConfig = ParallelConfig(),
                     opt: A.AdamWConfig = A.AdamWConfig(),
-                    backend="reference", mesh=None) -> Callable:
+                    backend="reference", mesh=None,
+                    donate: bool = False) -> Callable:
     """The train step (see the module docstring); ``rng`` is a key of the
-    threefry twin.  ``mesh``: the data-parallel step of this rank, given
-    the whole batch."""
-    dp = data_rows(mesh, mesh.data) is not None if mesh is not None else False
-    if dp:
-        T.require_mesh_supported(cfg)
-    if dp and parallel.microbatches > 1:
+    threefry twin.  ``mesh``: the step of this rank, given the whole
+    batch and the rank's cut of the state (:func:`init_state` with the
+    same ``mesh``).  ``donate``: the step writes the new parameters and
+    moments into the given ones (:func:`repro_torch.optim.adamw.
+    apply_updates`), holding one copy of the state."""
+    on_mesh = mesh is not None and mesh.data * mesh.model > 1
+    ms = MeshStep(cfg, parallel, mesh, backend) if on_mesh else None
+    if on_mesh and parallel.microbatches > 1:
         raise NotImplementedError(
-            "microbatches on a data-parallel mesh are not ported: a rank's "
-            "microbatch would not be one device's")
+            "microbatches on a mesh are not ported: a rank's microbatch "
+            "would not be one device's")
+    if on_mesh and parallel.grad_compression and ms.cut:
+        raise NotImplementedError(
+            "grad_compression on a cut state is not ported: its int8 rows "
+            "take the whole leaf's scale")
     grad_f = value_and_grad(make_loss(cfg, parallel, backend))
 
     def train_step(params, opt_state, batch, rng):
@@ -154,11 +226,15 @@ def make_train_step(cfg, parallel: ParallelConfig = ParallelConfig(),
         rng = rng.to(leaves[0].device)
         nmb = parallel.microbatches
         metrics: Dict[str, Tensor] = {}
-        if dp:
-            rows = data_rows(mesh, batch["tokens"].shape[0])
-            (loss, _), grads = value_and_grad(
-                make_loss(cfg, parallel, backend, rows))(params, batch, rng)
-            loss, grads = _data_mean(mesh, loss, grads)
+        cuts = None
+        if on_mesh:
+            rows = data_rows(mesh, batch["tokens"].shape[0]
+                             if "tokens" in batch else
+                             batch["targets"].shape[0], ms.pure_dp)
+            (loss, metrics), grads = value_and_grad(make_loss(
+                cfg, parallel, ms.backend, rows, ms.pctx))(params, batch, rng)
+            grads = ms.reduce(grads)
+            cuts = ms.cuts(params)
         elif nmb > 1:
             keys = prng.split(rng, nmb)
             grads = TR.tree_map(lambda p: torch.zeros(
@@ -181,7 +257,9 @@ def make_train_step(cfg, parallel: ParallelConfig = ParallelConfig(),
             grads = TR.tree_map(lambda g: g.to(torch.bfloat16), grads)
         if parallel.grad_compression:
             grads, new_ef = C.compress_decompress(grads, opt_state["ef"])
-        params, new_state, om = A.apply_updates(params, grads, opt_state, opt)
+        params, new_state, om = A.apply_updates(
+            params, grads, opt_state, opt, cuts=cuts,
+            mesh=mesh if on_mesh else None, donate=donate)
         if parallel.grad_compression:
             new_state["ef"] = new_ef
         return params, new_state, {"loss": loss, **om, **metrics}
@@ -191,13 +269,72 @@ def make_train_step(cfg, parallel: ParallelConfig = ParallelConfig(),
 
 def init_state(seed: int, cfg, opt: A.AdamWConfig = A.AdamWConfig(),
                parallel: ParallelConfig = ParallelConfig(),
-               device: Union[str, torch.device, None] = None):
+               device: Union[str, torch.device, None] = None, mesh=None):
     """Random parameters from ``seed`` (:func:`repro_torch.models.
     transformer.init_params`) and their AdamW state (plus the EF
     residuals under ``grad_compression``), on ``device`` (the card unless
-    the caller asks for the CPU)."""
-    params = T.init_params(cfg, seed, resolve_device(device))
+    the caller asks for the CPU).  ``mesh``: this rank's cut of them
+    (each leaf drawn only where the rank holds it; the moments' layout,
+    int8 or not, decided by the whole leaf), on the mesh's device."""
+    if mesh is None or mesh.data * mesh.model == 1:
+        params = T.init_params(cfg, seed, resolve_device(device))
+        opt_state = A.init_opt_state(params, opt)
+        if parallel.grad_compression:
+            opt_state["ef"] = C.init_ef_state(params)
+        return params, opt_state
+    placement = state_placement(cfg, mesh, parallel)
+    params = T.init_params(cfg, seed, mesh.device, placement=placement[0])
+    like = whole_like(cfg, opt, parallel)[1]
+    return params, _zeros_like_pieces(like, placement[1], mesh.device)
+
+
+def rank_state(cfg, mesh, parallel: ParallelConfig, opt: A.AdamWConfig,
+               params, opt_state=None):
+    """A training rank's cut of a whole ``params`` tree and of its AdamW
+    state (``None``: fresh moments), on the mesh's device."""
+    from repro_torch.checkpoint.manager import map_with_placement
+
+    pp, op = state_placement(cfg, mesh, parallel)
+
+    def cut(x, where, field):
+        x = x if where.whole else where.piece(x, field)
+        return x.contiguous().to(mesh.device)
+
+    like = whole_like(cfg, opt, parallel)[1]
+    return (map_with_placement(cut, params, pp),
+            _zeros_like_pieces(like, op, mesh.device) if opt_state is None
+            else map_with_placement(cut, opt_state, op))
+
+
+def state_placement(cfg, mesh, parallel: ParallelConfig):
+    """``(param placement, opt-state placement)`` of a training rank
+    (:func:`repro_torch.launch.elastic.state_shardings`)."""
+    from repro_torch.launch import elastic
+
+    return elastic.state_shardings(
+        cfg, mesh.shape, None, device=mesh.device, rank=mesh.rank,
+        fsdp=parallel.fsdp, pure_dp=parallel.pure_dp)
+
+
+def whole_like(cfg, opt: A.AdamWConfig = A.AdamWConfig(),
+               parallel: ParallelConfig = ParallelConfig()):
+    """The whole training state's shapes and dtypes as ``meta`` tensors:
+    ``(params, opt_state)``, what a cut rank restores into."""
+    params = TR.tree_map(
+        lambda shape: torch.empty(shape, dtype=T.model_dtype(cfg),
+                                  device="meta"), T._model_shapes(cfg),
+        is_leaf=lambda x: isinstance(x, tuple))
     opt_state = A.init_opt_state(params, opt)
     if parallel.grad_compression:
         opt_state["ef"] = C.init_ef_state(params)
     return params, opt_state
+
+
+def _zeros_like_pieces(like, placement, device):
+    from repro_torch.checkpoint.manager import map_with_placement
+
+    def zero(x, where, field):
+        piece = x if where.whole else where.piece(x, field)
+        return torch.zeros(piece.shape, dtype=x.dtype, device=device)
+
+    return map_with_placement(zero, like, placement)

@@ -230,8 +230,17 @@ def test_resharding_plan_reports():
     specs = {c["param"].split("[")[-1]: c["new"] for c in plan["changes"]}
     assert specs == {"'wq']": "col/2", "'wk']": "col/2", "'wv']": "col/2",
                      "'wi']": "col/2", "'wo']": "row/2"}
-    with pytest.raises(NotImplementedError, match="A2\\(c\\)"):
-        elastic.resharding_plan(cfg, (1, 1), (1, 2))
+    # a training mesh with a model axis: the heads and d_ff cut
+    plan = elastic.resharding_plan(cfg, (1, 1), (1, 2))
+    assert plan["n_params_relaid"] == 6 * cfg.period
+    specs = {c["param"].split("[")[-2] + c["param"].split("[")[-1]: c["new"]
+             for c in plan["changes"]}
+    assert specs == {"'mixer']'wq']": "(None, None, 'model')",
+                     "'mixer']'wk']": "(None, None, 'model')",
+                     "'mixer']'wv']": "(None, None, 'model')",
+                     "'mixer']'wo']": "(None, 'model')",
+                     "'mlp']'wi']": "(None, None, 'model')",
+                     "'mlp']'wo']": "(None, 'model')"}
 
 
 # -- across the packages ------------------------------------------------------

@@ -16,8 +16,9 @@
 * a spiking SSA MoE (the reduced phi3.5-moe with ``spiking=True``): the
   forward's logits and twelve decode steps against JAX's
   ``IntegerBackend`` (the FFN on the rate interface);
-* training a MoE config on a mesh raises, naming ROADMAP A2(c) (serving
-  and the forward run there: ``tests/test_torch_mesh.py``).
+* a training mesh the expert-parallel dispatch cannot take raises
+  (``tests/test_torch_mesh.py`` trains, serves and forwards MoE on the
+  mesh).
 
 The JAX references compile once, in a pool of threads (``refs``).
 """
@@ -529,20 +530,31 @@ def test_spiking_moe_forward_and_decode(refs):
 
 
 def test_moe_on_a_mesh_raises(tmp_path):
-    """Training a MoE config on a mesh raises, naming A2(c): the
-    data-parallel train step and the train launcher (before any rank is
-    spawned).  Serving does not: the executor builds for the float MoE
-    (its experts cut in blocks of ``E / model``) and for the spiking one
-    (its experts whole, their FFN on the rate interface)."""
+    """Training a MoE config on a mesh places it (``tests/
+    test_torch_mesh.py`` trains it against JAX); what raises is a
+    training mesh the reference's expert-parallel dispatch cannot take:
+    experts that ``model`` does not divide, and a model axis without the
+    sequence split (the reference's senders would route the same tokens,
+    ROADMAP queue C), and ``moe_impl="dense"`` on a rank's block of the
+    experts.  Serving builds: the executor for the float MoE (its
+    experts cut in blocks of ``E / model``) and for the spiking one (its
+    experts whole, their FFN on the rate interface)."""
     _, tcfg, _, tp = _setup("phi3.5-moe-42b-a6.6b")
     _, scfg, _, sp = _setup(SPIKING)
     mesh = ServingMesh((2, 1), 0, torch.device("cpu"))
-    for run in (
-            lambda: TL.make_train_step(tcfg, ParallelConfig(), mesh=mesh),
-            lambda: LT.run("arctic-480b", steps=1, ckpt_dir=str(tmp_path),
-                           mesh_shape=(2, 1), device="cpu")):
-        with pytest.raises(NotImplementedError, match=r"A2\(c\)"):
-            run()
+    assert callable(TL.make_train_step(tcfg, ParallelConfig(), mesh=mesh))
+    with pytest.raises(ValueError, match="do not split"):
+        TL.make_train_step(tcfg, ParallelConfig(), mesh=ServingMesh(
+            (1, 3), 0, torch.device("cpu")))
+    pctx = M.ParallelCtx(mesh=ServingMesh((1, 2), 0, torch.device("cpu")),
+                         train=True, seq_shard=False)
+    x = torch.zeros((2, 4, tcfg.d_model))
+    with pytest.raises(NotImplementedError, match="sequence split"):
+        M.moe_ep(tp["periods"]["blk0"]["moe"], x, tcfg, pctx)
+    block = {k: v[:, 2:] for k, v in tp["periods"]["blk0"]["moe"].items()
+             if k != "router"}
+    with pytest.raises(NotImplementedError, match="moe_impl='ep_a2a'"):
+        M.moe_dense(block, x, tcfg, pctx)
     split = ServingMesh((1, 2), 1, torch.device("cpu"))
     ex = Executor(tp, tcfg, "integer", split)
     wi = tp["periods"]["blk0"]["moe"]["wi"]

@@ -522,10 +522,17 @@ def test_energy_preemption_readmits_bit_exact(setup, dense_sched):
                                     tenant="metered")
 
             async def topup():
-                while ts.result is None:
+                # no grant before the first preemption's record exists: a
+                # grant made before the pump saw the empty bucket let the
+                # request run on unpreempted
+                while ts.result is None and ADM.PREEMPT_ENERGY not in [
+                        r.decision for r in
+                        front.adm.decisions(ts.request_id)]:
                     await asyncio.sleep(0.02)
+                while ts.result is None:
                     if front.adm.tenant("metered").credit_j <= 0:
                         front.adm.grant("metered", full_j * 0.4)
+                    await asyncio.sleep(0.02)
 
             task = asyncio.create_task(topup())
             toks = await ts.tokens()

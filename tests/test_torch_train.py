@@ -205,8 +205,11 @@ def test_reference_ssa_attention_equals_jax(n, causal):
     for name, a, b in zip("qkv", jg, ts):
         np.testing.assert_allclose(b.grad.numpy(), np.asarray(a), rtol=0,
                                    atol=SSA_GRAD_ATOL, err_msg=name)
-    with pytest.raises(NotImplementedError):
-        REF.ssa_attention(_tkey(key), *ts, causal=causal, h0=1)
+    # a model rank's head (h0 = 1 of 2) draws the whole call's comparators
+    # of that head
+    one = REF.ssa_attention(_tkey(key), *(x.detach()[:, :, 1:] for x in ts),
+                            causal=causal, h0=1, heads=2)
+    _eq(one, out.detach()[:, :, 1:].numpy(), "ssa spikes of head 1")
 
 
 def _linear_case(rng, d_in=48, d_out=40):

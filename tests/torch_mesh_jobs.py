@@ -22,6 +22,10 @@ dicts) and returns one result per job:
   (``models/moe.py:_ep_local`` with the all-to-all over the model group)
   on each data rank's rows of given routing; the outputs are gathered
   back to the whole batch;
+* ``{"kind": "train", ...}`` -- :func:`repro_torch.distributed.jobs.
+  train_job`, training steps with the rank's cut of the state;
+* ``{"kind": "launch", "arch", "kw"}`` -- :func:`repro_torch.distributed.
+  jobs.launch_job`, the train launcher's rank function;
 * ``{"kind": "fail", "rank": r}`` -- rank ``r`` raises while the others
   wait in a collective (the failure path of ``run_ranks``).
 """
@@ -48,6 +52,7 @@ def run_jobs(mesh, todo: List[Dict[str, Any]]) -> List[Any]:
     kinds = {"serve": jobs.serve_job, "forward": jobs.forward_job,
              "decode": jobs.decode_job, "layer": layer_job,
              "recalibrate": recalibrate_job, "ep_local": ep_local_job,
+             "train": jobs.train_job, "launch": jobs.launch_job,
              "fail": fail_job}
     return [kinds[job.get("kind", "serve")](mesh, job) for job in todo]
 
