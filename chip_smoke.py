@@ -197,7 +197,18 @@ Phases, each printing one JSON line:
    the spiking GPT trained 2 steps through the launcher's rank function
    on the mesh, its checkpoint (gathered whole) read with each rank's
    serving placement and served through K5/K4/K3: every rank's streams
-   equal to one card's serve of the same checkpoint.
+   equal to one card's serve of the same checkpoint.  (j) the front door
+   on the same spawn (budget 45 s): rank 0 serves (a)'s 8 requests x 16
+   new tokens through ``HttpFrontDoor`` as the three ``FD_TENANTS``
+   (``metered`` on a joule bucket, preempted and re-admitted), the other
+   ranks following it (``repro_torch.server.mesh``), dense then paged:
+   every SSE stream equals (a)'s, every rank's scheduler ends with rank
+   0's outputs and stats, the replay passed its bit check, ``/metrics``
+   after the last ``done`` reads no running or queued request and one
+   TTFT a request, rank 0's trace holds every request's admit, first
+   token and finish, no other rank holds telemetry, and K5, K4 and K3
+   (dense) or K9 (paged) launch on every rank; rank 0's HTTP tokens/s
+   and TTFT p50/p99.
 
 8. **train** -- training on the card, through the float reference
    backend (plain PyTorch: no kernel of the port in a step) and AdamW.
@@ -2098,35 +2109,15 @@ def parse_prometheus(text: str) -> dict:
 
 async def http_call(host: str, port: int, path: str, body=None):
     """One HTTP/1.1 request over a socket: ``GET path`` returns the raw
-    response; with a JSON ``body``, ``POST path`` reads its SSE stream and
-    returns (token ids, the done payload)."""
-    import asyncio
+    response; with a JSON ``body``, ``POST /generate`` reads its SSE
+    stream and returns (token ids, the done payload)."""
+    from repro_torch.server import generate, http_request
 
-    from repro_torch.server import read_sse
-
-    reader, writer = await asyncio.open_connection(host, port)
     if body is None:
-        writer.write(f"GET {path} HTTP/1.1\r\nHost: {host}\r\n\r\n".encode())
-    else:
-        data = json.dumps(body).encode()
-        writer.write((f"POST {path} HTTP/1.1\r\nHost: {host}\r\n"
-                      f"Content-Length: {len(data)}\r\n\r\n").encode() + data)
-    await writer.drain()
-    if body is None:
-        out = await reader.read()
-    else:
-        toks, done = [], None
-        async for ev, payload in read_sse(reader):
-            check(ev in ("token", "done"), f"SSE event {ev}: {payload}")
-            if ev == "token":
-                check(payload["index"] == len(toks), "SSE tokens out of order")
-                toks.append(payload["token"])
-            else:
-                done = payload
-        out = toks, done
-    writer.close()
-    await writer.wait_closed()
-    return out
+        return await http_request(host, port, "GET", path)
+    toks, done, error = await generate(host, port, body)
+    check(error is None, f"SSE error event: {error}")
+    return toks, done
 
 
 def percentile(xs, q: float) -> float:
@@ -3898,6 +3889,15 @@ MESH_TRAIN_BUDGET_S = 90.0
 # (NVIDIA H100 80GB HBM3, 700 W); tight enough that the router's
 # statistics left unaveraged or a leaf left out of the norm would fail
 MESH_TRAIN_LOSS_ATOL, MESH_TRAIN_NORM_RTOL = 1e-5, 1e-4
+# (j) the front door on the same spawn, in a budget of 45 s (rank 0's job
+# seconds, both layouts): (a)'s 8 requests x 16 new tokens through
+# HttpFrontDoor on rank 0 as the three FD_TENANTS, ``metered`` holding a
+# quarter of its cheapest request's joules (the serve phase's), its refill
+# (FD_REFILL_TOKENS tokens' joules at the serve phase's rate, each
+# second) on only once it has been preempted; dense, then paged
+MESH_FD_BUDGET_S = 45.0
+MESH_FD_NEW = 16
+FD_BUCKET_SHARE, FD_REFILL_TOKENS = 0.25, 50
 
 
 def mesh_train_reckoning(cfg, opt_bytes: int = MESH_TRAIN_BYTES_PER_WEIGHT
@@ -4079,6 +4079,104 @@ def mesh_train(res, first: int, jobs: dict, one_card: dict, dev,
     return out
 
 
+def mesh_front_door_jobs(base: dict, prompts, served: dict) -> dict:
+    """(j)'s rank jobs: the front door dense, then paged, with the serve
+    phase's request energies (32 new tokens each) setting ``metered``'s
+    bucket and refill."""
+    energy = served["request_energy_j"]
+    bucket = FD_BUCKET_SHARE * min(energy[2:len(prompts):3])
+    refill = (FD_REFILL_TOKENS * sum(energy) / served["tokens"]
+              * served["tokens_per_s"])
+    tenants = {"interactive": dict(priority=0), "batch": dict(priority=1),
+               "metered": dict(priority=1, energy_budget_j=bucket,
+                               preempt=True)}
+    fd = dict(base, kind="front_door", prompts=prompts, max_new=MESH_FD_NEW,
+              tenants=tenants, refill_on_preempt={"metered": refill})
+    return {"dense": fd, "paged": dict(fd, paged=True, page_len=8)}
+
+
+def mesh_front_door(res, first: int, jobs: dict, want, total: dict) -> dict:
+    """(j)'s checks and readings from the ranks' results (``jobs`` in
+    order from ``first``; ``want``: (a)'s streams, one card's); the
+    launches join ``total``."""
+    out, seconds = {}, 0.0
+    for j, (layout, job) in enumerate(jobs.items()):
+        where = f"mesh front door ({layout})"
+        ranks = [r[first + j] for r in res]
+        r0 = ranks[0]
+        check(r0["streams"] == want, f"{where}: the SSE streams differ from "
+              "(a)'s direct mesh streams")
+        check(r0["errors"] == [None] * len(want) and
+              [d["tokens"] for d in r0["done"]] == want,
+              f"{where}: a stream failed or its done payload differs: "
+              f"{r0['errors']}")
+        results = {r["request_id"]: r for r in r0["results"]}
+        check(len(results) == len(want), f"{where}: missing results")
+        preempted = {r["tenant"] for r in results.values()
+                     if r["preemptions"]}
+        check(preempted == {"metered"} and r0["preemptions"] >= 1,
+              f"{where}: preempted tenants {preempted}")
+        records = collections.Counter(r["decision"] for r in r0["records"])
+        check(records["readmit"] >= 1, f"{where}: no re-admission")
+        kernel = ("fused_decode_layer_paged" if job.get("paged")
+                  else "fused_decode_layer")
+        same = ("decode_steps", "decoded_tokens", "prefill_tokens",
+                "admissions", "evictions", "energy_j", "prefix_hits")
+        for rank, r in enumerate(ranks):
+            check(r["outputs"] == r0["outputs"] and
+                  {k: r["stats"][k] for k in same} ==
+                  {k: r0["stats"][k] for k in same} and
+                  r["request_energy_j"] == r0["request_energy_j"],
+                  f"{where}: rank {rank}'s scheduler ended unlike rank 0's")
+            check(r["telemetry"] == (rank == 0) and
+                  ("events" in r) == (rank == 0),
+                  f"{where}: rank {rank} telemetry {r['telemetry']}")
+            for k in ("aimc_matmul_counts", "lif", kernel):
+                check(r["launches"].get(k, 0) > 0,
+                      f"{where}: rank {rank} launched no {k}")
+            if rank:
+                check(r["followed"]["steps"] == r0["stats"]["decode_steps"],
+                      f"{where}: rank {rank} stepped "
+                      f"{r['followed']['steps']} times, rank 0 "
+                      f"{r0['stats']['decode_steps']}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        events = {(e["event"], e["fid"]) for e in r0["events"] if "fid" in e}
+        for fid in results:
+            check({("admit", fid), ("first_token", fid),
+                   ("finish", fid)} <= events,
+                  f"{where}: rank 0's trace lacks request {fid}'s lifecycle")
+        scrape = parse_prometheus(r0["metrics"])
+        check(scrape["xpike_frontdoor_running"] == 0 and
+              scrape["xpike_frontdoor_queue_depth"] == 0,
+              f"{where}: /metrics after the last done reads running "
+              f"{scrape['xpike_frontdoor_running']}, queued "
+              f"{scrape['xpike_frontdoor_queue_depth']}")
+        check(scrape["xpike_ttft_seconds_count"] == len(want),
+              f"{where}: {scrape['xpike_ttft_seconds_count']} TTFTs for "
+              f"{len(want)} requests")
+        ttft = [r["ttft_s"] for r in results.values()]
+        delivered = sum(len(t) for t in r0["streams"])
+        st = r0["stats"]
+        seconds += r0["job_s"]
+        out[layout] = dict(
+            requests=len(want), tokens=delivered,
+            makespan_s=r0["makespan_s"],
+            tokens_per_s=delivered / r0["makespan_s"],
+            ttft_p50_s=percentile(ttft, 50), ttft_p99_s=percentile(ttft, 99),
+            preemptions=r0["preemptions"], records=dict(records),
+            decode_steps=st["decode_steps"],
+            prefill_tokens=st["prefill_tokens"],
+            decode_step_ms=1e3 * st["decode_s"] / st["decode_steps"],
+            bucket_j=job["tenants"]["metered"]["energy_budget_j"],
+            followers=[r["followed"] for r in ranks[1:]],
+            job_s=r0["job_s"],
+            launches={k: v for k, v in r0["launches"].items() if v})
+    out["seconds"] = seconds
+    out["budget_s"] = MESH_FD_BUDGET_S
+    return out
+
+
 def mesh_moe_one_card(dev, cfg, seed: int, tokens) -> dict:
     """(f)'s one-card side: the whole tree's forward (``ep_a2a``) on
     ``tokens [8, 64]`` and three teacher-forced decode steps of 8 slots,
@@ -4215,7 +4313,8 @@ def mesh_stacks(res, first: int, jobs: dict, one_card: dict, spiking: dict,
     return out
 
 
-def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched, spiking):
+def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched, spiking,
+               served):
     """The full-width spiking GPT on a (2, 2) mesh of four ranks sharing
     the card over gloo (NCCL refuses two ranks on one device), through
     ``run_ranks`` and the CUDA backend: (a) dense, the serve phase's first
@@ -4234,7 +4333,9 @@ def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched, spiking):
     must equal one card's.  (e)-(g): the float and MoE stacks on the same
     spawn (:func:`mesh_stacks`; ``spiking`` is phase moe (d)'s one-card
     results).  (h)-(i): training on the same spawn (:func:`mesh_train`,
-    its memory reckoning emitted first)."""
+    its memory reckoning emitted first).  (j): the front door on rank 0
+    over the same spawn, the other ranks following it
+    (:func:`mesh_front_door`; ``served``: the serve phase's readings)."""
     from repro_torch.configs import registry
     from repro_torch.distributed import jobs
     from repro_torch.launch.mesh import pick_backend, run_ranks
@@ -4283,10 +4384,12 @@ def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched, spiking):
     emit({"phase": "mesh_train_reckoning", "card": card_line(),
           "arch": MOE_NAME, "layers": MESH_TRAIN_LAYERS, **reckoning})
     train_one = mesh_train_one_card(dev, train_jobs)
+    fd_jobs = mesh_front_door_jobs(base, dense["prompts"], served)
     t0 = time.perf_counter()
     res = run_ranks(jobs.run_jobs, MESH, device="cuda",
                     args=([dense, paged, forward, restored,
-                           *stack_jobs.values(), *train_jobs.values()],),
+                           *stack_jobs.values(), *train_jobs.values(),
+                           *fd_jobs.values()],),
                     timeout_s=900)
     wall_s = time.perf_counter() - t0
     out, total = {"shape": list(MESH),
@@ -4353,6 +4456,9 @@ def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched, spiking):
     out["stacks"] = stacks
     out["train"] = dict(reckoning=reckoning, **mesh_train(
         res, 4 + len(stack_jobs), train_jobs, train_one, dev, total))
+    out["front_door"] = mesh_front_door(
+        res, 4 + len(stack_jobs) + len(train_jobs), fd_jobs,
+        [o[:MESH_FD_NEW] for o in dense_outs[:8]], total)
     out["launches_summed_over_ranks"] = {k: v for k, v in total.items() if v}
     out["row_linear_dispatched"] = row_linear_dispatch(cfg)
     return out, total
@@ -4792,7 +4898,7 @@ def main() -> int:
         emit({"phase": "moe", "card": card, **moe})
         t0 = time.perf_counter()
         mesh, mlaunches = phase_mesh(dev, outs, pouts, mesh_ref, launched,
-                                     spiking_moe)
+                                     spiking_moe, served)
         emit({"phase": "mesh", "card": card,
               "seconds": time.perf_counter() - t0, **mesh})
     # each kernel's launches on its own path

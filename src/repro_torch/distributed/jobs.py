@@ -44,12 +44,25 @@ then:
   parameters and moments (numpy);
 * a launch job (``"launch"``) runs the train launcher's rank function
   (:func:`repro_torch.launch.train._rank_train`) for ``arch`` with the
-  keywords ``kw``; the result is its report.
+  keywords ``kw``; the result is its report;
+* a front door job (``"front_door"``) serves through
+  :class:`~repro_torch.server.FrontDoor` on rank 0 over a
+  :class:`~repro_torch.server.mesh.MeshLeader`, every other rank
+  following it (:func:`repro_torch.server.mesh.follow`): see
+  :func:`front_door_job`.
+
+A serve or front door job's ``trace_out`` (a JSONL path) and
+``profile_steps`` (with ``profile_dir``) attach a telemetry bundle to
+rank 0's scheduler only: the other ranks hold none.
 """
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
 import dataclasses
+import json
+import signal
 import time
 from typing import Any, Dict, List
 
@@ -71,7 +84,7 @@ def run_jobs(mesh, jobs: List[Dict[str, Any]]) -> List[Any]:
     included), and on the card ``max_memory_allocated``, the job's peak."""
     kinds = {"serve": serve_job, "forward": forward_job,
              "decode": decode_job, "train": train_job,
-             "launch": launch_job}
+             "launch": launch_job, "front_door": front_door_job}
     cuda = mesh.device.type == "cuda"
     out = []
     for job in jobs:
@@ -147,35 +160,231 @@ def drive(sch, prompts, max_new: int, seed0: int, wave: int = 0,
     return [out[r] for r in rids], time.perf_counter() - t0
 
 
-def serve_job(mesh, job):
-    cfg = job["cfg"]
-    ex = Executor(_params(job, mesh), cfg, job.get("backend", "cuda"), mesh)
+def _scheduler(mesh, job):
+    """The rank's executor and scheduler of a serve or front door job,
+    warmed up on the job's first two prompts when ``warmup`` is set."""
+    ex = Executor(_params(job, mesh), job["cfg"], job.get("backend", "cuda"),
+                  mesh)
     sch = ex.scheduler(slots=job["slots"], cache_len=job["cache_len"],
                        drift=job.get("drift"), paged=job.get("paged", False),
                        page_len=job.get("page_len", 8),
                        decode_kernel=job.get("decode_kernel", "auto"))
-    args = (job["max_new"], job.get("seed0", 0), job.get("wave", 0),
-            job.get("gap", 0))
     if job.get("warmup"):
-        drive(sch, job["prompts"][:2], 4, *args[1:])
+        drive(sch, job["prompts"][:2], 4, job.get("seed0", 0),
+              job.get("wave", 0), job.get("gap", 0))
         sch.reset()
+    return ex, sch
+
+
+def _telemetry(job):
+    """Rank 0's telemetry bundle: a JSONL sink on ``trace_out`` and a
+    ``profile_steps``-step profiler window, where the job asks for them
+    -> (bundle, the sink or None)."""
+    from repro_torch.obs import JsonlSink, StepProfiler, Telemetry
+
+    prof = (StepProfiler(job["profile_steps"], job["profile_dir"])
+            if job.get("profile_steps") else None)
+    obs = Telemetry.create(profiler=prof)
+    sink = JsonlSink(job["trace_out"]) if job.get("trace_out") else None
+    if sink is not None:
+        obs.tracer.add_sink(sink)
+    return obs, sink
+
+
+def _served(ex, sch, moe) -> Dict[str, Any]:
+    """What every rank of a serve or front door job returns about its
+    scheduler's run."""
+    return {"stats": dataclasses.asdict(sch.stats),
+            "params": sum(x.numel() for x in TR.flatten(ex.params)[0]
+                          if isinstance(x, torch.Tensor)),
+            "launches": dict(KB.LAUNCHES),
+            "request_energy_j": [sch.request_energy_j[r]
+                                 for r in sorted(sch.request_energy_j)],
+            "fused": bool(sch.plan and sch.plan.fused),
+            "backend": sch.backend.name, "moe": moe,
+            "telemetry": sch.obs is not None}
+
+
+def serve_job(mesh, job):
+    ex, sch = _scheduler(mesh, job)
+    sink = None
+    if mesh.rank == 0 and (job.get("trace_out") or job.get("profile_steps")):
+        obs, sink = _telemetry(job)
+        sch.attach_obs(obs)
     KB.reset_launches()
     M.DISPATCH.reset()
-    outs, wall_s = drive(sch, job["prompts"], *args)
+    try:
+        outs, wall_s = drive(sch, job["prompts"], job["max_new"],
+                             job.get("seed0", 0), job.get("wave", 0),
+                             job.get("gap", 0))
+    finally:
+        if sink is not None:
+            sink.close()
     moe = M.DISPATCH.read()
     M.DISPATCH.reset(enabled=False)
-    res = {"outputs": outs, "stats": dataclasses.asdict(sch.stats),
-           "params": sum(x.numel() for x in TR.flatten(ex.params)[0]
-                         if isinstance(x, torch.Tensor)),
-           "wall_s": wall_s, "launches": dict(KB.LAUNCHES),
-           "request_energy_j": [sch.request_energy_j[r]
-                                for r in sorted(sch.request_energy_j)],
-           "fused": bool(sch.plan and sch.plan.fused),
-           "backend": sch.backend.name, "moe": moe}
+    res = dict(_served(ex, sch, moe), outputs=outs, wall_s=wall_s)
     if job.get("check_tokens") is not None:  # after the measured run
         logits = ex.forward(torch.from_numpy(job["check_tokens"]))
         res["logits_finite"] = bool(torch.isfinite(logits).all())
     return res
+
+
+def front_door_job(mesh, job):
+    """The front door on the mesh.  Every rank builds its scheduler as a
+    serve job does (``cfg``, ``slots``, ``cache_len``, ``paged``, ...).
+    Rank 0 wraps it in a :class:`~repro_torch.server.mesh.MeshLeader`
+    (heartbeat every ``heartbeat_s``) under a
+    :class:`~repro_torch.server.FrontDoor` with the ``tenants`` policies
+    (``{name: TenantPolicy fields}``) and the job's telemetry, and serves
+    :class:`~repro_torch.server.HttpFrontDoor`:
+
+    * with ``http = (host, port)``, until SIGINT (the serve CLI's
+      ``--http`` on a mesh; the other ranks ignore SIGINT), then stops the
+      front door, which stops the followers;
+    * else on 127.0.0.1 and a free port, where it posts ``prompts``
+      (request ``i`` on seed ``seed0 + i`` as tenant ``i % len(tenants)``
+      of the ``tenants`` in order, ``max_new`` new tokens) in the waves of
+      ``waves`` (request counts; all at once by default), idle for
+      ``idle_s`` between two waves; a tenant of ``refill_on_preempt``
+      (``{name: J/s}``) refills its joule bucket at that rate once its
+      first preemption is recorded.  After the last stream it scrapes
+      ``/metrics`` and ``/stats`` and stops.
+
+    The other ranks follow rank 0 (:func:`repro_torch.server.mesh.
+    follow`).  Every rank returns its scheduler's ``outputs`` (rid ->
+    tokens), ``ServeStats``, request energies and launches, and whether it
+    holds telemetry; rank 0 also the streams, their ``done`` payloads and
+    errors, the front door's results and admission records, its trace
+    events, the scrapes, the makespan and the idle gap's seconds and
+    steps; a follower what it followed."""
+    from repro_torch.server import FrontDoor, TenantPolicy
+    from repro_torch.server import mesh as SM
+
+    ex, sch = _scheduler(mesh, job)
+    KB.reset_launches()
+    M.DISPATCH.reset()
+    t0 = time.perf_counter()
+    if mesh.rank != 0:
+        if job.get("http") is not None:
+            # Ctrl-C reaches every rank of a terminal's process group: rank
+            # 0 turns it into the stop that ends the followers
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
+        res: Dict[str, Any] = {"followed": SM.follow(sch, mesh)}
+    else:
+        obs, sink = _telemetry(job)
+        front = FrontDoor(
+            SM.MeshLeader(sch, mesh, job.get("heartbeat_s", SM.HEARTBEAT_S)),
+            telemetry=obs, policies={
+                name: TenantPolicy(**kw)
+                for name, kw in job.get("tenants", {}).items()})
+        try:
+            res = asyncio.run(_until_interrupted(front, mesh, *job["http"])
+                              if job.get("http") is not None
+                              else _post(front, job))
+        finally:
+            if sink is not None:
+                sink.close()
+    moe = M.DISPATCH.read()
+    M.DISPATCH.reset(enabled=False)
+    return dict(res, **_served(ex, sch, moe),
+                outputs={r: list(t) for r, t in sch.outputs.items()},
+                wall_s=time.perf_counter() - t0)
+
+
+async def _until_interrupted(front, mesh, host: str, port: int
+                             ) -> Dict[str, Any]:
+    """Serve HTTP until SIGINT (ignored from then on), then stop."""
+    from repro_torch.server import HttpFrontDoor
+
+    loop = asyncio.get_running_loop()
+    interrupted = asyncio.Event()
+    loop.add_signal_handler(signal.SIGINT, interrupted.set)
+    try:
+        async with HttpFrontDoor(front, host=host, port=port) as srv:
+            print(f"[serve] HTTP front door on http://{srv.host}:{srv.port} "
+                  f"(POST /generate, GET /stats, GET /metrics, GET "
+                  f"/healthz), rank 0 of a (data={mesh.data}, "
+                  f"model={mesh.model}) mesh; Ctrl-C to stop", flush=True)
+            # until Ctrl-C, or a pump that failed (a rank died): stopping
+            # then raises its exception
+            waits = [asyncio.ensure_future(interrupted.wait()),
+                     asyncio.ensure_future(front.wait())]
+            try:
+                await asyncio.wait(waits, return_when=asyncio.FIRST_COMPLETED)
+            finally:
+                for w in waits:
+                    w.cancel()
+    finally:
+        # the run is ending: a second Ctrl-C (torchrun forwards the one it
+        # got) must not cut it short
+        loop.remove_signal_handler(signal.SIGINT)
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+    return {}
+
+
+async def _refill_on_preempt(front, rates: Dict[str, float]) -> None:
+    """Turn each tenant's refill on (``rates``: J/s) once its first
+    preemption is recorded."""
+    from repro_torch.server import admission as ADM
+
+    left = dict(rates)
+    while left:
+        hit = {r.tenant for r in list(front.adm.records)
+               if r.decision == ADM.PREEMPT_ENERGY} & set(left)
+        for name in hit:
+            pol = front.adm.tenant(name).policy
+            front.adm.set_policy(name, dataclasses.replace(
+                pol, refill_j_per_s=left.pop(name)))
+        await asyncio.sleep(0.005)
+
+
+async def _post(front, job) -> Dict[str, Any]:
+    """Post the job's requests over HTTP (see :func:`front_door_job`)."""
+    from repro_torch.obs import ListSink
+    from repro_torch.server import HttpFrontDoor, generate, http_request
+
+    prompts = job["prompts"]
+    tenants = list(job.get("tenants", {})) or ["default"]
+    seed0 = job.get("seed0", 0)
+    events = ListSink()
+    front.obs.tracer.add_sink(events)
+    bodies = [dict(prompt=list(map(int, p)), max_new=job["max_new"],
+                   seed=seed0 + i, tenant=tenants[i % len(tenants)])
+              for i, p in enumerate(prompts)]
+    stats = front.sch.stats
+    idle = None
+    refill = asyncio.create_task(
+        _refill_on_preempt(front, job.get("refill_on_preempt", {})))
+    try:
+        async with HttpFrontDoor(front, host="127.0.0.1", port=0) as srv:
+            got = []
+            t0 = time.perf_counter()
+            for w, n in enumerate(job.get("waves") or [len(prompts)]):
+                if w:
+                    steps, t_idle = stats.decode_steps, time.perf_counter()
+                    await asyncio.sleep(job["idle_s"])
+                    idle = {"seconds": time.perf_counter() - t_idle,
+                            "steps": stats.decode_steps - steps}
+                got += await asyncio.gather(*[
+                    generate(srv.host, srv.port, b)
+                    for b in bodies[len(got):len(got) + n]])
+            makespan = time.perf_counter() - t0
+            metrics = await http_request(srv.host, srv.port, "GET",
+                                         "/metrics")
+            status = await http_request(srv.host, srv.port, "GET", "/stats")
+    finally:
+        refill.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await refill
+    return {"streams": [t for t, _, _ in got], "done": [d for _, d, _ in got],
+            "errors": [e for _, _, e in got],
+            "results": [dataclasses.asdict(r) for r in front.results],
+            "records": [dataclasses.asdict(r) for r in front.adm.records],
+            "events": events.events,
+            "metrics": metrics.partition(b"\r\n\r\n")[2].decode(),
+            "stats_http": json.loads(status.partition(b"\r\n\r\n")[2]),
+            "makespan_s": makespan, "idle": idle,
+            "preemptions": front.preemptions}
 
 
 def forward_job(mesh, job):

@@ -71,7 +71,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -254,6 +254,24 @@ class ServingMesh:
         t = torch.tensor([x], dtype=torch.float64, device=self.host_device)
         dist.broadcast(t, src=0)
         return float(t[0])
+
+    def broadcast_bytes(self, payload: Optional[bytes]) -> bytes:
+        """Global rank 0's ``payload`` on every rank (the others pass
+        ``None``): its length, then its bytes in a uint8 tensor, each one
+        broadcast staged through :attr:`host_device`.  Any thread may call
+        it, as long as one thread a rank issues the mesh's collectives."""
+        if self.data * self.model == 1:
+            return payload
+        lead = self.rank == 0
+        n = torch.tensor([len(payload) if lead else 0], dtype=torch.int64,
+                         device=self.host_device)
+        dist.broadcast(n, src=0)
+        buf = (torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+               .to(self.host_device) if lead else
+               torch.empty(int(n[0]), dtype=torch.uint8,
+                           device=self.host_device))
+        dist.broadcast(buf, src=0)
+        return payload if lead else buf.cpu().numpy().tobytes()
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +463,8 @@ def _rank_main(rank: int, shape: Shape, init_method: str, device: str,
 
 def run_ranks(fn: Callable, shape: Shape, *, device: str = "cuda",
               args: Sequence[Any] = (),
-              timeout_s: float = DEFAULT_TIMEOUT_S) -> List[Any]:
+              timeout_s: float = DEFAULT_TIMEOUT_S,
+              wait_s: Optional[float] = None) -> List[Any]:
     """Run ``fn(mesh, *args)`` on each rank of a ``shape`` mesh, one
     spawned process per rank (CUDA forbids ``fork`` after its
     initialisation), and return the ranks' results in rank order.
@@ -454,7 +473,9 @@ def run_ranks(fn: Callable, shape: Shape, *, device: str = "cuda",
     module-level function of an importable module and its results are
     plain data.  The first rank to raise fails the whole run with its
     traceback, and the other ranks are killed; so is every rank once
-    ``timeout_s`` has passed (each process group has the same timeout).
+    ``wait_s`` (default ``timeout_s``; ``math.inf``: a server's ranks,
+    which end when it stops) has passed.  Each process group has the
+    timeout ``timeout_s``.
     On ``device="cuda"`` the kernels are built here, once, before any rank
     loads them."""
     from repro_torch.device import resolve_device
@@ -483,7 +504,8 @@ def run_ranks(fn: Callable, shape: Shape, *, device: str = "cuda",
         try:
             for p in procs:
                 p.start()
-            deadline = time.monotonic() + timeout_s
+            wait_s = timeout_s if wait_s is None else wait_s
+            deadline = time.monotonic() + wait_s
             while len(got) < world:
                 try:
                     rank, ok, payload = results.get(timeout=0.2)
@@ -497,7 +519,7 @@ def run_ranks(fn: Callable, shape: Shape, *, device: str = "cuda",
                     if time.monotonic() > deadline:
                         raise TimeoutError(
                             f"mesh {shape}: ranks {sorted(set(range(world)) - set(got))} "
-                            f"gave no result within {timeout_s} s")
+                            f"gave no result within {wait_s} s")
                     continue
                 if not ok:
                     raise RuntimeError(f"mesh {shape}: rank {rank} failed:\n"

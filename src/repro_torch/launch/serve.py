@@ -11,6 +11,8 @@
         --mesh 2x2
     python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --full \
         --http --trace-out events.jsonl          # HTTP/SSE front door
+    python -m repro_torch.launch.serve --arch xpikeformer-gpt-4-256 --full \
+        --mesh 2x2 --http                        # ... over a mesh
 
 It takes the reference CLI's spellings (``src/repro/launch/serve.py``):
 without ``--full`` it serves the reduced config (``--smoke`` says so
@@ -56,15 +58,24 @@ for ui.perfetto.dev); ``--profile-steps N`` captures N decode steps with
 ``--http`` serves ``POST /generate`` (SSE token stream), ``GET /stats``,
 ``GET /metrics`` (Prometheus text) and ``GET /healthz`` on ``--host``:
 ``--port`` through :mod:`repro_torch.server` instead of the synthetic
-requests, until Ctrl-C.  The front door, the trace sink and the profiler
-serve one device: with ``--mesh`` (a process a rank) they raise (ROADMAP
-A9(b)).
+requests, until Ctrl-C.
+
+On a mesh (a process a rank) rank 0 alone holds the telemetry: the trace
+sink and the profiler window are its scheduler's.  With ``--http`` rank 0
+takes the requests and every other rank steps with it
+(:mod:`repro_torch.server.mesh`: before each step rank 0 broadcasts what
+its scheduler was told since the last one).  Ctrl-C, which a terminal
+sends to every rank, stops rank 0's front door and through it the other
+ranks (which ignore it), and rank 0's summary is printed; a rank that
+fails fails the front door's open streams and the run.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
+import signal
 import tempfile
 import time
 from typing import Any, Dict, List, Optional
@@ -105,17 +116,15 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
           trace_out: str = "", profile_steps: int = 0,
           profile_dir: str = DEFAULT_PROFILE_DIR):
     backend = _backend(backend)
-    if mesh and (http or trace_out or profile_steps):
-        raise ValueError(
-            "--http, --trace-out and --profile-steps serve one device; a "
-            "front door over the process-per-rank mesh is ROADMAP A9(b)")
     if mesh:
         return serve_mesh(
             arch, mesh, smoke=smoke, n_requests=n_requests, slots=slots,
             max_new=max_new, cache_len=cache_len, seed=seed, backend=backend,
             decode_kernel=decode_kernel, paged=paged, page_len=page_len,
             device=device, program=program, drift_step_s=drift_step_s,
-            recal_every_s=recal_every_s)
+            recal_every_s=recal_every_s, http=http, host=host, port=port,
+            trace_out=trace_out, profile_steps=profile_steps,
+            profile_dir=profile_dir)
     eng = XpikeformerEngine.from_config(arch, task="lm", backend=backend,
                                         reduced=smoke, device=device)
     cfg = eng.cfg
@@ -185,6 +194,17 @@ def serve(arch: str, *, smoke: bool = False, n_requests: int = 8,
     return [outs[r] for r in rids]
 
 
+def _print_summary(st) -> None:
+    """The HTTP serve's summary of its :class:`ServeStats`."""
+    print(f"\n[serve] served {st.requests} requests, {st.decoded_tokens} "
+          f"tokens ({st.tokens_per_sec:.1f} tok/s, {st.decode_steps} batched "
+          f"decode steps, {st.admissions} admissions)")
+    if st.energy_j > 0:
+        print(f"[serve] energy: {st.energy_j*1e6:.2f} uJ total "
+              f"({st.j_per_token*1e9:.1f} nJ/token, "
+              f"{st.spike_events:.0f} spike events)")
+
+
 def _serve_http(sch, *, host: str, port: int) -> None:
     """Run the async HTTP/SSE front door over a built scheduler until
     interrupted, then print the serve summary."""
@@ -212,26 +232,28 @@ def _serve_http(sch, *, host: str, port: int) -> None:
         pass
     st = sch.stats
     st.wall_s += time.perf_counter() - t0
-    print(f"\n[serve] served {st.requests} requests, {st.decoded_tokens} "
-          f"tokens ({st.tokens_per_sec:.1f} tok/s, {st.decode_steps} batched "
-          f"decode steps, {st.admissions} admissions)")
-    if st.energy_j > 0:
-        print(f"[serve] energy: {st.energy_j*1e6:.2f} uJ total "
-              f"({st.j_per_token*1e9:.1f} nJ/token, "
-              f"{st.spike_events:.0f} spike events)")
+    _print_summary(st)
 
 
 def serve_mesh(arch: str, spec: str, *, smoke: bool, n_requests: int,
                slots: int, max_new: int, cache_len: int, seed: int,
                backend: str, decode_kernel: str, paged: bool, page_len: int,
                device: str, program: bool, drift_step_s: float,
-               recal_every_s: float):
+               recal_every_s: float, http: bool = False,
+               host: str = "127.0.0.1", port: int = 8000,
+               trace_out: str = "", profile_steps: int = 0,
+               profile_dir: str = DEFAULT_PROFILE_DIR):
     """``serve`` on a ``(data, model)`` mesh: every rank builds the same
-    random weights (and programs them with ``PRNGKey(seed + 42)``), takes
-    its share and serves the same requests; rank 0 reports."""
+    random weights (and programs them with ``PRNGKey(seed + 42)``) and
+    takes its share; then every rank serves the same requests, or, with
+    ``http``, rank 0 serves HTTP through the front door until Ctrl-C and
+    the other ranks follow it (:func:`repro_torch.distributed.jobs.
+    front_door_job`).  Rank 0 alone attaches the telemetry
+    (``trace_out``, ``profile_steps``) and reports."""
     from repro_torch.configs import registry
     from repro_torch.distributed import jobs
     from repro_torch.launch import mesh as M
+    from repro_torch.serving import ServeStats
 
     shape = M.parse_mesh_spec(spec)
     cfg = (registry.reduced_config(arch) if smoke
@@ -246,7 +268,16 @@ def serve_mesh(arch: str, spec: str, *, smoke: bool, n_requests: int,
                prompts=make_prompts(n_requests, cfg.vocab_size, seed),
                max_new=max_new, slots=slots, cache_len=cache_len, seed0=seed,
                paged=paged, page_len=page_len, drift=drift,
-               decode_kernel=decode_kernel)
+               decode_kernel=decode_kernel, trace_out=trace_out,
+               profile_steps=profile_steps, profile_dir=profile_dir)
+    if http:
+        job.update(kind="front_door", http=(host, port))
+    if trace_out:
+        print(f"[serve] rank 0 traces the request lifecycle -> {trace_out} "
+              "(JSONL)")
+    if profile_steps > 0:
+        print(f"[serve] rank 0 profiles {profile_steps} decode steps -> "
+              f"{profile_dir} (torch.profiler)")
     world = shape[0] * shape[1]
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # torchrun
         if int(os.environ["WORLD_SIZE"]) != world:
@@ -256,13 +287,28 @@ def serve_mesh(arch: str, spec: str, *, smoke: bool, n_requests: int,
                            init_method="env://", device=device)
         res = jobs.run_jobs(mesh, [job])[0]
         if mesh.rank != 0:
-            return res["outputs"]
+            return [] if http else res["outputs"]
         layout = f"{mesh.backend} on {mesh.device}"
     else:
-        res = M.run_ranks(jobs.run_jobs, shape, device=device,
-                          args=([job],))[0][0]
+        # the spawned ranks inherit the ignored SIGINT; rank 0's front door
+        # takes it back, and this process waits for the ranks to end
+        sigint = signal.signal(signal.SIGINT, signal.SIG_IGN) if http else None
+        try:
+            res = M.run_ranks(jobs.run_jobs, shape, device=device,
+                              args=([job],),
+                              wait_s=math.inf if http else None)[0][0]
+        finally:
+            if sigint is not None:
+                signal.signal(signal.SIGINT, sigint)
         layout = (f"{M.pick_backend(world, device)}, {world} spawned ranks "
                   f"on {device}")
+    if http:
+        st = ServeStats(**res["stats"])
+        st.wall_s = res["wall_s"]
+        print(f"[serve] {cfg.name} on a (data={shape[0]}, model={shape[1]}) "
+              f"mesh ({layout}); rank 0 served HTTP")
+        _print_summary(st)
+        return []
     st = res["stats"]
     path = (f"through '{res['backend']}'; decode kernel "
             f"{'fused' if res['fused'] else 'unfused'}"

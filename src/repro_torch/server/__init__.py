@@ -10,6 +10,9 @@ Layering (transport down to the card)::
     AdmissionController -- per-tenant priorities, token-budget fairness,
         |             joule buckets (energy SLOs), decision records
         |             (repro_torch.server.admission)
+    MeshLeader      -- on a (data, model) mesh, rank 0's scheduler: its
+        |             submits and preemptions broadcast before each step
+        |             to the followers (repro_torch.server.mesh)
     BatchScheduler  -- the continuous-batching scheduler
                       (repro_torch.serving): dense or paged, on the card's
                       K3/K9 decode kernels; tokens stay a pure f(params,
@@ -21,7 +24,9 @@ from repro_torch.server.admission import (AdmissionController,
                                           AdmissionRecord, TenantPolicy)
 from repro_torch.server.frontdoor import (FrontDoor, QueueFull, RequestResult,
                                           TokenStream)
-from repro_torch.server.http import HttpFrontDoor, read_sse
+from repro_torch.server.http import (HttpFrontDoor, generate, http_request,
+                                     read_sse)
+from repro_torch.server.mesh import MeshLeader, follow
 
 __all__ = [
     "AdmissionController",
@@ -32,5 +37,9 @@ __all__ = [
     "RequestResult",
     "TokenStream",
     "HttpFrontDoor",
+    "MeshLeader",
+    "follow",
+    "generate",
+    "http_request",
     "read_sse",
 ]

@@ -31,6 +31,11 @@ identical token prefix, the front door replays it silently (checking
 bit-equality with what was already streamed) and the client stream
 resumes where it left off.  The replayed decode's extra joules are charged
 to the tenant: preemption is not free, and the meter says what it cost.
+
+**Over a mesh** the scheduler is rank 0's wrapped in a
+:class:`repro_torch.server.mesh.MeshLeader`: an idle pump round calls its
+``heartbeat`` and the pump's end its ``close``, which keep the other
+ranks' followers inside their process groups' timeout and end them.
 """
 
 from __future__ import annotations
@@ -239,6 +244,12 @@ class FrontDoor:
                     self._pool.shutdown(wait=True)
                     self._pool = None
 
+    async def wait(self) -> None:
+        """Until the pump ends: after :meth:`stop`, or when it raised
+        (:meth:`stop` then raises its exception)."""
+        if self._task is not None:
+            await asyncio.wait([self._task])
+
     async def submit(self, prompt: Sequence[int], max_new: int, *,
                      seed: Optional[int] = None,
                      tenant: str = "default") -> TokenStream:
@@ -362,6 +373,11 @@ class FrontDoor:
                 req.state = FAILED
                 self.failed += 1
                 self._finish_signal(req)
+        # a mesh's leader (repro_torch.server.mesh) stops its followers
+        # after the last step
+        close = getattr(self.sch, "close", None)
+        if close is not None:
+            close()
 
     def _finish_signal(self, req: _FrontRequest) -> None:
         self._loop.call_soon_threadsafe(req.q.put_nowait, None)
@@ -441,6 +457,11 @@ class FrontDoor:
                     self._c_preempt.inc()
                     self.obs.trace(TR.PREEMPT, fid=req.fid, rid=rid,
                                    tenant=req.tenant, streamed=req.streamed)
+                # pending again: its re-admission takes it off the count
+                # (the reference leaves it out, and its queue depth reads
+                # minus the preemptions once the queues drain)
+                with self._lock:
+                    self._pending_count += 1
                 self._tenant_queue(req.tenant).appendleft(req)
                 busy = True
         # 3. admission: strict priority + token fairness, energy throttle,
@@ -457,6 +478,12 @@ class FrontDoor:
             for name, st in list(self.adm.tenants.items()):
                 if st.policy.energy_budget_j is not None:
                     self._g_credit.set(st.credit_j, name)
+        if not busy:
+            # a mesh's leader keeps its waiting followers inside their
+            # process group's timeout
+            heartbeat = getattr(self.sch, "heartbeat", None)
+            if heartbeat is not None:
+                heartbeat()
         return busy
 
     def _admit(self) -> bool:

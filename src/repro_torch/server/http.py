@@ -48,7 +48,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import json
-from typing import Any, AsyncIterator, Dict, Optional, Tuple
+from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 
 from repro_torch.obs import render_prometheus
 from repro_torch.server.frontdoor import FrontDoor, QueueFull
@@ -266,3 +266,51 @@ async def read_sse(reader: asyncio.StreamReader
             event = line[len("event:"):].strip()
         elif line.startswith("data:"):
             data = line[len("data:"):].strip()
+
+
+async def http_request(host: str, port: int, method: str, path: str,
+                       body: Optional[Dict[str, Any]] = None) -> bytes:
+    """Client side: one exchange over a fresh connection (``body`` sent
+    as JSON); returns the raw response, headers included."""
+    data = b"" if body is None else json.dumps(body).encode()
+    reader, writer = await asyncio.open_connection(host, port)
+    try:
+        writer.write((f"{method} {path} HTTP/1.1\r\nHost: {host}\r\n"
+                      f"Content-Length: {len(data)}\r\n\r\n").encode()
+                     + data)
+        await writer.drain()
+        return await reader.read()
+    finally:
+        writer.close()
+        await writer.wait_closed()
+
+
+async def generate(host: str, port: int, body: Dict[str, Any]
+                   ) -> Tuple[List[int], Optional[Dict[str, Any]],
+                              Optional[str]]:
+    """Client side: ``POST /generate`` with ``body`` and read its SSE
+    stream -> (token ids in order, the ``done`` payload or None, the
+    ``error`` event's message or None)."""
+    data = json.dumps(body).encode()
+    reader, writer = await asyncio.open_connection(host, port)
+    try:
+        writer.write((f"POST /generate HTTP/1.1\r\nHost: {host}\r\n"
+                      f"Content-Length: {len(data)}\r\n\r\n").encode()
+                     + data)
+        await writer.drain()
+        toks: List[int] = []
+        done = error = None
+        async for ev, payload in read_sse(reader):
+            if ev == "token":
+                if payload["index"] != len(toks):
+                    raise ValueError(f"SSE token {payload['index']} after "
+                                     f"{len(toks)} tokens")
+                toks.append(payload["token"])
+            elif ev == "done":
+                done = payload
+            elif ev == "error":
+                error = payload["error"]
+        return toks, done, error
+    finally:
+        writer.close()
+        await writer.wait_closed()

@@ -12,6 +12,7 @@ versions at the same shapes on the card.
 """
 
 import ctypes
+import math
 import re
 from pathlib import Path
 
@@ -329,11 +330,22 @@ def test_serve_cli_reference_command_runs_on_cpu(capsys):
     assert "served 2 requests, 4 tokens" in out and "12 pages of 8" in out
 
 
-def test_serve_cli_takes_the_front_door_and_telemetry_flags(tmp_path):
+def test_serve_cli_takes_the_front_door_and_telemetry_flags(tmp_path,
+                                                           monkeypatch):
     """``--http``, ``--host``, ``--port``, ``--trace-out``,
     ``--profile-steps`` and ``--profile-dir`` parse into ``serve``'s
-    arguments; the front door and the trace serve one device, so with
-    ``--mesh`` they raise before a rank is spawned."""
+    arguments; with ``--mesh`` they reach the ranks' job (caught here
+    before a rank is spawned): ``--http`` makes it a front door job whose
+    ranks run until Ctrl-C, the trace and the profiler are rank 0's."""
+    from repro_torch.launch import mesh as LM
+
+    class Spawned(Exception):
+        pass
+
+    def spawn(fn, shape, *, device, args, wait_s=None, **kw):
+        raise Spawned(shape, args[0][0], wait_s)
+
+    monkeypatch.setattr(LM, "run_ranks", spawn)
     kw = serve_cli.parse_args([
         "--arch", ARCH, "--http", "--host", "0.0.0.0", "--port", "9001",
         "--trace-out", str(tmp_path / "ev.jsonl"), "--profile-steps", "3",
@@ -346,8 +358,14 @@ def test_serve_cli_takes_the_front_door_and_telemetry_flags(tmp_path):
     assert (dflt["http"], dflt["host"], dflt["port"], dflt["trace_out"],
             dflt["profile_steps"]) == (False, "127.0.0.1", 8000, "", 0)
     assert dflt["profile_dir"].endswith("xpike-profile")
-    for extra in (["--http"], ["--trace-out", "x.jsonl"],
-                  ["--profile-steps", "2"]):
-        with pytest.raises(ValueError, match="A9"):
+    for extra, want in ((["--http"], {"kind": "front_door",
+                                      "http": ("127.0.0.1", 8000)}),
+                        (["--trace-out", "x.jsonl"], {"trace_out": "x.jsonl"}),
+                        (["--profile-steps", "2"], {"profile_steps": 2})):
+        with pytest.raises(Spawned) as got:
             serve_cli.main(["--arch", ARCH, "--device", "cpu", "--mesh",
                             "2x2", *extra])
+        shape, job, wait_s = got.value.args
+        assert shape == (2, 2)
+        assert {k: job.get(k) for k in want} == want
+        assert wait_s == (math.inf if "--http" in extra else None)

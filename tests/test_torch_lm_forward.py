@@ -366,15 +366,14 @@ def test_unported_stacks_raise():
     """MoE builds and decodes on one device (``tests/test_torch_moe.py``
     holds it to JAX) and builds on a mesh (``tests/test_torch_mesh.py``
     serves and trains it there); a training mesh places a MoE config and
-    a model axis (the training cut); what still raises names its ROADMAP
-    item: the front door, trace sink and profiler with ``--mesh``
-    (A9(b)).  The float stack, a
+    a model axis (the training cut); the front door, trace sink and
+    profiler take ``--mesh`` (``tests/test_torch_caps.py``, A9(b)).  The
+    float stack, a
     spiking stack with an SSD mixer (on the rate interface), the decode of
     a LIF-attention stack (the reference's float path) and a spiking MoE
     run: a decode step gives finite logits."""
     from repro_torch.configs import ParallelConfig
     from repro_torch.distributed import Executor
-    from repro_torch.launch import serve as serve_cli
     from repro_torch.launch.mesh import ServingMesh
     from repro_torch.parallel import sharding as SH
     from repro_torch.train import loop as TL
@@ -391,11 +390,6 @@ def test_unported_stacks_raise():
     cut = SH.placement_specs(SH.param_placement(tcfg, (1, 2), device="cpu"))
     assert cut["['periods']['blk0']['mixer']['wq']"] == \
         "(None, None, 'model')"
-    for flag in ({"http": True}, {"trace_out": "t.jsonl"},
-                 {"profile_steps": 2}):
-        with pytest.raises(ValueError, match=r"A9\(b\)"):
-            serve_cli.serve("xpikeformer-gpt-4-256", smoke=True,
-                            device="cpu", mesh="2x2", **flag)
     tokens = torch.tensor([[3], [5]])
     for change in ({"spiking": False}, {"block_pattern": ("attn", "ssd"),
                                         "ssm_state_dim": 16},

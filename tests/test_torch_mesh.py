@@ -71,7 +71,9 @@ The JAX references compile in a pool of threads while the ranks run
 (``mesh_refs``).
 """
 
+import asyncio
 import dataclasses
+import math
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -124,6 +126,7 @@ from repro_torch.train import loop as TL
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw as A
+from repro_torch.server import TenantPolicy
 from repro_torch.serving import BatchScheduler
 
 import torch_mesh_jobs as MJ
@@ -197,6 +200,15 @@ TRAIN_CASES = {  # name: (arch, mesh shape, sequence, config change,
 LAUNCH = dict(smoke=True, steps=4, batch=8, seq_len=16, ckpt_every=2,
               fail_at=-1, straggler_factor=3.0, seed=0, log_every=0,
               lr=1e-3, probe=False)
+# the front door over the mesh: ``PROMPTS`` as three tenants (request
+# ``i`` is tenant ``i % 3``); ``metered`` holds a joule bucket of
+# ``FD_BUCKET`` of its request's cost (JAX's dense run), refilled at
+# ``FD_REFILL`` buckets a second only once it has been preempted; two
+# waves with an idle gap of several heartbeats between them
+FD_TENANTS = {"interactive": dict(priority=0), "batch": dict(priority=1),
+              "metered": dict(priority=1, preempt=True)}
+FD_BUCKET, FD_REFILL = 0.25, 50.0
+FD_HEARTBEAT_S, FD_IDLE_S = 0.1, 0.6
 
 
 def _eq(got, want, what=""):
@@ -263,6 +275,19 @@ def _serve_job(tcfg, params, prompts, max_new, **kw):
                seed0=100, backend="cuda")
     job.update(kw)
     return job
+
+
+def _fd_job(tcfg, tparams, jax_dense, **kw):
+    """The spiking GPT's front door job (``FD_*``) on ``PROMPTS``."""
+    _, jsch = jax_dense
+    bucket = FD_BUCKET * float(jsch.request_energy_j[2])  # request 2: metered
+    tenants = dict(FD_TENANTS)
+    tenants["metered"] = dict(tenants["metered"], energy_budget_j=bucket)
+    return _serve_job(tcfg, tparams, PROMPTS, 5, kind="front_door",
+                      tenants=tenants,
+                      refill_on_preempt={"metered": FD_REFILL * bucket},
+                      waves=[3, 2], idle_s=FD_IDLE_S,
+                      heartbeat_s=FD_HEARTBEAT_S, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -663,9 +688,11 @@ def launched(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def mesh22(setup, programmed, tmp_path_factory, mesh_refs, ep_routing,
-           launched):
-    """Every (2, 2) scenario in one spawn; ``{name: [result per rank]}``."""
+def mesh22(setup, programmed, jax_dense, tmp_path_factory, mesh_refs,
+           ep_routing, launched):
+    """Every (2, 2) scenario in one spawn; ``{name: [result per rank]}``
+    (``jax_dense`` first: it compiles before ``mesh_refs``'s pool takes
+    the cores)."""
     _, tcfg, _, tparams = setup
     _, thw, _, tacfg = programmed
     ckpt = tmp_path_factory.mktemp("train_ckpt")
@@ -712,6 +739,9 @@ def mesh22(setup, programmed, tmp_path_factory, mesh_refs, ep_routing,
         **_stack_jobs(ep_routing),
         **{f"train_{n}": _train_job(n) for n, c in TRAIN_CASES.items()
            if c[1] == (2, 2)},
+        "fd_dense": _fd_job(tcfg, tparams, jax_dense),
+        "fd_paged": _fd_job(tcfg, tparams, jax_dense, paged=True,
+                            page_len=8),
         "launch": dict(kind="launch", arch=ARCH, kw=dict(
             LAUNCH, ckpt_dir=str(root / "mesh22"), restore=False)),
         "launch_from_one": dict(kind="launch", arch=ARCH, kw=dict(
@@ -1095,8 +1125,8 @@ def test_shard_params_expert_blocks_equal_jax_in_spec(setup):
 @pytest.fixture(scope="module")
 def mesh14(setup, mesh_refs, launched, mesh22):
     """The (1, 4) spawn: the spiking dense serve, then phi3.5-moe's, the
-    (1, 4) train cases, and the (2, 2) launcher run resumed from its
-    step-2 checkpoint."""
+    (1, 4) train cases, the (2, 2) launcher run resumed from its step-2
+    checkpoint, and phi3.5-moe through the front door (two tenants)."""
     _, tcfg, _, tparams = setup
     moe = _stack(MOE)
     root = launched["root"]
@@ -1106,7 +1136,10 @@ def mesh14(setup, mesh_refs, launched, mesh22):
               if c[1] == (1, 4)],
             dict(kind="launch", arch=ARCH, kw=dict(
                 LAUNCH, restore=True, ckpt_dir=_step2_copy(
-                    root / "mesh22", root / "from_mesh22_14")))]
+                    root / "mesh22", root / "from_mesh22_14"))),
+            _serve_job(moe[1], moe[3], MOE_PROMPTS, kind="front_door",
+                       tenants={"interactive": {}, "batch": dict(priority=1)},
+                       **SERVE)]
     return run_ranks(MJ.run_jobs, (1, 4), device="cpu", args=(todo,),
                      timeout_s=TIMEOUT_S)
 
@@ -1128,6 +1161,297 @@ def test_dp_only_and_tp_only_meshes_equal_jax(setup, jax_dense, shape,
         assert r["outputs"] == ref
         assert (r["stats"]["data_shards"], r["stats"]["model_shards"]) == shape
         assert r["backend"] == ("cuda" if shape[1] == 1 else "sharded[cuda]")
+
+
+# ---------------------------------------------------------------------------
+# The front door over the mesh (rank 0 serves, every rank steps)
+# ---------------------------------------------------------------------------
+
+
+_FD_SAME = ("requests", "decode_steps", "decoded_tokens", "prefill_tokens",
+            "admissions", "evictions", "spike_events", "energy_j",
+            "prefix_hits", "prefix_hit_tokens", "cow_copies")
+
+
+def _metric(text, name):
+    """A sample's value in Prometheus text (``name`` with its labels)."""
+    (line,) = [ln for ln in text.splitlines() if ln.split(" ")[0] == name]
+    return float(line.split(" ")[1])
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_mesh_front_door_streams_equal_jax(jax_dense, mesh22, layout):
+    """The reduced spiking GPT served through the front door on the (2, 2)
+    mesh, rank 0 taking HTTP requests from three tenants and the other
+    ranks following: every SSE stream equals JAX's serve of the same
+    prompt and seed, the preempted ``metered`` request included (its
+    replay passed the bit check); every rank's scheduler ends with rank
+    0's outputs and stats; rank 0 alone holds telemetry and trace
+    events; ``/metrics`` after the last ``done`` reads no running and no
+    queued request and one TTFT a request."""
+    want, _ = jax_dense
+    res = mesh22[f"fd_{layout}"]
+    r0 = res[0]
+    assert r0["streams"] == want and r0["errors"] == [None] * len(want)
+    assert [d["tokens"] for d in r0["done"]] == want
+    results = {r["request_id"]: r for r in r0["results"]}
+    assert len(results) == len(want)
+    preempted = {r["tenant"] for r in results.values() if r["preemptions"]}
+    assert preempted == {"metered"} and r0["preemptions"] >= 1
+    decisions = [r["decision"] for r in r0["records"]]
+    assert "preempt:energy" in decisions and "readmit" in decisions
+    for rank, r in enumerate(res):
+        assert r["outputs"] == r0["outputs"], rank
+        assert {k: r["stats"][k] for k in _FD_SAME} == \
+            {k: r0["stats"][k] for k in _FD_SAME}, rank
+        assert r["request_energy_j"] == r0["request_energy_j"], rank
+        assert r["telemetry"] == (rank == 0)
+        assert ("events" in r) == (rank == 0)
+        if rank:  # a follower stepped exactly when rank 0 did
+            assert r["followed"]["steps"] == r0["stats"]["decode_steps"]
+    events = {(e["event"], e["fid"]) for e in r0["events"] if "fid" in e}
+    for fid in results:
+        assert {("admit", fid), ("first_token", fid),
+                ("finish", fid)} <= events
+    text = r0["metrics"]
+    assert _metric(text, "xpike_frontdoor_running") == 0
+    assert _metric(text, "xpike_frontdoor_queue_depth") == 0
+    assert _metric(text, "xpike_ttft_seconds_count") == len(want)
+    assert r0["stats_http"]["scheduler"]["decoded_tokens"] == \
+        r0["stats"]["decoded_tokens"]
+
+
+def test_mesh_front_door_idle_gap_heartbeats(mesh22):
+    """Between the two waves the front door idles for ``FD_IDLE_S``, six
+    heartbeats: no rank steps, every follower takes the no-ops and never
+    waits in one broadcast for as long as the gap (so a group timeout
+    longer than a few heartbeats is never reached), and the second wave
+    is served."""
+    for layout in ("dense", "paged"):
+        res = mesh22[f"fd_{layout}"]
+        idle = res[0]["idle"]
+        assert idle["steps"] == 0 and idle["seconds"] >= FD_IDLE_S
+        for r in res[1:]:
+            followed = r["followed"]
+            assert followed["noops"] >= FD_IDLE_S / FD_HEARTBEAT_S / 2
+            assert followed["longest_wait_s"] < FD_IDLE_S
+
+
+def test_mesh_front_door_moe_equals_jax_executor(mesh_refs, mesh14):
+    """The reduced phi3.5-moe through the front door on the (1, 4) mesh,
+    its experts' all-to-all in every step: rank 0's streams equal JAX's
+    ``Executor``, every rank's outputs and stats equal rank 0's, and no
+    rank drops a choice (at 4 slots no batch can fill a capacity)."""
+    want = mesh_refs["serve14"].result()
+    res = [r[-1] for r in mesh14]
+    assert res[0]["streams"] == want and res[0]["errors"] == [None] * 5
+    for r in res:
+        assert r["outputs"] == res[0]["outputs"]
+        assert {k: r["stats"][k] for k in _FD_SAME} == \
+            {k: res[0]["stats"][k] for k in _FD_SAME}
+        assert (r["moe"]["past_cap"], r["moe"]["past_c2"]) == (0, 0)
+
+
+@dataclasses.dataclass
+class _RecordingMesh(ServingMesh):
+    """A one-rank mesh that keeps what rank 0 broadcast; past
+    ``fail_at`` broadcasts it raises, as a collective with a dead peer
+    does."""
+
+    sent: list = dataclasses.field(default_factory=list)
+    fail_at: int = -1
+
+    def broadcast_bytes(self, payload):
+        if len(self.sent) == self.fail_at:
+            raise RuntimeError("Connection closed by peer")
+        self.sent.append(payload)
+        return payload
+
+
+class _Replay:
+    """A follower's side of ``_RecordingMesh``: rank 0's broadcasts."""
+
+    rank = 1
+
+    def __init__(self, sent):
+        self._sent = iter(sent)
+
+    def broadcast_bytes(self, payload):
+        return next(self._sent)
+
+
+def _door(sch, policies, idle_s=0.0):
+    """``PROMPTS`` (5 new tokens, seeds 100 + i, tenant ``i % 3`` of
+    ``FD_TENANTS``) submitted before the front door's pump starts, so its
+    decisions do not depend on timing; served, then idle ``idle_s``.
+    -> (streams or the error each raised, the front door, trace events)."""
+    from repro_torch.obs import ListSink, Telemetry
+    from repro_torch.server import FrontDoor
+
+    obs = Telemetry.create()
+    sink = ListSink()
+    obs.tracer.add_sink(sink)
+
+    async def go():
+        front = FrontDoor(sch, telemetry=obs, policies=policies)
+        streams = [await front.submit(p, 5, seed=100 + i,
+                                      tenant=list(FD_TENANTS)[i % 3])
+                   for i, p in enumerate(PROMPTS)]
+        await front.start()
+        got = []
+        try:
+            for ts in streams:
+                try:
+                    got.append(await ts.tokens())
+                except RuntimeError as e:
+                    got.append(str(e))
+            await asyncio.sleep(idle_s)
+        finally:
+            try:
+                await front.stop()
+            except RuntimeError as e:
+                got.append(f"stop: {e}")
+        return got, front
+
+    got, front = asyncio.run(go())
+    return got, front, sink.events
+
+
+def _strip(events):
+    return [{k: v for k, v in e.items() if k not in ("ts", "mono", "ttft_s",
+                                                        "latency_s")}
+            for e in events]
+
+
+def test_one_rank_mesh_leader_equals_plain_front_door(setup, jax_dense):
+    """No spawn: the front door over a ``MeshLeader`` on a one-rank mesh
+    gives the plain front door's streams, results, admission records and
+    trace events (JAX's tokens); it broadcasts once a step, no-ops while
+    idle and a STOP last.  Replayed through ``follow`` into a fresh
+    scheduler, those broadcasts give the same outputs and stats; replayed
+    into a scheduler that already took a request, the first submit's rid
+    differs and ``follow`` raises."""
+    import pickle
+
+    from repro_torch.server import MeshLeader, follow
+    from repro_torch.server import mesh as SM
+
+    _, tcfg, _, tparams = setup
+    want, _ = jax_dense
+    policies = {n: TenantPolicy(**kw) for n, kw in FD_TENANTS.items()}
+
+    def sched():
+        return BatchScheduler(tparams, tcfg, "integer", slots=2,
+                              cache_len=32, device="cpu")
+
+    plain = sched()
+    got, front, events = _door(plain, policies)
+    mesh = _RecordingMesh((1, 1), 0, torch.device("cpu"))
+    lead = sched()
+    got_l, front_l, events_l = _door(
+        MeshLeader(lead, mesh, heartbeat_s=0.05), policies, idle_s=0.4)
+    assert got == got_l == want
+    assert lead.obs is front_l.obs and lead.obs is not None
+    for a, b in zip(front.results, front_l.results):
+        assert (a.request_id, a.tenant, a.tokens, a.energy_j,
+                a.preemptions) == (b.request_id, b.tenant, b.tokens,
+                                   b.energy_j, b.preemptions)
+    assert list(front.adm.records) == list(front_l.adm.records)
+    assert _strip(events) == _strip(events_l)
+    ops = [pickle.loads(b)[1] for b in mesh.sent]
+    assert ops.count(SM.STEP) == lead.stats.decode_steps
+    assert ops[-1] == SM.STOP and ops.count(SM.STOP) == 1
+    assert ops.count(SM.NOOP) >= 3  # the idle 0.4 s, a no-op each 0.05 s
+    follower = sched()
+    followed = follow(follower, _Replay(mesh.sent))
+    assert followed["steps"] == lead.stats.decode_steps
+    assert follower.outputs == lead.outputs
+    assert follower.request_energy_j == lead.request_energy_j
+    for k in _FD_SAME:
+        assert getattr(follower.stats, k) == getattr(lead.stats, k), k
+    ahead = sched()
+    ahead.submit(PROMPTS[0], 5)
+    with pytest.raises(RuntimeError, match="diverged"):
+        follow(ahead, _Replay(mesh.sent))
+
+
+def test_a_dead_follower_fails_the_mesh_front_door(setup):
+    """No spawn: when rank 0's broadcast raises (a follower died), every
+    open stream ends with the pump's error, ``stop`` raises, and the
+    leader sends no STOP into the broken mesh."""
+    from repro_torch.server import MeshLeader
+
+    _, tcfg, _, tparams = setup
+    sch = BatchScheduler(tparams, tcfg, "integer", slots=2, cache_len=32,
+                         device="cpu")
+    mesh = _RecordingMesh((1, 1), 0, torch.device("cpu"), fail_at=3)
+    lead = MeshLeader(sch, mesh)
+    got, front, _ = _door(lead, {})
+    *streams, stopped = got
+    assert len(streams) == len(PROMPTS)
+    assert all(isinstance(g, str) and "front door pump failed" in g
+               and "Connection closed" in g for g in streams)
+    assert stopped == "stop: Connection closed by peer"
+    assert front.failed == len(PROMPTS) and front.completed == 0
+    assert lead.broken and lead.closed and len(mesh.sent) == 3
+
+
+def test_serve_cli_front_door_on_a_mesh(setup, tmp_path, monkeypatch,
+                                        capsys):
+    """``launch.serve`` with ``--mesh --http --trace-out`` no longer
+    raises: it runs a front door job on the ranks (here one rank, run in
+    this process in place of the spawn), which serves HTTP until SIGINT,
+    stops the followers and returns rank 0's summary; rank 0's trace
+    sink holds the request's lifecycle."""
+    import signal
+    import socket
+    import threading
+
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import serve as LS
+    from repro_torch.obs import load_jsonl
+    from repro_torch.server import generate
+
+    spawned = {}
+
+    def one_rank(fn, shape, *, device, args, wait_s=None, **kw):
+        spawned.update(shape=shape, wait_s=wait_s, job=args[0][0])
+        return [fn(ServingMesh.single(device), *args)]
+
+    monkeypatch.setattr(LM, "run_ranks", one_rank)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    got = {}
+
+    def client():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            try:
+                got["stream"] = asyncio.run(generate(
+                    "127.0.0.1", port, dict(prompt=PROMPTS[0], max_new=5,
+                                            seed=100)))
+                break
+            except OSError:
+                time.sleep(0.05)
+        os.kill(os.getpid(), signal.SIGINT)
+
+    trace = tmp_path / "events.jsonl"
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    out = LS.serve(ARCH, smoke=True, mesh="1x1", http=True, port=port,
+                   device="cpu", backend="integer", slots=2, cache_len=32,
+                   trace_out=str(trace))
+    t.join(timeout=10)
+    assert not t.is_alive() and out == []
+    assert spawned["wait_s"] == math.inf
+    assert spawned["job"]["kind"] == "front_door"
+    toks, done, error = got["stream"]
+    assert error is None and done["tokens"] == toks and len(toks) == 5
+    text = capsys.readouterr().out
+    assert "rank 0 served HTTP" in text and "served 1 requests" in text
+    kinds = {e["event"] for e in load_jsonl(str(trace))}
+    assert {"submit", "admit", "first_token", "finish"} <= kinds
 
 
 # ---------------------------------------------------------------------------
@@ -1380,8 +1704,8 @@ def test_launcher_on_the_mesh_resumes_across_meshes(launched, mesh22,
         np.testing.assert_allclose(r["losses"], want[2:], rtol=0,
                                    atol=TRAIN_LOSS_ATOL)
     for r in mesh14:
-        assert r[-1]["start_step"] == 2
-        np.testing.assert_allclose(r[-1]["losses"], mesh[0]["losses"][2:],
+        assert r[-2]["start_step"] == 2
+        np.testing.assert_allclose(r[-2]["losses"], mesh[0]["losses"][2:],
                                    rtol=0, atol=TRAIN_LOSS_ATOL)
     root = launched["root"]
     ckpt = _step2_copy(root / "mesh22", tmp_path / "resume")

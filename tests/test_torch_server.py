@@ -542,6 +542,8 @@ def test_energy_preemption_readmits_bit_exact(setup, dense_sched):
             assert ts.result.energy_j > full_j  # replays are not free
             tags = [r.decision for r in front.adm.decisions(ts.request_id)]
             assert ADM.PREEMPT_ENERGY in tags and ADM.READMIT in tags
+            # a preempted request counted pending again until re-admitted
+            assert front.stats_dict()["pending"] == 0
         finally:
             await front.stop()
 

@@ -26,6 +26,9 @@ dicts) and returns one result per job:
   train_job`, training steps with the rank's cut of the state;
 * ``{"kind": "launch", "arch", "kw"}`` -- :func:`repro_torch.distributed.
   jobs.launch_job`, the train launcher's rank function;
+* ``{"kind": "front_door", ...}`` -- :func:`repro_torch.distributed.jobs.
+  front_door_job`, the HTTP front door on rank 0, the other ranks
+  following it;
 * ``{"kind": "fail", "rank": r}`` -- rank ``r`` raises while the others
   wait in a collective (the failure path of ``run_ranks``).
 """
@@ -53,7 +56,7 @@ def run_jobs(mesh, todo: List[Dict[str, Any]]) -> List[Any]:
              "decode": jobs.decode_job, "layer": layer_job,
              "recalibrate": recalibrate_job, "ep_local": ep_local_job,
              "train": jobs.train_job, "launch": jobs.launch_job,
-             "fail": fail_job}
+             "front_door": jobs.front_door_job, "fail": fail_job}
     return [kinds[job.get("kind", "serve")](mesh, job) for job in todo]
 
 
