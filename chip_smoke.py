@@ -189,9 +189,17 @@ Phases, each printing one JSON line:
    every loss finite and equal on all ranks, the fixed-batch probe loss
    lower after the steps; per rank the step ms, the all-to-alls and
    gathers a step and their bytes, the FSDP branch taken, the choices
-   dropped and ``max_memory_allocated``.  (i) the reduced spiking GPT
-   and the reduced phi3.5-moe (capacity factor 16: nothing drops), one
-   step each: every rank's loss and gradient norm within
+   dropped and ``max_memory_allocated``; then recurrentgemma-9b at full
+   width in bfloat16, one period (3 of its 38 layers), 2 steps on the
+   same tokens under every cut of the reference's rules (ZeRO-3 over
+   ``data``, its tied table over both axes, RG-LRU and the query heads
+   over ``model``): its losses finite and equal on all ranks, each rank's
+   ``max_memory_allocated`` beside the reckoning of both layouts and
+   below the old layout's state alone, its step ms.  (i) the reduced
+   spiking GPT, the reduced phi3.5-moe (capacity factor 16: nothing
+   drops), and the reduced mamba2-780m and recurrentgemma-9b with a
+   vocabulary of 256 (cut over ``model``), one step each: every rank's
+   loss and gradient norm within
    ``MESH_TRAIN_LOSS_ATOL``/``MESH_TRAIN_NORM_RTOL`` of one card's whole
    step; then
    the spiking GPT trained 2 steps through the launcher's rank function
@@ -3589,6 +3597,7 @@ def phase_float_lm(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 MOE_NAME = "phi3.5-moe-42b-a6.6b"
+RG_NAME = "recurrentgemma-9b"
 # (a) served in its config's bfloat16 at full width, 8 of its 32 layers:
 # all 32 take ~83.8 GB of weights, past the card's 80 GB
 MOE_SERVE_LAYERS = 8
@@ -3878,17 +3887,28 @@ MESH_TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=MESH_TRAIN_STEPS)
 # bytes a weight of (h)'s state: bfloat16 weight and gradient, two float32
 # moments
 MESH_TRAIN_BYTES_PER_WEIGHT = 2 + 2 + 4 + 4
-# (i) the reduced configs, one step each on (8, 32) tokens; the spiking
-# GPT's launcher run and the serve of its checkpoint
+# (h) recurrentgemma-9b at full width in bfloat16, one period (3 of its 38
+# layers), 2 steps on MESH_TRAIN_DATA: its tied 256,000-row table is cut
+# over both axes, RG-LRU over model, every embed axis over data (ZeRO-3)
+MESH_RG_LAYERS, MESH_RG_STEPS = 3, 2
+# (i) the reduced configs, one step each on (8, 32) tokens (mamba2-780m
+# and recurrentgemma-9b with a vocabulary of 256, which the model axis
+# cuts: the reduced 257 is prime); the spiking GPT's launcher run and the
+# serve of its checkpoint
 MESH_TRAIN_SMALL = (8, 32, 0)
+MESH_TRAIN_SMALL_VOCAB = 256
 MESH_TRAIN_SERVE = dict(requests=4, max_new=8, slots=4, cache_len=64)
-MESH_TRAIN_BUDGET_S = 90.0
+# 150 s: 90 s used 23.1-27.8 s before recurrentgemma-9b's full-width
+# steps and the two more reduced configs joined
+MESH_TRAIN_BUDGET_S = 150.0
 # (i) a mesh rank's first step against one card's: the same float32 work
 # in other orders (no choice drops at factor 16), read 4.8e-7 apart on
 # the GPT's loss and equal on its gradient norm and on phi3.5-moe's loss
 # (NVIDIA H100 80GB HBM3, 700 W); tight enough that the router's
 # statistics left unaveraged or a leaf left out of the norm would fail
 MESH_TRAIN_LOSS_ATOL, MESH_TRAIN_NORM_RTOL = 1e-5, 1e-4
+MESH_TRAIN_FIRST_STEP = ("train_gpt", "train_moe", "train_mamba",
+                         "train_rg_small")
 # (j) the front door on the same spawn, in a budget of 45 s (rank 0's job
 # seconds, both layouts): (a)'s 8 requests x 16 new tokens through
 # HttpFrontDoor on rank 0 as the three FD_TENANTS, ``metered`` holding a
@@ -3900,33 +3920,58 @@ MESH_FD_NEW = 16
 FD_BUCKET_SHARE, FD_REFILL_TOKENS = 0.25, 50
 
 
+def megatron_only_specs(cfg):
+    """The training cut before ZeRO-3 and the vocabulary, SSD and RG-LRU
+    cuts, for the reckoning beside this one: the attention's heads over
+    ``model`` only where the KV heads divide too, ``ffn``, the experts and
+    (``fsdp``) their ``d_ff``; every other leaf whole."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as SH
+
+    over = {k: () for k in ("embed", "vocab", "ssm_inner", "ssm_heads",
+                            "ssm_conv", "lru")}
+    if cfg.num_kv_heads % MESH[1]:
+        over.update(heads=(), kv_heads=())
+    sizes = {"data": MESH[0], "model": MESH[1]}
+
+    def walk(axes, shapes):
+        if isinstance(axes, dict):
+            return {k: walk(axes[k], shapes[k]) for k in axes}
+        return SH.spec_for(axes, shapes, sizes, overrides=over)
+
+    return walk(SH.param_axes(cfg), T._model_shapes(cfg))
+
+
 def mesh_train_reckoning(cfg, opt_bytes: int = MESH_TRAIN_BYTES_PER_WEIGHT
                          ) -> dict:
     """(h)'s memory reckoning, before its first call: the weights each
     rank of ``MESH`` holds under the training cut, and their state's
-    bytes at ``opt_bytes`` a weight, per rank and for the card."""
+    bytes at ``opt_bytes`` a weight, per rank and for the card; the same
+    under the layout before the memory-only cuts (``megatron_only``:
+    :func:`megatron_only_specs`)."""
     from repro_torch import tree as TR
+    from repro_torch.models import transformer as T
     from repro_torch.parallel import sharding as SH
-    from repro_torch.train import loop as TL
 
-    whole = TL.whole_like(cfg)[0]
-    shapes = [x.shape for x in TR.flatten(whole)[0]]
-    ranks = []
-    for rank in range(MESH[0] * MESH[1]):
-        place = SH.param_placement(cfg, MESH, device="cpu",
-                                   data_index=rank // MESH[1],
-                                   model_index=rank % MESH[1])
-        held = 0
-        for shape, where in zip(shapes, SH.leaf_placements(whole, place)):
-            n = math.prod(shape)
-            for a in where.cut_over:
-                n //= where.axis_size(a)
-            held += n
-        ranks.append(held)
+    shapes = TR.flatten(T._model_shapes(cfg),
+                        is_leaf=lambda x: isinstance(x, tuple))[0]
+
+    def held(specs):  # every rank holds an even cut
+        flat = TR.flatten(specs, is_leaf=lambda x: isinstance(x, tuple))[0]
+        n = sum(math.prod(shape) // math.prod(
+            {"data": MESH[0], "model": MESH[1]}.get(a, 1) for a in spec)
+            for shape, spec in zip(shapes, flat))
+        return [n] * (MESH[0] * MESH[1])
+
+    def layout(ranks):
+        return {"weights_per_rank": ranks,
+                "gb_per_rank": [r * opt_bytes / 1e9 for r in ranks],
+                "gb_card": sum(ranks) * opt_bytes / 1e9}
+
+    ranks = held(SH.train_specs(cfg, MESH))
     return {"weights_whole": sum(math.prod(x) for x in shapes),
-            "weights_per_rank": ranks, "bytes_per_weight": opt_bytes,
-            "gb_per_rank": [r * opt_bytes / 1e9 for r in ranks],
-            "gb_card": sum(ranks) * opt_bytes / 1e9}
+            "bytes_per_weight": opt_bytes, **layout(ranks),
+            "megatron_only": layout(held(megatron_only_specs(cfg)))}
 
 
 def mesh_train_jobs(root: Path) -> dict:
@@ -3935,7 +3980,12 @@ def mesh_train_jobs(root: Path) -> dict:
 
     full = dataclasses.replace(registry.get_config(MOE_NAME),
                                num_layers=MESH_TRAIN_LAYERS)
+    rg = dataclasses.replace(registry.get_config(RG_NAME),
+                             num_layers=MESH_RG_LAYERS)
     gpt = registry.reduced_config(ARCH)
+    small_vocab = {n: dataclasses.replace(registry.reduced_config(n),
+                                          vocab_size=MESH_TRAIN_SMALL_VOCAB)
+                   for n in ("mamba2-780m", RG_NAME)}
     moe = dataclasses.replace(registry.reduced_config(MOE_NAME),
                               capacity_factor=MOE_NO_DROP_CF)
     par = dict(remat="none")
@@ -3947,8 +3997,13 @@ def mesh_train_jobs(root: Path) -> dict:
                            data=MESH_TRAIN_DATA, steps=MESH_TRAIN_STEPS,
                            key_seed=0, probe=True, parallel=par,
                            opt=MESH_TRAIN_OPT),
+        "train_rg": dict(kind="train", cfg=rg, init_seed=6,
+                         data=MESH_TRAIN_DATA, steps=MESH_RG_STEPS,
+                         key_seed=0, parallel=par, opt=MESH_TRAIN_OPT),
         "train_gpt": dict(small, cfg=gpt),
         "train_moe": dict(small, cfg=moe),
+        "train_mamba": dict(small, cfg=small_vocab["mamba2-780m"]),
+        "train_rg_small": dict(small, cfg=small_vocab[RG_NAME]),
         "launch_gpt": dict(kind="launch", arch=ARCH, kw=dict(
             smoke=True, steps=2, batch=MESH_TRAIN_SMALL[0],
             seq_len=MESH_TRAIN_SMALL[1], ckpt_dir=str(root / "mesh_launch"),
@@ -3971,15 +4026,16 @@ def mesh_train_one_card(dev, jobs: dict) -> dict:
     t0 = time.perf_counter()
     one = ServingMesh.single(dev)
     out = {n: J.train_job(one, jobs[n])["metrics"][0]
-           for n in ("train_gpt", "train_moe")}
+           for n in MESH_TRAIN_FIRST_STEP}
     out["seconds"] = time.perf_counter() - t0
     return out
 
 
 def mesh_train(res, first: int, jobs: dict, one_card: dict, dev,
-               total: dict) -> dict:
+               total: dict, rg_reckoning: dict) -> dict:
     """(h)-(i)'s checks and readings from the ranks' results (``jobs`` in
-    order from ``first``); (i)'s serve launches join ``total``."""
+    order from ``first``); (i)'s serve launches join ``total``;
+    ``rg_reckoning``: recurrentgemma-9b's (:func:`mesh_train_reckoning`)."""
     from repro_torch.distributed import jobs as J
     from repro_torch.launch.mesh import ServingMesh
 
@@ -4024,9 +4080,35 @@ def mesh_train(res, first: int, jobs: dict, one_card: dict, dev,
         steps=MESH_TRAIN_STEPS, ranks=ranks,
         note="dispatch counts are the forward's; the backward moves the "
              "same bytes back")
+    # (h) recurrentgemma-9b at full width under the cuts
+    rg = jobs["train_rg"]["cfg"]
+    rg_ranks = []
+    for rank, r in enumerate(got["train_rg"]):
+        losses = [m["loss"] for m in r["metrics"]]
+        check(all(math.isfinite(x) for x in losses),
+              f"mesh train (h) {rg.name}: rank {rank}: a loss is not finite")
+        check(losses == [m["loss"] for m in got["train_rg"][0]["metrics"]],
+              f"mesh train (h) {rg.name}: rank {rank}'s losses differ from "
+              "rank 0's")
+        rg_ranks.append(dict(
+            rank=rank, weights_held=r["held"], losses=losses,
+            grad_norms=[m["grad_norm"] for m in r["metrics"]],
+            step_ms=[1e3 * t for t in r["step_s"]],
+            max_memory_allocated=r["max_memory_allocated"],
+            job_s=r["job_s"]))
+    old = rg_reckoning["megatron_only"]["gb_per_rank"][0] * 1e9
+    for r in rg_ranks:
+        check(r["max_memory_allocated"] < old,
+              f"mesh train (h) {rg.name}: rank {r['rank']} peaked at "
+              f"{r['max_memory_allocated']} B, not below the old layout's "
+              f"state alone ({old:.0f} B)")
+    out["rg_full"] = dict(
+        arch=rg.name, reduced=f"{MESH_RG_LAYERS} of 38 layers (one period)",
+        dtype=rg.dtype, tokens=[MESH_TRAIN_DATA[0], MESH_TRAIN_DATA[1] + 1],
+        steps=MESH_RG_STEPS, ranks=rg_ranks)
     # (i) the reduced configs' first step against one card's
     first_step = {}
-    for name in ("train_gpt", "train_moe"):
+    for name in MESH_TRAIN_FIRST_STEP:
         want = one_card[name]
         rows = []
         for rank, r in enumerate(got[name]):
@@ -4383,6 +4465,9 @@ def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched, spiking,
     reckoning = mesh_train_reckoning(train_jobs["train_full"]["cfg"])
     emit({"phase": "mesh_train_reckoning", "card": card_line(),
           "arch": MOE_NAME, "layers": MESH_TRAIN_LAYERS, **reckoning})
+    rg_reckoning = mesh_train_reckoning(train_jobs["train_rg"]["cfg"])
+    emit({"phase": "mesh_train_reckoning", "card": card_line(),
+          "arch": RG_NAME, "layers": MESH_RG_LAYERS, **rg_reckoning})
     train_one = mesh_train_one_card(dev, train_jobs)
     fd_jobs = mesh_front_door_jobs(base, dense["prompts"], served)
     t0 = time.perf_counter()
@@ -4454,8 +4539,10 @@ def phase_mesh(dev, dense_outs, paged_outs, mesh_ref, launched, spiking,
     stacks["seconds"] = t_stacks + stacks["rank_job_s"]
     stacks["budget_s"] = MESH_STACKS_BUDGET_S
     out["stacks"] = stacks
-    out["train"] = dict(reckoning=reckoning, **mesh_train(
-        res, 4 + len(stack_jobs), train_jobs, train_one, dev, total))
+    out["train"] = dict(reckoning=reckoning, rg_reckoning=rg_reckoning,
+                        **mesh_train(
+        res, 4 + len(stack_jobs), train_jobs, train_one, dev, total,
+        rg_reckoning))
     out["front_door"] = mesh_front_door(
         res, 4 + len(stack_jobs) + len(train_jobs), fd_jobs,
         [o[:MESH_FD_NEW] for o in dense_outs[:8]], total)

@@ -204,7 +204,9 @@ class TrainingShardBackend:
     """A training rank's share of the float reference backend
     (``engine.ReferenceBackend``, the one autograd trains through) on a
     ``(data, model)`` mesh: the spiking stack's linears cut as
-    :func:`repro_torch.parallel.sharding.train_cut` places them.
+    :func:`repro_torch.parallel.sharding.train_specs` places them (their
+    ZeRO-3 cut over ``data`` is gathered before the block runs:
+    :func:`repro_torch.models.transformer._uncut_block`).
 
     * a column-parallel linear of a cut part (Q/K/V, MLP in) takes its
       input through ``copy_to_model`` (the model group's cotangents
@@ -214,7 +216,10 @@ class TrainingShardBackend:
       (``reduce_from_model``: a float sum split over the group, so not
       one device's bits) and fires the LIF once on the sum;
     * the float SSA draws the rank's heads' comparators where they lie in
-      the whole tile's draw (``h0``, ``heads``).
+      the whole tile's draw (``h0``, ``heads``);
+    * where the KV heads are whole over ``model``, the K/V linears take
+      the groups the rank's query heads read
+      (:func:`repro_torch.models.layers.own_kv_groups`).
 
     A part the model axis does not cut runs whole on every rank.  Only
     float weights are cut (HWAT's noise and programmed state are drawn
@@ -223,12 +228,12 @@ class TrainingShardBackend:
     differentiable = True
     bit_exact = False
 
-    def __init__(self, inner, mesh, cfg, cut):
+    def __init__(self, inner, mesh, cfg, *, heads: bool, mlp: bool):
         self.inner = inner
         self.mesh = mesh
         self.cfg = cfg
-        self.heads = ("mixer", "wq") in cut
-        self.mlp = ("mlp", "wi") in cut
+        self.heads = heads
+        self.mlp = mlp
         self.name = f"sharded[{inner.name}]"
 
     def __getattr__(self, name):

@@ -31,7 +31,7 @@ def state_shardings(cfg, mesh_shape: Tuple[int, int], opt, *,
     training state ``(params, opt_state)`` with.
 
     On a training mesh each rank holds its cut
-    (:func:`repro_torch.parallel.sharding.train_cut`; ``fsdp`` and
+    (:func:`repro_torch.parallel.sharding.train_specs`; ``fsdp`` and
     ``pure_dp`` as the train step's :class:`repro_torch.configs.
     ParallelConfig`), and the moments (and EF residuals) follow their
     parameters' placement, ``step`` whole; where nothing is cut one
@@ -46,7 +46,8 @@ def state_shardings(cfg, mesh_shape: Tuple[int, int], opt, *,
     if serving:
         return params, None
     whole = SH.Placement(torch.device(device))
-    if not SH.train_cut(cfg, mesh_shape, fsdp=fsdp, pure_dp=pure_dp):
+    if not SH.any_cut(SH.train_specs(cfg, mesh_shape, fsdp=fsdp,
+                                     pure_dp=pure_dp)):
         return params, whole
     return params, {"m": params, "v": params, "ef": params, "step": whole}
 

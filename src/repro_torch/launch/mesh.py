@@ -54,6 +54,13 @@ gathered tensor differ by rank.  Hence:
   gloo it is an all-to-all of the blocks and a sum of the received blocks
   in rank order (the bytes of a reduce-scatter, and the same sum on every
   rank); under NCCL ``reduce_scatter_tensor``;
+* :meth:`ServingMesh.reduce_scatter_model` -- the same over ``model``
+  (partial sums whose columns the ranks split), the cotangents' blocks
+  gathered backward;
+* :meth:`ServingMesh.gather_data_freed` -- ZeRO-3's gather of a
+  ``data``-cut weight, backward the reduce-scatter of its gradient; inside
+  :func:`regathered_saves` autograd keeps the rank's block, not the whole
+  weight, for the backward, and gathers it again there;
 * :meth:`ServingMesh.all_to_all_model` -- its own transpose.
 
 Under gloo the gathers and all-to-alls run on CPU tensors (the operand
@@ -71,6 +78,7 @@ import queue
 import tempfile
 import time
 import traceback
+import weakref
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -224,7 +232,28 @@ class ServingMesh:
         scatter_dimension=axis, tiled=True)``); the all-gather backward."""
         if self.data <= 1:
             return x
-        return _ReduceScatter.apply(x, self, axis)
+        return _ReduceScatter.apply(x, self, axis, "data")
+
+    def reduce_scatter_model(self, x: torch.Tensor, axis: int
+                             ) -> torch.Tensor:
+        """The sum over the model group of ``x`` (each rank's partial
+        sums), of which this rank keeps its block of ``axis``
+        (``lax.psum_scatter`` over ``model``); the all-gather of the
+        cotangent's blocks backward."""
+        if self.model <= 1:
+            return x
+        return _ReduceScatter.apply(x, self, axis, "model")
+
+    def gather_data_freed(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """ZeRO-3's un-cut: the data group's blocks of ``axis`` gathered
+        (:meth:`all_gather` over ``data``: the gradient reduce-scattered
+        back), the whole tensor marked so that, inside
+        :func:`regathered_saves`, autograd saves the rank's block in its
+        place and gathers it again in the backward: a layer's whole
+        weights live only while the layer runs."""
+        if self.data <= 1:
+            return x
+        return _GatherFreed.apply(x, self, axis)
 
     def all_reduce(self, x: torch.Tensor, over=("data", "model"),
                    op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -302,13 +331,13 @@ def _block(x: torch.Tensor, axis: int, size: int, index: int
     return x.narrow(axis, index * n, n).contiguous()
 
 
-def _reduce_scatter(x: torch.Tensor, mesh: ServingMesh, axis: int
-                    ) -> torch.Tensor:
-    group, size, _ = mesh._group("data")
+def _reduce_scatter(x: torch.Tensor, mesh: ServingMesh, axis: int,
+                    over: str = "data") -> torch.Tensor:
+    group, size, _ = mesh._group(over)
     axis = axis % x.dim()
     if x.shape[axis] % size:
         raise ValueError(f"axis {axis} of {tuple(x.shape)} does not split "
-                         f"over data={size}")
+                         f"over {over}={size}")
     src = x.detach().movedim(axis, 0).contiguous()
     n = src.shape[0] // size
     if mesh.backend == "nccl":
@@ -335,6 +364,57 @@ def _all_to_all(x: torch.Tensor, mesh: ServingMesh, over: str
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
     return out.to(x.device)
+
+
+# the tensors :class:`_GatherFreed` made, by storage address (a weak
+# reference: an entry lives only as long as its tensor, so an address that
+# a later tensor reuses is never mistaken for a gathered one)
+_GATHERED: "weakref.WeakValueDictionary[int, torch.Tensor]" = \
+    weakref.WeakValueDictionary()
+# ZeRO-3's gathers since the caller last zeroed them: ``gathers`` in the
+# forward, ``regathers`` of saved views in the backward
+ZERO3 = {"gathers": 0, "regathers": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Regather:
+    """What a saved view of a gathered tensor is rebuilt from."""
+
+    piece: torch.Tensor
+    mesh: ServingMesh
+    axis: int
+    size: Tuple[int, ...]
+    stride: Tuple[int, ...]
+    offset: int
+
+
+def _pack(t: torch.Tensor):
+    whole = _GATHERED.get(t.untyped_storage().data_ptr())
+    if whole is None:
+        return t
+    piece, mesh, axis = whole._regather
+    return _Regather(piece, mesh, axis, tuple(t.size()), tuple(t.stride()),
+                     t.storage_offset())
+
+
+def _unpack(saved):
+    if not isinstance(saved, _Regather):
+        return saved
+    # the same gather of the same block: the same layout, so the saved
+    # view's strides and offset address the same elements
+    ZERO3["regathers"] += 1
+    whole = _gather(saved.piece, saved.mesh, saved.axis, "data")
+    return whole.as_strided(saved.size, saved.stride, saved.offset)
+
+
+def regathered_saves():
+    """A context in which autograd saves, for any tensor that views a
+    :meth:`ServingMesh.gather_data_freed` result, the rank's block instead,
+    and gathers it again when the backward reads it (ZeRO-3 without
+    keeping every layer's whole weights through the step).  Every rank
+    runs the same graph, so the backward's gathers meet in the same
+    order."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
 
 
 class _SumForward(torch.autograd.Function):
@@ -387,13 +467,32 @@ class _Gather(torch.autograd.Function):
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
-        return _reduce_scatter(x, mesh, axis)
+    def forward(ctx, x, mesh, axis, over):
+        ctx.mesh, ctx.axis, ctx.over = mesh, axis, over
+        return _reduce_scatter(x, mesh, axis, over)
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, ctx.mesh, ctx.axis, "data"), None, None
+        return _gather(g, ctx.mesh, ctx.axis, ctx.over), None, None, None
+
+
+class _GatherFreed(torch.autograd.Function):
+    """ZeRO-3's gather over ``data``: forward the gather, its result
+    registered so that :func:`regathered_saves` keeps no copy of it for
+    the backward; backward the reduce-scatter of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        out = _gather(x, mesh, axis, "data")
+        ZERO3["gathers"] += 1
+        _GATHERED[out.untyped_storage().data_ptr()] = out
+        out._regather = (x.detach(), mesh, axis)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.mesh, ctx.axis), None, None
 
 
 class _AllToAll(torch.autograd.Function):

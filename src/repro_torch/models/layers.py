@@ -17,8 +17,12 @@ GQA grouping act on the rank's heads as on any others) and a rank's
 ``ffn`` columns.  Each cut part is Megatron's pair: its input through
 :meth:`repro_torch.launch.mesh.ServingMesh.copy_to_model` (the model
 group's cotangents summed), its output through ``reduce_from_model`` (the
-rows' partial products summed).  A leaf held whole is computed whole on
-every rank.
+rows' partial products summed).  Where ``model`` divides the query heads
+but not the KV heads, a rank attends its query heads against the KV
+groups they read, projected with the whole KV weights.  With the
+vocabulary cut over ``model``, :func:`embed` and :func:`unembed` take the
+rank's vocabulary block.  A leaf held whole is computed whole on every
+rank.
 
 ``attention_decode`` updates the cache **in place** (the new K/V row at
 each slot's position, ``pos += 1``) and returns it, as the port's spiking
@@ -202,7 +206,7 @@ def _banded_local(q: Tensor, k: Tensor, v: Tensor, cfg, window: int) -> Tensor:
     return torch.cat(out, dim=1)
 
 
-def _cut_mesh(pctx, leaf: Tensor, axis: int, whole: int):
+def cut_mesh(pctx, leaf: Tensor, axis: int, whole: int):
     """The training mesh when ``leaf`` holds a rank's cut of its ``axis``
     (``whole`` long uncut), else ``None``."""
     if pctx is None or not getattr(pctx, "train", False):
@@ -210,16 +214,43 @@ def _cut_mesh(pctx, leaf: Tensor, axis: int, whole: int):
     return pctx.mesh if leaf.shape[axis] != whole else None
 
 
+def own_kv_groups(params, cfg, mesh):
+    """Where ``model`` cuts the query heads but not the KV heads (which it
+    does not divide): the KV projections of the groups the rank's query
+    heads read, taken from the whole ones after
+    :meth:`repro_torch.launch.mesh.ServingMesh.copy_to_model` (each rank's
+    heads give a partial gradient of the whole leaf, summed over the
+    group).  The rank's heads are a whole number of groups, or lie in
+    one."""
+    kv, h = cfg.num_kv_heads, cfg.num_heads
+    if params["wk"].shape[-2] != kv:
+        return params  # both head axes cut
+    hl = params["wq"].shape[-2]
+    g = h // kv
+    if hl % g and g % hl:
+        raise NotImplementedError(
+            f"{hl} query heads a rank straddle the KV groups of {g} heads")
+    h0 = mesh.model_index * hl
+    lo, hi = h0 // g, (h0 + hl - 1) // g + 1
+    out = dict(params)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in params:
+            out[name] = mesh.copy_to_model(params[name])[..., lo:hi, :]
+    return out
+
+
 def attention(params, x: Tensor, positions: Tensor, cfg, *,
               window: int = 0, pctx=None) -> Tensor:
     """Causal (or sliding-window) self-attention for train/prefill: the
     banded Q-block loop for a windowed layer longer than two windows, the
     flash loop from ``FLASH_MIN_SEQ`` tokens, the masked einsum below.
-    On a training mesh's cut, the rank's heads (see the module)."""
+    On a training mesh's cut, the rank's heads (see the module; with whole
+    KV heads, the groups its query heads read: :func:`own_kv_groups`)."""
     b, s, _ = x.shape
-    mesh = _cut_mesh(pctx, params["wq"], -2, cfg.num_heads)
+    mesh = cut_mesh(pctx, params["wq"], -2, cfg.num_heads)
     if mesh is not None:
         x = mesh.copy_to_model(x)
+        params = own_kv_groups(params, cfg, mesh)
     q, k, v = _qkv(params, x, positions, cfg)
     blk = FLASH_BLOCK
     while blk > 128 and s % blk:
@@ -296,7 +327,7 @@ def _act(kind: str, x: Tensor) -> Tensor:
 def mlp(params, x: Tensor, cfg, pctx=None) -> Tensor:
     """The (gated) MLP; on a training mesh's cut, the rank's ``ffn``
     columns (see the module)."""
-    mesh = _cut_mesh(pctx, params["wo"], -2,
+    mesh = cut_mesh(pctx, params["wo"], -2,
                      cfg.moe_dense_ff if cfg.is_moe else cfg.d_ff)
     if mesh is not None:
         x = mesh.copy_to_model(x)
@@ -314,11 +345,26 @@ def mlp(params, x: Tensor, cfg, pctx=None) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def embed(params, tokens: Tensor, dtype) -> Tensor:
-    return params["table"].to(dtype)[tokens]
+def embed(params, tokens: Tensor, dtype, mesh=None) -> Tensor:
+    """The table's rows at ``tokens``; ``mesh``: the table is the rank's
+    block of the vocabulary (rows ``model_index * n ..``), which looks up
+    the tokens it holds, zeros the others and sums over the model group
+    (one rank gives each row: exact)."""
+    table = params["table"].to(dtype)
+    if mesh is None:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens.long() - mesh.model_index * n
+    mine = ((local >= 0) & (local < n))[..., None]
+    rows = table[local.clamp(0, n - 1)]
+    return mesh.reduce_from_model(torch.where(mine, rows, 0.0).to(dtype))
 
 
-def unembed(params, x: Tensor, cfg) -> Tensor:
+def unembed(params, x: Tensor, cfg, mesh=None) -> Tensor:
+    """The logits, softcapped where the config asks; ``mesh``: ``w`` is
+    the rank's block of the vocabulary columns, and so are the logits."""
+    if mesh is not None:
+        x = mesh.copy_to_model(x)
     logits = torch.matmul(x, params["w"].to(x.dtype))
     if cfg.logit_softcap > 0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap

@@ -16,6 +16,14 @@ reference's ``lax.associative_scan`` combines the same pairs in another
 tree, so the two agree to float32 rounding, not bit for bit.  Decode
 carries ``h`` (float32) and the convolution's last inputs, updated **in
 place** in the per-slot cache ``{h, conv, pos}``.
+
+On a training mesh whose ``model`` axis cuts ``lru``, :func:`rglru_mixer`
+runs the rank's channels: ``w_x``, ``w_gate``, the convolution, the
+biases and ``Lambda`` on its columns; ``w_r`` and ``w_i`` are cut on their
+input rows, so ``xc @ w_r`` is a partial sum of every channel's gate,
+reduce-scattered over the group to the rank's channels before the
+sigmoid; the scan runs per channel; ``w_out``'s rows are summed over the
+group.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import cut_mesh
 from repro_torch.models.ssm import conv_step, depthwise_causal_conv
 
 Tensor = torch.Tensor
@@ -53,9 +62,15 @@ def rglru_schema(cfg) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     }
 
 
-def _gates(params, xc: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    r = torch.sigmoid(xc @ params["w_r"].to(xc.dtype) + params["b_r"].to(xc.dtype))
-    i = torch.sigmoid(xc @ params["w_i"].to(xc.dtype) + params["b_i"].to(xc.dtype))
+def _gates(params, xc: Tensor, mesh=None) -> Tuple[Tensor, Tensor, Tensor]:
+    """``(a, sqrt(1 - a^2), i)``; ``mesh``: ``xc`` is the rank's channels
+    and ``w_r``/``w_i`` its input rows (see the module)."""
+    def pre(w):
+        y = xc @ params[w].to(xc.dtype)
+        return y if mesh is None else mesh.reduce_scatter_model(y, -1)
+
+    r = torch.sigmoid(pre("w_r") + params["b_r"].to(xc.dtype))
+    i = torch.sigmoid(pre("w_i") + params["b_i"].to(xc.dtype))
     log_a = (-_C * F.softplus(params["lam"].to(torch.float32))
              * r.to(torch.float32))
     a = torch.exp(log_a)
@@ -78,15 +93,19 @@ def linear_scan(a: Tensor, b: Tensor, dim: int = 1) -> Tensor:
     return b
 
 
-def rglru_mixer(params, x: Tensor, cfg) -> Tensor:
-    """``x [B,L,D] -> [B,L,D]`` (train/prefill)."""
-    xin = x @ params["w_x"].to(x.dtype)
-    gate = x @ params["w_gate"].to(x.dtype)
+def rglru_mixer(params, x: Tensor, cfg, pctx=None) -> Tensor:
+    """``x [B,L,D] -> [B,L,D]`` (train/prefill); on a training mesh's
+    cut, the rank's channels (see the module)."""
+    mesh = cut_mesh(pctx, params["lam"], -1, rglru_width(cfg))
+    xm = x if mesh is None else mesh.copy_to_model(x)
+    xin = xm @ params["w_x"].to(x.dtype)
+    gate = xm @ params["w_gate"].to(x.dtype)
     xc = depthwise_causal_conv(xin, params["conv_w"], params["conv_b"])
-    a, beta, i = _gates(params, xc)
+    a, beta, i = _gates(params, xc, mesh)
     h = linear_scan(a, beta * (i * xc).to(torch.float32))
     y = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
-    return y @ params["w_out"].to(x.dtype)
+    out = y @ params["w_out"].to(x.dtype)
+    return out if mesh is None else mesh.reduce_from_model(out)
 
 
 def rglru_cache(cfg, batch: int, device, lead: Tuple[int, ...] = ()

@@ -13,6 +13,16 @@ loop carrying the ``[S, P]`` state across chunks (the reference's
 **in place** in the per-slot cache ``{ssd, conv_x, conv_bc, pos}``.  The
 reference's ``_constrain_inner`` is a sharding hint and has no twin on
 one device.
+
+On a training mesh whose ``model`` axis cuts ``ssm_heads`` (and so
+``ssm_inner``), :func:`ssd_mixer` runs the rank's heads: ``w_z``, ``w_x``,
+the ``x`` convolution and the gated norm's scale on the rank's inner
+columns, ``w_dt``, ``a_log``, ``dt_bias`` and ``d_skip`` on its heads, the
+whole ``w_bc`` branch on every rank (its cotangent summed over the group),
+the chunked scan per head, the gated RMSNorm's sum of squares summed over
+the group before its ``rsqrt``, and ``w_out``'s rows, summed over the
+group.  Where only ``ssm_inner`` divides, its cut leaves are gathered
+whole over ``model`` first.
 """
 
 from __future__ import annotations
@@ -21,6 +31,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.layers import cut_mesh
 
 Tensor = torch.Tensor
 
@@ -119,13 +131,43 @@ def _ssd_chunked(xh: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor, *,
     return (y_intra + y_inter).reshape(b, L, h, p), carry
 
 
-def _gated_out(params, y: Tensor, z: Tensor, x_dtype) -> Tensor:
+def _gated_out(params, y: Tensor, z: Tensor, x_dtype, mesh=None,
+               d_in: int = 0) -> Tensor:
+    """``y * silu(z)``, RMS-normed over the inner width, scaled and
+    projected out; ``mesh``: ``y`` is the rank's ``d_in / model`` columns
+    of ``d_in``, the sum of squares (and its cotangent) and the
+    projection summed over the model group."""
     y = y * F.silu(z)
     yf = y.to(torch.float32)
-    y = (yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + 1e-6)
-         ).to(x_dtype)
+    if mesh is None:
+        ms = torch.mean(yf * yf, -1, keepdim=True)
+    else:
+        # the sum is the group's, and so is its cotangent (each rank's
+        # columns give a part of it): summed both ways
+        ms = mesh.copy_to_model(mesh.reduce_from_model(
+            torch.sum(yf * yf, -1, keepdim=True))) / d_in
+    y = (yf * torch.rsqrt(ms + 1e-6)).to(x_dtype)
     y = y * params["norm_scale"].to(x_dtype)
-    return y @ params["w_out"].to(x_dtype)
+    out = y @ params["w_out"].to(x_dtype)
+    return out if mesh is None else mesh.reduce_from_model(out)
+
+
+_INNER_CUT = {"w_z": -1, "w_x": -1, "conv_x_w": -1, "conv_x_b": -1,
+              "norm_scale": -1, "w_out": -2}
+
+
+def _groups_of(bmat: Tensor, cmat: Tensor, h: int, hl: int, h0: int):
+    """The B and C groups ``[B, L, G, S]`` that heads ``h0 .. h0+hl`` of
+    ``h`` read: a whole number of groups, or the one they lie in."""
+    g = bmat.shape[2]
+    hg = h // g
+    if g == 1:
+        return bmat, cmat
+    if hl % hg and hg % hl:
+        raise NotImplementedError(
+            f"{hl} SSD heads a rank straddle the groups of {hg} heads")
+    lo, hi = h0 // hg, (h0 + hl - 1) // hg + 1
+    return bmat[:, :, lo:hi], cmat[:, :, lo:hi]
 
 
 def _decay(params, dt: Tensor) -> Tuple[Tensor, Tensor]:
@@ -135,23 +177,36 @@ def _decay(params, dt: Tensor) -> Tuple[Tensor, Tensor]:
     return dtf, torch.exp(-torch.exp(params["a_log"].to(torch.float32)) * dtf)
 
 
-def ssd_mixer(params, x: Tensor, cfg) -> Tensor:
-    """The Mamba-2 block for train/prefill: ``x [B,L,D] -> [B,L,D]``."""
+def ssd_mixer(params, x: Tensor, cfg, pctx=None) -> Tensor:
+    """The Mamba-2 block for train/prefill: ``x [B,L,D] -> [B,L,D]``; on a
+    training mesh's cut, the rank's heads (see the module)."""
     d_in, h, p, s = ssd_dims(cfg)
     g = cfg.ssm_n_groups
     b, L, _ = x.shape
-    z = x @ params["w_z"].to(x.dtype)
-    xc = F.silu(depthwise_causal_conv(x @ params["w_x"].to(x.dtype),
+    inner = cut_mesh(pctx, params["w_x"], -1, d_in)
+    mesh = cut_mesh(pctx, params["a_log"], -1, h)
+    if inner is not None and mesh is None:  # ssm_inner cut, heads whole
+        params = {k: (inner.all_gather(v, _INNER_CUT[k], "model")
+                      if k in _INNER_CUT else v) for k, v in params.items()}
+    xm = x if mesh is None else mesh.copy_to_model(x)
+    hl = params["a_log"].shape[-1]
+    z = xm @ params["w_z"].to(x.dtype)
+    xc = F.silu(depthwise_causal_conv(xm @ params["w_x"].to(x.dtype),
                                       params["conv_x_w"], params["conv_x_b"]))
     bc = F.silu(depthwise_causal_conv(x @ params["w_bc"].to(x.dtype),
                                       params["conv_bc_w"], params["conv_bc_b"]))
+    if mesh is not None:  # every rank's heads read B and C
+        bc = mesh.copy_to_model(bc)
     bmat, cmat = bc.chunk(2, dim=-1)
-    dtf, a = _decay(params, x @ params["w_dt"].to(x.dtype))  # [B,L,H]
-    xh = (xc.reshape(b, L, h, p) * dtf[..., None].to(x.dtype)).to(x.dtype)
-    y, _ = _ssd_chunked(xh, a, bmat.reshape(b, L, g, s),
-                        cmat.reshape(b, L, g, s), chunk=cfg.ssm_chunk)
-    y = y + params["d_skip"].to(x.dtype)[None, None, :, None] * xc.reshape(b, L, h, p)
-    return _gated_out(params, y.reshape(b, L, d_in), z, x.dtype)
+    bmat, cmat = bmat.reshape(b, L, g, s), cmat.reshape(b, L, g, s)
+    if mesh is not None:
+        bmat, cmat = _groups_of(bmat, cmat, h, hl, mesh.model_index * hl)
+    dtf, a = _decay(params, xm @ params["w_dt"].to(x.dtype))  # [B,L,H]
+    xh = (xc.reshape(b, L, hl, p) * dtf[..., None].to(x.dtype)).to(x.dtype)
+    y, _ = _ssd_chunked(xh, a, bmat, cmat, chunk=cfg.ssm_chunk)
+    y = y + params["d_skip"].to(x.dtype)[None, None, :, None] * xc.reshape(b, L, hl, p)
+    return _gated_out(params, y.reshape(b, L, hl * p), z, x.dtype, mesh,
+                      d_in)
 
 
 def ssd_cache(cfg, batch: int, device, lead: Tuple[int, ...] = ()

@@ -3,9 +3,10 @@ decode step.
 
 Twin of ``repro/models/transformer.py``, on one device or a rank of a
 mesh (a MoE block routes over the model group through its ``pctx``; on a
-training mesh, :func:`repro_torch.parallel.sharding.make_pctx`'s, the
-attention and MLP run on the rank's cut, the batch on its rows, and the
-loss is the global mean):
+training mesh, :func:`repro_torch.parallel.sharding.make_pctx`'s, each
+block's ZeRO-3 pieces are gathered over ``data`` just before it runs,
+the attention, MLP, SSD, RG-LRU and vocabulary run on the rank's
+``model`` cut, the batch on its rows, and the loss is the global mean):
 
 * the float stack (lines 53-191, 300-373, 421-453, 483-533, 949-1025):
   dense and local:global attention, Mamba-2's SSD, RecurrentGemma's
@@ -62,6 +63,7 @@ card.  ``decode_step`` returns the same cache object it was given,
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -478,6 +480,13 @@ def _block_spiking(params, s: Tensor, cfg, keys: Tensor, backend,
     load-balancing loss, ``None`` without MoE).  On a mesh rank's rows
     (``tile``) the coding draws what the whole batch draws at them; on a
     training mesh (``pctx``) the router's statistics are the batch's."""
+    params = _uncut_block(params, cfg, mixer, pctx)
+    if mixer in ("attn", "local") and pctx is not None:
+        mesh = L.cut_mesh(pctx, params["mixer"]["wq"], -2, cfg.num_heads)
+        if mesh is not None:  # the KV groups the rank's heads read
+            params = dict(params, mixer=L.own_kv_groups(params["mixer"],
+                                                        cfg, mesh))
+
     def encode(key, y):  # the rows' draws of the whole batch's coding
         if tile is None:
             return SP.rate_encode(key, torch.sigmoid(y), s.shape[0])
@@ -487,8 +496,8 @@ def _block_spiking(params, s: Tensor, cfg, keys: Tensor, backend,
     if mixer in ("attn", "local"):
         h = _spiking_attention(params["mixer"], s, cfg, keys, backend, tile)
     else:
-        h = encode(keys[7], _RECURRENT[mixer][0](params["mixer"],
-                                                 SP.rate_decode(s), cfg))
+        h = encode(keys[7], _RECURRENT[mixer][0](
+            params["mixer"], SP.rate_decode(s), cfg, pctx=pctx))
     s = s + h.to(s.dtype)
     aux = None
     if "moe" in params:
@@ -515,15 +524,63 @@ def _apply_block_spiking(params, s: Tensor, cfg, mixer: str, key: Tensor,
                           mixer)[0]
 
 
-def _embed_inputs(params, batch: Dict[str, Tensor], cfg) -> Tensor:
+def _embed_inputs(params, batch: Dict[str, Tensor], cfg,
+                  pctx: Optional[M.ParallelCtx] = None) -> Tensor:
     """Token embedding (a frontend arch: its precomputed embeddings
-    through the projection) times ``sqrt(d_model)`` in the model dtype."""
+    through the projection) times ``sqrt(d_model)`` in the model dtype.
+    On a training mesh the table or projection is gathered over ``data``
+    (ZeRO-3) and a table cut over ``model`` looks up the rank's vocabulary
+    block (:func:`repro_torch.models.layers.embed`)."""
     dt = model_dtype(cfg)
     if cfg.frontend != "none":
-        x = batch["embeddings"].to(dt) @ params["frontend"]["proj"].to(dt)
+        proj = _uncut_leaf(params["frontend"]["proj"], 1, cfg, pctx)
+        x = batch["embeddings"].to(dt) @ proj.to(dt)
     else:
-        x = L.embed(params["embed"], batch["tokens"], dt)
+        table = _uncut_leaf(params["embed"]["table"], 1, cfg, pctx)
+        x = L.embed({"table": table}, batch["tokens"], dt,
+                    _vocab_mesh(table, cfg, pctx))
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt, device=x.device)
+
+
+def _zero3(pctx: Optional[M.ParallelCtx]) -> bool:
+    """Whether a training mesh cuts the ``embed`` axis over ``data``."""
+    return pctx is not None and pctx.train and pctx.fsdp
+
+
+def _uncut_leaf(w: Tensor, axis: int, cfg, pctx) -> Tensor:
+    """``w`` whole along its ``embed`` ``axis``: gathered over ``data``
+    where ZeRO-3 cut it (:meth:`repro_torch.launch.mesh.ServingMesh.
+    gather_data_freed`: the gradient reduce-scattered back, the whole
+    tensor not kept for the backward)."""
+    if not _zero3(pctx) or w.shape[axis] == cfg.d_model:
+        return w
+    return pctx.mesh.gather_data_freed(w, axis)
+
+
+def _uncut_block(params, cfg, mixer: str, pctx):
+    """A block's leaves with every ``embed`` axis gathered over ``data``
+    (ZeRO-3), just before the block runs (inside its ``remat`` wrapper);
+    the model cuts stay.  The experts' ``d_ff`` is the MoE's own
+    (:mod:`repro_torch.models.moe`)."""
+    if not _zero3(pctx):
+        return params
+    from repro_torch.parallel.sharding import block_axes
+
+    axes = block_axes(mixer)
+    out = {}
+    for group, leaves in params.items():
+        ax = axes.get(group, {})
+        out[group] = {n: (_uncut_leaf(w, ax[n].index("embed"), cfg, pctx)
+                          if "embed" in ax.get(n, ()) else w)
+                      for n, w in leaves.items()}
+    return out
+
+
+def _vocab_mesh(w: Tensor, cfg, pctx, axis: int = 0):
+    """The training mesh whose model group cuts the vocabulary axis
+    ``axis`` of ``w`` (the table's rows, the unembedding's columns), else
+    ``None``."""
+    return L.cut_mesh(pctx, w, axis, cfg.vocab_size)
 
 
 def _block_keys(k_blocks: Tensor, cfg) -> Tensor:
@@ -599,7 +656,7 @@ def spiking_features(params, batch: Dict[str, Tensor], cfg, *, rng: Tensor,
     if rng is None:
         raise ValueError("the spiking forward needs an rng for Bernoulli "
                          "coding")
-    x = _embed_inputs(params, batch, cfg)
+    x = _embed_inputs(params, batch, cfg, pctx)
     dev = x.device
     k_enc, k_blocks = prng.split(rng.cpu())
     s = SP.rate_encode(k_enc.to(dev), torch.sigmoid(x), cfg.spike_T)
@@ -626,7 +683,7 @@ def _forward_spiking(params, batch, cfg, *, rng, backend,
     unembed -> ``(logits [B,S,V], aux)`` (``rows``: those rows only)."""
     x, aux = spiking_features(params, batch, cfg, rng=rng, backend=backend,
                               remat=remat, rows=rows, pctx=pctx)
-    return _unembed(params, x, cfg), aux
+    return _unembed(params, x, cfg, pctx), aux
 
 
 # ---------------------------------------------------------------------------
@@ -654,7 +711,9 @@ def _apply_block(params, x: Tensor, positions: Tensor, cfg, mixer: str,
                  moe_impl: str, pctx: Optional[M.ParallelCtx] = None
                  ) -> Tuple[Tensor, Optional[Tensor]]:
     """Residual block: norm -> mixer -> +res; norm -> FFN (MLP, MoE or
-    both) -> +res -> ``(x, aux)`` (:func:`_ffn`)."""
+    both) -> +res -> ``(x, aux)`` (:func:`_ffn`).  On a training mesh the
+    block's ZeRO-3 leaves are gathered first (:func:`_uncut_block`)."""
+    params = _uncut_block(params, cfg, mixer, pctx)
     h = L.apply_norm(cfg.norm_type, params["norm1"], x)
     if mixer == "attn":
         h = L.attention(params["mixer"], h, positions, cfg, pctx=pctx)
@@ -662,7 +721,7 @@ def _apply_block(params, x: Tensor, positions: Tensor, cfg, mixer: str,
         h = L.attention(params["mixer"], h, positions, cfg,
                         window=cfg.window_size, pctx=pctx)
     else:
-        h = _RECURRENT[mixer][0](params["mixer"], h, cfg)
+        h = _RECURRENT[mixer][0](params["mixer"], h, cfg, pctx=pctx)
     x = x + h
     aux = None
     if "norm2" in params:
@@ -676,7 +735,7 @@ def _forward_float(params, batch, cfg, *, remat: str = "block",
                    moe_impl: str = "ep_a2a",
                    pctx: Optional[M.ParallelCtx] = None):
     """The float forward -> ``(logits [B,S,V], aux)``."""
-    x = _embed_inputs(params, batch, cfg)
+    x = _embed_inputs(params, batch, cfg, pctx)
     b, sl, _ = x.shape
     positions = torch.arange(sl, dtype=torch.int32, device=x.device).expand(b, sl)
     block = _remat(_apply_block, remat)
@@ -685,7 +744,7 @@ def _forward_float(params, batch, cfg, *, remat: str = "block",
         x, a = block(bp, x, positions, cfg, mixer, moe_impl, pctx)
         if a is not None:
             aux = aux + a
-    return _unembed(params, x, cfg), aux
+    return _unembed(params, x, cfg, pctx), aux
 
 
 def forward(params, batch: Dict[str, Tensor], cfg, *,
@@ -707,7 +766,9 @@ def forward(params, batch: Dict[str, Tensor], cfg, *,
     ``rows = (b0, n)``: the logits of batch rows ``b0 .. b0+n`` only,
     equal to those rows of the whole batch's (a data rank's share,
     :func:`spiking_features`).  ``pctx`` places a float stack's MoE blocks
-    on a mesh (:class:`repro_torch.models.moe.ParallelCtx`)."""
+    on a mesh (:class:`repro_torch.models.moe.ParallelCtx`); on a training
+    mesh whose model axis cuts the vocabulary the logits are the rank's
+    block of it."""
     if not cfg.spiking:
         if rows is not None:
             batch = {k: v[rows[0]:rows[0] + rows[1]] for k, v in batch.items()}
@@ -752,41 +813,76 @@ def loss_fn(params, batch, cfg, *, rng: Optional[Tensor] = None,
     over the ranks that split the rows, while their gradient is that of
     this rank's share of the mean (its rows' sum over the batch's count),
     so the gradients summed over those ranks are the global loss's.
-    ``moe_aux`` is the batch's (:func:`repro_torch.models.moe.router`)."""
-    if cfg.frontend != "none":
-        inputs, targets = {"embeddings": batch["embeddings"]}, batch["targets"]
-    else:
-        inputs = {"tokens": batch["tokens"][:, :-1]}
-        targets = batch["tokens"][:, 1:]
-    logits, aux = forward(params, inputs, cfg, rng=rng, backend=backend,
-                          remat=remat, rows=rows, moe_impl=moe_impl,
-                          pctx=pctx)
-    mask = batch.get("mask")
-    n_rows = targets.shape[0]
-    if rows is not None:
-        cut = slice(rows[0], rows[0] + rows[1])
-        targets = targets[cut]
-        mask = None if mask is None else mask[cut]
-    if pctx is None or not pctx.train:
-        xent = softmax_xent(logits, targets, mask)
-    else:
-        xent = _global_xent(logits, targets, mask, n_rows, pctx)
-    return xent + aux_weight * aux, {"xent": xent, "moe_aux": aux}
+    ``moe_aux`` is the batch's (:func:`repro_torch.models.moe.router`).
+    With ZeRO-3 the forward runs in :func:`repro_torch.launch.mesh.
+    regathered_saves` (no layer's gathered weights kept for the
+    backward), and a vocabulary cut over ``model`` gives each rank its
+    block of the logits, whose cross-entropy is the vocab-parallel one
+    (:func:`_vocab_nll`)."""
+    from repro_torch.launch.mesh import regathered_saves
+
+    with regathered_saves() if _zero3(pctx) else contextlib.nullcontext():
+        if cfg.frontend != "none":
+            inputs = {"embeddings": batch["embeddings"]}
+            targets = batch["targets"]
+        else:
+            inputs = {"tokens": batch["tokens"][:, :-1]}
+            targets = batch["tokens"][:, 1:]
+        logits, aux = forward(params, inputs, cfg, rng=rng, backend=backend,
+                              remat=remat, rows=rows, moe_impl=moe_impl,
+                              pctx=pctx)
+        mask = batch.get("mask")
+        n_rows = targets.shape[0]
+        if rows is not None:
+            cut = slice(rows[0], rows[0] + rows[1])
+            targets = targets[cut]
+            mask = None if mask is None else mask[cut]
+        if pctx is None or not pctx.train:
+            xent = softmax_xent(logits, targets, mask)
+        else:
+            xent = _global_xent(logits, targets, mask, n_rows, pctx,
+                                _vocab_mesh(logits, cfg, pctx, -1))
+        return xent + aux_weight * aux, {"xent": xent, "moe_aux": aux}
+
+
+def _vocab_nll(logits: Tensor, targets: Tensor, mesh) -> Tensor:
+    """Each row's ``logsumexp - gold`` in float32 from the rank's block of
+    the vocabulary (``logits [..., V / model]``, block ``model_index``):
+    the row maximum over the model group (a stabiliser, no gradient), the
+    sum of exponentials over the group, and the gold logit from the rank
+    that holds it (the others add zero).  Both sums carry the gradient
+    back to every rank's block; the logits are never gathered whole."""
+    lf = logits.to(torch.float32)
+    n = lf.shape[-1]
+    m = mesh.all_reduce(torch.amax(lf.detach(), dim=-1, keepdim=True),
+                        ("model",), torch.distributed.ReduceOp.MAX)
+    lse = m[..., 0] + torch.log(mesh.reduce_from_model(
+        torch.sum(torch.exp(lf - m), dim=-1)))
+    local = targets.long() - mesh.model_index * n
+    mine = (local >= 0) & (local < n)
+    gold = torch.take_along_dim(lf, local.clamp(0, n - 1)[..., None],
+                                dim=-1)[..., 0]
+    return lse - mesh.reduce_from_model(torch.where(mine, gold, 0.0))
 
 
 def _global_xent(logits: Tensor, targets: Tensor, mask: Optional[Tensor],
-                 n_rows: int, pctx: M.ParallelCtx) -> Tensor:
+                 n_rows: int, pctx: M.ParallelCtx, vocab_mesh=None) -> Tensor:
     """A training rank's cross-entropy term: the value of the global
     batch's mean, the gradient of this rank's share of it (see
-    :func:`loss_fn`)."""
+    :func:`loss_fn`); ``vocab_mesh``: the logits are the rank's block of
+    the vocabulary (:func:`_vocab_nll`)."""
     axes = pctx.token_axes(False)
     mesh = pctx.mesh
-    if mask is None:
+    if mask is None and vocab_mesh is None:
         share = softmax_xent(logits, targets) * (targets.shape[0] / n_rows)
+    elif mask is None:
+        share = torch.mean(_vocab_nll(logits, targets, vocab_mesh)) * (
+            targets.shape[0] / n_rows)
     else:
         lf = logits.to(torch.float32)
-        nll = torch.logsumexp(lf, dim=-1) - torch.take_along_dim(
+        nll = (torch.logsumexp(lf, dim=-1) - torch.take_along_dim(
             lf, targets[..., None].long(), dim=-1)[..., 0]
+            if vocab_mesh is None else _vocab_nll(lf, targets, vocab_mesh))
         mask = mask.to(torch.float32)
         total = mesh.all_reduce(torch.sum(mask).detach(), axes)
         share = torch.sum(nll * mask) / torch.clamp(total, min=1.0)
@@ -1086,11 +1182,22 @@ def _apply_block_spiking_decode_paged(params, s: Tensor, blk_pool, cfg,
     return _spiking_decode_ffn_tail(params, s, cfg, backend, keys_for)
 
 
-def _unembed(params, x: Tensor, cfg) -> Tensor:
-    x = L.apply_norm(cfg.norm_type, params["final_norm"], x)
+def _unembed(params, x: Tensor, cfg, pctx: Optional[M.ParallelCtx] = None
+             ) -> Tensor:
+    """The final norm and the unembedding (tied: the table transposed).
+    On a training mesh: the ZeRO-3 leaves gathered over ``data``, and
+    where ``model`` cuts the vocabulary the rank's block of the logits
+    (its columns; never gathered whole)."""
+    x = L.apply_norm(cfg.norm_type, {"scale": _uncut_leaf(
+        params["final_norm"]["scale"], 0, cfg, pctx)}, x)
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["embed"]["table"].to(x.dtype).T)
-    return L.unembed(params["unembed"], x, cfg)
+        table = _uncut_leaf(params["embed"]["table"], 1, cfg, pctx)
+        mesh = _vocab_mesh(table, cfg, pctx)
+        if mesh is not None:
+            x = mesh.copy_to_model(x)
+        return torch.matmul(x, table.to(x.dtype).T)
+    w = _uncut_leaf(params["unembed"]["w"], 0, cfg, pctx)
+    return L.unembed({"w": w}, x, cfg, _vocab_mesh(w, cfg, pctx, 1))
 
 
 def _decode_stack(params, tree, tokens: Tensor, cfg, slot_keys: Tensor,

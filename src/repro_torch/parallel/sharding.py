@@ -21,18 +21,21 @@ PartitionSpecs:
   ``shard_map`` in-spec ``P("model", None, None)``), and everything else
   is whole;
 * **training parameters** (``param_placement(serving=False)``,
-  :func:`train_cut`): the reference's ``RULES`` where the port cuts --
-  an attention's ``heads``/``kv_heads`` over ``model`` (Q/K/V by columns,
-  the out-projection by rows) where both head counts divide, else the
-  attention whole; the MLP's ``ffn`` over ``model``; a float stack's
-  ``experts`` over ``model`` and, with ``fsdp``, their ``expert_ffn``
-  over ``data``.  Every other leaf is whole on every rank (the embedding
-  and unembedding, norms, the router, SSD, RG-LRU, frontends, a spiking
-  stack's experts); the reference's ZeRO-3 cut of the ``embed`` axis, its
-  vocab-parallel embedding and its cut of SSD and RG-LRU are not ported
-  (ROADMAP A2(d): they change memory, not values).  ``pure_dp``: every
-  leaf whole.  :func:`make_pctx` is the matching
-  :class:`repro_torch.models.moe.ParallelCtx`.
+  :func:`train_specs`): the reference's ``RULES`` and ``spec_for`` leaf by
+  leaf, over each leaf's logical axes (:func:`param_axes`, the reference's
+  ``model_schema``): a dimension takes the first candidate whose mesh axis
+  is unused by the leaf's earlier dimensions and divides it, else stays
+  whole.  So with ``fsdp`` every leaf's ``embed`` axis is cut over
+  ``data`` (ZeRO-3: attention, MLP, norms, the router, SSD, RG-LRU, the
+  frontend projection, the embedding and the unembedding), and over
+  ``model`` the ``vocab`` axis (the embedding and unembedding), the
+  attention's ``heads`` and ``kv_heads`` each where it divides (the query
+  heads cut beside whole KV heads where only they divide), ``ffn``, a
+  float stack's ``experts`` (their ``expert_ffn`` over ``data`` with
+  ``fsdp``), SSD's ``ssm_inner`` and ``ssm_heads`` and RG-LRU's ``lru``.
+  One leaf may be cut over both axes (``table [vocab -> model, embed ->
+  data]``).  ``pure_dp``: every leaf whole.  :func:`make_pctx` is the
+  matching :class:`repro_torch.models.moe.ParallelCtx`.
 """
 
 from __future__ import annotations
@@ -153,59 +156,148 @@ def model_cut(cfg, model: int) -> Dict[tuple, str]:
     return {}
 
 
-def _attention_cut(cfg, model: int) -> bool:
-    """Whether a training mesh cuts the attention's heads: both head
-    counts divide over ``model`` (:class:`TPPlan`'s rule)."""
-    from repro_torch.distributed.backend import TPPlan
-
-    return TPPlan.from_config(cfg, model).heads
-
-
-def _mlp_width(cfg) -> int:
-    """The dense MLP's ``ffn`` width (a MoE block's residual MLP:
-    ``moe_dense_ff``); 0 without one."""
-    if cfg.d_ff <= 0:
-        return 0
-    return cfg.moe_dense_ff if cfg.is_moe else cfg.d_ff
+# a parameter's logical axis -> its candidate mesh axes, in order: the
+# reference's ``RULES`` for parameters on a ``(data, model)`` mesh (each
+# of its candidates there is one mesh axis; an axis not named here, such
+# as ``head_dim`` or ``layers``, is never cut)
+RULES: Dict[str, Tuple[str, ...]] = {
+    "vocab": ("model",), "heads": ("model",), "kv_heads": ("model",),
+    "ffn": ("model",), "experts": ("model",), "expert_ffn": ("data",),
+    "ssm_inner": ("model",), "ssm_heads": ("model",),
+    "ssm_conv": ("model",), "lru": ("model",), "embed": ("data",),
+}
+_FSDP_GATED = frozenset({"embed", "expert_ffn"})
 
 
-def train_cut(cfg, mesh_shape, *, fsdp: bool = True,
-              pure_dp: bool = False) -> Dict[tuple, Tuple[Optional[str], ...]]:
-    """``{(group, name): spec}`` of the block leaves a training mesh cuts
-    (see the module), ``spec`` over one layer's axes (the stacked period
-    axis comes first and is never cut).  Raises where the reference's
-    expert-parallel dispatch cannot place the experts (``E`` or their
-    ``d_ff`` not divisible)."""
+def spec_for(axes, shape, sizes: Dict[str, int], *, fsdp: bool = True,
+             overrides=None) -> Tuple[Optional[str], ...]:
+    """The reference's ``spec_for``: each dimension takes the first
+    candidate of its logical axis (``RULES``) that is in ``sizes``, unused
+    by the tensor's earlier dimensions and divides it, else stays whole
+    (``None``); ``embed`` and ``expert_ffn`` only with ``fsdp``."""
+    rules = dict(RULES, **(overrides or {}))
+    used: set = set()
+    out = []
+    for name, dim in zip(axes, shape):
+        picked = None
+        if name is not None and not (name in _FSDP_GATED and not fsdp):
+            for a in rules.get(name, ()):
+                if a not in used and sizes.get(a, 1) > 1 \
+                        and dim % sizes[a] == 0:
+                    picked = a
+                    used.add(a)
+                    break
+        out.append(picked)
+    return tuple(out)
+
+
+_ATTN_AXES = {"wq": ("embed", "heads", "head_dim"),
+              "wk": ("embed", "kv_heads", "head_dim"),
+              "wv": ("embed", "kv_heads", "head_dim"),
+              "wo": ("heads", "head_dim", "embed"),
+              "bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+              "bv": ("kv_heads", "head_dim")}
+_MIXER_AXES = {
+    "attn": _ATTN_AXES, "local": _ATTN_AXES,
+    "ssd": {"w_z": ("embed", "ssm_inner"), "w_x": ("embed", "ssm_inner"),
+            "w_bc": ("embed", None), "w_dt": ("embed", "ssm_heads"),
+            "conv_x_w": (None, "ssm_inner"), "conv_x_b": ("ssm_inner",),
+            "conv_bc_w": (None, None), "conv_bc_b": (None,),
+            "a_log": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "d_skip": ("ssm_heads",), "norm_scale": ("ssm_inner",),
+            "w_out": ("ssm_inner", "embed")},
+    "rglru": {"w_x": ("embed", "lru"), "w_gate": ("embed", "lru"),
+              "conv_w": (None, "lru"), "conv_b": ("lru",),
+              "w_r": ("lru", "lru_in"), "b_r": ("lru",),
+              "w_i": ("lru", "lru_in"), "b_i": ("lru",), "lam": ("lru",),
+              "w_out": ("lru", "embed")},
+}
+_GROUP_AXES = {
+    "norm1": {"scale": ("embed",)}, "norm2": {"scale": ("embed",)},
+    "mlp": {"wi": ("embed", "ffn"), "wg": ("embed", "ffn"),
+            "wo": ("ffn", "embed")},
+    "moe": {"router": ("embed", "experts_r"),
+            "wi": ("experts", "expert_embed", "expert_ffn"),
+            "wg": ("experts", "expert_embed", "expert_ffn"),
+            "wo": ("experts", "expert_ffn", "expert_embed")},
+    # the stack's own leaves
+    "embed": {"table": ("vocab", "embed")},
+    "final_norm": {"scale": ("embed",)},
+    "unembed": {"w": ("embed", "vocab")},
+    "frontend": {"proj": (None, "embed")},
+}
+
+
+def block_axes(mixer: str) -> Dict[str, Dict[str, tuple]]:
+    """The logical axes of one block's leaves (the reference's
+    ``block_schema`` axes), ``{group: {name: axes}}``."""
+    return dict(_GROUP_AXES, mixer=_MIXER_AXES[mixer])
+
+
+def param_axes(cfg) -> Dict[str, Any]:
+    """The logical axes of every leaf of ``cfg``'s LM stack, a tree of the
+    parameters' structure (a stacked period's leaves lead with
+    ``"layers"``): the reference's ``model_schema`` axes."""
+    from repro_torch.models import transformer as T
+
+    out: Dict[str, Any] = {}
+    for key, sub in T._model_shapes(cfg).items():
+        if key in ("periods", "remainder"):
+            lead = ("layers",) if key == "periods" else ()
+            out[key] = {b: {g: {n: lead + block_axes(
+                cfg.block_pattern[int(b[3:])])[g][n] for n in leaves}
+                for g, leaves in s.items()} for b, s in sub.items()}
+        else:
+            out[key] = {n: _GROUP_AXES[key][n] for n in sub}
+    return out
+
+
+def train_specs(cfg, mesh_shape, *, fsdp: bool = True,
+                pure_dp: bool = False) -> Dict[str, Any]:
+    """The training spec of every leaf (:func:`spec_for` of its logical
+    axes, the reference's ``param_pspecs`` on ``make_test_mesh``), a tree
+    of the parameters' structure; ``pure_dp``: every leaf whole.  Raises
+    where the reference's expert-parallel dispatch cannot place a float
+    stack's experts (``E`` or, with ``fsdp``, their ``d_ff`` not
+    divisible)."""
     from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
 
     data, model = mesh_shape
-    if pure_dp or data * model == 1:
-        return {}
-    out: Dict[tuple, Tuple[Optional[str], ...]] = {}
-    if model > 1 and _attention_cut(cfg, model):
-        out.update({("mixer", "wq"): (None, "model", None),
-                    ("mixer", "wk"): (None, "model", None),
-                    ("mixer", "wv"): (None, "model", None),
-                    ("mixer", "wo"): ("model", None, None)})
-        if cfg.qkv_bias:
-            out.update({("mixer", b): ("model", None)
-                        for b in ("bq", "bk", "bv")})
-    ff = 0 if (cfg.spiking and cfg.is_moe) else _mlp_width(cfg)
-    if model > 1 and ff and ff % model == 0:
-        out.update({("mlp", "wi"): (None, "model"),
-                    ("mlp", "wg"): (None, "model"),
-                    ("mlp", "wo"): ("model", None)})
-    if cfg.is_moe and not cfg.spiking:
+    if cfg.is_moe and not cfg.spiking and not pure_dp:
         if model > 1:
             M.expert_block(cfg.num_experts, model)
-        f = "data" if (fsdp and data > 1) else None
-        if f and cfg.d_ff % data:
+        if fsdp and data > 1 and cfg.d_ff % data:
             raise ValueError(f"{cfg.name}: the experts' d_ff {cfg.d_ff} does "
                              f"not split over data={data} (fsdp)")
-        e = "model" if model > 1 else None
-        out.update({("moe", "wi"): (e, None, f), ("moe", "wg"): (e, None, f),
-                    ("moe", "wo"): (e, f, None)})
-    return {k: v for k, v in out.items() if any(v)}
+    sizes = {"data": data, "model": model}
+    over = dict.fromkeys(RULES, ()) if pure_dp else None
+
+    def walk(axes, shapes):
+        if isinstance(axes, dict):
+            return {k: walk(axes[k], shapes[k]) for k in axes}
+        return spec_for(axes, shapes, sizes, fsdp=fsdp, overrides=over)
+
+    return walk(param_axes(cfg), T._model_shapes(cfg))
+
+
+def block_spec(specs, group: str, name: str) -> Tuple[Optional[str], ...]:
+    """The spec of a block leaf in any block of ``specs``
+    (:func:`train_specs`), over one layer's axes; ``()`` where the stack
+    has no such leaf."""
+    for key in ("periods", "remainder"):
+        for blk in specs.get(key, {}).values():
+            if name in blk.get(group, {}):
+                spec = blk[group][name]
+                return spec[1:] if key == "periods" else spec
+    return ()
+
+
+def any_cut(specs) -> bool:
+    """Whether a :func:`train_specs` tree cuts any leaf."""
+    if isinstance(specs, dict):
+        return any(any_cut(v) for v in specs.values())
+    return any(a is not None for a in specs)
 
 
 def param_placement(cfg, mesh_shape, *, device, model_index: int = 0,
@@ -216,7 +308,7 @@ def param_placement(cfg, mesh_shape, *, device, model_index: int = 0,
     stack, a tree of the parameters' structure (a spiking linear's
     placement covers its whole subtree: a float weight, ``{"levels",
     "scale", "b"}`` or a programmed state).  ``serving=False``: the
-    training cut (:func:`train_cut`) of the rank at ``(data_index,
+    training cut (:func:`train_specs`) of the rank at ``(data_index,
     model_index)``; ``serving``: the ``model`` cut of rank ``model_index``
     (:func:`model_cut`)."""
     from repro_torch.models import transformer as T
@@ -226,23 +318,18 @@ def param_placement(cfg, mesh_shape, *, device, model_index: int = 0,
         raise ValueError(f"mesh shape {tuple(mesh_shape)} holds no rank")
     whole = Placement(torch.device(device))
     if not serving:
-        tcut = train_cut(cfg, mesh_shape, fsdp=fsdp, pure_dp=pure_dp)
+        specs = train_specs(cfg, mesh_shape, fsdp=fsdp, pure_dp=pure_dp)
 
-        def tblock(shapes, lead):
-            return {group: {name: (Placement(
-                whole.device, spec=lead + tcut[(group, name)],
-                mesh_shape=(data, model), coords=(data_index, model_index))
-                if (group, name) in tcut else whole)
-                for name in leaves} for group, leaves in shapes.items()}
+        def place(spec):
+            if isinstance(spec, dict):
+                return {k: place(v) for k, v in spec.items()}
+            if not any(spec):
+                return whole
+            return Placement(whole.device, spec=spec,
+                             mesh_shape=(data, model),
+                             coords=(data_index, model_index))
 
-        out: Dict[str, Any] = {}
-        for key, sub in T._model_shapes(cfg).items():
-            if key in ("periods", "remainder"):
-                lead = (None,) if key == "periods" else ()
-                out[key] = {b: tblock(s, lead) for b, s in sub.items()}
-            else:
-                out[key] = {n: whole for n in sub}
-        return out
+        return place(specs)
     cut = model_cut(cfg, model)
 
     def block(shapes):
@@ -325,9 +412,9 @@ def make_pctx(mesh, parallel):
     (the twin of the reference's ``make_pctx``): ``mesh`` ``None`` or of
     one rank -- one device; else the rank's batch rows over ``data``
     (``pure_dp``: over every rank), the model group cutting what
-    :func:`train_cut` cuts, MoE tokens split by sequence over ``model``
-    with ``seq_shard``, the experts' ``d_ff`` over ``data`` with
-    ``fsdp``."""
+    :func:`train_specs` cuts, MoE tokens split by sequence over ``model``
+    with ``seq_shard``, and with ``fsdp`` every ``embed`` axis (ZeRO-3)
+    and the experts' ``d_ff`` over ``data``."""
     from repro_torch.models.moe import ParallelCtx
 
     if mesh is None or mesh.data * mesh.model == 1:

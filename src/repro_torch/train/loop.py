@@ -33,10 +33,13 @@ ranks that split the rows, except over an axis that cuts the leaf (the
 model group computes a whole leaf identically, and a cut leaf's collectives
 already summed what reaches it: a column- or row-parallel part through
 Megatron's pair, the router through the sum of its sequence blocks, an
-FSDP-cut expert through its gather's backward).  The gradient norm is
-the global one (:mod:`repro_torch.optim.adamw`).  ``microbatches > 1`` on
-a mesh raises, and so does ``grad_compression`` on a cut (its int8 rows
-would need the whole leaf's scale).
+FSDP-cut expert or a ZeRO-3 leaf through its gather's backward, the
+reduce-scatter over ``data``).  The gradient norm is the global one
+(:mod:`repro_torch.optim.adamw`).  ``microbatches > 1`` on a mesh takes
+the reference's global microbatches (the batch reshaped to ``[n, B/n]``
+before it is split over ``data``), each reduced before the bfloat16
+sum; ``grad_compression`` on a cut takes each int8 row's scale over the
+whole row, across the ranks that hold it.
 
 Parameters and state live on the card unless the caller asks for the CPU
 (:func:`init_state`); the step runs where they are.
@@ -138,17 +141,20 @@ class MeshStep:
             cfg, mesh.shape, device=mesh.device, data_index=mesh.data_index,
             model_index=mesh.model_index, fsdp=parallel.fsdp,
             pure_dp=parallel.pure_dp)
-        cut = SH.train_cut(cfg, mesh.shape, fsdp=parallel.fsdp,
-                           pure_dp=parallel.pure_dp)
+        specs = SH.train_specs(cfg, mesh.shape, fsdp=parallel.fsdp,
+                               pure_dp=parallel.pure_dp)
+        heads, mlp = ("model" in SH.block_spec(specs, g, n) for g, n in (
+            ("mixer", "wq"), ("mlp", "wi")))
         be = _differentiable(backend)
-        self.cut = cut
-        self.backend = (TrainingShardBackend(be, mesh, cfg, cut)
-                        if cfg.spiking and cut else be)
+        self.backend = (TrainingShardBackend(be, mesh, cfg, heads=heads,
+                                             mlp=mlp)
+                        if cfg.spiking and (heads or mlp) else be)
         self.row_axes = self.pctx.token_axes(False)
 
     def reduce(self, grads):
         """Each gradient summed over the row axes that do not cut its
-        leaf (one float32 ``all_reduce`` a group of leaves)."""
+        leaf (one float32 ``all_reduce`` a group of leaves); a leaf cut
+        over ``data`` was summed by its gather's reduce-scatter."""
         from repro_torch.parallel import sharding as SH
 
         leaves, structure = TR.flatten(grads)
@@ -211,38 +217,37 @@ def make_train_step(cfg, parallel: ParallelConfig = ParallelConfig(),
     apply_updates`), holding one copy of the state."""
     on_mesh = mesh is not None and mesh.data * mesh.model > 1
     ms = MeshStep(cfg, parallel, mesh, backend) if on_mesh else None
-    if on_mesh and parallel.microbatches > 1:
-        raise NotImplementedError(
-            "microbatches on a mesh are not ported: a rank's microbatch "
-            "would not be one device's")
-    if on_mesh and parallel.grad_compression and ms.cut:
-        raise NotImplementedError(
-            "grad_compression on a cut state is not ported: its int8 rows "
-            "take the whole leaf's scale")
     grad_f = value_and_grad(make_loss(cfg, parallel, backend))
+
+    def grad_of(params, batch, rng):
+        """``((loss, metrics), grads)`` of ``batch`` (on a mesh: the
+        global batch's loss over this rank's rows, each gradient reduced
+        to the global one)."""
+        if not on_mesh:
+            return grad_f(params, batch, rng)
+        rows = data_rows(mesh, batch["tokens"].shape[0] if "tokens" in batch
+                         else batch["targets"].shape[0], ms.pure_dp)
+        out, grads = value_and_grad(make_loss(
+            cfg, parallel, ms.backend, rows, ms.pctx))(params, batch, rng)
+        return out, ms.reduce(grads)
 
     def train_step(params, opt_state, batch, rng):
         leaves, _ = TR.flatten(params)
         rng = rng.to(leaves[0].device)
         nmb = parallel.microbatches
         metrics: Dict[str, Tensor] = {}
-        cuts = None
-        if on_mesh:
-            rows = data_rows(mesh, batch["tokens"].shape[0]
-                             if "tokens" in batch else
-                             batch["targets"].shape[0], ms.pure_dp)
-            (loss, metrics), grads = value_and_grad(make_loss(
-                cfg, parallel, ms.backend, rows, ms.pctx))(params, batch, rng)
-            grads = ms.reduce(grads)
-            cuts = ms.cuts(params)
-        elif nmb > 1:
+        cuts = ms.cuts(params) if on_mesh else None
+        if nmb > 1:
+            # the reference's global microbatches (on a mesh each split
+            # over the data ranks in turn), reduced gradients summed in
+            # bfloat16
             keys = prng.split(rng, nmb)
             grads = TR.tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.bfloat16, device=p.device), params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=rng.device)
             for i in range(nmb):
-                (loss, _), g = grad_f(params, _split_microbatches(
+                (loss, _), g = grad_of(params, _split_microbatches(
                     batch, nmb, i), keys[i])
                 grads = TR.tree_map(lambda a, b: a + b.to(a.dtype), grads, g)
                 loss_sum = loss_sum + loss
@@ -252,11 +257,13 @@ def make_train_step(cfg, parallel: ParallelConfig = ParallelConfig(),
                 inv, dtype=g.dtype, device=g.device), grads)
             loss = mul_reciprocal(loss_sum, nmb)
         else:
-            (loss, metrics), grads = grad_f(params, batch, rng)
+            (loss, metrics), grads = grad_of(params, batch, rng)
         if parallel.grad_dtype == "bfloat16":
             grads = TR.tree_map(lambda g: g.to(torch.bfloat16), grads)
         if parallel.grad_compression:
-            grads, new_ef = C.compress_decompress(grads, opt_state["ef"])
+            grads, new_ef = C.compress_decompress(
+                grads, opt_state["ef"], cuts=cuts,
+                mesh=mesh if on_mesh else None)
         params, new_state, om = A.apply_updates(
             params, grads, opt_state, opt, cuts=cuts,
             mesh=mesh if on_mesh else None, donate=donate)

@@ -31,7 +31,7 @@ from repro.optim import adamw as JA
 from repro_torch import aimc_device as AD
 from repro_torch import convert, prng
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.checkpoint.manager import leaves
+from repro_torch.checkpoint.manager import leaves, map_with_placement
 from repro_torch.configs import registry as R
 from repro_torch.launch import elastic
 from repro_torch.models import transformer as T
@@ -136,7 +136,9 @@ def test_atomicity_ignores_partial(tmp_path):
 
 def test_elastic_restore_new_mesh(tmp_path):
     """A training state saved on one device restores on a rank of a
-    ``(2, 1)`` data-parallel mesh whole; a programmed tree restores on a
+    ``(2, 1)`` data-parallel mesh as that rank's ZeRO-3 cut (each
+    ``embed`` axis's block over ``data``, int8 moments' row scales
+    included); a programmed tree restores on a
     rank of a ``(2, 2)`` serving mesh as that rank's model cut, equal
     to ``convert.shard_params``'s, every rank."""
     cfg = R.reduced_config(ARCH)
@@ -148,7 +150,10 @@ def test_elastic_restore_new_mesh(tmp_path):
     placement = elastic.state_shardings(cfg, (2, 1), opt, device=CPU, rank=1)
     restored, step = mgr.restore((params, state), placement=placement)
     assert step == 3
-    _assert_same(restored, (params, state))
+    _assert_same(restored, map_with_placement(
+        lambda x, where, field: x if where.whole else where.piece(x, field),
+        (params, state), placement))
+    assert leaves(restored)[0].shape == (cfg.vocab_size, cfg.d_model // 2)
 
     acfg = AD.AIMCConfig()
     dev = AD.drift_tree(AD.program_lm_tree(prng.PRNGKey(1), params, acfg),
@@ -222,7 +227,14 @@ def test_resharding_plan_reports():
     plan = elastic.resharding_plan(cfg, (1, 1), (2, 1))
     assert plan["old_mesh"] == {"data": 1, "model": 1}
     assert plan["new_mesh"] == {"data": 2, "model": 1}
-    assert plan["n_params_relaid"] == 0  # data-parallel: every leaf whole
+    # data-parallel: ZeRO-3 cuts every leaf's ``embed`` axis over data
+    # (the table, the final norm and the unembedding, and each block's six
+    # linears and two norms)
+    assert plan["n_params_relaid"] == 3 + 8 * cfg.period
+    specs = {c["param"]: c["new"] for c in plan["changes"]}
+    assert specs["['embed']['table']"] == "(None, 'data')"
+    assert specs["['periods']['blk0']['mixer']['wo']"] == \
+        "(None, None, None, 'data')"
     plan = elastic.resharding_plan(cfg, (1, 1), (2, 2), serving=True)
     # every spiking linear of every block: Q/K/V and MLP in by columns,
     # attention and MLP out by rows

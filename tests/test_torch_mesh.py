@@ -57,8 +57,8 @@ AdamW moments against the matching block of JAX's, and its loss,
   outputs' ``psum_scatter``) and 64 (the weight gather), and on ``(1,
   4)`` at 64, where the reference's per-device capacities make its step
   differ from one device's;
-* yi-9b as it stands (one KV head: the attention whole) and with two KV
-  heads (the heads cut);
+* yi-9b as it stands (one KV head: its query heads cut beside it) and
+  with two KV heads (both head axes cut);
 * the spiking GPT on ``(2, 2)`` and ``(1, 4)``, whose ``(1, 4)`` loss is
   the port's one device's bit for bit (the row-parallel sums only decide
   spikes);
@@ -1739,48 +1739,49 @@ def test_launcher_on_the_mesh_resumes_across_meshes(launched, mesh22,
             float((a.float() - b.float()).abs().max())
 
 
-# the leaves JAX's ``param_pspecs`` cuts and the port holds whole, by
-# config (beyond ZeRO-3's ``embed`` over ``data``, which the port never
-# cuts: ROADMAP A2(d)); an attention whose KV heads do not divide is held
-# whole where JAX cuts its query heads
-TRAIN_HELD_WHOLE = {
-    (MOE, (2, 2)): {"mixer/wq", "mixer/wo"},
-    (MOE, (1, 4)): {"mixer/wq", "mixer/wo"},
-    ("yi-9b", (2, 2)): {"mixer/wq", "mixer/wo"},
-    ("yi-9b", (1, 4)): {"mixer/wq", "mixer/wo"},
-    (ARCH, (2, 2)): set(),
-    (ARCH, (1, 4)): set(),
-}
+# the leaves JAX's ``param_pspecs`` cuts and the port holds whole: none
+# (ZeRO-3's ``embed`` over ``data``, the vocabulary, SSD, RG-LRU and the
+# query heads beside whole KV heads are all cut)
+TRAIN_HELD_WHOLE = set()
+# (arch, config change, ParallelConfig change): the train cases' configs
+# and options, and configs whose vocabulary a model axis of 2 or 4
+# divides (the reduced 257 is prime)
+PLACEMENT_CASES = [
+    (MOE, {}, {}), (MOE, {}, {"fsdp": False}), (MOE, {}, {"pure_dp": True}),
+    ("yi-9b", {}, {}), ("yi-9b", {"num_kv_heads": 2}, {}), (ARCH, {}, {}),
+    ("yi-9b", {"vocab_size": 256}, {}),
+    ("mamba2-780m", {"vocab_size": 256}, {}),
+    ("recurrentgemma-9b", {"vocab_size": 256}, {})]
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
 def test_training_placement_equals_jax_param_pspecs(shape):
     """The port's training placement (``placement_specs``) equals JAX's
-    ``param_pspecs`` on every leaf the port cuts, ``embed`` (ZeRO-3) left
-    out; the leaves JAX cuts and the port holds whole are exactly
-    ``TRAIN_HELD_WHOLE`` (plus the A2(d) axes: ``vocab``, SSD, RG-LRU,
-    none of which these configs' sizes let JAX cut)."""
+    ``param_pspecs`` on every leaf and every axis, ``embed`` (ZeRO-3)
+    included; no leaf JAX cuts is held whole (``TRAIN_HELD_WHOLE``).  The
+    configs and options: ``PLACEMENT_CASES``."""
     from repro.models.layers import ParamDef
 
     mesh = make_test_mesh(shape)
-    for arch in (MOE, "yi-9b", ARCH):
-        jcfg, tcfg = JR.reduced_config(arch), R.reduced_config(arch)
+    for arch, change, pchange in PLACEMENT_CASES:
+        jcfg, tcfg = (dataclasses.replace(reg.reduced_config(arch), **change)
+                      for reg in (JR, R))
         schema = JT.model_schema(jcfg)
-        specs = JSH.param_pspecs(jcfg, mesh)
-        port = SH.placement_specs(SH.param_placement(tcfg, shape,
-                                                     device="cpu"))
+        specs = JSH.param_pspecs(jcfg, mesh, **pchange)
+        port = SH.placement_specs(SH.param_placement(
+            tcfg, shape, device="cpu", **pchange))
         held = set()
         flat_defs = jax.tree_util.tree_flatten_with_path(
             schema, is_leaf=lambda x: isinstance(x, ParamDef))[0]
         flat_specs = jax.tree.leaves(
             specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        assert len(flat_defs) == len(port)
         for (path, d), spec in zip(flat_defs, flat_specs):
             key = "".join(f"['{p.key}']" for p in path)
-            want = [None if ax == "embed" else a
-                    for ax, a in zip(d.axes, tuple(spec) + (None,) * 8)]
+            want = list(tuple(spec) + (None,) * (len(d.shape) - len(spec)))
             if port[key] == "whole":
                 if any(want):
                     held.add("/".join(p.key for p in path[-2:]))
             else:
                 assert port[key] == SH.spec_string(want), (arch, key)
-        assert held == TRAIN_HELD_WHOLE[arch, shape], (arch, held)
+        assert held == TRAIN_HELD_WHOLE, (arch, held)

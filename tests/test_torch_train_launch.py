@@ -15,6 +15,7 @@
   straggler watchdog under a scripted clock.
 """
 
+import dataclasses
 import shutil
 
 import jax
@@ -144,18 +145,23 @@ def test_data_parallel_elastic_resume(tmp_path, uninterrupted):
 
 
 def test_model_axis_raises(tmp_path):
-    """A model axis trains (``tests/test_torch_mesh.py``); what still
-    raises on it: microbatches (a rank's microbatch is not one device's)
-    and EF-int8 compression of a cut state (its rows take the whole
-    leaf's scale), before any rank is spawned."""
+    """A model axis trains (``tests/test_torch_mesh.py``), with
+    microbatches and EF-int8 compression of a cut state too
+    (``tests/test_torch_mesh_train.py``); what still raises on it, before
+    any rank is spawned: a float MoE whose experts it does not divide."""
     cfg = R.reduced_config(ARCH)
     mesh = ServingMesh((2, 2), 0, torch.device("cpu"))
     assert callable(TL.make_train_step(cfg, mesh=mesh))
-    with pytest.raises(NotImplementedError, match="microbatches"):
-        TL.make_train_step(cfg, ParallelConfig(microbatches=2), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="grad_compression"):
-        TL.make_train_step(cfg, ParallelConfig(grad_compression=True),
-                           mesh=mesh)
+    assert callable(TL.make_train_step(cfg, ParallelConfig(microbatches=2),
+                                       mesh=mesh))
+    assert callable(TL.make_train_step(
+        cfg, ParallelConfig(grad_compression=True), mesh=mesh))
+    assert callable(TL.make_train_step(
+        dataclasses.replace(cfg, num_kv_heads=1), mesh=mesh))
+    moe = dataclasses.replace(R.reduced_config("phi3.5-moe-42b-a6.6b"),
+                              num_experts=3)
+    with pytest.raises(ValueError, match="experts do not split"):
+        TL.make_train_step(moe, mesh=mesh)
 
 
 def test_launcher_needs_a_card_unless_asked_for_the_cpu(tmp_path,

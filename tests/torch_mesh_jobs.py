@@ -30,7 +30,13 @@ dicts) and returns one result per job:
   front_door_job`, the HTTP front door on rank 0, the other ranks
   following it;
 * ``{"kind": "fail", "rank": r}`` -- rank ``r`` raises while the others
-  wait in a collective (the failure path of ``run_ranks``).
+  wait in a collective (the failure path of ``run_ranks``);
+* ``{"kind": "zero3", ...}`` -- one training loss and its backward on the
+  rank's cut: how many ZeRO-3 gathers the forward made, how many of
+  their results were still alive when it ended, and how many saved views
+  the backward gathered again;
+* ``{"kind": "restore", ...}`` -- a training checkpoint read with the
+  rank's training placement: its ``(params, m, v)`` pieces.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 
 from repro_torch import aimc_device as AD
 from repro_torch import convert
+from repro_torch import tree as TR
 from repro_torch.distributed import jobs
 from repro_torch.distributed.backend import ShardedBackend
 from repro_torch.distributed.executor import Executor
@@ -56,7 +63,8 @@ def run_jobs(mesh, todo: List[Dict[str, Any]]) -> List[Any]:
              "decode": jobs.decode_job, "layer": layer_job,
              "recalibrate": recalibrate_job, "ep_local": ep_local_job,
              "train": jobs.train_job, "launch": jobs.launch_job,
-             "front_door": jobs.front_door_job, "fail": fail_job}
+             "front_door": jobs.front_door_job, "fail": fail_job,
+             "zero3": zero3_job, "restore": restore_job}
     return [kinds[job.get("kind", "serve")](mesh, job) for job in todo]
 
 
@@ -192,3 +200,51 @@ def fail_job(mesh, job):
     x = torch.zeros(1, device=mesh.host_device)
     torch.distributed.all_reduce(x)  # waits for the rank that failed
     return None
+
+
+def zero3_job(mesh, job):
+    """See the module: the counts of :data:`repro_torch.launch.mesh.
+    ZERO3` over one loss and its backward, and the gathered tensors alive
+    between them (``live``)."""
+    from repro_torch import prng
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.optim import adamw as A
+    from repro_torch.train import loop as TL
+
+    cfg = job["cfg"]
+    parallel = ParallelConfig(**job.get("parallel", {}))
+    params, _ = TL.rank_state(cfg, mesh, parallel, A.AdamWConfig(),
+                              convert.params_from_numpy(job["params"],
+                                                        mesh.device))
+    leaves, structure = TR.flatten(params)
+    live = [x.detach().requires_grad_(True) for x in leaves]
+    loss_f = TL.mesh_loss(cfg, parallel, mesh)
+    batch = {"tokens": torch.from_numpy(job["tokens"])}
+    MESH.ZERO3.update(gathers=0, regathers=0)
+    with torch.enable_grad():
+        loss, _ = loss_f(TR.unflatten(structure, live), batch,
+                         prng.fold_in(prng.PRNGKey(0), 0))
+        alive = len(MESH._GATHERED)
+        gathers = MESH.ZERO3["gathers"]
+        torch.autograd.grad(loss, live, allow_unused=True)
+    return {"gathers": gathers, "live": alive,
+            "regathers": MESH.ZERO3["regathers"]}
+
+
+def restore_job(mesh, job):
+    """See the module."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.optim import adamw as A
+    from repro_torch.train import loop as TL
+
+    cfg = job["cfg"]
+    parallel = ParallelConfig(**job.get("parallel", {}))
+    opt = A.AdamWConfig()
+    (params, state), step = CheckpointManager(job["ckpt"]).restore(
+        TL.whole_like(cfg, opt, parallel),
+        placement=TL.state_placement(cfg, mesh, parallel))
+    return {"step": step, "params": convert.params_to_numpy(params),
+            "m": convert.params_to_numpy(state["m"]),
+            "v": convert.params_to_numpy(state["v"])}
